@@ -6,40 +6,48 @@
 Run from the root of a checkout, with no arguments, it
 
 1. probes the device and the toolchain and builds every CUDA kernel of the
-   port from the sources in the checkout (``src/repro_torch/kernels/csrc``);
-2. holds each kernel against its plain torch version on the card, exactly,
-   over the tested banking layouts, both transform levels, the server's
-   layouts, several dtypes and row widths, a scatter with many duplicates,
-   and one large gather that it also times;
-3. runs the port's main path: the continuous-batching decode server on
-   qwen2-7b at full width (random bf16 weights from ``--seed``), which
-   starts on the trivial layout, hot-swaps to the solved page layout after
-   a few ticks, answers 16 requests, and is checked for finished requests,
-   for the record table against what was recorded, for kernel launch counts
-   against the ticks, and for identical tokens when repeated;
+   port from the sources in the checkout (``src/repro_torch/kernels/csrc``,
+   one ``nvcc`` per source, all started together);
+2. holds each kernel against its plain torch version on the card, exactly:
+   the banked kernels over the tested banking layouts, both transform
+   levels, the server's layouts, several dtypes and row widths, a scatter
+   with many duplicates, and one large gather that it also times; the MoE
+   dispatch kernel over bf16 and fp32, several row widths, many empty
+   slots, duplicate sources, the decode shape, and a prefill-sized buffer
+   that it also times;
+3. runs the port's main paths: the continuous-batching decode server on
+   qwen2-7b and on olmoe-1b-7b, each at full width (random bf16 weights
+   from ``--seed``), which starts on the trivial layout, hot-swaps to the
+   solved page layout after a few ticks, answers 16 requests, and is
+   checked for finished requests, for the record table against what was
+   recorded, for kernel launch counts against the ticks and the decode
+   calls, and for identical tokens when repeated;
 4. times each kernel at the shapes the main path gave it, beside its plain
-   version, its bound and the nearest single PyTorch call (which is handed
-   the resolved physical rows, since no PyTorch call resolves BA/BO), and
-   prints the times on the card as one ``{"kernels": [...]}`` line and the
-   host-inclusive times per call as another;
-5. checks a reduced model's logits on the card against the same weights on
-   the CPU.
+   version, its bound and the nearest single PyTorch call (for the banked
+   kernels it is handed the resolved physical rows, since no PyTorch call
+   resolves BA/BO), and prints the times on the card as one
+   ``{"kernels": [...]}`` line and the host-inclusive times per call as
+   another;
+5. checks each family's reduced model's logits on the card against the
+   same weights on the CPU.
 
 Every phase prints one JSON line; the first failure ends the run with a
 non-zero exit code.  There is no CPU fallback: without a CUDA device, or
 without the package beside this file, it exits non-zero and prints no
 result.  The last line is ``{"ok": true, "device": {...}}``.
 
-``--layers`` cuts the model's depth and ``--skip-serve`` leaves phases 3-5
-out; both are for iterating on the kernels and change what the last line
-may claim: with ``--skip-serve`` there is no ``ok`` line.  ``--profile``
-adds a ``torch.profiler`` window over a few steady decode ticks.
+``--layers`` cuts the served models' depth and ``--skip-serve`` leaves
+phases 3-5 out; both are for iterating on the kernels and change what the
+last line may claim: with ``--skip-serve`` there is no ``ok`` line.
+``--profile`` adds a ``torch.profiler`` window over a few steady decode
+ticks of each served model.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -53,11 +61,17 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 # cores bounds it from above, so the operation bound stays a lower bound.
 INT_OPS_PER_S = 67e12
 
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/banked.cu"
+SOURCE = {
+    "banked_gather": "src/repro_torch/kernels/csrc/banked.cu",
+    "banked_scatter": "src/repro_torch/kernels/csrc/banked.cu",
+    "banked_scatter_elems": "src/repro_torch/kernels/csrc/banked.cu",
+    "moe_dispatch": "src/repro_torch/kernels/csrc/moe_dispatch.cu",
+}
 REPLACES = {
     "banked_gather": "src/repro/kernels/banked_gather.py:65",
     "banked_scatter": "src/repro/kernels/banked_gather.py:107",
     "banked_scatter_elems": "src/repro/kernels/banked_gather.py:146",
+    "moe_dispatch": "src/repro/kernels/moe_dispatch.py:27",
 }
 
 
@@ -81,6 +95,13 @@ def max_abs_diff(a, b):
     if a.numel() == 0:
         return 0.0
     return float((a.double() - b.double()).abs().max())
+
+
+def free_device_memory(torch):
+    """Hand what a finished phase left back to the card, so that two
+    full-width models are never resident together."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def time_ms(torch, fn, iters=200, warmup=20, stall_ms=0.0):
@@ -124,7 +145,8 @@ def phase_toolchain(torch):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     _build.build(force=True, extra_flags=["-Xptxas", "-v"])
-    ptxas = [ln for ln in _build.build_log["banked"].splitlines()
+    ptxas = [ln for name in _build.SOURCES
+             for ln in _build.build_log[name].splitlines()
              if "registers" in ln or "spill" in ln]
     say("toolchain", python=sys.version.split()[0], torch=torch.__version__,
         torch_cuda=torch.version.cuda, nvcc=nvcc_version,
@@ -330,8 +352,114 @@ def phase_kernels(torch, seed):
                       "bound_by": "bytes", "bytes": nbytes})
 
 
+def routed_slots(torch, rng, T, cfg):
+    """``slot_token`` of a random top-k routing of T tokens, as the MoE
+    layer builds it (each token picks ``top_k`` distinct experts)."""
+    import numpy as np
+
+    from repro_torch.models import moe
+
+    E, K = cfg.n_experts, cfg.top_k
+    top_i = np.stack([rng.permutation(E)[:K] for _ in range(T)])
+    slot, *_ = moe.dispatch_slots(torch.from_numpy(top_i).cuda(),
+                                  moe.capacity(cfg, T), E)
+    return slot
+
+
+def phase_moe_kernel(torch, seed):
+    """B5 against its plain version, exactly, and one prefill-sized
+    dispatch timed (not on the main path: the server decodes only)."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    olmoe = get_arch("olmoe_1b_7b")
+    worst, cases = 0.0, 0
+
+    def held(x, slot, label):
+        nonlocal worst, cases
+        T = x.shape[0]
+        x_padded = torch.cat([x, x.new_zeros((1, x.shape[1]))])
+        want = md.moe_dispatch_plain(x_padded, slot)
+        for got in (md.moe_dispatch(x_padded, slot), ops.dispatch(x, slot)):
+            d = max_abs_diff(got, want)
+            worst = max(worst, d)
+            check(d == 0.0 and torch.equal(got, want),
+                  f"moe_dispatch differs on {label}: {d}")
+        check(bool((want[slot == T] == 0).all()), f"{label}: empty slot "
+              f"is not a zero row")
+        cases += 1
+
+    md.reset_launch_counts()
+    for dtype in (torch.bfloat16, torch.float32):
+        for D in (3, 16, 2048, 3584):
+            for T, S in ((8, 512), (37, 96), (256, 1024)):
+                x = torch.randn((T, D), generator=gen, device="cuda").to(dtype)
+                # many empty slots: about 3 in 4 read the zeros row
+                slot = np.where(rng.random(S) < 0.75, T,
+                                rng.integers(0, T, size=S))
+                held(x, torch.from_numpy(slot.astype(np.int32)).cuda(),
+                     f"{dtype} D={D} T={T} empty")
+                # duplicate sources: every slot from one of 3 tokens
+                slot = rng.choice(rng.choice(T, 3, replace=False), size=S)
+                held(x, torch.from_numpy(slot.astype(np.int32)).cuda(),
+                     f"{dtype} D={D} T={T} duplicates")
+            # the full-width decode shape: 8 tokens routed top-8 of 64
+            x = torch.randn((8, D), generator=gen, device="cuda").to(dtype)
+            held(x, routed_slots(torch, rng, 8, olmoe),
+                 f"{dtype} D={D} decode")
+    # a misaligned base: the rows start 2 bytes into an allocation
+    base = torch.randn((9 * 2048 + 1,), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    x_padded = base[1:].view(9, 2048)
+    x_padded[8] = 0
+    slot = routed_slots(torch, rng, 8, olmoe)
+    d = max_abs_diff(md.moe_dispatch(x_padded, slot),
+                     md.moe_dispatch_plain(x_padded, slot))
+    worst = max(worst, d)
+    check(d == 0.0, f"moe_dispatch differs on a misaligned base: {d}")
+    cases += 1
+    # indices out of range that already lie on the card: zero rows
+    x = torch.randn((8, 16), generator=gen, device="cuda")
+    bad = torch.tensor([3, -1, 9, 1 << 30, 8], device="cuda",
+                       dtype=torch.int32)
+    got = md.moe_dispatch(torch.cat([x, x.new_zeros((1, 16))]), bad)
+    check(bool((got[1:] == 0).all()) and torch.equal(got[0], x[3]),
+          "out-of-range dispatch rows are not zero")
+    torch.cuda.synchronize()
+
+    # prefill-sized: 4096 tokens routed top-8 of 64 at C = capacity(4096)
+    T, D = 4096, olmoe.d_model
+    C = moe.capacity(olmoe, T)
+    x = torch.randn((T, D), generator=gen, device="cuda").to(torch.bfloat16)
+    slot = routed_slots(torch, rng, T, olmoe)
+    x_padded = torch.cat([x, x.new_zeros((1, D))])
+    d = max_abs_diff(ops.dispatch(x, slot),
+                     md.moe_dispatch_plain(x_padded, slot))
+    check(d == 0.0, f"prefill-sized moe_dispatch differs: {d}")
+    S = slot.shape[0]
+    nbytes = ((T + 1) * D + S * D) * 2 + 4 * S
+    timed = {key: time_ms(torch, fn, iters=50, stall_ms=60.0) for key, fn in (
+        ("ms", lambda: md.moe_dispatch(x_padded, slot)),
+        ("plain_ms", lambda: md.moe_dispatch_plain(x_padded, slot)),
+        ("library_ms", lambda: torch.index_select(x_padded, 0, slot)))}
+    say("moe_dispatch_kernel", cases=cases, max_abs_diff=worst,
+        launches=dict(md.LAUNCHES),
+        prefill_sized={"T": T, "D": D, "E": olmoe.n_experts, "C": C,
+                       "slots": S, "empty": int((slot == T).sum()),
+                       "dtype": "bfloat16", "max_abs_diff": d, **timed,
+                       "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                       "bound_by": "bytes", "bytes": nbytes})
+
+
 # ---------------------------------------------------------------------------
-# Phase 3: the main path -- qwen2-7b decode server, full width
+# Phase 3: the main paths -- qwen2-7b and olmoe-1b-7b decode servers
 # ---------------------------------------------------------------------------
 
 
@@ -341,6 +469,7 @@ def serve_once(torch, cfg, seed, swap_after=3):
 
     from repro_torch.core import MemorySpec, compile_trivial
     from repro_torch.kernels import banked_gather as bg
+    from repro_torch.kernels import moe_dispatch as md
     from repro_torch.models import get_model
     from repro_torch.runtime.server import Request, Server, page_solution
 
@@ -379,6 +508,7 @@ def serve_once(torch, cfg, seed, swap_after=3):
     server._record = recording
 
     bg.reset_launch_counts()          # the main path starts here
+    md.reset_launch_counts()
     admit_ticks = 0
     swap_identical = None
     t0 = time.perf_counter()
@@ -396,7 +526,8 @@ def serve_once(torch, cfg, seed, swap_after=3):
         admit_ticks += len(server.queue) < queued
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(bg.LAUNCHES)      # ... and ends here
+    launches = {**bg.LAUNCHES, **md.LAUNCHES}     # ... and ends here
+    del server._record        # the wrapper's closure holds the server
 
     records = server._kv_art.unpack(server.kv_records).cpu().numpy()
     return {
@@ -445,22 +576,27 @@ def phase_serve(torch, cfg, seed):
           f"{ticks} + admitting ticks {run['admit_ticks']}")
     check(lau["banked_scatter"] == 1,
           f"row scatter launches {lau['banked_scatter']} != 1 swap")
+    moe_layers = cfg.n_layers if cfg.family == "moe" else 0
+    check(lau["moe_dispatch"] == moe_layers * run["decode_calls"],
+          f"moe_dispatch launches {lau['moe_dispatch']} != {moe_layers} "
+          f"MoE layers x {run['decode_calls']} decode calls")
     check(run["decode_calls"] < 1024, "cache.pos reached max_len")
     tokens = [list(r.out) for r in reqs]
     first = {k: run[k] for k in ("launches", "admit_ticks", "wall", "init_s",
                                  "decode_calls", "peak_bytes", "layout")}
     first["ticks"] = ticks
     del run, server, reqs
-    torch.cuda.empty_cache()
+    free_device_memory(torch)
 
     again = serve_once(torch, cfg, seed)
     check([list(r.out) for r in again["reqs"]] == tokens,
           "the same seed gave different tokens on the second run")
     del again
-    torch.cuda.empty_cache()
+    free_device_memory(torch)
     n_tokens = sum(len(t) for t in tokens)
     say("serve", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
-        vocab=cfg.vocab, dtype="bfloat16", max_batch=8, max_len=1024,
+        vocab=cfg.vocab, n_experts=cfg.n_experts, top_k=cfg.top_k,
+        dtype="bfloat16", max_batch=8, max_len=1024,
         requests=16, max_new=16, ticks=first["ticks"], tokens=n_tokens,
         decode_calls=first["decode_calls"],
         admitting_ticks=first["admit_ticks"],
@@ -476,7 +612,7 @@ def phase_profile(torch, cfg, seed, ticks=8):
     with all 8 slots active.  Wall time per tick from ``ticks`` ticks with
     the profiler off; then ``torch.profiler`` over as many ticks for the
     card's busy time (hence its idle share), the kernels that take most of
-    it, and the banked kernels' share."""
+    it, and the port's own kernels' share of it."""
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -515,19 +651,20 @@ def phase_profile(torch, cfg, seed, ticks=8):
     check(by_name, "the profiler recorded no device activity")
     busy_ms = sum(us for _, us in by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    banked = {k: {"launches": n, "ms": us / 1e3}
-              for k, (n, us) in by_name.items() if k.startswith("bk_")
-              or "bk_" in k}
-    say("profile", layers=cfg.n_layers, ticks=ticks, slots=8,
+    own = {k: {"launches": n, "ms": us / 1e3, "share_of_busy": us / 1e3
+               / busy_ms}
+           for k, (n, us) in by_name.items()
+           if "bk_" in k or "md_dispatch" in k}
+    say("profile", arch=cfg.name, layers=cfg.n_layers, ticks=ticks, slots=8,
         wall_ms_per_tick=wall_ms / ticks, device_busy_ms_per_tick=busy_ms / ticks,
         device_idle_share=max(0.0, 1 - busy_ms / wall_ms),
         device_launches_per_tick=sum(n for n, _ in by_name.values()) / ticks,
         top_kernels=[{"name": k[:80], "launches": n, "ms": us / 1e3}
                      for k, (n, us) in top],
-        banked_kernels=banked,
+        own_kernels=own,
         note="wall time from the same number of ticks with the profiler off")
     del server
-    torch.cuda.empty_cache()
+    free_device_memory(torch)
 
 
 # ---------------------------------------------------------------------------
@@ -542,13 +679,18 @@ def resolve_ops(art, T):
 
 
 def phase_kernel_times(torch, seed, launches):
-    """B1-B3 at the shapes the server gave them: an int32 record table of
-    (8 banks, 128 rows, 8 slots); the tick's gather reads 8 slots x 4
-    trailing records, its element scatter writes 8 records, and the swap's
-    row scatter repacks all 1024 rows."""
+    """Each kernel at the shapes the servers gave it.  B1-B3: an int32
+    record table of (8 banks, 128 rows, 8 slots); the tick's gather reads
+    8 slots x 4 trailing records, its element scatter writes 8 records,
+    and the swap's row scatter repacks all 1024 rows.  B5: olmoe's decode
+    call, 8 tokens of 2048 bf16 and the zeros row, routed top-8 of 64
+    experts into 64 x 8 slots."""
     import numpy as np
 
+    from repro_torch.configs import get_arch
     from repro_torch.kernels import banked_gather as bg
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import ops as kops
     from repro_torch.runtime.server import page_solution
 
     art = page_solution(None, 1024, 16, 8)
@@ -570,7 +712,7 @@ def phase_kernel_times(torch, seed, launches):
             ("call_ms", "plain_call_ms", "library_call_ms"),
             (time_ms(torch, fn) for fn in (kernel, plain, library))))
         out.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": err, "ms": on_card[0], "plain_ms": on_card[1],
             "bound_ms": max(by_bytes, by_ops),
@@ -624,6 +766,22 @@ def phase_kernel_times(torch, seed, launches):
           lambda: bg.banked_scatter_plain(theirs, idx, flat, art),
           lambda: rows2d.index_copy_(0, p_idx, flat),
           err, 2 * 1024 * 8 * 4 + 4 * 1024, resolve_ops(art, 1024) + 1024)
+
+    # B5: the expert buffer of one MoE layer of olmoe's decode call
+    olmoe = get_arch("olmoe_1b_7b")
+    T, D = 8, olmoe.d_model
+    x = torch.randn((T, D), generator=gen, device="cuda").to(torch.bfloat16)
+    x_padded = torch.cat([x, x.new_zeros((1, D))])
+    slot = routed_slots(torch, rng, T, olmoe)
+    S = slot.shape[0]
+    want = md.moe_dispatch_plain(x_padded, slot)
+    err = max(max_abs_diff(md.moe_dispatch(x_padded, slot), want),
+              max_abs_diff(kops.dispatch(x, slot), want))
+    entry("moe_dispatch",
+          lambda: md.moe_dispatch(x_padded, slot),
+          lambda: md.moe_dispatch_plain(x_padded, slot),
+          lambda: torch.index_select(x_padded, 0, slot),
+          err, ((T + 1) * D + S * D) * 2 + 4 * S, 0)
 
     for k in out:
         check(k["max_abs_err"] == 0.0, f"{k['name']} differs from its plain "
@@ -683,9 +841,9 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--layers", type=int, default=None,
-                    help="cut the served model's depth (default: full)")
+                    help="cut the served models' depth (default: full)")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile a few steady decode ticks")
+                    help="also profile a few steady decode ticks of each")
     ap.add_argument("--skip-serve", action="store_true",
                     help="toolchain and kernel phases only; no ok line")
     args = ap.parse_args()
@@ -703,17 +861,23 @@ def main():
     started = time.perf_counter()
     card = phase_toolchain(torch)
     phase_kernels(torch, args.seed)
+    phase_moe_kernel(torch, args.seed)
     if args.skip_serve:
         print(card, flush=True)
         return 0
-    cfg = get_arch("qwen2_7b")
+    archs = [get_arch("qwen2_7b"), get_arch("olmoe_1b_7b")]
     if args.layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    launches = phase_serve(torch, cfg, args.seed)
+        archs = [dataclasses.replace(c, n_layers=args.layers) for c in archs]
+    launches = {}                 # summed over the main paths' first runs
+    for cfg in archs:
+        for name, n in phase_serve(torch, cfg, args.seed).items():
+            launches[name] = launches.get(name, 0) + n
     kernels = phase_kernel_times(torch, args.seed, launches)
-    phase_small_reference(torch, cfg, args.seed)
+    for cfg in archs:
+        phase_small_reference(torch, cfg, args.seed)
     if args.profile:
-        phase_profile(torch, cfg, args.seed)
+        for cfg in archs:
+            phase_profile(torch, cfg, args.seed)
     for banned in ("jax", "repro"):
         check(banned not in sys.modules, f"{banned} was imported")
     say("done", seconds=time.perf_counter() - started)

@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-SOURCES = {"banked": "banked.cu"}
+SOURCES = {"banked": "banked.cu", "moe_dispatch": "moe_dispatch.cu"}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 build_seconds: Dict[str, float] = {}    # name -> wall time of its last build

@@ -1,15 +1,20 @@
 """Public wrappers around the kernels.
 
-This package holds the banked half so far: ``gather_banked``,
-``scatter_banked`` and ``pack_banked`` go through a compiled banking
-artifact, which launches the CUDA kernels of ``kernels/banked_gather.py``
-for a table on the card and their plain torch versions for a table on the
-CPU.
+``gather_banked``, ``scatter_banked`` and ``pack_banked`` go through a
+compiled banking artifact, which launches the CUDA kernels of
+``kernels/banked_gather.py`` for a table on the card and their plain torch
+versions for a table on the CPU.  ``dispatch`` fills the MoE expert buffer
+through ``kernels/moe_dispatch.py`` the same way; ``moe_combine`` is plain
+torch.
 """
 
 from __future__ import annotations
 
+import torch.nn.functional as F
+
 from ..core.artifact import as_compiled
+from . import moe_dispatch as _md
+from .moe_dispatch import moe_combine
 
 
 def gather_banked(table, indices, compiled):
@@ -46,4 +51,12 @@ def pack_banked(flat, compiled, device=None):
     return as_compiled(compiled).pack(flat, device=device)
 
 
-__all__ = ["gather_banked", "pack_banked", "scatter_banked"]
+def dispatch(x, slot_token):
+    """x: ``(T, D)`` tokens; slot_token: ``(E*C,)`` source token per slot,
+    ``T`` for an empty one.  Appends the zeros row that empty slots read
+    and returns the ``(E*C, D)`` expert buffer."""
+    return _md.moe_dispatch(F.pad(x, (0, 0, 0, 1)), slot_token)
+
+
+__all__ = ["dispatch", "gather_banked", "moe_combine", "pack_banked",
+           "scatter_banked"]

@@ -4,8 +4,13 @@ Runs the continuous-batching server against synthetic requests and reports
 throughput; ``--smoke`` uses the reduced config (CPU-sized).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
         --smoke --device cpu --requests 8 --max-batch 4
+
+Any family that ``models.get_model`` builds serves: the dense transformers
+and the MoE family (its expert buffer filled by the ``moe_dispatch``
+kernel on the card).
 
 The server starts on the trivial single-bank artifact, the KV-pool banking
 problem is solved in the launcher, and the page pool and token-record table

@@ -6,11 +6,12 @@
 * ``decode(params, cache, tokens)``          -> (logits, cache)
 * ``init_cache(batch, max_len, device=...)`` -> cache
 
-This package holds the dense transformer's decode path so far: ``dense``
-and ``vlm`` (chameleon: its VQ image tokens live in the shared vocabulary,
-frontend stubbed to token ids).  ``loss`` and ``prefill`` are ``None``
-until the training and prefill paths are ported; every other family raises
-``NotImplementedError``.
+This package holds the decode paths of the dense transformer (``dense``
+and ``vlm`` -- chameleon: its VQ image tokens live in the shared
+vocabulary, frontend stubbed to token ids) and of the MoE transformer
+(``moe``, expert dispatch chosen by ``moe_impl``).  ``loss`` and
+``prefill`` are ``None`` until the training and prefill paths are ported;
+every other family raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from functools import partial
 from typing import Any, Callable, Dict, Optional
 
 from ..configs.base import ArchConfig
+from . import moe
 from . import transformer as tfm
 
 Params = Dict[str, Any]
@@ -35,7 +37,7 @@ class Model:
     init_cache: Callable            # (batch, max_len) -> cache
 
 
-def get_model(cfg: ArchConfig) -> Model:
+def get_model(cfg: ArchConfig, moe_impl: str = "sorted") -> Model:
     fam = cfg.family
     if fam in ("dense", "vlm"):
         return Model(
@@ -46,8 +48,20 @@ def get_model(cfg: ArchConfig) -> Model:
             decode=partial(tfm.decode_step, cfg),
             init_cache=partial(tfm.init_cache, cfg),
         )
-    if fam in ("moe", "ssm", "hybrid", "encdec", "audio"):
+    if fam == "moe":
+        if moe_impl not in moe.MOE_IMPLS:
+            raise ValueError(f"unknown moe_impl {moe_impl!r}; "
+                             f"one of {sorted(moe.MOE_IMPLS)}")
+        return Model(
+            cfg=cfg,
+            init=partial(moe.init_moe_params, cfg),
+            loss=None,
+            prefill=None,
+            decode=partial(moe.decode_step, cfg, impl=moe_impl),
+            init_cache=partial(tfm.init_cache, cfg),
+        )
+    if fam in ("ssm", "hybrid", "encdec", "audio"):
         raise NotImplementedError(
             f"model family {fam!r} ({cfg.name}) is not in repro_torch yet; "
-            f"only the dense/vlm decode path is")
+            f"only the dense/vlm and moe decode paths are")
     raise ValueError(f"unknown family {fam}")

@@ -8,8 +8,9 @@ Layer parameters are stacked on a leading L axis, as in the JAX package, so
 weights map one to one; the layers are consumed by a Python loop over that
 axis.  This module holds parameter init, the layer, the KV cache and
 ``decode_step`` -- what the server runs (it prefills through ``decode``
-too).  The training forward, ``prefill``, the loss and the grouped / int8
-cache variants are not here yet.
+too); ``models/moe.py`` runs the same step with its expert layer as the
+feed-forward.  The training forward, ``prefill``, the loss and the
+grouped / int8 cache variants are not here yet.
 """
 
 from __future__ import annotations
@@ -193,7 +194,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 @torch.no_grad()
 def decode_step(cfg: ArchConfig, params: Params, cache: KVCache,
-                tokens: Tensor, block_k: int = 1024
+                tokens: Tensor, block_k: int = 1024, ffn=None
                 ) -> Tuple[Tensor, KVCache]:
     """One decode step: tokens (B, 1) -> logits (B, V), updated cache.
 
@@ -203,6 +204,7 @@ def decode_step(cfg: ArchConfig, params: Params, cache: KVCache,
     stream is bfloat16 whatever the parameters' dtype, as in the JAX
     package, whose decode step therefore runs with bfloat16 parameters
     only; so does this one (torch does not promote a bf16 @ fp32 product).
+    ``ffn(lp, h)`` overrides every layer's feed-forward (the MoE family).
     """
     x = params["embed"].to(torch.bfloat16)[tokens]
     windows = layer_windows(cfg)
@@ -212,7 +214,7 @@ def decode_step(cfg: ArchConfig, params: Params, cache: KVCache,
         lp_i = {name: w[i] for name, w in lp.items()}
         x, _ = dense_layer(cfg, lp_i, x, int(windows[i]),
                            cache_kv=(cache.k[i], cache.v[i]), pos=pos,
-                           block_k=block_k)
+                           block_k=block_k, ffn=ffn)
     h = rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = logits_fn(cfg, params, h)[:, 0]
     return logits, KVCache(cache.k, cache.v, pos + 1)

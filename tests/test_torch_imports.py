@@ -121,6 +121,8 @@ def test_a_cuda_table_never_reaches_the_plain_version(monkeypatch):
         pytest.skip("needs a machine without a CUDA toolchain")
     from repro_torch.core import MemorySpec, compile_trivial
     from repro_torch.kernels import banked_gather as bg
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import ops
 
     art = compile_trivial(MemorySpec("m", dims=(8,), word_bits=16, ports=1))
     table = art.pack(np.zeros((8, 2), np.float32), device="cpu")
@@ -129,20 +131,25 @@ def test_a_cuda_table_never_reaches_the_plain_version(monkeypatch):
         is_cuda = True
 
     fake = table.as_subclass(OnCard)
-    for plain in ("banked_gather_plain", "banked_scatter_plain",
-                  "banked_scatter_elems_plain"):
-        monkeypatch.setattr(bg, plain, lambda *a, **k: pytest.fail(
+    for mod, plain in ((bg, "banked_gather_plain"),
+                       (bg, "banked_scatter_plain"),
+                       (bg, "banked_scatter_elems_plain"),
+                       (md, "moe_dispatch_plain")):
+        monkeypatch.setattr(mod, plain, lambda *a, **k: pytest.fail(
             "plain version reached for a CUDA table"))
     idx = torch.zeros(1, dtype=torch.int32)
     monkeypatch.setattr(bg, "as_index", lambda *a, **k: idx)
     monkeypatch.setattr(bg, "_as_values", lambda v, *a, **k: v)
+    tokens = torch.zeros((3, 2)).as_subclass(OnCard)
     for call in (lambda: bg.banked_gather(fake, idx, art),
                  lambda: bg.banked_scatter(fake, idx, torch.zeros(1, 2), art),
                  lambda: bg.banked_scatter_elems(fake, idx, idx,
-                                                 torch.zeros(1), art)):
+                                                 torch.zeros(1), art),
+                 lambda: md.moe_dispatch(tokens, idx),
+                 lambda: ops.dispatch(tokens, idx)):
         with pytest.raises((RuntimeError, OSError)):
             call()
-    assert sum(bg.LAUNCHES.values()) == 0
+    assert sum(bg.LAUNCHES.values()) == 0 and md.LAUNCHES["moe_dispatch"] == 0
 
 
 @pytest.mark.parametrize("where", ["checkout", "alone"])

@@ -1,8 +1,9 @@
 """Model code of the port against the reference: every ``layers.py``
 function in float32 (tolerance 2e-5), the decode step with carried-over
 bfloat16 weights (2e-2 of the largest logit; the frameworks round bf16 at
-different places), the write clamp past ``max_len``, and the entry points'
-contracts."""
+different places) for the dense and the MoE families (llama4-maverick's
+reduced config carries the shared expert), the write clamp past
+``max_len``, and the entry points' contracts."""
 
 import dataclasses
 
@@ -186,13 +187,26 @@ def test_params_from_numpy_is_exact_for_bfloat16():
     assert ints.dtype == torch.int32
 
 
-@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "llama4_maverick",
-                                  "mamba2_370m", "zamba2_2_7b",
+@pytest.mark.parametrize("arch", ["mamba2_370m", "zamba2_2_7b",
                                   "whisper_base"])
 def test_families_not_ported_yet_say_so(arch):
     cfg = get_arch(arch)
     with pytest.raises(NotImplementedError, match=cfg.family):
         get_model(cfg)
+
+
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "llama4_maverick"])
+def test_moe_families_build_a_reduced_decode(arch):
+    cfg = get_arch(arch).reduced()
+    model = get_model(cfg)
+    assert model.cfg.family == "moe" and model.loss is None
+    params = model.init(torch.Generator(device="cpu").manual_seed(0),
+                        device="cpu")
+    cache = model.init_cache(2, 8, device="cpu")
+    logits, cache = model.decode(params, cache,
+                                 torch.full((2, 1), 3, dtype=torch.int32))
+    assert tuple(logits.shape) == (2, cfg.vocab) and cache.pos == 1
+    assert bool(torch.isfinite(logits.float()).all())
 
 
 # ---------------------------------------------------------------------------
@@ -231,7 +245,8 @@ def _decode_both(arch, steps, batch, max_len, seed=0):
     return to_numpy(want), to_numpy(got)
 
 
-@pytest.mark.parametrize("arch", ["qwen2_7b", "gemma3_12b"])
+@pytest.mark.parametrize("arch", ["qwen2_7b", "gemma3_12b", "olmoe_1b_7b",
+                                  "llama4_maverick"])
 def test_three_decode_steps_match_reference(arch):
     want, got = _decode_both(arch, steps=3, batch=2, max_len=8)
     # the logits are not flat: the tolerance is below their spread

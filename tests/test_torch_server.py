@@ -1,7 +1,8 @@
 """The decode server of the port against the reference's: same config, same
 weights, same prompts through both ``Server``s must give the same tokens
 and the same logical token records -- on a solved plan, and again across a
-hot swap from the trivial layout."""
+hot swap from the trivial layout -- for the dense family (qwen2-7b) and the
+MoE family (olmoe-1b-7b), each at its reduced size."""
 
 import jax
 import jax.numpy as jnp
@@ -26,10 +27,10 @@ MAX_BATCH, MAX_LEN, PAGE, READERS = 2, 32, 8, 2
 N_REQUESTS, MAX_NEW = 3, 4      # two slots: the third request waits its turn
 # Tokens can only be compared where no two logits tie within bfloat16
 # rounding, so every decode call of the reference must show a top-2 margin
-# above this share of its largest logit; the seed below was picked so that
-# it does (the test fails on the margin first if that ever changes).
+# above this share of its largest logit; the prompt seeds below were picked
+# so that it does (the test fails on the margin first if that ever changes).
 MARGIN = 2.0 ** -7
-SEED = 9
+SEEDS = {"qwen2_7b": 9, "olmoe_1b_7b": 2}
 
 
 def _prompts(seed, n, vocab):
@@ -42,8 +43,8 @@ def _kv_mem(core):
     return core.MemorySpec("kv_pool", dims=(MAX_LEN,), word_bits=16, ports=1)
 
 
-def _run_reference(start_trivial, swap_after):
-    cfg = ref_get_arch("qwen2_7b").reduced()
+def _run_reference(arch, start_trivial, swap_after):
+    cfg = ref_get_arch(arch).reduced()
     solved = RS.page_solution(cfg, MAX_LEN, page=PAGE, readers=READERS)
     first = (ref_core.compile_trivial(_kv_mem(ref_core)) if start_trivial
              else solved)
@@ -76,7 +77,8 @@ def _run_reference(start_trivial, swap_after):
 
     srv._decode, srv._admit = watched, watched_admit
     reqs = [RS.Request(uid=i, prompt=p, max_new=MAX_NEW)
-            for i, p in enumerate(_prompts(SEED, N_REQUESTS, cfg.vocab))]
+            for i, p in enumerate(_prompts(SEEDS[arch], N_REQUESTS,
+                                           cfg.vocab))]
     for r in reqs:
         srv.submit(r)
     unpacked = []
@@ -90,8 +92,8 @@ def _run_reference(start_trivial, swap_after):
     return srv, reqs, records, unpacked, min(margins.values())
 
 
-def _run_port(ref_srv, start_trivial, swap_after):
-    cfg = get_arch("qwen2_7b").reduced()
+def _run_port(arch, ref_srv, start_trivial, swap_after):
+    cfg = get_arch(arch).reduced()
     params = params_from_numpy(
         jax.tree_util.tree_map(np.asarray, ref_srv._params), device="cpu")
     solved = PS.page_solution(cfg, MAX_LEN, page=PAGE, readers=READERS)
@@ -100,7 +102,8 @@ def _run_port(ref_srv, start_trivial, swap_after):
     srv = PS.Server(get_model(cfg), max_batch=MAX_BATCH, max_len=MAX_LEN,
                     kv_plan=first, device="cpu", params=params)
     reqs = [PS.Request(uid=i, prompt=p, max_new=MAX_NEW)
-            for i, p in enumerate(_prompts(SEED, N_REQUESTS, cfg.vocab))]
+            for i, p in enumerate(_prompts(SEEDS[arch], N_REQUESTS,
+                                           cfg.vocab))]
     for r in reqs:
         srv.submit(r)
     unpacked = []
@@ -117,13 +120,17 @@ def _run_port(ref_srv, start_trivial, swap_after):
     return srv, reqs, records, unpacked
 
 
-@pytest.mark.parametrize("start_trivial", [False, True],
-                         ids=["solved plan", "swap from trivial"])
-def test_server_end_to_end_matches_reference(start_trivial):
+@pytest.mark.parametrize("arch,start_trivial", [
+    ("qwen2_7b", False), ("qwen2_7b", True),
+    ("olmoe_1b_7b", False), ("olmoe_1b_7b", True)],
+    ids=["solved plan", "swap from trivial", "olmoe solved plan",
+         "olmoe swap from trivial"])
+def test_server_end_to_end_matches_reference(arch, start_trivial):
     ref_srv, ref_reqs, ref_records, ref_mid, margin = _run_reference(
-        start_trivial, swap_after=2)
+        arch, start_trivial, swap_after=2)
     assert margin > MARGIN, f"reference top-2 margin {margin}: pick a seed"
-    srv, reqs, records, mid = _run_port(ref_srv, start_trivial, swap_after=2)
+    srv, reqs, records, mid = _run_port(arch, ref_srv, start_trivial,
+                                        swap_after=2)
     assert all(r.done and len(r.out) == MAX_NEW for r in reqs)
     assert [r.out for r in reqs] == [r.out for r in ref_reqs]
     assert srv.ticks == ref_srv.ticks
