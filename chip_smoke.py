@@ -8,39 +8,48 @@ Run from the root of a checkout, with no arguments, it
 1. probes the device and the toolchain and builds every CUDA kernel of the
    port from the sources in the checkout (``src/repro_torch/kernels/csrc``,
    one ``nvcc`` per source, all started together);
-2. holds each kernel against its plain torch version on the card, exactly:
-   the banked kernels over the tested banking layouts, both transform
-   levels, the server's layouts, several dtypes and row widths, a scatter
-   with many duplicates, and one large gather that it also times; the MoE
-   dispatch kernel over bf16 and fp32, several row widths, many empty
-   slots, duplicate sources, the decode shape, and a prefill-sized buffer
-   that it also times;
-3. runs the port's main paths: the continuous-batching decode server on
-   qwen2-7b and on olmoe-1b-7b, each at full width (random bf16 weights
-   from ``--seed``), which starts on the trivial layout, hot-swaps to the
-   solved page layout after a few ticks, answers 16 requests, and is
-   checked for finished requests, for the record table against what was
-   recorded, for kernel launch counts against the ticks and the decode
-   calls, and for identical tokens when repeated;
+2. holds each kernel against its plain torch version on the card: the
+   banked kernels and the MoE dispatch exactly (over the tested banking
+   layouts, both transform levels, the server's layouts, several dtypes
+   and row widths, a scatter with many duplicates, many empty slots,
+   duplicate sources, the decode shape, a large gather and a prefill-sized
+   dispatch that it also times); the SSD chunk within 1e-4 of the largest
+   magnitude of the plain output (float32 sums in another order), over
+   chunk lengths 1 to 256, the (P, N) of every config, a carried state,
+   dt near 0 and dt large;
+3. runs the port's main paths, each at full width with random bf16
+   weights from ``--seed``: the continuous-batching decode server on
+   qwen2-7b, olmoe-1b-7b, mamba2-370m and zamba2-2.7b, which starts on the
+   trivial layout, hot-swaps to the solved page layout after a few ticks,
+   answers 16 requests, and is checked for finished requests, for the
+   record table against what was recorded, for kernel launch counts
+   against the ticks and the decode calls, and for identical tokens when
+   repeated; then the prefill of mamba2-370m (8 x 2048 tokens) and of
+   zamba2-2.7b (4 x 2048), and of both at 1000 tokens (the pad path), each
+   decoding a few steps on from its cache, checked for finite logits, for
+   one SSD chunk launch per layer and chunk, and for identical tokens when
+   repeated, and timed; the inputs of a prefill's first SSD chunks are
+   held against the plain version too;
 4. times each kernel at the shapes the main path gave it, beside its plain
    version, its bound and the nearest single PyTorch call (for the banked
    kernels it is handed the resolved physical rows, since no PyTorch call
-   resolves BA/BO), and prints the times on the card as one
-   ``{"kernels": [...]}`` line and the host-inclusive times per call as
-   another;
-5. checks each family's reduced model's logits on the card against the
-   same weights on the CPU.
+   resolves BA/BO; no single call computes an SSD chunk), and prints the
+   times on the card as one ``{"kernels": [...]}`` line and the
+   host-inclusive times per call as another;
+5. checks each family's reduced model on the card against the same
+   weights on the CPU: three decode steps, after a prefill where the
+   family has one.
 
 Every phase prints one JSON line; the first failure ends the run with a
 non-zero exit code.  There is no CPU fallback: without a CUDA device, or
 without the package beside this file, it exits non-zero and prints no
 result.  The last line is ``{"ok": true, "device": {...}}``.
 
-``--layers`` cuts the served models' depth and ``--skip-serve`` leaves
-phases 3-5 out; both are for iterating on the kernels and change what the
-last line may claim: with ``--skip-serve`` there is no ``ok`` line.
-``--profile`` adds a ``torch.profiler`` window over a few steady decode
-ticks of each served model.
+``--layers`` cuts the models' depth and ``--skip-serve`` leaves phases 3-5
+out; both are for iterating on the kernels and change what the last line
+may claim: with ``--skip-serve`` there is no ``ok`` line.  ``--profile``
+adds a ``torch.profiler`` window over a few steady decode ticks of each
+served model and over one prefill of each SSM-family model.
 """
 
 from __future__ import annotations
@@ -57,26 +66,38 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+FP32_FLOPS_PER_S = 67e12    # float32 outside the tensor cores, same sheet
 # The data sheet has no int32 rate; the float32 rate outside the tensor
 # cores bounds it from above, so the operation bound stays a lower bound.
-INT_OPS_PER_S = 67e12
+INT_OPS_PER_S = FP32_FLOPS_PER_S
+# the SSD chunk against its plain version: both float32, sums in another
+# order; the plain version runs in true float32 (allow_tf32 stays off)
+SSD_TOL = 1e-4
 
 SOURCE = {
     "banked_gather": "src/repro_torch/kernels/csrc/banked.cu",
     "banked_scatter": "src/repro_torch/kernels/csrc/banked.cu",
     "banked_scatter_elems": "src/repro_torch/kernels/csrc/banked.cu",
     "moe_dispatch": "src/repro_torch/kernels/csrc/moe_dispatch.cu",
+    "ssd_chunk": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
 }
 REPLACES = {
     "banked_gather": "src/repro/kernels/banked_gather.py:65",
     "banked_scatter": "src/repro/kernels/banked_gather.py:107",
     "banked_scatter_elems": "src/repro/kernels/banked_gather.py:146",
     "moe_dispatch": "src/repro/kernels/moe_dispatch.py:27",
+    "ssd_chunk": "src/repro/kernels/ssd_chunk.py:61",
 }
 
 
+STARTED = time.perf_counter()
+
+
 def say(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase line, stamped with the seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "at_seconds": time.perf_counter() - STARTED}),
+          flush=True)
 
 
 def fail(msg):
@@ -458,8 +479,91 @@ def phase_moe_kernel(torch, seed):
                        "bound_by": "bytes", "bytes": nbytes})
 
 
+def ssd_inputs(torch, rng, B, H, Q, P, N):
+    """One chunk's float32 inputs on the card, drawn as the JAX package's
+    kernel tests draw them, with a carried state; in batch row 0 head 0
+    dt is near 0 and in the last batch row's last head it is large (a
+    decay of 500-1000 nats over 128 rows: exp of a masked entry would be
+    inf there)."""
+    import numpy as np
+
+    dt = rng.uniform(0.01, 0.3, size=(B, H, Q))
+    dt[0, 0] = rng.uniform(0.0, 1e-6, size=Q)
+    dt[-1, -1] = rng.uniform(4.0, 8.0, size=Q)
+    A = -rng.uniform(0.5, 2.0, size=(H,))
+    arrays = {"x": rng.normal(size=(B, H, Q, P)), "dt": dt,
+              "bm": rng.normal(size=(B, Q, N)),
+              "cm": rng.normal(size=(B, Q, N)),
+              "cum": np.cumsum(dt * A[None, :, None], axis=-1),
+              "s_prev": rng.normal(size=(B, H, P, N))}
+    return {k: torch.from_numpy(v.astype(np.float32)).cuda()
+            for k, v in arrays.items()}
+
+
+def ssd_held(torch, args, label):
+    """B6 on ``args`` against its plain version; returns the larger of the
+    two outputs' absolute errors and the larger of their errors as a share
+    of the output's largest plain magnitude."""
+    from repro_torch.kernels import ssd_chunk as sc
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on: the plain version would not run in float32")
+    got = sc.ssd_chunk(*args)
+    want = sc.ssd_chunk_plain(*args)
+    err = share = 0.0
+    for name, g, w in zip(("y", "s_new"), got, want):
+        check(bool(torch.isfinite(g).all()), f"ssd_chunk {label}: {name} is "
+              f"not finite")
+        d = max_abs_diff(g, w)
+        rel = d / max(float(w.abs().max()), 1e-30)
+        check(rel <= SSD_TOL, f"ssd_chunk differs on {label}: {name} off by "
+              f"{rel} of its largest magnitude (> {SSD_TOL})")
+        err, share = max(err, d), max(share, rel)
+    return err, share
+
+
+def phase_ssd_kernel(torch, seed):
+    """B6 against its plain version over chunk lengths, the (P, N) of the
+    configs, a carried state, dt near 0 and large; the full-width shapes
+    are held on the prefills' own inputs (phase_prefill)."""
+    import numpy as np
+
+    from repro_torch.kernels import ssd_chunk as sc
+
+    rng = np.random.default_rng(seed)
+    worst, cases = 0.0, 0
+    sc.reset_launch_counts()
+    for Q in (1, 7, 16, 100, 256):
+        for P, N in ((16, 16), (64, 64), (64, 128)):
+            args = ssd_inputs(torch, rng, 2, 3, Q, P, N)
+            _, share = ssd_held(torch, list(args.values()),
+                                f"Q={Q} P={P} N={N}")
+            worst = max(worst, share)
+            cases += 1
+    torch.cuda.synchronize()
+    say("ssd_chunk_kernel", cases=cases, worst_share_of_max=worst,
+        tolerance=f"{SSD_TOL} of max |plain|, float32, allow_tf32 off",
+        launches=dict(sc.LAUNCHES))
+
+
+def ssd_work(B, H, Q, P, N):
+    """(bytes moved once, float32 operations) of one SSD chunk call.
+    The operations count C B^T once per batch row (its heads share it)
+    and its causal half only, the mask's product, the (Q, Q) by (Q, P)
+    product over the causal half, C S_prev^T and the state update; a
+    multiply-add is two.  ``per_head`` adds C B^T for every other head,
+    as the kernel (and the TPU's) forms it."""
+    pairs = Q * (Q + 1) // 2
+    ops = 2 * B * pairs * N + B * H * (pairs + 2 * pairs * P + 4 * Q * P * N
+                                       + 2 * Q * P)
+    per_head = ops + 2 * B * (H - 1) * pairs * N
+    nbytes = 4 * (2 * B * H * Q * P + 2 * B * H * Q + 2 * B * Q * N
+                  + 2 * B * H * P * N)
+    return nbytes, ops, per_head
+
+
 # ---------------------------------------------------------------------------
-# Phase 3: the main paths -- qwen2-7b and olmoe-1b-7b decode servers
+# Phase 3: the main paths -- the decode servers and the SSM prefills
 # ---------------------------------------------------------------------------
 
 
@@ -470,6 +574,7 @@ def serve_once(torch, cfg, seed, swap_after=3):
     from repro_torch.core import MemorySpec, compile_trivial
     from repro_torch.kernels import banked_gather as bg
     from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import ssd_chunk as sc
     from repro_torch.models import get_model
     from repro_torch.runtime.server import Request, Server, page_solution
 
@@ -509,6 +614,7 @@ def serve_once(torch, cfg, seed, swap_after=3):
 
     bg.reset_launch_counts()          # the main path starts here
     md.reset_launch_counts()
+    sc.reset_launch_counts()
     admit_ticks = 0
     swap_identical = None
     t0 = time.perf_counter()
@@ -526,7 +632,7 @@ def serve_once(torch, cfg, seed, swap_after=3):
         admit_ticks += len(server.queue) < queued
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {**bg.LAUNCHES, **md.LAUNCHES}     # ... and ends here
+    launches = {**bg.LAUNCHES, **md.LAUNCHES, **sc.LAUNCHES}   # ... ends here
     del server._record        # the wrapper's closure holds the server
 
     records = server._kv_art.unpack(server.kv_records).cpu().numpy()
@@ -580,6 +686,8 @@ def phase_serve(torch, cfg, seed):
     check(lau["moe_dispatch"] == moe_layers * run["decode_calls"],
           f"moe_dispatch launches {lau['moe_dispatch']} != {moe_layers} "
           f"MoE layers x {run['decode_calls']} decode calls")
+    check(lau["ssd_chunk"] == 0, f"the decode path launched the SSD chunk "
+          f"kernel {lau['ssd_chunk']} times: decode runs the recurrence")
     check(run["decode_calls"] < 1024, "cache.pos reached max_len")
     tokens = [list(r.out) for r in reqs]
     first = {k: run[k] for k in ("launches", "admit_ticks", "wall", "init_s",
@@ -594,7 +702,8 @@ def phase_serve(torch, cfg, seed):
     del again
     free_device_memory(torch)
     n_tokens = sum(len(t) for t in tokens)
-    say("serve", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+    say("serve", arch=cfg.name, family=cfg.family, layers=cfg.n_layers,
+        d_model=cfg.d_model,
         vocab=cfg.vocab, n_experts=cfg.n_experts, top_k=cfg.top_k,
         dtype="bfloat16", max_batch=8, max_len=1024,
         requests=16, max_new=16, ticks=first["ticks"], tokens=n_tokens,
@@ -614,7 +723,6 @@ def phase_profile(torch, cfg, seed, ticks=8):
     card's busy time (hence its idle share), the kernels that take most of
     it, and the port's own kernels' share of it."""
     import numpy as np
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import get_model
@@ -643,6 +751,231 @@ def phase_profile(torch, cfg, seed, ticks=8):
         for _ in range(ticks):
             server.tick()
         torch.cuda.synchronize()
+    busy_ms, launches, top, own = device_kernels(prof)
+    say("profile", arch=cfg.name, layers=cfg.n_layers, ticks=ticks, slots=8,
+        wall_ms_per_tick=wall_ms / ticks, device_busy_ms_per_tick=busy_ms / ticks,
+        device_idle_share=max(0.0, 1 - busy_ms / wall_ms),
+        device_launches_per_tick=launches / ticks,
+        top_kernels=top, own_kernels=own,
+        note="wall time from the same number of ticks with the profiler off")
+    del server
+    free_device_memory(torch)
+
+
+DECODE_AFTER_PREFILL = 4
+
+
+def ssm_layers(cfg):
+    """How many Mamba2 blocks the model runs: the hybrid stacks them
+    ``(G, per)``, which leaves out the remainder of ``n_layers / G``."""
+    from repro_torch.models import hybrid
+
+    if cfg.family != "hybrid":
+        return cfg.n_layers
+    G = hybrid.n_sites(cfg)
+    return G * (cfg.n_layers // G)
+
+
+def prefill_once(torch, model, params, tokens, capture=None):
+    """One prefill of ``tokens`` through ``launch.steps.make_prefill_step``
+    and ``DECODE_AFTER_PREFILL`` decode steps on from its cache through
+    ``make_serve_step``.  ``capture`` (a list) receives clones of the
+    inputs of the first two SSD chunk calls."""
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import ssm as ssm_mod
+
+    B, S = tokens.shape
+    prefill = make_prefill_step(model, S + DECODE_AFTER_PREFILL)
+    serve = make_serve_step(model)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    chunk = ssm_mod.ssd_chunk
+    if capture is not None:
+        def capturing(*args):
+            if len(capture) < 2:
+                capture.append([a.clone() for a in args])
+            return chunk(*args)
+        ssm_mod.ssd_chunk = capturing
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sc.reset_launch_counts()              # the main path starts here
+    try:
+        t0 = time.perf_counter()
+        start.record()
+        logits, cache = prefill(params, {"tokens": tokens})
+        stop.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ssm_mod.ssd_chunk = chunk
+    launches = sc.LAUNCHES["ssd_chunk"]
+    check(tuple(logits.shape) == (B, model.cfg.vocab)
+          and bool(torch.isfinite(logits.float()).all()),
+          f"{model.cfg.name} prefill: logits are not finite (B, vocab)")
+    nxt = logits.float().argmax(-1).to(torch.int32)[:, None]
+    out = [nxt[:, 0]]
+    for _ in range(DECODE_AFTER_PREFILL):
+        nxt, logits, cache = serve(params, cache, nxt)
+        check(bool(torch.isfinite(logits.float()).all()),
+              f"{model.cfg.name}: decode after prefill gave non-finite logits")
+        out.append(nxt[:, 0])
+    torch.cuda.synchronize()
+    check(sc.LAUNCHES["ssd_chunk"] == launches,   # ... and ends here
+          "decode after prefill launched the SSD chunk kernel")
+    check(int(cache.pos) == S + DECODE_AFTER_PREFILL, "cache.pos is off")
+    return {"tokens": torch.stack(out, 1).cpu().tolist(),
+            "launches": launches, "wall": wall,
+            "event_ms": start.elapsed_time(stop),
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def phase_prefill(torch, cfg, batch, seed, profile=False):
+    """The SSM-family main path: prefill at full width, 2048 tokens a row
+    and then 1000 (not a multiple of the 256-row chunk: the pad path),
+    each run twice; returns the SSD chunk launches of the first runs and
+    the inputs of the second chunk call of the first (a carried state) for
+    the kernel's timing."""
+    import math
+
+    from repro_torch.models import get_model
+
+    model = get_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    params = model.init(gen, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    launches, captured = 0, []
+    for S in (2048, 1000):
+        tokens = torch.randint(2, cfg.vocab - 1, (batch, S), generator=gen,
+                               device="cuda", dtype=torch.int64).to(torch.int32)
+        capture = [] if S == 2048 else None
+        first = prefill_once(torch, model, params, tokens, capture)
+        chunks = math.ceil(S / min(cfg.ssm_chunk, S))
+        want = ssm_layers(cfg) * chunks
+        check(first["launches"] == want,
+              f"{cfg.name} prefill of {S}: {first['launches']} SSD chunk "
+              f"launches != {ssm_layers(cfg)} layers x {chunks} chunks")
+        again = prefill_once(torch, model, params, tokens)
+        check(again["tokens"] == first["tokens"],
+              f"{cfg.name} prefill of {S}: the repeat gave other tokens")
+        launches += first["launches"]
+        held = None
+        if capture is not None:       # the kernel on the prefill's own inputs
+            held = max(ssd_held(torch, args, f"{cfg.name} chunk {i}")[1]
+                       for i, args in enumerate(capture))
+            captured = capture[1]
+        say("prefill", arch=cfg.name, family=cfg.family, layers=cfg.n_layers,
+            d_model=cfg.d_model, dtype="bfloat16", batch=batch, seq=S,
+            chunk=min(cfg.ssm_chunk, S), ssd_launches=first["launches"],
+            decode_steps=DECODE_AFTER_PREFILL, repeat_identical=True,
+            first_tokens=first["tokens"][0],
+            wall_seconds=first["wall"], event_ms=first["event_ms"],
+            repeat_wall_seconds=again["wall"],
+            repeat_event_ms=again["event_ms"],
+            tokens_per_second=batch * S / again["wall"],
+            peak_memory_bytes=first["peak_bytes"], init_seconds=init_s,
+            captured_chunks_share_of_max=held,
+            note="event_ms: CUDA events around the prefill on its stream")
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as profiler
+
+        from repro_torch.launch.steps import make_prefill_step
+
+        tokens = torch.randint(2, cfg.vocab - 1, (batch, 2048), generator=gen,
+                               device="cuda", dtype=torch.int64).to(torch.int32)
+        prefill = make_prefill_step(model, 2048)
+        prefill(params, {"tokens": tokens})                    # warm
+        torch.cuda.synchronize()
+        with profiler(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms, n, top, own = device_kernels(prof)
+        say("prefill_profile", arch=cfg.name, batch=batch, seq=2048,
+            device_busy_ms=busy_ms, device_launches=n,
+            wall_ms_profiled=wall_ms,
+            device_idle_share=max(0.0, 1 - busy_ms / wall_ms),
+            top_kernels=top, own_kernels=own,
+            note="one prefill alone; its wall time taken under the "
+                 "profiler, which slows the host")
+    del params, model
+    free_device_memory(torch)
+    return launches, captured
+
+
+def phase_silu_cost(torch, cfg, batch):
+    """Optional (``--profile``): what the Mamba2 block's ``_silu`` (silu
+    written out op by op, each rounded in bfloat16, as XLA rounds it on the
+    CPU) costs beside ``F.silu`` on the card.  Each block calls it twice:
+    on the conv output (``conv_dim`` wide) and on the gate (``d_inner``).
+    Launches from the profiler; ms on the card from CUDA events behind a
+    stall, and host-inclusive ms per call at decode (8 slots); the prefill
+    at ``batch`` x 2048 tokens, as ``phase_prefill`` runs it."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import ssm as ssm_mod
+
+    d_inner, _, _, N = ssm_mod.dims(cfg)
+    widths = (d_inner + 2 * N, d_inner)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+
+    def inputs(b, rows):
+        return [torch.randn((b, rows, w), generator=gen, device="cuda",
+                            dtype=torch.bfloat16) * 4 for w in widths]
+
+    def launches(fn, xs):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for x in xs:
+                fn(x)
+            torch.cuda.synchronize()
+        return device_kernels(prof)[1]
+
+    out = {}
+    for where, b, rows in (("decode", 8, 1), ("prefill", batch, 2048)):
+        xs = inputs(b, rows)
+        row = {"launches": {}, "card_ms": {}, "call_ms": {}}
+        for name, fn in (("_silu", ssm_mod._silu), ("F.silu", F.silu)):
+            row["launches"][name] = launches(fn, xs)
+            row["card_ms"][name] = sum(time_ms(torch, lambda: fn(x), iters=50,
+                                               warmup=5, stall_ms=60.0)
+                                       for x in xs)
+            if rows == 1:
+                row["call_ms"][name] = sum(time_ms(torch, lambda: fn(x))
+                                           for x in xs)
+        row["max_abs_diff"] = max(max_abs_diff(ssm_mod._silu(x), F.silu(x))
+                                  for x in xs)
+        blocks = ssm_layers(cfg)
+        row["extra_launches"] = blocks * (row["launches"]["_silu"]
+                                          - row["launches"]["F.silu"])
+        row["extra_card_ms"] = blocks * (row["card_ms"]["_silu"]
+                                         - row["card_ms"]["F.silu"])
+        if rows == 1:
+            row["extra_call_ms"] = blocks * (row["call_ms"]["_silu"]
+                                             - row["call_ms"]["F.silu"])
+        out[where] = {"batch": b, "rows": rows, **row}
+        del xs
+    say("silu_cost", arch=cfg.name, widths=list(widths),
+        blocks=ssm_layers(cfg), **out,
+        note="launches, card_ms and call_ms are for the block's two silu "
+             "calls; extra_* are over all blocks of one decode tick of 8 "
+             "slots or one prefill of 2048 tokens a row")
+    free_device_memory(torch)
+
+
+def device_kernels(prof):
+    """(busy ms, launches, the 8 kernels that took most time, the port's
+    own kernels with their share of busy) from a profiler's device
+    events."""
+    from torch.autograd import DeviceType
+
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -651,20 +984,13 @@ def phase_profile(torch, cfg, seed, ticks=8):
     check(by_name, "the profiler recorded no device activity")
     busy_ms = sum(us for _, us in by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    own = {k: {"launches": n, "ms": us / 1e3, "share_of_busy": us / 1e3
-               / busy_ms}
+    own = {k: {"launches": n, "ms": us / 1e3,
+               "share_of_busy": us / 1e3 / busy_ms}
            for k, (n, us) in by_name.items()
-           if "bk_" in k or "md_dispatch" in k}
-    say("profile", arch=cfg.name, layers=cfg.n_layers, ticks=ticks, slots=8,
-        wall_ms_per_tick=wall_ms / ticks, device_busy_ms_per_tick=busy_ms / ticks,
-        device_idle_share=max(0.0, 1 - busy_ms / wall_ms),
-        device_launches_per_tick=sum(n for n, _ in by_name.values()) / ticks,
-        top_kernels=[{"name": k[:80], "launches": n, "ms": us / 1e3}
-                     for k, (n, us) in top],
-        own_kernels=own,
-        note="wall time from the same number of ticks with the profiler off")
-    del server
-    free_device_memory(torch)
+           if "bk_" in k or "md_dispatch" in k or "sc_ssd" in k}
+    return (busy_ms, sum(n for n, _ in by_name.values()),
+            [{"name": k[:80], "launches": n, "ms": us / 1e3}
+             for k, (n, us) in top], own)
 
 
 # ---------------------------------------------------------------------------
@@ -678,19 +1004,22 @@ def resolve_ops(art, T):
     return T * (len(prog.instrs) + 2 * nd + 2 * len(prog.ba_regs))
 
 
-def phase_kernel_times(torch, seed, launches):
-    """Each kernel at the shapes the servers gave it.  B1-B3: an int32
+def phase_kernel_times(torch, seed, launches, ssd_args):
+    """Each kernel at the shapes the main paths gave it.  B1-B3: an int32
     record table of (8 banks, 128 rows, 8 slots); the tick's gather reads
     8 slots x 4 trailing records, its element scatter writes 8 records,
     and the swap's row scatter repacks all 1024 rows.  B5: olmoe's decode
     call, 8 tokens of 2048 bf16 and the zeros row, routed top-8 of 64
-    experts into 64 x 8 slots."""
+    experts into 64 x 8 slots.  B6: the inputs of a 256-row chunk of each
+    full-width prefill (``ssd_args``: arch -> the arguments it captured);
+    the first arch's row goes into the kernels line."""
     import numpy as np
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels import banked_gather as bg
     from repro_torch.kernels import moe_dispatch as md
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ssd_chunk as sc
     from repro_torch.runtime.server import page_solution
 
     art = page_solution(None, 1024, 16, 8)
@@ -702,22 +1031,25 @@ def phase_kernel_times(torch, seed, launches):
     out, call_ms = [], {}
 
     def entry(name, kernel, plain, library, err, nbytes, ops):
+        """Times on the card (``library`` None: no PyTorch call computes
+        the function) and the bound; returns the row."""
         by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         by_ops = ops / INT_OPS_PER_S * 1e3
+        fns = [f for f in (kernel, plain, library) if f is not None]
         # 50 calls behind a 60 ms stall: even the plain versions' dozen
         # launches per call are all enqueued before the card starts on them
         on_card = [time_ms(torch, fn, iters=50, stall_ms=60.0)
-                   for fn in (kernel, plain, library)]
+                   for fn in fns] + [None]
         call_ms[name] = dict(zip(
             ("call_ms", "plain_call_ms", "library_call_ms"),
-            (time_ms(torch, fn) for fn in (kernel, plain, library))))
-        out.append({
+            [time_ms(torch, fn) for fn in fns] + [None]))
+        return {
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": err, "ms": on_card[0], "plain_ms": on_card[1],
             "bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "library_ms": on_card[2]})
+            "library_ms": on_card[2]}
 
     def phys(idx):
         ba, bo = art.resolve(idx.to(torch.int64))
@@ -732,11 +1064,11 @@ def phase_kernel_times(torch, seed, launches):
     err = max_abs_diff(got.reshape(32, 8),
                        bg.banked_gather_plain(table, flat_idx, art))
     p_idx = phys(flat_idx)
-    entry("banked_gather",
+    out.append(entry("banked_gather",
           lambda: art.gather(table, idx),
           lambda: bg.banked_gather_plain(table, flat_idx, art),
           lambda: torch.index_select(rows2d, 0, p_idx),
-          err, 2 * 32 * 8 * 4 + 4 * 32, resolve_ops(art, 32))
+          err, 2 * 32 * 8 * 4 + 4 * 32, resolve_ops(art, 32)))
 
     # B2: 8 records, one per slot
     idx = torch.from_numpy(pos.astype(np.int32)).cuda()
@@ -748,11 +1080,11 @@ def phase_kernel_times(torch, seed, launches):
     bg.banked_scatter_elems_plain(theirs, idx, cols, vals, art)
     err = max_abs_diff(mine, theirs)
     p_idx, c64 = phys(idx), cols.to(torch.int64)
-    entry("banked_scatter_elems",
+    out.append(entry("banked_scatter_elems",
           lambda: art.scatter(mine, idx, vals, col=cols),
           lambda: bg.banked_scatter_elems_plain(theirs, idx, cols, vals, art),
           lambda: rows2d.index_put_((p_idx, c64), vals),
-          err, 8 * (4 + 4 + 4 + 4), resolve_ops(art, 8) + 8)
+          err, 8 * (4 + 4 + 4 + 4), resolve_ops(art, 8) + 8))
 
     # B3: the swap's repack of all 1024 logical rows
     idx = torch.arange(1024, device="cuda", dtype=torch.int32)
@@ -761,11 +1093,11 @@ def phase_kernel_times(torch, seed, launches):
     bg.banked_scatter_plain(theirs, idx, flat, art)
     err = max(max_abs_diff(mine, theirs), max_abs_diff(mine, table))
     p_idx = phys(idx)
-    entry("banked_scatter",
+    out.append(entry("banked_scatter",
           lambda: art.scatter(mine, idx, flat),
           lambda: bg.banked_scatter_plain(theirs, idx, flat, art),
           lambda: rows2d.index_copy_(0, p_idx, flat),
-          err, 2 * 1024 * 8 * 4 + 4 * 1024, resolve_ops(art, 1024) + 1024)
+          err, 2 * 1024 * 8 * 4 + 4 * 1024, resolve_ops(art, 1024) + 1024))
 
     # B5: the expert buffer of one MoE layer of olmoe's decode call
     olmoe = get_arch("olmoe_1b_7b")
@@ -777,15 +1109,37 @@ def phase_kernel_times(torch, seed, launches):
     want = md.moe_dispatch_plain(x_padded, slot)
     err = max(max_abs_diff(md.moe_dispatch(x_padded, slot), want),
               max_abs_diff(kops.dispatch(x, slot), want))
-    entry("moe_dispatch",
+    out.append(entry("moe_dispatch",
           lambda: md.moe_dispatch(x_padded, slot),
           lambda: md.moe_dispatch_plain(x_padded, slot),
           lambda: torch.index_select(x_padded, 0, slot),
-          err, ((T + 1) * D + S * D) * 2 + 4 * S, 0)
+          err, ((T + 1) * D + S * D) * 2 + 4 * S, 0))
 
-    for k in out:
+    # B6: one 256-row chunk of each prefill, on the prefill's own inputs
+    ssd_rows = []
+    for arch, args in ssd_args.items():
+        B, H, Q, P = args[0].shape
+        N = args[2].shape[-1]
+        err, share = ssd_held(torch, args, f"{arch}'s prefill shape")
+        nbytes, ops, per_head = ssd_work(B, H, Q, P, N)
+        row = entry("ssd_chunk", lambda: sc.ssd_chunk(*args),
+                    lambda: sc.ssd_chunk_plain(*args), None, err, nbytes, ops)
+        ssd_rows.append({"arch": arch, "shape": {"B": B, "H": H, "Q": Q,
+                                                 "P": P, "N": N},
+                         **row, "share_of_max": share, "bytes": nbytes,
+                         "operations": ops, "operations_per_head": per_head,
+                         "bound_ms_per_head": per_head / FP32_FLOPS_PER_S
+                         * 1e3, "call_ms": dict(call_ms["ssd_chunk"])})
+    call_ms["ssd_chunk"] = {r["arch"]: r.pop("call_ms") for r in ssd_rows}
+    say("ssd_chunk_times", rows=ssd_rows, library="none: no single PyTorch "
+        "call computes an SSD chunk", note="bound_ms counts C B^T once per "
+        "batch row; bound_ms_per_head as the kernel forms it, per head")
+    out.append({k: ssd_rows[0][k] for k in out[0]})
+
+    for k in out[:-1]:
         check(k["max_abs_err"] == 0.0, f"{k['name']} differs from its plain "
               f"version at the server's shapes: {k['max_abs_err']}")
+    for k in out:
         check(k["launches"] > 0, f"the main path never launched {k['name']}")
     say("kernel_call_times", note="host-inclusive ms per call, timed without "
         "the stall; the kernels line holds the times on the card", **call_ms)
@@ -798,6 +1152,11 @@ def phase_kernel_times(torch, seed, launches):
 
 
 def phase_small_reference(torch, cfg, seed):
+    """The reduced model on the card against the same weights on the CPU,
+    within 2e-2 of the largest logit (bf16): a prefill of 20 tokens (two
+    16-row chunks, the second padded: the SSD chunk kernel on the card,
+    its plain version on the CPU) where the family has one, then three
+    decode steps."""
     from repro_torch.models import get_model
 
     small = cfg.reduced()
@@ -811,16 +1170,17 @@ def phase_small_reference(torch, cfg, seed):
                 for k, v in tree.items()}
 
     gpu_params = to_cuda(cpu_params)
-    toks = torch.randint(2, small.vocab - 1, (4, 3), generator=gen,
+    S = 20 if model.prefill is not None else 0
+    toks = torch.randint(2, small.vocab - 1, (4, S + 3), generator=gen,
                          dtype=torch.int64).to(torch.int32)
-    caches = {"cpu": model.init_cache(4, 16, device="cpu"),
-              "cuda": model.init_cache(4, 16, device="cuda")}
+    params = {"cpu": cpu_params, "cuda": gpu_params}
     worst = 0.0
-    for step in range(3):
+
+    def held(step, make):
+        nonlocal worst
         logits = {}
-        for dev, params in (("cpu", cpu_params), ("cuda", gpu_params)):
-            out, caches[dev] = model.decode(
-                params, caches[dev], toks[:, step:step + 1].to(dev))
+        for dev in ("cpu", "cuda"):
+            out, caches[dev] = make(dev)
             logits[dev] = out.float().cpu()
         check(tuple(logits["cuda"].shape) == (4, small.vocab)
               and bool(torch.isfinite(logits["cuda"]).all()),
@@ -828,9 +1188,20 @@ def phase_small_reference(torch, cfg, seed):
         tol = 2e-2 * float(logits["cpu"].abs().max())
         diff = float((logits["cuda"] - logits["cpu"]).abs().max())
         worst = max(worst, diff / tol)
-        check(diff <= tol, f"reduced model step {step}: card and CPU logits "
+        check(diff <= tol, f"reduced model {step}: card and CPU logits "
               f"differ by {diff} > {tol} (2e-2 of the largest magnitude)")
-    say("small_reference", arch=small.name, steps=3,
+
+    caches = {}
+    if S:
+        held("prefill", lambda dev: model.prefill(
+            params[dev], {"tokens": toks[:, :S].to(dev)}, 32))
+    else:
+        caches = {dev: model.init_cache(4, 32, device=dev)
+                  for dev in ("cpu", "cuda")}
+    for step in range(3):
+        held(f"step {step}", lambda dev: model.decode(
+            params[dev], caches[dev], toks[:, S + step:S + step + 1].to(dev)))
+    say("small_reference", arch=small.name, prefill_tokens=S, steps=3,
         worst_share_of_tolerance=worst, tolerance="2e-2 of max |logit|, bf16")
 
 
@@ -841,9 +1212,10 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--layers", type=int, default=None,
-                    help="cut the served models' depth (default: full)")
+                    help="cut the models' depth (default: full)")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile a few steady decode ticks of each")
+                    help="also profile a few steady decode ticks of each "
+                         "served model and one prefill of each SSM model")
     ap.add_argument("--skip-serve", action="store_true",
                     help="toolchain and kernel phases only; no ok line")
     args = ap.parse_args()
@@ -858,29 +1230,39 @@ def main():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
     from repro_torch.configs import get_arch
 
-    started = time.perf_counter()
     card = phase_toolchain(torch)
     phase_kernels(torch, args.seed)
     phase_moe_kernel(torch, args.seed)
+    phase_ssd_kernel(torch, args.seed)
     if args.skip_serve:
         print(card, flush=True)
         return 0
-    archs = [get_arch("qwen2_7b"), get_arch("olmoe_1b_7b")]
+    archs = [get_arch(a) for a in ("qwen2_7b", "olmoe_1b_7b", "mamba2_370m",
+                                   "zamba2_2_7b")]
     if args.layers is not None:
         archs = [dataclasses.replace(c, n_layers=args.layers) for c in archs]
     launches = {}                 # summed over the main paths' first runs
     for cfg in archs:
         for name, n in phase_serve(torch, cfg, args.seed).items():
             launches[name] = launches.get(name, 0) + n
-    kernels = phase_kernel_times(torch, args.seed, launches)
+    ssd_args = {}                 # the prefills: mamba2 8 x 2048, zamba2 4 x
+    for cfg, batch in zip(archs[2:], (8, 4)):
+        n, ssd_args[cfg.name] = phase_prefill(torch, cfg, batch, args.seed,
+                                              profile=args.profile)
+        launches["ssd_chunk"] += n
+    kernels = phase_kernel_times(torch, args.seed, launches, ssd_args)
+    del ssd_args
+    free_device_memory(torch)
     for cfg in archs:
         phase_small_reference(torch, cfg, args.seed)
     if args.profile:
         for cfg in archs:
             phase_profile(torch, cfg, args.seed)
+        for cfg, batch in zip(archs[2:], (8, 4)):
+            phase_silu_cost(torch, cfg, batch)
     for banned in ("jax", "repro"):
         check(banned not in sys.modules, f"{banned} was imported")
-    say("done", seconds=time.perf_counter() - started)
+    say("done", seconds=time.perf_counter() - STARTED)
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,10 @@ package ``repro`` (the reference).  Same sub-package layout; imports
 
 Ported so far: the banking math and solver (``core``), the executable
 artifact with its banked gather/scatter CUDA kernels (``core.artifact``,
-``kernels``), the architecture configs, the dense transformer's decode
-path (``models``) and the continuous-batching decode server
+``kernels``), the architecture configs, the decode paths of the dense and
+MoE transformers and the prefill and decode paths of the Mamba2 SSM and
+the Zamba2 hybrid (``models``; the MoE dispatch and the SSD chunk are CUDA
+kernels too), and the continuous-batching decode server
 (``runtime.server``, ``launch.serve``).  Entry points run on ``cuda``
 and raise when there is no card unless the caller passes ``device="cpu"``.
 """

@@ -4,7 +4,8 @@
 compiled banking artifact, which launches the CUDA kernels of
 ``kernels/banked_gather.py`` for a table on the card and their plain torch
 versions for a table on the CPU.  ``dispatch`` fills the MoE expert buffer
-through ``kernels/moe_dispatch.py`` the same way; ``moe_combine`` is plain
+through ``kernels/moe_dispatch.py`` the same way, and ``ssd`` runs one
+Mamba2 SSD chunk through ``kernels/ssd_chunk.py``; ``moe_combine`` is plain
 torch.
 """
 
@@ -15,6 +16,7 @@ import torch.nn.functional as F
 from ..core.artifact import as_compiled
 from . import moe_dispatch as _md
 from .moe_dispatch import moe_combine
+from .ssd_chunk import ssd_chunk
 
 
 def gather_banked(table, indices, compiled):
@@ -58,5 +60,12 @@ def dispatch(x, slot_token):
     return _md.moe_dispatch(F.pad(x, (0, 0, 0, 1)), slot_token)
 
 
+def ssd(x, dt, bm, cm, cum, s_prev):
+    """One SSD chunk for every (batch, head): x ``(B, H, Q, P)``, dt and cum
+    ``(B, H, Q)``, bm and cm ``(B, Q, N)``, s_prev ``(B, H, P, N)``, all
+    float32.  Returns ``(y (B, H, Q, P), s_new (B, H, P, N))``."""
+    return ssd_chunk(x, dt, bm, cm, cum, s_prev)
+
+
 __all__ = ["dispatch", "gather_banked", "moe_combine", "pack_banked",
-           "scatter_banked"]
+           "scatter_banked", "ssd"]

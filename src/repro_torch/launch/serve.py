@@ -5,12 +5,17 @@ throughput; ``--smoke`` uses the reduced config (CPU-sized).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
         --smoke --device cpu --requests 8 --max-batch 4
 
-Any family that ``models.get_model`` builds serves: the dense transformers
-and the MoE family (its expert buffer filled by the ``moe_dispatch``
-kernel on the card).
+Any family that ``models.get_model`` builds serves: the dense transformers,
+the MoE family (its expert buffer filled by the ``moe_dispatch`` kernel on
+the card), the Mamba2 SSM and the Zamba2 hybrid (one shared attention
+block).  The server prefills a request through the decode step, one token
+at a time, so the SSM families run their O(1) recurrence here and not the
+chunked scan of their ``prefill``.
 
 The server starts on the trivial single-bank artifact, the KV-pool banking
 problem is solved in the launcher, and the page pool and token-record table

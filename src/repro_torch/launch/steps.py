@@ -7,6 +7,24 @@ import torch
 from ..models import Model
 
 
+def make_prefill_step(model: Model, max_len: int):
+    """``prefill_step(params, batch) -> (logits, cache)``: the whole prompt
+    ``batch["tokens"]`` (B, S) in one pass, with a cache ``max_len`` long
+    to decode on from.  Tokens given as numpy or on another device go to
+    the device of the parameters."""
+    if model.prefill is None:
+        raise NotImplementedError(
+            f"{model.cfg.name} ({model.cfg.family}) has no prefill in "
+            f"repro_torch yet; its server prefills through decode")
+
+    def prefill_step(params, batch):
+        tokens = torch.as_tensor(batch["tokens"],
+                                 device=params["embed"].device)
+        return model.prefill(params, {**batch, "tokens": tokens}, max_len)
+
+    return prefill_step
+
+
 def make_serve_step(model: Model):
     def serve_step(params, cache, tokens):
         logits, new_cache = model.decode(params, cache, tokens)

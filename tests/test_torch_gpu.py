@@ -16,6 +16,7 @@ import repro_torch.core as port_core
 from repro_torch.kernels import banked_gather as bg
 from repro_torch.kernels import moe_dispatch as md
 from repro_torch.kernels import ops
+from repro_torch.kernels import ssd_chunk as sc
 from repro_torch.models import moe
 
 from torch_parity import LAYOUT_CASES, build_artifact, layout_id
@@ -79,3 +80,34 @@ def test_moe_dispatch_equals_its_plain_version_on_the_card(cuda, dtype, D):
     torch.cuda.synchronize()
     assert md.LAUNCHES["moe_dispatch"] == before + 3
     assert not bool(keep.all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P,N", [(16, 16), (64, 64), (64, 128)])
+@pytest.mark.parametrize("Q", [1, 7, 16, 100, 256])
+def test_ssd_chunk_equals_its_plain_version_on_the_card(cuda, Q, P, N):
+    """Within 1e-4 of the largest magnitude of the plain output, which runs
+    in true float32 (``allow_tf32`` off, the default)."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rng = np.random.default_rng(Q * P + N)
+    B, H = 2, 3
+    dt = rng.uniform(0.01, 0.3, size=(B, H, Q))
+    dt[0, 0] = rng.uniform(0.0, 1e-6, size=Q)          # dt near 0
+    dt[1, 2] = rng.uniform(4.0, 8.0, size=Q)           # dt large: 1000 nats
+    A = -rng.uniform(0.5, 2.0, size=(H,))
+    f32 = {"x": rng.normal(size=(B, H, Q, P)), "dt": dt,
+           "bm": rng.normal(size=(B, Q, N)), "cm": rng.normal(size=(B, Q, N)),
+           "cum": np.cumsum(dt * A[None, :, None], axis=-1),
+           "s_prev": rng.normal(size=(B, H, P, N))}
+    args = {k: torch.from_numpy(v.astype(np.float32)).to(cuda)
+            for k, v in f32.items()}
+    before = sc.LAUNCHES["ssd_chunk"]
+    y, s = sc.ssd_chunk(**args)
+    yw, sw = sc.ssd_chunk_plain(**args)
+    torch.cuda.synchronize()
+    assert sc.LAUNCHES["ssd_chunk"] == before + 1
+    for got, want in ((y, yw), (s, sw)):
+        assert bool(torch.isfinite(got).all())
+        tol = 1e-4 * float(want.abs().max())
+        assert float((got - want).abs().max()) <= tol
+    assert torch.equal(ops.ssd(**args)[0], y)          # deterministic

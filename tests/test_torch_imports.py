@@ -79,7 +79,7 @@ def test_package_exports_only_what_it_holds():
 
 
 ENTRY_POINTS = ["Server", "init", "init_cache", "pack", "launch.serve",
-                "params_from_numpy", "resolve_device"]
+                "params_from_numpy", "resolve_device", "make_prefill_step"]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
@@ -90,10 +90,12 @@ def test_entry_points_raise_without_a_card_unless_asked_for_cpu(entry):
     from repro_torch.configs import get_arch
     from repro_torch.core import MemorySpec, compile_trivial
     from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import get_model
     from repro_torch.runtime.server import Server
 
     model = get_model(get_arch("qwen2_7b").reduced())
+    ssm = get_model(get_arch("mamba2_370m").reduced())
     art = compile_trivial(MemorySpec("m", dims=(8,), word_bits=16, ports=1))
     gen = torch.Generator(device="cpu").manual_seed(0)
     calls = {
@@ -107,6 +109,9 @@ def test_entry_points_raise_without_a_card_unless_asked_for_cpu(entry):
         "params_from_numpy": lambda **kw: convert.params_from_numpy(
             {"w": np.zeros(2, np.float32)}, **kw),
         "resolve_device": lambda **kw: resolve_device(**kw),
+        # the prefill runs where the parameters are; numpy tokens follow
+        "make_prefill_step": lambda **kw: make_prefill_step(ssm, 8)(
+            ssm.init(gen, **kw), {"tokens": np.full((1, 4), 3, np.int32)}),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -123,6 +128,7 @@ def test_a_cuda_table_never_reaches_the_plain_version(monkeypatch):
     from repro_torch.kernels import banked_gather as bg
     from repro_torch.kernels import moe_dispatch as md
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_chunk as sc
 
     art = compile_trivial(MemorySpec("m", dims=(8,), word_bits=16, ports=1))
     table = art.pack(np.zeros((8, 2), np.float32), device="cpu")
@@ -134,22 +140,29 @@ def test_a_cuda_table_never_reaches_the_plain_version(monkeypatch):
     for mod, plain in ((bg, "banked_gather_plain"),
                        (bg, "banked_scatter_plain"),
                        (bg, "banked_scatter_elems_plain"),
-                       (md, "moe_dispatch_plain")):
+                       (md, "moe_dispatch_plain"),
+                 (sc, "ssd_chunk_plain")):
         monkeypatch.setattr(mod, plain, lambda *a, **k: pytest.fail(
             "plain version reached for a CUDA table"))
     idx = torch.zeros(1, dtype=torch.int32)
     monkeypatch.setattr(bg, "as_index", lambda *a, **k: idx)
     monkeypatch.setattr(bg, "_as_values", lambda v, *a, **k: v)
     tokens = torch.zeros((3, 2)).as_subclass(OnCard)
+    chunk = [torch.zeros(s).as_subclass(OnCard) for s in
+             ((1, 2, 4, 8), (1, 2, 4), (1, 4, 16), (1, 4, 16), (1, 2, 4),
+              (1, 2, 8, 16))]
     for call in (lambda: bg.banked_gather(fake, idx, art),
                  lambda: bg.banked_scatter(fake, idx, torch.zeros(1, 2), art),
                  lambda: bg.banked_scatter_elems(fake, idx, idx,
                                                  torch.zeros(1), art),
                  lambda: md.moe_dispatch(tokens, idx),
-                 lambda: ops.dispatch(tokens, idx)):
+                 lambda: ops.dispatch(tokens, idx),
+                 lambda: sc.ssd_chunk(*chunk),
+                 lambda: ops.ssd(*chunk)):
         with pytest.raises((RuntimeError, OSError)):
             call()
     assert sum(bg.LAUNCHES.values()) == 0 and md.LAUNCHES["moe_dispatch"] == 0
+    assert sc.LAUNCHES["ssd_chunk"] == 0
 
 
 @pytest.mark.parametrize("where", ["checkout", "alone"])

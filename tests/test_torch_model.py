@@ -187,12 +187,29 @@ def test_params_from_numpy_is_exact_for_bfloat16():
     assert ints.dtype == torch.int32
 
 
-@pytest.mark.parametrize("arch", ["mamba2_370m", "zamba2_2_7b",
-                                  "whisper_base"])
+@pytest.mark.parametrize("arch", ["whisper_base"])
 def test_families_not_ported_yet_say_so(arch):
     cfg = get_arch(arch)
     with pytest.raises(NotImplementedError, match=cfg.family):
         get_model(cfg)
+
+
+@pytest.mark.parametrize("arch", ["mamba2_370m", "zamba2_2_7b"])
+def test_ssm_families_build_a_reduced_prefill_and_decode(arch):
+    cfg = get_arch(arch).reduced()
+    model = get_model(cfg)
+    assert model.cfg.family in ("ssm", "hybrid") and model.loss is None
+    params = model.init(torch.Generator(device="cpu").manual_seed(0),
+                        device="cpu")
+    logits, cache = model.prefill(
+        params, {"tokens": torch.full((2, 5), 3, dtype=torch.int32)}, 8)
+    assert tuple(logits.shape) == (2, cfg.vocab) and cache.pos == 5
+    logits, cache = model.decode(params, cache,
+                                 torch.full((2, 1), 3, dtype=torch.int32))
+    assert tuple(logits.shape) == (2, cfg.vocab) and cache.pos == 6
+    assert bool(torch.isfinite(logits.float()).all())
+    fresh = model.init_cache(2, 8, device="cpu")
+    assert fresh.pos == 0 and fresh.state.dtype == torch.float32
 
 
 @pytest.mark.parametrize("arch", ["olmoe_1b_7b", "llama4_maverick"])

@@ -1,8 +1,11 @@
 """The decode server of the port against the reference's: same config, same
 weights, same prompts through both ``Server``s must give the same tokens
 and the same logical token records -- on a solved plan, and again across a
-hot swap from the trivial layout -- for the dense family (qwen2-7b) and the
-MoE family (olmoe-1b-7b), each at its reduced size."""
+hot swap from the trivial layout -- for the dense family (qwen2-7b), the
+MoE family (olmoe-1b-7b), the SSM family (mamba2-370m) and the hybrid family
+(zamba2-2.7b), each at its reduced size.  The server prefills through
+decode, and a slot's SSM state is not reset when a new request takes the
+slot over, in both packages alike."""
 
 import jax
 import jax.numpy as jnp
@@ -30,7 +33,7 @@ N_REQUESTS, MAX_NEW = 3, 4      # two slots: the third request waits its turn
 # above this share of its largest logit; the prompt seeds below were picked
 # so that it does (the test fails on the margin first if that ever changes).
 MARGIN = 2.0 ** -7
-SEEDS = {"qwen2_7b": 9, "olmoe_1b_7b": 2}
+SEEDS = {"qwen2_7b": 9, "olmoe_1b_7b": 2, "mamba2_370m": 1, "zamba2_2_7b": 10}
 
 
 def _prompts(seed, n, vocab):
@@ -122,9 +125,11 @@ def _run_port(arch, ref_srv, start_trivial, swap_after):
 
 @pytest.mark.parametrize("arch,start_trivial", [
     ("qwen2_7b", False), ("qwen2_7b", True),
-    ("olmoe_1b_7b", False), ("olmoe_1b_7b", True)],
+    ("olmoe_1b_7b", False), ("olmoe_1b_7b", True),
+    ("mamba2_370m", False), ("mamba2_370m", True), ("zamba2_2_7b", True)],
     ids=["solved plan", "swap from trivial", "olmoe solved plan",
-         "olmoe swap from trivial"])
+         "olmoe swap from trivial", "mamba2 solved plan",
+         "mamba2 swap from trivial", "zamba2 swap from trivial"])
 def test_server_end_to_end_matches_reference(arch, start_trivial):
     ref_srv, ref_reqs, ref_records, ref_mid, margin = _run_reference(
         arch, start_trivial, swap_after=2)
