@@ -16,7 +16,11 @@ Run from the root of a checkout, with no arguments, it
    dispatch that it also times); the SSD chunk within 1e-4 of the largest
    magnitude of the plain output (float32 sums in another order), over
    chunk lengths 1 to 256, the (P, N) of every config, a carried state,
-   dt near 0 and dt large;
+   dt near 0 and dt large; the flash attention within 2e-5 (float32) or
+   2e-2 (bfloat16) of the largest magnitude, over head sizes 64, 80, 128
+   and 240, causal and not, windows of 32 and 1024, GQA groups of 1, 2 and
+   7, 1 to 2048 rows, a cross attention of 64 rows over 1500 keys and a
+   ``kv_len`` below the keys;
 3. runs the port's main paths, each at full width with random bf16
    weights from ``--seed``: the continuous-batching decode server on
    qwen2-7b, olmoe-1b-7b, mamba2-370m and zamba2-2.7b, which starts on the
@@ -24,21 +28,31 @@ Run from the root of a checkout, with no arguments, it
    answers 16 requests, and is checked for finished requests, for the
    record table against what was recorded, for kernel launch counts
    against the ticks and the decode calls, and for identical tokens when
-   repeated; then the prefill of mamba2-370m (8 x 2048 tokens) and of
-   zamba2-2.7b (4 x 2048), and of both at 1000 tokens (the pad path), each
-   decoding a few steps on from its cache, checked for finite logits, for
-   one SSD chunk launch per layer and chunk, and for identical tokens when
-   repeated, and timed; the inputs of a prefill's first SSD chunks are
-   held against the plain version too;
+   repeated; then the prefills -- mamba2-370m (8 x 2048 tokens) and
+   zamba2-2.7b (4 x 2048), both also at 1000 tokens (the pad path),
+   qwen2-7b (4 x 2048), gemma3-12b (2 x 4096, past its window of 1024),
+   olmoe-1b-7b (4 x 2048) and whisper-base (8 x 64 tokens over 1500
+   frames, a cache of 448) -- each decoding a few steps on from its cache,
+   checked for finite logits, for one flash attention launch per attention
+   call, one SSD chunk launch per layer and chunk and one MoE dispatch per
+   MoE layer, and for identical tokens when repeated, and timed; the first
+   flash attention call of every shape and the first two SSD chunk calls
+   of every prefill (every length, whisper's decoder self and cross
+   attention too) are held against the plain versions on their own
+   inputs;
 4. times each kernel at the shapes the main path gave it, beside its plain
    version, its bound and the nearest single PyTorch call (for the banked
    kernels it is handed the resolved physical rows, since no PyTorch call
-   resolves BA/BO; no single call computes an SSD chunk), and prints the
-   times on the card as one ``{"kernels": [...]}`` line and the
-   host-inclusive times per call as another;
+   resolves BA/BO; no single call computes an SSD chunk; for attention,
+   ``scaled_dot_product_attention`` with the same mask, timed as a
+   yardstick and called nowhere in the port), on the inputs the prefills
+   gave the SSD chunk and the flash attention (each attention shape: qwen2,
+   gemma3's local and global layers, olmoe, zamba2, whisper's encoder),
+   and prints the times on the
+   card as one ``{"kernels": [...]}`` line and the host-inclusive times
+   per call as another;
 5. checks each family's reduced model on the card against the same
-   weights on the CPU: three decode steps, after a prefill where the
-   family has one.
+   weights on the CPU: a prefill of 4 rows, then three decode steps.
 
 Every phase prints one JSON line; the first failure ends the run with a
 non-zero exit code.  There is no CPU fallback: without a CUDA device, or
@@ -49,7 +63,8 @@ result.  The last line is ``{"ok": true, "device": {...}}``.
 out; both are for iterating on the kernels and change what the last line
 may claim: with ``--skip-serve`` there is no ``ok`` line.  ``--profile``
 adds a ``torch.profiler`` window over a few steady decode ticks of each
-served model and over one prefill of each SSM-family model.
+served model and over one prefill of mamba2-370m, zamba2-2.7b, qwen2-7b
+and gemma3-12b.
 """
 
 from __future__ import annotations
@@ -70,6 +85,7 @@ FP32_FLOPS_PER_S = 67e12    # float32 outside the tensor cores, same sheet
 # The data sheet has no int32 rate; the float32 rate outside the tensor
 # cores bounds it from above, so the operation bound stays a lower bound.
 INT_OPS_PER_S = FP32_FLOPS_PER_S
+BF16_FLOPS_PER_S = 989e12   # dense bf16 on the tensor cores, same sheet
 # the SSD chunk against its plain version: both float32, sums in another
 # order; the plain version runs in true float32 (allow_tf32 stays off)
 SSD_TOL = 1e-4
@@ -80,6 +96,7 @@ SOURCE = {
     "banked_scatter_elems": "src/repro_torch/kernels/csrc/banked.cu",
     "moe_dispatch": "src/repro_torch/kernels/csrc/moe_dispatch.cu",
     "ssd_chunk": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
 }
 REPLACES = {
     "banked_gather": "src/repro/kernels/banked_gather.py:65",
@@ -87,6 +104,7 @@ REPLACES = {
     "banked_scatter_elems": "src/repro/kernels/banked_gather.py:146",
     "moe_dispatch": "src/repro/kernels/moe_dispatch.py:27",
     "ssd_chunk": "src/repro/kernels/ssd_chunk.py:61",
+    "flash_attention": "src/repro/kernels/flash_attention.py:79",
 }
 
 
@@ -388,8 +406,9 @@ def routed_slots(torch, rng, T, cfg):
 
 
 def phase_moe_kernel(torch, seed):
-    """B5 against its plain version, exactly, and one prefill-sized
-    dispatch timed (not on the main path: the server decodes only)."""
+    """B5 against its plain version, exactly, and one dispatch of
+    olmoe's prefill size timed on random routing (the prefill's own
+    routing is held and timed nowhere else)."""
     import numpy as np
 
     from repro_torch.configs import get_arch
@@ -455,8 +474,9 @@ def phase_moe_kernel(torch, seed):
           "out-of-range dispatch rows are not zero")
     torch.cuda.synchronize()
 
-    # prefill-sized: 4096 tokens routed top-8 of 64 at C = capacity(4096)
-    T, D = 4096, olmoe.d_model
+    # prefill-sized: olmoe's prefill of 4 x 2048 tokens, routed top-8 of 64
+    # at C = capacity(8192): 81,920 slots, as each of its MoE layers fills
+    T, D = 8192, olmoe.d_model
     C = moe.capacity(olmoe, T)
     x = torch.randn((T, D), generator=gen, device="cuda").to(torch.bfloat16)
     slot = routed_slots(torch, rng, T, olmoe)
@@ -466,10 +486,13 @@ def phase_moe_kernel(torch, seed):
     check(d == 0.0, f"prefill-sized moe_dispatch differs: {d}")
     S = slot.shape[0]
     nbytes = ((T + 1) * D + S * D) * 2 + 4 * S
-    timed = {key: time_ms(torch, fn, iters=50, stall_ms=60.0) for key, fn in (
-        ("ms", lambda: md.moe_dispatch(x_padded, slot)),
-        ("plain_ms", lambda: md.moe_dispatch_plain(x_padded, slot)),
-        ("library_ms", lambda: torch.index_select(x_padded, 0, slot)))}
+    fns = (("", lambda: md.moe_dispatch(x_padded, slot)),
+           ("plain_", lambda: md.moe_dispatch_plain(x_padded, slot)),
+           ("library_", lambda: torch.index_select(x_padded, 0, slot)))
+    timed = {f"{key}ms": time_ms(torch, fn, iters=50, stall_ms=60.0)
+             for key, fn in fns}
+    timed.update({f"{key}call_ms": time_ms(torch, fn, iters=50)
+                  for key, fn in fns})
     say("moe_dispatch_kernel", cases=cases, max_abs_diff=worst,
         launches=dict(md.LAUNCHES),
         prefill_sized={"T": T, "D": D, "E": olmoe.n_experts, "C": C,
@@ -546,6 +569,124 @@ def phase_ssd_kernel(torch, seed):
         launches=dict(sc.LAUNCHES))
 
 
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def attention_cases():
+    """(label, dtype, D, B, Hkv, rep, Sq, Sk, causal, window, kv_len) of
+    ``phase_attention_kernel``: per dtype and head size, one query row,
+    64 rows, 1000 and 2048 rows with windows of 32 and 1024, GQA groups of
+    1, 2 and 7 (7 is not a power of two), a cross attention of 64 rows over
+    1500 keys, and a ``kv_len`` below ``Sk``."""
+    import torch
+
+    out = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for D in (64, 80, 128, 240):
+            for (Sq, Sk, causal, window, rep, kv_len) in (
+                    (1, 1, True, 0, 1, None),
+                    (64, 64, False, 0, 2, None),
+                    (64, 64, True, 32, 7, None),
+                    (1000, 1000, True, 0, 7, None),
+                    (1000, 1000, True, 32, 1, None),
+                    (1000, 1000, False, 0, 1, None),
+                    (2048, 2048, True, 1024, 2, None),
+                    (2048, 2048, True, 0, 7, None),
+                    (64, 1500, False, 0, 1, None),
+                    (1000, 1000, True, 0, 2, 700),
+                    (300, 1500, False, 0, 2, 1200)):
+                label = (f"{str(dtype)[6:]} D={D} {Sq}x{Sk} "
+                         f"{'causal' if causal else 'full'} w={window} "
+                         f"rep={rep} kv_len={kv_len}")
+                B = 2 if Sq < 2048 else 1
+                out.append((label, dtype, D, B, 2, rep, Sq, Sk, causal,
+                            window, kv_len))
+    return out
+
+
+def attention_inputs(torch, gen, dtype, D, B, Hkv, rep, Sq, Sk):
+    """q (B, Sq, Hkv*rep, D) and k, v (B, Sk, Hkv, D), normal, on the
+    card."""
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    return (draw(B, Sq, Hkv * rep, D), draw(B, Sk, Hkv, D),
+            draw(B, Sk, Hkv, D))
+
+
+def attention_held(torch, q, k, v, label, **kw):
+    """B4 (``ops.mha``) on q, k, v against its plain version; returns the
+    largest absolute error and that error as a share of the plain output's
+    largest magnitude (at least 1), and fails past ``ATTN_TOL`` of the
+    dtype."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on: the plain version would not run in float32")
+    got = ops.mha(q, k, v, **kw)
+    want = fa.mha_plain(q, k, v, **kw)
+    check(bool(torch.isfinite(got.float()).all()),
+          f"flash_attention {label}: output is not finite")
+    d = max_abs_diff(got, want)
+    share = d / max(1.0, float(want.float().abs().max()))
+    tol = ATTN_TOL[str(q.dtype)[6:]]
+    check(share <= tol, f"flash_attention differs on {label}: off by "
+          f"{share} of max(1, max |plain|) (> {tol})")
+    return d, share
+
+
+def phase_attention_kernel(torch, seed):
+    """B4 against its plain version on the card (``attention_cases``), and
+    the ``(BH, S, D)`` form against the 4-D one; the full-width shapes are
+    held on the prefills' own inputs (``phase_prefill``)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    fa.reset_launch_counts()
+    cases = attention_cases()
+    for (label, dtype, D, B, Hkv, rep, Sq, Sk, causal, window,
+         kv_len) in cases:
+        q, k, v = attention_inputs(torch, gen, dtype, D, B, Hkv, rep, Sq, Sk)
+        _, share = attention_held(torch, q, k, v, label, causal=causal,
+                                  window=window, kv_len=kv_len)
+        key = str(dtype)[6:]
+        worst[key] = max(worst[key], share)
+        if rep == 1 and Hkv == 2:     # the JAX function's (BH, S, D) form
+            fold = [t.transpose(1, 2).reshape(B * Hkv, t.shape[1], D)
+                    for t in (q, k, v)]
+            got = fa.flash_attention(*fold, causal=causal, window=window,
+                                     kv_len=kv_len)
+            want = fa.attention(q, k, v, causal=causal, window=window,
+                                kv_len=kv_len)
+            check(torch.equal(got, want.transpose(1, 2).reshape(
+                B * Hkv, Sq, D)), f"flash_attention (BH, S, D) form "
+                f"differs from the 4-D one on {label}")
+    torch.cuda.synchronize()
+    say("attention_kernel", cases=len(cases), worst_share_of_max=worst,
+        tolerance="float32 2e-5, bfloat16 2e-2 of max(1, max |plain|); "
+                  "allow_tf32 off", launches=dict(fa.LAUNCHES))
+
+
+def attention_work(B, Sq, Sk, H, Hkv, D, causal, window, itemsize):
+    """(bytes moved once, useful operations, unmasked pairs) of one
+    attention call over (B, S, H, D) tensors: q, k, v read once and o
+    written once; 4 D operations (the multiply-adds of q.k and of p.v) for
+    every (row, key) pair the mask keeps, counted from the mask."""
+    import numpy as np
+
+    i, j = np.arange(Sq)[:, None], np.arange(Sk)[None, :]
+    keep = np.ones((Sq, Sk), bool)
+    if causal:
+        keep &= j <= i
+    if window:
+        keep &= i - j < window
+    pairs = int(keep.sum())
+    nbytes = itemsize * B * D * (2 * Sq * H + 2 * Sk * Hkv)
+    return nbytes, 4 * D * pairs * B * H, pairs
+
+
 def ssd_work(B, H, Q, P, N):
     """(bytes moved once, float32 operations) of one SSD chunk call.
     The operations count C B^T once per batch row (its heads share it)
@@ -573,6 +714,7 @@ def serve_once(torch, cfg, seed, swap_after=3):
 
     from repro_torch.core import MemorySpec, compile_trivial
     from repro_torch.kernels import banked_gather as bg
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_dispatch as md
     from repro_torch.kernels import ssd_chunk as sc
     from repro_torch.models import get_model
@@ -615,6 +757,7 @@ def serve_once(torch, cfg, seed, swap_after=3):
     bg.reset_launch_counts()          # the main path starts here
     md.reset_launch_counts()
     sc.reset_launch_counts()
+    fa.reset_launch_counts()
     admit_ticks = 0
     swap_identical = None
     t0 = time.perf_counter()
@@ -632,7 +775,8 @@ def serve_once(torch, cfg, seed, swap_after=3):
         admit_ticks += len(server.queue) < queued
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {**bg.LAUNCHES, **md.LAUNCHES, **sc.LAUNCHES}   # ... ends here
+    launches = {**bg.LAUNCHES, **md.LAUNCHES, **sc.LAUNCHES,   # ... ends here
+                **fa.LAUNCHES}
     del server._record        # the wrapper's closure holds the server
 
     records = server._kv_art.unpack(server.kv_records).cpu().numpy()
@@ -688,6 +832,9 @@ def phase_serve(torch, cfg, seed):
           f"MoE layers x {run['decode_calls']} decode calls")
     check(lau["ssd_chunk"] == 0, f"the decode path launched the SSD chunk "
           f"kernel {lau['ssd_chunk']} times: decode runs the recurrence")
+    check(lau["flash_attention"] == 0, f"the decode path launched the flash "
+          f"attention kernel {lau['flash_attention']} times: the server "
+          f"prefills through decode, which attends against its cache")
     check(run["decode_calls"] < 1024, "cache.pos reached max_len")
     tokens = [list(r.out) for r in reqs]
     first = {k: run[k] for k in ("launches", "admit_ticks", "wall", "init_s",
@@ -776,53 +923,93 @@ def ssm_layers(cfg):
     return G * (cfg.n_layers // G)
 
 
-def prefill_once(torch, model, params, tokens, capture=None):
-    """One prefill of ``tokens`` through ``launch.steps.make_prefill_step``
-    and ``DECODE_AFTER_PREFILL`` decode steps on from its cache through
-    ``make_serve_step``.  ``capture`` (a list) receives clones of the
-    inputs of the first two SSD chunk calls."""
+def attention_calls(cfg):
+    """B4 launches of one prefill: one per attention layer; whisper's
+    encoder layers one each and its decoder layers two each (self and
+    cross); the hybrid's shared block one per site; none for the SSM."""
+    from repro_torch.models import hybrid
+
+    if cfg.family in ("encdec", "audio"):
+        return (cfg.n_encoder_layers or cfg.n_layers) + 2 * cfg.n_layers
+    if cfg.family == "hybrid":
+        return hybrid.n_sites(cfg)
+    if cfg.family == "ssm":
+        return 0
+    return cfg.n_layers
+
+
+def prefill_once(torch, model, params, batch, max_len, capture=None):
+    """One prefill of ``batch`` (tokens, and frames for whisper) through
+    ``launch.steps.make_prefill_step`` and ``DECODE_AFTER_PREFILL`` decode
+    steps on from its cache through ``make_serve_step``.  ``capture`` (a
+    dict) receives clones of kernel inputs: under ``"ssd_chunk"`` those of
+    the first two SSD chunk calls, under ``"attention"`` those of the first
+    attention call of each shape and mask, with the count of its calls."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_chunk as sc
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import ssm as ssm_mod
 
-    B, S = tokens.shape
-    prefill = make_prefill_step(model, S + DECODE_AFTER_PREFILL)
+    cfg = model.cfg
+    B, S = batch["tokens"].shape
+    prefill = make_prefill_step(model, max_len)
     serve = make_serve_step(model)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    chunk = ssm_mod.ssd_chunk
+    chunk, mha = ssm_mod.ssd_chunk, ops.mha
     if capture is not None:
-        def capturing(*args):
-            if len(capture) < 2:
-                capture.append([a.clone() for a in args])
+        chunks = capture.setdefault("ssd_chunk", [])
+        shapes = capture.setdefault("attention", {})
+
+        def capturing_chunk(*args):
+            if len(chunks) < 2:
+                chunks.append([a.clone() for a in args])
             return chunk(*args)
-        ssm_mod.ssd_chunk = capturing
+
+        def capturing_mha(q, k, v, **kw):
+            key = (tuple(q.shape), tuple(k.shape), kw.get("causal", True),
+                   int(kw.get("window", 0)))
+            if key not in shapes:
+                shapes[key] = {"args": [t.clone() for t in (q, k, v)],
+                               "kw": dict(kw), "calls": 0}
+            shapes[key]["calls"] += 1
+            return mha(q, k, v, **kw)
+
+        ssm_mod.ssd_chunk, ops.mha = capturing_chunk, capturing_mha
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    sc.reset_launch_counts()              # the main path starts here
+    for mod in (sc, fa, md):              # the main path starts here
+        mod.reset_launch_counts()
     try:
         t0 = time.perf_counter()
         start.record()
-        logits, cache = prefill(params, {"tokens": tokens})
+        logits, cache = prefill(params, batch)
         stop.record()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        ssm_mod.ssd_chunk = chunk
-    launches = sc.LAUNCHES["ssd_chunk"]
-    check(tuple(logits.shape) == (B, model.cfg.vocab)
+        ssm_mod.ssd_chunk, ops.mha = chunk, mha
+    launches = {**sc.LAUNCHES, **fa.LAUNCHES, **md.LAUNCHES}
+    check(tuple(logits.shape) == (B, cfg.vocab)
           and bool(torch.isfinite(logits.float()).all()),
-          f"{model.cfg.name} prefill: logits are not finite (B, vocab)")
+          f"{cfg.name} prefill: logits are not finite (B, vocab)")
     nxt = logits.float().argmax(-1).to(torch.int32)[:, None]
     out = [nxt[:, 0]]
     for _ in range(DECODE_AFTER_PREFILL):
         nxt, logits, cache = serve(params, cache, nxt)
         check(bool(torch.isfinite(logits.float()).all()),
-              f"{model.cfg.name}: decode after prefill gave non-finite logits")
+              f"{cfg.name}: decode after prefill gave non-finite logits")
         out.append(nxt[:, 0])
     torch.cuda.synchronize()
-    check(sc.LAUNCHES["ssd_chunk"] == launches,   # ... and ends here
-          "decode after prefill launched the SSD chunk kernel")
+    moe_layers = cfg.n_layers if cfg.family == "moe" else 0
+    check(sc.LAUNCHES["ssd_chunk"] == launches["ssd_chunk"]   # ... and ends
+          and fa.LAUNCHES["flash_attention"] == launches["flash_attention"]
+          and md.LAUNCHES["moe_dispatch"] == launches["moe_dispatch"]
+          + moe_layers * DECODE_AFTER_PREFILL,
+          f"{cfg.name}: decode after prefill launched the SSD chunk or the "
+          f"flash attention kernel, or not one MoE dispatch a layer a step")
     check(int(cache.pos) == S + DECODE_AFTER_PREFILL, "cache.pos is off")
     return {"tokens": torch.stack(out, 1).cpu().tolist(),
             "launches": launches, "wall": wall,
@@ -830,14 +1017,88 @@ def prefill_once(torch, model, params, tokens, capture=None):
             "peak_bytes": torch.cuda.max_memory_allocated()}
 
 
-def phase_prefill(torch, cfg, batch, seed, profile=False):
-    """The SSM-family main path: prefill at full width, 2048 tokens a row
-    and then 1000 (not a multiple of the 256-row chunk: the pad path),
-    each run twice; returns the SSD chunk launches of the first runs and
-    the inputs of the second chunk call of the first (a carried state) for
-    the kernel's timing."""
+def check_prefill_launches(cfg, S, launches, capture=None):
+    """A prefill's launches against what its layers imply: B4 once per
+    attention call, B6 once per SSM layer and chunk, B5 once per MoE
+    layer."""
     import math
 
+    want = {"flash_attention": attention_calls(cfg),
+            "moe_dispatch": cfg.n_layers if cfg.family == "moe" else 0,
+            "ssd_chunk": 0}
+    if cfg.family in ("ssm", "hybrid"):
+        want["ssd_chunk"] = ssm_layers(cfg) * math.ceil(
+            S / min(cfg.ssm_chunk, S))
+    check(launches == want, f"{cfg.name} prefill of {S}: launches "
+          f"{launches} != {want}")
+    if capture is not None:
+        calls = sum(c["calls"] for c in capture["attention"].values())
+        check(calls == want["flash_attention"], f"{cfg.name}: {calls} calls "
+              f"of ops.mha != {want['flash_attention']} B4 launches")
+
+
+def attention_rows(cfg, capture):
+    """(label, (q, k, v), kwargs, calls, (err, share)) of each attention
+    shape the prefill gave B4, as ``phase_kernel_times`` times them: all of
+    them except whisper's decoder calls (its encoder's shape is the large
+    one).  Every shape, these and the others, is held against the plain
+    version in ``phase_prefill``."""
+    rows = []
+    for (qs, ks, causal, window), c in capture["attention"].items():
+        if cfg.family in ("encdec", "audio") and causal:
+            continue                 # the decoder's self attention
+        if cfg.family in ("encdec", "audio") and qs[1] != ks[1]:
+            continue                 # and its cross attention
+        label = cfg.name
+        if cfg.sliding_window:
+            label += " local" if window else " global"
+        if cfg.family in ("encdec", "audio"):
+            label += " encoder"
+        rows.append((label, c["args"], c["kw"], c["calls"], c["held"]))
+    return rows
+
+
+def profile_prefill(torch, model, params, batch, max_len, label):
+    """One prefill alone under ``torch.profiler`` after a warm-up: the
+    card's busy time, its idle share, the kernels that take most of it and
+    the port's own kernels' share."""
+    from torch.profiler import ProfilerActivity, profile as profiler
+
+    from repro_torch.launch.steps import make_prefill_step
+
+    prefill = make_prefill_step(model, max_len)
+    prefill(params, batch)                                 # warm
+    torch.cuda.synchronize()
+    with profiler(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prefill(params, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, n, top, own = device_kernels(prof)
+    B, S = batch["tokens"].shape
+    say("prefill_profile", arch=model.cfg.name, batch=B, seq=S,
+        prompt=label, device_busy_ms=busy_ms, device_launches=n,
+        wall_ms_profiled=wall_ms,
+        device_idle_share=max(0.0, 1 - busy_ms / wall_ms),
+        top_kernels=top, own_kernels=own,
+        note="one prefill alone; its wall time taken under the "
+             "profiler, which slows the host")
+
+
+def phase_prefill(torch, cfg, batch, seqs, seed, frames=0, max_len=None,
+                  profile=False):
+    """A model's prefill at full width: ``batch`` prompts of each length in
+    ``seqs`` (whisper: over ``frames`` random frame embeddings), each run
+    twice and decoding ``DECODE_AFTER_PREFILL`` steps on from a cache
+    ``max_len`` long (default: just long enough); checked for finite
+    logits, for its launches (``check_prefill_launches``) and for identical
+    tokens when repeated, and timed.  The first call of each attention
+    shape and the first two SSD chunk calls of every length are held
+    against the kernels' plain versions on their own inputs.  Returns the
+    launches of the first runs, the inputs of the second SSD chunk call of
+    the first length (a carried state; SSM families) and its attention
+    rows for the kernels' timing."""
     from repro_torch.models import get_model
 
     model = get_model(cfg)
@@ -847,29 +1108,50 @@ def phase_prefill(torch, cfg, batch, seed, profile=False):
     params = model.init(gen, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    launches, captured = 0, []
-    for S in (2048, 1000):
-        tokens = torch.randint(2, cfg.vocab - 1, (batch, S), generator=gen,
-                               device="cuda", dtype=torch.int64).to(torch.int32)
-        capture = [] if S == 2048 else None
-        first = prefill_once(torch, model, params, tokens, capture)
-        chunks = math.ceil(S / min(cfg.ssm_chunk, S))
-        want = ssm_layers(cfg) * chunks
-        check(first["launches"] == want,
-              f"{cfg.name} prefill of {S}: {first['launches']} SSD chunk "
-              f"launches != {ssm_layers(cfg)} layers x {chunks} chunks")
-        again = prefill_once(torch, model, params, tokens)
+    launches, captured, rows, first_data = {}, [], [], None
+    attends = attention_calls(cfg) > 0
+    for S in seqs:
+        data = {"tokens": torch.randint(
+            2, cfg.vocab - 1, (batch, S), generator=gen, device="cuda",
+            dtype=torch.int64).to(torch.int32)}
+        if frames:
+            data["frames"] = torch.randn((batch, frames, cfg.d_model),
+                                         generator=gen, device="cuda")
+        length = max_len or S + DECODE_AFTER_PREFILL
+        capture = {}
+        first = prefill_once(torch, model, params, data, length, capture)
+        check_prefill_launches(cfg, S, first["launches"], capture)
+        again = prefill_once(torch, model, params, data, length)
         check(again["tokens"] == first["tokens"],
               f"{cfg.name} prefill of {S}: the repeat gave other tokens")
-        launches += first["launches"]
-        held = None
-        if capture is not None:       # the kernel on the prefill's own inputs
-            held = max(ssd_held(torch, args, f"{cfg.name} chunk {i}")[1]
-                       for i, args in enumerate(capture))
-            captured = capture[1]
+        for k, n in first["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        held = None                   # the kernels on the prefill's own inputs
+        if capture["ssd_chunk"]:
+            held = max(ssd_held(torch, args, f"{cfg.name} {S} chunk {i}")[1]
+                       for i, args in enumerate(capture["ssd_chunk"]))
+        for (qs, ks, causal, window), c in capture["attention"].items():
+            c["held"] = attention_held(
+                torch, *c["args"], f"{cfg.name} {S} q {qs} k {ks} "
+                f"causal={causal} window={window}", **c["kw"])
+        if first_data is None:
+            first_data = (data, length)
+            if capture["ssd_chunk"]:
+                captured = capture["ssd_chunk"][1]
+            rows = attention_rows(cfg, capture)
         say("prefill", arch=cfg.name, family=cfg.family, layers=cfg.n_layers,
-            d_model=cfg.d_model, dtype="bfloat16", batch=batch, seq=S,
-            chunk=min(cfg.ssm_chunk, S), ssd_launches=first["launches"],
+            d_model=cfg.d_model,
+            heads=[cfg.n_heads, cfg.n_kv_heads] if attends else None,
+            head_dim=cfg.hd if attends else None,
+            dtype="bfloat16", batch=batch, seq=S,
+            frames=frames or None, max_len=length,
+            chunk=min(cfg.ssm_chunk, S) if cfg.ssm_state else None,
+            launches=first["launches"],
+            attention_shapes=[{"q": list(k[0]), "k": list(k[1]),
+                               "causal": k[2], "window": k[3],
+                               "calls": c["calls"],
+                               "held_share_of_max": c["held"][1]}
+                              for k, c in capture["attention"].items()],
             decode_steps=DECODE_AFTER_PREFILL, repeat_identical=True,
             first_tokens=first["tokens"][0],
             wall_seconds=first["wall"], event_ms=first["event_ms"],
@@ -879,33 +1161,13 @@ def phase_prefill(torch, cfg, batch, seed, profile=False):
             peak_memory_bytes=first["peak_bytes"], init_seconds=init_s,
             captured_chunks_share_of_max=held,
             note="event_ms: CUDA events around the prefill on its stream")
+        del capture
     if profile:
-        from torch.profiler import ProfilerActivity, profile as profiler
-
-        from repro_torch.launch.steps import make_prefill_step
-
-        tokens = torch.randint(2, cfg.vocab - 1, (batch, 2048), generator=gen,
-                               device="cuda", dtype=torch.int64).to(torch.int32)
-        prefill = make_prefill_step(model, 2048)
-        prefill(params, {"tokens": tokens})                    # warm
-        torch.cuda.synchronize()
-        with profiler(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            prefill(params, {"tokens": tokens})
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        busy_ms, n, top, own = device_kernels(prof)
-        say("prefill_profile", arch=cfg.name, batch=batch, seq=2048,
-            device_busy_ms=busy_ms, device_launches=n,
-            wall_ms_profiled=wall_ms,
-            device_idle_share=max(0.0, 1 - busy_ms / wall_ms),
-            top_kernels=top, own_kernels=own,
-            note="one prefill alone; its wall time taken under the "
-                 "profiler, which slows the host")
-    del params, model
+        profile_prefill(torch, model, params, *first_data,
+                        f"{seqs[0]} tokens a row")
+    del params, model, first_data
     free_device_memory(torch)
-    return launches, captured
+    return launches, captured, rows
 
 
 def phase_silu_cost(torch, cfg, batch):
@@ -930,13 +1192,16 @@ def phase_silu_cost(torch, cfg, batch):
         return [torch.randn((b, rows, w), generator=gen, device="cuda",
                             dtype=torch.bfloat16) * 4 for w in widths]
 
-    def launches(fn, xs):
+    def launches(fn, xs, reps=10):
+        # ten calls a window: a window of a dozen decode-sized launches
+        # came back from the profiler without its device events
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for x in xs:
-                fn(x)
+            for _ in range(reps):
+                for x in xs:
+                    fn(x)
             torch.cuda.synchronize()
-        return device_kernels(prof)[1]
+        return device_kernels(prof)[1] / reps
 
     out = {}
     for where, b, rows in (("decode", 8, 1), ("prefill", batch, 2048)):
@@ -987,7 +1252,8 @@ def device_kernels(prof):
     own = {k: {"launches": n, "ms": us / 1e3,
                "share_of_busy": us / 1e3 / busy_ms}
            for k, (n, us) in by_name.items()
-           if "bk_" in k or "md_dispatch" in k or "sc_ssd" in k}
+           if "bk_" in k or "md_dispatch" in k or "sc_ssd" in k
+           or "fa_kernel" in k}
     return (busy_ms, sum(n for n, _ in by_name.values()),
             [{"name": k[:80], "launches": n, "ms": us / 1e3}
              for k, (n, us) in top], own)
@@ -1004,7 +1270,7 @@ def resolve_ops(art, T):
     return T * (len(prog.instrs) + 2 * nd + 2 * len(prog.ba_regs))
 
 
-def phase_kernel_times(torch, seed, launches, ssd_args):
+def phase_kernel_times(torch, seed, launches, ssd_args, attn_rows):
     """Each kernel at the shapes the main paths gave it.  B1-B3: an int32
     record table of (8 banks, 128 rows, 8 slots); the tick's gather reads
     8 slots x 4 trailing records, its element scatter writes 8 records,
@@ -1012,11 +1278,17 @@ def phase_kernel_times(torch, seed, launches, ssd_args):
     call, 8 tokens of 2048 bf16 and the zeros row, routed top-8 of 64
     experts into 64 x 8 slots.  B6: the inputs of a 256-row chunk of each
     full-width prefill (``ssd_args``: arch -> the arguments it captured);
-    the first arch's row goes into the kernels line."""
+    the first arch's row goes into the kernels line.  B4: the first
+    attention call of each shape of the full-width prefills, on its own
+    inputs (``attn_rows``: label, (q, k, v), kwargs, calls at that shape,
+    and its error against the plain version from ``phase_prefill``); every
+    one of them goes into the kernels line."""
     import numpy as np
+    import torch.nn.functional as F
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels import banked_gather as bg
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_dispatch as md
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ssd_chunk as sc
@@ -1030,22 +1302,29 @@ def phase_kernel_times(torch, seed, launches, ssd_args):
     rows2d = table.clone().view(-1, 8)    # the library calls' own table
     out, call_ms = [], {}
 
-    def entry(name, kernel, plain, library, err, nbytes, ops):
+    def entry(name, kernel, plain, library, err, nbytes, ops,
+              rate=INT_OPS_PER_S, calls=None, iters=(50, 200)):
         """Times on the card (``library`` None: no PyTorch call computes
-        the function) and the bound; returns the row."""
+        the function) and the bound, ``ops`` at ``rate``; ``calls``: the
+        main path's launches at this shape (default: all of the
+        kernel's), ``iters``: calls timed on the card and with the host;
+        returns the row."""
         by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        by_ops = ops / INT_OPS_PER_S * 1e3
+        by_ops = ops / rate * 1e3
         fns = [f for f in (kernel, plain, library) if f is not None]
         # 50 calls behind a 60 ms stall: even the plain versions' dozen
         # launches per call are all enqueued before the card starts on them
-        on_card = [time_ms(torch, fn, iters=50, stall_ms=60.0)
-                   for fn in fns] + [None]
+        warm = max(2, iters[0] // 5)
+        on_card = [time_ms(torch, fn, iters=iters[0], warmup=warm,
+                           stall_ms=60.0) for fn in fns] + [None]
         call_ms[name] = dict(zip(
             ("call_ms", "plain_call_ms", "library_call_ms"),
-            [time_ms(torch, fn) for fn in fns] + [None]))
+            [time_ms(torch, fn, iters=iters[1], warmup=warm)
+             for fn in fns] + [None]))
         return {
             "name": name, "route": "cuda", "source": SOURCE[name],
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name],
+            "launches": launches[name] if calls is None else calls,
             "max_abs_err": err, "ms": on_card[0], "plain_ms": on_card[1],
             "bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
@@ -1136,9 +1415,45 @@ def phase_kernel_times(torch, seed, launches, ssd_args):
         "batch row; bound_ms_per_head as the kernel forms it, per head")
     out.append({k: ssd_rows[0][k] for k in out[0]})
 
-    for k in out[:-1]:
+    # B4: each attention shape of the prefills, on the prefill's own inputs
+    attn_calls = {}
+    for label, (q, k, v), kw, calls, (err, share) in attn_rows:
+        B, Sq, H, D = q.shape
+        Sk, Hkv = k.shape[1], k.shape[2]
+        causal, window = kw.get("causal", True), int(kw.get("window", 0))
+        nbytes, flops, pairs = attention_work(B, Sq, Sk, H, Hkv, D, causal,
+                                              window, q.element_size())
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        mask = (fa._mask(Sq, Sk, causal, window, None, q.device)
+                if window else None)
+
+        def library(qt=qt, kt=kt, vt=vt, mask=mask, causal=causal,
+                    gqa=H != Hkv):
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=gqa)
+
+        lib_err = max_abs_diff(library().transpose(1, 2),
+                               fa.mha_plain(q, k, v, **kw))
+        row = entry("flash_attention", lambda: fa.attention(q, k, v, **kw),
+                    lambda: fa.mha_plain(q, k, v, **kw), library, err,
+                    nbytes, flops, rate=BF16_FLOPS_PER_S, calls=calls,
+                    iters=(10, 10))
+        attn_calls[label] = call_ms.pop("flash_attention")
+        out.append({**row, "arch": label,
+                    "shape": {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "Hkv": Hkv,
+                              "D": D, "causal": causal, "window": window,
+                              "dtype": str(q.dtype)[6:]},
+                    "share_of_max": share, "bytes": nbytes,
+                    "operations": flops, "unmasked_pairs": pairs,
+                    "library_max_abs_err": lib_err,
+                    "call_ms": attn_calls[label]})
+    call_ms["flash_attention"] = attn_calls
+
+    for k in out[:4]:
         check(k["max_abs_err"] == 0.0, f"{k['name']} differs from its plain "
               f"version at the server's shapes: {k['max_abs_err']}")
+    check(len(out) > 6, "no attention shape reached the kernels line")
     for k in out:
         check(k["launches"] > 0, f"the main path never launched {k['name']}")
     say("kernel_call_times", note="host-inclusive ms per call, timed without "
@@ -1151,12 +1466,41 @@ def phase_kernel_times(torch, seed, launches, ssd_args):
 # ---------------------------------------------------------------------------
 
 
+ROUTE_MARGIN = 1e-3
+ROUTE_DRAWS = 2000
+
+
+def routing_margin(torch, model, params, tokens):
+    """The smallest gap between the ``top_k``-th and the next router
+    probability over every token and layer of the MoE model's forward pass
+    over ``tokens``: below about 1e-3 the card's and the CPU's bf16
+    rounding may send a token to different experts (ROADMAP F9)."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+
+    cfg, gaps = model.cfg, []
+
+    def ffn(lp, h):
+        p = torch.softmax(h.reshape(-1, h.shape[-1]).float()
+                          @ lp["router"].float(), dim=-1)
+        top = p.sort(dim=-1, descending=True).values
+        gaps.append(float((top[:, cfg.top_k - 1] - top[:, cfg.top_k]).min()))
+        return moe.moe_ffn_sorted(cfg, lp, h)[0]
+
+    tfm.forward(cfg, params, tokens, ffn=ffn)
+    return min(gaps)
+
+
 def phase_small_reference(torch, cfg, seed):
     """The reduced model on the card against the same weights on the CPU,
-    within 2e-2 of the largest logit (bf16): a prefill of 20 tokens (two
-    16-row chunks, the second padded: the SSD chunk kernel on the card,
-    its plain version on the CPU) where the family has one, then three
-    decode steps."""
+    within 2e-2 of the largest logit (bf16): a prefill of 20 tokens (the
+    kernels on the card, their plain versions on the CPU: B4 for every
+    attention over the prompt, B6 over two 16-row chunks, the second
+    padded, B5 for every MoE layer; whisper's over 24 frames), then three
+    decode steps, 4 rows.  An MoE model's prompts are drawn until no token
+    sits within ``ROUTE_MARGIN`` of a routing tie, on the CPU (up to
+    ``ROUTE_DRAWS`` draws of about 10 ms each; the reduced olmoe-1b-7b
+    needs 247 at seed 0)."""
     from repro_torch.models import get_model
 
     small = cfg.reduced()
@@ -1170,9 +1514,23 @@ def phase_small_reference(torch, cfg, seed):
                 for k, v in tree.items()}
 
     gpu_params = to_cuda(cpu_params)
-    S = 20 if model.prefill is not None else 0
-    toks = torch.randint(2, small.vocab - 1, (4, S + 3), generator=gen,
-                         dtype=torch.int64).to(torch.int32)
+    S, rows = 20, 4
+    draws, margin = 0, None
+    while True:
+        draws += 1
+        toks = torch.randint(2, small.vocab - 1, (rows, S + 3), generator=gen,
+                             dtype=torch.int64).to(torch.int32)
+        if small.family != "moe":
+            break
+        margin = routing_margin(torch, model, cpu_params, toks)
+        if margin >= ROUTE_MARGIN:
+            break
+        check(draws < ROUTE_DRAWS, f"no prompt without a routing near-tie "
+              f"in {ROUTE_DRAWS} draws")
+    batch = {"tokens": toks[:, :S]}
+    if small.family in ("encdec", "audio"):
+        batch["frames"] = torch.randn((rows, 24, small.d_model),
+                                      generator=gen)
     params = {"cpu": cpu_params, "cuda": gpu_params}
     worst = 0.0
 
@@ -1182,9 +1540,9 @@ def phase_small_reference(torch, cfg, seed):
         for dev in ("cpu", "cuda"):
             out, caches[dev] = make(dev)
             logits[dev] = out.float().cpu()
-        check(tuple(logits["cuda"].shape) == (4, small.vocab)
+        check(tuple(logits["cuda"].shape) == (rows, small.vocab)
               and bool(torch.isfinite(logits["cuda"]).all()),
-              "reduced model: logits are not finite (4, vocab)")
+              "reduced model: logits are not finite (rows, vocab)")
         tol = 2e-2 * float(logits["cpu"].abs().max())
         diff = float((logits["cuda"] - logits["cpu"]).abs().max())
         worst = max(worst, diff / tol)
@@ -1192,16 +1550,13 @@ def phase_small_reference(torch, cfg, seed):
               f"differ by {diff} > {tol} (2e-2 of the largest magnitude)")
 
     caches = {}
-    if S:
-        held("prefill", lambda dev: model.prefill(
-            params[dev], {"tokens": toks[:, :S].to(dev)}, 32))
-    else:
-        caches = {dev: model.init_cache(4, 32, device=dev)
-                  for dev in ("cpu", "cuda")}
+    held("prefill", lambda dev: model.prefill(
+        params[dev], {k: v.to(dev) for k, v in batch.items()}, 32))
     for step in range(3):
         held(f"step {step}", lambda dev: model.decode(
             params[dev], caches[dev], toks[:, S + step:S + step + 1].to(dev)))
-    say("small_reference", arch=small.name, prefill_tokens=S, steps=3,
+    say("small_reference", arch=small.name, batch=rows, prefill_tokens=S,
+        steps=3, prompt_draws=draws, routing_margin=margin,
         worst_share_of_tolerance=worst, tolerance="2e-2 of max |logit|, bf16")
 
 
@@ -1215,7 +1570,8 @@ def main():
                     help="cut the models' depth (default: full)")
     ap.add_argument("--profile", action="store_true",
                     help="also profile a few steady decode ticks of each "
-                         "served model and one prefill of each SSM model")
+                         "served model and one prefill of each SSM model, "
+                         "of qwen2-7b and of gemma3-12b")
     ap.add_argument("--skip-serve", action="store_true",
                     help="toolchain and kernel phases only; no ok line")
     args = ap.parse_args()
@@ -1234,31 +1590,51 @@ def main():
     phase_kernels(torch, args.seed)
     phase_moe_kernel(torch, args.seed)
     phase_ssd_kernel(torch, args.seed)
+    phase_attention_kernel(torch, args.seed)
     if args.skip_serve:
         print(card, flush=True)
         return 0
     archs = [get_arch(a) for a in ("qwen2_7b", "olmoe_1b_7b", "mamba2_370m",
-                                   "zamba2_2_7b")]
+                                   "zamba2_2_7b", "gemma3_12b",
+                                   "whisper_base")]
     if args.layers is not None:
         archs = [dataclasses.replace(c, n_layers=args.layers) for c in archs]
+    qwen2, olmoe, mamba2, zamba2, gemma3, whisper = archs
     launches = {}                 # summed over the main paths' first runs
-    for cfg in archs:
-        for name, n in phase_serve(torch, cfg, args.seed).items():
+
+    def add(counts):
+        for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
-    ssd_args = {}                 # the prefills: mamba2 8 x 2048, zamba2 4 x
-    for cfg, batch in zip(archs[2:], (8, 4)):
-        n, ssd_args[cfg.name] = phase_prefill(torch, cfg, batch, args.seed,
-                                              profile=args.profile)
-        launches["ssd_chunk"] += n
-    kernels = phase_kernel_times(torch, args.seed, launches, ssd_args)
-    del ssd_args
+
+    for cfg in archs[:4]:
+        add(phase_serve(torch, cfg, args.seed))
+    ssd_args, attn_rows = {}, []
+    # the prefills: batch x tokens (whisper: over 1500 frames, a cache of
+    # 448, its decoder's context); the SSM families also at 1000 tokens,
+    # not a multiple of their 256-row chunk
+    for cfg, batch, seqs, kw in (
+            (mamba2, 8, (2048, 1000), {"profile": args.profile}),
+            (zamba2, 4, (2048, 1000), {"profile": args.profile}),
+            (qwen2, 4, (2048,), {"profile": args.profile}),
+            (gemma3, 2, (4096,), {"profile": args.profile}),
+            (olmoe, 4, (2048,), {}),
+            (whisper, 8, (64,), {"frames": 1500, "max_len": 448})):
+        n, chunk_args, rows = phase_prefill(torch, cfg, batch, seqs,
+                                            args.seed, **kw)
+        add(n)
+        if chunk_args:
+            ssd_args[cfg.name] = chunk_args
+        attn_rows += rows
+    kernels = phase_kernel_times(torch, args.seed, launches, ssd_args,
+                                 attn_rows)
+    del ssd_args, attn_rows
     free_device_memory(torch)
     for cfg in archs:
         phase_small_reference(torch, cfg, args.seed)
     if args.profile:
-        for cfg in archs:
+        for cfg in archs[:4]:
             phase_profile(torch, cfg, args.seed)
-        for cfg, batch in zip(archs[2:], (8, 4)):
+        for cfg, batch in ((mamba2, 8), (zamba2, 4)):
             phase_silu_cost(torch, cfg, batch)
     for banned in ("jax", "repro"):
         check(banned not in sys.modules, f"{banned} was imported")

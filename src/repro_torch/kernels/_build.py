@@ -25,7 +25,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 SOURCES = {"banked": "banked.cu", "moe_dispatch": "moe_dispatch.cu",
-           "ssd_chunk": "ssd_chunk.cu"}
+           "ssd_chunk": "ssd_chunk.cu",
+           "flash_attention": "flash_attention.cu"}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 build_seconds: Dict[str, float] = {}    # name -> wall time of its last build

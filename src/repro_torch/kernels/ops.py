@@ -4,9 +4,10 @@
 compiled banking artifact, which launches the CUDA kernels of
 ``kernels/banked_gather.py`` for a table on the card and their plain torch
 versions for a table on the CPU.  ``dispatch`` fills the MoE expert buffer
-through ``kernels/moe_dispatch.py`` the same way, and ``ssd`` runs one
-Mamba2 SSD chunk through ``kernels/ssd_chunk.py``; ``moe_combine`` is plain
-torch.
+through ``kernels/moe_dispatch.py`` the same way, ``ssd`` runs one
+Mamba2 SSD chunk through ``kernels/ssd_chunk.py``, and ``mha`` attends over
+a whole prompt through ``kernels/flash_attention.py``; ``moe_combine`` is
+plain torch.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import torch.nn.functional as F
 
 from ..core.artifact import as_compiled
+from . import flash_attention as _fa
 from . import moe_dispatch as _md
 from .moe_dispatch import moe_combine
 from .ssd_chunk import ssd_chunk
@@ -67,5 +69,16 @@ def ssd(x, dt, bm, cm, cum, s_prev):
     return ssd_chunk(x, dt, bm, cm, cum, s_prev)
 
 
-__all__ = ["dispatch", "gather_banked", "moe_combine", "pack_banked",
+def mha(q, k, v, *, causal=True, window=0, kv_len=None):
+    """Multi-head attention through the flash attention kernel: q ``(B, Sq,
+    H, Dh)``, k and v ``(B, Sk, Hkv, Dh)``, float32 or bfloat16.  Grouped
+    query heads read their kv head by index (``h // (H // Hkv)``); k and v
+    are neither repeated nor transposed.  One launch on a CUDA tensor.
+    Positions count from 0 for q and k alike; rows that would see no key
+    are rejected (see ``kernels/flash_attention.py``)."""
+    return _fa.attention(q, k, v, causal=causal, window=window,
+                         kv_len=kv_len)
+
+
+__all__ = ["dispatch", "gather_banked", "mha", "moe_combine", "pack_banked",
            "scatter_banked", "ssd"]

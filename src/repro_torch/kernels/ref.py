@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+from .flash_attention import flash_attention_plain as mha_reference
 from .ssd_chunk import ssd_chunk_plain as ssd_chunk_reference  # direct form
 
 
@@ -15,5 +16,5 @@ def moe_dispatch_reference(x_padded, slot_token):
     return x_padded[slot_token.long()]
 
 
-__all__ = ["banked_gather_reference", "moe_dispatch_reference",
-           "ssd_chunk_reference"]
+__all__ = ["banked_gather_reference", "mha_reference",
+           "moe_dispatch_reference", "ssd_chunk_reference"]

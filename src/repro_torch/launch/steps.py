@@ -10,17 +10,19 @@ from ..models import Model
 def make_prefill_step(model: Model, max_len: int):
     """``prefill_step(params, batch) -> (logits, cache)``: the whole prompt
     ``batch["tokens"]`` (B, S) in one pass, with a cache ``max_len`` long
-    to decode on from.  Tokens given as numpy or on another device go to
-    the device of the parameters."""
+    to decode on from; the encoder-decoder family also takes
+    ``batch["frames"]`` (B, S_enc, D).  Tokens and frames given as numpy or
+    on another device go to the device of the parameters."""
     if model.prefill is None:
         raise NotImplementedError(
             f"{model.cfg.name} ({model.cfg.family}) has no prefill in "
-            f"repro_torch yet; its server prefills through decode")
+            f"repro_torch yet")
 
     def prefill_step(params, batch):
-        tokens = torch.as_tensor(batch["tokens"],
-                                 device=params["embed"].device)
-        return model.prefill(params, {**batch, "tokens": tokens}, max_len)
+        device = params["embed"].device
+        moved = {k: torch.as_tensor(batch[k], device=device)
+                 for k in ("tokens", "frames") if k in batch}
+        return model.prefill(params, {**batch, **moved}, max_len)
 
     return prefill_step
 

@@ -7,14 +7,14 @@
 * ``decode(params, cache, tokens)``          -> (logits, cache)
 * ``init_cache(batch, max_len, device=...)`` -> cache
 
-This package holds the decode paths of the dense transformer (``dense``
-and ``vlm`` -- chameleon: its VQ image tokens live in the shared
-vocabulary, frontend stubbed to token ids) and of the MoE transformer
-(``moe``, expert dispatch chosen by ``moe_impl``), and the prefill and
-decode paths of the Mamba2 SSM (``ssm``) and of the Zamba2 hybrid
-(``hybrid``).  ``loss`` is ``None`` until the training side is ported, and
-so is the dense and MoE families' ``prefill``; the encoder-decoder family
-raises ``NotImplementedError``.
+Every family has its prefill and decode paths here: the dense transformer
+(``dense`` and ``vlm`` -- chameleon: its VQ image tokens live in the shared
+vocabulary, frontend stubbed to token ids), the MoE transformer (``moe``,
+expert dispatch chosen by ``moe_impl``), the Mamba2 SSM (``ssm``), the
+Zamba2 hybrid (``hybrid``) and the Whisper encoder-decoder (``encdec`` /
+``audio``: its prefill takes ``batch["frames"]`` beside the tokens, and its
+``init_cache`` is ``None``, since the cross K/V come from the frames at
+prefill).  ``loss`` is ``None`` until the training side is ported.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ from functools import partial
 from typing import Any, Callable, Dict, Optional
 
 from ..configs.base import ArchConfig
-from . import hybrid, moe, ssm
+from . import encdec, hybrid, moe, ssm
 from . import transformer as tfm
 
 Params = Dict[str, Any]
@@ -37,7 +37,7 @@ class Model:
     loss: Optional[Callable]        # (params, batch) -> scalar
     prefill: Optional[Callable]     # (params, batch, max_len) -> (logits, cache)
     decode: Callable                # (params, cache, tokens) -> (logits, cache)
-    init_cache: Callable            # (batch, max_len) -> cache
+    init_cache: Optional[Callable]  # (batch, max_len) -> cache; encdec: None
 
 
 def get_model(cfg: ArchConfig, moe_impl: str = "sorted") -> Model:
@@ -47,7 +47,8 @@ def get_model(cfg: ArchConfig, moe_impl: str = "sorted") -> Model:
             cfg=cfg,
             init=partial(tfm.init_dense_params, cfg),
             loss=None,
-            prefill=None,
+            prefill=lambda p, batch, max_len: tfm.prefill(
+                cfg, p, batch["tokens"], max_len),
             decode=partial(tfm.decode_step, cfg),
             init_cache=partial(tfm.init_cache, cfg),
         )
@@ -59,7 +60,8 @@ def get_model(cfg: ArchConfig, moe_impl: str = "sorted") -> Model:
             cfg=cfg,
             init=partial(moe.init_moe_params, cfg),
             loss=None,
-            prefill=None,
+            prefill=lambda p, batch, max_len: moe.prefill(
+                cfg, p, batch["tokens"], max_len, impl=moe_impl),
             decode=partial(moe.decode_step, cfg, impl=moe_impl),
             init_cache=partial(tfm.init_cache, cfg),
         )
@@ -87,7 +89,13 @@ def get_model(cfg: ArchConfig, moe_impl: str = "sorted") -> Model:
             init_cache=partial(hybrid.init_cache, cfg),
         )
     if fam in ("encdec", "audio"):
-        raise NotImplementedError(
-            f"model family {fam!r} ({cfg.name}) is not in repro_torch yet; "
-            f"the dense/vlm, moe, ssm and hybrid families are")
+        return Model(
+            cfg=cfg,
+            init=partial(encdec.init_params, cfg),
+            loss=None,
+            prefill=lambda p, batch, max_len: encdec.prefill(
+                cfg, p, batch["frames"], batch["tokens"], max_len),
+            decode=partial(encdec.decode_step, cfg),
+            init_cache=None,      # the cross K/V come from the frames
+        )
     raise ValueError(f"unknown family {fam}")

@@ -5,8 +5,11 @@ re-applied at several depths (arXiv:2411.15242).  The SSM layers are stacked
 ``(G, per, ...)``: ``G = n_layers // hybrid_period`` groups (sites) of
 ``per`` layers; after each group the shared block (one parameter set,
 ``transformer.dense_layer`` with a global window) runs with a KV cache of
-its own per site.  Where the JAX package scans over groups and layers, two
-plain loops run here.  The training forward and the loss are not here yet.
+its own per site.  In a prefill the shared block attends over the prompt
+through the flash attention kernel (one launch a site); in a decode step
+through the eager attention against its cache.  Where the JAX package scans
+over groups and layers, two plain loops run here.  The training forward and
+the loss are not here yet.
 """
 
 from __future__ import annotations
@@ -123,7 +126,8 @@ def prefill(cfg: ArchConfig, params: Params, tokens: Tensor, max_len: int
     that decoding goes on from, its KV buffers ``max_len`` long (zeros past
     ``S``).  Every SSM block runs the chunked scan (the ``ssd_chunk``
     kernel ``ceil(S / ssm_chunk)`` times per layer); the shared block
-    attends over the prompt without a cache."""
+    attends over the prompt without a cache, through the flash attention
+    kernel, once per site."""
     B, S = tokens.shape
     if S > max_len:
         raise ValueError(f"a prompt of {S} tokens does not fit a cache of "

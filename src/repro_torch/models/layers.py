@@ -1,13 +1,19 @@
-"""Shared model layers: norms, RoPE, chunked-online-softmax attention, MLPs.
+"""Shared model layers: norms, RoPE, attention, MLPs.
 
-Attention is a Python loop over KV blocks with online softmax (the
-flash-attention algorithm in plain torch).  It never materializes the
-(S, S) score matrix and supports causal + sliding-window masks computed
-from positions per block.  Every function keeps the JAX package's dtypes
-op by op -- norms, RoPE, attention scores, softmax and ``p @ v`` compute in
-float32 and cast back; the projections are products in the parameters'
-dtype -- so the two packages agree within the rounding of that dtype.
-Matrix products go to ``torch.matmul`` / ``torch.einsum``.
+Attention over a whole prompt -- the self attention of a prefill or a
+forward pass, whisper's encoder and its cross attention -- goes to the
+flash attention kernel through ``kernels.ops.mha`` (called by the models,
+not from here).  What stays here is the attention of a decode step against
+a cache (a query offset and a valid-prefix ``kv_len``): ``chunked_attention``
+is a Python loop over KV blocks with online softmax that never materializes
+the (S, S) score matrix, with causal + sliding-window masks computed from
+positions per block, and ``decode_attention`` one grouped einsum for a few
+query rows.  Every function keeps the JAX package's dtypes op by op --
+norms, RoPE, attention scores, softmax and ``p @ v`` compute in float32 and
+cast back; the projections are products in the parameters' dtype; the gelu
+is written out op by op in the working dtype, as XLA computes it on the
+CPU -- so the two packages agree within the rounding of that dtype.  Matrix
+products go to ``torch.matmul`` / ``torch.einsum``.
 """
 
 from __future__ import annotations
@@ -38,6 +44,23 @@ def swiglu(x: Tensor, w_gate: Tensor, w_up: Tensor, w_down: Tensor) -> Tensor:
     u = torch.matmul(x, w_up)
     # silu as x * sigmoid(x), each op rounded in the working dtype
     return torch.matmul((g * torch.sigmoid(g)) * u, w_down)
+
+
+def gelu_tanh(x: Tensor) -> Tensor:
+    """``jax.nn.gelu``'s default (tanh) form, ``x * 0.5 (1 + tanh(c (x +
+    0.044715 x^3)))``, written out op by op in ``x``'s dtype with its two
+    constants cast to that dtype: in bfloat16, XLA on the CPU rounds every
+    step so, and ``F.gelu(approximate="tanh")``, which rounds once, differs
+    from it by one ulp in four of ten elements."""
+    c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype, device=x.device)
+    k = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
+
+
+def gelu_mlp(x: Tensor, w_up: Tensor, b_up: Tensor, w_down: Tensor,
+             b_down: Tensor) -> Tensor:
+    h = gelu_tanh(torch.matmul(x, w_up) + b_up)
+    return torch.matmul(h, w_down) + b_down
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Mixture-of-Experts transformer (olmoe, llama4-maverick): the decode path.
+"""Mixture-of-Experts transformer (olmoe, llama4-maverick): forward, prefill
+and decode.
 
 Expert dispatch is a banking problem: experts are banks, the router emits
 the access pattern, capacity is the port count, and the token -> expert
@@ -18,9 +19,11 @@ Two implementations, as in the JAX package:
 The routing and the combine are written without a host synchronization:
 no boolean-mask indexing, no ``nonzero``, no ``.item()``.  Layer
 parameters are stacked on a leading ``L`` axis as in the JAX package, so
-weights map one to one.  The training forward, the loss and ``prefill``
-are not here yet; neither is the expert-parallel ``a2a`` dispatch, which
-needs a device mesh.
+weights map one to one.  ``forward``, ``prefill`` and ``decode_step`` are
+the dense transformer's passes with the expert layer as every layer's
+feed-forward; in a prefill the ``sorted`` path fills its expert buffer at
+``T = B * S`` tokens.  The loss is not here yet; neither is the
+expert-parallel ``a2a`` dispatch, which needs a device mesh.
 """
 
 from __future__ import annotations
@@ -173,8 +176,43 @@ MOE_IMPLS = {"dense": moe_ffn_dense, "sorted": moe_ffn_sorted,
 
 
 # ---------------------------------------------------------------------------
-# Serving: single-token decode
+# Whole-sequence passes and single-token decode
 # ---------------------------------------------------------------------------
+
+
+def _ffn(cfg: ArchConfig, impl: str, aux=None):
+    """Every layer's feed-forward: the routed experts, plus the dense FFN
+    where the config has a shared expert.  ``aux`` (a list) receives each
+    layer's load-balancing loss."""
+    moe_fn = MOE_IMPLS[impl]
+
+    def ffn(lp, h):
+        delta, aux_l = moe_fn(cfg, lp, h)
+        if aux is not None:
+            aux.append(aux_l)
+        if cfg.shared_expert:
+            delta = delta + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+        return delta
+
+    return ffn
+
+
+@torch.no_grad()
+def forward(cfg: ArchConfig, params: Params, tokens: Tensor,
+            impl: str = "sorted") -> Tuple[Tensor, Tensor]:
+    """tokens (B, S) -> (final hidden states (B, S, D), the load-balancing
+    loss averaged over the layers)."""
+    aux = []
+    h = tfm.forward(cfg, params, tokens, ffn=_ffn(cfg, impl, aux))
+    return h, sum(aux) / cfg.n_layers
+
+
+@torch.no_grad()
+def prefill(cfg: ArchConfig, params: Params, tokens: Tensor, max_len: int,
+            impl: str = "sorted") -> Tuple[Tensor, tfm.KVCache]:
+    """``transformer.prefill`` with the expert layer as the feed-forward:
+    last-position logits and a cache ``max_len`` long."""
+    return tfm.prefill(cfg, params, tokens, max_len, ffn=_ffn(cfg, impl))
 
 
 @torch.no_grad()
@@ -185,13 +223,5 @@ def decode_step(cfg: ArchConfig, params: Params, cache: tfm.KVCache,
     (``transformer.decode_step``, cache updated in place) with the routed
     experts -- plus the dense FFN where the config has a shared expert --
     as every layer's feed-forward."""
-    moe_fn = MOE_IMPLS[impl]
-
-    def ffn(lp, h):
-        delta, _ = moe_fn(cfg, lp, h)
-        if cfg.shared_expert:
-            delta = delta + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
-        return delta
-
     return tfm.decode_step(cfg, params, cache, tokens, block_k=block_k,
-                           ffn=ffn)
+                           ffn=_ffn(cfg, impl))

@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM (dense + GQA): the decode path.
+"""Decoder-only transformer LM (dense + GQA): forward, prefill and decode.
 
 Covers gemma3 (5:1 local:global sliding window), deepseek/qwen2/internlm2
 (plain GQA; qwen2 adds QKV bias), and chameleon (early-fusion VLM: the VQ
@@ -6,11 +6,15 @@ image tokens share the text vocabulary, frontend stubbed to token ids).
 
 Layer parameters are stacked on a leading L axis, as in the JAX package, so
 weights map one to one; the layers are consumed by a Python loop over that
-axis.  This module holds parameter init, the layer, the KV cache and
-``decode_step`` -- what the server runs (it prefills through ``decode``
-too); ``models/moe.py`` runs the same step with its expert layer as the
-feed-forward.  The training forward, ``prefill``, the loss and the
-grouped / int8 cache variants are not here yet.
+axis.  This module holds parameter init, the layer, the KV cache,
+``forward`` (final hidden states), ``prefill`` (a whole prompt into a cache)
+and ``decode_step`` -- what the server runs (it prefills through ``decode``);
+``models/moe.py`` runs the same passes with its expert layer as the
+feed-forward.  The route of attention is fixed by the call: a layer without
+a cache (forward, prefill, the hybrid's shared block) attends over the
+prompt through the flash attention kernel (``kernels.ops.mha``), a layer
+with one (decode) through the eager ``chunked_attention``.  The loss and
+the grouped / int8 cache variants are not here yet.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
+from ..kernels import ops
 from .layers import apply_rope, chunked_attention, dense_init, rms_norm, swiglu
 
 Tensor = torch.Tensor
@@ -104,19 +109,33 @@ def _positions(S: int, offset: int, device) -> Tensor:
     return torch.arange(S, device=device) + offset
 
 
-def _attn(cfg: ArchConfig, lp, x, *, k_full, v_full, window, q_offset,
-          kv_len, block_k=1024):
-    B, S, D = x.shape
-    H, Dh = cfg.n_heads, cfg.hd
+def _project_q(cfg, lp, x, q_offset):
+    B, S, _ = x.shape
     q = torch.matmul(x, lp["wq"])
     if "bq" in lp:
         q = q + lp["bq"]
-    q = q.reshape(B, S, H, Dh)
-    q = apply_rope(q, _positions(S, q_offset, x.device), cfg.rope_theta)
+    q = q.reshape(B, S, cfg.n_heads, cfg.hd)
+    return apply_rope(q, _positions(S, q_offset, x.device), cfg.rope_theta)
+
+
+def _attn(cfg: ArchConfig, lp, x, *, k_full, v_full, window, q_offset,
+          kv_len, block_k=1024):
+    """Attention of one layer's queries at ``q_offset`` against a cache
+    whose first ``kv_len`` rows are valid: the eager ``chunked_attention``."""
+    B, S, _ = x.shape
     out = chunked_attention(
-        q, k_full, v_full, causal=True, window=window,
-        q_offset=q_offset, kv_len=kv_len, block_k=block_k)
-    return torch.matmul(out.reshape(B, S, H * Dh), lp["wo"])
+        _project_q(cfg, lp, x, q_offset), k_full, v_full, causal=True,
+        window=window, q_offset=q_offset, kv_len=kv_len, block_k=block_k)
+    return torch.matmul(out.reshape(B, S, -1), lp["wo"])
+
+
+def _attn_prompt(cfg: ArchConfig, lp, x, k, v, window):
+    """Attention of one layer over the prompt itself, positions from 0: the
+    flash attention kernel."""
+    B, S, _ = x.shape
+    out = ops.mha(_project_q(cfg, lp, x, 0), k, v, causal=True,
+                  window=int(window))
+    return torch.matmul(out.reshape(B, S, -1), lp["wo"])
 
 
 def _project_kv(cfg, lp, x, q_offset):
@@ -136,7 +155,10 @@ def dense_layer(cfg: ArchConfig, lp, x, window, *, cache_kv=None, pos=0,
                 block_k=1024, ffn=None):
     """One transformer block.  cache_kv=(k,v) full-length buffers for decode,
     **written in place** at ``pos``; otherwise self-attention over the
-    current sequence.  ``ffn(lp, h)`` overrides the feed-forward.
+    current sequence through the flash attention kernel, which counts
+    positions from 0, so ``pos`` must be 0 then (it is in every caller of
+    the JAX package: forward, prefill, the hybrid's shared block).
+    ``ffn(lp, h)`` overrides the feed-forward.
 
     A write that would run past the end of the buffer is clamped so that it
     fits (for one token: the last row is overwritten) while RoPE and the
@@ -144,9 +166,11 @@ def dense_layer(cfg: ArchConfig, lp, x, window, *, cache_kv=None, pos=0,
     ``dynamic_update_slice`` does."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if cache_kv is None:
-        k, v = _project_kv(cfg, lp, h, pos)
-        attn = _attn(cfg, lp, h, k_full=k, v_full=v, window=window,
-                     q_offset=pos, kv_len=None, block_k=block_k)
+        if int(pos) != 0:
+            raise ValueError(f"a layer without a cache attends over the "
+                             f"sequence from position 0, got pos={pos}")
+        k, v = _project_kv(cfg, lp, h, 0)
+        attn = _attn_prompt(cfg, lp, h, k, v, window)
         new_kv = (k, v)
     else:
         k_new, v_new = _project_kv(cfg, lp, h, pos)
@@ -174,6 +198,30 @@ def logits_fn(cfg: ArchConfig, params: Params, h: Tensor) -> Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Whole-sequence passes: forward and prefill
+# ---------------------------------------------------------------------------
+
+
+def _layer_params(params: Params, i: int) -> Params:
+    return {name: w[i] for name, w in params["layers"].items()}
+
+
+@torch.no_grad()
+def forward(cfg: ArchConfig, params: Params, tokens: Tensor, ffn=None
+            ) -> Tensor:
+    """tokens (B, S) -> final hidden states (B, S, D), bfloat16 residual
+    stream; every layer attends over the sequence through the flash
+    attention kernel.  ``ffn(lp, h)`` overrides every layer's feed-forward
+    (the MoE family).  No gradients: the kernel has no backward yet."""
+    x = params["embed"].to(torch.bfloat16)[tokens]
+    windows = layer_windows(cfg)
+    for i in range(cfg.n_layers):
+        x, _ = dense_layer(cfg, _layer_params(params, i), x, int(windows[i]),
+                           ffn=ffn)
+    return rms_norm(x, params["ln_f"], cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
 # Serving: single-token decode with a fixed-capacity KV cache
 # ---------------------------------------------------------------------------
 
@@ -193,6 +241,31 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 
 @torch.no_grad()
+def prefill(cfg: ArchConfig, params: Params, tokens: Tensor, max_len: int,
+            ffn=None) -> Tuple[Tensor, KVCache]:
+    """tokens (B, S) -> logits of the last position (B, V) and the cache
+    that decoding goes on from: ``max_len`` long, the prompt's K/V in its
+    first ``S`` rows, zeros past them, ``pos = S``.  Each layer attends over
+    the prompt through the flash attention kernel (one launch a layer);
+    ``ffn`` as in :func:`forward`."""
+    B, S = tokens.shape
+    if S > max_len:
+        raise ValueError(f"a prompt of {S} tokens does not fit a cache of "
+                         f"max_len {max_len}")
+    x = params["embed"].to(torch.bfloat16)[tokens]
+    windows = layer_windows(cfg)
+    cache = init_cache(cfg, B, max_len, device=x.device)
+    for i in range(cfg.n_layers):
+        x, (k, v) = dense_layer(cfg, _layer_params(params, i), x,
+                                int(windows[i]), ffn=ffn)
+        cache.k[i, :, :S] = k
+        cache.v[i, :, :S] = v
+    h = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    logits = logits_fn(cfg, params, h[:, -1:])[:, 0]
+    return logits, KVCache(cache.k, cache.v, S)
+
+
+@torch.no_grad()
 def decode_step(cfg: ArchConfig, params: Params, cache: KVCache,
                 tokens: Tensor, block_k: int = 1024, ffn=None
                 ) -> Tuple[Tensor, KVCache]:
@@ -208,11 +281,9 @@ def decode_step(cfg: ArchConfig, params: Params, cache: KVCache,
     """
     x = params["embed"].to(torch.bfloat16)[tokens]
     windows = layer_windows(cfg)
-    lp = params["layers"]
     pos = int(cache.pos)
     for i in range(cfg.n_layers):
-        lp_i = {name: w[i] for name, w in lp.items()}
-        x, _ = dense_layer(cfg, lp_i, x, int(windows[i]),
+        x, _ = dense_layer(cfg, _layer_params(params, i), x, int(windows[i]),
                            cache_kv=(cache.k[i], cache.v[i]), pos=pos,
                            block_k=block_k, ffn=ffn)
     h = rms_norm(x, params["ln_f"], cfg.norm_eps)

@@ -14,6 +14,7 @@ import torch
 
 import repro_torch.core as port_core
 from repro_torch.kernels import banked_gather as bg
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import moe_dispatch as md
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_chunk as sc
@@ -111,3 +112,32 @@ def test_ssd_chunk_equals_its_plain_version_on_the_card(cuda, Q, P, N):
         tol = 1e-4 * float(want.abs().max())
         assert float((got - want).abs().max()) <= tol
     assert torch.equal(ops.ssd(**args)[0], y)          # deterministic
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 32), (False, 0)],
+                         ids=["causal", "window", "full"])
+@pytest.mark.parametrize("D", [80, 128, 240])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_equals_its_plain_version_on_the_card(
+        cuda, dtype, D, causal, window):
+    """Within 2e-5 (float32) or 2e-2 (bfloat16) of the largest magnitude of
+    the plain output, which runs in true float32 (``allow_tf32`` off, the
+    default); 7 query heads over one kv head, ragged 100-row tiles."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rng = np.random.default_rng(D)
+    B, S, Hkv, rep = 2, 100, 1, 7
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                ).to(device=cuda, dtype=dtype)
+               for shape in ((B, S, Hkv * rep, D), (B, S, Hkv, D),
+                             (B, S, Hkv, D)))
+    before = fa.LAUNCHES["flash_attention"]
+    got = ops.mha(q, k, v, causal=causal, window=window)
+    want = fa.mha_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and bool(torch.isfinite(got.float()).all())
+    tol = (2e-5 if dtype == torch.float32 else 2e-2) * max(
+        1.0, float(want.float().abs().max()))
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    assert torch.equal(ops.mha(q, k, v, causal=causal, window=window), got)

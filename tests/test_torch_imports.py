@@ -126,6 +126,7 @@ def test_a_cuda_table_never_reaches_the_plain_version(monkeypatch):
         pytest.skip("needs a machine without a CUDA toolchain")
     from repro_torch.core import MemorySpec, compile_trivial
     from repro_torch.kernels import banked_gather as bg
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_dispatch as md
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_chunk as sc
@@ -141,13 +142,16 @@ def test_a_cuda_table_never_reaches_the_plain_version(monkeypatch):
                        (bg, "banked_scatter_plain"),
                        (bg, "banked_scatter_elems_plain"),
                        (md, "moe_dispatch_plain"),
-                 (sc, "ssd_chunk_plain")):
+                       (sc, "ssd_chunk_plain"), (fa, "mha_plain"),
+                       (fa, "flash_attention_plain")):
         monkeypatch.setattr(mod, plain, lambda *a, **k: pytest.fail(
             "plain version reached for a CUDA table"))
     idx = torch.zeros(1, dtype=torch.int32)
     monkeypatch.setattr(bg, "as_index", lambda *a, **k: idx)
     monkeypatch.setattr(bg, "_as_values", lambda v, *a, **k: v)
     tokens = torch.zeros((3, 2)).as_subclass(OnCard)
+    heads = [torch.zeros(s).as_subclass(OnCard) for s in
+             ((1, 4, 2, 8), (1, 4, 1, 8), (1, 4, 1, 8))]
     chunk = [torch.zeros(s).as_subclass(OnCard) for s in
              ((1, 2, 4, 8), (1, 2, 4), (1, 4, 16), (1, 4, 16), (1, 2, 4),
               (1, 2, 8, 16))]
@@ -158,11 +162,14 @@ def test_a_cuda_table_never_reaches_the_plain_version(monkeypatch):
                  lambda: md.moe_dispatch(tokens, idx),
                  lambda: ops.dispatch(tokens, idx),
                  lambda: sc.ssd_chunk(*chunk),
-                 lambda: ops.ssd(*chunk)):
+                 lambda: ops.ssd(*chunk),
+                 lambda: ops.mha(*heads),
+                 lambda: fa.flash_attention(*(t[:, :, 0] for t in heads))):
         with pytest.raises((RuntimeError, OSError)):
             call()
     assert sum(bg.LAUNCHES.values()) == 0 and md.LAUNCHES["moe_dispatch"] == 0
     assert sc.LAUNCHES["ssd_chunk"] == 0
+    assert fa.LAUNCHES["flash_attention"] == 0
 
 
 @pytest.mark.parametrize("where", ["checkout", "alone"])

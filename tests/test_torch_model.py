@@ -189,9 +189,25 @@ def test_params_from_numpy_is_exact_for_bfloat16():
 
 @pytest.mark.parametrize("arch", ["whisper_base"])
 def test_families_not_ported_yet_say_so(arch):
-    cfg = get_arch(arch)
-    with pytest.raises(NotImplementedError, match=cfg.family):
-        get_model(cfg)
+    """No family is left unported: whisper, the last one, builds a reduced
+    prefill over frames and tokens and decodes on from its cache."""
+    cfg = get_arch(arch).reduced()
+    model = get_model(cfg)
+    assert model.cfg.family == "encdec" and model.init_cache is None
+    params = model.init(torch.Generator(device="cpu").manual_seed(0),
+                        device="cpu")
+    frames = torch.randn((2, 12, cfg.d_model),
+                         generator=torch.Generator().manual_seed(1))
+    logits, cache = model.prefill(
+        params, {"frames": frames,
+                 "tokens": torch.full((2, 5), 3, dtype=torch.int32)}, 8)
+    assert tuple(logits.shape) == (2, cfg.vocab) and cache.pos == 5
+    assert tuple(cache.k_cross.shape) == (cfg.n_layers, 2, 12,
+                                          cfg.n_kv_heads, cfg.hd)
+    logits, cache = model.decode(params, cache,
+                                 torch.full((2, 1), 3, dtype=torch.int32))
+    assert tuple(logits.shape) == (2, cfg.vocab) and cache.pos == 6
+    assert bool(torch.isfinite(logits.float()).all())
 
 
 @pytest.mark.parametrize("arch", ["mamba2_370m", "zamba2_2_7b"])
@@ -280,7 +296,10 @@ def test_decode_past_max_len_clamps_the_write_like_the_reference():
 
 @pytest.mark.parametrize("ffn", [None, "override"])
 def test_dense_layer_without_a_cache_matches_reference(ffn):
-    """The self-attention form of the layer (no cache), float32 weights."""
+    """The self-attention form of the layer (no cache), float32 weights.
+    It attends from position 0 (the flash attention kernel has no query
+    offset), as every caller of the JAX package's form does; another
+    ``pos`` is refused."""
     cfg, ref_cfg = get_arch("qwen2_7b").reduced(), \
         ref_get_arch("qwen2_7b").reduced()
     ref_params = RT.init_dense_params(ref_cfg, jax.random.PRNGKey(2),
@@ -292,11 +311,13 @@ def test_dense_layer_without_a_cache_matches_reference(ffn):
     x = f32(_rng(6), 2, 5, cfg.d_model)
     kw = {} if ffn is None else {"ffn": lambda lp_, h: h * 0.5}
     want, (wk, wv) = jax.jit(lambda lp_, x_: RT.dense_layer(
-        ref_cfg, lp_, x_, 3, pos=2, **kw))(lp_ref, jnp.asarray(x))
-    got, (gk, gv) = PT.dense_layer(cfg, lp, torch.from_numpy(x), 3, pos=2,
+        ref_cfg, lp_, x_, 3, pos=0, **kw))(lp_ref, jnp.asarray(x))
+    got, (gk, gv) = PT.dense_layer(cfg, lp, torch.from_numpy(x), 3, pos=0,
                                    **kw)
     assert_same(want, got, tol=FP32_TOL)
     assert_same((wk, wv), (gk, gv), tol=FP32_TOL)
+    with pytest.raises(ValueError, match="position 0"):
+        PT.dense_layer(cfg, lp, torch.from_numpy(x), 3, pos=2, **kw)
 
 
 def test_decode_updates_the_cache_in_place():
