@@ -17,10 +17,12 @@ Run from the root of a checkout, with no arguments, it
    magnitude of the plain output (float32 sums in another order), over
    chunk lengths 1 to 256, the (P, N) of every config, a carried state,
    dt near 0 and dt large; the flash attention within 2e-5 (float32) or
-   2e-2 (bfloat16) of the largest magnitude, over head sizes 64, 80, 128
-   and 240, causal and not, windows of 32 and 1024, GQA groups of 1, 2 and
-   7, 1 to 2048 rows, a cross attention of 64 rows over 1500 keys and a
-   ``kv_len`` below the keys;
+   2e-2 (bfloat16) of the largest magnitude, over head sizes 64, 72, 80,
+   128 and 240, causal and not, windows of 32 and 1024, GQA groups of 1, 2
+   and 7, 1 to 2048 rows, a cross attention of 64 rows over 1500 keys, a
+   ``kv_len`` below the keys and a q at an odd offset (D 72 and the offset
+   view go through the bf16 kernel's aligned copy, which is counted), with
+   the bf16 kernel's registers, shared memory and blocks per SM;
 3. runs the port's main paths, each at full width with random bf16
    weights from ``--seed``: the continuous-batching decode server on
    qwen2-7b, olmoe-1b-7b, mamba2-370m and zamba2-2.7b, which starts on the
@@ -186,7 +188,7 @@ def phase_toolchain(torch):
     _build.build(force=True, extra_flags=["-Xptxas", "-v"])
     ptxas = [ln for name in _build.SOURCES
              for ln in _build.build_log[name].splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln or "C7520" in ln]
     say("toolchain", python=sys.version.split()[0], torch=torch.__version__,
         torch_cuda=torch.version.cuda, nvcc=nvcc_version,
         card=smi, capability=list(torch.cuda.get_device_capability(0)),
@@ -577,12 +579,14 @@ def attention_cases():
     ``phase_attention_kernel``: per dtype and head size, one query row,
     64 rows, 1000 and 2048 rows with windows of 32 and 1024, GQA groups of
     1, 2 and 7 (7 is not a power of two), a cross attention of 64 rows over
-    1500 keys, and a ``kv_len`` below ``Sk``."""
+    1500 keys, and a ``kv_len`` below ``Sk``.  The head sizes are the
+    models' (64, 80, 128, 240) and 72, which the bf16 kernel takes through
+    its aligned, padded copy."""
     import torch
 
     out = []
     for dtype in (torch.bfloat16, torch.float32):
-        for D in (64, 80, 128, 240):
+        for D in (64, 72, 80, 128, 240):
             for (Sq, Sk, causal, window, rep, kv_len) in (
                     (1, 1, True, 0, 1, None),
                     (64, 64, False, 0, 2, None),
@@ -636,23 +640,32 @@ def attention_held(torch, q, k, v, label, **kw):
 
 
 def phase_attention_kernel(torch, seed):
-    """B4 against its plain version on the card (``attention_cases``), and
-    the ``(BH, S, D)`` form against the 4-D one; the full-width shapes are
-    held on the prefills' own inputs (``phase_prefill``)."""
+    """B4 against its plain version on the card (``attention_cases``, then
+    a bf16 q that is a view one element past an aligned base), and the
+    ``(BH, S, D)`` form against the 4-D one; the full-width shapes are held
+    on the prefills' own inputs (``phase_prefill``).  Exactly the bf16
+    calls at D 72 and on the offset view make an aligned copy."""
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     worst = {"float32": 0.0, "bfloat16": 0.0}
+    worst_case = {}
     fa.reset_launch_counts()
     cases = attention_cases()
     for (label, dtype, D, B, Hkv, rep, Sq, Sk, causal, window,
          kv_len) in cases:
         q, k, v = attention_inputs(torch, gen, dtype, D, B, Hkv, rep, Sq, Sk)
+        copies = fa.COPIES["flash_attention"]
         _, share = attention_held(torch, q, k, v, label, causal=causal,
                                   window=window, kv_len=kv_len)
+        copied = dtype == torch.bfloat16 and D % 16 != 0
+        check(fa.COPIES["flash_attention"] == copies + copied,
+              f"flash_attention {label}: aligned copies "
+              f"{fa.COPIES['flash_attention'] - copies}, want {int(copied)}")
         key = str(dtype)[6:]
-        worst[key] = max(worst[key], share)
+        if share >= worst[key]:
+            worst[key], worst_case[key] = share, label
         if rep == 1 and Hkv == 2:     # the JAX function's (BH, S, D) form
             fold = [t.transpose(1, 2).reshape(B * Hkv, t.shape[1], D)
                     for t in (q, k, v)]
@@ -663,10 +676,31 @@ def phase_attention_kernel(torch, seed):
             check(torch.equal(got, want.transpose(1, 2).reshape(
                 B * Hkv, Sq, D)), f"flash_attention (BH, S, D) form "
                 f"differs from the 4-D one on {label}")
+    # q one element past an aligned base: TMA cannot read it as it lies
+    q, k, v = attention_inputs(torch, gen, torch.bfloat16, 128, 2, 2, 7, 1000,
+                               1000)
+    flat = torch.zeros(q.numel() + 1, device="cuda", dtype=q.dtype)
+    flat[1:] = q.reshape(-1)
+    odd = flat[1:].view(q.shape)
+    copies = fa.COPIES["flash_attention"]
+    _, share = attention_held(torch, odd, k, v, "bfloat16 D=128 q at an odd "
+                              "offset", causal=True)
+    check(fa.COPIES["flash_attention"] == copies + 1,
+          "the offset view of q made no aligned copy")
+    if share >= worst["bfloat16"]:
+        worst["bfloat16"], worst_case["bfloat16"] = share, "q at an odd offset"
     torch.cuda.synchronize()
-    say("attention_kernel", cases=len(cases), worst_share_of_max=worst,
+    kernel = {D: fa.kernel_info(D) for D in (64, 80, 128, 240)}
+    say("attention_kernel", cases=len(cases) + 1, worst_share_of_max=worst,
+        worst_case=worst_case,
         tolerance="float32 2e-5, bfloat16 2e-2 of max(1, max |plain|); "
-                  "allow_tf32 off", launches=dict(fa.LAUNCHES))
+                  "allow_tf32 off", launches=dict(fa.LAUNCHES),
+        aligned_copies=dict(fa.COPIES),
+        bf16_kernel={"threads": 384, "consumer_registers": 240,
+                     "producer_registers": 24, "by_head_size": kernel},
+        note="bf16_kernel registers: per thread at launch, as "
+             "cudaFuncGetAttributes reports them; setmaxnreg then moves "
+             "them from the producer warpgroup to the two consumers")
 
 
 def attention_work(B, Sq, Sk, H, Hkv, D, causal, window, itemsize):
@@ -992,6 +1026,8 @@ def prefill_once(torch, model, params, batch, max_len, capture=None):
     finally:
         ssm_mod.ssd_chunk, ops.mha = chunk, mha
     launches = {**sc.LAUNCHES, **fa.LAUNCHES, **md.LAUNCHES}
+    check(fa.COPIES["flash_attention"] == 0, f"{cfg.name} prefill: "
+          f"{fa.COPIES['flash_attention']} aligned copies before B4")
     check(tuple(logits.shape) == (B, cfg.vocab)
           and bool(torch.isfinite(logits.float()).all()),
           f"{cfg.name} prefill: logits are not finite (B, vocab)")
@@ -1253,7 +1289,7 @@ def device_kernels(prof):
                "share_of_busy": us / 1e3 / busy_ms}
            for k, (n, us) in by_name.items()
            if "bk_" in k or "md_dispatch" in k or "sc_ssd" in k
-           or "fa_kernel" in k}
+           or "fa_kernel" in k or "fa_hopper" in k}
     return (busy_ms, sum(n for n, _ in by_name.values()),
             [{"name": k[:80], "launches": n, "ms": us / 1e3}
              for k, (n, us) in top], own)
@@ -1439,6 +1475,7 @@ def phase_kernel_times(torch, seed, launches, ssd_args, attn_rows):
                     lambda: fa.mha_plain(q, k, v, **kw), library, err,
                     nbytes, flops, rate=BF16_FLOPS_PER_S, calls=calls,
                     iters=(10, 10))
+        row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
         attn_calls[label] = call_ms.pop("flash_attention")
         out.append({**row, "arch": label,
                     "shape": {"B": B, "Sq": Sq, "Sk": Sk, "H": H, "Hkv": Hkv,

@@ -4,7 +4,8 @@ Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes`` -- no
 PyTorch headers, so a build takes seconds.  Libraries are built at first
 use into ``build/`` at the root of the checkout, under a name that carries
-a hash of the source and the flags, so an edited source is never served by a stale library.
+a hash of the source, the headers under ``csrc/`` and the flags, so an
+edited source or header is never served by a stale library.
 Nothing here runs when the package is imported; a failed build raises.
 """
 
@@ -52,8 +53,12 @@ def find_nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by a hash of its source, every header
+    under ``csrc/`` (a source may include any of them) and the flags."""
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 

@@ -28,6 +28,17 @@ The wrappers launch the kernel when q lies on a CUDA device (and raise if
 the build, the arguments or the launch are not right -- nothing falls
 back), and take :func:`mha_plain` only because q lies on the CPU.
 ``LAUNCHES`` counts kernel launches, nothing else.
+
+**The aligned copy (bfloat16).**  The bf16 kernel loads its tiles with TMA,
+which reads a 16-byte aligned base and strides that are multiples of 16
+bytes, and it runs over D in steps of 16.  An input that breaks that (D not
+a multiple of 16, a view at an odd offset, an odd stride) is copied once by
+:func:`tma_operands` into a fresh contiguous tensor with D zero-padded to a
+multiple of 16; the kernel runs on the copies, with the scale of the
+original D, and the output is sliced back to D.  ``COPIES`` counts the calls
+that made such a copy.  The copy is neither the plain version nor the
+float32 kernel, and no model needs it (their head sizes are 64, 80, 128 and
+240, their q, k and v views aligned).  float32 takes any D and strides.
 """
 
 from __future__ import annotations
@@ -39,6 +50,7 @@ from typing import Dict
 import torch
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+COPIES: Dict[str, int] = {"flash_attention": 0}   # calls with an aligned copy
 
 NEG_INF = -1e30
 MAX_D = 256          # what the kernel's shared-memory tiles hold
@@ -46,8 +58,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, COPIES):
+        for k in counts:
+            counts[k] = 0
 
 
 _lib = None
@@ -66,6 +79,8 @@ def _library():
             [ptr] * 4 + [i32] * 6 + [i64] * 9 + [i32] * 3
             + [ctypes.c_float, i32, ptr])
         lib.fa_flash_attention.restype = ctypes.c_int
+        lib.fa_bf16_kernel_info.argtypes = [i32] + [ctypes.POINTER(i32)] * 3
+        lib.fa_bf16_kernel_info.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -151,14 +166,50 @@ def _check(q, k, v, causal, window, kv_len):
     return B, Sq, H, Hkv, Sk, D, seen
 
 
+def _strides(t):
+    """Element strides of ``(B, S, heads, D)``, with a size-1 dimension given
+    the row's length: its stride is never read, and TMA takes only strides
+    that are multiples of 16 bytes."""
+    return [s if n > 1 else t.shape[-1] for s, n in zip(t.stride()[:3],
+                                                         t.shape[:3])]
+
+
+def _tma_ready(t) -> bool:
+    """Whether the bf16 kernel's TMA loads can read ``t`` as it lies."""
+    return (t.shape[-1] % 16 == 0 and t.stride(-1) == 1
+            and t.data_ptr() % 16 == 0
+            and all(s % 8 == 0 for s in _strides(t)))
+
+
+def tma_operands(q, k, v):
+    """``(q, k, v, copied)`` for the bf16 kernel: each input TMA cannot read
+    as it lies (see :func:`_tma_ready`) is copied once into a fresh
+    contiguous tensor with D zero-padded to a multiple of 16 (all three are
+    padded together when D is not one); the others are returned as they
+    are.  Pure torch, on any device."""
+    D = q.shape[-1]
+    Dp = -(-D // 16) * 16
+    out, copied = [], False
+    for t in (q, k, v):
+        if Dp == D and _tma_ready(t):
+            out.append(t)
+            continue
+        c = t.new_zeros(t.shape[:3] + (Dp,))
+        c[..., :D] = t
+        out.append(c)
+        copied = True
+    return (*out, copied)
+
+
 def attention(q, k, v, *, causal=True, window=0, kv_len=None, scale=None
               ) -> torch.Tensor:
     """Attention over ``q (B, Sq, H, D)`` and ``k``, ``v (B, Sk, Hkv, D)``,
     float32 or bfloat16 (one dtype for all three); returns ``(B, Sq, H, D)``
     in that dtype.  On a CUDA tensor: one launch of ``fa_flash_attention``,
     which takes any ``D <= 256``, any ``Sq`` and ``Sk``, and reads the three
-    inputs through their strides (a last dimension that is not contiguous
-    is copied first)."""
+    inputs through their strides (in float32 a last dimension that is not
+    contiguous is copied first; in bf16 an input TMA cannot read is copied
+    aligned and padded, see the module's docstring)."""
     B, Sq, H, Hkv, Sk, D, seen = _check(q, k, v, causal, window, kv_len)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     if not q.is_cuda:
@@ -167,20 +218,41 @@ def attention(q, k, v, *, causal=True, window=0, kv_len=None, scale=None
     if D > MAX_D:
         raise ValueError(f"the flash_attention kernel takes D <= {MAX_D}, "
                          f"got D={D}")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
-    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    copied = False
+    if q.dtype == torch.bfloat16:
+        q, k, v, copied = tma_operands(q, k, v)
+    else:
+        q, k, v = (t if t.stride(-1) == 1 else t.contiguous()
+                   for t in (q, k, v))
+    Dk = q.shape[-1]
+    out = torch.empty((B, Sq, H, Dk), dtype=q.dtype, device=q.device)
     lib = _library()
     with torch.cuda.device(q.device):
         err = lib.fa_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, H, Hkv, Sq, Sk, D, *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], int(causal), int(window), seen, float(scale),
+            B, H, Hkv, Sq, Sk, Dk, *_strides(q), *_strides(k), *_strides(v),
+            int(causal), int(window), seen, float(scale),
             _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"flash_attention: CUDA launch failed with error {err}")
     LAUNCHES["flash_attention"] += 1
-    return out
+    if copied:
+        COPIES["flash_attention"] += 1
+    return out if Dk == D else out[..., :D]
+
+
+def kernel_info(D: int) -> Dict[str, int]:
+    """Registers a thread at launch, dynamic shared memory (bytes) and
+    blocks resident on one SM of the bf16 kernel that takes head size
+    ``D``, as the CUDA runtime reports them; needs a card."""
+    lib = _library()
+    vals = [ctypes.c_int() for _ in range(3)]
+    err = lib.fa_bf16_kernel_info(int(D), *(ctypes.byref(x) for x in vals))
+    if err != 0:
+        raise RuntimeError(f"fa_bf16_kernel_info failed with error {err}")
+    return dict(zip(("registers", "shared_bytes", "blocks_per_sm"),
+                    (x.value for x in vals)))
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, kv_len=None,

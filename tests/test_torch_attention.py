@@ -176,6 +176,62 @@ def test_arguments_are_checked():
     assert fa.LAUNCHES["flash_attention"] == before
 
 
+def _offset_view(x):
+    """``x`` as a view one element past an aligned base: TMA cannot read
+    it as it lies."""
+    flat = torch.zeros(x.numel() + 1, dtype=x.dtype)
+    flat[1:] = x.reshape(-1)
+    return flat[1:].view(x.shape)
+
+
+@pytest.mark.parametrize("case", ["D=72", "offset view"])
+def test_the_aligned_copy_keeps_the_function(case):
+    """The bf16 kernel's aligned copy (``tma_operands``), pure torch on the
+    CPU: padded, through the plain version with the scale of the original
+    D and sliced back, it equals the plain version of the unpadded inputs
+    and the JAX package's ``mha_reference``, within the float32 bound."""
+    D = 72 if case == "D=72" else 64
+    B, Sq, Sk, H, Hkv = 2, 40, 56, 4, 2
+    q, k, v = _qkv(D, B, Sq, Sk, H, Hkv, D, "float32")
+    t = _to("float32", "torch", q, k, v)
+    if case == "offset view":
+        t[0] = _offset_view(t[0])
+        assert t[0].data_ptr() % 16 and not fa._tma_ready(t[0])
+    qp, kp, vp, copied = fa.tma_operands(*t)
+    assert copied
+    Dp = -(-D // 16) * 16
+    for got, x in zip((qp, kp, vp), t):
+        assert got.shape[-1] == Dp and fa._tma_ready(got)
+        assert torch.equal(got[..., :D], x)
+        assert not bool(got[..., D:].any())
+    kw = dict(causal=True, window=16, kv_len=50)
+    got = fa.mha_plain(qp, kp, vp, scale=1.0 / np.sqrt(D), **kw)[..., :D]
+    assert torch.allclose(got, fa.mha_plain(*t, **kw), atol=FP32_TOL, rtol=0)
+    rep = H // Hkv
+    want = RR.mha_reference(*_to("float32", "jax", _fold(q, 1), _fold(k, rep),
+                                 _fold(v, rep)), **kw)
+    want4 = np.asarray(want).reshape(B, H, Sq, D).transpose(0, 2, 1, 3)
+    assert_same(want4, got, tol=FP32_TOL, what="padded plain version")
+    if case == "D=72":
+        # the scale of the padded D would be another function
+        other = fa.mha_plain(qp, kp, vp, **kw)[..., :D]
+        assert float((other - got).abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("D", [64, 80, 128, 240])
+def test_the_models_inputs_need_no_copy(D):
+    """The models hand over contiguous (B, S, H, D) tensors at head sizes
+    64, 80, 128 and 240, and views of them: TMA reads them as they lie."""
+    q, k, v = _to("bfloat16", "torch",
+                  *_qkv(D, 2, 24, 24, 4, 2, D, "bfloat16"))
+    got = fa.tma_operands(q, k, v)
+    assert got[3] is False and all(a is b for a, b in zip(got, (q, k, v)))
+    assert fa.tma_operands(q[:, :8], k[:, 8:], v[:, :, :1])[3] is False
+    odd = _offset_view(q)
+    qp, kp, vp, copied = fa.tma_operands(odd, k, v)
+    assert copied and kp is k and vp is v and torch.equal(qp, odd)
+
+
 # ---------------------------------------------------------------------------
 # the route: which layers reach the kernel's wrapper
 # ---------------------------------------------------------------------------

@@ -115,15 +115,18 @@ def test_ssd_chunk_equals_its_plain_version_on_the_card(cuda, Q, P, N):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["contiguous", "offset view"])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 32), (False, 0)],
                          ids=["causal", "window", "full"])
-@pytest.mark.parametrize("D", [80, 128, 240])
+@pytest.mark.parametrize("D", [64, 72, 80, 128, 240])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention_equals_its_plain_version_on_the_card(
-        cuda, dtype, D, causal, window):
+        cuda, dtype, D, causal, window, layout):
     """Within 2e-5 (float32) or 2e-2 (bfloat16) of the largest magnitude of
     the plain output, which runs in true float32 (``allow_tf32`` off, the
-    default); 7 query heads over one kv head, ragged 100-row tiles."""
+    default); 7 query heads over one kv head, ragged 100-row tiles.  In
+    bf16, D 72 and a q one element past an aligned base go through one
+    aligned copy (``COPIES``); the head sizes of the models do not."""
     assert not torch.backends.cuda.matmul.allow_tf32
     rng = np.random.default_rng(D)
     B, S, Hkv, rep = 2, 100, 1, 7
@@ -131,13 +134,31 @@ def test_flash_attention_equals_its_plain_version_on_the_card(
                                 ).to(device=cuda, dtype=dtype)
                for shape in ((B, S, Hkv * rep, D), (B, S, Hkv, D),
                              (B, S, Hkv, D)))
+    if layout == "offset view":
+        flat = torch.zeros(q.numel() + 1, device=cuda, dtype=dtype)
+        flat[1:] = q.reshape(-1)
+        q = flat[1:].view(q.shape)
     before = fa.LAUNCHES["flash_attention"]
+    copies = fa.COPIES["flash_attention"]
     got = ops.mha(q, k, v, causal=causal, window=window)
     want = fa.mha_plain(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert fa.LAUNCHES["flash_attention"] == before + 1
-    assert got.dtype == dtype and bool(torch.isfinite(got.float()).all())
+    copied = dtype == torch.bfloat16 and (D % 16 or layout != "contiguous")
+    assert fa.COPIES["flash_attention"] == copies + int(bool(copied))
+    assert got.dtype == dtype and tuple(got.shape) == tuple(q.shape)
+    assert bool(torch.isfinite(got.float()).all())
     tol = (2e-5 if dtype == torch.float32 else 2e-2) * max(
         1.0, float(want.float().abs().max()))
     assert float((got.float() - want.float()).abs().max()) <= tol
     assert torch.equal(ops.mha(q, k, v, causal=causal, window=window), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 80, 128, 240])
+def test_the_bf16_flash_attention_kernel_fits_the_sm(cuda, D):
+    """One block a SM of 384 threads: the runtime's own report."""
+    info = fa.kernel_info(D)
+    assert info["blocks_per_sm"] >= 1
+    assert 0 < info["registers"] <= 168
+    assert info["shared_bytes"] <= 232448

@@ -172,6 +172,28 @@ def test_a_cuda_table_never_reaches_the_plain_version(monkeypatch):
     assert fa.LAUNCHES["flash_attention"] == 0
 
 
+@pytest.mark.parametrize("edit", ["header", "new header", "source"])
+def test_an_edited_header_renames_the_library(tmp_path, monkeypatch, edit):
+    """A library is named by a hash of its source and of every header
+    under ``csrc/``, so an edited header is never served by a stale build
+    (nothing is compiled here: only the name is computed)."""
+    from repro_torch.kernels import _build
+
+    (tmp_path / "flash_attention.cu").write_text('#include "sm90.cuh"\n')
+    (tmp_path / "sm90.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build._lib_path("flash_attention")
+    assert _build._lib_path("flash_attention") == first
+    if edit == "header":
+        (tmp_path / "sm90.cuh").write_text("// two\n")
+    elif edit == "new header":
+        (tmp_path / "more.cuh").write_text("// more\n")
+    else:
+        (tmp_path / "flash_attention.cu").write_text("// edited\n")
+    assert _build._lib_path("flash_attention") != first
+    assert first.parent == _build.build_dir()
+
+
 @pytest.mark.parametrize("where", ["checkout", "alone"])
 def test_chip_smoke_fails_without_a_card_and_without_the_package(
         tmp_path, where):
