@@ -14,9 +14,12 @@ Run from the root of a checkout, with no arguments, it
    and row widths, a scatter with many duplicates, many empty slots,
    duplicate sources, the decode shape, a large gather and a prefill-sized
    dispatch that it also times); the SSD chunk within 1e-4 of the largest
-   magnitude of the plain output (float32 sums in another order), over
-   chunk lengths 1 to 256, the (P, N) of every config, a carried state,
-   dt near 0 and dt large; the flash attention within 2e-5 (float32) or
+   magnitude of the plain output (3xTF32 products, float32 sums in another
+   order), over chunk lengths 1 to 256, the (P, N) of every config, a
+   carried state, dt near 0 and dt large, each contiguous, as the chunk
+   loop lays it out, inside a longer sequence and with x at an odd offset
+   (copied once, counted), with its registers, shared memory and blocks
+   per SM; the flash attention within 2e-5 (float32) or
    2e-2 (bfloat16) of the largest magnitude, over head sizes 64, 72, 80,
    128 and 240, causal and not, windows of 32 and 1024, GQA groups of 1, 2
    and 7, 1 to 2048 rows, a cross attention of 64 rows over 1500 keys, a
@@ -88,6 +91,7 @@ FP32_FLOPS_PER_S = 67e12    # float32 outside the tensor cores, same sheet
 # cores bounds it from above, so the operation bound stays a lower bound.
 INT_OPS_PER_S = FP32_FLOPS_PER_S
 BF16_FLOPS_PER_S = 989e12   # dense bf16 on the tensor cores, same sheet
+TF32_FLOPS_PER_S = 495e12   # dense TF32 on the tensor cores, same sheet
 # the SSD chunk against its plain version: both float32, sums in another
 # order; the plain version runs in true float32 (allow_tf32 stays off)
 SSD_TOL = 1e-4
@@ -547,11 +551,28 @@ def ssd_held(torch, args, label):
     return err, share
 
 
+SSD_ARGS = ("x", "dt", "bm", "cm", "cum", "s_prev")   # B6's argument order
+
+
+def ssd_views(args, layout):
+    """B6's six inputs, in its argument order, laid out as ``layout`` (one
+    of ``CHUNK_LAYOUTS``) says: ``chunk_views`` of ``tests/torch_parity.py``,
+    the helper the GPU tests lay the chunk out with (it imports no JAX)."""
+    from torch_parity import chunk_views
+
+    return list(chunk_views(dict(zip(SSD_ARGS, args)), layout).values())
+
+
 def phase_ssd_kernel(torch, seed):
     """B6 against its plain version over chunk lengths, the (P, N) of the
-    configs, a carried state, dt near 0 and large; the full-width shapes
-    are held on the prefills' own inputs (phase_prefill)."""
+    configs, a carried state, dt near 0 and large, each in the four
+    ``CHUNK_LAYOUTS``: contiguous, as the chunk loop lays it out, one row
+    into a longer sequence, and with x at an odd offset (one copy,
+    counted); the full-width shapes are held on the prefills' own inputs
+    (phase_prefill)."""
     import numpy as np
+
+    from torch_parity import CHUNK_LAYOUTS
 
     from repro_torch.kernels import ssd_chunk as sc
 
@@ -560,15 +581,26 @@ def phase_ssd_kernel(torch, seed):
     sc.reset_launch_counts()
     for Q in (1, 7, 16, 100, 256):
         for P, N in ((16, 16), (64, 64), (64, 128)):
-            args = ssd_inputs(torch, rng, 2, 3, Q, P, N)
-            _, share = ssd_held(torch, list(args.values()),
-                                f"Q={Q} P={P} N={N}")
-            worst = max(worst, share)
-            cases += 1
+            args = list(ssd_inputs(torch, rng, 2, 3, Q, P, N).values())
+            for layout in CHUNK_LAYOUTS:
+                views = ssd_views(args, layout)
+                copies = sc.COPIES["ssd_chunk"]
+                _, share = ssd_held(torch, views,
+                                    f"Q={Q} P={P} N={N} {layout}")
+                check(sc.COPIES["ssd_chunk"]
+                      == copies + (layout == "offset view"),
+                      f"B6 copies on Q={Q} P={P} N={N} {layout}: "
+                      f"{sc.COPIES['ssd_chunk'] - copies}")
+                worst = max(worst, share)
+                cases += 1
     torch.cuda.synchronize()
     say("ssd_chunk_kernel", cases=cases, worst_share_of_max=worst,
         tolerance=f"{SSD_TOL} of max |plain|, float32, allow_tf32 off",
-        launches=dict(sc.LAUNCHES))
+        launches=dict(sc.LAUNCHES), copies=dict(sc.COPIES),
+        kernel=sc.kernel_info(),
+        note="kernel: registers a thread, dynamic shared memory and blocks "
+             "per SM, as cudaFuncGetAttributes and the occupancy "
+             "calculator report them")
 
 
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -998,8 +1030,8 @@ def prefill_once(torch, model, params, batch, max_len, capture=None):
         shapes = capture.setdefault("attention", {})
 
         def capturing_chunk(*args):
-            if len(chunks) < 2:
-                chunks.append([a.clone() for a in args])
+            if len(chunks) < 2:              # the inputs, not the out view
+                chunks.append([a.clone() for a in args[:6]])
             return chunk(*args)
 
         def capturing_mha(q, k, v, **kw):
@@ -1028,6 +1060,8 @@ def prefill_once(torch, model, params, batch, max_len, capture=None):
     launches = {**sc.LAUNCHES, **fa.LAUNCHES, **md.LAUNCHES}
     check(fa.COPIES["flash_attention"] == 0, f"{cfg.name} prefill: "
           f"{fa.COPIES['flash_attention']} aligned copies before B4")
+    check(sc.COPIES["ssd_chunk"] == 0, f"{cfg.name} prefill: "
+          f"{sc.COPIES['ssd_chunk']} copies in front of B6")
     check(tuple(logits.shape) == (B, cfg.vocab)
           and bool(torch.isfinite(logits.float()).all()),
           f"{cfg.name} prefill: logits are not finite (B, vocab)")
@@ -1133,8 +1167,9 @@ def phase_prefill(torch, cfg, batch, seqs, seed, frames=0, max_len=None,
     shape and the first two SSD chunk calls of every length are held
     against the kernels' plain versions on their own inputs.  Returns the
     launches of the first runs, the inputs of the second SSD chunk call of
-    the first length (a carried state; SSM families) and its attention
-    rows for the kernels' timing."""
+    the first length (a carried state; SSM families), its attention rows
+    for the kernels' timing, and B6's worst error (a share of max |plain|)
+    on each length's captured chunks."""
     from repro_torch.models import get_model
 
     model = get_model(cfg)
@@ -1145,6 +1180,7 @@ def phase_prefill(torch, cfg, batch, seqs, seed, frames=0, max_len=None,
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     launches, captured, rows, first_data = {}, [], [], None
+    held_by_len = {}                  # prompt length -> B6's worst share
     attends = attention_calls(cfg) > 0
     for S in seqs:
         data = {"tokens": torch.randint(
@@ -1166,6 +1202,7 @@ def phase_prefill(torch, cfg, batch, seqs, seed, frames=0, max_len=None,
         if capture["ssd_chunk"]:
             held = max(ssd_held(torch, args, f"{cfg.name} {S} chunk {i}")[1]
                        for i, args in enumerate(capture["ssd_chunk"]))
+            held_by_len[S] = held
         for (qs, ks, causal, window), c in capture["attention"].items():
             c["held"] = attention_held(
                 torch, *c["args"], f"{cfg.name} {S} q {qs} k {ks} "
@@ -1203,7 +1240,7 @@ def phase_prefill(torch, cfg, batch, seqs, seed, frames=0, max_len=None,
                         f"{seqs[0]} tokens a row")
     del params, model, first_data
     free_device_memory(torch)
-    return launches, captured, rows
+    return launches, captured, rows, held_by_len
 
 
 def phase_silu_cost(torch, cfg, batch):
@@ -1228,9 +1265,10 @@ def phase_silu_cost(torch, cfg, batch):
         return [torch.randn((b, rows, w), generator=gen, device="cuda",
                             dtype=torch.bfloat16) * 4 for w in widths]
 
-    def launches(fn, xs, reps=10):
-        # ten calls a window: a window of a dozen decode-sized launches
-        # came back from the profiler without its device events
+    def launches(fn, xs, reps=50):
+        # fifty calls a window: windows of a dozen, and once of ten,
+        # decode-sized launches came back from the profiler without their
+        # device events
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -1306,15 +1344,47 @@ def resolve_ops(art, T):
     return T * (len(prog.instrs) + 2 * nd + 2 * len(prog.ba_regs))
 
 
-def phase_kernel_times(torch, seed, launches, ssd_args, attn_rows):
+B5_ROUNDS = 15
+
+
+def decode_rounds(torch, kernel, library, slots):
+    """B5 beside ``index_select`` at decode size in ``B5_ROUNDS``
+    interleaved rounds (the order alternating), each timing 50 calls of
+    one behind a 60 ms stall: the two lie a few per cent apart, within
+    what one timing spreads.  The verdict is "faster" or "slower" only
+    where every round's ratio says so, else "unresolved"."""
+    import numpy as np
+
+    ms = {"kernel": [], "index_select": []}
+    fns = {"kernel": kernel, "index_select": library}
+    for r in range(B5_ROUNDS):
+        for name in (("kernel", "index_select") if r % 2
+                     else ("index_select", "kernel")):
+            ms[name].append(time_ms(torch, fns[name], iters=50, warmup=10,
+                                    stall_ms=60.0))
+    ratio = np.array(ms["kernel"]) / np.array(ms["index_select"])
+    verdict = ("faster" if (ratio < 1).all() else
+               "slower" if (ratio > 1).all() else "unresolved")
+    say("moe_dispatch_decode", slots=slots, rounds=B5_ROUNDS,
+        **{f"{k}_ms": {"median": float(np.median(v)), "min": min(v),
+                       "max": max(v)} for k, v in ms.items()},
+        ratio={"median": float(np.median(ratio)), "min": float(ratio.min()),
+               "max": float(ratio.max())},
+        verdict=verdict, note="ratio: kernel / index_select, round by round")
+
+
+def phase_kernel_times(torch, seed, launches, ssd_args, ssd_held_by,
+                       attn_rows):
     """Each kernel at the shapes the main paths gave it.  B1-B3: an int32
     record table of (8 banks, 128 rows, 8 slots); the tick's gather reads
     8 slots x 4 trailing records, its element scatter writes 8 records,
     and the swap's row scatter repacks all 1024 rows.  B5: olmoe's decode
     call, 8 tokens of 2048 bf16 and the zeros row, routed top-8 of 64
     experts into 64 x 8 slots.  B6: the inputs of a 256-row chunk of each
-    full-width prefill (``ssd_args``: arch -> the arguments it captured);
-    the first arch's row goes into the kernels line.  B4: the first
+    full-width prefill (``ssd_args``: arch -> the arguments it captured,
+    timed as the chunk loop lays them out; ``ssd_held_by``: arch -> prompt
+    length -> the worst error on that prefill's chunks); the first arch's
+    row goes into the kernels line.  B4: the first
     attention call of each shape of the full-width prefills, on its own
     inputs (``attn_rows``: label, (q, k, v), kwargs, calls at that shape,
     and its error against the plain version from ``phase_prefill``); every
@@ -1429,26 +1499,52 @@ def phase_kernel_times(torch, seed, launches, ssd_args, attn_rows):
           lambda: md.moe_dispatch_plain(x_padded, slot),
           lambda: torch.index_select(x_padded, 0, slot),
           err, ((T + 1) * D + S * D) * 2 + 4 * S, 0))
+    decode_rounds(torch, lambda: md.moe_dispatch(x_padded, slot),
+                  lambda: torch.index_select(x_padded, 0, slot), S)
 
-    # B6: one 256-row chunk of each prefill, on the prefill's own inputs
+    # B6: one 256-row chunk of each prefill, on the prefill's own inputs,
+    # laid out as the chunk loop hands them over
     ssd_rows = []
-    for arch, args in ssd_args.items():
+    fit = sc.kernel_info()
+    for arch, captured in ssd_args.items():
+        args = ssd_views(captured, "chunk loop")
         B, H, Q, P = args[0].shape
         N = args[2].shape[-1]
+        copies = sc.COPIES["ssd_chunk"]
         err, share = ssd_held(torch, args, f"{arch}'s prefill shape")
         nbytes, ops, per_head = ssd_work(B, H, Q, P, N)
         row = entry("ssd_chunk", lambda: sc.ssd_chunk(*args),
-                    lambda: sc.ssd_chunk_plain(*args), None, err, nbytes, ops)
-        ssd_rows.append({"arch": arch, "shape": {"B": B, "H": H, "Q": Q,
-                                                 "P": P, "N": N},
-                         **row, "share_of_max": share, "bytes": nbytes,
-                         "operations": ops, "operations_per_head": per_head,
-                         "bound_ms_per_head": per_head / FP32_FLOPS_PER_S
-                         * 1e3, "call_ms": dict(call_ms["ssd_chunk"])})
+                    lambda: sc.ssd_chunk_plain(*args), None, err, nbytes,
+                    3 * ops, rate=TF32_FLOPS_PER_S)
+        check(sc.COPIES["ssd_chunk"] == copies, f"B6 copied an input of "
+              f"{arch}'s chunk as the chunk loop lays it out")
+        ssd_rows.append({
+            "arch": arch, "shape": {"B": B, "H": H, "Q": Q, "P": P, "N": N},
+            **row, "share_of_max": share,
+            "worst_share_of_max_by_prompt": ssd_held_by[arch],
+            "bytes": nbytes, "operations": ops,
+            "bound_ms_fp32_fma": max(nbytes / HBM_BYTES_PER_S,
+                                     ops / FP32_FLOPS_PER_S) * 1e3,
+            "operations_per_head": per_head,
+            "bound_ms_per_head": per_head / FP32_FLOPS_PER_S * 1e3,
+            "tflops_3xtf32": 3 * ops / row["ms"] / 1e9,
+            "copies": sc.COPIES["ssd_chunk"],
+            "call_ms": dict(call_ms["ssd_chunk"])})
     call_ms["ssd_chunk"] = {r["arch"]: r.pop("call_ms") for r in ssd_rows}
-    say("ssd_chunk_times", rows=ssd_rows, library="none: no single PyTorch "
-        "call computes an SSD chunk", note="bound_ms counts C B^T once per "
-        "batch row; bound_ms_per_head as the kernel forms it, per head")
+    say("ssd_chunk_times", rows=ssd_rows, kernel=fit,
+        scheme="3xTF32 on wgmma m64n64k8 (hi/lo TF32 split, three "
+               "products, float32 sums)",
+        library="none: no single PyTorch call computes an SSD chunk",
+        note="ms: the chunk loop's layout (x, dt and cum transposed out of "
+             "(B, S, H, .) tensors); bound_ms: the scheme's three products "
+             "(3 x operations, C B^T once per batch row, as the kernel forms "
+             "it) at the 495 TFLOP/s of dense TF32, or the bytes once, "
+             "whichever is longer; bound_ms_fp32_fma: the operations as "
+             "float32 FMA at 67 TFLOP/s (for comparison), bound_ms_per_head: "
+             "float32 FMA with C B^T per head (history); "
+             "worst_share_of_max_by_prompt: the prefills' "
+             "captured chunks, 1000 tokens the pad path; copies: B6's "
+             "copied inputs so far in the run (the prefills checked 0)")
     out.append({k: ssd_rows[0][k] for k in out[0]})
 
     # B4: each attention shape of the prefills, on the prefill's own inputs
@@ -1617,6 +1713,7 @@ def main():
     if not os.path.isdir(os.path.join(src, "repro_torch")):
         fail("src/repro_torch is not beside this script")
     sys.path.insert(0, src)
+    sys.path.insert(0, os.path.join(HERE, "tests"))   # torch_parity
     import torch
 
     if not torch.cuda.is_available():
@@ -1645,7 +1742,7 @@ def main():
 
     for cfg in archs[:4]:
         add(phase_serve(torch, cfg, args.seed))
-    ssd_args, attn_rows = {}, []
+    ssd_args, ssd_held_by, attn_rows = {}, {}, []
     # the prefills: batch x tokens (whisper: over 1500 frames, a cache of
     # 448, its decoder's context); the SSM families also at 1000 tokens,
     # not a multiple of their 256-row chunk
@@ -1656,14 +1753,15 @@ def main():
             (gemma3, 2, (4096,), {"profile": args.profile}),
             (olmoe, 4, (2048,), {}),
             (whisper, 8, (64,), {"frames": 1500, "max_len": 448})):
-        n, chunk_args, rows = phase_prefill(torch, cfg, batch, seqs,
-                                            args.seed, **kw)
+        n, chunk_args, rows, held = phase_prefill(torch, cfg, batch, seqs,
+                                                  args.seed, **kw)
         add(n)
         if chunk_args:
             ssd_args[cfg.name] = chunk_args
+            ssd_held_by[cfg.name] = held
         attn_rows += rows
     kernels = phase_kernel_times(torch, args.seed, launches, ssd_args,
-                                 attn_rows)
+                                 ssd_held_by, attn_rows)
     del ssd_args, attn_rows
     free_device_memory(torch)
     for cfg in archs:

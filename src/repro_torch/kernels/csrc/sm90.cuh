@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tile loads,
-// wgmma descriptors and products, register hand-over between warpgroups.
-// Header only; included by the kernels that use them.
+// wgmma descriptors and products, register hand-over between warpgroups;
+// and, on the host, the CUDA driver's tensor-map encoder.  Header only;
+// included by the kernels that use them.
 //
 // Shared-memory tiles here are 128-byte swizzled, as TMA writes them with
 // CU_TENSOR_MAP_SWIZZLE_128B: a tile of bf16 is cut into boxes of 64
@@ -10,6 +11,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 static __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -53,6 +55,34 @@ static __device__ __forceinline__ void mbar_wait(uint32_t bar,
 }
 
 // ---- TMA ---------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver function; the library links no -lcuda,
+// so it is looked up through the runtime once.
+static inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
 
 // One box of a 4-D tensor map into shared memory; completion is counted in
 // bytes on `bar`.  Coordinates are in elements, innermost first.  Elements

@@ -71,8 +71,9 @@ def moe_dispatch(x_padded: torch.Tensor, slot_token) -> torch.Tensor:
     slot_token: ``(E*C,)`` source token per slot (``T`` = empty).  Returns
     the ``(E*C, D)`` expert input buffer.
 
-    On a CUDA tensor: one launch of ``md_dispatch`` -- a warp per slot,
-    the row copied as bytes in up to 16-byte pieces."""
+    On a CUDA tensor: one launch of ``md_dispatch`` -- a warp per slot, or
+    per piece of its row when the slots are too few to fill the card, the
+    row copied as bytes in up to 16-byte loads."""
     if not isinstance(x_padded, torch.Tensor):
         raise TypeError(f"x_padded must be a torch.Tensor, "
                         f"got {type(x_padded).__name__}")

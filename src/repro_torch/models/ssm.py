@@ -127,7 +127,9 @@ def ssd_chunked(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
                 ) -> Tuple[Tensor, Tensor]:
     """SSD scan.  x (B,S,H,P), dt (B,S,H) (post-softplus), A (H,) negative,
     Bm/Cm (B,S,N).  Returns (y (B,S,H,P) float32, final state (B,H,P,N)
-    float32).  Each chunk is one call of ``ssd_chunk``."""
+    float32).  Each chunk is one call of ``ssd_chunk``, on views of the
+    chunk as they lie (no copy), writing its y into one buffer for the
+    whole scan."""
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)
@@ -147,16 +149,15 @@ def ssd_chunked(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
 
     state = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
              if init_state is None else init_state.float())
-    ys = []
+    y = torch.empty((Bsz, nc * Q, H, P), dtype=torch.float32,
+                    device=x.device)
     for c in range(nc):
         sl = slice(c * Q, (c + 1) * Q)
-        y, state = ssd_chunk(x[:, sl].transpose(1, 2).contiguous(),
-                             dt[:, sl].transpose(1, 2).contiguous(),
-                             Bm[:, sl].contiguous(), Cm[:, sl].contiguous(),
-                             cum[:, c].transpose(1, 2).contiguous(), state)
-        ys.append(y)                                   # (B, H, Q, P)
-    y = torch.cat(ys, dim=2).transpose(1, 2)[:, :S]
-    return y, state
+        _, state = ssd_chunk(x[:, sl].transpose(1, 2),
+                             dt[:, sl].transpose(1, 2), Bm[:, sl], Cm[:, sl],
+                             cum[:, c].transpose(1, 2), state,
+                             y[:, sl].transpose(1, 2))
+    return y[:, :S], state
 
 
 def ssm_block(cfg: ArchConfig, lp, x: Tensor, *, conv_state=None,

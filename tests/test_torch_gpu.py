@@ -20,7 +20,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_chunk as sc
 from repro_torch.models import moe
 
-from torch_parity import LAYOUT_CASES, build_artifact, layout_id
+from torch_parity import (CHUNK_LAYOUTS, LAYOUT_CASES, build_artifact,
+                          chunk_views, layout_id)
 
 
 @pytest.fixture
@@ -84,11 +85,15 @@ def test_moe_dispatch_equals_its_plain_version_on_the_card(cuda, dtype, D):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("layout", CHUNK_LAYOUTS)
 @pytest.mark.parametrize("P,N", [(16, 16), (64, 64), (64, 128)])
 @pytest.mark.parametrize("Q", [1, 7, 16, 100, 256])
-def test_ssd_chunk_equals_its_plain_version_on_the_card(cuda, Q, P, N):
+def test_ssd_chunk_equals_its_plain_version_on_the_card(cuda, Q, P, N,
+                                                        layout):
     """Within 1e-4 of the largest magnitude of the plain output, which runs
-    in true float32 (``allow_tf32`` off, the default)."""
+    in true float32 (``allow_tf32`` off, the default), at the (P, N) of
+    both models and in each of ``CHUNK_LAYOUTS``; one launch, and one copy
+    only for the offset view."""
     assert not torch.backends.cuda.matmul.allow_tf32
     rng = np.random.default_rng(Q * P + N)
     B, H = 2, 3
@@ -100,18 +105,53 @@ def test_ssd_chunk_equals_its_plain_version_on_the_card(cuda, Q, P, N):
            "bm": rng.normal(size=(B, Q, N)), "cm": rng.normal(size=(B, Q, N)),
            "cum": np.cumsum(dt * A[None, :, None], axis=-1),
            "s_prev": rng.normal(size=(B, H, P, N))}
-    args = {k: torch.from_numpy(v.astype(np.float32)).to(cuda)
-            for k, v in f32.items()}
+    args = chunk_views({k: torch.from_numpy(v.astype(np.float32)).to(cuda)
+                        for k, v in f32.items()}, layout)
     before = sc.LAUNCHES["ssd_chunk"]
+    copies = sc.COPIES["ssd_chunk"]
     y, s = sc.ssd_chunk(**args)
     yw, sw = sc.ssd_chunk_plain(**args)
     torch.cuda.synchronize()
     assert sc.LAUNCHES["ssd_chunk"] == before + 1
+    assert sc.COPIES["ssd_chunk"] == copies + (layout == "offset view")
     for got, want in ((y, yw), (s, sw)):
         assert bool(torch.isfinite(got).all())
         tol = 1e-4 * float(want.abs().max())
         assert float((got - want).abs().max()) <= tol
     assert torch.equal(ops.ssd(**args)[0], y)          # deterministic
+
+
+@pytest.mark.gpu
+def test_the_ssd_chunk_kernel_fits_the_sm(cuda):
+    """One block a SM of three warpgroups, with all of its shared memory
+    (three raw stages, two split buffers): the runtime's own report."""
+    info = sc.kernel_info()
+    assert info["blocks_per_sm"] == 1
+    assert 0 < info["registers"] <= 168
+    assert info["shared_bytes"] <= 232448
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slots", [512, 81920], ids=["decode", "prefill"])
+def test_moe_dispatch_is_bit_exact_at_olmoes_sizes(cuda, slots):
+    """olmoe's decode call (8 tokens of 2048 bf16, 512 slots: rows cut in
+    pieces across the card) and a prefill-sized dispatch (81,920 slots):
+    bit for bit the plain version and ``index_select``, empty slots
+    zero."""
+    rng = np.random.default_rng(slots)
+    T = 8 if slots == 512 else 8192
+    x = torch.from_numpy(rng.normal(size=(T, 2048)).astype(np.float32)).to(
+        device=cuda, dtype=torch.bfloat16)
+    x_padded = torch.cat([x, x.new_zeros((1, 2048))])
+    slot = torch.from_numpy(rng.integers(0, T + 1, size=slots).astype(
+        np.int32)).to(cuda)
+    before = md.LAUNCHES["moe_dispatch"]
+    got = md.moe_dispatch(x_padded, slot)
+    torch.cuda.synchronize()
+    assert md.LAUNCHES["moe_dispatch"] == before + 1
+    assert torch.equal(got, md.moe_dispatch_plain(x_padded, slot))
+    assert torch.equal(got, torch.index_select(x_padded, 0, slot))
+    assert bool((got[slot == T] == 0).all())
 
 
 @pytest.mark.gpu

@@ -31,7 +31,7 @@ from repro_torch.models import get_model
 from repro_torch.models import hybrid as PH
 from repro_torch.models import ssm as PS
 
-from torch_parity import BF16_TOL, assert_same, to_numpy
+from torch_parity import BF16_TOL, assert_same, chunk_views, to_numpy
 
 CHUNK_TOL = 1e-4      # one chunk, float32: tests/test_kernels.py's bound
 SCAN_TOL = 2e-4       # the scan over chunks and the block around it
@@ -126,6 +126,151 @@ def test_ssd_chunk_checks_its_arguments():
     before = sc.LAUNCHES["ssd_chunk"]
     sc.ssd_chunk(**inputs)                     # the plain version: no launch
     assert sc.LAUNCHES["ssd_chunk"] == before
+
+
+def _views(inputs, layout):
+    """The chunk's numpy inputs as torch tensors laid out as ``layout``
+    says (``torch_parity.chunk_views``), in the kernel's argument order."""
+    v = chunk_views(_torch(inputs), layout)
+    return [v[k] for k in ("x", "dt", "bm", "cm", "cum", "s_prev")]
+
+
+@pytest.mark.parametrize("layout", ["chunk loop", "longer sequence",
+                                    "offset view"])
+def test_ssd_chunk_reads_strided_views(layout):
+    """The views the chunk loop passes (and an offset view, which the
+    kernel's operand rule copies) give the same chunk as contiguous copies,
+    the JAX oracle and the interpret-mode Pallas kernel (CHUNK_TOL); the
+    rule copies only the view whose rows are off 16 bytes."""
+    inputs = chunk_inputs(_rng(11), 2, 3, 32, 16, 8)
+    views = _views(inputs, layout)
+    assert any(not v.is_contiguous() for v in views) or layout == "offset view"
+    _, copied = sc.kernel_operands(*views)
+    assert copied == (layout == "offset view")
+    got = sc.ssd_chunk(*views)
+    _close(sc.ssd_chunk(*(v.contiguous() for v in views)), got, CHUNK_TOL,
+           "contiguous copies")
+    _close(RR.ssd_chunk_reference(**_jnp(inputs)), got, CHUNK_TOL, "oracle")
+    _close(RO.ssd(**_jnp(inputs), interpret=True), got, CHUNK_TOL,
+           "interpret-mode kernel")
+
+
+@pytest.mark.parametrize("layout", ["chunk loop", "longer sequence"])
+def test_ssd_chunk_writes_y_into_a_given_view(layout):
+    """``out``: y lands in a strided view of a larger buffer (as the chunk
+    loop passes the scan's output), and nothing else of it is written."""
+    inputs = chunk_inputs(_rng(12), 2, 3, 16, 16, 8)
+    views = _views(inputs, layout)
+    buf = torch.full((2, 20, 3, 16), 7.0)
+    out = buf[:, 2:18].transpose(1, 2)
+    y, s_new = sc.ssd_chunk(*views, out)
+    assert y is out
+    want = sc.ssd_chunk(*views)
+    assert_same(want[0], buf[:, 2:18].transpose(1, 2))
+    assert_same(want[1], s_new)
+    assert bool((buf[:, :2] == 7).all() and (buf[:, 18:] == 7).all())
+    with pytest.raises(ValueError, match="out"):
+        sc.ssd_chunk(*views, buf[:, 2:17].transpose(1, 2))
+
+
+@pytest.mark.parametrize("arch", ["mamba2_370m", "zamba2_2_7b"])
+def test_the_chunk_loop_copies_nothing_at_the_models_shapes(arch,
+                                                            monkeypatch):
+    """One Mamba2 block at the model's width (its P, N and chunk of 256;
+    300 tokens: a whole chunk and a padded one), bf16 as the models run:
+    every chunk call's inputs are views the kernel reads as they lie
+    (``kernel_operands`` copies nothing, ``COPIES`` stays 0) and y goes
+    into one buffer for the scan."""
+    cfg = get_arch(arch)
+    lp = PS.layer(PS.init_ssm_layers(
+        cfg, torch.Generator(device="cpu").manual_seed(0), (1,),
+        device="cpu"), 0)
+    calls = []
+
+    def checked(*a):
+        args, copied = sc.kernel_operands(*a[:6])
+        assert not copied, [tuple(t.stride()) for t in a[:6]]
+        assert len(a) == 7 and a[6].stride(-1) == 1
+        calls.append(tuple(a[0].shape))
+        return sc.ssd_chunk(*a)
+
+    monkeypatch.setattr(PS, "ssd_chunk", checked)
+    sc.reset_launch_counts()
+    x = torch.from_numpy(_rng(13).normal(size=(1, 300, cfg.d_model)).astype(
+        np.float32)).to(torch.bfloat16)
+    out, _ = PS.ssm_block(cfg, lp, x)
+    _, H, P, _ = PS.dims(cfg)
+    assert calls == [(1, H, 256, P)] * 2
+    assert sc.COPIES["ssd_chunk"] == 0
+    assert bool(torch.isfinite(out.float()).all())
+
+
+def _tf32(a):
+    """float32 rounded to TF32 (10 stored mantissa bits), to nearest, ties
+    away from zero: what ``cvt.rna.tf32.f32`` does."""
+    bits = np.asarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _products(a, b, parts):
+    """a @ b as the kernel takes it on the tensor cores: with ``parts`` 3,
+    each operand split into TF32 hi and lo, a_lo b_hi + a_hi b_lo +
+    a_hi b_hi with float32 sums (3xTF32); with 1, TF32 alone."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    if parts == 1:
+        return _tf32(a) @ _tf32(b)
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _emulated_chunk(inp, parts):
+    """The kernel's arithmetic on the CPU: C B^T once per batch row, W =
+    (C B^T) o L o dt (masked before exp), y = W x + (exp(cum) o C)
+    S_prev^T, S_new = exp(cum_last) S_prev + u^T B, each product in
+    ``_products``, the rest float32."""
+    f32 = np.float32
+    x, dt, bm, cm, cum, s = (inp[k] for k in ("x", "dt", "bm", "cm", "cum",
+                                              "s_prev"))
+    B, H, Q, _ = x.shape
+    causal = np.tril(np.ones((Q, Q), bool))
+    y, s_new = np.zeros_like(x), np.zeros_like(s)
+    for b in range(B):
+        g = _products(cm[b], bm[b].T, parts)
+        for h in range(H):
+            c = cum[b, h]
+            L = np.exp(np.where(causal, c[:, None] - c[None, :], -np.inf))
+            w = (g * L.astype(f32) * dt[b, h][None, :]).astype(f32)
+            y[b, h] = _products(w, x[b, h], parts) + _products(
+                cm[b] * np.exp(c)[:, None].astype(f32), s[b, h].T, parts)
+            u = x[b, h] * dt[b, h][:, None] * np.exp(c[-1] - c)[:, None]
+            s_new[b, h] = np.exp(c[-1]).astype(f32) * s[b, h] + _products(
+                u.astype(f32).T, bm[b], parts)
+    return y, s_new
+
+
+@pytest.mark.parametrize("dt_range", [(0.01, 0.3), (0.0, 1e-6), (4.0, 8.0)],
+                         ids=["dt typical", "dt near 0", "dt large"])
+@pytest.mark.parametrize("P,N", [(64, 128), (64, 64)],
+                         ids=["mamba2 chunk", "zamba2 chunk"])
+def test_the_split_precision_scheme_meets_the_bound(P, N, dt_range):
+    """3xTF32, emulated with TF32 rounding of hi and lo, three products and
+    float32 sums, at the models' chunk shapes (Q 256) with small B and H:
+    within 1e-4 of the largest magnitude (CHUNK_TOL's bound, as a share)
+    of a float64 evaluation (the plain version on float64 tensors), for y
+    and S_new.  TF32 alone is not: its y is off by more than that."""
+    inputs = chunk_inputs(_rng(P + N), 1, 2, 256, P, N, dt_range=dt_range)
+    want = tuple(t.numpy() for t in sc.ssd_chunk_plain(
+        **{k: torch.from_numpy(v).double() for k, v in inputs.items()}))
+    for parts in (3, 1):
+        got = _emulated_chunk(inputs, parts)
+        share = [float(np.abs(g - w).max() / np.abs(w).max())
+                 for g, w in zip(got, want)]
+        if parts == 3:
+            assert max(share) <= 1e-4, share
+        else:
+            assert share[0] > 1e-4, share
 
 
 # ---------------------------------------------------------------------------

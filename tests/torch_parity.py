@@ -11,6 +11,8 @@ round at different places).
 
 Only tests import both packages; everything here runs on the CPU, and the
 reference's Pallas kernels run in interpret mode, as its own tests run them.
+This module itself imports neither JAX nor either package, so
+``chip_smoke.py`` lays out its SSD chunks with :func:`chunk_views` too.
 """
 
 from __future__ import annotations
@@ -119,3 +121,45 @@ def run_both(ref_fn, port_fn, inputs, *, to_ref, to_port, tol=None, what=""):
 def strip_backend(d: dict) -> dict:
     """An artifact's JSON without the one field the packages differ in."""
     return {k: v for k, v in d.items() if k != "backend"}
+
+
+CHUNK_LAYOUTS = ("contiguous", "chunk loop", "longer sequence", "offset view")
+
+
+def chunk_views(args: dict, layout: str) -> dict:
+    """One SSD chunk's torch inputs (``x (B, H, Q, P)``, ``dt``, ``cum
+    (B, H, Q)``, ``bm``, ``cm (B, Q, N)``, ``s_prev (B, H, P, N)``, on any
+    device) laid out as ``layout`` says: "contiguous"; "chunk loop", as
+    ``models/ssm.ssd_chunked`` passes them (x, dt and cum transposed out of
+    (B, Q, H, ...) tensors); "longer sequence", those views one row into a
+    longer sequence, B and C rows of it, S_prev heads of a larger state;
+    "offset view", x one float past a 16-byte boundary (the kernel's
+    operand rule copies it)."""
+    import torch
+
+    x = args["x"]
+    B, H, Q, _ = x.shape
+    if layout == "contiguous":
+        return dict(args)
+    if layout == "offset view":
+        flat = torch.zeros(x.numel() + 1, dtype=x.dtype, device=x.device)
+        flat[1:] = x.reshape(-1)
+        return {**args, "x": flat[1:].view(x.shape)}
+    pad = 0 if layout == "chunk loop" else 1
+
+    def transposed(t):          # (B, H, Q, ..) in a (B, Q + 2 pad, H, ..)
+        big = t.new_zeros((B, Q + 2 * pad, H) + tuple(t.shape[3:]))
+        big[:, pad:pad + Q] = t.transpose(1, 2)
+        return big[:, pad:pad + Q].transpose(1, 2)
+
+    def rows(t):
+        big = t.new_zeros((B, Q + 2 * pad, t.shape[-1]))
+        big[:, pad:pad + Q] = t
+        return big[:, pad:pad + Q]
+
+    s_prev = args["s_prev"]
+    state = s_prev.new_zeros((B, H + pad) + tuple(s_prev.shape[2:]))
+    state[:, pad:] = s_prev
+    return {"x": transposed(x), "dt": transposed(args["dt"]),
+            "bm": rows(args["bm"]), "cm": rows(args["cm"]),
+            "cum": transposed(args["cum"]), "s_prev": state[:, pad:]}
