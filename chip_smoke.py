@@ -11,9 +11,12 @@ Run from the root of a checkout, with no arguments, it
 2. holds each kernel against its plain torch version on the card: the
    banked kernels and the MoE dispatch exactly (over the tested banking
    layouts, both transform levels, the server's layouts, several dtypes
-   and row widths, a scatter with many duplicates, many empty slots,
-   duplicate sources, the decode shape, a large gather and a prefill-sized
-   dispatch that it also times); the SSD chunk within 1e-4 of the largest
+   and row widths, scatters of 1024 and 4096 writes over 64 addresses and
+   of 4096 over 2 -- the winner table --, addresses out of range already
+   on the card, many empty slots, duplicate sources, the decode shape, a
+   large gather and a prefill-sized dispatch that it also times), with
+   the banked kernels' registers, stack and spill bytes from ptxas (no
+   spill allowed); the SSD chunk within 1e-4 of the largest
    magnitude of the plain output (3xTF32 products, float32 sums in another
    order), over chunk lengths 1 to 256, the (P, N) of every config, a
    carried state, dt near 0 and dt large, each contiguous, as the chunk
@@ -24,8 +27,10 @@ Run from the root of a checkout, with no arguments, it
    128 and 240, causal and not, windows of 32 and 1024, GQA groups of 1, 2
    and 7, 1 to 2048 rows, a cross attention of 64 rows over 1500 keys, a
    ``kv_len`` below the keys and a q at an odd offset (D 72 and the offset
-   view go through the bf16 kernel's aligned copy, which is counted), with
-   the bf16 kernel's registers, shared memory and blocks per SM;
+   view go through the bf16 kernel's aligned copy, which is counted), and
+   rows that see no key (the mean of v over all keys, from
+   ``fa_blind_rows``, launched there and on no model path), with the bf16
+   kernel's registers, shared memory and blocks per SM;
 3. runs the port's main paths, each at full width with random bf16
    weights from ``--seed``: the continuous-batching decode server on
    qwen2-7b, olmoe-1b-7b, mamba2-370m and zamba2-2.7b, which starts on the
@@ -55,7 +60,9 @@ Run from the root of a checkout, with no arguments, it
    gemma3's local and global layers, olmoe, zamba2, whisper's encoder),
    and prints the times on the
    card as one ``{"kernels": [...]}`` line and the host-inclusive times
-   per call as another;
+   per call as another; B1-B3 and B5 at decode size also in 15 rounds
+   interleaved with their PyTorch call (``banked_*`` and
+   ``moe_dispatch_decode`` lines);
 5. checks each family's reduced model on the card against the same
    weights on the CPU: a prefill of 4 rows, then three decode steps.
 
@@ -104,6 +111,10 @@ SOURCE = {
     "ssd_chunk": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
 }
+# the keys of a kernel's row in the kernels line
+KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")
 REPLACES = {
     "banked_gather": "src/repro/kernels/banked_gather.py:65",
     "banked_scatter": "src/repro/kernels/banked_gather.py:107",
@@ -193,13 +204,51 @@ def phase_toolchain(torch):
     ptxas = [ln for name in _build.SOURCES
              for ln in _build.build_log[name].splitlines()
              if "registers" in ln or "spill" in ln or "C7520" in ln]
+    banked = banked_ptxas(_build.build_log["banked"])
+    check(banked and all(v["spill_stores"] == v["spill_loads"] == 0
+                         for v in banked.values()),
+          f"a banked kernel spills (or ptxas reported none): {banked}")
     say("toolchain", python=sys.version.split()[0], torch=torch.__version__,
         torch_cuda=torch.version.cuda, nvcc=nvcc_version,
         card=smi, capability=list(torch.cuda.get_device_capability(0)),
         build_seconds={k: round(v, 2)
                        for k, v in _build.build_seconds.items()},
-        ptxas=ptxas)
-    return smi
+        banked_ptxas=banked, ptxas=ptxas)
+    return smi, banked
+
+
+def banked_ptxas(log):
+    """``-Xptxas -v`` of ``banked.cu`` per kernel: registers, stack frame
+    and spill bytes, keyed ``name<program source>`` (``BkFast<steps>`` or
+    ``BkDev<registers,slots>``; for ``bk_scatter_elems_kernel`` the
+    element's size in bits first)."""
+    import re
+
+    types = {"h": "8,", "t": "16,", "j": "32,", "m": "64,"}
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for _Z\d+(bk_\w+?)I(\w*?)Ev", ln)
+        if m:
+            args = re.sub(r"Li(\d+)E", r"\1,", m.group(2))
+            args = re.sub(r"\d+(Bk[A-Za-z]+)I", r"\1<", args)
+            args = args.replace(",E", ">")
+            if args[:1] in types:
+                args = types[args[0]] + args[1:]
+            name = f"{m.group(1)}<{args}>"
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            out[name].update(zip(("stack", "spill_stores", "spill_loads"),
+                                 map(int, m.groups())))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            name = None
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -313,31 +362,38 @@ def phase_kernels(torch, seed):
                 cases += 1
     torch.cuda.synchronize()
 
-    # many duplicates: 4096 writes over 64 distinct addresses; the result is
-    # also held to a sequential host loop (last write wins in index order)
+    # many duplicates: 1024 and 4096 writes over 64 distinct addresses, and
+    # 4096 over 2 (a block owns more writes than it keeps in shared memory
+    # and takes the winner table); the result is also held to a sequential
+    # host loop (last write wins in index order)
     from repro_torch.runtime.server import page_solution
     art = page_solution(None, 1024, 16, 8)
     flat, table = random_table(torch, art, 8, torch.int32, gen)
-    addrs = rng.choice(1024, size=64, replace=False)
-    idx = addrs[rng.integers(0, 64, size=4096)]
-    vals = torch.randint(0, 1 << 20, (4096, 8), generator=gen, device="cuda",
-                         dtype=torch.int64).to(torch.int32)
-    cols = rng.integers(0, 8, size=4096)
-    want_rows = flat.cpu().numpy().copy()
-    want_elems = want_rows.copy()
-    v_host = vals.cpu().numpy()
-    for t in range(4096):
-        want_rows[idx[t]] = v_host[t]
-        want_elems[idx[t], cols[t]] = v_host[t, 0]
-    got_rows = art.unpack(art.scatter(table.clone(), idx, vals))
-    got_elems = art.unpack(art.scatter(table.clone(), idx, vals[:, 0],
-                                       col=cols))
-    d_rows = max_abs_diff(got_rows, torch.from_numpy(want_rows).cuda())
-    d_elems = max_abs_diff(got_elems, torch.from_numpy(want_elems).cuda())
-    check(d_rows == 0.0 and d_elems == 0.0,
-          f"duplicates: last write does not win ({d_rows}, {d_elems})")
+    d_dup = 0.0
+    for T, distinct in ((1024, 64), (4096, 64), (4096, 2)):
+        addrs = rng.choice(1024, size=distinct, replace=False)
+        idx = addrs[rng.integers(0, distinct, size=T)]
+        vals = torch.randint(0, 1 << 20, (T, 8), generator=gen,
+                             device="cuda", dtype=torch.int64).to(torch.int32)
+        cols = rng.integers(0, 8, size=T)
+        want_rows = flat.cpu().numpy().copy()
+        want_elems = want_rows.copy()
+        v_host = vals.cpu().numpy()
+        for t in range(T):
+            want_rows[idx[t]] = v_host[t]
+            want_elems[idx[t], cols[t]] = v_host[t, 0]
+        got_rows = art.unpack(art.scatter(table.clone(), idx, vals))
+        got_elems = art.unpack(art.scatter(table.clone(), idx, vals[:, 0],
+                                           col=cols))
+        d_rows = max_abs_diff(got_rows, torch.from_numpy(want_rows).cuda())
+        d_elems = max_abs_diff(got_elems,
+                               torch.from_numpy(want_elems).cuda())
+        check(d_rows == 0.0 and d_elems == 0.0, f"duplicates ({T} writes over "
+              f"{distinct}): last write does not win ({d_rows}, {d_elems})")
+        d_dup = max(d_dup, d_rows, d_elems)
 
-    # out-of-range addresses that already lie on the card: zero row / dropped
+    # out-of-range addresses that already lie on the card: zero row /
+    # dropped, in one block and through the winner table
     bad = torch.tensor([3, 5000, -1, 7], device="cuda", dtype=torch.int64)
     got = art.gather(table, bad)
     check(bool((got[1] == 0).all() and (got[2] == 0).all())
@@ -346,6 +402,14 @@ def phase_kernels(torch, seed):
     kept = table.clone()
     art.scatter(kept, bad[1:3], vals[:2])
     check(max_abs_diff(kept, table) == 0.0, "out-of-range scatter wrote")
+    many = torch.from_numpy(rng.integers(0, 1024, size=2000)).cuda()
+    stray = torch.from_numpy(rng.random(2000) < 0.3).cuda()
+    many[stray] = 1 << 30
+    mine, theirs = table.clone(), table.clone()
+    art.scatter(mine, many, vals[:2000])
+    bg.banked_scatter_plain(theirs, many[~stray], vals[:2000][~stray], art)
+    check(max_abs_diff(mine, theirs) == 0.0,
+          "out-of-range writes through the winner table: the others differ")
 
     # one large gather: 65,536 logical rows x 3584 bf16, T = 4096, timed
     from repro_torch.core import FlatGeometry, MemorySpec, compile_geometry
@@ -389,8 +453,8 @@ def phase_kernels(torch, seed):
     nbytes = 2 * 4096 * 3584 * 2 + 4 * 4096
     say("kernels", cases=cases, layouts=len(test_layouts()),
         max_abs_diff=worst, launches=dict(bg.LAUNCHES),
-        duplicates={"writes": 4096, "distinct": 64,
-                    "max_abs_diff": max(d_rows, d_elems)},
+        duplicates={"writes_distinct": [[1024, 64], [4096, 64], [4096, 2]],
+                    "max_abs_diff": d_dup},
         large_gather={"rows": 65536, "D": 3584, "dtype": "bfloat16",
                       "T": 4096, "max_abs_diff": d_big, **timed,
                       "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
@@ -721,10 +785,13 @@ def phase_attention_kernel(torch, seed):
           "the offset view of q made no aligned copy")
     if share >= worst["bfloat16"]:
         worst["bfloat16"], worst_case["bfloat16"] = share, "q at an odd offset"
+    check(fa.BLIND_LAUNCHES["flash_attention"] == 0,
+          "a call whose rows all see a key launched the blind-row kernel")
+    blind = phase_blind_rows(torch, gen)
     torch.cuda.synchronize()
     kernel = {D: fa.kernel_info(D) for D in (64, 80, 128, 240)}
     say("attention_kernel", cases=len(cases) + 1, worst_share_of_max=worst,
-        worst_case=worst_case,
+        worst_case=worst_case, blind_rows=blind,
         tolerance="float32 2e-5, bfloat16 2e-2 of max(1, max |plain|); "
                   "allow_tf32 off", launches=dict(fa.LAUNCHES),
         aligned_copies=dict(fa.COPIES),
@@ -733,6 +800,39 @@ def phase_attention_kernel(torch, seed):
         note="bf16_kernel registers: per thread at launch, as "
              "cudaFuncGetAttributes reports them; setmaxnreg then moves "
              "them from the producer warpgroup to the two consumers")
+
+
+def phase_blind_rows(torch, gen):
+    """Rows that see no key (``kv_len`` 0, windows that leave the last rows
+    without one; D 64, 72 and 128, both dtypes) against the plain version:
+    the JAX oracle's mean of v over all keys, from ``fa_blind_rows``, after
+    the attention kernel over the rows before them.  Returns the cases, the
+    worst share of the tolerance and the launches of both kernels."""
+    from repro_torch.kernels import flash_attention as fa
+
+    launches = fa.LAUNCHES["flash_attention"]
+    blind = fa.BLIND_LAUNCHES["flash_attention"]
+    worst, cases, want_launches = 0.0, 0, 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for D in (64, 72, 128):
+            for Sq, causal, window, kv_len in ((64, True, 0, 0),
+                                               (64, False, 2, 4),
+                                               (1000, True, 32, 500)):
+                label = (f"{str(dtype)[6:]} D={D} {Sq}x{Sq} blind rows "
+                         f"w={window} kv_len={kv_len}")
+                q, k, v = attention_inputs(torch, gen, dtype, D, 2, 2, 2, Sq,
+                                           Sq)
+                _, share = attention_held(torch, q, k, v, label,
+                                          causal=causal, window=window,
+                                          kv_len=kv_len)
+                worst = max(worst, share / ATTN_TOL[str(dtype)[6:]])
+                want_launches += fa.first_blind_row(Sq, kv_len, window) > 0
+                cases += 1
+    check(fa.BLIND_LAUNCHES["flash_attention"] == blind + cases
+          and fa.LAUNCHES["flash_attention"] == launches + want_launches,
+          "the blind-row cases launched the kernels other than once each")
+    return {"cases": cases, "worst_share_of_tolerance": worst,
+            "blind_launches": cases, "attention_launches": want_launches}
 
 
 def attention_work(B, Sq, Sk, H, Hkv, D, causal, window, itemsize):
@@ -1060,6 +1160,8 @@ def prefill_once(torch, model, params, batch, max_len, capture=None):
     launches = {**sc.LAUNCHES, **fa.LAUNCHES, **md.LAUNCHES}
     check(fa.COPIES["flash_attention"] == 0, f"{cfg.name} prefill: "
           f"{fa.COPIES['flash_attention']} aligned copies before B4")
+    check(fa.BLIND_LAUNCHES["flash_attention"] == 0, f"{cfg.name} prefill "
+          f"launched the blind-row kernel")
     check(sc.COPIES["ssd_chunk"] == 0, f"{cfg.name} prefill: "
           f"{sc.COPIES['ssd_chunk']} copies in front of B6")
     check(tuple(logits.shape) == (B, cfg.vocab)
@@ -1338,43 +1440,55 @@ def device_kernels(prof):
 # ---------------------------------------------------------------------------
 
 
+def used_ptxas(banked, kernel, source):
+    """The ``-Xptxas -v`` properties of ``kernel``'s instantiations for the
+    program source ``source`` (one per element size for B2)."""
+    return {k: v for k, v in banked.items()
+            if k.startswith(kernel + "<") and k.endswith(source + ">")}
+
+
 def resolve_ops(art, T):
     prog = art.kernel_program()
     nd = len(art.layout.dims)
     return T * (len(prog.instrs) + 2 * nd + 2 * len(prog.ba_regs))
 
 
-B5_ROUNDS = 15
+ROUNDS = 15
 
 
-def decode_rounds(torch, kernel, library, slots):
-    """B5 beside ``index_select`` at decode size in ``B5_ROUNDS``
-    interleaved rounds (the order alternating), each timing 50 calls of
-    one behind a 60 ms stall: the two lie a few per cent apart, within
-    what one timing spreads.  The verdict is "faster" or "slower" only
-    where every round's ratio says so, else "unresolved"."""
+def interleaved_rounds(torch, phase, kernel, library, library_name,
+                       **fields):
+    """A kernel beside one PyTorch call in ``ROUNDS`` interleaved rounds
+    (the order alternating), each timing 50 calls of one behind a 60 ms
+    stall: near the launch floor the two lie a few per cent apart, within
+    what one timing spreads.  Prints the medians, ranges and the ratio of
+    every round; the verdict is "faster" or "slower" only where every
+    round's ratio says so, else "unresolved".  Returns the summary."""
     import numpy as np
 
-    ms = {"kernel": [], "index_select": []}
-    fns = {"kernel": kernel, "index_select": library}
-    for r in range(B5_ROUNDS):
-        for name in (("kernel", "index_select") if r % 2
-                     else ("index_select", "kernel")):
+    ms = {"kernel": [], library_name: []}
+    fns = {"kernel": kernel, library_name: library}
+    for r in range(ROUNDS):
+        for name in (("kernel", library_name) if r % 2
+                     else (library_name, "kernel")):
             ms[name].append(time_ms(torch, fns[name], iters=50, warmup=10,
                                     stall_ms=60.0))
-    ratio = np.array(ms["kernel"]) / np.array(ms["index_select"])
+    ratio = np.array(ms["kernel"]) / np.array(ms[library_name])
     verdict = ("faster" if (ratio < 1).all() else
                "slower" if (ratio > 1).all() else "unresolved")
-    say("moe_dispatch_decode", slots=slots, rounds=B5_ROUNDS,
-        **{f"{k}_ms": {"median": float(np.median(v)), "min": min(v),
-                       "max": max(v)} for k, v in ms.items()},
-        ratio={"median": float(np.median(ratio)), "min": float(ratio.min()),
-               "max": float(ratio.max())},
-        verdict=verdict, note="ratio: kernel / index_select, round by round")
+    out = {f"{k}_ms": {"median": float(np.median(v)), "min": min(v),
+                       "max": max(v)} for k, v in ms.items()}
+    out["ratio"] = {"median": float(np.median(ratio)),
+                    "min": float(ratio.min()), "max": float(ratio.max()),
+                    "rounds": [float(x) for x in ratio]}
+    out["verdict"] = verdict
+    say(phase, **fields, rounds=ROUNDS, **out,
+        note=f"ratio: kernel / {library_name}, round by round")
+    return out
 
 
 def phase_kernel_times(torch, seed, launches, ssd_args, ssd_held_by,
-                       attn_rows):
+                       attn_rows, banked):
     """Each kernel at the shapes the main paths gave it.  B1-B3: an int32
     record table of (8 banks, 128 rows, 8 slots); the tick's gather reads
     8 slots x 4 trailing records, its element scatter writes 8 records,
@@ -1388,7 +1502,10 @@ def phase_kernel_times(torch, seed, launches, ssd_args, ssd_held_by,
     attention call of each shape of the full-width prefills, on its own
     inputs (``attn_rows``: label, (q, k, v), kwargs, calls at that shape,
     and its error against the plain version from ``phase_prefill``); every
-    one of them goes into the kernels line."""
+    one of them goes into the kernels line.  B1-B3 are also timed beside
+    their PyTorch call in interleaved rounds (``banked_*`` lines), and
+    their rows carry the ``-Xptxas -v`` properties (``banked``) of the
+    instantiations these launches use."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -1406,6 +1523,7 @@ def phase_kernel_times(torch, seed, launches, ssd_args, ssd_held_by,
     rng = np.random.default_rng(seed)
     flat, table = random_table(torch, art, 8, torch.int32, gen)
     rows2d = table.clone().view(-1, 8)    # the library calls' own table
+    source = bg.kernel_source(art)
     out, call_ms = [], {}
 
     def entry(name, kernel, plain, library, err, nbytes, ops,
@@ -1454,6 +1572,11 @@ def phase_kernel_times(torch, seed, launches, ssd_args, ssd_held_by,
           lambda: bg.banked_gather_plain(table, flat_idx, art),
           lambda: torch.index_select(rows2d, 0, p_idx),
           err, 2 * 32 * 8 * 4 + 4 * 32, resolve_ops(art, 32)))
+    out[-1]["interleaved"] = interleaved_rounds(
+        torch, "banked_gather_tick", lambda: art.gather(table, idx),
+        lambda: torch.index_select(rows2d, 0, p_idx), "index_select",
+        rows=32, row_bytes=32)
+    out[-1]["ptxas"] = used_ptxas(banked, "bk_gather_kernel", source)
 
     # B2: 8 records, one per slot
     idx = torch.from_numpy(pos.astype(np.int32)).cuda()
@@ -1470,6 +1593,12 @@ def phase_kernel_times(torch, seed, launches, ssd_args, ssd_held_by,
           lambda: bg.banked_scatter_elems_plain(theirs, idx, cols, vals, art),
           lambda: rows2d.index_put_((p_idx, c64), vals),
           err, 8 * (4 + 4 + 4 + 4), resolve_ops(art, 8) + 8))
+    out[-1]["interleaved"] = interleaved_rounds(
+        torch, "banked_scatter_elems_tick",
+        lambda: art.scatter(mine, idx, vals, col=cols),
+        lambda: rows2d.index_put_((p_idx, c64), vals), "index_put_",
+        records=8)
+    out[-1]["ptxas"] = used_ptxas(banked, "bk_scatter_elems_kernel", source)
 
     # B3: the swap's repack of all 1024 logical rows
     idx = torch.arange(1024, device="cuda", dtype=torch.int32)
@@ -1483,6 +1612,11 @@ def phase_kernel_times(torch, seed, launches, ssd_args, ssd_held_by,
           lambda: bg.banked_scatter_plain(theirs, idx, flat, art),
           lambda: rows2d.index_copy_(0, p_idx, flat),
           err, 2 * 1024 * 8 * 4 + 4 * 1024, resolve_ops(art, 1024) + 1024))
+    out[-1]["interleaved"] = interleaved_rounds(
+        torch, "banked_scatter_swap", lambda: art.scatter(mine, idx, flat),
+        lambda: rows2d.index_copy_(0, p_idx, flat), "index_copy_",
+        rows=1024, row_bytes=32)
+    out[-1]["ptxas"] = used_ptxas(banked, "bk_scatter_rows_kernel", source)
 
     # B5: the expert buffer of one MoE layer of olmoe's decode call
     olmoe = get_arch("olmoe_1b_7b")
@@ -1499,8 +1633,10 @@ def phase_kernel_times(torch, seed, launches, ssd_args, ssd_held_by,
           lambda: md.moe_dispatch_plain(x_padded, slot),
           lambda: torch.index_select(x_padded, 0, slot),
           err, ((T + 1) * D + S * D) * 2 + 4 * S, 0))
-    decode_rounds(torch, lambda: md.moe_dispatch(x_padded, slot),
-                  lambda: torch.index_select(x_padded, 0, slot), S)
+    interleaved_rounds(torch, "moe_dispatch_decode",
+                       lambda: md.moe_dispatch(x_padded, slot),
+                       lambda: torch.index_select(x_padded, 0, slot),
+                       "index_select", slots=S)
 
     # B6: one 256-row chunk of each prefill, on the prefill's own inputs,
     # laid out as the chunk loop hands them over
@@ -1545,7 +1681,7 @@ def phase_kernel_times(torch, seed, launches, ssd_args, ssd_held_by,
              "worst_share_of_max_by_prompt: the prefills' "
              "captured chunks, 1000 tokens the pad path; copies: B6's "
              "copied inputs so far in the run (the prefills checked 0)")
-    out.append({k: ssd_rows[0][k] for k in out[0]})
+    out.append({k: ssd_rows[0][k] for k in KERNEL_KEYS})
 
     # B4: each attention shape of the prefills, on the prefill's own inputs
     attn_calls = {}
@@ -1720,7 +1856,7 @@ def main():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
     from repro_torch.configs import get_arch
 
-    card = phase_toolchain(torch)
+    card, banked = phase_toolchain(torch)
     phase_kernels(torch, args.seed)
     phase_moe_kernel(torch, args.seed)
     phase_ssd_kernel(torch, args.seed)
@@ -1761,7 +1897,7 @@ def main():
             ssd_held_by[cfg.name] = held
         attn_rows += rows
     kernels = phase_kernel_times(torch, args.seed, launches, ssd_args,
-                                 ssd_held_by, attn_rows)
+                                 ssd_held_by, attn_rows, banked)
     del ssd_args, attn_rows
     free_device_memory(torch)
     for cfg in archs:

@@ -461,15 +461,23 @@ KERNEL_OPS = ("const", "shl", "shr", "and", "mul", "div", "mod",
               "add", "sub", "ge", "select")
 KERNEL_OPCODE = {name: i for i, name in enumerate(KERNEL_OPS)}
 
-# Capacities of the kernel's by-value program struct (BkProgram).  The
+# Capacities of the kernels' program (``kernels/csrc/banked.cu``).  The
 # largest program of the layouts the tests and the server use has 87
 # steps (flat N=5 B=3 over 21 rows, full level: Crandall folds plus
 # subtract-mux stages) and the widest needs 11 registers (multidim
-# Ns=(3, 2)); the two server layouts take 6 steps.  Beyond these
-# limits lowering raises -- a program is never truncated.
+# Ns=(3, 2)); the two server layouts take 6 steps and 4 registers.
+# Beyond these limits lowering raises -- a program is never truncated.
 KERNEL_MAX_INSTRS = 192
 KERNEL_MAX_REGS = 32
 KERNEL_MAX_DIMS = 8
+# The kernels take the program by value as a launch parameter, in one of
+# these (instruction, register) capacities -- the smallest that holds it:
+# a small program is unrolled at compile time, and a register is read
+# through a tree of selects as deep as log2 of the register capacity.
+KERNEL_BUCKETS = ((8, 4), (32, 16), (192, 32))
+# Packed program (see :func:`pack_kernel_program`): a header, four words an
+# instruction slot, three a dimension, two a BA graph.
+KERNEL_HEADER_WORDS = 8
 
 _INT32_MIN, _INT32_MAX = -(1 << 31), (1 << 31) - 1
 
@@ -598,19 +606,18 @@ def lower_kernel_program(ba_graphs: Sequence[Node], bo_graph: Node,
         bo_reg=reg[id(bo_graph)], n_regs=n_regs)
 
 
-def run_kernel_program(prog: KernelProgram, xs):
-    """Interpret a :class:`KernelProgram` on numpy int32 vectors exactly as
-    the CUDA kernels do per thread; returns ``(ba values, bo)`` with one
-    array per BA graph.  The CPU stand-in for reading the kernel."""
+def _interpret(instrs, n_regs: int, xs):
+    """Run register instructions ``(op, dst, a, b, imm)`` on numpy int32
+    vectors ``xs`` (registers 0..); returns the register file."""
     import numpy as np
 
     xs = [np.asarray(x).astype(np.int32) for x in xs]
     shape = np.broadcast_shapes(*[x.shape for x in xs])
-    r = [np.zeros(shape, np.int32) for _ in range(prog.n_regs)]
+    r = [np.zeros(shape, np.int32) for _ in range(n_regs)]
     for i, x in enumerate(xs):
         r[i] = np.broadcast_to(x, shape)
     with np.errstate(over="ignore"):
-        for op, dst, a, b, imm in prog.instrs:
+        for op, dst, a, b, imm in instrs:
             name = KERNEL_OPS[op]
             c = np.int32(imm)
             if name == "const":
@@ -636,7 +643,192 @@ def run_kernel_program(prog: KernelProgram, xs):
             else:
                 v = np.where(r[a] != 0, r[b], r[imm])
             r[dst] = v.astype(np.int32)
+    return r
+
+
+def run_kernel_program(prog: KernelProgram, xs):
+    """Interpret a :class:`KernelProgram` on numpy int32 vectors exactly as
+    the CUDA kernels do per thread; returns ``(ba values, bo)`` with one
+    array per BA graph.  The CPU stand-in for reading the kernel."""
+    r = _interpret(prog.instrs, prog.n_regs, xs)
     return [r[k] for k in prog.ba_regs], r[prog.bo_reg]
+
+
+def kernel_bucket(prog: KernelProgram) -> Tuple[int, int]:
+    """``(instruction capacity, register capacity)``: the smallest of
+    ``KERNEL_BUCKETS`` that holds ``prog``."""
+    for cap in KERNEL_BUCKETS:
+        if len(prog.instrs) <= cap[0] and prog.n_regs <= cap[1]:
+            return cap
+    raise ValueError(f"{len(prog.instrs)} steps and {prog.n_regs} registers "
+                     f"exceed the kernels' {KERNEL_BUCKETS[-1]}")
+
+
+def kernel_program_words(capacity: int) -> int:
+    """Words of a program packed for ``capacity`` instructions."""
+    return (KERNEL_HEADER_WORDS + 4 * capacity + 3 * KERNEL_MAX_DIMS
+            + 2 * KERNEL_MAX_DIMS)
+
+
+# Kinds of packed instructions: all of const shl shr and mul add sub are
+# one branch-free LINEAR form; the others keep their own.
+KIND_LINEAR, KIND_GE, KIND_SELECT, KIND_DIV, KIND_MOD = range(5)
+
+
+def _packed_instr(op: int, dst: int, a: int, b: int, imm: int):
+    """One instruction as the kernels read it: ``(code, ma, mb, km)``.
+
+    ``code = kind | dst << 3 | a << 8 | b << 13 | s << 18 | mask << 23``.
+    LINEAR computes ``t = r[a] * ma + r[b] * mb`` (wrapping int32), adds
+    ``km`` when the mask bit is clear, shifts ``t`` right by ``s``
+    (arithmetic) and ands it with ``km`` when the bit is set: const is
+    ``(0, 0, imm)``, shl multiplies by ``2**imm``, shr shifts, and masks,
+    mul multiplies, add and sub take ``mb = +-1``.  GE compares ``r[a] >=
+    r[b]``; SELECT takes ``r[b] if r[a] else r[km]``; DIV and MOD floor by
+    ``km``."""
+    name = KERNEL_OPS[op]
+    ma, mb, km, sh, mask = 1, 0, 0, 0, 0
+    kind = KIND_LINEAR
+    if name == "const":
+        ma, km = 0, imm
+    elif name == "shl":
+        ma = (1 << imm) - (1 << 32 if imm == 31 else 0)
+    elif name == "shr":
+        sh = imm
+    elif name == "and":
+        km, mask = imm, 1
+    elif name == "mul":
+        ma = imm
+    elif name in ("add", "sub"):
+        mb = 1 if name == "add" else -1
+    else:
+        kind = {"ge": KIND_GE, "select": KIND_SELECT, "div": KIND_DIV,
+                "mod": KIND_MOD}[name]
+        km = imm
+    code = kind | dst << 3 | a << 8 | b << 13 | sh << 18 | mask << 23
+    return code, ma, mb, km
+
+
+def split_constants(d: int) -> Tuple[int, int]:
+    """``(m, s)`` with ``n // d == (n * m) >> s`` for every ``0 <= n <
+    2**31``: ``s = 31 + ceil(log2 d)``, ``m = ceil(2**s / d) < 2**32``
+    (Granlund and Montgomery's round-up multiplier for 31-bit dividends).
+    The kernels split a logical address into coordinates with one 32 x 32
+    -> 64-bit product per dimension instead of a division."""
+    if not 1 <= d < (1 << 31):
+        raise ValueError(f"dimension {d} is outside [1, 2**31)")
+    s = 31 + (d - 1).bit_length()
+    return -(-(1 << s) // d), s
+
+
+def pack_kernel_program(prog: KernelProgram, dims: Sequence[int],
+                        ba_fold: Sequence[int], logical_size: int,
+                        bank_volume: int):
+    """The program as the CUDA kernels take it: int32 words, the launch
+    parameter struct ``BkProg<capacity>`` of ``csrc/banked.cu`` field for
+    field, for the smallest :func:`kernel_bucket` that holds it.
+
+    * header (``KERNEL_HEADER_WORDS``): ``n_instrs, n_regs, n_dims, n_ba,
+      bo_reg, logical_size, bank_volume, capacity``
+    * ``capacity`` instruction slots of four words (:func:`_packed_instr`),
+      the unused ones zero
+    * ``KERNEL_MAX_DIMS`` dimensions of three words, outermost first: ``d``
+      and the multiplier ``m`` (the bits of a uint32) and shift of
+      :func:`split_constants`
+    * ``KERNEL_MAX_DIMS`` BA graphs of two words: the result register and
+      the bank count it folds in (``ba = ba * fold + r[reg]``; 1 for a flat
+      layout)
+
+    :func:`run_packed_program` reads the same words on the CPU."""
+    import numpy as np
+
+    if not len(prog.ba_regs) == len(ba_fold) >= 1:
+        raise ValueError(f"{len(prog.ba_regs)} BA graphs, {len(ba_fold)} "
+                         f"folds")
+    if len(dims) != prog.n_vars:
+        raise ValueError(f"{len(dims)} dimensions for a program of "
+                         f"{prog.n_vars} variables")
+    if logical_size > _INT32_MAX:
+        raise ValueError(f"logical size {logical_size} does not fit int32")
+    capacity = kernel_bucket(prog)[0]
+    words = np.zeros(kernel_program_words(capacity), np.int64)
+    words[:KERNEL_HEADER_WORDS] = [
+        len(prog.instrs), prog.n_regs, len(dims), len(prog.ba_regs),
+        prog.bo_reg, logical_size, bank_volume, capacity]
+    at = KERNEL_HEADER_WORDS
+    for i, ins in enumerate(prog.instrs):
+        words[at + 4 * i:at + 4 * i + 4] = _packed_instr(*ins)
+    at += 4 * capacity
+    for i, d in enumerate(dims):
+        words[at + 3 * i:at + 3 * i + 3] = (int(d),) + split_constants(int(d))
+    at += 3 * KERNEL_MAX_DIMS
+    for k, (reg, n) in enumerate(zip(prog.ba_regs, ba_fold)):
+        words[at + 2 * k:at + 2 * k + 2] = (reg, int(n))
+    return (words & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+
+
+def run_packed_instrs(ins, r):
+    """Run packed instructions (rows ``(code, ma, mb, km)``, see
+    :func:`_packed_instr`) on the int32 register file ``r`` (a list of
+    numpy arrays, updated and returned), as the kernels' ``bk_step``."""
+    import numpy as np
+
+    with np.errstate(over="ignore"):
+        for code, ma, mb, km in np.asarray(ins, np.int64).tolist():
+            kind, dst = code & 7, (code >> 3) & 31
+            a, b = r[(code >> 8) & 31], r[(code >> 13) & 31]
+            if kind == KIND_LINEAR:
+                t = a * np.int32(ma) + b * np.int32(mb)
+                masked = (code >> 23) & 1
+                t = (t if masked else t + np.int32(km)) >> ((code >> 18) & 31)
+                v = t & np.int32(km) if masked else t
+            elif kind == KIND_GE:
+                v = (a >= b).astype(np.int32)
+            elif kind == KIND_SELECT:
+                v = np.where(a != 0, b, r[km])
+            elif kind == KIND_DIV:
+                v = a // np.int32(km)
+            else:
+                v = a % np.int32(km)
+            r[dst] = np.asarray(v).astype(np.int32)
+    return r
+
+
+def run_packed_program(words, addr):
+    """The CPU twin of the kernels' ``bk_resolve``: read packed ``words``
+    (:func:`pack_kernel_program`), split each flat logical address with the
+    packed multipliers, run the packed instructions, fold the banks;
+    returns the int64 row ``bank * bank_volume + offset`` of the bank-major
+    table, or -1 where the address lies outside ``[0, logical_size)``."""
+    import numpy as np
+
+    w = np.asarray(words, dtype=np.int32)
+    n_instrs, n_regs, n_dims, n_ba, bo_reg, size, volume, capacity = (
+        int(x) for x in w[:KERNEL_HEADER_WORDS])
+    if w.size != kernel_program_words(capacity):
+        raise ValueError(f"{w.size} words for a capacity of {capacity}")
+    at = KERNEL_HEADER_WORDS
+    ins = w[at:at + 4 * n_instrs].reshape(n_instrs, 4)
+    at += 4 * capacity
+    split = w[at:at + 3 * n_dims].reshape(n_dims, 3).view(np.uint32)
+    at += 3 * KERNEL_MAX_DIMS
+    fold = w[at:at + 2 * n_ba].reshape(n_ba, 2)
+
+    addr = np.asarray(addr, dtype=np.int64)
+    inside = (addr >= 0) & (addr < size)
+    rem = np.where(inside, addr, 0).astype(np.uint64)
+    r = [np.zeros(addr.shape, np.int32) for _ in range(max(n_regs, n_dims))]
+    for i in range(n_dims - 1, 0, -1):       # innermost first; x0 is left
+        d, m, sh = (np.uint64(v) for v in split[i])
+        q = (rem * m) >> sh
+        r[i] = (rem - q * d).astype(np.int32)
+        rem = q
+    r[0] = rem.astype(np.int32)
+    r = run_packed_instrs(ins, r)
+    ba = np.zeros(addr.shape, np.int64)
+    for reg, n in fold:
+        ba = ba * int(n) + r[reg]
+    return np.where(inside, ba * volume + r[bo_reg], -1)
 
 
 # ---------------------------------------------------------------------------

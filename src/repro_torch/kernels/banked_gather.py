@@ -7,10 +7,13 @@ kernels place every logical row by evaluating the bank-address /
 bank-offset equations (Eq. 1-2) with the Sec-3.4 strength-reduced
 arithmetic, **inside the kernel**, per row, in int32 registers: the
 artifact's :meth:`~repro_torch.core.artifact.CompiledBankingPlan.kernel_program`
-is handed to the launch by value (``csrc/banked.cu``), so one compiled
-library serves every scheme and a layout swap between two decode ticks
-compiles nothing.  No host-side bank/offset table feeds a gather or a
-scatter.
+is packed into int32 words (``core.transforms.pack_kernel_program``, kept
+on the artifact, and copied to each device once).  The library passes a
+short LINEAR program (the server's page layouts) to the kernel by value,
+decoded, and lets the kernel read any other from the device
+(:func:`kernel_source`; ``csrc/banked.cu``), so one compiled library
+serves every scheme and a layout swap between two decode ticks compiles
+nothing.  No host-side bank/offset table feeds a gather or a scatter.
 
 Three kernels, one wrapper each; each replaces the Pallas TPU kernel of the
 same name in the JAX package's ``kernels/banked_gather.py``:
@@ -27,9 +30,16 @@ nothing else.
 
 Both scatters update the table **in place** and return it (the TPU versions
 donate the input buffer).  Duplicate addresses resolve **last write wins in
-index order**: the kernels drop a write when a later one carries the same
-logical address (and column), which reads O(T^2) indices, so a scatter takes
-at most ``SCATTER_MAX_T`` writes per call.
+index order**.  :func:`banked_scatter` picks the winner of each address in
+O(1) expected work a write, in blocks that each own a share of the
+addresses: a shared-memory hash per block, or, for a block that owns more
+than 1024 writes, a winner table in device memory -- ``4 * logical_size``
+bytes, one int32 a logical address, allocated zeroed by the first call of
+more than 1024 writes on a device and kept on the artifact; each launch
+leaves it zero.  Nothing is allocated per call.
+:func:`banked_scatter_elems` still drops a write when a later one carries
+the same address and column, which reads O(T^2) indices.  Either takes at
+most ``SCATTER_MAX_T`` writes per call.
 
 The kernels do not trust an index they cannot resolve: a logical address
 outside ``[0, logical_size)`` gathers a zero row, and a scatter to it (or to
@@ -51,13 +61,15 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..core.transforms import (KERNEL_MAX_DIMS, KERNEL_MAX_INSTRS,
-                               KernelProgram)
+from ..core.transforms import (KERNEL_BUCKETS, KERNEL_HEADER_WORDS,
+                               kernel_program_words, pack_kernel_program)
 
 LAUNCHES: Dict[str, int] = {
     "banked_gather": 0, "banked_scatter": 0, "banked_scatter_elems": 0}
 
-SCATTER_MAX_T = 1 << 16     # the duplicate check is O(T^2) index reads
+# B2's duplicate check reads O(T^2) indices, and every block of B3 reads all
+# T of them.
+SCATTER_MAX_T = 1 << 16
 
 _INT32_MAX = (1 << 31) - 1
 _ELEMENT_SIZES = (1, 2, 4, 8)
@@ -69,55 +81,66 @@ def reset_launch_counts() -> None:
 
 
 # ---------------------------------------------------------------------------
-# The program struct of csrc/banked.cu, field for field
+# What the kernels read beside the table: the packed program, and B3's
+# winner table, both kept on the artifact per device
 # ---------------------------------------------------------------------------
 
 
-class _BkInstr(ctypes.Structure):
-    _fields_ = [("op", ctypes.c_uint8), ("dst", ctypes.c_uint8),
-                ("a", ctypes.c_uint8), ("b", ctypes.c_uint8),
-                ("imm", ctypes.c_int32)]
-
-
-class _BkProgram(ctypes.Structure):
-    _fields_ = [("n_dims", ctypes.c_int32), ("n_instrs", ctypes.c_int32),
-                ("n_ba", ctypes.c_int32), ("bo_reg", ctypes.c_int32),
-                ("logical_size", ctypes.c_int32),
-                ("bank_volume", ctypes.c_int32),
-                ("dims", ctypes.c_int32 * KERNEL_MAX_DIMS),
-                ("ba_regs", ctypes.c_int32 * KERNEL_MAX_DIMS),
-                ("ba_fold", ctypes.c_int32 * KERNEL_MAX_DIMS),
-                ("instrs", _BkInstr * KERNEL_MAX_INSTRS)]
-
-
-def _program_struct(art) -> _BkProgram:
-    """The artifact's kernel program, packed once and kept on it."""
-    cached = getattr(art, "_bk_program", None)
+def program_words(art) -> np.ndarray:
+    """The artifact's kernel program packed as the kernels read it (int32
+    words, :func:`~repro_torch.core.transforms.pack_kernel_program`),
+    packed once and kept on the artifact."""
+    cached = getattr(art, "_bk_words", None)
     if cached is not None:
         return cached
-    prog: KernelProgram = art.kernel_program()
     layout = art.layout
     if layout.logical_size > _INT32_MAX or \
             layout.n_banks * layout.bank_volume > _INT32_MAX:
         raise ValueError("the banked kernels address rows in int32; layout "
                          f"{layout} is too large")
-    p = _BkProgram()
-    p.n_dims = len(layout.dims)
-    p.n_instrs = len(prog.instrs)
-    p.n_ba = len(prog.ba_regs)
-    p.bo_reg = prog.bo_reg
-    p.logical_size = layout.logical_size
-    p.bank_volume = layout.bank_volume
-    for i, d in enumerate(layout.dims):
-        p.dims[i] = d
     fold = art.geometry.Ns if art.kind == "multidim" else (1,)
-    for k, (reg, n) in enumerate(zip(prog.ba_regs, fold)):
-        p.ba_regs[k] = reg
-        p.ba_fold[k] = n
-    for i, (op, dst, a, b, imm) in enumerate(prog.instrs):
-        p.instrs[i] = _BkInstr(op, dst, a, b, imm)
-    art._bk_program = p
-    return p
+    words = pack_kernel_program(art.kernel_program(), layout.dims, fold,
+                                layout.logical_size, layout.bank_volume)
+    art._bk_words = words
+    return words
+
+
+def kernel_source(art) -> str:
+    """How the kernels take the artifact's program (``csrc/banked.cu``,
+    ``bk_with_program``): ``BkFast<n>`` -- decoded by the host, by value --
+    for at most 8 LINEAR steps over one dimension and one bank graph in at
+    most four registers, else ``BkDev<registers,slots>`` of its bucket."""
+    w = program_words(art)
+    n, regs, n_dims, n_ba, cap = (int(w[i]) for i in (0, 1, 2, 3, 7))
+    code = w[KERNEL_HEADER_WORDS:KERNEL_HEADER_WORDS + 4 * n:4]
+    if (cap, n_dims, n_ba) == (8, 1, 1) and regs <= 4 and 1 <= n <= 8 \
+            and not (code & 7).any():
+        return f"BkFast<{n}>"
+    return f"BkDev<{dict(KERNEL_BUCKETS)[cap]},{cap}>"
+
+
+def _program_args(art, device):
+    """Host and device addresses of the packed program (copied to
+    ``device`` once and kept on the artifact): the library reads the host
+    copy to choose the kernel and passes a short LINEAR program by value,
+    decoded; the kernels read any other from the device."""
+    words = program_words(art)
+    per_device = art.__dict__.setdefault("_bk_device_words", {})
+    on_device = per_device.get(device)
+    if on_device is None:
+        on_device = per_device[device] = torch.from_numpy(words).to(device)
+    return words.ctypes.data, on_device.data_ptr()
+
+
+def _winner_table(art, device) -> torch.Tensor:
+    """B3's winner table on ``device``: ``logical_size`` int32, zeroed once
+    and kept on the artifact; a launch that uses it zeroes what it used."""
+    per_device = art.__dict__.setdefault("_bk_winners", {})
+    table = per_device.get(device)
+    if table is None:
+        table = per_device[device] = torch.zeros(
+            art.layout.logical_size, dtype=torch.int32, device=device)
+    return table
 
 
 _lib = None
@@ -125,25 +148,29 @@ _lib = None
 
 def _library():
     """The compiled kernels, built at first use; raises when they cannot
-    be built or do not match this module's program struct."""
+    be built or do not read the program this module packs."""
     global _lib
     if _lib is None:
         from . import _build
 
         lib = _build.load("banked")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.bk_program_bytes.argtypes = []
-        lib.bk_program_bytes.restype = ctypes.c_int
-        lib.bk_gather.argtypes = [ptr, ptr, ptr, i32, i32, ptr, ptr]
-        lib.bk_scatter_rows.argtypes = [ptr, ptr, ptr, i32, i32, ptr, ptr]
+        lib.bk_program_words.argtypes = [i32]
+        lib.bk_block_writes.argtypes = []
+        lib.bk_gather.argtypes = [ptr, ptr, ptr, i32, i32, ptr, ptr, ptr]
+        lib.bk_scatter_rows.argtypes = [ptr, ptr, ptr, i32, i32, ptr, ptr,
+                                        ptr, ptr]
         lib.bk_scatter_elems.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
-                                         ptr, ptr]
-        for fn in (lib.bk_gather, lib.bk_scatter_rows, lib.bk_scatter_elems):
+                                         ptr, ptr, ptr]
+        for fn in (lib.bk_program_words, lib.bk_block_writes, lib.bk_gather,
+                   lib.bk_scatter_rows, lib.bk_scatter_elems):
             fn.restype = ctypes.c_int
-        if lib.bk_program_bytes() != ctypes.sizeof(_BkProgram):
-            raise RuntimeError(
-                f"banked.cu holds a {lib.bk_program_bytes()}-byte program, "
-                f"the wrapper packs {ctypes.sizeof(_BkProgram)} bytes")
+        for cap, _ in KERNEL_BUCKETS:
+            if lib.bk_program_words(cap) != kernel_program_words(cap):
+                raise RuntimeError(
+                    f"banked.cu reads a program of {cap} instructions from "
+                    f"{lib.bk_program_words(cap)} words, the wrapper packs "
+                    f"{kernel_program_words(cap)}")
         _lib = lib
     return _lib
 
@@ -209,8 +236,8 @@ def _as_values(values, table, shape) -> torch.Tensor:
 def _check_scatter_size(T: int) -> None:
     if T > SCATTER_MAX_T:
         raise ValueError(
-            f"a banked scatter takes at most {SCATTER_MAX_T} writes per call "
-            f"(its duplicate check reads O(T^2) indices), got {T}")
+            f"a banked scatter takes at most {SCATTER_MAX_T} writes per "
+            f"call, got {T}")
 
 
 # ---------------------------------------------------------------------------
@@ -230,9 +257,9 @@ def banked_gather(table: torch.Tensor, indices, art) -> torch.Tensor:
     """table: ``(n_banks, bank_volume, D)`` bank-major storage;
     indices: ``(T,)`` flat logical addresses.  Returns ``(T, D)`` rows.
 
-    On a CUDA table: one launch of ``bk_gather`` -- a warp per row, BA/BO
-    evaluated by the warp's first lane from the artifact's kernel program,
-    the row copied in up to 16-byte pieces."""
+    On a CUDA table: one launch of ``bk_gather`` -- the lanes that cover a
+    row's 16-byte pieces (at most a warp) each evaluate its BA/BO from the
+    artifact's packed program and copy their pieces."""
     _check_table(table, art)
     idx = as_index(indices, table.device, art.layout.logical_size)
     if idx.ndim != 1:
@@ -241,11 +268,11 @@ def banked_gather(table: torch.Tensor, indices, art) -> torch.Tensor:
         return banked_gather_plain(table, idx, art)
     T, D = idx.shape[0], table.shape[2]
     out = torch.empty((T, D), dtype=table.dtype, device=table.device)
-    lib, prog = _library(), _program_struct(art)
+    lib = _library()
     with torch.cuda.device(table.device):
         err = lib.bk_gather(
             table.data_ptr(), idx.data_ptr(), out.data_ptr(), T,
-            D * table.element_size(), ctypes.addressof(prog),
+            D * table.element_size(), *_program_args(art, table.device),
             _stream(table.device))
     _check(err, "banked_gather")
     LAUNCHES["banked_gather"] += 1
@@ -284,7 +311,9 @@ def banked_scatter(table: torch.Tensor, indices, values, art) -> torch.Tensor:
     table: ``(n_banks, bank_volume, D)``; indices: ``(T,)`` flat logical
     addresses; values: ``(T, D)`` replacement rows (cast to the table's
     dtype).  Untouched slots carry over; duplicates resolve last write
-    wins in index order."""
+    wins in index order.  On a CUDA table: one launch of
+    ``bk_scatter_rows_kernel`` (with the artifact's winner table on that
+    device past 1024 writes)."""
     _check_table(table, art)
     idx = as_index(indices, table.device, art.layout.logical_size)
     if idx.ndim != 1:
@@ -294,12 +323,14 @@ def banked_scatter(table: torch.Tensor, indices, values, art) -> torch.Tensor:
     _check_scatter_size(T)
     if not table.is_cuda:
         return banked_scatter_plain(table, idx, values, art)
-    lib, prog = _library(), _program_struct(art)
+    lib = _library()
+    win = (_winner_table(art, table.device).data_ptr()
+           if T > lib.bk_block_writes() else None)
     with torch.cuda.device(table.device):
         err = lib.bk_scatter_rows(
             table.data_ptr(), idx.data_ptr(), values.data_ptr(), T,
-            D * table.element_size(), ctypes.addressof(prog),
-            _stream(table.device))
+            D * table.element_size(), *_program_args(art, table.device),
+            win, _stream(table.device))
     _check(err, "banked_scatter")
     LAUNCHES["banked_scatter"] += 1
     return table
@@ -345,12 +376,12 @@ def banked_scatter_elems(table: torch.Tensor, indices, cols, values,
     _check_scatter_size(T)
     if not table.is_cuda:
         return banked_scatter_elems_plain(table, idx, col, values, art)
-    lib, prog = _library(), _program_struct(art)
+    lib = _library()
     with torch.cuda.device(table.device):
         err = lib.bk_scatter_elems(
             table.data_ptr(), idx.data_ptr(), col.data_ptr(),
             values.data_ptr(), T, D, table.element_size(),
-            ctypes.addressof(prog), _stream(table.device))
+            *_program_args(art, table.device), _stream(table.device))
     _check(err, "banked_scatter_elems")
     LAUNCHES["banked_scatter_elems"] += 1
     return table

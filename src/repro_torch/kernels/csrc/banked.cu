@@ -3,207 +3,537 @@
 //
 // Replaces the three Pallas TPU kernels of the JAX package's
 // kernels/banked_gather.py:
-//   bk_gather        <- banked_gather        (_gather_kernel)
-//   bk_scatter_rows  <- banked_scatter       (_scatter_kernel)
-//   bk_scatter_elems <- banked_scatter_elems (_scatter_elem_kernel)
+//   bk_gather_kernel         <- banked_gather        (_gather_kernel)
+//   bk_scatter_rows_kernel   <- banked_scatter       (_scatter_kernel)
+//   bk_scatter_elems_kernel  <- banked_scatter_elems (_scatter_elem_kernel)
 //
 // What the TPU version does in the scalar-prefetch index_map -- evaluate
 // BA(idx) and BO(idx) (Eq. 1-2 under the Sec-3.4 shift/mask/Crandall/NAF
 // rewrites) and only then touch the memory -- happens here per row, inside
-// the kernel, in int32: the op graphs arrive as DATA (a BkProgram passed by
-// value, so it sits in the constant bank and every thread of a warp reads
-// the same instruction), not as source.  One compiled library serves every
-// banking scheme, and swapping the layout between two decode ticks costs no
-// compile.
+// the kernel, in int32: the op graphs arrive as DATA (the packed program of
+// core/transforms.pack_kernel_program), not as source.  One compiled
+// library serves every banking scheme, and swapping the layout between two
+// decode ticks costs no compile.
 //
-// Bound: bytes.  A gather moves 2*T*D*esize bytes plus 4*T of indices and
-// does a few dozen integer ops per row; at the serving shapes (T <= 32 rows
-// of 32 bytes) the launch itself is the whole cost.  The design therefore
-// keeps to: one warp per row, the row's address resolved once by lane 0 and
-// broadcast by shuffle, the row copied in the widest vectors (up to 16
-// bytes a lane) that the row pitch and both base addresses allow.
+// Bound: bytes, and at the serving shapes (T <= 1024 rows of 32 bytes) the
+// launch and the dependent chain idx load -> resolve -> row load -> store.
+// On the H100 (clock64) an interpreter with a register file indexed at run
+// time (local memory), a switch on the opcode (a compare-and-branch tree a
+// step) and a division per coordinate takes ~2,250 cycles a row -- most of
+// the gather -- while the size of the parameter block costs nothing (an
+// empty kernel launches as fast with 1.66 KB of parameters as with 4
+// bytes).  What the design does:
+//
+// * Every op but ge, select, div and mod is one LINEAR form, t = r[a] * ma
+//   + r[b] * mb (+ k), r[dst] = (t >> s) & mask: a step is a straight chain
+//   of integer operations, with no branch on the opcode.
+// * The interpreter's registers are registers: a file of R = 4, 16 or 32
+//   (the bucket's, see transforms.KERNEL_BUCKETS), read through a tree of
+//   lop3 blends log2(R) deep and written by R blends -- no local memory, no
+//   stack frame, and no predicate registers, of which there are too few to
+//   set up one step's selects during the previous step.
+// * Programs of at most 8 LINEAR steps over one dimension and one bank
+//   graph in four registers (the server's page layouts) are decoded by the
+//   host into blend masks and constants (BkFast) and passed by value, one
+//   kernel a step count: straight-line code whose steps cost their data
+//   chain alone, ~45-60 cycles each.  Any other program is read from device
+//   memory (BkDev), loaded beside the index so both arrive together.
+// * The split of a flat address into coordinates multiplies by a packed
+//   round-up reciprocal (transforms.split_constants) and does nothing for
+//   one dimension.
+// * Every thread resolves its own row: L lanes a row (L the power of two
+//   that covers the row's 16-byte pieces, at most 32), each lane resolving
+//   the same address, so no lane waits on another and nothing is shuffled.
+//   At the decode tick's 32 rows of 32 bytes that is two warps.
 //
 // Duplicates in a scatter resolve LAST WRITE WINS IN INDEX ORDER, as the
-// sequential TPU grid gives for free.  A CUDA grid has no order, so a write
-// t is dropped when any later t' > t carries the same logical address (and,
-// for bk_scatter_elems, the same column).  BA/BO is injective on logical
-// addresses, so equal physical slots mean equal logical addresses, the
-// surviving writes never alias, and the result is deterministic without a
-// scratch table or a host-side pass.  The check reads O(T^2) indices in
-// all; the wrapper caps T (BK_SCATTER_MAX_T on the Python side).
+// sequential TPU grid gives for free.  A CUDA grid has no order, so of the
+// writes to one logical address only the one with the largest t copies.
+// BA/BO is injective on logical addresses, so the surviving writes never
+// alias and the result is deterministic.  Scanning the later writes for a
+// duplicate is O(T^2) dependent loads (~9,700 cycles of one warp at the
+// swap's T = 1024), so bk_scatter_rows_kernel picks the winner in O(1)
+// expected work a write, with block barriers only:
+//
+// * The addresses are partitioned among about T / 128 blocks (at most one
+//   wave) by a hash (bk_owner), so all writes to one address meet in one
+//   block.  Each block reads every index and lists the writes it owns (one
+//   shared atomic a warp).
+// * A thread a listed write claims its address in a shared-memory hash
+//   (atomicCAS on the key, linear probing, at most half full), raises the
+//   slot's winner with atomicMax(t) and resolves its row; for rows of one
+//   or two 16-byte pieces it also loads the row into registers.  After
+//   __syncthreads only the winners store.
+// * A block that owns more than BK_OWN writes (only possible when T >
+//   BK_OWN, and then only under heavy skew) takes a winner table in device
+//   memory instead -- one int a logical address, zero between calls,
+//   allocated once by the wrapper per artifact and device: atomicMax(t + 1),
+//   __syncthreads (the addresses are the block's alone), copy where the
+//   table holds the write's own key, __syncthreads, zero what it used.
+//   Nothing carries over from one call to the next, so a launch captured in
+//   a CUDA graph replays correctly.
+//
+// bk_scatter_elems keeps its first form (a thread a write, a later write to
+// the same (address, column) found by an O(T) scan) with the new resolve.
 //
 // Integer semantics of the interpreter (mirrored by
-// core/transforms.run_kernel_program): registers are int32; add, sub, mul
-// and shl wrap modulo 2^32 and are exact whenever the true value fits int32
-// (NAF products go transiently negative through sub); shr is arithmetic;
-// div and mod FLOOR like Python's // and %, for either sign; and is two's
-// complement.  Logical addresses outside [0, logical_size) are not
-// resolved: the gather returns a zero row for them and the scatters drop
-// the write.
+// core/transforms.run_kernel_program and run_packed_program): registers are
+// int32; add, sub, mul and shl wrap modulo 2^32 and are exact whenever the
+// true value fits int32 (NAF products go transiently negative through sub);
+// shr is arithmetic; div and mod FLOOR like Python's // and %, for either
+// sign; and is two's complement.  Logical addresses outside [0,
+// logical_size) are not resolved: the gather returns a zero row for them
+// and the scatters drop the write.
 //
 // Every entry point launches on the given stream, allocates nothing, does
-// not synchronize, and returns cudaGetLastError().
+// not synchronize, and returns cudaGetLastError() (cudaErrorInvalidValue for
+// arguments it does not take).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
-#define BK_MAX_INSTRS 192
-#define BK_MAX_REGS 32
 #define BK_MAX_DIMS 8
+#define BK_THREADS 256        // a block of the gather and the row scatter
+#define BK_PER_BLOCK 128      // writes a block of the row scatter takes ...
+#define BK_MAX_BLOCKS 132     // ... in at most one wave of blocks
+#define BK_OWN 1024           // writes a block keeps in shared memory
+#define BK_HASH_BITS 11       // its hash of addresses: at most half full
+#define BK_HASH (1 << BK_HASH_BITS)
 
-enum BkOp {
-  BK_CONST = 0, BK_SHL, BK_SHR, BK_AND, BK_MUL, BK_DIV, BK_MOD,
-  BK_ADD, BK_SUB, BK_GE, BK_SELECT
+// Kinds of instructions (core/transforms.py KIND_*).
+enum BkKind { BK_LINEAR = 0, BK_GE, BK_SELECT, BK_DIV, BK_MOD };
+
+// The packed program (transforms.pack_kernel_program) in device memory, N
+// instruction slots of four words: code, ma, mb, km, where code = kind |
+// dst << 3 | a << 8 | b << 13 | s << 18 | mask << 23.
+#define BK_HEADER 8
+template <int N>
+struct BkLayout {                                        // 4 words a slot
+  static constexpr int split = BK_HEADER + 4 * N;        // d, m, s a dim
+  static constexpr int fold = split + 3 * BK_MAX_DIMS;   // reg, banks a graph
+  static constexpr int words = fold + 2 * BK_MAX_DIMS;
 };
 
-struct BkInstr {
-  uint8_t op, dst, a, b;
-  int32_t imm;
-};
-
-struct BkProgram {
-  int32_t n_dims;                 // logical dimensions (registers 0..n-1)
-  int32_t n_instrs;
-  int32_t n_ba;                   // BA graphs (1 flat, one per dim multidim)
-  int32_t bo_reg;
-  int32_t logical_size;           // prod(dims)
-  int32_t bank_volume;
-  int32_t dims[BK_MAX_DIMS];
-  int32_t ba_regs[BK_MAX_DIMS];
-  int32_t ba_fold[BK_MAX_DIMS];   // multidim bank fold: ba = ba * Ns[k] + ba_k
-  BkInstr instrs[BK_MAX_INSTRS];
-};
-
-// Row index into the bank-major table (bank * bank_volume + offset) of one
-// logical address, or -1 when the address is out of range.
-__device__ __forceinline__ int64_t bk_resolve(const BkProgram& p, int addr) {
-  if (addr < 0 || addr >= p.logical_size) return -1;
-  int r[BK_MAX_REGS];
-  int rem = addr;
-  for (int i = p.n_dims - 1; i >= 0; --i) {   // row-major split
-    const int d = p.dims[i];
-    r[i] = rem % d;
-    rem /= d;
-  }
-  for (int i = 0; i < p.n_instrs; ++i) {
-    const BkInstr in = p.instrs[i];
-    const int a = r[in.a];
-    const int c = in.imm;
-    int v;
-    switch (in.op) {
-      case BK_CONST: v = c; break;
-      case BK_SHL: v = (int)((unsigned)a << c); break;
-      case BK_SHR: v = a >> c; break;               // arithmetic on int
-      case BK_AND: v = a & c; break;
-      case BK_MUL: v = (int)((unsigned)a * (unsigned)c); break;
-      case BK_DIV: {
-        int q = a / c;
-        const int m = a - q * c;
-        if (m != 0 && ((m < 0) != (c < 0))) --q;    // truncation -> floor
-        v = q;
-        break;
-      }
-      case BK_MOD: {
-        int m = a % c;
-        if (m != 0 && ((m < 0) != (c < 0))) m += c;
-        v = m;
-        break;
-      }
-      case BK_ADD: v = (int)((unsigned)a + (unsigned)r[in.b]); break;
-      case BK_SUB: v = (int)((unsigned)a - (unsigned)r[in.b]); break;
-      case BK_GE: v = a >= r[in.b]; break;
-      default: v = a ? r[in.b] : r[c]; break;       // BK_SELECT
-    }
-    r[in.dst] = v;
-  }
-  int ba = 0;
-  for (int k = 0; k < p.n_ba; ++k) ba = ba * p.ba_fold[k] + r[p.ba_regs[k]];
-  return (int64_t)ba * p.bank_volume + r[p.bo_reg];
+__host__ __device__ constexpr int bk_log2(int x) {
+  return x <= 1 ? 0 : 1 + bk_log2(x / 2);
 }
 
-// One warp copies (or zero-fills, src == nullptr) one row in V-sized pieces.
+// m ? x1 : x0 for a mask m of 0 or -1, in one lop3 (x1 & m | x0 & ~m): the
+// register file is read and written through these, so it needs no
+// predicate registers -- seven of them would make each step wait for the
+// previous one's -- and every mask depends on the program alone.
+__device__ __forceinline__ int bk_blend(int x1, int x0, int m) {
+  int d;
+  asm("lop3.b32 %0, %1, %2, %3, 0xE4;" : "=r"(d) : "r"(x1), "r"(x0), "r"(m));
+  return d;
+}
+
+// r[k] for a run-time k: a tree of blends on k's bits, log2(R) deep, laid
+// out as a heap (node n chooses between nodes 2n and 2n + 1; the leaves R ..
+// 2R - 1 are r).  One loop with constant bounds, so every index is a
+// constant once it is unrolled and t stays in registers.
+template <int R>
+__device__ __forceinline__ int bk_pick(const int (&r)[R], int k) {
+  int t[2 * R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) t[R + i] = r[i];
+#pragma unroll
+  for (int n = R - 1; n >= 1; --n) {
+    const int bit = bk_log2(R) - 1 - bk_log2(n);   // n's depth from the root
+    t[n] = bk_blend(t[2 * n + 1], t[2 * n], -((k >> bit) & 1));
+  }
+  return t[1];
+}
+
+template <int R>
+__device__ __forceinline__ void bk_put(int (&r)[R], int k, int v) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) r[i] = bk_blend(v, r[i], -(int)(k == i));
+}
+
+// One LINEAR instruction: t = r[a] * ma + r[b] * mb (+ km unless masked),
+// r[dst] = (t >> s) & (masked ? km : -1).  Its fields are in registers
+// before the data arrives, so the data-dependent chain is the selects that
+// read a and b, a multiply-add, a shift, an and and the selects that write
+// r -- no branch.
+template <int R>
+__device__ __forceinline__ int bk_linear(const int (&r)[R], const int4 in,
+                                         int& a, int& b) {
+  const int code = in.x;
+  const bool masked = (code >> 23) & 1;
+  a = bk_pick(r, (code >> 8) & 31);
+  b = bk_pick(r, (code >> 13) & 31);
+  const unsigned bk = (unsigned)b * (unsigned)in.z +
+                      (masked ? 0u : (unsigned)in.w);
+  const int t = (int)((unsigned)a * (unsigned)in.y + bk);
+  return (t >> ((code >> 18) & 31)) & (masked ? in.w : -1);
+}
+
+// DIV and MOD, floored like Python's // and %; out of line, so the steps
+// of programs without them carry none of this code.
+__device__ __noinline__ int bk_divmod(int kind, int a, int c) {
+  if (kind == BK_DIV) {
+    int q = a / c;
+    const int m = a - q * c;
+    if (m != 0 && ((m < 0) != (c < 0))) --q;        // truncation -> floor
+    return q;
+  }
+  int m = a % c;
+  if (m != 0 && ((m < 0) != (c < 0))) m += c;
+  return m;
+}
+
+// Any instruction.
+template <int R>
+__device__ __forceinline__ void bk_step(int (&r)[R], const int4 in) {
+  const int kind = in.x & 7;
+  int a, b;
+  int v = bk_linear(r, in, a, b);
+  v = kind == BK_GE ? (int)(a >= b) : v;
+  v = kind == BK_SELECT ? (a ? b : bk_pick(r, in.w)) : v;
+  if (kind >= BK_DIV) v = bk_divmod(kind, a, in.w);
+  bk_put(r, (in.x >> 3) & 31, v);
+}
+
+// A packed program in device memory, read by every thread: what a resolve
+// needs first is loaded into registers by load(), whose global loads the
+// caller issues right after its index load, so both arrive together.  A
+// program of at most 8 slots lives in registers whole; a longer one reads
+// each slot when it runs it.
+template <int R, int N>
+struct BkProgram {
+  static constexpr int K = N <= 8 ? N : 1;   // slots kept in registers
+  const int* g;
+  int4 head0, head1;   // n_instrs n_regs n_dims n_ba | bo size volume cap
+  int2 fold0;
+  int4 ins[K];
+
+  __device__ __forceinline__ void load(const int* __restrict__ prog) {
+    g = prog;
+    head0 = __ldg(reinterpret_cast<const int4*>(prog));
+    head1 = __ldg(reinterpret_cast<const int4*>(prog) + 1);
+    fold0 = __ldg(reinterpret_cast<const int2*>(prog + BkLayout<N>::fold));
+    if (N <= 8) {
+#pragma unroll
+      for (int i = 0; i < K; ++i)
+        ins[i] = __ldg(reinterpret_cast<const int4*>(prog + BK_HEADER) + i);
+    }
+  }
+
+  __device__ __forceinline__ int size_() const { return head1.y; }
+
+  // Row of the bank-major table (bank * bank_volume + offset) of one
+  // logical address, or -1 when the address is out of range.
+  __device__ __forceinline__ int64_t resolve(int addr) const {
+    if (addr < 0 || addr >= head1.y) return -1;
+    int r[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) r[i] = 0;
+    unsigned rem = (unsigned)addr;
+    for (int i = head0.z - 1; i > 0; --i) {  // innermost first; x0 is left
+      const int* sp = g + BkLayout<N>::split + 3 * i;
+      const unsigned q = (unsigned)(((unsigned long long)rem *
+                                     (unsigned)__ldg(sp + 1)) >> __ldg(sp + 2));
+      bk_put(r, i, (int)(rem - q * (unsigned)__ldg(sp)));
+      rem = q;
+    }
+    bk_put(r, 0, (int)rem);
+    const int n = head0.x;
+    if (N <= 8) {
+#pragma unroll
+      for (int i = 0; i < K; ++i) {
+        if (i >= n) break;
+        bk_step(r, ins[i]);
+      }
+    } else {
+      const int4* ip = reinterpret_cast<const int4*>(g + BK_HEADER);
+      for (int i = 0; i < n; ++i) bk_step(r, __ldg(ip + i));
+    }
+    int ba = bk_pick(r, fold0.x);
+    for (int k = 1; k < head0.w; ++k) {
+      const int* fp = g + BkLayout<N>::fold + 2 * k;
+      ba = ba * __ldg(fp + 1) + bk_pick(r, __ldg(fp));
+    }
+    return (int64_t)ba * head1.z + bk_pick(r, head1.x);
+  }
+};
+
+// A program of NS LINEAR steps over one dimension and one bank graph in at
+// most four registers -- the server's page layouts -- decoded by the host,
+// one kernel a step count: the steps are straight-line code whose every
+// operand but the data is in registers when the index arrives, so a step
+// costs its dependent chain alone (two blends, two multiply-adds, a shift,
+// an and, a blend).
+//
+// One step: blend masks of the bits of a and b, write masks of the four
+// registers, the factors, the constant, the shift and the and-mask.
+struct BkFastStep {
+  int am0, am1, bm0, bm1, dm[4], ma, mb, kadd, s, andmask;
+};
+
+template <int NS>
+struct BkFast {
+  int size, volume, ba0, ba1, bo0, bo1;   // ba, bo: blend masks of their reg
+  BkFastStep st[NS];
+
+  __device__ __forceinline__ BkFast prepare() const { return *this; }
+  __device__ __forceinline__ int size_() const { return size; }
+
+  static __device__ __forceinline__ int pick4(const int (&r)[4], int m0,
+                                              int m1) {
+    return bk_blend(bk_blend(r[3], r[2], m0), bk_blend(r[1], r[0], m0), m1);
+  }
+
+  __device__ __forceinline__ int64_t resolve(int addr) const {
+    int r[4] = {addr, 0, 0, 0};
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const BkFastStep& q = st[i];
+      const int a = pick4(r, q.am0, q.am1), b = pick4(r, q.bm0, q.bm1);
+      const int t = (int)((unsigned)a * (unsigned)q.ma +
+                          ((unsigned)b * (unsigned)q.mb + (unsigned)q.kadd));
+      const int v = (t >> q.s) & q.andmask;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) r[j] = bk_blend(v, r[j], q.dm[j]);
+    }
+    const int64_t row =
+        (int64_t)pick4(r, ba0, ba1) * volume + pick4(r, bo0, bo1);
+    return addr >= 0 && addr < size ? row : -1;
+  }
+};
+
+// What a kernel takes by value to reach its program; prepare() gives what
+// it resolves with:
+//
+// * BkDev: a pointer to the packed program (transforms.pack_kernel_program)
+//   of a bucket of transforms.KERNEL_BUCKETS in device memory, loaded into
+//   a BkProgram -- every program.
+// * BkFast<NS>: the program decoded by the host, as the launch parameter
+//   itself, when it qualifies (bk_fast).
+template <int R, int N>
+struct BkDev {
+  const int* g;
+  __device__ __forceinline__ BkProgram<R, N> prepare() const {
+    BkProgram<R, N> p;
+    p.load(g);
+    return p;
+  }
+};
+
+// L lanes copy (or zero-fill, src == nullptr) one row in V-sized pieces,
+// lane p taking pieces p, p + L, ...
 template <typename V>
 __device__ __forceinline__ void bk_copy_row(char* dst, const char* src,
-                                            int row_bytes, int lane) {
+                                            int row_bytes, int p, int L) {
   const int n = row_bytes / (int)sizeof(V);
   V* d = reinterpret_cast<V*>(dst);
   if (src == nullptr) {
     const V zero = V();
-    for (int i = lane; i < n; i += 32) d[i] = zero;
-  } else {
-    const V* s = reinterpret_cast<const V*>(src);
-    int i = lane;
-    for (; i + 96 < n; i += 128) {      // four independent loads in flight
-      const V v0 = s[i], v1 = s[i + 32], v2 = s[i + 64], v3 = s[i + 96];
-      d[i] = v0; d[i + 32] = v1; d[i + 64] = v2; d[i + 96] = v3;
-    }
-    for (; i < n; i += 32) d[i] = s[i];
+    for (int i = p; i < n; i += L) d[i] = zero;
+    return;
   }
+  const V* s = reinterpret_cast<const V*>(src);
+  int i = p;
+  for (; i + 3 * L < n; i += 4 * L) {   // four independent loads in flight
+    const V v0 = s[i], v1 = s[i + L], v2 = s[i + 2 * L], v3 = s[i + 3 * L];
+    d[i] = v0; d[i + L] = v1; d[i + 2 * L] = v2; d[i + 3 * L] = v3;
+  }
+  for (; i < n; i += L) d[i] = s[i];
 }
 
 __device__ __forceinline__ void bk_copy_row_vec(char* dst, const char* src,
-                                                int row_bytes, int vec,
-                                                int lane) {
+                                                int row_bytes, int vec, int p,
+                                                int L) {
   switch (vec) {
-    case 16: bk_copy_row<uint4>(dst, src, row_bytes, lane); break;
-    case 8: bk_copy_row<uint2>(dst, src, row_bytes, lane); break;
-    case 4: bk_copy_row<uint32_t>(dst, src, row_bytes, lane); break;
-    case 2: bk_copy_row<uint16_t>(dst, src, row_bytes, lane); break;
-    default: bk_copy_row<uint8_t>(dst, src, row_bytes, lane); break;
+    case 16: bk_copy_row<uint4>(dst, src, row_bytes, p, L); break;
+    case 8: bk_copy_row<uint2>(dst, src, row_bytes, p, L); break;
+    case 4: bk_copy_row<uint32_t>(dst, src, row_bytes, p, L); break;
+    case 2: bk_copy_row<uint16_t>(dst, src, row_bytes, p, L); break;
+    default: bk_copy_row<uint8_t>(dst, src, row_bytes, p, L); break;
   }
 }
 
-#define BK_WARPS 8   // rows per block
-
-// out[t, :] = table[BA(idx[t]), BO(idx[t]), :]
-__global__ void __launch_bounds__(BK_WARPS * 32)
+// out[t, :] = table[BA(idx[t]), BO(idx[t]), :]; 2^lanes_log2 lanes a row.
+template <class P>
+__global__ void __launch_bounds__(BK_THREADS)
 bk_gather_kernel(const char* __restrict__ table, const int* __restrict__ idx,
                  char* __restrict__ out, int T, int row_bytes, int vec,
-                 const BkProgram prog) {
-  const int lane = threadIdx.x & 31;
-  const int t = blockIdx.x * BK_WARPS + (threadIdx.x >> 5);
+                 int lanes_log2, const P prog) {
+  const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t t = g >> lanes_log2;
   if (t >= T) return;                       // ragged last block
-  int64_t row = 0;
-  if (lane == 0) row = bk_resolve(prog, idx[t]);
-  row = __shfl_sync(0xffffffffu, row, 0);
-  const char* src = row < 0 ? nullptr : table + row * row_bytes;
-  bk_copy_row_vec(out + (int64_t)t * row_bytes, src, row_bytes, vec, lane);
+  const int addr = __ldg(idx + t);
+  const auto p = prog.prepare();
+  const int64_t row = p.resolve(addr);
+  bk_copy_row_vec(out + t * row_bytes,
+                  row < 0 ? nullptr : table + row * row_bytes, row_bytes,
+                  vec, (int)(g & ((1 << lanes_log2) - 1)), 1 << lanes_log2);
 }
 
-// table[BA(idx[t]), BO(idx[t]), :] = values[t, :], last write wins.
-__global__ void __launch_bounds__(BK_WARPS * 32)
+// Claims logical address a for write t in the block's hash of addresses
+// (atomicCAS on the key, linear probing; the hash is at most half full) and
+// raises the slot's winner to t; returns the slot.
+__device__ __forceinline__ int bk_claim(int* s_key, int* s_win, int a, int t) {
+  unsigned h = ((unsigned)a * 0x85ebca77u) >> (32 - BK_HASH_BITS);
+  for (;;) {
+    const int key = atomicCAS(&s_key[h], -1, a);
+    if (key == -1 || key == a) break;
+    h = (h + 1) & (BK_HASH - 1);
+  }
+  atomicMax(&s_win[h], t);
+  return (int)h;
+}
+
+// The block that owns a logical address in a scatter over nb blocks.
+__device__ __forceinline__ int bk_owner(int addr, int nb) {
+  return (int)__umulhi((unsigned)addr * 2654435761u, (unsigned)nb);
+}
+
+// table[BA(idx[t]), BO(idx[t]), :] = values[t, :], last write wins.  Each
+// block reads every index and takes the writes to the addresses it owns
+// (bk_owner), so the writes to one address meet in one block; see the
+// design note at the top.
+template <class P>
+__global__ void __launch_bounds__(BK_THREADS, 1)
 bk_scatter_rows_kernel(char* __restrict__ table, const int* __restrict__ idx,
                        const char* __restrict__ values, int T, int row_bytes,
-                       int vec, const BkProgram prog) {
-  const int lane = threadIdx.x & 31;
-  const int t = blockIdx.x * BK_WARPS + (threadIdx.x >> 5);
-  if (t >= T) return;
-  const int mine = idx[t];
-  bool later = false;                       // a later write to the same row?
-  for (int u = t + 1 + lane; u < T && !later; u += 32) later = idx[u] == mine;
-  if (__any_sync(0xffffffffu, later)) return;
-  int64_t row = 0;
-  if (lane == 0) row = bk_resolve(prog, mine);
-  row = __shfl_sync(0xffffffffu, row, 0);
-  if (row < 0) return;
-  bk_copy_row_vec(table + row * row_bytes, values + (int64_t)t * row_bytes,
-                  row_bytes, vec, lane);
+                       int vec, int lanes_log2, const P prog,
+                       int* __restrict__ win) {
+  __shared__ int s_key[BK_HASH], s_win[BK_HASH];
+  // the block's writes: t, logical address, hash slot, resolved row
+  __shared__ int s_t[BK_OWN], s_addr[BK_OWN], s_slot[BK_OWN], s_row[BK_OWN];
+  __shared__ int s_n;
+  const int tid = threadIdx.x, lane = tid & 31, nb = gridDim.x;
+  const int me = blockIdx.x, L = 1 << lanes_log2;
+  const auto p = prog.prepare();
+  const int size = p.size_();
+  for (int i = tid; i < BK_HASH; i += BK_THREADS) {
+    s_key[i] = -1;
+    s_win[i] = -1;
+  }
+  if (tid == 0) s_n = 0;
+  __syncthreads();
+  // 1. list the writes to the addresses this block owns (one atomic a warp)
+  for (int base = 0; base < T; base += 4 * BK_THREADS) {
+    int addr[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {        // four index loads in flight
+      const int t = base + j * BK_THREADS + tid;
+      addr[j] = t < T ? __ldg(idx + t) : -1;
+    }
+    unsigned m[4];
+    int total = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int a = addr[j];
+      m[j] = __ballot_sync(0xffffffffu,
+                           a >= 0 && a < size && bk_owner(a, nb) == me);
+      total += __popc(m[j]);
+    }
+    int k = 0;
+    if (lane == 0 && total) k = atomicAdd(&s_n, total);
+    k = __shfl_sync(0xffffffffu, k, 0);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int at = k + __popc(m[j] & ((1u << lane) - 1));
+      if ((m[j] >> lane) & 1 && at < BK_OWN) {
+        s_t[at] = base + j * BK_THREADS + tid;
+        s_addr[at] = addr[j];
+      }
+      k += __popc(m[j]);
+    }
+  }
+  __syncthreads();
+  const int n = s_n;
+  if (n <= BK_THREADS && vec == 16 && row_bytes <= 32) {
+    // Rows of one or two 16-byte pieces (the swap's 32): the thread of a
+    // write claims its address, resolves it and loads its row into
+    // registers before the barrier, and stores it after if it won.
+    const bool mine = tid < n;
+    uint4 v0 = make_uint4(0, 0, 0, 0), v1 = v0;
+    int t = 0, slot = 0;
+    int64_t row = 0;
+    if (mine) {
+      const int a = s_addr[tid];
+      t = s_t[tid];
+      const uint4* src = reinterpret_cast<const uint4*>(values +
+                                                        (int64_t)t * row_bytes);
+      v0 = __ldg(src);
+      if (row_bytes == 32) v1 = __ldg(src + 1);
+      slot = bk_claim(s_key, s_win, a, t);
+      row = p.resolve(a);
+    }
+    __syncthreads();
+    if (mine && s_win[slot] == t) {
+      uint4* dst = reinterpret_cast<uint4*>(table + row * row_bytes);
+      dst[0] = v0;
+      if (row_bytes == 32) dst[1] = v1;
+    }
+    return;
+  }
+  if (n <= BK_OWN) {
+    // 2. a thread a write: claim its address, resolve it
+    for (int k = tid; k < n; k += BK_THREADS) {
+      const int t = s_t[k];
+      // the row this write may copy, brought into L1 while the others
+      // claim theirs
+      asm volatile("prefetch.global.L1 [%0];" ::"l"(values +
+                                                      (int64_t)t * row_bytes));
+      s_slot[k] = bk_claim(s_key, s_win, s_addr[k], t);
+      s_row[k] = (int)p.resolve(s_addr[k]);
+    }
+    __syncthreads();
+    // 3. the last write of each address copies, L lanes a row
+    for (int k = tid >> lanes_log2; k < n; k += BK_THREADS >> lanes_log2) {
+      const int t = s_t[k];
+      if (s_win[s_slot[k]] != t) continue;
+      bk_copy_row_vec(table + (int64_t)s_row[k] * row_bytes,
+                      values + (int64_t)t * row_bytes, row_bytes, vec,
+                      tid & (L - 1), L);
+    }
+    return;
+  }
+  // Overflow (only when T > BK_OWN): the winner table win, one int a
+  // logical address, zero between calls; the addresses are this block's
+  // alone, so a block barrier orders it, and the block zeroes what it used.
+  for (int t = tid; t < T; t += BK_THREADS) {
+    const int a = __ldg(idx + t);
+    if (a >= 0 && a < size && bk_owner(a, nb) == me)
+      atomicMax(win + a, t + 1);
+  }
+  __syncthreads();
+  for (int t = tid >> lanes_log2; t < T; t += BK_THREADS >> lanes_log2) {
+    const int a = __ldg(idx + t);
+    if (a < 0 || a >= size || bk_owner(a, nb) != me ||
+        __ldcg(win + a) != t + 1)
+      continue;
+    bk_copy_row_vec(table + p.resolve(a) * row_bytes,
+                    values + (int64_t)t * row_bytes, row_bytes, vec,
+                    tid & (L - 1), L);
+  }
+  __syncthreads();
+  for (int t = tid; t < T; t += BK_THREADS) {
+    const int a = __ldg(idx + t);
+    if (a >= 0 && a < size && bk_owner(a, nb) == me) win[a] = 0;
+  }
 }
 
 // table[BA(idx[t]), BO(idx[t]), cols[t]] = values[t], last write wins.
-template <typename E>
+template <typename E, class P>
 __global__ void __launch_bounds__(128)
 bk_scatter_elems_kernel(E* __restrict__ table, const int* __restrict__ idx,
                         const int* __restrict__ cols,
                         const E* __restrict__ values, int T, int D,
-                        const BkProgram prog) {
+                        const P prog) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= T) return;
   const int mine = idx[t], col = cols[t];
+  const auto p = prog.prepare();
   if (col < 0 || col >= D) return;
   for (int u = t + 1; u < T; ++u)
     if (idx[u] == mine && cols[u] == col) return;
-  const int64_t row = bk_resolve(prog, mine);
+  const int64_t row = p.resolve(mine);
   if (row < 0) return;
   table[row * D + col] = values[t];
 }
@@ -218,62 +548,193 @@ static int bk_vec(const void* a, const void* b, int row_bytes) {
   return vec;
 }
 
+// log2 of the lanes a row: the power of two that covers its pieces, <= 32.
+static int bk_lanes_log2(int row_bytes, int vec) {
+  const int pieces = row_bytes / vec;
+  int l = 0;
+  while (l < 5 && (1 << l) < pieces) ++l;
+  return l;
+}
+
+// Blocks of a row scatter of T writes: about BK_PER_BLOCK writes each, at
+// most BK_MAX_BLOCKS (every block reads all T indices).
+static int bk_scatter_blocks(int T) {
+  const int b = (T + BK_PER_BLOCK - 1) / BK_PER_BLOCK;
+  return b < BK_MAX_BLOCKS ? b : BK_MAX_BLOCKS;
+}
+
+// The three launches for one program source P.
+template <class P>
+struct BkLaunch {
+  static void gather(const void* table, const void* idx, void* out, int T,
+                     int row_bytes, const P& p, cudaStream_t s) {
+    const int vec = bk_vec(table, out, row_bytes);
+    const int l = bk_lanes_log2(row_bytes, vec);
+    const int64_t threads = (int64_t)T << l;
+    const int block = threads < BK_THREADS ? (int)((threads + 31) / 32 * 32)
+                                           : BK_THREADS;
+    bk_gather_kernel<P><<<(unsigned)((threads + block - 1) / block), block, 0,
+                          s>>>((const char*)table, (const int*)idx, (char*)out,
+                               T, row_bytes, vec, l, p);
+  }
+  static void scatter_rows(void* table, const void* idx, const void* values,
+                           int T, int row_bytes, const P& p, int* win,
+                           cudaStream_t s) {
+    const int vec = bk_vec(table, values, row_bytes);
+    bk_scatter_rows_kernel<P><<<bk_scatter_blocks(T), BK_THREADS, 0, s>>>(
+        (char*)table, (const int*)idx, (const char*)values, T, row_bytes,
+        vec, bk_lanes_log2(row_bytes, vec), p, win);
+  }
+  template <typename E>
+  static void elems(void* table, const void* idx, const void* cols,
+                    const void* values, int T, int D, const P& p,
+                    cudaStream_t s) {
+    bk_scatter_elems_kernel<E, P><<<(T + 127) / 128, 128, 0, s>>>(
+        (E*)table, (const int*)idx, (const int*)cols, (const E*)values, T, D,
+        p);
+  }
+  static int scatter_elems(void* table, const void* idx, const void* cols,
+                           const void* values, int T, int D, int esize,
+                           const P& p, cudaStream_t s) {
+    switch (esize) {
+      case 1: elems<uint8_t>(table, idx, cols, values, T, D, p, s); break;
+      case 2: elems<uint16_t>(table, idx, cols, values, T, D, p, s); break;
+      case 4: elems<uint32_t>(table, idx, cols, values, T, D, p, s); break;
+      case 8: elems<uint64_t>(table, idx, cols, values, T, D, p, s); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+    return 0;
+  }
+};
+
+// The blend masks of the two bits of register k.
+static void bk_masks(int k, int* m0, int* m1) {
+  *m0 = -(k & 1);
+  *m1 = -((k >> 1) & 1);
+}
+
+// Whether the packed program w takes BkFast: at most 8 LINEAR steps over one
+// dimension and one bank graph in at most four registers.
+static bool bk_fast_fits(const int* w) {
+  const int n = w[0];
+  if (w[7] != 8 || w[1] > 4 || w[2] != 1 || w[3] != 1 || n < 1 || n > 8)
+    return false;
+  for (int i = 0; i < n; ++i)
+    if ((w[BK_HEADER + 4 * i] & 7) != BK_LINEAR) return false;
+  return true;
+}
+
+// Calls f with the launches of BkFast<NS> and the program w decoded into it.
+template <int NS, typename F>
+static int bk_fast(const int* w, F f) {
+  BkFast<NS> p;
+  p.size = w[5];
+  p.volume = w[6];
+  bk_masks(w[BkLayout<8>::fold], &p.ba0, &p.ba1);
+  bk_masks(w[4], &p.bo0, &p.bo1);
+  for (int i = 0; i < NS; ++i) {
+    const int* in = w + BK_HEADER + 4 * i;
+    const int code = in[0], dst = (code >> 3) & 31;
+    const bool masked = (code >> 23) & 1;
+    BkFastStep& q = p.st[i];
+    bk_masks((code >> 8) & 31, &q.am0, &q.am1);
+    bk_masks((code >> 13) & 31, &q.bm0, &q.bm1);
+    for (int j = 0; j < 4; ++j) q.dm[j] = -(int)(dst == j);
+    q.ma = in[1];
+    q.mb = in[2];
+    q.kadd = masked ? 0 : in[3];
+    q.s = (code >> 18) & 31;
+    q.andmask = masked ? in[3] : -1;
+  }
+  return f(BkLaunch<BkFast<NS>>(), p);
+}
+
+// Calls f with the launches and the program source for the packed program
+// `host` (transforms.pack_kernel_program; `dev`: the same words in device
+// memory): BkFast when it fits, else BkDev of its bucket.
+template <typename F>
+static int bk_with_program(const int* host, const int* dev, F f) {
+  const int n = host[0], regs = host[1], capacity = host[7];
+  if (n < 0 || n > capacity || regs < 1) return (int)cudaErrorInvalidValue;
+  if (bk_fast_fits(host)) {
+    switch (n) {
+      case 1: return bk_fast<1>(host, f);
+      case 2: return bk_fast<2>(host, f);
+      case 3: return bk_fast<3>(host, f);
+      case 4: return bk_fast<4>(host, f);
+      case 5: return bk_fast<5>(host, f);
+      case 6: return bk_fast<6>(host, f);
+      case 7: return bk_fast<7>(host, f);
+      default: return bk_fast<8>(host, f);
+    }
+  }
+  if (capacity == 8 && regs <= 4)
+    return f(BkLaunch<BkDev<4, 8>>(), BkDev<4, 8>{dev});
+  if (capacity == 32 && regs <= 16)
+    return f(BkLaunch<BkDev<16, 32>>(), BkDev<16, 32>{dev});
+  if (capacity == 192 && regs <= 32)
+    return f(BkLaunch<BkDev<32, 192>>(), BkDev<32, 192>{dev});
+  return (int)cudaErrorInvalidValue;
+}
+
 extern "C" {
 
-int bk_program_bytes() { return (int)sizeof(BkProgram); }
+// Words of a program packed for `capacity` instruction slots.
+int bk_program_words(int capacity) {
+  switch (capacity) {
+    case 8: return BkLayout<8>::words;
+    case 32: return BkLayout<32>::words;
+    case 192: return BkLayout<192>::words;
+    default: return -1;
+  }
+}
 
+int bk_block_writes() { return BK_OWN; }
+
+// host, dev: the packed program in host and in device memory.
 int bk_gather(const void* table, const void* idx, void* out, int T,
-              int row_bytes, const BkProgram* prog, void* stream) {
+              int row_bytes, const void* host, const void* dev,
+              void* stream) {
   if (T > 0 && row_bytes > 0) {
-    const int blocks = (T + BK_WARPS - 1) / BK_WARPS;
-    bk_gather_kernel<<<blocks, BK_WARPS * 32, 0, (cudaStream_t)stream>>>(
-        (const char*)table, (const int*)idx, (char*)out, T, row_bytes,
-        bk_vec(table, out, row_bytes), *prog);
+    const int err = bk_with_program((const int*)host, (const int*)dev,
+                                    [&](auto l, const auto& p) {
+      l.gather(table, idx, out, T, row_bytes, p, (cudaStream_t)stream);
+      return 0;
+    });
+    if (err != 0) return err;
   }
   return (int)cudaGetLastError();
 }
 
+// win: the winner table (logical_size int32, zero), read only when a block
+// owns more than bk_block_writes() writes, which needs T above it; may be
+// null up to there.
 int bk_scatter_rows(void* table, const void* idx, const void* values, int T,
-                    int row_bytes, const BkProgram* prog, void* stream) {
+                    int row_bytes, const void* host, const void* dev,
+                    void* win, void* stream) {
+  if (T > BK_OWN && win == nullptr) return (int)cudaErrorInvalidValue;
   if (T > 0 && row_bytes > 0) {
-    const int blocks = (T + BK_WARPS - 1) / BK_WARPS;
-    bk_scatter_rows_kernel<<<blocks, BK_WARPS * 32, 0,
-                             (cudaStream_t)stream>>>(
-        (char*)table, (const int*)idx, (const char*)values, T, row_bytes,
-        bk_vec(table, values, row_bytes), *prog);
+    const int err = bk_with_program((const int*)host, (const int*)dev,
+                                    [&](auto l, const auto& p) {
+      l.scatter_rows(table, idx, values, T, row_bytes, p, (int*)win,
+                     (cudaStream_t)stream);
+      return 0;
+    });
+    if (err != 0) return err;
   }
   return (int)cudaGetLastError();
 }
 
 int bk_scatter_elems(void* table, const void* idx, const void* cols,
                      const void* values, int T, int D, int esize,
-                     const BkProgram* prog, void* stream) {
+                     const void* host, const void* dev, void* stream) {
   if (T > 0 && D > 0) {
-    const int threads = 128;
-    const int blocks = (T + threads - 1) / threads;
-    cudaStream_t s = (cudaStream_t)stream;
-    const int* i = (const int*)idx;
-    const int* c = (const int*)cols;
-    switch (esize) {
-      case 1:
-        bk_scatter_elems_kernel<uint8_t><<<blocks, threads, 0, s>>>(
-            (uint8_t*)table, i, c, (const uint8_t*)values, T, D, *prog);
-        break;
-      case 2:
-        bk_scatter_elems_kernel<uint16_t><<<blocks, threads, 0, s>>>(
-            (uint16_t*)table, i, c, (const uint16_t*)values, T, D, *prog);
-        break;
-      case 4:
-        bk_scatter_elems_kernel<uint32_t><<<blocks, threads, 0, s>>>(
-            (uint32_t*)table, i, c, (const uint32_t*)values, T, D, *prog);
-        break;
-      case 8:
-        bk_scatter_elems_kernel<uint64_t><<<blocks, threads, 0, s>>>(
-            (uint64_t*)table, i, c, (const uint64_t*)values, T, D, *prog);
-        break;
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
+    const int err = bk_with_program((const int*)host, (const int*)dev,
+                                    [&](auto l, const auto& p) {
+      return l.scatter_elems(table, idx, cols, values, T, D, esize, p,
+                             (cudaStream_t)stream);
+    });
+    if (err != 0) return err;
   }
   return (int)cudaGetLastError();
 }

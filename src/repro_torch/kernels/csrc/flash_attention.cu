@@ -41,8 +41,11 @@
 //   model runs attention in float32; the tests and the smoke run hold it to
 //   its plain version.
 //
-// The entry point launches on the given stream, allocates nothing, does not
-// synchronize, and returns cudaGetLastError() (cudaErrorInvalidValue for
+// Beside them, fa_blind_rows fills the rows that see no key (below); no
+// model's call has one.
+//
+// The entry points launch on the given stream, allocate nothing, do not
+// synchronize, and return cudaGetLastError() (cudaErrorInvalidValue for
 // arguments it does not take, 10000 + the CUresult when a tensor map cannot
 // be encoded).
 
@@ -744,6 +747,49 @@ static int fh_info(int* regs, int* smem, int* blocks_per_sm) {
   return (int)e;
 }
 
+// ===========================================================================
+// Rows that see no key (kv_len < 1, or a window with Sq > kv_len + window -
+// 1).  The JAX oracle masks every score of such a row to -1e30, so its
+// softmax weighs all Sk keys alike and the row is the mean of v over all Sk
+// rows, in float32, cast to the output's type.  The wrapper finds the first
+// such row from (Sq, Sk, kv_len, window) -- they are the last rows -- and
+// launches this kernel only when there is one; the attention kernels leave
+// those rows at zero (no key tile holds a key they may see) or, for kv_len <
+// 1, are not launched.  No model's call has such a row.  One block a
+// (batch, head), a thread a column, the sum over the keys in order; bound
+// by the Sk x D elements of v it reads, a few microseconds at any size the
+// models use.
+// ===========================================================================
+
+static __device__ __forceinline__ float fb_f(float x) { return x; }
+static __device__ __forceinline__ float fb_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> static __device__ __forceinline__ T fb_to(float x);
+template <> __device__ __forceinline__ float fb_to<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 fb_to<__nv_bfloat16>(
+    float x) {
+  return __float2bfloat16(x);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(128)
+fa_blind_rows_kernel(const T* __restrict__ v, T* __restrict__ o, int H,
+                     int Hkv, int Sq, int Sk, int D, long long vb,
+                     long long vs, long long vh, int row0) {
+  const int h = blockIdx.x % H, b = blockIdx.x / H;
+  const T* vp = v + b * vb + (long long)(h / (H / Hkv)) * vh;
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    float sum = 0.f;
+    for (int j = 0; j < Sk; ++j) sum += fb_f(vp[(long long)j * vs + d]);
+    const T mean = fb_to<T>(sum / (float)Sk);
+    T* op = o + ((long long)b * Sq * H + h) * D + d;
+    for (int i = row0; i < Sq; ++i) op[(long long)i * H * D] = mean;
+  }
+}
+
 extern "C" {
 
 // dtype: 0 float32, 1 bfloat16.  Strides in elements.
@@ -808,6 +854,27 @@ int fa_bf16_kernel_info(int D, int* regs, int* smem, int* blocks_per_sm) {
   if (dc == 2) return fh_info<2, 128>(regs, smem, blocks_per_sm);
   if (dc == 3) return fh_info<3, 64>(regs, smem, blocks_per_sm);
   return fh_info<4, 64>(regs, smem, blocks_per_sm);
+}
+
+// Rows row0 .. Sq - 1 of o (B, Sq, H, D), contiguous: the mean of v (B, Sk,
+// Hkv, D, element strides vb, vs, vh) over its Sk rows, per (batch, head).
+// dtype: 0 float32, 1 bfloat16.
+int fa_blind_rows(const void* v, void* o, int B, int H, int Hkv, int Sq,
+                  int Sk, int D, long long vb, long long vs, long long vh,
+                  int row0, int dtype, void* stream) {
+  if (B < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || Sq < 1 || Sk < 1 ||
+      D < 1 || row0 < 0 || row0 >= Sq || (dtype != 0 && dtype != 1) ||
+      (int64_t)B * H > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 1)
+    fa_blind_rows_kernel<__nv_bfloat16><<<B * H, 128, 0, st>>>(
+        (const __nv_bfloat16*)v, (__nv_bfloat16*)o, H, Hkv, Sq, Sk, D, vb, vs,
+        vh, row0);
+  else
+    fa_blind_rows_kernel<float><<<B * H, 128, 0, st>>>(
+        (const float*)v, (float*)o, H, Hkv, Sq, Sk, D, vb, vs, vh, row0);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

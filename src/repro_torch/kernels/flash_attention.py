@@ -19,10 +19,15 @@ what ``ops.mha`` calls.  Both are one launch of ``csrc/flash_attention.cu``,
 which reads q, k and v through their strides.
 
 **Rows with no unmasked key** (``kv_len < 1``, or a window with ``Sq >
-kv_len + window - 1``) are rejected with a ``ValueError`` by both, on
-every device: the plain version would give them a uniform average over all
-``Sk`` keys, which the kernel, which skips the key tiles a row cannot see,
-does not compute.
+kv_len + window - 1``: they are the last rows) get what the JAX oracle
+``ref.mha_reference`` gives them: every score masked to ``-1e30``, its
+softmax weighs all ``Sk`` keys alike, so such a row is the mean of v over
+all ``Sk`` rows (float32, cast to q's dtype).  The plain version computes
+that as it is; on the card the wrapper finds the first such row by integer
+arithmetic on ``(Sq, Sk, kv_len, window)`` and only then launches the
+small ``fa_blind_rows`` kernel of the same source over those rows, after
+the attention kernel over the others (``BLIND_LAUNCHES`` counts those
+calls; no model's call has such a row).
 
 The wrappers launch the kernel when q lies on a CUDA device (and raise if
 the build, the arguments or the launch are not right -- nothing falls
@@ -51,6 +56,8 @@ import torch
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
 COPIES: Dict[str, int] = {"flash_attention": 0}   # calls with an aligned copy
+# calls that launched fa_blind_rows (rows that see no key)
+BLIND_LAUNCHES: Dict[str, int] = {"flash_attention": 0}
 
 NEG_INF = -1e30
 MAX_D = 256          # what the kernel's shared-memory tiles hold
@@ -58,7 +65,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, COPIES):
+    for counts in (LAUNCHES, COPIES, BLIND_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -81,6 +88,9 @@ def _library():
         lib.fa_flash_attention.restype = ctypes.c_int
         lib.fa_bf16_kernel_info.argtypes = [i32] + [ctypes.POINTER(i32)] * 3
         lib.fa_bf16_kernel_info.restype = ctypes.c_int
+        lib.fa_blind_rows.argtypes = (
+            [ptr] * 2 + [i32] * 6 + [i64] * 3 + [i32] * 2 + [ptr])
+        lib.fa_blind_rows.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -158,12 +168,20 @@ def _check(q, k, v, causal, window, kv_len):
     if kv_len is not None and int(kv_len) != kv_len:
         raise ValueError(f"kv_len must be an int or None, got {kv_len!r}")
     seen = Sk if kv_len is None else min(int(kv_len), Sk)
-    if seen < 1 or (window > 0 and Sq > seen + int(window) - 1):
-        raise ValueError(
-            f"a query row would see no key (Sq {Sq}, Sk {Sk}, kv_len "
-            f"{kv_len}, window {window}): rows with no unmasked key are "
-            f"not taken")
     return B, Sq, H, Hkv, Sk, D, seen
+
+
+def first_blind_row(Sq: int, seen: int, window: int) -> int:
+    """The first query row that sees no key (``Sq`` when every row sees
+    one), for ``seen = min(kv_len, Sk)`` keys: row ``i`` sees key ``j`` when
+    ``j < seen``, ``j <= i`` if causal and ``i - j < window`` if windowed,
+    which leaves it none only when ``seen < 1`` or ``i >= seen + window -
+    1`` -- the same under a causal mask and without one."""
+    if seen < 1:
+        return 0
+    if window > 0:
+        return min(Sq, seen + window - 1)
+    return Sq
 
 
 def _strides(t):
@@ -205,11 +223,13 @@ def attention(q, k, v, *, causal=True, window=0, kv_len=None, scale=None
               ) -> torch.Tensor:
     """Attention over ``q (B, Sq, H, D)`` and ``k``, ``v (B, Sk, Hkv, D)``,
     float32 or bfloat16 (one dtype for all three); returns ``(B, Sq, H, D)``
-    in that dtype.  On a CUDA tensor: one launch of ``fa_flash_attention``,
-    which takes any ``D <= 256``, any ``Sq`` and ``Sk``, and reads the three
-    inputs through their strides (in float32 a last dimension that is not
-    contiguous is copied first; in bf16 an input TMA cannot read is copied
-    aligned and padded, see the module's docstring)."""
+    in that dtype.  On a CUDA tensor: one launch of ``fa_flash_attention``
+    (and one of ``fa_blind_rows`` where rows see no key, see the module's
+    docstring), which takes any ``D <= 256``, any ``Sq`` and ``Sk``, and
+    reads the three inputs through their strides (in float32 a last
+    dimension that is not contiguous is copied first; in bf16 an input TMA
+    cannot read is copied aligned and padded, see the module's
+    docstring)."""
     B, Sq, H, Hkv, Sk, D, seen = _check(q, k, v, causal, window, kv_len)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     if not q.is_cuda:
@@ -227,16 +247,28 @@ def attention(q, k, v, *, causal=True, window=0, kv_len=None, scale=None
     Dk = q.shape[-1]
     out = torch.empty((B, Sq, H, Dk), dtype=q.dtype, device=q.device)
     lib = _library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    row0 = first_blind_row(Sq, seen, int(window))
     with torch.cuda.device(q.device):
-        err = lib.fa_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, H, Hkv, Sq, Sk, Dk, *_strides(q), *_strides(k), *_strides(v),
-            int(causal), int(window), seen, float(scale),
-            _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            f"flash_attention: CUDA launch failed with error {err}")
-    LAUNCHES["flash_attention"] += 1
+        if row0 > 0:
+            err = lib.fa_flash_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                B, H, Hkv, Sq, Sk, Dk, *_strides(q), *_strides(k),
+                *_strides(v), int(causal), int(window), seen, float(scale),
+                _DTYPES[q.dtype], stream)
+            if err != 0:
+                raise RuntimeError(
+                    f"flash_attention: CUDA launch failed with error {err}")
+            LAUNCHES["flash_attention"] += 1
+        if row0 < Sq:
+            err = lib.fa_blind_rows(
+                v.data_ptr(), out.data_ptr(), B, H, Hkv, Sq, Sk, Dk,
+                *_strides(v), row0, _DTYPES[q.dtype], stream)
+            if err != 0:
+                raise RuntimeError(
+                    f"flash_attention: the blind-row launch failed with "
+                    f"error {err}")
+            BLIND_LAUNCHES["flash_attention"] += 1
     if copied:
         COPIES["flash_attention"] += 1
     return out if Dk == D else out[..., :D]

@@ -74,8 +74,9 @@ def mha(q, k, v, *, causal=True, window=0, kv_len=None):
     H, Dh)``, k and v ``(B, Sk, Hkv, Dh)``, float32 or bfloat16.  Grouped
     query heads read their kv head by index (``h // (H // Hkv)``); k and v
     are neither repeated nor transposed.  One launch on a CUDA tensor.
-    Positions count from 0 for q and k alike; rows that would see no key
-    are rejected (see ``kernels/flash_attention.py``)."""
+    Positions count from 0 for q and k alike; a row that sees no key gets
+    the mean of v over all keys, as the JAX oracle gives it (see
+    ``kernels/flash_attention.py``)."""
     return _fa.attention(q, k, v, causal=causal, window=window,
                          kv_len=kv_len)
 

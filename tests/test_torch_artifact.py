@@ -277,19 +277,125 @@ def test_no_kernel_is_launched_for_a_cpu_table():
 
 
 def test_program_struct_matches_the_kernel_program():
+    """The packed words the kernels take (multidim Ns=(4, 1), the middle
+    bucket): header, instructions, the split of both dimensions, both bank
+    folds."""
+    from repro_torch.core import transforms as T
+
     port = build_artifact(port_core, LAYOUT_CASES[8], backend="torch")
     prog = port.kernel_program()
-    packed = bg._program_struct(port)
-    assert packed is bg._program_struct(port)          # packed once
-    assert packed.n_dims == 2 and packed.n_ba == 2
-    assert list(packed.dims)[:2] == [8, 12]
-    assert list(packed.ba_fold)[:2] == list(port.geometry.Ns)
-    assert packed.logical_size == 96
-    assert packed.bank_volume == port.bank_volume
-    assert packed.n_instrs == len(prog.instrs)
-    got = [(i.op, i.dst, i.a, i.b, i.imm)
-           for i in packed.instrs[:packed.n_instrs]]
-    assert got == list(prog.instrs)
+    w = bg.program_words(port)
+    assert w is bg.program_words(port)                 # packed once
+    n_instrs, n_regs, n_dims, n_ba, bo_reg, size, volume, cap = w[:8]
+    assert (n_dims, n_ba, size, volume, cap) == (2, 2, 96, port.bank_volume,
+                                                 32)
+    assert (n_instrs, n_regs, bo_reg) == (len(prog.instrs), prog.n_regs,
+                                          prog.bo_reg)
+    slots = w[8:8 + 4 * 32].reshape(32, 4).astype(np.int64)
+    assert [tuple(row) for row in slots[:n_instrs].tolist()] == [
+        tuple(np.int64(v).astype(np.int32).item()
+              for v in T._packed_instr(*ins)) for ins in prog.instrs]
+    split = w[8 + 4 * 32:8 + 4 * 32 + 24].reshape(8, 3)
+    assert list(split[:2, 0]) == [8, 12]
+    fold = w[8 + 4 * 32 + 24:].reshape(8, 2)
+    assert [tuple(f) for f in fold[:2].tolist()] == list(
+        zip(prog.ba_regs, port.geometry.Ns))
+
+
+@pytest.mark.parametrize("which,source", [
+    ("server", "BkFast<6>"), (LAYOUT_CASES[8], "BkDev<16,32>"),
+    (LAYOUT_CASES[3], "BkDev<32,192>")], ids=["server", "multidim", "long"])
+def test_kernel_source_follows_the_program(which, source):
+    """The server's six LINEAR steps go to the kernels by value, decoded;
+    a two-dimensional layout and an 87-step program from device memory, in
+    the bucket that holds them."""
+    art = (page_solution(None, 1024, 16, 8) if which == "server" else
+           build_artifact(port_core, which, backend="torch"))
+    assert bg.kernel_source(art) == source
+
+
+# ---------------------------------------------------------------------------
+# B3's choice of the last write, modelled step by step in numpy
+# ---------------------------------------------------------------------------
+
+
+def _hash_winners(idx, size, order, bits=11):
+    """The one-block path of ``bk_scatter_rows``: each write claims its
+    address in a hash of 2^bits slots (compare-and-swap, linear probing)
+    and raises the slot's winner to its t; the threads run in ``order``.
+    Returns the writes that copy."""
+    key = np.full(1 << bits, -1, np.int64)
+    win = np.full(1 << bits, -1, np.int64)
+    slot = np.full(len(idx), -1, np.int64)
+    for t in order:
+        a = int(idx[t])
+        if not 0 <= a < size:
+            continue
+        h = ((a * 2654435761) & 0xFFFFFFFF) >> (32 - bits)
+        while key[h] not in (-1, a):
+            h = (h + 1) & ((1 << bits) - 1)
+        key[h] = a
+        win[h] = max(win[h], t)
+        slot[t] = h
+    return np.array([t for t in range(len(idx))
+                     if slot[t] >= 0 and win[slot[t]] == t], np.int64)
+
+
+def _table_winners(win, idx, order):
+    """The grid path: ``win`` holds one uint64 a logical address and the
+    epoch last; a call raises each address to (epoch + 1) << 24 | t in
+    ``order``, keeps the writes that still find their own key, and stores
+    the new epoch.  Updates ``win`` in place; returns the writes that
+    copy."""
+    size = len(win) - 1
+    e = int(win[size]) + 1
+    for t in order:
+        if 0 <= idx[t] < size:
+            win[idx[t]] = max(int(win[idx[t]]), e << 24 | int(t))
+    keep = [t for t in range(len(idx))
+            if 0 <= idx[t] < size and int(win[idx[t]]) == e << 24 | t]
+    win[size] = e
+    return np.array(keep, np.int64)
+
+
+def _want_winners(idx, size):
+    inside = np.flatnonzero((idx >= 0) & (idx < size))
+    last = bg._last_occurrence(torch.from_numpy(idx[inside])).numpy()
+    return np.sort(inside[last])
+
+
+@pytest.mark.parametrize("T,distinct", [(1, 1), (64, 3), (1024, 64),
+                                        (1024, 1024), (1000, 700)])
+def test_block_winners_are_the_last_occurrences(T, distinct):
+    """Random duplicate-heavy index sets, a few stray addresses, threads in
+    random orders: the hash keeps exactly the last write of each address
+    (what the plain version keeps through ``_last_occurrence``)."""
+    rng = np.random.default_rng(T + distinct)
+    size = 1024
+    idx = rng.choice(size, size=distinct, replace=False)[
+        rng.integers(0, distinct, size=T)]
+    idx[rng.random(T) < 0.02] = size + 3
+    for _ in range(3):
+        got = _hash_winners(idx, size, rng.permutation(T))
+        np.testing.assert_array_equal(got, _want_winners(idx, size))
+
+
+def test_table_winners_over_calls_in_a_row_and_two_artifacts():
+    """Several calls in a row on each of two winner tables (two artifacts of
+    other sizes), alternating, never cleared: each call keeps exactly the
+    last write of each address, whatever earlier calls left."""
+    rng = np.random.default_rng(7)
+    tables = {96: np.zeros(97, np.uint64), 1024: np.zeros(1025, np.uint64)}
+    for call in range(12):
+        size = (96, 1024)[call % 2]
+        T = int(rng.integers(1025, 4097))
+        distinct = int(rng.integers(1, min(size, 64) + 1))
+        idx = rng.choice(size, size=distinct, replace=False)[
+            rng.integers(0, distinct, size=T)]
+        idx[rng.random(T) < 0.01] = -1
+        got = _table_winners(tables[size], idx, rng.permutation(T))
+        np.testing.assert_array_equal(got, _want_winners(idx, size))
+        assert int(tables[size][size]) == call // 2 + 1
 
 
 def test_telemetry_sink_sees_every_gather_and_scatter():

@@ -134,25 +134,60 @@ def test_plain_version_matches_the_interpret_mode_kernel(case):
     assert_same(want, got, tol=TOL[dtype])
 
 
+BLIND = [dict(kv_len=0), dict(causal=False, window=2, kv_len=4),
+         dict(causal=True, window=3, kv_len=2)]
+
+
+def _blind_rows_match_reference(dtype, B, Sq, Sk, H, Hkv, D, kw):
+    """``ops.mha``, ``attention`` and ``flash_attention`` (CPU tensors: the
+    plain version) against ``ref.mha_reference`` where some rows see no key:
+    the oracle masks all their scores to -1e30, so they are the mean of v
+    over all Sk rows; returns the first such row."""
+    q, k, v = _qkv(Sq + 7 * D, B, Sq, Sk, H, Hkv, D, dtype)
+    rep = H // Hkv
+    folded = [_fold(q, 1), _fold(k, rep), _fold(v, rep)]
+    want = RR.mha_reference(*_to(dtype, "jax", *folded), **kw)
+    want4 = np.asarray(jnp.asarray(want, jnp.float32)).reshape(
+        B, H, Sq, D).transpose(0, 2, 1, 3)
+    t = _to(dtype, "torch", q, k, v)
+    assert_same(want4, PO.mha(*t, **kw), tol=TOL[dtype], what="ops.mha")
+    assert_same(want4, fa.attention(*t, **kw), tol=TOL[dtype],
+                what="attention")
+    assert_same(want, fa.flash_attention(*_to(dtype, "torch", *folded), **kw),
+                tol=TOL[dtype], what="flash_attention")
+    seen = Sk if kw.get("kv_len") is None else min(kw["kv_len"], Sk)
+    row0 = fa.first_blind_row(Sq, seen, kw.get("window", 0))
+    mean = v.mean(axis=1)                      # (B, Hkv, D), float32
+    np.testing.assert_allclose(
+        want4[:, row0:], np.broadcast_to(
+            np.repeat(mean, rep, axis=1)[:, None], want4[:, row0:].shape),
+        atol=TOL[dtype] * max(1.0, float(np.abs(mean).max())))
+    return row0
+
+
 def test_rows_without_a_key_are_refused():
-    """The plain version (like the JAX oracle) averages all keys uniformly
-    for a row that sees none; the kernel skips the key tiles such a row
-    cannot see, so both wrappers refuse the arguments instead."""
+    """The argument sets that were once refused (``kv_len`` 0, and windows
+    that leave the last rows without a key) now give the oracle's rows in
+    both dtypes, the blind rows the mean of v over all keys; the edge where
+    every row still sees a key has no blind row."""
+    for dtype in ("float32", "bfloat16"):
+        for kw, row0 in zip(BLIND, (0, 5, 4)):
+            assert _blind_rows_match_reference(
+                dtype, 1, 8, 8, 2, 2, 16, kw) == row0
+    assert fa.first_blind_row(8, 6, 3) == 8
     q, k, v = _qkv(3, 1, 8, 8, 2, 2, 16, "float32")
-    t = _to("float32", "torch", q, k, v)
-    for kw in (dict(kv_len=0), dict(causal=False, window=2, kv_len=4),
-               dict(causal=True, window=3, kv_len=2)):
-        with pytest.raises(ValueError, match="no key"):
-            PO.mha(*t, **kw)
-        with pytest.raises(ValueError, match="no key"):
-            fa.flash_attention(*(x[:, :, 0] for x in t), **kw)
-    # the plain version itself agrees with the oracle even there
-    folded = [_fold(q, 1), _fold(k, 1), _fold(v, 1)]
-    assert_same(RR.mha_reference(*_to("float32", "jax", *folded), kv_len=0),
-                fa.flash_attention_plain(*_to("float32", "torch", *folded),
-                                         kv_len=0), tol=FP32_TOL)
-    # the edge that still has a key for every row is taken
-    PO.mha(*t, causal=True, window=3, kv_len=6)
+    PO.mha(*_to("float32", "torch", q, k, v), causal=True, window=3,
+           kv_len=6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kw", BLIND + [dict(causal=True, window=8,
+                                             kv_len=-3)],
+                         ids=["kv_len0", "window-full", "window-causal",
+                              "kv_len-negative"])
+def test_blind_rows_of_grouped_heads_match_reference(kw, dtype):
+    """The same over 4 query heads on 2 kv heads, Sq != Sk, D 32."""
+    _blind_rows_match_reference(dtype, 2, 12, 10, 4, 2, 32, kw)
 
 
 def test_arguments_are_checked():

@@ -1,7 +1,8 @@
 """Banking math of the port against the reference: same solutions from the
 solver, and the same BA/BO for EVERY logical address from each lowering of
-the resolution circuit (numpy int64, torch, and the int32 register program
-the CUDA kernels interpret)."""
+the resolution circuit (numpy int64, torch, the int32 register program the
+CUDA kernels interpret, and that program packed into the words the kernels
+read, with their split of a flat address)."""
 
 import numpy as np
 import pytest
@@ -15,6 +16,7 @@ from repro.runtime.server import _page_program as ref_page_program
 from repro_torch.core import problems as port_problems
 from repro_torch.core import transforms as T
 from repro_torch.core.artifact import graph_to_json as port_graph_json
+from repro_torch.kernels import banked_gather as bg
 from repro_torch.runtime.server import _page_program as port_page_program
 from repro_torch.runtime.server import page_solution
 
@@ -110,6 +112,19 @@ def _check_all_lowerings(port_art, ref_art):
     np.testing.assert_array_equal(_fold(bas, port_art), want_ba)
     np.testing.assert_array_equal(bo, want_bo)
 
+    # the packed words and the kernels' split, from flat addresses, with a
+    # few outside the range on either side
+    words = bg.program_words(port_art)
+    cap = T.kernel_bucket(prog)
+    assert cap in T.KERNEL_BUCKETS
+    assert words.dtype == np.int32
+    assert words.size == T.kernel_program_words(cap[0])
+    edge = np.array([-2, -1, A, A + 1])
+    rows = T.run_packed_program(words, np.concatenate([addr, edge]))
+    np.testing.assert_array_equal(
+        rows[:A], want_ba.astype(np.int64) * port_art.bank_volume + want_bo)
+    np.testing.assert_array_equal(rows[A:], -1)
+
     tab_ba, tab_bo = port_art._tables()
     np.testing.assert_array_equal(tab_ba, want_ba)
     np.testing.assert_array_equal(tab_bo, want_bo)
@@ -199,3 +214,100 @@ def test_kernel_program_raises_beyond_its_limits(what):
         build = lambda: T.lower_kernel_program([x], T.raw_div(x, 0), 1)
     with pytest.raises(ValueError):
         build()
+
+
+# ---------------------------------------------------------------------------
+# The packed program: the split's multipliers, the encoding, its capacities
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 5, 6, 7, 10, 12, 24, 60, 96, 127,
+                               1024, 65535, 65536, 100003, (1 << 30) + 1,
+                               (1 << 31) - 1])
+def test_split_constants_divide_every_31_bit_dividend(d):
+    """``(n * m) >> s == n // d`` in uint64 for every 31-bit n: the two ends,
+    the multiples of d and their neighbours, and random draws."""
+    m, s = T.split_constants(d)
+    assert 0 < m < 1 << 32 and 31 <= s <= 62
+    rng = np.random.default_rng(d)
+    q = rng.integers(0, (1 << 31) // d, size=2000, dtype=np.int64)
+    n = np.concatenate([rng.integers(0, 1 << 31, size=4000, dtype=np.int64),
+                        q * d, q * d + d - 1, q * d - 1,
+                        [0, 1, d - 1, d, (1 << 31) - 1]])
+    n = n[(n >= 0) & (n < 1 << 31)].astype(np.uint64)
+    got = (n * np.uint64(m)) >> np.uint64(s)
+    np.testing.assert_array_equal(got, n // np.uint64(d))
+
+
+@pytest.mark.parametrize("d", [0, 1 << 31])
+def test_split_constants_refuse_what_the_kernels_cannot_split(d):
+    with pytest.raises(ValueError):
+        T.split_constants(d)
+
+
+def test_packed_program_round_trips_the_kernel_program():
+    """Header, instruction slots, split and fold at the offsets of
+    ``BkProg<8>`` in ``banked.cu``, for the server's layout (one dimension,
+    one bank graph, six steps, four registers: the smallest bucket)."""
+    art = page_solution(None, 1024, 16, 8)
+    prog = art.kernel_program()
+    w = bg.program_words(art)
+    assert w is bg.program_words(art)                 # packed once
+    assert T.kernel_bucket(prog) == (8, 4)
+    assert w.size == T.kernel_program_words(8) == 8 + 4 * 8 + 24 + 16
+    n = len(prog.instrs)
+    assert list(w[:T.KERNEL_HEADER_WORDS]) == [
+        n, prog.n_regs, 1, 1, prog.bo_reg, 1024, art.bank_volume, 8]
+    slots = w[8:8 + 32].reshape(8, 4)
+    assert [tuple(int(x) for x in row) for row in slots[:n]] == [
+        tuple(np.int64(v).astype(np.int32).item()
+              for v in T._packed_instr(*ins)) for ins in prog.instrs]
+    assert not slots[n:].any()
+    split = w[40:64].reshape(8, 3)
+    assert list(split[0].view(np.uint32)) == [1024, *T.split_constants(1024)]
+    assert not split[1:].any()
+    fold = w[64:80].reshape(8, 2)
+    assert list(fold[0]) == [prog.ba_regs[0], 1] and not fold[1:].any()
+
+
+@pytest.mark.parametrize("op", T.KERNEL_OPS)
+def test_every_op_packs_into_what_it_computes(op):
+    """Each op, packed (the LINEAR form or its own kind), against the
+    reference interpreter on int32 registers near both ends of the range,
+    with the immediates at their edges (shifts 0 and 31, negative masks and
+    factors, divisors of either sign)."""
+    rng = np.random.default_rng(len(op))
+    edge = np.array([0, 1, -1, 2 ** 31 - 1, -2 ** 31, 12345, -54321],
+                    np.int64)
+    regs = [np.concatenate([edge, rng.integers(-2 ** 31, 2 ** 31, 200)])
+            .astype(np.int32) for _ in range(3)]
+    code = T.KERNEL_OPCODE[op]
+    imms = {"const": [0, 7, -9, 2 ** 31 - 1], "shl": [0, 1, 13, 31],
+            "shr": [0, 1, 13, 31], "and": [0, 15, -16, 2 ** 31 - 1],
+            "mul": [0, 3, -5, 2 ** 20 + 1], "div": [1, 3, -7, 2 ** 30],
+            "mod": [1, 3, -7, 2 ** 30]}.get(op, [2])
+    for imm in imms:
+        ins = (code, 2, 0, 1, imm)
+        want = T._interpret([ins], 3, regs)[2]
+        got = T.run_packed_instrs([T._packed_instr(*ins)],
+                                  [r.copy() for r in regs])[2]
+        np.testing.assert_array_equal(got, want, err_msg=f"{op} {imm}")
+
+
+@pytest.mark.parametrize("n_instrs,n_regs,cap", [
+    (1, 1, (8, 4)), (6, 4, (8, 4)), (8, 4, (8, 4)), (9, 4, (32, 16)),
+    (6, 5, (32, 16)), (32, 16, (32, 16)), (33, 4, (192, 32)),
+    (87, 11, (192, 32)), (192, 32, (192, 32))])
+def test_kernel_bucket_is_the_smallest_that_holds_the_program(
+        n_instrs, n_regs, cap):
+    prog = T.KernelProgram(n_vars=1, instrs=((0, 0, 0, 0, 0),) * n_instrs,
+                           ba_regs=(0,), bo_reg=0, n_regs=n_regs)
+    assert T.kernel_bucket(prog) == cap
+
+
+def test_kernel_bucket_refuses_more_than_it_holds():
+    for n_instrs, n_regs in ((193, 4), (4, 33)):
+        prog = T.KernelProgram(n_vars=1, instrs=((0, 0, 0, 0, 0),) * n_instrs,
+                               ba_regs=(0,), bo_reg=0, n_regs=n_regs)
+        with pytest.raises(ValueError):
+            T.kernel_bucket(prog)

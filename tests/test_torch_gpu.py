@@ -19,6 +19,7 @@ from repro_torch.kernels import moe_dispatch as md
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_chunk as sc
 from repro_torch.models import moe
+from repro_torch.runtime.server import page_solution
 
 from torch_parity import (CHUNK_LAYOUTS, LAYOUT_CASES, build_artifact,
                           chunk_views, layout_id)
@@ -29,6 +30,119 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the CUDA kernels run only on a GPU")
     return torch.device("cuda")
+
+
+def _int_rows(rng, n, D, device):
+    return torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31 - 1, size=(n, D))
+                            .astype(np.int32)).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 32, 1024, 1025, 4096, bg.SCATTER_MAX_T])
+def test_gather_and_row_scatter_at_every_size(cuda, T):
+    """The server's layout, rows of 8 int32, random addresses with
+    duplicates: one block up to 1024 writes, the winner table past it, up
+    to ``SCATTER_MAX_T``; one launch a call."""
+    art = page_solution(None, 1024, 16, 8)
+    rng = np.random.default_rng(T)
+    flat = _int_rows(rng, 1024, 8, cuda)
+    table = art.pack(flat)
+    idx = torch.from_numpy(rng.integers(0, 1024, size=T)).to(cuda)
+    vals = _int_rows(rng, T, 8, cuda)
+    before = dict(bg.LAUNCHES)
+    assert torch.equal(art.gather(table, idx), flat[idx])
+    mine, theirs = table.clone(), table.clone()
+    art.scatter(mine, idx, vals)
+    bg.banked_scatter_plain(theirs, idx, vals, art)
+    torch.cuda.synchronize()
+    assert torch.equal(mine, theirs)
+    assert bg.LAUNCHES["banked_gather"] == before["banked_gather"] + 1
+    assert bg.LAUNCHES["banked_scatter"] == before["banked_scatter"] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,distinct", [(1024, 64), (4096, 64), (4096, 2),
+                                        (3000, 1)])
+def test_many_writes_to_few_addresses_last_one_wins(cuda, T, distinct):
+    """T writes over a few addresses, held to a sequential loop on the host:
+    rows (B3) and single elements (B2).  Over one or two addresses a block
+    owns more writes than it keeps in shared memory and takes the winner
+    table."""
+    art = page_solution(None, 1024, 16, 8)
+    rng = np.random.default_rng(T + distinct)
+    flat = _int_rows(rng, 1024, 8, cuda)
+    table = art.pack(flat)
+    idx = rng.choice(1024, size=distinct, replace=False)[
+        rng.integers(0, distinct, size=T)]
+    vals = _int_rows(rng, T, 8, cuda)
+    cols = rng.integers(0, 8, size=T)
+    want_rows = flat.cpu().numpy().copy()
+    want_elems = want_rows.copy()
+    v = vals.cpu().numpy()
+    for t in range(T):
+        want_rows[idx[t]] = v[t]
+        want_elems[idx[t], cols[t]] = v[t, 0]
+    got_rows = art.unpack(art.scatter(table.clone(), idx, vals))
+    got_elems = art.unpack(art.scatter(table.clone(), idx, vals[:, 0],
+                                       col=cols))
+    assert np.array_equal(got_rows.cpu().numpy(), want_rows)
+    assert np.array_equal(got_elems.cpu().numpy(), want_elems)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [8, 2000])
+def test_out_of_range_indices_on_the_card(cuda, T):
+    """Addresses already on the card outside [0, 1024): the gather gives
+    zero rows, both scatters drop the write (one block and winner table)."""
+    art = page_solution(None, 1024, 16, 8)
+    rng = np.random.default_rng(T)
+    flat = _int_rows(rng, 1024, 8, cuda)
+    table = art.pack(flat)
+    idx = rng.integers(0, 1024, size=T)
+    bad = rng.random(T) < 0.3
+    idx[bad] = rng.choice([-1, -5000, 1024, 1 << 30], size=int(bad.sum()))
+    on_card = torch.from_numpy(idx).to(cuda)
+    got = art.gather(table, on_card)
+    good = torch.from_numpy(~bad).to(cuda)
+    assert bool((got[~good] == 0).all())
+    assert torch.equal(got[good], flat[on_card[good]])
+    vals = _int_rows(rng, T, 8, cuda)
+    mine, theirs = table.clone(), table.clone()
+    art.scatter(mine, on_card, vals)
+    bg.banked_scatter_plain(theirs, on_card[good], vals[good], art)
+    assert torch.equal(mine, theirs)
+    cols = torch.from_numpy(rng.integers(0, 8, size=T)).to(cuda)
+    art.scatter(mine, on_card, vals[:, 0], col=cols)
+    bg.banked_scatter_elems_plain(theirs, on_card[good], cols[good],
+                                  vals[good, 0], art)
+    torch.cuda.synchronize()
+    assert torch.equal(mine, theirs)
+
+
+@pytest.mark.gpu
+def test_repeated_scatters_on_two_artifacts_in_turn(cuda):
+    """Calls in a row on one table and two artifacts alternating (the server's
+    layout and a multidim one): 3000 writes over 2 addresses (a block
+    overflows into the winner table), 3000 over 40 and 700 over 40 (shared
+    memory only), in turn.  Each call equals the plain version, so the
+    winner table is left as the next call needs it."""
+    arts = [page_solution(None, 1024, 16, 8),
+            build_artifact(port_core, LAYOUT_CASES[8], backend="torch")]
+    rng = np.random.default_rng(3)
+    tables = [a.pack(_int_rows(rng, a.layout.logical_size, 8, cuda))
+              for a in arts]
+    plain = [t.clone() for t in tables]
+    for call in range(12):
+        art, i = arts[call % 2], call % 2
+        A = art.layout.logical_size
+        T, distinct = ((3000, 2), (3000, 40), (700, 40))[call // 2 % 3]
+        idx = torch.from_numpy(rng.choice(A, size=distinct)[
+            rng.integers(0, distinct, size=T)]).to(cuda)
+        vals = _int_rows(rng, T, 8, cuda)
+        art.scatter(tables[i], idx, vals)
+        bg.banked_scatter_plain(plain[i], idx, vals, art)
+        torch.cuda.synchronize()
+        assert torch.equal(tables[i], plain[i]), call
 
 
 @pytest.mark.gpu
@@ -202,3 +316,36 @@ def test_the_bf16_flash_attention_kernel_fits_the_sm(cuda, D):
     assert info["blocks_per_sm"] >= 1
     assert 0 < info["registers"] <= 168
     assert info["shared_bytes"] <= 232448
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw,S,row0", [
+    (dict(kv_len=0), 8, 0), (dict(causal=False, window=2, kv_len=4), 8, 5),
+    (dict(causal=True, window=3, kv_len=2), 8, 4),
+    (dict(causal=True, window=40, kv_len=50), 100, 89)],
+    ids=["kv_len0", "window-full", "window-causal", "window-long"])
+@pytest.mark.parametrize("D", [64, 72])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rows_that_see_no_key_equal_the_plain_version(cuda, dtype, D, kw, S,
+                                                      row0):
+    """Rows that see no key get the mean of v over all keys (the JAX
+    oracle's rows), from ``fa_blind_rows``; the attention kernel runs over
+    the rows before them (none when kv_len is 0).  S query rows and keys,
+    4 query heads on 2 kv heads; tolerances as above."""
+    rng = np.random.default_rng(D + row0)
+    B, H, Hkv = 2, 4, 2
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                ).to(device=cuda, dtype=dtype)
+               for shape in ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    launches = fa.LAUNCHES["flash_attention"]
+    blind = fa.BLIND_LAUNCHES["flash_attention"]
+    got = ops.mha(q, k, v, **kw)
+    want = fa.mha_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.first_blind_row(S, min(kw["kv_len"], S), kw.get("window", 0)
+                              ) == row0
+    assert fa.BLIND_LAUNCHES["flash_attention"] == blind + 1
+    assert fa.LAUNCHES["flash_attention"] == launches + int(row0 > 0)
+    tol = (2e-5 if dtype == torch.float32 else 2e-2) * max(
+        1.0, float(want.float().abs().max()))
+    assert float((got.float() - want.float()).abs().max()) <= tol
