@@ -12,10 +12,13 @@ Run from the root of a checkout, with no arguments, it
    banked kernels and the MoE dispatch exactly (over the tested banking
    layouts, both transform levels, the server's layouts, several dtypes
    and row widths, scatters of 1024 and 4096 writes over 64 addresses and
-   of 4096 over 2 -- the winner table --, addresses out of range already
-   on the card, many empty slots, duplicate sources, the decode shape, a
-   large gather and a prefill-sized dispatch that it also times), with
-   the banked kernels' registers, stack and spill bytes from ptxas (no
+   of 4096 over 2 -- the winner table --, element scatters of 33 writes,
+   of 128 over 24 pairs, of the admit flush's 8,000 distinct pairs, of
+   65,536 writes over 3 addresses x 8 columns and of 3,000 distinct pairs
+   that all fall to one block, addresses out of range already on the card, many empty slots,
+   duplicate sources, the decode shape, a large gather and a
+   prefill-sized dispatch that it also times), with the banked kernels'
+   registers, stack and spill bytes from ptxas (no stack frame and no
    spill allowed); the SSD chunk within 1e-4 of the largest
    magnitude of the plain output (3xTF32 products, float32 sums in another
    order), over chunk lengths 1 to 256, the (P, N) of every config, a
@@ -60,8 +63,10 @@ Run from the root of a checkout, with no arguments, it
    gemma3's local and global layers, olmoe, zamba2, whisper's encoder),
    and prints the times on the
    card as one ``{"kernels": [...]}`` line and the host-inclusive times
-   per call as another; B1-B3 and B5 at decode size also in 15 rounds
-   interleaved with their PyTorch call (``banked_*`` and
+   per call as another; B1-B3 and B5 at decode size, and B2 also at the
+   first served admit flush and at the size of a flush after eight
+   prompts of 1,000 tokens, in 15 rounds interleaved with their PyTorch
+   call (``banked_*`` and
    ``moe_dispatch_decode`` lines);
 5. checks each family's reduced model on the card against the same
    weights on the CPU: a prefill of 4 rows, then three decode steps.
@@ -205,9 +210,10 @@ def phase_toolchain(torch):
              for ln in _build.build_log[name].splitlines()
              if "registers" in ln or "spill" in ln or "C7520" in ln]
     banked = banked_ptxas(_build.build_log["banked"])
-    check(banked and all(v["spill_stores"] == v["spill_loads"] == 0
-                         for v in banked.values()),
-          f"a banked kernel spills (or ptxas reported none): {banked}")
+    check(banked and all(v["stack"] == v["spill_stores"] ==
+                         v["spill_loads"] == 0 for v in banked.values()),
+          f"a banked kernel has a stack frame or spills (or ptxas reported "
+          f"none): {banked}")
     say("toolchain", python=sys.version.split()[0], torch=torch.__version__,
         torch_cuda=torch.version.cuda, nvcc=nvcc_version,
         card=smi, capability=list(torch.cuda.get_device_capability(0)),
@@ -219,7 +225,7 @@ def phase_toolchain(torch):
 
 def banked_ptxas(log):
     """``-Xptxas -v`` of ``banked.cu`` per kernel: registers, stack frame
-    and spill bytes, keyed ``name<program source>`` (``BkFast<steps>`` or
+    and spill bytes, keyed ``name<program source>`` (``BkTerms<terms>`` or
     ``BkDev<registers,slots>``; for ``bk_scatter_elems_kernel`` the
     element's size in bits first)."""
     import re
@@ -257,7 +263,8 @@ def banked_ptxas(log):
 
 
 def test_layouts():
-    """(label, artifact) for every layout the kernels are held to."""
+    """(label, artifact) for every layout the kernels are held to, through
+    every kind of program source (``BkTerms``, each ``BkDev`` bucket)."""
     from repro_torch.core import (FlatGeometry, MemorySpec, MultiDimGeometry,
                                   compile_geometry, compile_trivial)
     from repro_torch.core.geometry import propose_P
@@ -392,6 +399,8 @@ def phase_kernels(torch, seed):
               f"{distinct}): last write does not win ({d_rows}, {d_elems})")
         d_dup = max(d_dup, d_rows, d_elems)
 
+    b2 = b2_cases(torch, gen, rng, art, flat, table)
+
     # out-of-range addresses that already lie on the card: zero row /
     # dropped, in one block and through the winner table
     bad = torch.tensor([3, 5000, -1, 7], device="cuda", dtype=torch.int64)
@@ -455,10 +464,79 @@ def phase_kernels(torch, seed):
         max_abs_diff=worst, launches=dict(bg.LAUNCHES),
         duplicates={"writes_distinct": [[1024, 64], [4096, 64], [4096, 2]],
                     "max_abs_diff": d_dup},
+        scatter_elems=b2,
         large_gather={"rows": 65536, "D": 3584, "dtype": "bfloat16",
                       "T": 4096, "max_abs_diff": d_big, **timed,
                       "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                       "bound_by": "bytes", "bytes": nbytes})
+
+
+def b2_cases(torch, gen, rng, art, flat, table):
+    """B2 past one warp, each case held exactly to its plain version and to
+    a sequential loop on the host (last write wins in index order): one
+    write past a warp (T = 33), a full block of a thread a write (T = 128)
+    over 3 addresses x 8 columns, the admit flush's 8,000 distinct pairs,
+    65,536 writes over 3 addresses x 8 columns (a few blocks own them all
+    and walk them in windows), and 4,096 writes over 3,000 distinct pairs
+    of a table 128 wide that all fall to block 0 -- more than its hash
+    holds.
+    The wrapper's twins of the split (``elems_blocks``, ``pair_owner``)
+    are first held to the library's, so the last case is what it says."""
+    import numpy as np
+
+    from repro_torch.kernels import banked_gather as bg
+
+    lib = bg._library()
+    for T in (1, 32, 33, 256, 257, 4096, 8000, bg.SCATTER_MAX_T):
+        check(lib.bk_elems_blocks(T) == bg.elems_blocks(T),
+              f"elems_blocks({T}) differs from the library's")
+    keys = rng.integers(0, 1 << 40, size=512)
+    for nb in (1, 7, 16, 32, 132):
+        want = bg.pair_owner(keys, nb)
+        check(all(lib.bk_elems_owner(int(k), nb) == w
+                  for k, w in zip(keys, want)),
+              f"pair_owner differs from the library's over {nb} blocks")
+
+    wide = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31 - 1, (1024, 128))
+                            .astype(np.int32)).cuda()
+    wide_table = art.pack(wide)
+    T_over = 4096
+    owned = np.flatnonzero(bg.pair_owner(
+        np.arange(1024 * 128), bg.elems_blocks(T_over)) == 0)
+    over_keys = rng.choice(owned, size=3000, replace=False)
+    over = over_keys[np.concatenate([rng.permutation(3000), rng.integers(
+        0, 3000, size=T_over - 3000)])]
+    admit = (np.tile(np.arange(1000), 8), np.repeat(np.arange(8), 1000))
+    few = rng.choice(1024, size=3, replace=False)
+    cases = {
+        "T33": (flat, table, rng.integers(0, 1024, size=33),
+                rng.integers(0, 8, size=33)),
+        "T128_over_3x8": (flat, table, few[rng.integers(0, 3, size=128)],
+                          rng.integers(0, 8, size=128)),
+        "admit8000": (flat, table, *admit),
+        "65536_over_3x8": (flat, table, few[rng.integers(0, 3, size=65536)],
+                           rng.integers(0, 8, size=65536)),
+        "one_block_3000_pairs": (wide, wide_table, over // 128, over % 128)}
+    out = {}
+    for name, (fl, tab, idx, cols) in cases.items():
+        T, D = len(idx), fl.shape[1]
+        vals = torch.randint(-2 ** 31, 2 ** 31 - 1, (T,), generator=gen,
+                             device="cuda", dtype=torch.int64).to(torch.int32)
+        want = fl.cpu().numpy().copy()
+        v = vals.cpu().numpy()
+        for t in range(T):
+            want[idx[t], cols[t]] = v[t]
+        mine, theirs = tab.clone(), tab.clone()
+        art.scatter(mine, idx, vals, col=cols)
+        bg.banked_scatter_elems_plain(theirs, torch.from_numpy(idx).cuda(),
+                                      torch.from_numpy(cols).cuda(), vals,
+                                      art)
+        d = max(max_abs_diff(mine, theirs), max_abs_diff(
+            art.unpack(mine), torch.from_numpy(want).cuda()))
+        check(d == 0.0, f"banked_scatter_elems differs on {name}: {d}")
+        out[name] = {"T": T, "D": D, "distinct": len(set(zip(idx, cols))),
+                     "blocks": bg.elems_blocks(T), "max_abs_diff": d}
+    return out
 
 
 def routed_slots(torch, rng, T, cfg):
@@ -874,6 +952,26 @@ def ssd_work(B, H, Q, P, N):
 # ---------------------------------------------------------------------------
 
 
+def serve_prompts(cfg, seed, n_requests=16):
+    """The prompts a served run submits: 3 to 7 random tokens each."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(2, cfg.vocab - 1, size=int(rng.integers(3, 8)))
+            .astype(np.int32) for _ in range(n_requests)]
+
+
+def admit_flush(prompts):
+    """(positions, slots) of the records of a server's first flush after it
+    admits ``prompts`` into slots 0, 1, ...: each prompt's tokens and its
+    first prediction, slot-major, as ``Server._admit`` queues them."""
+    import numpy as np
+
+    return (np.concatenate([np.arange(len(p) + 1) for p in prompts]),
+            np.concatenate([np.full(len(p) + 1, s)
+                            for s, p in enumerate(prompts)]))
+
+
 def serve_once(torch, cfg, seed, swap_after=3):
     """One run of the server on the card.  Returns what the checks need."""
     import numpy as np
@@ -900,11 +998,8 @@ def serve_once(torch, cfg, seed, swap_after=3):
     init_s = time.perf_counter() - t0
     solved = page_solution(cfg, max_len, page=page, readers=readers)
 
-    rng = np.random.default_rng(seed)
     reqs = []
-    for uid in range(n_requests):
-        prompt = rng.integers(2, cfg.vocab - 1,
-                              size=int(rng.integers(3, 8))).astype(np.int32)
+    for uid, prompt in enumerate(serve_prompts(cfg, seed, n_requests)):
         reqs.append(Request(uid=uid, prompt=prompt, max_new=max_new))
         server.submit(reqs[-1])
 
@@ -919,6 +1014,16 @@ def serve_once(torch, cfg, seed, swap_after=3):
         record(slot, tok)
 
     server._record = recording
+    # (positions, slots) of every flush past one warp: B2's block(s) paths
+    flushes, flush = [], server._flush_records
+
+    def flushing():
+        if len(server._pending_records) > bg.ELEMS_WARP:
+            pos, slots, _ = zip(*server._pending_records)
+            flushes.append((np.array(pos), np.array(slots)))
+        flush()
+
+    server._flush_records = flushing
 
     bg.reset_launch_counts()          # the main path starts here
     md.reset_launch_counts()
@@ -942,13 +1047,17 @@ def serve_once(torch, cfg, seed, swap_after=3):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {**bg.LAUNCHES, **md.LAUNCHES, **sc.LAUNCHES,   # ... ends here
-                **fa.LAUNCHES}
-    del server._record        # the wrapper's closure holds the server
+                **fa.LAUNCHES,
+                **{f"banked_scatter_elems_{k}": n
+                   for k, n in bg.SCATTER_ELEMS_PATHS.items()}}
+    del server._record        # the wrappers' closures hold the server
+    del server._flush_records
 
     records = server._kv_art.unpack(server.kv_records).cpu().numpy()
     return {
         "server": server, "reqs": reqs, "shadow": shadow, "records": records,
-        "launches": launches, "admit_ticks": admit_ticks, "wall": wall,
+        "launches": launches, "flushes": flushes,
+        "admit_ticks": admit_ticks, "wall": wall,
         "init_s": init_s, "swap_identical": swap_identical,
         "decode_calls": int(server.cache.pos),
         "peak_bytes": torch.cuda.max_memory_allocated(),
@@ -990,6 +1099,18 @@ def phase_serve(torch, cfg, seed):
     check(lau["banked_scatter_elems"] == ticks + run["admit_ticks"],
           f"scatter_elems launches {lau['banked_scatter_elems']} != ticks "
           f"{ticks} + admitting ticks {run['admit_ticks']}")
+    by_path = {k: lau[f"banked_scatter_elems_{k}"]
+               for k in ("warp", "block", "blocks")}
+    past_warp = by_path["block"] + by_path["blocks"]
+    check(sum(by_path.values()) == lau["banked_scatter_elems"] and
+          past_warp >= 1,
+          f"scatter_elems launches by path {by_path} do not add up, or no "
+          f"admit flush took more than one warp")
+    flushes = run["flushes"]
+    first_admit = admit_flush([r.prompt for r in reqs[:8]])
+    check(len(flushes) == past_warp and
+          all(np.array_equal(a, b) for a, b in zip(flushes[0], first_admit)),
+          "the first flush past one warp is not the first admit's records")
     check(lau["banked_scatter"] == 1,
           f"row scatter launches {lau['banked_scatter']} != 1 swap")
     moe_layers = cfg.n_layers if cfg.family == "moe" else 0
@@ -1003,8 +1124,9 @@ def phase_serve(torch, cfg, seed):
           f"prefills through decode, which attends against its cache")
     check(run["decode_calls"] < 1024, "cache.pos reached max_len")
     tokens = [list(r.out) for r in reqs]
-    first = {k: run[k] for k in ("launches", "admit_ticks", "wall", "init_s",
-                                 "decode_calls", "peak_bytes", "layout")}
+    first = {k: run[k] for k in ("launches", "flushes", "admit_ticks",
+                                 "wall", "init_s", "decode_calls",
+                                 "peak_bytes", "layout")}
     first["ticks"] = ticks
     del run, server, reqs
     free_device_memory(torch)
@@ -1022,11 +1144,12 @@ def phase_serve(torch, cfg, seed):
         requests=16, max_new=16, ticks=first["ticks"], tokens=n_tokens,
         decode_calls=first["decode_calls"],
         admitting_ticks=first["admit_ticks"],
+        flush_records_past_a_warp=[len(p) for p, _ in first["flushes"]],
         wall_seconds=first["wall"], tokens_per_second=n_tokens / first["wall"],
         init_seconds=first["init_s"], launches=first["launches"],
         served_from=first["layout"], repeat_identical=True,
         peak_memory_bytes=first["peak_bytes"])
-    return first["launches"]
+    return first["launches"], first["flushes"][0]
 
 
 def phase_profile(torch, cfg, seed, ticks=8):
@@ -1448,9 +1571,18 @@ def used_ptxas(banked, kernel, source):
 
 
 def resolve_ops(art, T):
-    prog = art.kernel_program()
-    nd = len(art.layout.dims)
-    return T * (len(prog.instrs) + 2 * nd + 2 * len(prog.ba_regs))
+    """Integer operations of T resolves as the kernels run the artifact's
+    packed program: four a term of a sum of terms and two for the range,
+    else one an instruction, two a dimension's split and two a bank fold."""
+    from repro_torch.core import transforms
+    from repro_torch.kernels import banked_gather as bg
+
+    w = bg.program_words(art)
+    terms = int(w[transforms.kernel_program_words(int(w[7]))
+                  - transforms.KERNEL_TERMS_WORDS])
+    if terms:
+        return T * (4 * terms + 2)
+    return T * (int(w[0]) + 2 * int(w[2]) + 2 * int(w[3]))
 
 
 ROUNDS = 15
@@ -1487,22 +1619,103 @@ def interleaved_rounds(torch, phase, kernel, library, library_name,
     return out
 
 
-def phase_kernel_times(torch, seed, launches, ssd_args, ssd_held_by,
-                       attn_rows, banked):
+def banked_cases(torch, art, flat, table, gen, rng, flush):
+    """B1-B3 at the server's shapes, on ``table`` (``flat`` packed by the
+    server's solved layout ``art``), each beside the PyTorch call that
+    does the same work on the resolved rows of a copy of the table: the
+    tick's gather of 8 slots x 4 trailing records (``index_select``); B2
+    at the tick's 8 records, one a slot, at ``flush`` -- (positions, slots)
+    of a served admit flush -- and at the 8,000 records of a flush after
+    eight prompts of 1,000 tokens, positions 0-999 x slots 0-7, slot-major
+    as the server queues them (``index_put_``); the swap's repack of all
+    1024 rows (``index_copy_``).  One dict a case: the line's ``phase``,
+    the kernel's ``name``, the ``kernel``, ``plain`` and ``library`` calls,
+    ``library_name``, ``err`` (the kernel against its plain version),
+    ``nbytes``, ``resolves`` and ``other_ops`` (its work) and the line's
+    ``fields``.  It calls only what every slice of the port has, so
+    ``scripts/banked_times.py`` times a parent checkout with it too."""
+    import numpy as np
+
+    from repro_torch.kernels import banked_gather as bg
+
+    rows2d = table.clone().view(-1, 8)    # the library calls' own table
+
+    def phys(idx):
+        ba, bo = art.resolve(idx.to(torch.int64))
+        return ba * art.bank_volume + bo
+
+    pos = rng.integers(4, 1024, size=8)
+    idx = torch.from_numpy(np.stack(
+        [np.arange(p - 4, p) for p in pos]).astype(np.int32)).cuda()
+    flat_idx, p_idx = idx.reshape(-1), phys(idx.reshape(-1))
+    cases = [dict(
+        phase="banked_gather_tick", name="banked_gather",
+        kernel=lambda: art.gather(table, idx),
+        plain=lambda: bg.banked_gather_plain(table, flat_idx, art),
+        library=lambda: torch.index_select(rows2d, 0, p_idx),
+        library_name="index_select",
+        err=max_abs_diff(art.gather(table, idx).reshape(32, 8),
+                         bg.banked_gather_plain(table, flat_idx, art)),
+        nbytes=2 * 32 * 8 * 4 + 4 * 32, resolves=32, other_ops=0,
+        fields={"rows": 32, "row_bytes": 32})]
+
+    for phase, (p, s) in (
+            ("banked_scatter_elems_tick", (pos, np.arange(8))),
+            ("banked_scatter_elems_flush", flush),
+            ("banked_scatter_elems_admit", (np.tile(np.arange(1000), 8),
+                                            np.repeat(np.arange(8), 1000)))):
+        T = len(p)
+        e_idx = torch.from_numpy(p.astype(np.int32)).cuda()
+        cols = torch.from_numpy(s.astype(np.int32)).cuda()
+        vals = torch.randint(0, 152064, (T,), generator=gen, device="cuda",
+                             dtype=torch.int64).to(torch.int32)
+        mine, theirs = table.clone(), table.clone()
+        art.scatter(mine, e_idx, vals, col=cols)
+        bg.banked_scatter_elems_plain(theirs, e_idx, cols, vals, art)
+        key = (phys(e_idx), cols.to(torch.int64))
+        cases.append(dict(
+            phase=phase, name="banked_scatter_elems",
+            kernel=lambda mine=mine, i=e_idx, v=vals, c=cols:
+                art.scatter(mine, i, v, col=c),
+            plain=lambda theirs=theirs, i=e_idx, v=vals, c=cols:
+                bg.banked_scatter_elems_plain(theirs, i, c, v, art),
+            library=lambda key=key, v=vals: rows2d.index_put_(key, v),
+            library_name="index_put_", err=max_abs_diff(mine, theirs),
+            nbytes=T * (4 + 4 + 4 + 4), resolves=T, other_ops=T,
+            fields={"records": T}))
+
+    s_idx = torch.arange(1024, device="cuda", dtype=torch.int32)
+    mine, theirs = torch.zeros_like(table), torch.zeros_like(table)
+    art.scatter(mine, s_idx, flat)
+    bg.banked_scatter_plain(theirs, s_idx, flat, art)
+    s_phys = phys(s_idx)
+    cases.append(dict(
+        phase="banked_scatter_swap", name="banked_scatter",
+        kernel=lambda: art.scatter(mine, s_idx, flat),
+        plain=lambda: bg.banked_scatter_plain(theirs, s_idx, flat, art),
+        library=lambda: rows2d.index_copy_(0, s_phys, flat),
+        library_name="index_copy_",
+        err=max(max_abs_diff(mine, theirs), max_abs_diff(mine, table)),
+        nbytes=2 * 1024 * 8 * 4 + 4 * 1024, resolves=1024, other_ops=1024,
+        fields={"rows": 1024, "row_bytes": 32}))
+    return cases
+
+
+def phase_kernel_times(torch, seed, launches, served_flush, ssd_args,
+                       ssd_held_by, attn_rows, banked):
     """Each kernel at the shapes the main paths gave it.  B1-B3: an int32
-    record table of (8 banks, 128 rows, 8 slots); the tick's gather reads
-    8 slots x 4 trailing records, its element scatter writes 8 records,
-    and the swap's row scatter repacks all 1024 rows.  B5: olmoe's decode
-    call, 8 tokens of 2048 bf16 and the zeros row, routed top-8 of 64
-    experts into 64 x 8 slots.  B6: the inputs of a 256-row chunk of each
-    full-width prefill (``ssd_args``: arch -> the arguments it captured,
-    timed as the chunk loop lays them out; ``ssd_held_by``: arch -> prompt
-    length -> the worst error on that prefill's chunks); the first arch's
-    row goes into the kernels line.  B4: the first
-    attention call of each shape of the full-width prefills, on its own
-    inputs (``attn_rows``: label, (q, k, v), kwargs, calls at that shape,
-    and its error against the plain version from ``phase_prefill``); every
-    one of them goes into the kernels line.  B1-B3 are also timed beside
+    record table of (8 banks, 128 rows, 8 slots), at the shapes of
+    ``banked_cases``; ``served_flush``: the first served model's first
+    admit flush.  B5: olmoe's decode call, 8 tokens of 2048 bf16 and the
+    zeros row, routed top-8 of 64 experts into 64 x 8 slots.  B6: the
+    inputs of a 256-row chunk of each full-width prefill (``ssd_args``:
+    arch -> the arguments it captured, timed as the chunk loop lays them
+    out; ``ssd_held_by``: arch -> prompt length -> the worst error on that
+    prefill's chunks); the first arch's row goes into the kernels line.
+    B4: the first attention call of each shape of the full-width prefills,
+    on its own inputs (``attn_rows``: label, (q, k, v), kwargs, calls at
+    that shape, and its error against the plain version from
+    ``phase_prefill``); every one of them goes into the kernels line.  B1-B3 are also timed beside
     their PyTorch call in interleaved rounds (``banked_*`` lines), and
     their rows carry the ``-Xptxas -v`` properties (``banked``) of the
     instantiations these launches use."""
@@ -1522,7 +1735,6 @@ def phase_kernel_times(torch, seed, launches, ssd_args, ssd_held_by,
     gen.manual_seed(seed)
     rng = np.random.default_rng(seed)
     flat, table = random_table(torch, art, 8, torch.int32, gen)
-    rows2d = table.clone().view(-1, 8)    # the library calls' own table
     source = bg.kernel_source(art)
     out, call_ms = [], {}
 
@@ -1554,69 +1766,41 @@ def phase_kernel_times(torch, seed, launches, ssd_args, ssd_held_by,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "library_ms": on_card[2]}
 
-    def phys(idx):
-        ba, bo = art.resolve(idx.to(torch.int64))
-        return ba * art.bank_volume + bo
-
-    # B1: (8, 4) index matrix, rows of 8 int32
-    pos = rng.integers(4, 1024, size=8)
-    idx = torch.from_numpy(np.stack(
-        [np.arange(p - 4, p) for p in pos]).astype(np.int32)).cuda()
-    flat_idx = idx.reshape(-1)
-    got = art.gather(table, idx)
-    err = max_abs_diff(got.reshape(32, 8),
-                       bg.banked_gather_plain(table, flat_idx, art))
-    p_idx = phys(flat_idx)
-    out.append(entry("banked_gather",
-          lambda: art.gather(table, idx),
-          lambda: bg.banked_gather_plain(table, flat_idx, art),
-          lambda: torch.index_select(rows2d, 0, p_idx),
-          err, 2 * 32 * 8 * 4 + 4 * 32, resolve_ops(art, 32)))
-    out[-1]["interleaved"] = interleaved_rounds(
-        torch, "banked_gather_tick", lambda: art.gather(table, idx),
-        lambda: torch.index_select(rows2d, 0, p_idx), "index_select",
-        rows=32, row_bytes=32)
-    out[-1]["ptxas"] = used_ptxas(banked, "bk_gather_kernel", source)
-
-    # B2: 8 records, one per slot
-    idx = torch.from_numpy(pos.astype(np.int32)).cuda()
-    cols = torch.arange(8, device="cuda", dtype=torch.int32)
-    vals = torch.randint(0, 152064, (8,), generator=gen, device="cuda",
-                         dtype=torch.int64).to(torch.int32)
-    mine, theirs = table.clone(), table.clone()
-    art.scatter(mine, idx, vals, col=cols)
-    bg.banked_scatter_elems_plain(theirs, idx, cols, vals, art)
-    err = max_abs_diff(mine, theirs)
-    p_idx, c64 = phys(idx), cols.to(torch.int64)
-    out.append(entry("banked_scatter_elems",
-          lambda: art.scatter(mine, idx, vals, col=cols),
-          lambda: bg.banked_scatter_elems_plain(theirs, idx, cols, vals, art),
-          lambda: rows2d.index_put_((p_idx, c64), vals),
-          err, 8 * (4 + 4 + 4 + 4), resolve_ops(art, 8) + 8))
-    out[-1]["interleaved"] = interleaved_rounds(
-        torch, "banked_scatter_elems_tick",
-        lambda: art.scatter(mine, idx, vals, col=cols),
-        lambda: rows2d.index_put_((p_idx, c64), vals), "index_put_",
-        records=8)
-    out[-1]["ptxas"] = used_ptxas(banked, "bk_scatter_elems_kernel", source)
-
-    # B3: the swap's repack of all 1024 logical rows
-    idx = torch.arange(1024, device="cuda", dtype=torch.int32)
-    mine, theirs = torch.zeros_like(table), torch.zeros_like(table)
-    art.scatter(mine, idx, flat)
-    bg.banked_scatter_plain(theirs, idx, flat, art)
-    err = max(max_abs_diff(mine, theirs), max_abs_diff(mine, table))
-    p_idx = phys(idx)
-    out.append(entry("banked_scatter",
-          lambda: art.scatter(mine, idx, flat),
-          lambda: bg.banked_scatter_plain(theirs, idx, flat, art),
-          lambda: rows2d.index_copy_(0, p_idx, flat),
-          err, 2 * 1024 * 8 * 4 + 4 * 1024, resolve_ops(art, 1024) + 1024))
-    out[-1]["interleaved"] = interleaved_rounds(
-        torch, "banked_scatter_swap", lambda: art.scatter(mine, idx, flat),
-        lambda: rows2d.index_copy_(0, p_idx, flat), "index_copy_",
-        rows=1024, row_bytes=32)
-    out[-1]["ptxas"] = used_ptxas(banked, "bk_scatter_rows_kernel", source)
+    # B1-B3 at the server's shapes (``banked_cases``); B2's rows: the
+    # tick's 8 records (one warp) and the first served admit flush (a block),
+    # each with the main path's launches of its path; the 8,000-record flush
+    # has a line of its own: no served run makes one
+    kernel_of = {"banked_gather": "bk_gather_kernel",
+                 "banked_scatter_elems": "bk_scatter_elems_kernel",
+                 "banked_scatter": "bk_scatter_rows_kernel"}
+    for case in banked_cases(torch, art, flat, table, gen, rng, served_flush):
+        name, phase = case["name"], case["phase"]
+        fields, calls = dict(case["fields"]), None
+        if name == "banked_scatter_elems":
+            T = fields["records"]
+            path = bg.elems_path(T)
+            fields.update(path=path, blocks=bg.elems_blocks(T))
+            calls = (0 if phase == "banked_scatter_elems_admit"
+                     else launches[f"banked_scatter_elems_{path}"])
+        row = entry(name, case["kernel"], case["plain"], case["library"],
+                    case["err"], case["nbytes"],
+                    resolve_ops(art, case["resolves"]) + case["other_ops"],
+                    calls=calls)
+        check(row["max_abs_err"] == 0.0, f"{name} differs from its plain "
+              f"version in {phase}: {row['max_abs_err']}")
+        if name == "banked_scatter_elems":
+            call_ms[phase] = call_ms.pop(name)
+            row["records"] = fields["records"]
+        if phase == "banked_scatter_elems_admit":
+            fields.update({k: row[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                main_path_launches=0)
+        row["interleaved"] = interleaved_rounds(
+            torch, phase, case["kernel"], case["library"],
+            case["library_name"], **fields)
+        row["ptxas"] = used_ptxas(banked, kernel_of[name], source)
+        if phase != "banked_scatter_elems_admit":
+            out.append(row)
 
     # B5: the expert buffer of one MoE layer of olmoe's decode call
     olmoe = get_arch("olmoe_1b_7b")
@@ -1719,10 +1903,12 @@ def phase_kernel_times(torch, seed, launches, ssd_args, ssd_held_by,
                     "call_ms": attn_calls[label]})
     call_ms["flash_attention"] = attn_calls
 
-    for k in out[:4]:
-        check(k["max_abs_err"] == 0.0, f"{k['name']} differs from its plain "
-              f"version at the server's shapes: {k['max_abs_err']}")
-    check(len(out) > 6, "no attention shape reached the kernels line")
+    for k in out:
+        check(k["max_abs_err"] == 0.0 or k["name"] in ("ssd_chunk",
+                                                       "flash_attention"),
+              f"{k['name']} differs from its plain version at the server's "
+              f"shapes: {k['max_abs_err']}")
+    check(len(out) > 7, "no attention shape reached the kernels line")
     for k in out:
         check(k["launches"] > 0, f"the main path never launched {k['name']}")
     say("kernel_call_times", note="host-inclusive ms per call, timed without "
@@ -1876,8 +2062,11 @@ def main():
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
 
+    served_flush = None       # the first served model's first admit flush
     for cfg in archs[:4]:
-        add(phase_serve(torch, cfg, args.seed))
+        counts, flush = phase_serve(torch, cfg, args.seed)
+        add(counts)
+        served_flush = served_flush or flush
     ssd_args, ssd_held_by, attn_rows = {}, {}, []
     # the prefills: batch x tokens (whisper: over 1500 frames, a cache of
     # 448, its decoder's context); the SSM families also at 1000 tokens,
@@ -1896,8 +2085,8 @@ def main():
             ssd_args[cfg.name] = chunk_args
             ssd_held_by[cfg.name] = held
         attn_rows += rows
-    kernels = phase_kernel_times(torch, args.seed, launches, ssd_args,
-                                 ssd_held_by, attn_rows, banked)
+    kernels = phase_kernel_times(torch, args.seed, launches, served_flush,
+                                 ssd_args, ssd_held_by, attn_rows, banked)
     del ssd_args, attn_rows
     free_device_memory(torch)
     for cfg in archs:

@@ -476,8 +476,12 @@ KERNEL_MAX_DIMS = 8
 # through a tree of selects as deep as log2 of the register capacity.
 KERNEL_BUCKETS = ((8, 4), (32, 16), (192, 32))
 # Packed program (see :func:`pack_kernel_program`): a header, four words an
-# instruction slot, three a dimension, two a BA graph.
+# instruction slot, three a dimension, two a BA graph, and the program's
+# sum of terms (:func:`kernel_terms`): a count, a constant and five words a
+# term.
 KERNEL_HEADER_WORDS = 8
+KERNEL_MAX_TERMS = 4
+KERNEL_TERMS_WORDS = 2 + 5 * KERNEL_MAX_TERMS
 
 _INT32_MIN, _INT32_MAX = -(1 << 31), (1 << 31) - 1
 
@@ -667,7 +671,7 @@ def kernel_bucket(prog: KernelProgram) -> Tuple[int, int]:
 def kernel_program_words(capacity: int) -> int:
     """Words of a program packed for ``capacity`` instructions."""
     return (KERNEL_HEADER_WORDS + 4 * capacity + 3 * KERNEL_MAX_DIMS
-            + 2 * KERNEL_MAX_DIMS)
+            + 2 * KERNEL_MAX_DIMS + KERNEL_TERMS_WORDS)
 
 
 # Kinds of packed instructions: all of const shl shr and mul add sub are
@@ -724,22 +728,26 @@ def split_constants(d: int) -> Tuple[int, int]:
 def pack_kernel_program(prog: KernelProgram, dims: Sequence[int],
                         ba_fold: Sequence[int], logical_size: int,
                         bank_volume: int):
-    """The program as the CUDA kernels take it: int32 words, the launch
-    parameter struct ``BkProg<capacity>`` of ``csrc/banked.cu`` field for
-    field, for the smallest :func:`kernel_bucket` that holds it.
+    """The program as the CUDA kernels take it: int32 words, laid out as
+    ``BkLayout<capacity>`` of ``csrc/banked.cu`` reads them, for the
+    smallest :func:`kernel_bucket` that holds it.
 
     * header (``KERNEL_HEADER_WORDS``): ``n_instrs, n_regs, n_dims, n_ba,
       bo_reg, logical_size, bank_volume, capacity``
     * ``capacity`` instruction slots of four words (:func:`_packed_instr`),
-      the unused ones zero
+      after :func:`fuse_linear_steps`; the unused ones zero
     * ``KERNEL_MAX_DIMS`` dimensions of three words, outermost first: ``d``
       and the multiplier ``m`` (the bits of a uint32) and shift of
       :func:`split_constants`
     * ``KERNEL_MAX_DIMS`` BA graphs of two words: the result register and
       the bank count it folds in (``ba = ba * fold + r[reg]``; 1 for a flat
       layout)
+    * the sum of terms (``KERNEL_TERMS_WORDS``): the number of terms (0
+      where :func:`kernel_terms` finds none), the constant, and
+      ``KERNEL_MAX_TERMS`` terms of five words ``m, k, s, mask, c``
 
-    :func:`run_packed_program` reads the same words on the CPU."""
+    :func:`run_packed_program` reads the instructions on the CPU and
+    :func:`run_packed_terms` the terms."""
     import numpy as np
 
     if not len(prog.ba_regs) == len(ba_fold) >= 1:
@@ -751,20 +759,230 @@ def pack_kernel_program(prog: KernelProgram, dims: Sequence[int],
     if logical_size > _INT32_MAX:
         raise ValueError(f"logical size {logical_size} does not fit int32")
     capacity = kernel_bucket(prog)[0]
+    results = set(prog.ba_regs) | {prog.bo_reg}
+    ins = fuse_linear_steps([_packed_instr(*i) for i in prog.instrs],
+                            results)
     words = np.zeros(kernel_program_words(capacity), np.int64)
     words[:KERNEL_HEADER_WORDS] = [
-        len(prog.instrs), prog.n_regs, len(dims), len(prog.ba_regs),
+        len(ins), prog.n_regs, len(dims), len(prog.ba_regs),
         prog.bo_reg, logical_size, bank_volume, capacity]
     at = KERNEL_HEADER_WORDS
-    for i, ins in enumerate(prog.instrs):
-        words[at + 4 * i:at + 4 * i + 4] = _packed_instr(*ins)
+    for i, row in enumerate(ins):
+        words[at + 4 * i:at + 4 * i + 4] = row
     at += 4 * capacity
     for i, d in enumerate(dims):
         words[at + 3 * i:at + 3 * i + 3] = (int(d),) + split_constants(int(d))
     at += 3 * KERNEL_MAX_DIMS
     for k, (reg, n) in enumerate(zip(prog.ba_regs, ba_fold)):
         words[at + 2 * k:at + 2 * k + 2] = (reg, int(n))
+    at += 2 * KERNEL_MAX_DIMS
+    if len(dims) == 1 and len(prog.ba_regs) == 1:
+        terms = kernel_terms(ins, prog.n_regs, prog.ba_regs[0], prog.bo_reg,
+                             bank_volume)
+        if terms is not None:
+            base, rows = terms
+            words[at:at + 2] = (len(rows), base)
+            for j, row in enumerate(rows):
+                words[at + 2 + 5 * j:at + 7 + 5 * j] = row
     return (words & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# Shortening the chain: fused LINEAR steps and the sum of terms
+# ---------------------------------------------------------------------------
+
+
+def _i32(x: int) -> int:
+    """``x`` wrapped to a signed int32, as the kernels' registers hold it."""
+    x &= 0xFFFFFFFF
+    return x - (1 << 32) if x & 0x80000000 else x
+
+
+def _linear_fields(row):
+    """A packed LINEAR instruction as ``(dst, a, b, ma, mb, k, s, mask)``:
+    ``r[dst] = ((r[a] * ma + r[b] * mb + k) >> s) & mask``."""
+    code, ma, mb, km = (int(x) for x in row)
+    masked = (code >> 23) & 1
+    return ((code >> 3) & 31, (code >> 8) & 31, (code >> 13) & 31,
+            _i32(ma), _i32(mb), 0 if masked else _i32(km),
+            (code >> 18) & 31, _i32(km) if masked else -1)
+
+
+def _linear_row(dst, a, b, ma, mb, k, s, mask):
+    """The inverse of :func:`_linear_fields`, or None where the packed form
+    would need both a constant and a mask."""
+    if k and mask != -1:
+        return None
+    masked = mask != -1
+    code = (KIND_LINEAR | dst << 3 | a << 8 | b << 13 | s << 18
+            | int(masked) << 23)
+    return code, _i32(ma), _i32(mb), _i32(mask if masked else k)
+
+
+def _reads(row):
+    """The registers an instruction reads (LINEAR: those with a factor)."""
+    code, ma, mb, km = (int(x) for x in row)
+    kind, a, b = code & 7, (code >> 8) & 31, (code >> 13) & 31
+    if kind == KIND_LINEAR:
+        return {r for r, m in ((a, ma), (b, mb)) if _i32(m)}
+    if kind == KIND_SELECT:
+        return {a, b, int(km)}
+    return {a, b} if kind == KIND_GE else {a}
+
+
+def _only_reader(ins, i, results) -> bool:
+    """Whether step ``i + 1`` is the one reader of step ``i``'s value."""
+    d = (ins[i][0] >> 3) & 31
+    if d not in _reads(ins[i + 1]):
+        return False
+    for j in range(i + 1, len(ins)):
+        if j > i + 1 and d in _reads(ins[j]):
+            return False
+        if (ins[j][0] >> 3) & 31 == d:         # the value ends here
+            return True
+    return d not in results
+
+
+def _fuse_pair(first, second):
+    """One LINEAR step that gives what ``second`` computes from the value
+    of ``first`` (``second`` reads nothing else), or None: anything after a
+    step without shift or mask, a shift or a mask after a shift or a mask
+    (``((t >> s1) & m1) >> s2 & m2 == (t >> s1 + s2) & (m1 >> s2 & m2)``,
+    arithmetic shifts capped at 31), and a left shift after either
+    (``((t >> s) & m) << e == (t >> s - e) & (m << e)`` for ``s >= e``,
+    else ``(t << e - s) & (m << e)``)."""
+    d1, a, b, ma, mb, k, s1, m1 = _linear_fields(first)
+    d2, a2, _, ma2, mb2, k2, s2, m2 = _linear_fields(second)
+    if a2 != d1 or mb2 != 0:
+        return None
+    if s1 == 0 and m1 == -1:                   # linear, then anything
+        return _linear_row(d2, a, b, ma * ma2, mb * ma2, k * ma2 + k2, s2, m2)
+    if k2:
+        return None
+    if ma2 == 1:                               # shift/mask, then shift/mask
+        return _linear_row(d2, a, b, ma, mb, k, min(s1 + s2, 31),
+                           _i32((m1 >> s2) & m2))
+    e = ma2.bit_length() - 1
+    if ma2 <= 0 or ma2 != 1 << e or s2 or m2 != -1:
+        return None                            # not a left shift
+    if s1 >= e:
+        return _linear_row(d2, a, b, ma, mb, k, s1 - e, _i32(m1 << e))
+    f = 1 << (e - s1)
+    return _linear_row(d2, a, b, ma * f, mb * f, k * f, 0, _i32(m1 << e))
+
+
+def fuse_linear_steps(ins, results):
+    """Packed instructions (rows ``(code, ma, mb, km)``) with each LINEAR
+    step whose value only the next LINEAR step reads merged into it, where
+    one LINEAR step holds both (:func:`_fuse_pair`): the server's ``shr 4;
+    and 7`` becomes ``(a >> 4) & 7`` and ``shr 7; shl 4`` becomes ``(a >>
+    3) & -16``.  ``results``: the registers read after the last step (BA
+    and BO).  Every step is a link of the kernels' dependent chain."""
+    ins = [tuple(int(x) for x in row) for row in ins]
+    i = 0
+    while i + 1 < len(ins):
+        fused = None
+        if ins[i][0] & 7 == KIND_LINEAR == ins[i + 1][0] & 7 \
+                and _only_reader(ins, i, results):
+            fused = _fuse_pair(ins[i], ins[i + 1])
+        if fused is None:
+            i += 1
+        else:
+            ins[i:i + 2] = [fused]
+    return ins
+
+
+# A term ((a * m + k) >> s) & mask of the address a, as (m, k, s, mask);
+# (1, 0, 0, -1) is the address itself.
+_ADDRESS = (1, 0, 0, -1)
+
+
+def _combine(x, y, cx, cy):
+    """``cx * x + cy * y`` of two sums of terms ``(constant, {term:
+    factor})``, wrapping like int32 registers."""
+    factors = {}
+    for (_, f), c in ((x, cx), (y, cy)):
+        for term, v in f.items():
+            factors[term] = _i32(factors.get(term, 0) + c * v)
+    return (_i32(cx * x[0] + cy * y[0]),
+            {t: v for t, v in factors.items() if v})
+
+
+def _apply_shift_mask(t, s, mask):
+    """``(t >> s) & mask`` of a sum of terms, when that is one term again:
+    an affine function of the address becomes a term; one term with factor
+    1 shifts and masks further.  None otherwise."""
+    const, f = t
+    if not f:
+        return (_i32(const) >> s) & mask, {}
+    if len(f) != 1:
+        return None
+    (m, k, s0, m0), c = next(iter(f.items()))
+    if (m, k, s0, m0) == _ADDRESS:             # (a * c + const) >> s & mask
+        term = (c, const, s, mask)
+    elif c == 1 and const == 0:
+        term = (m, k, min(s0 + s, 31), _i32((m0 >> s) & mask))
+    else:
+        return None
+    return (0, {}) if term[3] == 0 else (0, {term: 1})
+
+
+def kernel_terms(ins, n_regs: int, ba_reg: int, bo_reg: int, volume: int):
+    """The row ``BA * volume + BO`` of a program over one address ``a``,
+    run symbolically, as ``(base, [(m, k, s, mask, c), ...])`` with
+
+        row = base + sum_k c_k * (((a * m_k + k_k) >> s_k) & mask_k)
+
+    in int32 arithmetic that wraps, or None when a step is not LINEAR, a
+    shift or mask applies to a sum of several terms, or more than
+    ``KERNEL_MAX_TERMS`` terms remain.  The kernels (``BkTerms``) compute
+    the terms side by side, so the chain is one term deep, whatever the
+    program's length: the server's layout is ``128 * ((a >> 4) & 7) + ((a
+    >> 3) & -16) + (a & 15)``.  Exact for every address whose BA and BO
+    fit the table (the layout's row fits int32): add, sub, mul and shl
+    wrap modulo 2^32 in both forms."""
+    r = [(0, {})] * max(n_regs, 1)
+    r[0] = (0, {_ADDRESS: 1})
+    for row in ins:
+        if int(row[0]) & 7 != KIND_LINEAR:
+            return None
+        dst, a, b, ma, mb, k, s, mask = _linear_fields(row)
+        t = _combine(r[a], r[b], ma, mb)
+        t = (_i32(t[0] + k), t[1])
+        if (s, mask) != (0, -1):
+            t = _apply_shift_mask(t, s, mask)
+            if t is None:
+                return None
+        r[dst] = t
+    base, f = _combine(r[ba_reg], r[bo_reg], volume, 1)
+    if len(f) > KERNEL_MAX_TERMS:
+        return None
+    rows = [(*term, c) for term, c in sorted(f.items())] or [(*_ADDRESS, 0)]
+    return base, rows
+
+
+def run_packed_terms(words, addr):
+    """The CPU twin of the kernels' ``BkTerms::resolve``: the row of each
+    flat logical address from the packed sum of terms
+    (:func:`pack_kernel_program`), in int32 arithmetic that wraps, or -1
+    where the address lies outside ``[0, logical_size)``.  Raises when the
+    program has no sum of terms."""
+    import numpy as np
+
+    w = np.asarray(words, dtype=np.int32)
+    size, capacity = int(w[5]), int(w[7])
+    at = kernel_program_words(capacity) - KERNEL_TERMS_WORDS
+    n, base = int(w[at]), w[at + 1]
+    if n == 0:
+        raise ValueError("the program has no sum of terms")
+    addr = np.asarray(addr, dtype=np.int64)
+    inside = (addr >= 0) & (addr < size)
+    a = np.where(inside, addr, 0).astype(np.int32)
+    row = np.full(addr.shape, base, np.int32)
+    with np.errstate(over="ignore"):
+        for m, k, s, mask, c in w[at + 2:at + 2 + 5 * n].reshape(n, 5):
+            row += c * (((a * m + k) >> s) & mask)
+    return np.where(inside, row.astype(np.int64), -1)
 
 
 def run_packed_instrs(ins, r):

@@ -8,9 +8,10 @@ bank-offset equations (Eq. 1-2) with the Sec-3.4 strength-reduced
 arithmetic, **inside the kernel**, per row, in int32 registers: the
 artifact's :meth:`~repro_torch.core.artifact.CompiledBankingPlan.kernel_program`
 is packed into int32 words (``core.transforms.pack_kernel_program``, kept
-on the artifact, and copied to each device once).  The library passes a
-short LINEAR program (the server's page layouts) to the kernel by value,
-decoded, and lets the kernel read any other from the device
+on the artifact, and copied to each device once).  The library passes the
+kernel a program that reduces to a short sum of terms of the address (the
+server's page layouts) by value as that sum, another short LINEAR program
+by value, decoded, and lets the kernel read any other from the device
 (:func:`kernel_source`; ``csrc/banked.cu``), so one compiled library
 serves every scheme and a layout swap between two decode ticks compiles
 nothing.  No host-side bank/offset table feeds a gather or a scatter.
@@ -37,9 +38,14 @@ than 1024 writes, a winner table in device memory -- ``4 * logical_size``
 bytes, one int32 a logical address, allocated zeroed by the first call of
 more than 1024 writes on a device and kept on the artifact; each launch
 leaves it zero.  Nothing is allocated per call.
-:func:`banked_scatter_elems` still drops a write when a later one carries
-the same address and column, which reads O(T^2) indices.  Either takes at
-most ``SCATTER_MAX_T`` writes per call.
+:func:`banked_scatter_elems` settles the writes to one ``(address,
+column)`` pair within one warp by a match (up to 32 writes, the decode
+tick), in one block of a thread a write by the match and a shared-memory
+hash (up to 128, a flush after short prompts) or, past that, in the one
+block that owns the pair (:func:`pair_owner`) by a shared-memory hash, in
+windows of 1024 writes where a block owns more; it needs no memory beside
+the table.  Either
+scatter takes at most ``SCATTER_MAX_T`` writes per call.
 
 The kernels do not trust an index they cannot resolve: a logical address
 outside ``[0, logical_size)`` gathers a zero row, and a scatter to it (or to
@@ -61,23 +67,70 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..core.transforms import (KERNEL_BUCKETS, KERNEL_HEADER_WORDS,
+from ..core.transforms import (KERNEL_BUCKETS, KERNEL_TERMS_WORDS,
                                kernel_program_words, pack_kernel_program)
 
 LAUNCHES: Dict[str, int] = {
     "banked_gather": 0, "banked_scatter": 0, "banked_scatter_elems": 0}
+# B2's launches by path (:func:`elems_path`)
+SCATTER_ELEMS_PATHS: Dict[str, int] = {"warp": 0, "block": 0, "blocks": 0}
 
-# B2's duplicate check reads O(T^2) indices, and every block of B3 reads all
-# T of them.
+# Every block of B2 and B3 reads all T indices.
 SCATTER_MAX_T = 1 << 16
+
+# B2's split of the pairs among blocks (``csrc/banked.cu``: BK_ELEM_*,
+# bk_elem_blocks, bk_pair_owner), twinned here for the tests.
+ELEMS_WARP = 32           # writes one warp settles by a match
+ELEMS_PER_BLOCK = 128     # up to it one block, a thread a write; past
+                          # it, the writes a block owns, about
+ELEMS_ONE_HASH_BITS = 8   # the one block's hash of pairs
+ELEMS_MAX_BLOCKS = 132    # one wave
+ELEMS_OWN = 1024          # writes a block lists at once
+ELEMS_HASH_BITS = 11      # its hash of pairs
 
 _INT32_MAX = (1 << 31) - 1
 _ELEMENT_SIZES = (1, 2, 4, 8)
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, SCATTER_ELEMS_PATHS):
+        for k in counts:
+            counts[k] = 0
+
+
+def elems_path(T: int) -> str:
+    """How B2 settles ``T`` writes: ``"warp"``, one warp's match (up to
+    32); ``"block"``, one block of a thread a write, the warps' last
+    writes claiming their pairs in a hash of 2^ELEMS_ONE_HASH_BITS slots
+    (up to ``ELEMS_PER_BLOCK``); ``"blocks"``, blocks that own the pairs."""
+    return ("warp" if T <= ELEMS_WARP else
+            "block" if T <= ELEMS_PER_BLOCK else "blocks")
+
+
+def elems_blocks(T: int) -> int:
+    """Blocks of B2's launch for ``T`` writes (one up to
+    ``ELEMS_PER_BLOCK``)."""
+    return min(max(1, -(-T // ELEMS_PER_BLOCK)), ELEMS_MAX_BLOCKS)
+
+
+def _pair_low_bits(keys) -> np.ndarray:
+    return np.asarray(keys, np.int64).astype(np.uint64) & np.uint64(
+        0xFFFFFFFF)
+
+
+def pair_owner(keys, nb: int) -> np.ndarray:
+    """The block of ``nb`` that owns each pair key (``address * D +
+    column``) in B2: a multiplicative hash of the key's low 32 bits scaled
+    to ``nb``."""
+    h = (_pair_low_bits(keys) * np.uint64(2654435761)) & np.uint64(0xFFFFFFFF)
+    return ((h * np.uint64(nb)) >> np.uint64(32)).astype(np.int64)
+
+
+def pair_slot(keys, bits: int = ELEMS_HASH_BITS) -> np.ndarray:
+    """Where each pair key starts probing B2's shared-memory hash of
+    2^bits slots."""
+    h = (_pair_low_bits(keys) * np.uint64(0x85EBCA77)) & np.uint64(0xFFFFFFFF)
+    return (h >> np.uint64(32 - bits)).astype(np.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -107,23 +160,23 @@ def program_words(art) -> np.ndarray:
 
 def kernel_source(art) -> str:
     """How the kernels take the artifact's program (``csrc/banked.cu``,
-    ``bk_with_program``): ``BkFast<n>`` -- decoded by the host, by value --
-    for at most 8 LINEAR steps over one dimension and one bank graph in at
-    most four registers, else ``BkDev<registers,slots>`` of its bucket."""
+    ``bk_with_program``): ``BkTerms<k>`` -- its sum of k terms
+    (:func:`~repro_torch.core.transforms.kernel_terms`), by value -- where
+    the host found one; else ``BkDev<registers,slots>`` of its bucket,
+    read from device memory."""
     w = program_words(art)
-    n, regs, n_dims, n_ba, cap = (int(w[i]) for i in (0, 1, 2, 3, 7))
-    code = w[KERNEL_HEADER_WORDS:KERNEL_HEADER_WORDS + 4 * n:4]
-    if (cap, n_dims, n_ba) == (8, 1, 1) and regs <= 4 and 1 <= n <= 8 \
-            and not (code & 7).any():
-        return f"BkFast<{n}>"
+    cap = int(w[7])
+    terms = int(w[kernel_program_words(cap) - KERNEL_TERMS_WORDS])
+    if terms:
+        return f"BkTerms<{terms}>"
     return f"BkDev<{dict(KERNEL_BUCKETS)[cap]},{cap}>"
 
 
 def _program_args(art, device):
     """Host and device addresses of the packed program (copied to
     ``device`` once and kept on the artifact): the library reads the host
-    copy to choose the kernel and passes a short LINEAR program by value,
-    decoded; the kernels read any other from the device."""
+    copy to choose the kernel and passes a sum of terms by value; the
+    kernels read any other program from the device."""
     words = program_words(art)
     per_device = art.__dict__.setdefault("_bk_device_words", {})
     on_device = per_device.get(device)
@@ -162,8 +215,11 @@ def _library():
                                         ptr, ptr]
         lib.bk_scatter_elems.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
                                          ptr, ptr, ptr]
+        lib.bk_elems_blocks.argtypes = [i32]
+        lib.bk_elems_owner.argtypes = [ctypes.c_longlong, i32]
         for fn in (lib.bk_program_words, lib.bk_block_writes, lib.bk_gather,
-                   lib.bk_scatter_rows, lib.bk_scatter_elems):
+                   lib.bk_scatter_rows, lib.bk_scatter_elems,
+                   lib.bk_elems_blocks, lib.bk_elems_owner):
             fn.restype = ctypes.c_int
         for cap, _ in KERNEL_BUCKETS:
             if lib.bk_program_words(cap) != kernel_program_words(cap):
@@ -362,9 +418,13 @@ def banked_scatter_elems(table: torch.Tensor, indices, cols, values,
     ``table[ba(i_t), bo(i_t), cols[t]] = values[t]``; returns ``table``.
 
     A batch of per-slot token-record writes (the serving runtime's decode
-    tick) lands in ONE kernel launch without read-modify-writing whole
-    rows.  Same in-place / last-write-wins semantics as
-    :func:`banked_scatter`, per ``(address, column)`` pair."""
+    tick, or the records of freshly admitted prompts) lands in ONE kernel
+    launch without read-modify-writing whole rows.  Same in-place /
+    last-write-wins semantics as :func:`banked_scatter`, per ``(address,
+    column)`` pair.  On a CUDA table: one launch of
+    ``bk_scatter_elems_kernel`` by :func:`elems_path`: one warp up to 32
+    writes, one block up to ``ELEMS_PER_BLOCK``, else :func:`elems_blocks`
+    blocks that each own a share of the pairs."""
     _check_table(table, art)
     idx = as_index(indices, table.device, art.layout.logical_size)
     col = as_index(cols, table.device, table.shape[2], "columns")
@@ -384,4 +444,5 @@ def banked_scatter_elems(table: torch.Tensor, indices, cols, values,
             *_program_args(art, table.device), _stream(table.device))
     _check(err, "banked_scatter_elems")
     LAUNCHES["banked_scatter_elems"] += 1
+    SCATTER_ELEMS_PATHS[elems_path(T)] += 1
     return table

@@ -15,8 +15,9 @@
 // library serves every banking scheme, and swapping the layout between two
 // decode ticks costs no compile.
 //
-// Bound: bytes, and at the serving shapes (T <= 1024 rows of 32 bytes) the
-// launch and the dependent chain idx load -> resolve -> row load -> store.
+// Bound: bytes, and at the serving shapes (T <= 1024 rows of 32 bytes, or
+// 8 to 8,000 single elements) the launch and the dependent chain idx load
+// -> resolve -> row load -> store.
 // On the H100 (clock64) an interpreter with a register file indexed at run
 // time (local memory), a switch on the opcode (a compare-and-branch tree a
 // step) and a division per coordinate takes ~2,250 cycles a row -- most of
@@ -32,12 +33,17 @@
 //   lop3 blends log2(R) deep and written by R blends -- no local memory, no
 //   stack frame, and no predicate registers, of which there are too few to
 //   set up one step's selects during the previous step.
-// * Programs of at most 8 LINEAR steps over one dimension and one bank
-//   graph in four registers (the server's page layouts) are decoded by the
-//   host into blend masks and constants (BkFast) and passed by value, one
-//   kernel a step count: straight-line code whose steps cost their data
-//   chain alone, ~45-60 cycles each.  Any other program is read from device
-//   memory (BkDev), loaded beside the index so both arrive together.
+// * The host shortens the chain before the kernel sees it
+//   (transforms.pack_kernel_program): a shift or a mask followed by a shift,
+//   a mask or a left shift, and any step without shift or mask followed by
+//   anything, become one LINEAR step where the first value has no other
+//   reader.  A program over one dimension and one bank graph whose LINEAR
+//   steps all reduce to a sum of at most four terms of the address,
+//   ((a * m + k) >> s) & mask each (transforms.kernel_terms), is passed by
+//   value as that sum (BkTerms): the terms run side by side, so the
+//   server's layout costs one term's chain instead of six dependent steps
+//   of ~45-60 cycles.  Any other program is read from device memory
+//   (BkDev), loaded beside the index so both arrive together.
 // * The split of a flat address into coordinates multiplies by a packed
 //   round-up reciprocal (transforms.split_constants) and does nothing for
 //   one dimension.
@@ -73,8 +79,36 @@
 //   Nothing carries over from one call to the next, so a launch captured in
 //   a CUDA graph replays correctly.
 //
-// bk_scatter_elems keeps its first form (a thread a write, a later write to
-// the same (address, column) found by an O(T) scan) with the new resolve.
+// bk_scatter_elems_kernel settles duplicate (address, column) pairs by
+// ownership, in O(1) expected work a write and no scan over later writes
+// (a scan is O(T) dependent loads a thread: 0.53 ms at a flush of 8,000
+// writes on an H100 at 700 W, 105x index_put_):
+//
+// * Up to 32 writes (the decode tick's 8 records): one warp, a lane a
+//   write; __match_any_sync on the pair's 64-bit key groups the lanes of
+//   one pair, and the highest lane of each group stores.  The resolve runs
+//   beside the match.  No loop, no shared memory.
+// * Up to BK_ELEM_PER_BLOCK = 128 (the flush after a server admits short
+//   prompts): one block, a thread a write, the same match in each warp;
+//   each warp's last write of a pair claims it in a shared-memory hash of
+//   256 slots and raises the slot's winner with atomicMax(t), and after
+//   __syncthreads only the winners store.
+// * More (a server's first flush after admitting long prompts, up to
+//   SCATTER_MAX_T): the pairs are partitioned among about T / 128 blocks
+//   (at most one wave) by a hash of the pair (bk_pair_owner), so all writes
+//   to one pair meet in one block.  Each block (512 threads) reads every
+//   (index, column), sixteen a thread in flight, and lists the writes it
+//   owns (a scan across the warp and one shared atomic a warp, a prefetch
+//   of the value); a thread a listed write claims
+//   its pair in a shared-memory hash (atomicCAS, linear probing) and raises
+//   the slot's winner with atomicMax(t), while it resolves the address and
+//   loads the value into a register.  After __syncthreads only the winners
+//   store.  A write is one element, so the hash holds pairs, not rows.
+// * A block that owns more than BK_ELEM_OWN writes (skewed or adversarial
+//   keys) walks all T again in windows of BK_ELEM_OWN writes, in order:
+//   each window fits the hash, and its winners store after the previous
+//   window's.  No grid barrier and no state carried between calls, so a
+//   launch captured in a CUDA graph replays correctly.
 //
 // Integer semantics of the interpreter (mirrored by
 // core/transforms.run_kernel_program and run_packed_program): registers are
@@ -100,19 +134,36 @@
 #define BK_OWN 1024           // writes a block keeps in shared memory
 #define BK_HASH_BITS 11       // its hash of addresses: at most half full
 #define BK_HASH (1 << BK_HASH_BITS)
+#define BK_MAX_TERMS 4        // terms of a BkTerms program
+// The element scatter past one warp of writes: blocks of BkElemThreads,
+// about BK_ELEM_PER_BLOCK writes each, listing at most BK_ELEM_OWN at once
+// in a hash of (address, column) pairs at most half full.
+#define BK_ELEM_PER_BLOCK 128
+#define BK_ELEM_OWN 1024
+#define BK_ELEM_HASH_BITS 11
+#define BK_ELEM_HASH (1 << BK_ELEM_HASH_BITS)
+#define BK_ELEM_SHARED (BK_ELEM_HASH * 12 + BK_ELEM_OWN * 12)   // bytes
+// ... and up to BK_ELEM_PER_BLOCK writes, one block of a thread a write,
+// with a hash of pairs at most half full
+#define BK_ELEM_ONE_HASH_BITS 8
+#define BK_ELEM_ONE_HASH (1 << BK_ELEM_ONE_HASH_BITS)
+#define BK_ELEM_ONE_SHARED (BK_ELEM_ONE_HASH * 12)   // bytes
+#define BK_EMPTY 0xffffffffffffffffull   // no pair's key
 
 // Kinds of instructions (core/transforms.py KIND_*).
 enum BkKind { BK_LINEAR = 0, BK_GE, BK_SELECT, BK_DIV, BK_MOD };
 
 // The packed program (transforms.pack_kernel_program) in device memory, N
 // instruction slots of four words: code, ma, mb, km, where code = kind |
-// dst << 3 | a << 8 | b << 13 | s << 18 | mask << 23.
+// dst << 3 | a << 8 | b << 13 | s << 18 | mask << 23; then the dimensions'
+// split, the bank folds and the sum of terms (transforms.kernel_terms).
 #define BK_HEADER 8
 template <int N>
 struct BkLayout {                                        // 4 words a slot
   static constexpr int split = BK_HEADER + 4 * N;        // d, m, s a dim
   static constexpr int fold = split + 3 * BK_MAX_DIMS;   // reg, banks a graph
-  static constexpr int words = fold + 2 * BK_MAX_DIMS;
+  static constexpr int terms = fold + 2 * BK_MAX_DIMS;   // n, base, 5 a term
+  static constexpr int words = terms + 2 + 5 * BK_MAX_TERMS;
 };
 
 __host__ __device__ constexpr int bk_log2(int x) {
@@ -259,47 +310,32 @@ struct BkProgram {
   }
 };
 
-// A program of NS LINEAR steps over one dimension and one bank graph in at
-// most four registers -- the server's page layouts -- decoded by the host,
-// one kernel a step count: the steps are straight-line code whose every
-// operand but the data is in registers when the index arrives, so a step
-// costs its dependent chain alone (two blends, two multiply-adds, a shift,
-// an and, a blend).
-//
-// One step: blend masks of the bits of a and b, write masks of the four
-// registers, the factors, the constant, the shift and the and-mask.
-struct BkFastStep {
-  int am0, am1, bm0, bm1, dm[4], ma, mb, kadd, s, andmask;
-};
+// A program over one address that the host turned into a sum of K terms
+// (transforms.kernel_terms): row = base + sum c_i * (((a * m_i + k_i) >>
+// s_i) & mask_i).  Every term reads the address alone, so the K run side
+// by side and the chain is one term deep (a multiply-add, a shift, an and,
+// a multiply-add into the sum), whatever the program's length.  The
+// server's layout is three terms: ((a >> 4) & 7) * 128, (a >> 3) & -16
+// and a & 15.
+template <int K>
+struct BkTerms {
+  int size, base;
+  int m[K], k[K], s[K], mask[K], c[K];
 
-template <int NS>
-struct BkFast {
-  int size, volume, ba0, ba1, bo0, bo1;   // ba, bo: blend masks of their reg
-  BkFastStep st[NS];
-
-  __device__ __forceinline__ BkFast prepare() const { return *this; }
+  __device__ __forceinline__ BkTerms prepare() const { return *this; }
   __device__ __forceinline__ int size_() const { return size; }
 
-  static __device__ __forceinline__ int pick4(const int (&r)[4], int m0,
-                                              int m1) {
-    return bk_blend(bk_blend(r[3], r[2], m0), bk_blend(r[1], r[0], m0), m1);
-  }
-
   __device__ __forceinline__ int64_t resolve(int addr) const {
-    int r[4] = {addr, 0, 0, 0};
+    unsigned x[K];
 #pragma unroll
-    for (int i = 0; i < NS; ++i) {
-      const BkFastStep& q = st[i];
-      const int a = pick4(r, q.am0, q.am1), b = pick4(r, q.bm0, q.bm1);
-      const int t = (int)((unsigned)a * (unsigned)q.ma +
-                          ((unsigned)b * (unsigned)q.mb + (unsigned)q.kadd));
-      const int v = (t >> q.s) & q.andmask;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) r[j] = bk_blend(v, r[j], q.dm[j]);
+    for (int i = 0; i < K; ++i) {
+      const int t = (int)((unsigned)addr * (unsigned)m[i] + (unsigned)k[i]);
+      x[i] = (unsigned)((t >> s[i]) & mask[i]);
     }
-    const int64_t row =
-        (int64_t)pick4(r, ba0, ba1) * volume + pick4(r, bo0, bo1);
-    return addr >= 0 && addr < size ? row : -1;
+    unsigned row = (unsigned)base;
+#pragma unroll
+    for (int i = 0; i < K; ++i) row += (unsigned)c[i] * x[i];
+    return addr >= 0 && addr < size ? (int64_t)(int)row : -1;
   }
 };
 
@@ -309,8 +345,8 @@ struct BkFast {
 // * BkDev: a pointer to the packed program (transforms.pack_kernel_program)
 //   of a bucket of transforms.KERNEL_BUCKETS in device memory, loaded into
 //   a BkProgram -- every program.
-// * BkFast<NS>: the program decoded by the host, as the launch parameter
-//   itself, when it qualifies (bk_fast).
+// * BkTerms<K>: the program's sum of terms, by value, when the host found
+//   one (bk_terms); it takes precedence.
 template <int R, int N>
 struct BkDev {
   const int* g;
@@ -519,23 +555,218 @@ bk_scatter_rows_kernel(char* __restrict__ table, const int* __restrict__ idx,
   }
 }
 
-// table[BA(idx[t]), BO(idx[t]), cols[t]] = values[t], last write wins.
+// The key of a pair (address, column) of a table D wide: distinct pairs
+// in range have distinct keys, and none is BK_EMPTY.
+__device__ __forceinline__ unsigned long long bk_pair_key(int a, int c,
+                                                          int D) {
+  return (unsigned long long)(unsigned)a * (unsigned)D + (unsigned)c;
+}
+
+// The block that owns a pair in an element scatter over nb blocks, from
+// the low 32 bits of the pair's key.
+__host__ __device__ __forceinline__ int bk_pair_owner(unsigned lo, int nb) {
+  return (int)(((unsigned long long)(lo * 2654435761u) * (unsigned)nb) >> 32);
+}
+
+// Claims a pair for write t in the block's hash of 2^BITS pairs (atomicCAS
+// on the key, linear probing; never more than half full) and raises the
+// slot's winner to t; returns the slot.
+template <int BITS>
+__device__ __forceinline__ int bk_claim_pair(unsigned long long* s_key,
+                                             int* s_win,
+                                             unsigned long long key, int t) {
+  unsigned h = ((unsigned)key * 0x85ebca77u) >> (32 - BITS);
+  for (;;) {
+    const unsigned long long k = atomicCAS(&s_key[h], BK_EMPTY, key);
+    if (k == BK_EMPTY || k == key) break;
+    h = (h + 1) & ((1u << BITS) - 1);
+  }
+  atomicMax(&s_win[h], t);
+  return (int)h;
+}
+
+// Threads a block of the element scatter past one warp: 512, so that one
+// pass of sixteen pairs a thread covers the admit flush's 8,000 writes and
+// sixteen warps hide each other's latency; 256 for the largest BkDev, whose
+// resolve would spill under the 128 registers a thread of 512 may have.
+template <class P>
+struct BkElemThreads { static constexpr int value = 512; };
+template <>
+struct BkElemThreads<BkDev<32, 192>> { static constexpr int value = 256; };
+
+// table[BA(idx[t]), BO(idx[t]), cols[t]] = values[t], last write wins (the
+// design note at the top).  vec4: idx and cols lie on 16 bytes.
 template <typename E, class P>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(BkElemThreads<P>::value)
 bk_scatter_elems_kernel(E* __restrict__ table, const int* __restrict__ idx,
                         const int* __restrict__ cols,
-                        const E* __restrict__ values, int T, int D,
+                        const E* __restrict__ values, int T, int D, int vec4,
                         const P prog) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= T) return;
-  const int mine = idx[t], col = cols[t];
+  const int tid = threadIdx.x;
   const auto p = prog.prepare();
-  if (col < 0 || col >= D) return;
-  for (int u = t + 1; u < T; ++u)
-    if (idx[u] == mine && cols[u] == col) return;
-  const int64_t row = p.resolve(mine);
-  if (row < 0) return;
-  table[row * D + col] = values[t];
+  extern __shared__ unsigned long long bk_shared[];
+  if (T <= BK_ELEM_PER_BLOCK) {
+    // One block, a thread a write: the lanes of one pair in a warp find
+    // each other with one match, and the highest of them is the warp's
+    // last write of the pair.  In one warp it stores; in more, it claims
+    // the pair and the last write of each pair stores after a barrier.
+    int a = -1, c = -1;
+    E v = E();
+    if (tid < T) {
+      a = __ldg(idx + tid);
+      c = __ldg(cols + tid);
+      v = values[tid];
+    }
+    const bool ok = (unsigned)a < (unsigned)p.size_() &&
+                    (unsigned)c < (unsigned)D;
+    const int64_t row = p.resolve(a);      // beside the match
+    const unsigned long long key = ok ? bk_pair_key(a, c, D) : BK_EMPTY;
+    const unsigned peers = __match_any_sync(0xffffffffu, key);
+    bool last = ok && 31 - __clz(peers) == (tid & 31);
+    if (T > 32) {
+      unsigned long long* s_key = bk_shared;
+      int* s_win = reinterpret_cast<int*>(s_key + BK_ELEM_ONE_HASH);
+      for (int i = tid; i < BK_ELEM_ONE_HASH; i += blockDim.x) {
+        s_key[i] = BK_EMPTY;
+        s_win[i] = -1;
+      }
+      __syncthreads();
+      int slot = 0;
+      if (last)
+        slot = bk_claim_pair<BK_ELEM_ONE_HASH_BITS>(s_key, s_win, key, tid);
+      __syncthreads();
+      last = last && s_win[slot] == tid;
+    }
+    if (last) table[row * D + c] = v;
+    return;
+  }
+  constexpr int NT = BkElemThreads<P>::value, J = BK_ELEM_OWN / NT;
+  unsigned long long* s_key = bk_shared;                   // the hash ...
+  int* s_win = reinterpret_cast<int*>(s_key + BK_ELEM_HASH);  // ... winners
+  int* s_t = s_win + BK_ELEM_HASH;           // the listed writes: t,
+  int* s_a = s_t + BK_ELEM_OWN;              // address,
+  int* s_c = s_a + BK_ELEM_OWN;              // column
+  __shared__ int s_n;
+  const int lane = tid & 31, nb = gridDim.x, me = blockIdx.x;
+  const unsigned size = (unsigned)p.size_();
+  for (int i = tid; i < BK_ELEM_HASH; i += NT) {
+    s_key[i] = BK_EMPTY;
+    s_win[i] = -1;
+  }
+  if (tid == 0) s_n = 0;
+  __syncthreads();
+  // All T writes in one pass; a block that owns more than BK_ELEM_OWN of
+  // them walks them again in windows of BK_ELEM_OWN writes, in order, each
+  // window's last writes storing after the previous window's.
+  int span = T;
+  for (int w0 = 0; w0 < T; w0 += span) {
+    const int w1 = min(T, w0 + span);
+    // 1. list the window's writes to pairs this block owns: sixteen pairs
+    //    a thread in flight, a bit a pair, a scan of the counts across the
+    //    warp and one shared atomic a warp
+    for (int base = w0; base < w1; base += 16 * NT) {
+      int a[16], c[16];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int t = base + 4 * (j * NT + tid);
+        if (vec4 && t + 3 < w1) {
+          const int4 av = __ldg(reinterpret_cast<const int4*>(idx + t));
+          const int4 cv = __ldg(reinterpret_cast<const int4*>(cols + t));
+          a[4 * j] = av.x; a[4 * j + 1] = av.y;
+          a[4 * j + 2] = av.z; a[4 * j + 3] = av.w;
+          c[4 * j] = cv.x; c[4 * j + 1] = cv.y;
+          c[4 * j + 2] = cv.z; c[4 * j + 3] = cv.w;
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool in = t + e < w1;
+            a[4 * j + e] = in ? __ldg(idx + t + e) : -1;
+            c[4 * j + e] = in ? __ldg(cols + t + e) : -1;
+          }
+        }
+      }
+      unsigned mine = 0;
+#pragma unroll
+      for (int q = 0; q < 16; ++q)
+        mine |= (unsigned)((unsigned)a[q] < size &&
+                           (unsigned)c[q] < (unsigned)D &&
+                           bk_pair_owner((unsigned)a[q] * (unsigned)D +
+                                             (unsigned)c[q], nb) == me)
+                << q;
+      const int cnt = __popc(mine);
+      int at = cnt;                              // inclusive scan
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, at, o);
+        if (lane >= o) at += y;
+      }
+      int first = 0;
+      if (lane == 31 && at) first = atomicAdd(&s_n, at);
+      at += __shfl_sync(0xffffffffu, first, 31) - cnt;
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        if ((mine >> q) & 1) {
+          const int t = base + 4 * ((q >> 2) * NT + tid) + (q & 3);
+          if (at < BK_ELEM_OWN) {
+            s_t[at] = t;
+            s_a[at] = a[q];
+            s_c[at] = c[q];
+          }
+          // the value this write may store, brought into L1 meanwhile
+          asm volatile("prefetch.global.L1 [%0];" ::"l"(values + t));
+          ++at;
+        }
+      }
+    }
+    __syncthreads();
+    const int n = s_n;
+    if (n > BK_ELEM_OWN) {        // only in the first pass: go by windows
+      span = BK_ELEM_OWN;
+      w0 = -span;
+      __syncthreads();
+      if (tid == 0) s_n = 0;
+      __syncthreads();
+      continue;
+    }
+    // 2. a thread a listed write (at most J): claim its pair, and beside
+    //    it resolve its address and load its value
+    int slot[J], tt[J];
+    int64_t off[J];
+    E v[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int k = tid + j * NT;
+      tt[j] = -1;
+      slot[j] = 0;
+      off[j] = 0;
+      v[j] = E();
+      if (k < n) {
+        const int t = s_t[k], a = s_a[k], c = s_c[k];
+        tt[j] = t;
+        v[j] = values[t];
+        off[j] = p.resolve(a) * D + c;
+        slot[j] = bk_claim_pair<BK_ELEM_HASH_BITS>(s_key, s_win,
+                                                   bk_pair_key(a, c, D), t);
+      }
+    }
+    __syncthreads();
+    // 3. the last write of each pair stores
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+      if (tt[j] >= 0 && s_win[slot[j]] == tt[j]) table[off[j]] = v[j];
+    if (w1 < T) {                 // a window follows: empty what this used
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        if (tt[j] >= 0) {
+          s_key[slot[j]] = BK_EMPTY;
+          s_win[slot[j]] = -1;
+        }
+      }
+      if (tid == 0) s_n = 0;
+      __syncthreads();
+    }
+  }
 }
 
 // Widest power-of-two piece (<= 16 bytes) that divides the row pitch and
@@ -560,6 +791,15 @@ static int bk_lanes_log2(int row_bytes, int vec) {
 // most BK_MAX_BLOCKS (every block reads all T indices).
 static int bk_scatter_blocks(int T) {
   const int b = (T + BK_PER_BLOCK - 1) / BK_PER_BLOCK;
+  return b < BK_MAX_BLOCKS ? b : BK_MAX_BLOCKS;
+}
+
+// Blocks of an element scatter of T writes: one (a thread a write) up to
+// BK_ELEM_PER_BLOCK, else about BK_ELEM_PER_BLOCK writes each, at most
+// BK_MAX_BLOCKS (every block reads all T pairs, so more blocks cost L2
+// reads, but each lists and claims fewer).
+static int bk_elem_blocks(int T) {
+  const int b = (T + BK_ELEM_PER_BLOCK - 1) / BK_ELEM_PER_BLOCK;
   return b < BK_MAX_BLOCKS ? b : BK_MAX_BLOCKS;
 }
 
@@ -589,9 +829,13 @@ struct BkLaunch {
   static void elems(void* table, const void* idx, const void* cols,
                     const void* values, int T, int D, const P& p,
                     cudaStream_t s) {
-    bk_scatter_elems_kernel<E, P><<<(T + 127) / 128, 128, 0, s>>>(
+    const int vec4 = (((uintptr_t)idx | (uintptr_t)cols) & 15) == 0;
+    const bool one = T <= BK_ELEM_PER_BLOCK;   // a thread a write
+    const int threads = one ? (T + 31) / 32 * 32 : BkElemThreads<P>::value;
+    const int shared = T <= 32 ? 0 : one ? BK_ELEM_ONE_SHARED : BK_ELEM_SHARED;
+    bk_scatter_elems_kernel<E, P><<<bk_elem_blocks(T), threads, shared, s>>>(
         (E*)table, (const int*)idx, (const int*)cols, (const E*)values, T, D,
-        p);
+        vec4, p);
   }
   static int scatter_elems(void* table, const void* idx, const void* cols,
                            const void* values, int T, int D, int esize,
@@ -607,66 +851,52 @@ struct BkLaunch {
   }
 };
 
-// The blend masks of the two bits of register k.
-static void bk_masks(int k, int* m0, int* m1) {
-  *m0 = -(k & 1);
-  *m1 = -((k >> 1) & 1);
-}
-
-// Whether the packed program w takes BkFast: at most 8 LINEAR steps over one
-// dimension and one bank graph in at most four registers.
-static bool bk_fast_fits(const int* w) {
-  const int n = w[0];
-  if (w[7] != 8 || w[1] > 4 || w[2] != 1 || w[3] != 1 || n < 1 || n > 8)
-    return false;
-  for (int i = 0; i < n; ++i)
-    if ((w[BK_HEADER + 4 * i] & 7) != BK_LINEAR) return false;
-  return true;
-}
-
-// Calls f with the launches of BkFast<NS> and the program w decoded into it.
-template <int NS, typename F>
-static int bk_fast(const int* w, F f) {
-  BkFast<NS> p;
-  p.size = w[5];
-  p.volume = w[6];
-  bk_masks(w[BkLayout<8>::fold], &p.ba0, &p.ba1);
-  bk_masks(w[4], &p.bo0, &p.bo1);
-  for (int i = 0; i < NS; ++i) {
-    const int* in = w + BK_HEADER + 4 * i;
-    const int code = in[0], dst = (code >> 3) & 31;
-    const bool masked = (code >> 23) & 1;
-    BkFastStep& q = p.st[i];
-    bk_masks((code >> 8) & 31, &q.am0, &q.am1);
-    bk_masks((code >> 13) & 31, &q.bm0, &q.bm1);
-    for (int j = 0; j < 4; ++j) q.dm[j] = -(int)(dst == j);
-    q.ma = in[1];
-    q.mb = in[2];
-    q.kadd = masked ? 0 : in[3];
-    q.s = (code >> 18) & 31;
-    q.andmask = masked ? in[3] : -1;
+// Where the sum of terms begins in a program of `capacity` slots, or -1.
+static int bk_terms_at(int capacity) {
+  switch (capacity) {
+    case 8: return BkLayout<8>::terms;
+    case 32: return BkLayout<32>::terms;
+    case 192: return BkLayout<192>::terms;
+    default: return -1;
   }
-  return f(BkLaunch<BkFast<NS>>(), p);
+}
+
+// Calls f with the launches of BkTerms<K> and the packed program's sum of
+// terms (transforms.kernel_terms) read into it.
+template <int K, typename F>
+static int bk_terms(const int* w, F f) {
+  const int* tw = w + bk_terms_at(w[7]);
+  BkTerms<K> p;
+  p.size = w[5];
+  p.base = tw[1];
+  for (int i = 0; i < K; ++i) {
+    const int* q = tw + 2 + 5 * i;
+    p.m[i] = q[0];
+    p.k[i] = q[1];
+    p.s[i] = q[2];
+    p.mask[i] = q[3];
+    p.c[i] = q[4];
+  }
+  return f(BkLaunch<BkTerms<K>>(), p);
 }
 
 // Calls f with the launches and the program source for the packed program
 // `host` (transforms.pack_kernel_program; `dev`: the same words in device
-// memory): BkFast when it fits, else BkDev of its bucket.
+// memory): BkTerms when the host found a sum of terms, else BkDev of its
+// bucket.
 template <typename F>
 static int bk_with_program(const int* host, const int* dev, F f) {
   const int n = host[0], regs = host[1], capacity = host[7];
-  if (n < 0 || n > capacity || regs < 1) return (int)cudaErrorInvalidValue;
-  if (bk_fast_fits(host)) {
-    switch (n) {
-      case 1: return bk_fast<1>(host, f);
-      case 2: return bk_fast<2>(host, f);
-      case 3: return bk_fast<3>(host, f);
-      case 4: return bk_fast<4>(host, f);
-      case 5: return bk_fast<5>(host, f);
-      case 6: return bk_fast<6>(host, f);
-      case 7: return bk_fast<7>(host, f);
-      default: return bk_fast<8>(host, f);
-    }
+  const int at = bk_terms_at(capacity);
+  if (n < 0 || n > capacity || regs < 1 || at < 0)
+    return (int)cudaErrorInvalidValue;
+  switch (host[at]) {
+    case 0: break;
+    case 1: return bk_terms<1>(host, f);
+    case 2: return bk_terms<2>(host, f);
+    case 3: return bk_terms<3>(host, f);
+    case 4: return bk_terms<4>(host, f);
+    default: return (int)cudaErrorInvalidValue;
   }
   if (capacity == 8 && regs <= 4)
     return f(BkLaunch<BkDev<4, 8>>(), BkDev<4, 8>{dev});
@@ -690,6 +920,14 @@ int bk_program_words(int capacity) {
 }
 
 int bk_block_writes() { return BK_OWN; }
+
+// The blocks of an element scatter of T writes, and the block of those nb
+// that owns the pair key (address * D + column): the wrapper's twins
+// (banked_gather.elems_blocks, pair_owner) are held to these.
+int bk_elems_blocks(int T) { return bk_elem_blocks(T); }
+int bk_elems_owner(long long key, int nb) {
+  return bk_pair_owner((unsigned)key, nb);
+}
 
 // host, dev: the packed program in host and in device memory.
 int bk_gather(const void* table, const void* idx, void* out, int T,

@@ -278,8 +278,8 @@ def test_no_kernel_is_launched_for_a_cpu_table():
 
 def test_program_struct_matches_the_kernel_program():
     """The packed words the kernels take (multidim Ns=(4, 1), the middle
-    bucket): header, instructions, the split of both dimensions, both bank
-    folds."""
+    bucket): header, instructions (fused), the split of both dimensions,
+    both bank folds, and no sum of terms (two dimensions)."""
     from repro_torch.core import transforms as T
 
     port = build_artifact(port_core, LAYOUT_CASES[8], backend="torch")
@@ -289,26 +289,30 @@ def test_program_struct_matches_the_kernel_program():
     n_instrs, n_regs, n_dims, n_ba, bo_reg, size, volume, cap = w[:8]
     assert (n_dims, n_ba, size, volume, cap) == (2, 2, 96, port.bank_volume,
                                                  32)
-    assert (n_instrs, n_regs, bo_reg) == (len(prog.instrs), prog.n_regs,
+    fused = T.fuse_linear_steps([T._packed_instr(*i) for i in prog.instrs],
+                                set(prog.ba_regs) | {prog.bo_reg})
+    assert (n_instrs, n_regs, bo_reg) == (len(fused), prog.n_regs,
                                           prog.bo_reg)
+    assert n_instrs < len(prog.instrs)
     slots = w[8:8 + 4 * 32].reshape(32, 4).astype(np.int64)
     assert [tuple(row) for row in slots[:n_instrs].tolist()] == [
-        tuple(np.int64(v).astype(np.int32).item()
-              for v in T._packed_instr(*ins)) for ins in prog.instrs]
+        tuple(np.int64(v).astype(np.int32).item() for v in row)
+        for row in fused]
     split = w[8 + 4 * 32:8 + 4 * 32 + 24].reshape(8, 3)
     assert list(split[:2, 0]) == [8, 12]
-    fold = w[8 + 4 * 32 + 24:].reshape(8, 2)
+    fold = w[8 + 4 * 32 + 24:8 + 4 * 32 + 40].reshape(8, 2)
     assert [tuple(f) for f in fold[:2].tolist()] == list(
         zip(prog.ba_regs, port.geometry.Ns))
+    assert not w[8 + 4 * 32 + 40:].any()
 
 
 @pytest.mark.parametrize("which,source", [
-    ("server", "BkFast<6>"), (LAYOUT_CASES[8], "BkDev<16,32>"),
+    ("server", "BkTerms<3>"), (LAYOUT_CASES[8], "BkDev<16,32>"),
     (LAYOUT_CASES[3], "BkDev<32,192>")], ids=["server", "multidim", "long"])
 def test_kernel_source_follows_the_program(which, source):
-    """The server's six LINEAR steps go to the kernels by value, decoded;
-    a two-dimensional layout and an 87-step program from device memory, in
-    the bucket that holds them."""
+    """The server's six LINEAR steps go to the kernels by value as a sum of
+    three terms of the address; a two-dimensional layout and an 87-step
+    program from device memory, in the bucket that holds them."""
     art = (page_solution(None, 1024, 16, 8) if which == "server" else
            build_artifact(port_core, which, backend="torch"))
     assert bg.kernel_source(art) == source
@@ -331,7 +335,7 @@ def _hash_winners(idx, size, order, bits=11):
         a = int(idx[t])
         if not 0 <= a < size:
             continue
-        h = ((a * 2654435761) & 0xFFFFFFFF) >> (32 - bits)
+        h = ((a * 0x85EBCA77) & 0xFFFFFFFF) >> (32 - bits)
         while key[h] not in (-1, a):
             h = (h + 1) & ((1 << bits) - 1)
         key[h] = a
@@ -342,19 +346,18 @@ def _hash_winners(idx, size, order, bits=11):
 
 
 def _table_winners(win, idx, order):
-    """The grid path: ``win`` holds one uint64 a logical address and the
-    epoch last; a call raises each address to (epoch + 1) << 24 | t in
-    ``order``, keeps the writes that still find their own key, and stores
-    the new epoch.  Updates ``win`` in place; returns the writes that
+    """The overflow path: ``win`` holds one int32 a logical address, zero
+    between calls; a call raises each address to t + 1 in ``order``
+    (atomicMax), keeps the writes that find their own t + 1, and zeroes
+    what it used.  Updates ``win`` in place; returns the writes that
     copy."""
-    size = len(win) - 1
-    e = int(win[size]) + 1
-    for t in order:
-        if 0 <= idx[t] < size:
-            win[idx[t]] = max(int(win[idx[t]]), e << 24 | int(t))
-    keep = [t for t in range(len(idx))
-            if 0 <= idx[t] < size and int(win[idx[t]]) == e << 24 | t]
-    win[size] = e
+    size = len(win)
+    inside = [t for t in order if 0 <= idx[t] < size]
+    for t in inside:
+        win[idx[t]] = max(int(win[idx[t]]), t + 1)
+    keep = sorted(t for t in inside if int(win[idx[t]]) == t + 1)
+    for t in inside:
+        win[idx[t]] = 0
     return np.array(keep, np.int64)
 
 
@@ -382,10 +385,10 @@ def test_block_winners_are_the_last_occurrences(T, distinct):
 
 def test_table_winners_over_calls_in_a_row_and_two_artifacts():
     """Several calls in a row on each of two winner tables (two artifacts of
-    other sizes), alternating, never cleared: each call keeps exactly the
-    last write of each address, whatever earlier calls left."""
+    other sizes), alternating: each call keeps exactly the last write of
+    each address and leaves its table zero, as the next call needs it."""
     rng = np.random.default_rng(7)
-    tables = {96: np.zeros(97, np.uint64), 1024: np.zeros(1025, np.uint64)}
+    tables = {96: np.zeros(96, np.int32), 1024: np.zeros(1024, np.int32)}
     for call in range(12):
         size = (96, 1024)[call % 2]
         T = int(rng.integers(1025, 4097))
@@ -395,7 +398,120 @@ def test_table_winners_over_calls_in_a_row_and_two_artifacts():
         idx[rng.random(T) < 0.01] = -1
         got = _table_winners(tables[size], idx, rng.permutation(T))
         np.testing.assert_array_equal(got, _want_winners(idx, size))
-        assert int(tables[size][size]) == call // 2 + 1
+        assert not tables[size].any()
+
+
+# ---------------------------------------------------------------------------
+# B2's choice of the last write, modelled step by step in numpy
+# ---------------------------------------------------------------------------
+
+
+def _claims(writes, key, bits, rng):
+    """{pair: write} of the writes that win their pair's slot in a hash of
+    2^bits slots, claimed in a random order (linear probing from
+    ``pair_slot``, raising the slot's winner)."""
+    slots = 1 << bits
+    hkey = np.full(slots, -1, np.int64)
+    win = np.full(slots, -1, np.int64)
+    slot = {}
+    for t in rng.permutation(writes):
+        h = int(bg.pair_slot(key[t:t + 1], bits)[0])
+        while hkey[h] not in (-1, key[t]):
+            h = (h + 1) & (slots - 1)
+        hkey[h] = key[t]
+        win[h] = max(win[h], t)
+        slot[int(t)] = h
+    assert (hkey >= 0).sum() <= slots // 2   # at most half full
+    return {int(key[t]): t for t, h in slot.items() if win[h] == t}
+
+
+def _elems_winners(idx, cols, size, D, rng):
+    """``bk_scatter_elems_kernel``'s choice, thread by thread in random
+    orders: up to ``ELEMS_PER_BLOCK`` writes, a thread a write, whose
+    lanes of one pair in a warp find each other by a match; the highest of
+    them stores in one warp, and in more claims the pair in a hash of
+    2^ELEMS_ONE_HASH_BITS slots.  Past that, ``elems_blocks`` blocks that
+    each list the writes to the pairs they own (``pair_owner``) -- all of
+    them, or, past ``ELEMS_OWN``, window by window of ``ELEMS_OWN`` writes
+    in index order -- claim each pair in a hash of 2^ELEMS_HASH_BITS slots.
+    Returns {pair: the write whose value the table holds at the end}."""
+    T = len(idx)
+    key = idx.astype(np.int64) * D + cols
+    ok = (idx >= 0) & (idx < size) & (cols >= 0) & (cols < D)
+    if T <= bg.ELEMS_PER_BLOCK:
+        warp_last = []
+        for t in rng.permutation(T):
+            w0 = t - t % 32
+            peers = [u for u in range(w0, min(T, w0 + 32))
+                     if ok[u] and key[u] == key[t]]
+            if ok[t] and max(peers) == t:
+                warp_last.append(int(t))
+        if T <= bg.ELEMS_WARP:
+            return {int(key[t]): t for t in warp_last}
+        return _claims(np.array(warp_last, np.int64), key,
+                       bg.ELEMS_ONE_HASH_BITS, rng)
+    final = {}
+    nb = bg.elems_blocks(T)
+    owner = bg.pair_owner(key, nb)
+    for b in range(nb):
+        mine = np.flatnonzero(ok & (owner == b))
+        spans = ([(0, T)] if len(mine) <= bg.ELEMS_OWN else
+                 [(w, w + bg.ELEMS_OWN) for w in range(0, T, bg.ELEMS_OWN)])
+        for w0, w1 in spans:                   # in order, barrier between
+            listed = mine[(mine >= w0) & (mine < w1)]
+            assert len(listed) <= bg.ELEMS_OWN
+            final.update(_claims(listed, key, bg.ELEMS_HASH_BITS, rng))
+    return final
+
+
+@pytest.mark.parametrize("case", [
+    "8 records", "31 with duplicates", "32 with strays", "33 distinct",
+    "100 over 12 pairs", "128 with strays", "129 over 40 pairs",
+    "8000 distinct (admit)", "65536 over 3 x 8", "one block overflows"])
+def test_elems_winners_are_the_last_occurrences(case):
+    """The warp's match, the one block's match and pair hash, and the
+    blocks' pair hash, with its windows where a block owns more writes
+    than it lists, keep exactly the last write of each (address, column)
+    pair -- what the plain version keeps through ``_last_occurrence`` --
+    whatever order the threads run in."""
+    rng = np.random.default_rng(len(case))
+    size, D = 1024, 8
+    if case == "8 records":
+        idx, cols = rng.integers(0, size, 8), np.arange(8)
+    elif case == "31 with duplicates":
+        idx, cols = rng.integers(0, 4, 31), rng.integers(0, 2, 31)
+    elif case == "32 with strays":
+        idx, cols = rng.integers(0, size, 32), rng.integers(0, D, 32)
+        idx[::5], cols[1::7] = size + 3, -1
+    elif case == "33 distinct":
+        idx, cols = rng.choice(size, 33, replace=False), rng.integers(0, D, 33)
+    elif case == "100 over 12 pairs":
+        idx, cols = rng.integers(0, 3, 100), rng.integers(0, 4, 100)
+    elif case == "128 with strays":
+        idx, cols = rng.integers(0, 40, 128), rng.integers(0, D, 128)
+        idx[::9], cols[2::11] = -1, D
+    elif case == "129 over 40 pairs":
+        idx, cols = rng.integers(0, 10, 129), rng.integers(0, 4, 129)
+    elif case == "8000 distinct (admit)":
+        idx, cols = np.tile(np.arange(1000), 8), np.repeat(np.arange(8), 1000)
+    elif case == "65536 over 3 x 8":
+        idx = rng.choice(size, 3, replace=False)[rng.integers(0, 3, 65536)]
+        cols = rng.integers(0, D, 65536)
+    else:   # 3,000 pairs of a table 128 wide, all owned by block 0
+        D, T = 128, 4096
+        owned = np.flatnonzero(bg.pair_owner(np.arange(size * D),
+                                             bg.elems_blocks(T)) == 0)
+        keys = rng.choice(owned, 3000, replace=False)
+        keys = keys[np.concatenate([rng.permutation(3000),
+                                    rng.integers(0, 3000, T - 3000)])]
+        idx, cols = keys // D, keys % D
+    key = idx.astype(np.int64) * D + cols
+    ok = (idx >= 0) & (idx < size) & (cols >= 0) & (cols < D)
+    inside = np.flatnonzero(ok)
+    last = inside[bg._last_occurrence(torch.from_numpy(key[inside])).numpy()]
+    want = {int(key[t]): int(t) for t in last}
+    for _ in range(2):
+        assert _elems_winners(idx, cols, size, D, rng) == want
 
 
 def test_telemetry_sink_sees_every_gather_and_scatter():

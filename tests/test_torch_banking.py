@@ -124,6 +124,16 @@ def _check_all_lowerings(port_art, ref_art):
     np.testing.assert_array_equal(
         rows[:A], want_ba.astype(np.int64) * port_art.bank_volume + want_bo)
     np.testing.assert_array_equal(rows[A:], -1)
+    # the sum of terms, where the host found one (one dimension, LINEAR)
+    n_terms = int(words[T.kernel_program_words(cap[0])
+                        - T.KERNEL_TERMS_WORDS])
+    if n_terms:
+        assert bg.kernel_source(port_art) == f"BkTerms<{n_terms}>"
+        np.testing.assert_array_equal(
+            T.run_packed_terms(words, np.concatenate([addr, edge])), rows)
+    else:
+        with pytest.raises(ValueError):
+            T.run_packed_terms(words, addr)
 
     tab_ba, tab_bo = port_art._tables()
     np.testing.assert_array_equal(tab_ba, want_ba)
@@ -160,6 +170,78 @@ def test_every_address_server_layouts(max_len, page, readers):
     ref_np = ref_core.CompiledBankingPlan.from_json(ref.to_json(),
                                                     backend="numpy")
     _check_all_lowerings(port, ref_np)
+
+
+@pytest.mark.parametrize("max_len,page,readers,volume,shift", [
+    (64, 16, 4, 16, 2), (1024, 16, 8, 128, 3)])
+def test_server_program_is_three_terms(max_len, page, readers, volume,
+                                       shift):
+    """Both server layouts reach the kernels as ``BkTerms<3>``: ``volume *
+    ((a >> 4) & (banks - 1)) + ((a >> log2 banks) & -16) + (a & 15)``,
+    their six steps fused into four for the other sources."""
+    art = page_solution(None, max_len, page, readers)
+    w = bg.program_words(art)
+    assert bg.kernel_source(art) == "BkTerms<3>"
+    assert int(w[0]) == 4 < len(art.kernel_program().instrs) == 6
+    at = T.kernel_program_words(8) - T.KERNEL_TERMS_WORDS
+    base, terms = int(w[at + 1]), w[at + 2:at + 17].reshape(3, 5).tolist()
+    banks = art.n_banks
+    assert base == 0 and sorted(map(tuple, terms)) == sorted([
+        (1, 0, 4, banks - 1, volume), (1, 0, shift, -16, 1),
+        (1, 0, 0, 15, 1)])
+
+
+_PAIRS = [("shr", "and"), ("shr", "shl"), ("shr", "shr"), ("and", "shr"),
+          ("and", "and"), ("and", "shl"), ("shl", "shr"), ("mul", "and"),
+          ("mul", "shr"), ("add", "shr"), ("sub", "and"), ("const", "shl")]
+
+
+@pytest.mark.parametrize("first,second", _PAIRS)
+def test_fused_steps_compute_what_the_two_steps_did(first, second):
+    """A LINEAR step whose value only the next one reads is merged into it
+    where one LINEAR step holds both; the merged step gives the two steps'
+    value on int32 registers near both ends of the range, with shifts at
+    their edges and negative masks.  A shift then a mask or a shift (the
+    server's pairs) always merge."""
+    rng = np.random.default_rng(len(first) * 7 + len(second))
+    edge = np.array([0, 1, -1, 2 ** 31 - 1, -2 ** 31, 12345, -54321],
+                    np.int64)
+    regs = [np.concatenate([edge, rng.integers(-2 ** 31, 2 ** 31, 300)])
+            .astype(np.int32) for _ in range(3)]
+    imms = {"shr": [0, 1, 4, 31], "shl": [1, 4, 30], "and": [7, -16, 0xFF0],
+            "mul": [3, -5], "const": [5], "add": [0], "sub": [0]}
+    op = T.KERNEL_OPCODE
+    merged = 0
+    for i1 in imms[first]:
+        for i2 in imms[second]:
+            prog = [(op[first], 2, 0, 1, i1), (op[second], 2, 2, 0, i2)]
+            want = T._interpret(prog, 3, regs)[2]
+            packed = [T._packed_instr(*i) for i in prog]
+            fused = T.fuse_linear_steps(packed, {2})
+            got = T.run_packed_instrs(fused, [r.copy() for r in regs])[2]
+            np.testing.assert_array_equal(got, want, err_msg=f"{i1} {i2}")
+            merged += len(fused) == 1
+            if first == "shr" and second != "shl" or \
+                    (first, second) == ("shr", "shl") and i1 >= i2:
+                assert len(fused) == 1, (i1, i2)
+    assert merged
+
+
+def test_a_value_read_twice_is_not_fused():
+    """``shr`` read by an ``and`` and again by the ``add`` after it stays a
+    step of its own; the ``and`` then merges into nothing."""
+    op = T.KERNEL_OPCODE
+    prog = [(op["shr"], 1, 0, 0, 4), (op["and"], 2, 1, 0, 7),
+            (op["add"], 1, 1, 2, 0)]
+    packed = [T._packed_instr(*i) for i in prog]
+    assert T.fuse_linear_steps(packed, {1}) == [
+        tuple(int(x) for x in p) for p in packed]
+    regs = [np.arange(-50, 50, dtype=np.int32)] + [
+        np.zeros(100, np.int32)] * 2
+    np.testing.assert_array_equal(
+        T.run_packed_instrs(T.fuse_linear_steps(packed, {1}),
+                            [r.copy() for r in regs])[1],
+        T._interpret(prog, 3, regs)[1])
 
 
 # ---------------------------------------------------------------------------
@@ -246,28 +328,37 @@ def test_split_constants_refuse_what_the_kernels_cannot_split(d):
 
 
 def test_packed_program_round_trips_the_kernel_program():
-    """Header, instruction slots, split and fold at the offsets of
-    ``BkProg<8>`` in ``banked.cu``, for the server's layout (one dimension,
-    one bank graph, six steps, four registers: the smallest bucket)."""
+    """Header, instruction slots, split, fold and sum of terms at the
+    offsets of ``BkLayout<8>`` in ``banked.cu``, for the server's layout
+    (one dimension, one bank graph, six steps fused into four, four
+    registers: the smallest bucket; three terms)."""
     art = page_solution(None, 1024, 16, 8)
     prog = art.kernel_program()
     w = bg.program_words(art)
     assert w is bg.program_words(art)                 # packed once
     assert T.kernel_bucket(prog) == (8, 4)
-    assert w.size == T.kernel_program_words(8) == 8 + 4 * 8 + 24 + 16
-    n = len(prog.instrs)
+    assert w.size == T.kernel_program_words(8) == 8 + 4 * 8 + 24 + 16 + 22
+    fused = T.fuse_linear_steps([T._packed_instr(*i) for i in prog.instrs],
+                                set(prog.ba_regs) | {prog.bo_reg})
+    n = len(fused)
+    assert n == 4 < len(prog.instrs) == 6
     assert list(w[:T.KERNEL_HEADER_WORDS]) == [
         n, prog.n_regs, 1, 1, prog.bo_reg, 1024, art.bank_volume, 8]
     slots = w[8:8 + 32].reshape(8, 4)
     assert [tuple(int(x) for x in row) for row in slots[:n]] == [
-        tuple(np.int64(v).astype(np.int32).item()
-              for v in T._packed_instr(*ins)) for ins in prog.instrs]
+        tuple(np.int64(v).astype(np.int32).item() for v in row)
+        for row in fused]
     assert not slots[n:].any()
     split = w[40:64].reshape(8, 3)
     assert list(split[0].view(np.uint32)) == [1024, *T.split_constants(1024)]
     assert not split[1:].any()
     fold = w[64:80].reshape(8, 2)
     assert list(fold[0]) == [prog.ba_regs[0], 1] and not fold[1:].any()
+    terms = w[80:102]
+    assert list(terms[:2]) == [3, 0]
+    assert sorted(tuple(t) for t in terms[2:17].reshape(3, 5).tolist()) == [
+        (1, 0, 0, 15, 1), (1, 0, 3, -16, 1), (1, 0, 4, 7, 128)]
+    assert not terms[17:].any()
 
 
 @pytest.mark.parametrize("op", T.KERNEL_OPS)

@@ -145,6 +145,122 @@ def test_repeated_scatters_on_two_artifacts_in_turn(cuda):
         assert torch.equal(tables[i], plain[i]), call
 
 
+def _elems_case(art, rng, idx, cols, D, cuda):
+    """B2 on the card against a sequential host loop (last write wins in
+    index order; writes out of range dropped) and against the plain
+    version on the writes in range; one launch."""
+    A = art.layout.logical_size
+    flat = _int_rows(rng, A, D, cuda)
+    table = art.pack(flat)
+    T = len(idx)
+    vals = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31 - 1, size=T)
+                            .astype(np.int32)).to(cuda)
+    want = flat.cpu().numpy().copy()
+    v = vals.cpu().numpy()
+    for t in range(T):
+        if 0 <= idx[t] < A and 0 <= cols[t] < D:
+            want[idx[t], cols[t]] = v[t]
+    before = bg.LAUNCHES["banked_scatter_elems"]
+    mine = art.scatter(table.clone(), torch.from_numpy(idx).to(cuda), vals,
+                       col=torch.from_numpy(cols).to(cuda))
+    good = (idx >= 0) & (idx < A) & (cols >= 0) & (cols < D)
+    theirs = bg.banked_scatter_elems_plain(
+        table.clone(), torch.from_numpy(idx[good]).to(cuda),
+        torch.from_numpy(cols[good]).to(cuda),
+        vals[torch.from_numpy(good).to(cuda)], art)
+    torch.cuda.synchronize()
+    assert bg.LAUNCHES["banked_scatter_elems"] == before + 1
+    assert torch.equal(mine, theirs)
+    assert np.array_equal(art.unpack(mine).cpu().numpy(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 31, 32, 33, 46, 100, 128, 129, 8000])
+def test_elems_scatter_equals_a_host_loop(cuda, T):
+    """One warp up to 32 writes (the tick), one block up to 128 (a flush
+    after short prompts), blocks past it: random (address, column) pairs
+    with duplicates, and at 8,000 the admit flush's distinct pairs
+    (positions 0-999 x slots 0-7, slot-major)."""
+    art = page_solution(None, 1024, 16, 8)
+    rng = np.random.default_rng(T)
+    if T == 8000:
+        idx, cols = np.tile(np.arange(1000), 8), np.repeat(np.arange(8), 1000)
+    else:
+        idx, cols = rng.integers(0, 40, size=T), rng.integers(0, 3, size=T)
+    _elems_case(art, rng, idx, cols, 8, cuda)
+
+
+@pytest.mark.gpu
+def test_elems_scatter_of_65536_writes_over_24_pairs(cuda):
+    """``SCATTER_MAX_T`` writes over 3 addresses x 8 columns: a few blocks
+    own all of them and walk them in windows."""
+    art = page_solution(None, 1024, 16, 8)
+    rng = np.random.default_rng(24)
+    idx = rng.choice(1024, size=3, replace=False)[
+        rng.integers(0, 3, size=bg.SCATTER_MAX_T)]
+    _elems_case(art, rng, idx, rng.integers(0, 8, size=idx.size), 8, cuda)
+
+
+@pytest.mark.gpu
+def test_elems_scatter_when_one_block_owns_more_than_its_hash_holds(cuda):
+    """4,096 writes over 3,000 distinct pairs of a table 128 wide, every
+    one owned by block 0 (more pairs than its hash has slots): the block
+    goes by windows.  The split is the library's own."""
+    art = page_solution(None, 1024, 16, 8)
+    rng = np.random.default_rng(3000)
+    lib = bg._library()
+    T, D = 4096, 128
+    nb = bg.elems_blocks(T)
+    assert lib.bk_elems_blocks(T) == nb
+    owned = np.flatnonzero(bg.pair_owner(np.arange(1024 * D), nb) == 0)
+    assert all(lib.bk_elems_owner(int(k), nb) == 0 for k in owned[:64])
+    keys = rng.choice(owned, size=3000, replace=False)
+    keys = keys[np.concatenate([rng.permutation(3000),
+                                rng.integers(0, 3000, size=T - 3000)])]
+    assert 3000 > 1 << bg.ELEMS_HASH_BITS
+    _elems_case(art, rng, keys // D, keys % D, D, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [20, 100, 3000])
+def test_elems_scatter_drops_addresses_and_columns_out_of_range(cuda, T):
+    """Addresses and columns already on the card outside their ranges (not
+    inspected by the wrapper): those writes are dropped, in the warp, the
+    one block and the blocks."""
+    art = page_solution(None, 1024, 16, 8)
+    rng = np.random.default_rng(T + 1)
+    idx, cols = rng.integers(0, 1024, size=T), rng.integers(0, 8, size=T)
+    bad = rng.random(T) < 0.3
+    idx[bad] = rng.choice([-1, 1024, 1 << 30], size=int(bad.sum()))
+    worse = rng.random(T) < 0.2
+    cols[worse] = rng.choice([-1, 8, 1 << 20], size=int(worse.sum()))
+    _elems_case(art, rng, idx, cols, 8, cuda)
+
+
+@pytest.mark.gpu
+def test_repeated_elems_scatters_on_two_artifacts_in_turn(cuda):
+    """B2 in calls in a row on two tables of two artifacts alternating (the
+    server's layout and a multidim one), at 20, 3000 and 5000 writes in
+    turn: each call equals the plain version; nothing carries over."""
+    arts = [page_solution(None, 1024, 16, 8),
+            build_artifact(port_core, LAYOUT_CASES[8], backend="torch")]
+    rng = np.random.default_rng(5)
+    tables = [a.pack(_int_rows(rng, a.layout.logical_size, 8, cuda))
+              for a in arts]
+    plain = [t.clone() for t in tables]
+    for call in range(12):
+        art, i = arts[call % 2], call % 2
+        T = (20, 3000, 5000)[call // 2 % 3]
+        idx = torch.from_numpy(rng.integers(0, min(art.layout.logical_size,
+                                                   50), size=T)).to(cuda)
+        cols = torch.from_numpy(rng.integers(0, 8, size=T)).to(cuda)
+        vals = _int_rows(rng, T, 1, cuda)[:, 0]
+        art.scatter(tables[i], idx, vals, col=cols)
+        bg.banked_scatter_elems_plain(plain[i], idx, cols, vals, art)
+        torch.cuda.synchronize()
+        assert torch.equal(tables[i], plain[i]), call
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("level", ["full", "basic"])
 @pytest.mark.parametrize("case", LAYOUT_CASES, ids=layout_id)
