@@ -36,12 +36,22 @@ Run from the root of a checkout, with no arguments, it
    kernel's registers, shared memory and blocks per SM;
 3. runs the port's main paths, each at full width with random bf16
    weights from ``--seed``: the continuous-batching decode server on
-   qwen2-7b, olmoe-1b-7b, mamba2-370m and zamba2-2.7b, which starts on the
-   trivial layout, hot-swaps to the solved page layout after a few ticks,
+   qwen2-7b, olmoe-1b-7b, mamba2-370m and zamba2-2.7b, each built on a plan
+   ticket from a cold ``PlanService`` over a plan store in a temporary
+   directory (removed at exit), whose solve is held until the server has
+   served three ticks from the ticket's fallback (one bank = one page); the
+   server then hot-swaps to the solved page layout itself, between ticks,
    answers 16 requests, and is checked for finished requests, for the
-   record table against what was recorded, for kernel launch counts
-   against the ticks and the decode calls, and for identical tokens when
-   repeated; then the prefills -- mamba2-370m (8 x 2048 tokens) and
+   record table against what was recorded and across the swap, for kernel
+   launch counts against the ticks, the decode calls and the swaps, and
+   for identical tokens when repeated; then the plan plane's own paths: a
+   second qwen2-7b server on a fresh service over the same store (answered
+   at submit, no solver call, no swap, the same tokens), olmoe-1b-7b on a
+   joint ticket over its KV pool and its expert buffer (every tick
+   coherent, the pools promoted together), and qwen2-7b with telemetry and
+   certification on (the measured calls counted against the launches, the
+   served plan's certificate in the store); then the prefills --
+   mamba2-370m (8 x 2048 tokens) and
    zamba2-2.7b (4 x 2048), both also at 1000 tokens (the pad path),
    qwen2-7b (4 x 2048), gemma3-12b (2 x 4096, past its window of 1024),
    olmoe-1b-7b (4 x 2048) and whisper-base (8 x 64 tokens over 1500
@@ -87,12 +97,15 @@ and gemma3-12b.
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -972,110 +985,281 @@ def admit_flush(prompts):
                             for s, p in enumerate(prompts)]))
 
 
-def serve_once(torch, cfg, seed, swap_after=3):
-    """One run of the server on the card.  Returns what the checks need."""
+RELEASE_AFTER = 3       # ticks served from the fallback before a solve
+
+
+class SolveGate:
+    """Holds the port's cold solves until :attr:`event` is set, and counts
+    them: for the length of a ``with`` block, ``BankingPlanner.build_space``
+    -- where every solve of the plan plane starts -- waits on the event.
+    It wraps the class in this script only, never in the package."""
+
+    def __init__(self, hold):
+        import threading
+
+        from repro_torch.core import BankingPlanner
+
+        self.cls, self.real = BankingPlanner, BankingPlanner.build_space
+        self.event = threading.Event()
+        if not hold:
+            self.event.set()
+        self.calls = 0
+
+    def __enter__(self):
+        real, gate = self.real, self
+
+        def gated(planner, prep):
+            gate.calls += 1
+            gate.event.wait(120)       # a worker thread: no exit here
+            return real(planner, prep)
+
+        self.cls.build_space = gated
+        return self
+
+    def __exit__(self, *exc):
+        self.event.set()
+        self.cls.build_space = self.real
+
+
+def store_counts(path):
+    """Files of a ``DirectoryStore`` by kind."""
+    names = os.listdir(path)
+    sub = {d: len(os.listdir(os.path.join(path, d)))
+           for d in ("certs", "telemetry", "joint")
+           if os.path.isdir(os.path.join(path, d))}
+    return {"plans": sum(n.endswith(".json") and ".compiled." not in n
+                         for n in names),
+            "compiled": sum(n.endswith(".compiled.json") for n in names),
+            **sub}
+
+
+def serve_once(torch, cfg, seed, store_dir, *, hold=True, joint=False,
+               wait_first=False, verify="off", telemetry=False):
+    """One run of the server on the card, built on a plan ticket from a new
+    ``PlanService(workers=1)`` over a ``DirectoryStore`` at ``store_dir``.
+    ``hold``: the cold solve waits until ``RELEASE_AFTER`` ticks were served
+    from the ticket's fallback, and the server swaps to the solved layout
+    itself, between ticks; ``joint``: a joint ticket over every pool of the
+    model; ``wait_first``: the server is built once the ticket is done.
+    Returns what the checks need."""
+    import threading
+
     import numpy as np
 
-    from repro_torch.core import MemorySpec, compile_trivial
+    from repro_torch.core import DirectoryStore, PlanService
     from repro_torch.kernels import banked_gather as bg
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_dispatch as md
     from repro_torch.kernels import ssd_chunk as sc
     from repro_torch.models import get_model
-    from repro_torch.runtime.server import Request, Server, page_solution
+    from repro_torch.runtime.server import (Request, Server, joint_ticket,
+                                            page_ticket)
 
     max_batch, max_len, page, readers = 8, 1024, 16, 8
     n_requests, max_new = 16, 16
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
-    t0 = time.perf_counter()
-    server = Server(get_model(cfg), max_batch=max_batch, max_len=max_len,
-                    kv_plan=compile_trivial(MemorySpec(
-                        "kv_pool", dims=(max_len,), word_bits=16, ports=1)),
-                    device="cuda", generator=gen)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    solved = page_solution(cfg, max_len, page=page, readers=readers)
+    svc = PlanService(workers=1, store=DirectoryStore(store_dir),
+                      verify=verify)
+    hub = svc.enable_telemetry() if telemetry else None
+    submit = joint_ticket if joint else page_ticket
+    with SolveGate(hold) as gate:
+        t_submit = time.perf_counter()
+        ticket = submit(cfg, max_len, page=page, readers=readers, service=svc)
+        done_at_submit = ticket.done()
+        done_at = []
+        waiter = threading.Thread(target=lambda: done_at.append(
+            time.perf_counter() if ticket.wait(300) else None), daemon=True)
+        waiter.start()
+        if wait_first:
+            check(ticket.wait(120), "the plan ticket did not resolve")
+        t0 = time.perf_counter()
+        server = Server(get_model(cfg), max_batch=max_batch, max_len=max_len,
+                        kv_plan=ticket, device="cuda", generator=gen)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        first_layout = server.pager.artifact.describe()
+        first_banks = server.pager.pages_per_slot
 
-    reqs = []
-    for uid, prompt in enumerate(serve_prompts(cfg, seed, n_requests)):
-        reqs.append(Request(uid=uid, prompt=prompt, max_new=max_new))
-        server.submit(reqs[-1])
+        reqs = []
+        for uid, prompt in enumerate(serve_prompts(cfg, seed, n_requests)):
+            reqs.append(Request(uid=uid, prompt=prompt, max_new=max_new))
+            server.submit(reqs[-1])
 
-    # shadow of what the host asked to record: (slot, pos) -> token
-    shadow = np.zeros((max_len, max_batch), np.int32)
-    record = server._record
+        # shadow of what the host asked to record: (slot, pos) -> token
+        shadow = np.zeros((max_len, max_batch), np.int32)
+        record = server._record
 
-    def recording(slot, tok):
-        pos = int(server.positions[slot])
-        if pos < max_len:
-            shadow[pos, slot] = tok
-        record(slot, tok)
+        def recording(slot, tok):
+            pos = int(server.positions[slot])
+            if pos < max_len:
+                shadow[pos, slot] = tok
+            record(slot, tok)
 
-    server._record = recording
-    # (positions, slots) of every flush past one warp: B2's block(s) paths
-    flushes, flush = [], server._flush_records
+        server._record = recording
+        # (positions, slots) of every flush past one warp: B2's block(s)
+        flushes, flush = [], server._flush_records
 
-    def flushing():
-        if len(server._pending_records) > bg.ELEMS_WARP:
-            pos, slots, _ = zip(*server._pending_records)
-            flushes.append((np.array(pos), np.array(slots)))
-        flush()
+        def flushing():
+            if len(server._pending_records) > bg.ELEMS_WARP:
+                pos, slots, _ = zip(*server._pending_records)
+                flushes.append((np.array(pos), np.array(slots)))
+            flush()
 
-    server._flush_records = flushing
+        server._flush_records = flushing
+        # every repack of the record table, made by the server itself
+        # (``_maybe_swap_kv`` / ``_swap_all``): the logical rows must
+        # survive it; its wall time, the card's work included
+        swap_walls, swap_identical, swap_to = [], [], server._swap_to
 
-    bg.reset_launch_counts()          # the main path starts here
-    md.reset_launch_counts()
-    sc.reset_launch_counts()
-    fa.reset_launch_counts()
-    admit_ticks = 0
-    swap_identical = None
-    t0 = time.perf_counter()
-    while server.queue or server.active:
-        check(server.ticks < 500, "server did not drain")
-        if server.ticks == swap_after and server.swaps == 0:
-            # what the plan plane does between ticks once a solve lands
+        def swapping(art):
             before = server._kv_art.unpack(server.kv_records).clone()
-            server._swap_to(solved)
-            server.swaps += 1
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            swap_to(art)
+            torch.cuda.synchronize()
+            swap_walls.append(time.perf_counter() - t)
             after = server._kv_art.unpack(server.kv_records)
-            swap_identical = max_abs_diff(before, after) == 0.0
-        queued = len(server.queue)
-        server.tick()
-        admit_ticks += len(server.queue) < queued
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {**bg.LAUNCHES, **md.LAUNCHES, **sc.LAUNCHES,   # ... ends here
-                **fa.LAUNCHES,
-                **{f"banked_scatter_elems_{k}": n
-                   for k, n in bg.SCATTER_ELEMS_PATHS.items()}}
+            swap_identical.append(max_abs_diff(before, after) == 0.0)
+
+        server._swap_to = swapping
+
+        bg.reset_launch_counts()          # the main path starts here
+        md.reset_launch_counts()
+        sc.reset_launch_counts()
+        fa.reset_launch_counts()
+        admit_ticks, on_fallback, incoherent = 0, 0, 0
+        tick_ms = {"fallback": [], "solving": [], "solved": []}
+        t_release = None
+        t0 = time.perf_counter()
+        while server.queue or server.active:
+            check(server.ticks < 500, "server did not drain")
+            if hold and server.ticks == RELEASE_AFTER \
+                    and not gate.event.is_set():
+                gate.event.set()          # the solve runs from here on
+                t_release = time.perf_counter()
+            stage = ("fallback" if not gate.event.is_set() else
+                     "solved" if server.pager.pages_per_slot > 1
+                     or ticket.done() else "solving")
+            incoherent += not server.coherent
+            queued, t = len(server.queue), time.perf_counter()
+            server.tick()
+            tick_ms[stage].append((time.perf_counter() - t) * 1e3)
+            incoherent += not server.coherent
+            admit_ticks += len(server.queue) < queued
+            on_fallback += server.pager.pages_per_slot == 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {**bg.LAUNCHES, **md.LAUNCHES, **sc.LAUNCHES,  # ends here
+                    **fa.LAUNCHES,
+                    **{f"banked_scatter_elems_{k}": n
+                       for k, n in bg.SCATTER_ELEMS_PATHS.items()}}
+    waiter.join(timeout=300)
+    solve_calls = gate.calls
+    if hub is not None:
+        hub.flush()
+    svc.shutdown()
     del server._record        # the wrappers' closures hold the server
     del server._flush_records
+    del server._swap_to
 
     records = server._kv_art.unpack(server.kv_records).cpu().numpy()
+    done = done_at[0] if done_at else None
     return {
         "server": server, "reqs": reqs, "shadow": shadow, "records": records,
         "launches": launches, "flushes": flushes,
         "admit_ticks": admit_ticks, "wall": wall,
         "init_s": init_s, "swap_identical": swap_identical,
-        "decode_calls": int(server.cache.pos),
+        "swap_walls": swap_walls, "decode_calls": int(server.cache.pos),
         "peak_bytes": torch.cuda.max_memory_allocated(),
-        "layout": solved.describe(),
+        "first_layout": first_layout, "first_banks": first_banks,
+        "layout": server.pager.artifact.describe(),
+        "ticket": ticket, "hub": hub, "service": svc,
+        "done_at_submit": done_at_submit, "solver_calls": solve_calls,
+        "submit_to_done_s": None if done is None else done - t_submit,
+        "release_to_done_s": (None if done is None or t_release is None
+                              else done - t_release),
+        "ticks_on_fallback": on_fallback, "incoherent": incoherent,
+        "tick_ms": tick_ms, "store": store_counts(store_dir),
     }
 
 
-def phase_serve(torch, cfg, seed):
+def tick_summary(tick_ms):
+    """Ticks and their median wall in ms by stage of the plan: served from
+    the fallback with the solve held, while the solve runs, after it."""
     import numpy as np
 
-    run = serve_once(torch, cfg, seed)
+    return {k: {"ticks": len(v),
+                "median_ms": float(np.median(v)) if v else None}
+            for k, v in tick_ms.items()}
+
+
+def plan_fields(run):
+    """What the plan plane did in a served run: the phase line's fields."""
+    srv = run["server"]
+    return {
+        "swaps": srv.swaps, "promotions": srv.promotions,
+        "joint_swaps": srv.joint_swaps,
+        "joint_promotions": srv.joint_promotions,
+        "ticks_on_fallback": run["ticks_on_fallback"],
+        "ticket_done_at_submit": run["done_at_submit"],
+        "solver_calls": run["solver_calls"],
+        "submit_to_done_seconds": run["submit_to_done_s"],
+        "release_to_done_seconds": run["release_to_done_s"],
+        "swap_wall_seconds": run["swap_walls"],
+        "tick_wall_by_stage": tick_summary(run["tick_ms"]),
+        "served_first_from": run["first_layout"],
+        "store_files": run["store"]}
+
+
+def check_serve_launches(cfg, run):
+    """The launch counts of a served run against its ticks, its admits,
+    its repacks and its decode calls."""
+    server, lau = run["server"], run["launches"]
+    ticks = server.ticks
+    check(lau["banked_gather"] == ticks,
+          f"gather launches {lau['banked_gather']} != ticks {ticks}")
+    check(lau["banked_scatter_elems"] == ticks + run["admit_ticks"],
+          f"scatter_elems launches {lau['banked_scatter_elems']} != ticks "
+          f"{ticks} + admitting ticks {run['admit_ticks']}")
+    check(lau["banked_scatter"] == len(run["swap_walls"]),
+          f"row scatter launches {lau['banked_scatter']} != "
+          f"{len(run['swap_walls'])} repacks of the record table")
+    moe_layers = cfg.n_layers if cfg.family == "moe" else 0
+    check(lau["moe_dispatch"] == moe_layers * run["decode_calls"],
+          f"moe_dispatch launches {lau['moe_dispatch']} != {moe_layers} "
+          f"MoE layers x {run['decode_calls']} decode calls")
+    check(lau["ssd_chunk"] == 0, f"the decode path launched the SSD chunk "
+          f"kernel {lau['ssd_chunk']} times: decode runs the recurrence")
+    check(lau["flash_attention"] == 0, f"the decode path launched the flash "
+          f"attention kernel {lau['flash_attention']} times: the server "
+          f"prefills through decode, which attends against its cache")
+    check(run["decode_calls"] < 1024, "cache.pos reached max_len")
+
+
+def phase_serve(torch, cfg, seed, store_dir):
+    """One served model through the plan plane: a cold ticket whose solve
+    is held until the server has served from the fallback, and the swap
+    made by the server itself.  Returns the launches of the first run, its
+    first admit flush, its tokens and the run's plan fields."""
+    import numpy as np
+
+    run = serve_once(torch, cfg, seed, store_dir)
     server, reqs = run["server"], run["reqs"]
     check(all(r.done and len(r.out) == r.max_new for r in reqs),
           "a request did not finish with max_new tokens")
     check(all(0 <= t < cfg.vocab for r in reqs for t in r.out),
           "a token is outside the vocabulary")
-    check(run["swap_identical"] is True,
-          "logical records changed across the hot swap")
+    check(run["first_banks"] == 1 and run["ticks_on_fallback"]
+          >= RELEASE_AFTER, f"the server served {run['ticks_on_fallback']} "
+          f"ticks from the fallback (at least {RELEASE_AFTER} expected)")
+    check(server.swaps + server.promotions >= 1 and run["swap_identical"]
+          and all(run["swap_identical"]),
+          "the server did not swap, or logical records changed across a "
+          "swap")
+    check(server.swaps + server.promotions == len(run["swap_walls"]),
+          "a swap or promotion of the server did not repack the table once")
     check(server.pager.artifact.n_banks == 8, "server is not on the solved "
           "layout")
     check(np.array_equal(run["records"], run["shadow"]),
@@ -1093,12 +1277,8 @@ def phase_serve(torch, cfg, seed):
             last_in_slot[s] = r.uid
     check(len(last_in_slot) == 8, f"only {len(last_in_slot)} of 8 slots hold "
           f"a request's prompt and outputs position by position")
-    ticks, lau = server.ticks, run["launches"]
-    check(lau["banked_gather"] == ticks,
-          f"gather launches {lau['banked_gather']} != ticks {ticks}")
-    check(lau["banked_scatter_elems"] == ticks + run["admit_ticks"],
-          f"scatter_elems launches {lau['banked_scatter_elems']} != ticks "
-          f"{ticks} + admitting ticks {run['admit_ticks']}")
+    lau = run["launches"]
+    check_serve_launches(cfg, run)
     by_path = {k: lau[f"banked_scatter_elems_{k}"]
                for k in ("warp", "block", "blocks")}
     past_warp = by_path["block"] + by_path["blocks"]
@@ -1111,27 +1291,18 @@ def phase_serve(torch, cfg, seed):
     check(len(flushes) == past_warp and
           all(np.array_equal(a, b) for a, b in zip(flushes[0], first_admit)),
           "the first flush past one warp is not the first admit's records")
-    check(lau["banked_scatter"] == 1,
-          f"row scatter launches {lau['banked_scatter']} != 1 swap")
-    moe_layers = cfg.n_layers if cfg.family == "moe" else 0
-    check(lau["moe_dispatch"] == moe_layers * run["decode_calls"],
-          f"moe_dispatch launches {lau['moe_dispatch']} != {moe_layers} "
-          f"MoE layers x {run['decode_calls']} decode calls")
-    check(lau["ssd_chunk"] == 0, f"the decode path launched the SSD chunk "
-          f"kernel {lau['ssd_chunk']} times: decode runs the recurrence")
-    check(lau["flash_attention"] == 0, f"the decode path launched the flash "
-          f"attention kernel {lau['flash_attention']} times: the server "
-          f"prefills through decode, which attends against its cache")
-    check(run["decode_calls"] < 1024, "cache.pos reached max_len")
     tokens = [list(r.out) for r in reqs]
     first = {k: run[k] for k in ("launches", "flushes", "admit_ticks",
                                  "wall", "init_s", "decode_calls",
                                  "peak_bytes", "layout")}
-    first["ticks"] = ticks
+    first["ticks"] = server.ticks
+    plan = plan_fields(run)
     del run, server, reqs
     free_device_memory(torch)
 
-    again = serve_once(torch, cfg, seed)
+    again_dir = store_dir + "_again"      # cold again: the same path
+    os.makedirs(again_dir)
+    again = serve_once(torch, cfg, seed, again_dir)
     check([list(r.out) for r in again["reqs"]] == tokens,
           "the same seed gave different tokens on the second run")
     del again
@@ -1148,8 +1319,114 @@ def phase_serve(torch, cfg, seed):
         wall_seconds=first["wall"], tokens_per_second=n_tokens / first["wall"],
         init_seconds=first["init_s"], launches=first["launches"],
         served_from=first["layout"], repeat_identical=True,
-        peak_memory_bytes=first["peak_bytes"])
-    return first["launches"], first["flushes"][0]
+        peak_memory_bytes=first["peak_bytes"], **plan)
+    return first["launches"], first["flushes"][0], tokens
+
+
+def phase_plan_plane(torch, qwen2, olmoe, seed, store_root, cold_store,
+                     tokens):
+    """The plan plane's own paths, each driven with the counts set to 0
+    just before it: (a) qwen2-7b on a fresh service over the store its
+    served phase filled -- answered at submit, served on the solved layout
+    from the first tick; (b) olmoe-1b-7b on a joint ticket over its two
+    pools, every pool promoted in one coherent generation; (c) qwen2-7b
+    with telemetry and certification on.  Returns the summed launches."""
+    launches = {}
+
+    def add(counts):
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+
+    # (a) a warm store: no solver call, no swap, the same tokens
+    warm = serve_once(torch, qwen2, seed, cold_store, hold=False)
+    srv = warm["server"]
+    check(warm["done_at_submit"] and warm["solver_calls"] == 0,
+          f"the warm store did not answer at submit "
+          f"({warm['solver_calls']} solver calls)")
+    check(warm["first_banks"] == 8 and srv.swaps + srv.promotions == 0
+          and warm["launches"]["banked_scatter"] == 0,
+          "the warm server did not start on the solved layout")
+    check([list(r.out) for r in warm["reqs"]] == tokens[qwen2.name],
+          "the warm server's tokens differ from the cold run's")
+    check_serve_launches(qwen2, warm)
+    add(warm["launches"])
+    warm_line = {**plan_fields(warm), "launches": warm["launches"],
+                 "ticks": srv.ticks}
+    warm_tick = tick_summary(warm["tick_ms"])["solved"]["median_ms"]
+    del warm, srv
+    free_device_memory(torch)
+
+    # (b) a joint ticket over olmoe's kv_pool and moe_dispatch
+    joint_dir = os.path.join(store_root, "joint")
+    os.makedirs(joint_dir)
+    jr = serve_once(torch, olmoe, seed, joint_dir, joint=True)
+    srv = jr["server"]
+    check(set(srv.generations) == {"kv_pool", "moe_dispatch"},
+          f"the joint ticket's pools are {sorted(srv.generations)}")
+    check(jr["incoherent"] == 0 and srv.coherent,
+          f"{jr['incoherent']} ticks saw pools of two generations")
+    check(srv.joint_swaps + srv.joint_promotions >= 1,
+          "the joint server never promoted its pools")
+    check(jr["swap_identical"] and all(jr["swap_identical"])
+          and jr["launches"]["banked_scatter"] == len(jr["swap_walls"]),
+          "a joint swap that changed the KV layout did not repack the "
+          "record table once, or changed its logical rows")
+    check([list(r.out) for r in jr["reqs"]] == tokens[olmoe.name],
+          "the joint server's tokens differ from the served olmoe run's")
+    check_serve_launches(olmoe, jr)
+    add(jr["launches"])
+    plan = jr["ticket"].result()
+    joint_line = {
+        **plan_fields(jr), "launches": jr["launches"], "ticks": srv.ticks,
+        "generations": dict(srv.generations), "coherent": True,
+        "kv_layout_changes": len(jr["swap_walls"]),
+        "layouts": {name: pool.artifact.describe()
+                    for name, pool in srv.pools.items()},
+        "fits": plan.fits(), "total_use": plan.total_use.as_dict()}
+    joint_line["layouts"]["kv_pool"] = jr["layout"]
+    del jr, srv, plan
+    free_device_memory(torch)
+
+    # (c) telemetry and certification on a served run
+    tel_dir = os.path.join(store_root, "telemetry")
+    os.makedirs(tel_dir)
+    tr = serve_once(torch, qwen2, seed, tel_dir, hold=False,
+                    wait_first=True, verify="store", telemetry=True)
+    srv, hub, lau = tr["server"], tr["hub"], tr["launches"]
+    check_serve_launches(qwen2, tr)
+    add(lau)
+    made = {"gather": lau["banked_gather"],
+            "scatter": lau["banked_scatter_elems"] + lau["banked_scatter"],
+            "tick": srv.ticks}
+    by_op = {}
+    for rec in hub.log.records():
+        by_op.setdefault(rec.op, {})[rec.bucket] = {
+            "count": rec.count, "p50_us": rec.p50() * 1e6}
+    counted = {op: sum(b["count"] for b in by_op.get(op, {}).values())
+               for op in made}
+    check(counted == made, f"telemetry counted {counted} calls, the run "
+          f"made {made}")
+    sig = tr["ticket"].signature
+    store = tr["service"].planner.store
+    cert = store.certificate_path(sig, tr["ticket"].scorer_name)
+    check(cert.exists(), "the served plan has no certificate in certs/")
+    tel_tick = tick_summary(tr["tick_ms"])["solved"]["median_ms"]
+    stats = tr["service"].stats
+    tel_line = {
+        **plan_fields(tr), "ticks": srv.ticks, "calls": made,
+        "measured": by_op, "certificate": os.path.relpath(cert, tel_dir),
+        "certified": stats.certified, "observations": stats.observations,
+        "demotions": stats.demotions,
+        "tick_median_ms": tel_tick, "warm_tick_median_ms": warm_tick,
+        "telemetry_ms_per_tick": tel_tick - warm_tick}
+    del tr, srv, hub
+    free_device_memory(torch)
+    say("plan_plane", warm_store=warm_line, joint=joint_line,
+        telemetry=tel_line,
+        note="p50s: wall per call with the card synchronised after it; "
+             "telemetry_ms_per_tick: median tick with telemetry on minus "
+             "the warm run's, same layout, same call")
+    return launches
 
 
 def phase_profile(torch, cfg, seed, ticks=8):
@@ -2063,10 +2340,20 @@ def main():
             launches[name] = launches.get(name, 0) + n
 
     served_flush = None       # the first served model's first admit flush
+    # the plan stores of the served runs, removed at the end
+    store_root = tempfile.mkdtemp(prefix="chip_smoke_plans_")
+    atexit.register(shutil.rmtree, store_root, ignore_errors=True)
+    tokens = {}
     for cfg in archs[:4]:
-        counts, flush = phase_serve(torch, cfg, args.seed)
+        store_dir = os.path.join(store_root, cfg.name)
+        os.makedirs(store_dir)
+        counts, flush, tokens[cfg.name] = phase_serve(torch, cfg, args.seed,
+                                                      store_dir)
         add(counts)
         served_flush = served_flush or flush
+    add(phase_plan_plane(torch, qwen2, olmoe, args.seed, store_root,
+                         os.path.join(store_root, qwen2.name), tokens))
+    del tokens
     ssd_args, ssd_held_by, attn_rows = {}, {}, []
     # the prefills: batch x tokens (whisper: over 1500 frames, a cache of
     # 448, its decoder's context); the SSM families also at 1000 tokens,

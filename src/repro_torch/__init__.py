@@ -2,13 +2,15 @@
 package ``repro`` (the reference).  Same sub-package layout; imports
 ``torch``, never ``jax`` and nothing of ``repro``.
 
-Ported so far: the banking math and solver (``core``), the executable
-artifact with its banked gather/scatter CUDA kernels (``core.artifact``,
-``kernels``), the architecture configs, the decode paths of the dense and
-MoE transformers and the prefill and decode paths of the Mamba2 SSM and
-the Zamba2 hybrid (``models``; the MoE dispatch and the SSD chunk are CUDA
-kernels too), and the continuous-batching decode server
-(``runtime.server``, ``launch.serve``).  Entry points run on ``cuda``
+Ported so far: the banking math and solver (``core``), the plan plane
+(planner, plan store, planning service with plan tickets, joint planning,
+telemetry, tracing in ``core``; tenancy in ``runtime.tenancy``; the
+certifier and lint in ``analysis``), the executable artifact with its
+banked gather/scatter CUDA kernels (``core.artifact``, ``kernels``), the
+architecture configs, the prefill and decode paths of every model family
+(``models``; the MoE dispatch, the SSD chunk and the flash attention are
+CUDA kernels too), and the continuous-batching decode server on plan
+tickets (``runtime.server``, ``launch.serve``).  Entry points run on ``cuda``
 and raise when there is no card unless the caller passes ``device="cpu"``.
 """
 

@@ -25,9 +25,10 @@ CPU table they take the plain torch versions in
 ``kernels/banked_gather.py``.  Artifacts serialize to JSON (including the
 op graphs, DAG-preserving) in the same ``compiled-banking-plan/v1`` format
 as the JAX package writes, identical apart from the ``backend`` field, so
-a file saved by either package loads in the other.  ``compile_plan``,
-``lane_compile`` and ``to_partition_spec`` need the planner and a device
-mesh and are not part of this package yet.
+a file saved by either package loads in the other.  ``compile_plan``
+lowers a planner's chosen scheme and ``lane_compile`` the first scheme
+fit for device-lane banking; ``to_partition_spec`` needs a device mesh
+and is not part of this package yet.
 """
 
 from __future__ import annotations
@@ -605,6 +606,17 @@ def compile_solution(sol: BankingSolution, *, signature: str = "",
         duplicates=sol.duplicates, scorer_name=scorer_name, note=sol.note)
 
 
+def compile_plan(plan, *, backend: str = "torch") -> CompiledBankingPlan:
+    """Lower a BankingPlan's chosen scheme.  Prefer ``plan.compile()`` /
+    ``BankingPlanner.compile(plan)``, which cache and persist artifacts."""
+    if plan.best is None:
+        raise ValueError(
+            f"plan for {plan.memory!r} has no solution to compile "
+            f"(status={plan.status})")
+    return compile_solution(plan.best, signature=plan.signature,
+                            backend=backend, scorer_name=plan.scorer_name)
+
+
 def compile_geometry(mem: MemorySpec, geometry, *,
                      P: Optional[Tuple[int, ...]] = None,
                      backend: str = "torch", transform_level: str = "full",
@@ -660,6 +672,24 @@ def compile_trivial(mem: MemorySpec, *, backend: str = "torch",
     return art
 
 
+def lane_compile(plan, lanes: int, *, backend: str = "torch"
+                 ) -> Optional[CompiledBankingPlan]:
+    """Compile the first candidate suitable for device-lane banking.
+
+    Device-level banking (the sharding bridge) needs a *flat* scheme whose
+    bank count is a lane multiple with fan-out 1 -- each lane owns one
+    shard, so no crossbar = no collective on the access path.  Returns the
+    compiled artifact, or None when no candidate qualifies.
+    """
+    for s in plan.solutions:
+        if (s.kind == "flat" and lanes > 0 and s.num_banks % lanes == 0
+                and s.fan_outs and max(s.fan_outs) == 1):
+            return compile_solution(s, signature=plan.signature,
+                                    backend=backend,
+                                    scorer_name=plan.scorer_name)
+    return None
+
+
 def as_compiled(obj, *, backend: str = "torch") -> CompiledBankingPlan:
     """Coerce to a CompiledBankingPlan.
 
@@ -688,9 +718,11 @@ __all__ = [
     "CompiledBankingPlan",
     "as_compiled",
     "compile_geometry",
+    "compile_plan",
     "compile_solution",
     "compile_trivial",
     "graph_from_json",
     "graph_to_json",
+    "lane_compile",
     "lower_np",
 ]

@@ -10,11 +10,14 @@ Serving structure (vLLM-style):
 * finished sequences (``max_new`` reached) free their slot for the next
   queued request -- continuous batching.
 
-The cache pages are banks from the banking solver (pages = banks, page
-size = bank volume).  The server takes a solved ``CompiledBankingPlan``;
-it can start on the trivial single-bank artifact (``compile_trivial``) and
-hot-swap the page pool -- and the bank-major token-record table -- to a
-solved artifact between decode ticks (:meth:`Server._swap_to`).
+The cache pages are banks from the banking planner (pages = banks, page
+size = bank volume).  The server never blocks on the solver:
+``page_ticket()`` submits the KV-pool problem to the
+:class:`~repro_torch.core.service.PlanService` and the :class:`Server`
+starts serving immediately from the ticket's **fallback artifact** (trivial
+single-bank scheme), then atomically hot-swaps the page pool -- and the
+bank-major token-record table -- to the solved artifact between decode
+ticks once the background solve lands (:meth:`Server._maybe_swap_kv`).
 
 Each decode tick reads its per-slot token records through **one batched
 banked gather** (a single kernel launch over a stacked ``(slots, W)``
@@ -34,18 +37,19 @@ from __future__ import annotations
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Deque, Dict, List, Optional
+from typing import Deque, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
-from ..core.artifact import CompiledBankingPlan, compile_solution
-from ..core.controller import (AccessDecl, Counter, Ctrl, Program, Sched,
-                               unroll)
-from ..core.grouping import build_groups
+from ..core.artifact import CompiledBankingPlan
+from ..core.controller import AccessDecl, Counter, Ctrl, Program, Sched
+from ..core.jointplan import ResourceBudget
 from ..core.polytope import Affine, MemorySpec
-from ..core.solver import SolverOptions, solve
+from ..core.service import (JointTicket, PlanService, PlanTicket,
+                            default_service)
+from ..core.solver import SolverOptions
 from ..device import resolve_device
 from ..kernels.banked_gather import SCATTER_MAX_T
 from ..launch import steps as steps_mod
@@ -72,31 +76,113 @@ def _page_program(max_len: int, page: int, readers: int) -> Program:
     )
 
 
+def model_memory_program(cfg: ArchConfig, max_len: int, page: int = 128,
+                         readers: int = 8) -> Program:
+    """One whole-model ``Program``: every banked memory the serving loop
+    touches for this architecture, as children of one root controller.
+
+    * ``kv_pool`` -- the paged KV cache every family reads per decode
+      tick (``readers`` parallel lanes, ``page``-token pages);
+    * ``moe_dispatch`` (MoE families) -- the per-expert token staging
+      buffer the router scatters into, ``top_k`` experts in parallel;
+    * ``ssm_state`` (SSM families) -- the chunked state the scan
+      updates, four head lanes in parallel.
+
+    This is what turns each config in ``configs/`` into a distinct
+    joint-planning workload: one ``submit_joint`` co-selects schemes
+    for all of a model's pools under a shared budget.
+    """
+    mems: Dict[str, MemorySpec] = {
+        "kv_pool": MemorySpec("kv_pool", dims=(max_len,), word_bits=16,
+                              ports=1)}
+    kids = [Ctrl("decode", Sched.INNER,
+                 counters=[Counter("r", 0, 1, readers, par=readers),
+                           Counter("j", 0, 1, page)],
+                 accesses=[AccessDecl("kv_pool",
+                                      (Affine.of(r=page, j=1),))])]
+    if cfg.n_experts > 0:
+        slot = max(4, page // 4)
+        mems["moe_dispatch"] = MemorySpec(
+            "moe_dispatch", dims=(cfg.n_experts * slot,), word_bits=16,
+            ports=1)
+        par = max(1, cfg.top_k)
+        kids.append(Ctrl(
+            "route", Sched.INNER,
+            counters=[Counter("e", 0, 1, par, par=par),
+                      Counter("j", 0, 1, slot)],
+            accesses=[AccessDecl("moe_dispatch",
+                                 (Affine.of(e=slot, j=1),))]))
+    if cfg.ssm_state > 0:
+        lanes = 4
+        mems["ssm_state"] = MemorySpec(
+            "ssm_state", dims=(lanes * cfg.ssm_state,), word_bits=16,
+            ports=1)
+        kids.append(Ctrl(
+            "scan", Sched.INNER,
+            counters=[Counter("h", 0, 1, lanes, par=lanes),
+                      Counter("j", 0, 1, cfg.ssm_state)],
+            accesses=[AccessDecl("ssm_state",
+                                 (Affine.of(h=cfg.ssm_state, j=1),))]))
+    if len(kids) == 1:
+        return Program(root=kids[0], memories=mems)
+    return Program(root=Ctrl("model", Sched.FORKJOIN, children=kids),
+                   memories=mems)
+
+
+def joint_ticket(cfg: ArchConfig, max_len: int, page: int = 128,
+                 readers: int = 8, *,
+                 service: Optional[PlanService] = None,
+                 budget: Optional[ResourceBudget] = None,
+                 scorer=None, tenant: Optional[str] = None) -> JointTicket:
+    """Submit the whole model's banking problems as ONE joint request;
+    returns the :class:`~repro_torch.core.service.JointTicket` immediately.
+
+    The server starts on ``ticket.fallback()`` for every pool and
+    promotes all of them to the jointly co-selected layouts atomically
+    between decode ticks -- never a mixed generation.  ``budget`` caps
+    the summed draw (banks / volume / LUT / FF / BRAM / DSP) across all
+    of the model's memories.
+    """
+    svc = service if service is not None else default_service()
+    return svc.submit_joint(
+        model_memory_program(cfg, max_len, page=page, readers=readers),
+        budget=budget,
+        opts=SolverOptions(b_candidates=(page, 1), allow_multidim=False),
+        scorer=scorer, tenant=tenant)
+
+
+def page_ticket(cfg: Optional[ArchConfig], max_len: int, page: int = 128,
+                readers: int = 8, *,
+                service: Optional[PlanService] = None,
+                scorer=None, tenant: Optional[str] = None) -> PlanTicket:
+    """Submit the KV-pool banking problem (pages = banks); returns the
+    :class:`PlanTicket` immediately.
+
+    ``readers`` concurrent decode lanes must never contend on a page.
+    The server starts on ``ticket.fallback()`` (one bank = one page, no
+    solver work) and hot-swaps to ``ticket.artifact()`` between ticks
+    when the solve lands; a warm plan store answers before the ticket is
+    even returned.  ``scorer="measured"`` ranks candidates on the
+    service's telemetry log (see ``PlanService.enable_telemetry``).
+    ``tenant`` names this server on a shared multi-tenant service
+    (QoS band, quotas, per-tenant stats -- see
+    :mod:`repro_torch.runtime.tenancy`).
+    """
+    svc = service if service is not None else default_service()
+    return svc.submit(
+        _page_program(max_len, page, readers), "kv_pool",
+        opts=SolverOptions(b_candidates=(page, 1), allow_multidim=False),
+        scorer=scorer, tenant=tenant)
+
+
 def page_solution(cfg: Optional[ArchConfig], max_len: int, page: int = 128,
                   readers: int = 8) -> CompiledBankingPlan:
-    """The *solved* compiled KV-pool artifact (pages = banks), synchronously.
+    """Blocking convenience: the *solved* compiled KV-pool artifact.
 
-    ``readers`` concurrent decode lanes must never contend on a page.  The
-    KV-pool program is unrolled, grouped and solved in this call, the
-    solutions ranked by the proxy resource cost, and the winner compiled:
-    what the planning service does behind a ticket.  Once the planning plane
-    is part of this package this becomes ``page_ticket(...).artifact()``
-    again, and the serving path starts from the ticket's fallback instead
-    of waiting here.
+    ``page_ticket(...).artifact()`` -- tools and tests that want the final
+    layout synchronously; the serving path itself uses the ticket.
     """
-    prog = _page_program(max_len, page, readers)
-    mem = prog.memories["kv_pool"]
-    up = unroll(prog)
-    sols = solve(mem, build_groups(up, "kv_pool"), up.iterators,
-                 SolverOptions(b_candidates=(page, 1), allow_multidim=False))
-    if not sols:
-        raise RuntimeError(f"no banking scheme found for the KV pool "
-                           f"(max_len={max_len}, page={page}, "
-                           f"readers={readers})")
-    for s in sols:                       # the "proxy" scorer's ranking
-        s.score = s.resources.total.weighted()
-    best = sorted(sols, key=lambda s: s.score)[0]
-    return compile_solution(best, scorer_name="proxy")
+    return page_ticket(cfg, max_len, page=page, readers=readers).artifact()
 
 
 class KVPagePool:
@@ -160,10 +246,17 @@ class KVPagePool:
 class Server:
     """Continuous-batching decode server.
 
-    ``kv_plan`` is a ``CompiledBankingPlan`` (or ``None`` for a server
-    without banked token records); anything else raises ``TypeError``.
-    The server builds its page pool and token-record table from the
-    artifact and can adopt another between ticks (:meth:`_swap_to`).
+    ``kv_plan`` may be a solved ``CompiledBankingPlan``, a ``PlanTicket``,
+    a ``JointTicket`` or ``None`` (a server without banked token records);
+    anything else raises ``TypeError``.  With a ticket the server builds
+    its page pool and token-record table from the ticket's fallback --
+    serving its first tick without waiting on the solver -- and atomically
+    swaps in the solved artifact between ticks once the ticket resolves.
+    A joint ticket brings the whole model's pools (``kv_pool`` plus e.g.
+    ``moe_dispatch`` / ``ssm_state``): ALL of them promote to the jointly
+    co-selected layouts in one coherent generation between decode ticks,
+    never a mixed one (``server.generations`` stays uniform by
+    construction; asserted by ``coherent``).
 
     Everything the server holds on a device -- parameters, KV cache,
     token-record table -- lies on ``device`` (default ``cuda``, which
@@ -174,15 +267,15 @@ class Server:
     """
 
     def __init__(self, model: Model, max_batch: int = 4, max_len: int = 128,
-                 kv_plan: Optional[CompiledBankingPlan] = None, *,
+                 kv_plan: Optional[Union[CompiledBankingPlan,
+                                         PlanTicket, JointTicket]] = None, *,
                  device="cuda", params=None, seed: int = 0,
                  generator: Optional[torch.Generator] = None):
-        if kv_plan is not None and not isinstance(kv_plan,
-                                                  CompiledBankingPlan):
+        if kv_plan is not None and not isinstance(
+                kv_plan, (CompiledBankingPlan, PlanTicket, JointTicket)):
             raise TypeError(
-                f"kv_plan must be a CompiledBankingPlan or None, got "
-                f"{type(kv_plan).__name__} (plan tickets are not part of "
-                f"this package yet)")
+                f"kv_plan must be a CompiledBankingPlan, a PlanTicket, a "
+                f"JointTicket or None, got {type(kv_plan).__name__}")
         self.device = resolve_device(device)
         self.model = model
         self.cfg = model.cfg
@@ -198,11 +291,55 @@ class Server:
             params = model.init(generator, device=self.device)
         self._params = params
         self.cache = model.init_cache(max_batch, max_len, device=self.device)
+        self._kv_ticket: Optional[PlanTicket] = None
         self._kv_art: Optional[CompiledBankingPlan] = None
-        # the planning service that answered the KV plan: tracing, metrics
-        # and telemetry spans read off it; without a plan plane it is None
-        self._kv_service = None
-        art = kv_plan
+        # the joint ticket graph and its satellite pools (every model
+        # memory except kv_pool, which owns the record table below)
+        self._joint: Optional[JointTicket] = None
+        self.pools: Dict[str, KVPagePool] = {}
+        self.generations: Dict[str, int] = {}
+        self._joint_version = 0
+        self._joint_adopted_final = False
+        # demotion hot-swap: remember which service answered the KV plan
+        # (and under which key) so _maybe_swap_kv can poll its telemetry
+        # hub for a replacement ticket after the served plan is demoted;
+        # tracing, metrics and telemetry spans read off it too
+        self._kv_service = (kv_plan._service
+                            if isinstance(kv_plan, (PlanTicket, JointTicket))
+                            else None)
+        self._kv_key = ((kv_plan.signature, kv_plan.scorer_name)
+                        if isinstance(kv_plan, PlanTicket) else None)
+        art: Optional[CompiledBankingPlan] = None
+        if isinstance(kv_plan, JointTicket):
+            self._joint = kv_plan
+            arts = (kv_plan.artifacts() if kv_plan.done()
+                    else kv_plan.fallback())
+            if "kv_pool" not in arts:
+                raise ValueError(
+                    "joint ticket has no 'kv_pool' member; build the "
+                    "program with model_memory_program()")
+            art = arts["kv_pool"]
+            for name, a in arts.items():
+                if name != "kv_pool":
+                    self.pools[name] = KVPagePool(a, slots=max_batch)
+            self.generations = {name: 0 for name in arts}
+            self._joint_adopted_final = kv_plan.done()
+        elif isinstance(kv_plan, PlanTicket):
+            # serve NOW: solved artifact when already done, else fallback.
+            # Only drop the ticket once its solved artifact was actually
+            # adopted -- a solve landing (or failing) between these calls
+            # must still hot-swap (or keep serving the fallback) later.
+            self._kv_ticket = kv_plan
+            if kv_plan.done():
+                try:
+                    art = kv_plan.artifact()
+                    self._kv_ticket = None
+                except Exception:
+                    art = None   # solve failed: fall back, like mid-serve
+            if art is None:
+                art = kv_plan.fallback()
+        elif kv_plan is not None:
+            art = kv_plan
         self.pager = (KVPagePool(art, slots=max_batch)
                       if art is not None else None)
         self.kv_records = None    # bank-major (banks, vol, max_batch) int32
@@ -210,7 +347,11 @@ class Server:
         self._gather_window = min(4, max_len)
         if art is not None:
             self._adopt_kv_artifact(art, records=None)
-        self.swaps = 0            # layouts adopted through _swap_to
+        self.swaps = 0            # solved layouts adopted (final plan)
+        self.promotions = 0       # best-so-far adoptions before the solve
+        self.joint_swaps = 0      # coherent all-pool swaps (final plan)
+        self.joint_promotions = 0  # coherent all-pool best-so-far adoptions
+        self._kv_best_version = 0
         self.tokens = torch.zeros((max_batch, 1), dtype=torch.int32,
                                   device=self.device)
         self.positions = np.zeros(max_batch, np.int64)  # next record slot
@@ -296,6 +437,118 @@ class Server:
         self._adopt_kv_artifact(art, records=flat)
         self.pager.swap(art)
 
+    def _maybe_swap_kv(self) -> None:
+        """Between ticks: promote the page layout toward the solver.
+
+        While the sharded search streams, the ticket's **best-so-far**
+        scheme is adopted whenever it improves (the search never
+        regresses, so each promotion strictly improves the layout); once
+        the ticket resolves, the final solved artifact is swapped in --
+        same winner the monolithic solver would have produced.
+
+        With telemetry enabled on the answering service, a served layout
+        the measurements demoted leaves a *replacement* re-solve ticket
+        on the hub; adopting it here closes the self-correction loop --
+        measure, demote, re-solve, hot-swap -- without the server ever
+        blocking.
+        """
+        t = self._kv_ticket
+        if t is None and self._kv_service is not None \
+                and self._kv_key is not None:
+            hub = getattr(self._kv_service, "telemetry", None)
+            if hub is not None:
+                t = hub.replacement(self._kv_key)
+                if t is not None:
+                    self._kv_ticket = t
+                    self._kv_best_version = 0
+        if t is None:
+            return
+        if t.done():
+            self._kv_ticket = None
+            try:
+                art = t.artifact()
+            except Exception:
+                return  # solve failed: keep serving the current layout
+            if art.layout == self._kv_art.layout:
+                return  # a promotion already landed the winning layout
+            self._swap_to(art)
+            self.swaps += 1
+            return
+        version = t.best_version()
+        if version == self._kv_best_version:
+            return
+        self._kv_best_version = version
+        art = t.best_so_far_artifact()
+        if art is None or art.layout == self._kv_art.layout:
+            return
+        self._swap_to(art)
+        self.promotions += 1
+
+    # -- coherent multi-pool swap ---------------------------------------------
+    @property
+    def coherent(self) -> bool:
+        """True iff every pool serves the same joint generation -- the
+        invariant the atomic all-pool swap maintains: a decode tick
+        never sees a mixed generation."""
+        return len(set(self.generations.values())) <= 1
+
+    def _swap_all(self, arts: Dict[str, CompiledBankingPlan]) -> int:
+        """Adopt a whole joint selection atomically between ticks: the
+        KV record table repacks (``_swap_to`` flushes the pending records
+        into the old layout first), every satellite pool re-pages, and ALL
+        pool generations advance to one new value in the same swap --
+        no tick ever reads pools from two generations.  Returns how
+        many pools actually changed layout."""
+        changed = 0
+        kv = arts.get("kv_pool")
+        if kv is not None and self._kv_art is not None \
+                and kv.layout != self._kv_art.layout:
+            self._swap_to(kv)
+            changed += 1
+        for name, pool in self.pools.items():
+            a = arts.get(name)
+            if a is not None and a.layout != pool.artifact.layout:
+                pool.swap(a)
+                changed += 1
+        gen = max(self.generations.values(), default=0) + 1
+        for name in self.generations:
+            self.generations[name] = gen
+        return changed
+
+    def _maybe_swap_joint(self) -> None:
+        """Between ticks: promote ALL pools toward the joint selection.
+
+        While member solves stream, the joint ticket re-co-selects
+        progressively; whenever the *joint* selection changes (its
+        ``best_version`` bumps) every pool adopts its newly selected
+        layout in one coherent swap.  Once the ticket resolves, the
+        final certified selection lands the same way -- never a mixed
+        generation."""
+        jt = self._joint
+        if jt is None:
+            return
+        if jt.done():
+            if self._joint_adopted_final:
+                return
+            self._joint_adopted_final = True
+            try:
+                arts = jt.artifacts()
+            except Exception:
+                return   # selection failed: keep serving current layouts
+            if self._swap_all(arts):
+                self.joint_swaps += 1
+            return
+        version = jt.best_version()
+        if version == self._joint_version:
+            return
+        self._joint_version = version
+        try:
+            arts = jt.artifacts()
+        except Exception:
+            return
+        if self._swap_all(arts):
+            self.joint_promotions += 1
+
     # -- admission -------------------------------------------------------------
     def submit(self, req: Request):
         self.queue.append(req)
@@ -352,14 +605,14 @@ class Server:
 
     def _serve_tracer(self):
         """(tracer, serve trace_id) off the answering service, or
-        (None, None) -- the serve loop traces only when a plan service
-        does, and none is attached in this package yet."""
+        (None, None) -- the serve loop traces only when the plan
+        service does."""
         tr = getattr(self._kv_service, "tracer", None)
         if tr is None:
             return None, None
         tid = self._serve_trace
         if tid is None:
-            from ..core.tracing import new_trace_id   # with the plan plane
+            from ..core.tracing import new_trace_id
             tid = self._serve_trace = new_trace_id()
             tr.label(tid, "serve loop")
         return tr, tid
@@ -368,6 +621,18 @@ class Server:
         tr, tid = self._serve_tracer()
         metrics = getattr(self._kv_service, "metrics", None)
         t_tick = time.perf_counter()
+        swaps0 = self.swaps + self.promotions \
+            + self.joint_swaps + self.joint_promotions
+        if self._joint is not None:
+            self._maybe_swap_joint()
+        else:
+            self._maybe_swap_kv()
+        if tr is not None and self.swaps + self.promotions \
+                + self.joint_swaps + self.joint_promotions > swaps0:
+            tr.record(tid, "promote", t_tick, time.perf_counter(),
+                      swaps=self.swaps, promotions=self.promotions,
+                      joint_swaps=self.joint_swaps,
+                      joint_promotions=self.joint_promotions)
         self._admit()
         if not self.active:
             return
@@ -428,7 +693,7 @@ class Server:
         while (self.queue or self.active) and self.ticks < max_ticks:
             self.tick()
         # flush a partial serve-trace window so short runs still land
-        # their gather/decode/scatter spans in the recorder
+        # their gather/decode/scatter/promote spans in the recorder
         if self._serve_trace is not None:
             tr = getattr(self._kv_service, "tracer", None)
             if tr is not None:

@@ -70,8 +70,11 @@ def test_package_exports_only_what_it_holds():
 
     for name in core.__all__:
         assert hasattr(core, name), name
-    for later in ("BankingPlanner", "PlanService", "compile_plan",
-                  "lane_compile", "DirectoryStore"):
+    for plan_plane in ("BankingPlanner", "PlanService", "compile_plan",
+                       "lane_compile", "DirectoryStore", "JointTicket",
+                       "MeasuredScorer", "Tracer", "TenantRegistry"):
+        assert plan_plane in core.__all__, plan_plane
+    for later in ("SolveFabric", "spawn_local_workers"):
         assert not hasattr(core, later), later
     assert repro_torch.__all__ == ["convert", "core", "resolve_device"]
     assert not hasattr(core.transforms, "lower_jnp")

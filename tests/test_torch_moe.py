@@ -309,12 +309,16 @@ def test_moe_entry_points_raise_without_a_card_unless_asked_for_cpu(entry):
     assert calls[entry](device="cpu") is not None
 
 
-def test_launcher_serves_reduced_olmoe_on_the_cpu(capsys):
+def test_launcher_serves_reduced_olmoe_on_the_cpu(capsys, monkeypatch,
+                                                 tmp_path):
     from repro_torch.launch import serve
+    from test_torch_server import gate_first_solve
 
+    gate_first_solve(monkeypatch)
     srv = serve.main(["--arch", "olmoe-1b-7b", "--smoke", "--device", "cpu",
                       "--requests", "3", "--max-batch", "2", "--max-new", "3",
-                      "--max-len", "32", "--seed", "2"])
+                      "--max-len", "32", "--seed", "2",
+                      "--plan-store", str(tmp_path)])
     out = capsys.readouterr().out
     assert srv.swaps == 1 and not srv.queue and not srv.active
     assert "hot-swapped to solved layout" in out

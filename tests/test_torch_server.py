@@ -7,6 +7,8 @@ MoE family (olmoe-1b-7b), the SSM family (mamba2-370m) and the hybrid family
 decode, and a slot's SSM state is not reset when a new request takes the
 slot over, in both packages alike."""
 
+import threading
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -231,12 +233,38 @@ def test_records_hold_prompts_and_outputs_position_by_position():
         assert (flat[S + 5:, slot] == 0).all()
 
 
-def test_launcher_serves_the_reduced_model_on_the_cpu(capsys):
+def gate_first_solve(monkeypatch):
+    """Hold the port's first cold solve until a server has served one tick
+    from its ticket's fallback, then let it land before the next tick: the
+    server starts on the trivial layout and ``_maybe_swap_kv`` hot-swaps
+    it exactly once, however fast the solver is."""
+    gate = threading.Event()
+    build, tick = port_core.BankingPlanner.build_space, PS.Server._tick
+
+    def gated(self, prep):
+        gate.wait(30)
+        return build(self, prep)
+
+    def tick_then_release(self):
+        tick(self)
+        if self.ticks == 1 and not gate.is_set():
+            gate.set()
+            assert self._kv_ticket.wait(30)
+
+    monkeypatch.setattr(port_core.BankingPlanner, "build_space", gated)
+    monkeypatch.setattr(PS.Server, "_tick", tick_then_release)
+    return gate
+
+
+def test_launcher_serves_the_reduced_model_on_the_cpu(capsys, monkeypatch,
+                                                      tmp_path):
     from repro_torch.launch import serve
 
+    gate_first_solve(monkeypatch)
     srv = serve.main(["--arch", "qwen2-7b", "--smoke", "--device", "cpu",
                       "--requests", "3", "--max-batch", "2", "--max-new", "3",
-                      "--max-len", "32", "--seed", "2"])
+                      "--max-len", "32", "--seed", "2",
+                      "--plan-store", str(tmp_path)])
     out = capsys.readouterr().out
     assert srv.swaps == 1 and not srv.queue and not srv.active
     assert "serving from: compiled flat N=1 B=1" in out
