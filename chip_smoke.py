@@ -50,7 +50,21 @@ Run from the root of a checkout, with no arguments, it
    joint ticket over its KV pool and its expert buffer (every tick
    coherent, the pools promoted together), and qwen2-7b with telemetry and
    certification on (the measured calls counted against the launches, the
-   served plan's certificate in the store); then the prefills --
+   served plan's certificate in the store); then the fleet
+   (``launch/serve_fleet.py`` with ``--fabric``): qwen2-7b, olmoe-1b-7b
+   and mamba2-370m at full width on threads, each a tenant of one
+   ``PlanService`` whose cold solves (six noise solves first) run on a
+   ``SolveFabric`` with two port solve workers, checked for fabric solves
+   with no fallback, stats slices that sum to the global counters, record
+   tables, launch counts, tokens equal to each server run alone, the
+   card's free memory unmoved by the workers' attach (under 64 MB) and no
+   worker left after the fabric's shutdown; then the two decode variants
+   of the dense transformer -- gemma3-12b's ring-banked local caches past
+   the ring's wrap against the full-buffer decode (layer 0's ring rows bit
+   for bit, the logits within twice the full-buffer decode's own spread
+   under another attention reduction order), qwen2-7b's int8 cache against
+   the exact decode (softmax within 0.05);
+   then the prefills --
    mamba2-370m (8 x 2048 tokens) and
    zamba2-2.7b (4 x 2048), both also at 1000 tokens (the pad path),
    qwen2-7b (4 x 2048), gemma3-12b (2 x 4096, past its window of 1024),
@@ -86,7 +100,8 @@ non-zero exit code.  There is no CPU fallback: without a CUDA device, or
 without the package beside this file, it exits non-zero and prints no
 result.  The last line is ``{"ok": true, "device": {...}}``.
 
-``--layers`` cuts the models' depth and ``--skip-serve`` leaves phases 3-5
+``--layers`` cuts the models' depth (not the fleet's: ``serve_fleet``
+builds its servers from the catalog) and ``--skip-serve`` leaves phases 3-5
 out; both are for iterating on the kernels and change what the last line
 may claim: with ``--skip-serve`` there is no ``ok`` line.  ``--profile``
 adds a ``torch.profiler`` window over a few steady decode ticks of each
@@ -1429,6 +1444,451 @@ def phase_plan_plane(torch, qwen2, olmoe, seed, store_root, cold_store,
     return launches
 
 
+FLEET_WORKERS = 2       # solve workers the fleet's fabric gets
+WORKER_MEMORY_BYTES = 64 << 20   # the card memory the workers may take
+
+
+class FleetWatch:
+    """For the length of a ``with`` block, watches every ``Server`` the
+    fleet builds and holds its KV-pool solves: ``Server.tick``,
+    ``_record`` and ``_swap_to`` are wrapped at class level (in this
+    script only, never in the package) to time each tick, count the ticks
+    that admit, shadow what each server asked to record and check the
+    logical rows across each repack; ``BankingPlanner.build_space`` waits,
+    for the memory ``kv_pool`` only, until every one of the ``n`` servers
+    has served ``RELEASE_AFTER`` ticks from its ticket's fallback (the noise
+    solves run at once), so that each server starts on the fallback and
+    the swap is made by the server itself, between ticks."""
+
+    def __init__(self, n):
+        import threading
+
+        from repro_torch.core import BankingPlanner
+        from repro_torch.runtime.server import Server
+
+        self.n, self.cls, self.planner = n, Server, BankingPlanner
+        self.real = {name: getattr(Server, name)
+                     for name in ("tick", "_record", "_swap_to")}
+        self.real_build = BankingPlanner.build_space
+        self.release = threading.Event()
+        self.states = {}          # id(server) -> what was seen of it
+
+    def state(self, server):
+        import numpy as np
+
+        st = self.states.get(id(server))
+        if st is None:
+            st = self.states[id(server)] = {
+                "server": server, "tick_ms": [], "admit_ticks": 0,
+                "fallback_ticks": 0, "swap_identical": [],
+                "shadow": np.zeros((server.max_len, server.max_batch),
+                                   np.int32)}
+        return st
+
+    def __enter__(self):
+        import torch
+
+        watch, real = self, self.real
+
+        def tick(server):
+            st = watch.state(server)
+            queued, t = len(server.queue), time.perf_counter()
+            st["fallback_ticks"] += server.pager.pages_per_slot == 1
+            real["tick"](server)
+            st["tick_ms"].append((time.perf_counter() - t) * 1e3)
+            st["admit_ticks"] += len(server.queue) < queued
+            if len(watch.states) == watch.n and all(
+                    s["server"].ticks >= RELEASE_AFTER
+                    or not (s["server"].queue or s["server"].active)
+                    for s in watch.states.values()):
+                watch.release.set()
+
+        def record(server, slot, tok):
+            pos = int(server.positions[slot])
+            if pos < server.max_len:
+                watch.state(server)["shadow"][pos, slot] = tok
+            real["_record"](server, slot, tok)
+
+        def swap_to(server, art):
+            before = server._kv_art.unpack(server.kv_records).clone()
+            real["_swap_to"](server, art)
+            after = server._kv_art.unpack(server.kv_records)
+            torch.cuda.synchronize()
+            watch.state(server)["swap_identical"].append(
+                max_abs_diff(before, after) == 0.0)
+
+        def build_space(planner, prep):
+            if prep.mem.name == "kv_pool":
+                watch.release.wait(120)    # a worker thread: no exit here
+            return watch.real_build(planner, prep)
+
+        self.cls.tick, self.cls._record = tick, record
+        self.cls._swap_to = swap_to
+        self.planner.build_space = build_space
+        return self
+
+    def __exit__(self, *exc):
+        self.release.set()
+        for name, fn in self.real.items():
+            setattr(self.cls, name, fn)
+        self.planner.build_space = self.real_build
+
+
+def phase_fleet(torch, seed):
+    """The fleet: ``serve_fleet.main`` as a user runs it with ``--fabric``
+    -- interactive, batch and best-effort tenants serving qwen2-7b,
+    olmoe-1b-7b and mamba2-370m at full width on threads, on one card,
+    over one ``PlanService`` and one ``SolveFabric`` with two port workers
+    from ``spawn_local_workers``, six cold noise solves of the batch tenant
+    first.  The fabric is opened here and handed in, so that the card's
+    free memory can be read around the workers' attach.  Checks: every
+    ticket done, fabric solves with no fallback, the slices summing to the
+    global counters, each record table equal to what its server recorded
+    (across every repack), the launch counts against the ticks, tokens
+    equal to each server run alone on the pool, under 64 MB of card memory
+    taken by the workers, no worker left once the fabric is shut down.
+    Returns the fleet's launches."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import PlanService, SolveFabric, spawn_local_workers
+    from repro_torch.kernels import banked_gather as bg
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.launch import serve_fleet
+    from repro_torch.runtime.tenancy import TenantRegistry
+
+    fleet = serve_fleet.DEFAULT_FLEET
+    free_device_memory(torch)
+    torch.cuda.synchronize()
+    free_before = torch.cuda.mem_get_info()[0]
+    fabric = SolveFabric()
+    t0 = time.perf_counter()
+    procs = spawn_local_workers(fabric.address, FLEET_WORKERS)
+    try:
+        check(fabric.wait_for_workers(FLEET_WORKERS, timeout=120),
+              f"{FLEET_WORKERS} solve workers did not attach in 120 s")
+        attach_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        free_after = torch.cuda.mem_get_info()[0]
+        worker_bytes = free_before - free_after
+        check(abs(worker_bytes) < WORKER_MEMORY_BYTES,
+              f"the card's free memory moved by {worker_bytes} bytes while "
+              f"the solve workers attached: a worker opened a context")
+
+        argv = ["--device", "cuda", "--seed", str(seed), "--fabric"]
+        with FleetWatch(len(fleet)) as watch:
+            bg.reset_launch_counts()          # the fleet's path starts here
+            md.reset_launch_counts()
+            sc.reset_launch_counts()
+            fa.reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                out = serve_fleet.main(argv, fabric=fabric)
+            except SystemExit as e:
+                fail(f"serve_fleet: {e}")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {**bg.LAUNCHES, **md.LAUNCHES, **sc.LAUNCHES,
+                        **fa.LAUNCHES,                   # and ends here
+                        **{f"banked_scatter_elems_{k}": n
+                           for k, n in bg.SCATTER_ELEMS_PATHS.items()}}
+        check(fabric.workers_alive == FLEET_WORKERS,
+              "a solve worker was lost during the fleet's run")
+        fabric_stats = dataclasses.asdict(fabric.stats)
+    finally:
+        fabric.shutdown()
+        left = []
+        for p in procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                left.append(p.pid)
+                p.kill()
+                p.wait()
+    check(not left, f"solve workers {left} were alive 30 s after the "
+          f"fabric shut down")
+
+    stats, slices = out["stats"], out["slices"]
+    check(stats.get("fabric_solves", 0) >= 1
+          and stats.get("fabric_leases", 0) > 0
+          and stats.get("fabric_fallbacks", 0) == 0,
+          f"fabric solves {stats.get('fabric_solves')}, leases "
+          f"{stats.get('fabric_leases')}, fallbacks "
+          f"{stats.get('fabric_fallbacks')}")
+    mismatched = [k for k, v in stats.items()
+                  if v != sum(s.get(k, 0) for s in slices.values())]
+    check(not mismatched, f"tenant slices do not sum on {mismatched}")
+    check(all(t.done() for t in out["noise"]), "a noise ticket is not done")
+
+    expect = {"banked_gather": 0, "banked_scatter_elems": 0,
+              "banked_scatter": 0, "moe_dispatch": 0}
+    tenants = {}
+    for offset, (name, _, arch) in enumerate(fleet):
+        res, srv = out["results"][name], out["servers"][name]
+        reqs, st = out["requests"][name], watch.states[id(srv)]
+        cfg = srv.cfg
+        check(res["ticket_status"] == "done", f"{name}'s ticket is "
+              f"{res['ticket_status']}")
+        check(all(r.done and len(r.out) == r.max_new for r in reqs),
+              f"a request of {name} did not finish with max_new tokens")
+        records = srv._kv_art.unpack(srv.kv_records).cpu().numpy()
+        check(np.array_equal(records, st["shadow"]),
+              f"{name}'s record table differs from what it recorded")
+        check(all(st["swap_identical"]) and len(st["swap_identical"])
+              == srv.swaps + srv.promotions,
+              f"{name}: logical records changed across a repack, or a "
+              f"swap did not repack once")
+        check(st["fallback_ticks"] >= RELEASE_AFTER,
+              f"{name} served {st['fallback_ticks']} ticks from the "
+              f"fallback (at least {RELEASE_AFTER} expected)")
+        decode_calls = int(srv.cache.pos)
+        expect["banked_gather"] += srv.ticks
+        expect["banked_scatter_elems"] += srv.ticks + st["admit_ticks"]
+        expect["banked_scatter"] += len(st["swap_identical"])
+        if cfg.family == "moe":
+            expect["moe_dispatch"] += cfg.n_layers * decode_calls
+        tenants[name] = {
+            **res, "promotions": srv.promotions, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "max_len": srv.max_len,
+            "decode_calls": decode_calls, "admitting_ticks": st["admit_ticks"],
+            "ticks_on_fallback": st["fallback_ticks"],
+            "tick_ms_median": float(np.median(st["tick_ms"])),
+            "tokens": [list(map(int, r.out)) for r in reqs]}
+    for name, want in expect.items():
+        check(launches[name] == want, f"fleet {name} launches "
+              f"{launches[name]} != {want} from the servers' ticks, admits, "
+              f"repacks and decode calls")
+    check(launches["ssd_chunk"] == 0 and launches["flash_attention"] == 0,
+          f"the fleet's decode path launched {launches['ssd_chunk']} SSD "
+          f"chunks and {launches['flash_attention']} flash attentions")
+    check(expect["banked_scatter"] >= 1, "no server of the fleet swapped")
+    service = out["service"]
+    del out, watch, srv, reqs, st
+    free_device_memory(torch)
+
+    # each server alone, on the pool, same settings and seed (its solve
+    # held as in the fleet, so that it swaps alike)
+    for offset, (name, qos, arch) in enumerate(fleet):
+        registry = TenantRegistry()
+        registry.register(name, qos)
+        svc = PlanService(workers=2, tenants=registry)
+        try:
+            with FleetWatch(1) as watch:
+                res, srv, reqs = serve_fleet.run_tenant(
+                    svc, name, arch, offset, seed=seed, device="cuda")
+        finally:
+            svc.shutdown()
+        solo = [list(map(int, r.out)) for r in reqs]
+        check(solo == tenants[name]["tokens"], f"{name}'s fleet tokens "
+              f"{tenants[name]['tokens']} differ from its solo run's {solo}")
+        tenants[name]["solo"] = {
+            "ticks": srv.ticks, "serve_s": res["serve_s"],
+            "swaps": srv.swaps, "promotions": srv.promotions,
+            "tick_ms_median": float(np.median(
+                watch.states[id(srv)]["tick_ms"]))}
+        del srv, reqs, watch
+        free_device_memory(torch)
+    say("fleet", tenants=tenants, wall_seconds=wall,
+        workers=FLEET_WORKERS, worker_attach_seconds=attach_s,
+        worker_card_bytes=worker_bytes, launches=launches,
+        service={k: v for k, v in stats.items() if v},
+        fabric=fabric_stats, solo_tokens_equal=True,
+        workers_left=0, slice_reconciliation="exact",
+        note="tick_ms_median: host wall of a tick (its decode calls, a "
+             "prompt fed through decode one token a call), in the fleet "
+             "three servers sharing one interpreter and one card; solo: "
+             "the same server alone on the pool")
+    del service
+    return launches
+
+
+VARIANT_TOL = (0.05, 0.02)       # atol, rtol: tests/test_perf_variants.py
+# At gemma3-12b's width the reference's bound is out of reach for the dense
+# decode itself: the same step with its attention reduced in another order
+# (one 2048-key block instead of the one-shot decode einsum) moves the
+# logits past it, by up to 0.03 over six layers and 0.27 over 48 (bf16
+# rounding flips that the random network amplifies layer by layer;
+# scripts/ring_spread.py).  The
+# ring is held to that spread, measured in the same run on the same
+# inputs: its largest difference from the dense decode may be at most
+# RING_SPREAD times the dense decode's own, where a wrong slot or mask
+# moves the logits by their own scale (std ~1.2), some 20 times it.
+RING_SPREAD = 2.0
+QUANT_SOFTMAX_TOL = 0.05
+
+
+def variant_step(torch, fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def bound_excess(a, b, atol, rtol):
+    """How far ``b`` lies past ``|a - b| <= atol + rtol |a|`` (<= 0: within)."""
+    a, b = a.float(), b.float()
+    return float(((a - b).abs() - (atol + rtol * a.abs())).max())
+
+
+def ring_history(torch, cfg, gen, batch, max_len, history):
+    """A ``KVCache`` of ``max_len`` rows and a ``GroupedKVCache`` on the card
+    holding one random bf16 K/V history of ``history`` positions (drawn
+    from ``gen``, layer by layer), both at ``pos = history``: the full
+    buffers hold every position, each ring the last W in slots ``pos mod
+    W``, each global buffer every position."""
+    from repro_torch.models import transformer as tfm
+
+    G, R = tfm.grouped_layout(cfg)
+    W = cfg.sliding_window
+    full = tfm.init_cache(cfg, batch, max_len, device="cuda")
+    ring = tfm.init_grouped_cache(cfg, batch, max_len, device="cuda")
+    keep = torch.arange(history - W, history, device="cuda")
+    slots = torch.remainder(keep, W)
+    shape = (batch, history, cfg.n_kv_heads, cfg.hd)
+    for i in range(cfg.n_layers):
+        g, r = divmod(i, R + 1)
+        for buf, local, glob in ((full.k, ring.k_local, ring.k_global),
+                                 (full.v, ring.v_local, ring.v_global)):
+            kv = torch.randn(shape, generator=gen, device="cuda",
+                             dtype=torch.float32).to(torch.bfloat16)
+            buf[i, :, :history] = kv
+            if r < R:
+                local[g, r][:, slots] = kv[:, keep]
+            else:
+                glob[g][:, :history] = kv
+    return full._replace(pos=history), ring._replace(pos=history)
+
+
+def phase_decode_variants(torch, gemma3, qwen2, seed, history=1100,
+                          steps=8, quant_steps=16):
+    """The dense transformer's two decode variants at full width.
+    gemma3-12b, B 2: one random bf16 K/V history of ``history`` positions
+    in a ``KVCache`` (max_len 1152) and in a ``GroupedKVCache`` (the ring
+    has wrapped: positions 76-1099 in slots ``pos mod 1024``), then
+    ``steps`` steps of ``decode_step`` and ``grouped_decode_step``, each fed
+    the full path's argmax, beside ``decode_step`` with another attention
+    reduction order (``block_k`` 2048) on a copy of the cache: layer 0's
+    ring rows equal the dense buffer's rows of the positions the ring keeps,
+    bit for bit, at every step (its inputs are the same in both paths),
+    and the logits' largest difference from the dense decode stays within
+    ``RING_SPREAD`` times the dense decode's own across the run; the
+    excess over the reference's bound (atol 0.05, rtol 0.02) is printed
+    for both.  qwen2-7b, B 4: ``quant_steps`` steps of ``decode_step_quant``
+    beside ``decode_step`` from empty caches of 1024, the softmax held
+    within 0.05.  Prints both caches' bytes and the median step time of
+    each path (host wall, the card synchronised)."""
+    import numpy as np
+
+    from repro_torch.kernels import banked_gather as bg
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.models import get_model
+    from repro_torch.models import transformer as tfm
+
+    def nbytes(cache):
+        return sum(t.numel() * t.element_size() for t in cache
+                   if isinstance(t, torch.Tensor))
+
+    for mod in (bg, md, sc, fa):
+        mod.reset_launch_counts()
+    free_device_memory(torch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    B, max_len = 2, 1152
+    G, R = tfm.grouped_layout(gemma3)
+    W = gemma3.sliding_window
+    params = get_model(gemma3).init(gen, device="cuda")
+    full, ring = ring_history(torch, gemma3, gen, B, max_len, history)
+    twin = tfm.KVCache(full.k.clone(), full.v.clone(), history)
+    tok = torch.randint(2, gemma3.vocab - 1, (B, 1), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    ms_full, ms_ring, ring_diff, twin_diff = [], [], [], []
+    ring_excess, twin_excess = [], []
+    atol, rtol = VARIANT_TOL
+    for step in range(steps):
+        (lf, full), t_f = variant_step(
+            torch, lambda: tfm.decode_step(gemma3, params, full, tok))
+        (lr, ring), t_r = variant_step(
+            torch, lambda: tfm.grouped_decode_step(gemma3, params, ring, tok))
+        lt, twin = tfm.decode_step(gemma3, params, twin, tok, block_k=2048)
+        ms_full.append(t_f)
+        ms_ring.append(t_r)
+        check(all(bool(torch.isfinite(x).all()) for x in (lf, lr, lt)),
+              f"gemma3-12b logits not finite at step {step}")
+        ring_diff.append(float((lf.float() - lr.float()).abs().max()))
+        twin_diff.append(float((lf.float() - lt.float()).abs().max()))
+        ring_excess.append(bound_excess(lf, lr, atol, rtol))
+        twin_excess.append(bound_excess(lf, lt, atol, rtol))
+        pos = full.pos - 1 - torch.arange(W, device="cuda")  # what it keeps
+        for got, want in ((ring.k_local[0, 0], full.k[0]),
+                          (ring.v_local[0, 0], full.v[0])):
+            check(torch.equal(got[:, torch.remainder(pos, W)], want[:, pos]),
+                  f"gemma3-12b ring rows of layer 0 differ from the dense "
+                  f"buffer's at step {step}")
+        tok = lf.argmax(-1).to(torch.int32)[:, None]
+    check(max(ring_diff) <= RING_SPREAD * max(twin_diff),
+          f"gemma3-12b ring decode differs from the dense decode by "
+          f"{max(ring_diff)}, past {RING_SPREAD} x the dense decode's own "
+          f"spread {max(twin_diff)} (per step: ring {ring_diff}, dense "
+          f"{twin_diff})")
+    grouped = {"arch": gemma3.name, "layers": gemma3.n_layers,
+               "groups": G, "locals_per_group": R, "window": W,
+               "batch": B, "max_len": max_len, "history": history,
+               "steps": steps, "ring_slot_of_last": tfm.ring_slot(
+                   history + steps - 1, W),
+               "max_abs_logit_diff": ring_diff,
+               "dense_reordered_max_abs_logit_diff": twin_diff,
+               "reference_bound_excess": ring_excess,
+               "dense_reordered_reference_bound_excess": twin_excess,
+               "layer0_ring_rows_equal": True,
+               "full_cache_bytes": nbytes(full),
+               "grouped_cache_bytes": nbytes(ring),
+               "full_step_ms_median": float(np.median(ms_full)),
+               "grouped_step_ms_median": float(np.median(ms_ring))}
+    del params, full, ring, twin, lf, lr, lt
+    free_device_memory(torch)
+
+    B, max_len = 4, 1024
+    params = get_model(qwen2).init(gen, device="cuda")
+    full = tfm.init_cache(qwen2, B, max_len, device="cuda")
+    quant = tfm.init_quant_cache(qwen2, B, max_len, device="cuda")
+    tok = torch.randint(2, qwen2.vocab - 1, (B, 1), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    worst, ms_full, ms_quant = 0.0, [], []
+    for step in range(quant_steps):
+        (lf, full), t_f = variant_step(
+            torch, lambda: tfm.decode_step(qwen2, params, full, tok))
+        (lq, quant), t_q = variant_step(
+            torch, lambda: tfm.decode_step_quant(qwen2, params, quant, tok))
+        ms_full.append(t_f)
+        ms_quant.append(t_q)
+        diff = float((torch.softmax(lf.float(), -1)
+                      - torch.softmax(lq.float(), -1)).abs().max())
+        worst = max(worst, diff)
+        check(diff < QUANT_SOFTMAX_TOL, f"qwen2-7b int8 decode's softmax "
+              f"differs by {diff} at step {step}")
+        tok = lf.argmax(-1).to(torch.int32)[:, None]
+    quant_line = {"arch": qwen2.name, "layers": qwen2.n_layers, "batch": B,
+                  "max_len": max_len, "steps": quant_steps,
+                  "max_softmax_diff": worst,
+                  "full_cache_bytes": nbytes(full),
+                  "int8_cache_bytes": nbytes(quant),
+                  "full_step_ms_median": float(np.median(ms_full)),
+                  "int8_step_ms_median": float(np.median(ms_quant))}
+    del params, full, quant, lf, lq
+    free_device_memory(torch)
+    launches = {**bg.LAUNCHES, **md.LAUNCHES, **sc.LAUNCHES, **fa.LAUNCHES}
+    say("decode_variants", grouped=grouped, int8=quant_line,
+        launches=launches,
+        note="step ms: host wall of one decode step, the card "
+             "synchronised before and after; both paths attend through "
+             "the eager chunked attention, no kernel of this repo")
+
+
 def phase_profile(torch, cfg, seed, ticks=8):
     """Optional (``--profile``): where a steady decode tick's time goes,
     with all 8 slots active.  Wall time per tick from ``ticks`` ticks with
@@ -2354,6 +2814,11 @@ def main():
     add(phase_plan_plane(torch, qwen2, olmoe, args.seed, store_root,
                          os.path.join(store_root, qwen2.name), tokens))
     del tokens
+    add(phase_fleet(torch, args.seed))
+    period = gemma3.local_global_ratio + 1    # whole groups for the ring
+    phase_decode_variants(torch, dataclasses.replace(
+        gemma3, n_layers=max(period, gemma3.n_layers // period * period)),
+        qwen2, args.seed)
     ssd_args, ssd_held_by, attn_rows = {}, {}, []
     # the prefills: batch x tokens (whisper: over 1500 frames, a cache of
     # 448, its decoder's context); the SSM families also at 1000 tokens,

@@ -14,8 +14,9 @@ the (batched) gather/scatter bindings -- every consumer outside ``core/``
 goes through it.  Durability is a pluggable ``PlanStore``: ``MemoryStore``
 in process, lock-file-guarded ``DirectoryStore`` across processes, in the
 same on-disk layout as the JAX package's, so one store directory serves
-both.  A remote solve fabric is not part of this package yet: a service
-asked for the ``"fabric"`` executor without one runs on its pool.
+both.  Cold solves run on the service's worker pool or, with
+``executor="fabric"``, on a :class:`SolveFabric` of remote worker processes
+(``spawn_local_workers`` starts local ones) -- one reducer, many hosts.
 """
 
 from .artifact import (
@@ -47,6 +48,7 @@ from ..runtime.tenancy import (
     QoSClass,
     TenantRegistry,
 )
+from .fabric import SolveFabric, spawn_local_workers
 from .controller import AccessDecl, Counter, Ctrl, Program, Sched, Unroll, unroll
 from .geometry import FlatGeometry, MultiDimGeometry
 from .planner import (
@@ -131,7 +133,7 @@ __all__ = [
     "PreparedRequest", "Program", "QOS_CLASSES", "QoSClass",
     "ResourceBudget", "ResourceUse", "Sched",
     "ServiceTelemetry",
-    "SolutionReducer", "SolveShard", "SolverOptions",
+    "SolutionReducer", "SolveFabric", "SolveShard", "SolverOptions",
     "Span", "StaleWhileRevalidate", "TelemetryConfig", "TelemetryLog",
     "TenantRegistry", "TicketTrace", "Tracer", "Unroll",
     "as_compiled", "build_groups", "canonical_signature",
@@ -146,5 +148,6 @@ __all__ = [
     "resolve_scorer", "roofline_prior_seconds", "run_kernel_program",
     "scheme_hash", "set_ml_scorer_path", "shard_from_indices", "solve",
     "solve_monolithic", "solve_space", "space_from_wire", "space_to_wire",
-    "start_observability_server", "trivial_solution", "unroll",
+    "spawn_local_workers", "start_observability_server",
+    "trivial_solution", "unroll",
 ]

@@ -40,8 +40,8 @@ execute**:
   enumerated space, so small problems skip fan-out overhead.
 * The shard executor is **selectable** (``executor="pool" | "fabric"``,
   per-service or per-ticket): ``"fabric"`` drives the same work
-  units over a solve fabric (``SolveFabric``, handed in; this package
-  has none of its own yet) of remote worker processes -- one reducer, many hosts -- with the reducer's cut
+  units over a :class:`~repro_torch.core.fabric.SolveFabric` of remote
+  worker processes -- one reducer, many hosts -- with the reducer's cut
   bounds broadcast live so remote shards prune like local ones.  A
   fabric with no attached workers falls back to the pool.
 
@@ -885,7 +885,7 @@ class PlanService:
         worker threads) or ``"fabric"`` (remote shard workers attached
         to ``fabric``); per-submit override via
         ``submit(..., executor=...)``
-    fabric : the solve fabric (a ``SolveFabric``) backing the
+    fabric : the :class:`~repro_torch.core.fabric.SolveFabric` backing the
         ``"fabric"`` executor (attach one later via
         :meth:`attach_fabric`); a fabric with no live workers falls
         back to the pool

@@ -7,6 +7,12 @@ use into ``build/`` at the root of the checkout, under a name that carries
 a hash of the source, the headers under ``csrc/`` and the flags, so an
 edited source or header is never served by a stale library.
 Nothing here runs when the package is imported; a failed build raises.
+
+Building and loading run under one module lock, so threads of one process
+that reach a cold ``build/`` together (the servers of a fleet) start one
+``nvcc`` per source and load one library; a temporary file is named by the
+process and the thread, so processes sharing ``build/`` never write into
+each other's output either.
 """
 
 from __future__ import annotations
@@ -16,9 +22,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 
@@ -30,6 +37,7 @@ SOURCES = {"banked": "banked.cu", "moe_dispatch": "moe_dispatch.cu",
            "flash_attention": "flash_attention.cu"}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.RLock()               # build and load, one thread at a time
 build_seconds: Dict[str, float] = {}    # name -> wall time of its last build
 build_log: Dict[str, str] = {}          # name -> what nvcc printed then
 
@@ -68,6 +76,11 @@ def build(names: Optional[Iterable[str]] = None, *, force: bool = False,
     all started together.  An up-to-date library is kept unless ``force``.
     Returns name -> library path; raises with the compiler's output when a
     build fails."""
+    with _LOCK:
+        return _build(names, force, extra_flags)
+
+
+def _build(names, force, extra_flags) -> Dict[str, Path]:
     names = list(SOURCES) if names is None else list(names)
     out = {n: _lib_path(n) for n in names}
     todo = [n for n in names if force or not out[n].exists()]
@@ -77,7 +90,8 @@ def build(names: Optional[Iterable[str]] = None, *, force: bool = False,
     build_dir().mkdir(parents=True, exist_ok=True)
     procs = {}
     for n in todo:
-        tmp = out[n].with_suffix(f".tmp{os.getpid()}.so")
+        tmp = out[n].with_suffix(
+            f".tmp{os.getpid()}-{threading.get_ident()}.so")
         cmd = [nvcc, *NVCC_FLAGS, *extra_flags, "-o", str(tmp),
                str(CSRC / SOURCES[n])]
         procs[n] = (time.perf_counter(), tmp, cmd, subprocess.Popen(
@@ -95,9 +109,16 @@ def build(names: Optional[Iterable[str]] = None, *, force: bool = False,
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of one source, built first when needed."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        lib = _LIBS[name] = ctypes.CDLL(str(build([name])[name]))
-    return lib
+def load(name: str, bind: Optional[Callable[[ctypes.CDLL], None]] = None
+         ) -> ctypes.CDLL:
+    """The loaded library of one source, built first when needed.  ``bind``
+    (the wrapper's argument and result types, its checks) runs once, on the
+    first load, before any thread is handed the library."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            if bind is not None:
+                bind(lib)
+            _LIBS[name] = lib
+        return lib

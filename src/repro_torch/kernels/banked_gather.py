@@ -199,6 +199,31 @@ def _winner_table(art, device) -> torch.Tensor:
 _lib = None
 
 
+def _bind(lib) -> None:
+    """Argument and result types, and the check that the library reads the
+    program this module packs: once, under the build lock."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.bk_program_words.argtypes = [i32]
+    lib.bk_block_writes.argtypes = []
+    lib.bk_gather.argtypes = [ptr, ptr, ptr, i32, i32, ptr, ptr, ptr]
+    lib.bk_scatter_rows.argtypes = [ptr, ptr, ptr, i32, i32, ptr, ptr,
+                                    ptr, ptr]
+    lib.bk_scatter_elems.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
+                                     ptr, ptr, ptr]
+    lib.bk_elems_blocks.argtypes = [i32]
+    lib.bk_elems_owner.argtypes = [ctypes.c_longlong, i32]
+    for fn in (lib.bk_program_words, lib.bk_block_writes, lib.bk_gather,
+               lib.bk_scatter_rows, lib.bk_scatter_elems,
+               lib.bk_elems_blocks, lib.bk_elems_owner):
+        fn.restype = ctypes.c_int
+    for cap, _ in KERNEL_BUCKETS:
+        if lib.bk_program_words(cap) != kernel_program_words(cap):
+            raise RuntimeError(
+                f"banked.cu reads a program of {cap} instructions from "
+                f"{lib.bk_program_words(cap)} words, the wrapper packs "
+                f"{kernel_program_words(cap)}")
+
+
 def _library():
     """The compiled kernels, built at first use; raises when they cannot
     be built or do not read the program this module packs."""
@@ -206,28 +231,7 @@ def _library():
     if _lib is None:
         from . import _build
 
-        lib = _build.load("banked")
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.bk_program_words.argtypes = [i32]
-        lib.bk_block_writes.argtypes = []
-        lib.bk_gather.argtypes = [ptr, ptr, ptr, i32, i32, ptr, ptr, ptr]
-        lib.bk_scatter_rows.argtypes = [ptr, ptr, ptr, i32, i32, ptr, ptr,
-                                        ptr, ptr]
-        lib.bk_scatter_elems.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
-                                         ptr, ptr, ptr]
-        lib.bk_elems_blocks.argtypes = [i32]
-        lib.bk_elems_owner.argtypes = [ctypes.c_longlong, i32]
-        for fn in (lib.bk_program_words, lib.bk_block_writes, lib.bk_gather,
-                   lib.bk_scatter_rows, lib.bk_scatter_elems,
-                   lib.bk_elems_blocks, lib.bk_elems_owner):
-            fn.restype = ctypes.c_int
-        for cap, _ in KERNEL_BUCKETS:
-            if lib.bk_program_words(cap) != kernel_program_words(cap):
-                raise RuntimeError(
-                    f"banked.cu reads a program of {cap} instructions from "
-                    f"{lib.bk_program_words(cap)} words, the wrapper packs "
-                    f"{kernel_program_words(cap)}")
-        _lib = lib
+        _lib = _build.load("banked", _bind)
     return _lib
 
 

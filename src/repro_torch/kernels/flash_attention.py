@@ -73,6 +73,19 @@ def reset_launch_counts() -> None:
 _lib = None
 
 
+def _bind(lib) -> None:
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.fa_flash_attention.argtypes = (
+        [ptr] * 4 + [i32] * 6 + [i64] * 9 + [i32] * 3
+        + [ctypes.c_float, i32, ptr])
+    lib.fa_flash_attention.restype = ctypes.c_int
+    lib.fa_bf16_kernel_info.argtypes = [i32] + [ctypes.POINTER(i32)] * 3
+    lib.fa_bf16_kernel_info.restype = ctypes.c_int
+    lib.fa_blind_rows.argtypes = (
+        [ptr] * 2 + [i32] * 6 + [i64] * 3 + [i32] * 2 + [ptr])
+    lib.fa_blind_rows.restype = ctypes.c_int
+
+
 def _library():
     """The compiled kernel, built at first use; raises when it cannot be
     built."""
@@ -80,18 +93,7 @@ def _library():
     if _lib is None:
         from . import _build
 
-        lib = _build.load("flash_attention")
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.fa_flash_attention.argtypes = (
-            [ptr] * 4 + [i32] * 6 + [i64] * 9 + [i32] * 3
-            + [ctypes.c_float, i32, ptr])
-        lib.fa_flash_attention.restype = ctypes.c_int
-        lib.fa_bf16_kernel_info.argtypes = [i32] + [ctypes.POINTER(i32)] * 3
-        lib.fa_bf16_kernel_info.restype = ctypes.c_int
-        lib.fa_blind_rows.argtypes = (
-            [ptr] * 2 + [i32] * 6 + [i64] * 3 + [i32] * 2 + [ptr])
-        lib.fa_blind_rows.restype = ctypes.c_int
-        _lib = lib
+        _lib = _build.load("flash_attention", _bind)
     return _lib
 
 

@@ -45,6 +45,12 @@ def reset_launch_counts() -> None:
 _lib = None
 
 
+def _bind(lib) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.md_dispatch.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
+    lib.md_dispatch.restype = ctypes.c_int
+
+
 def _library():
     """The compiled kernel, built at first use; raises when it cannot be
     built."""
@@ -52,11 +58,7 @@ def _library():
     if _lib is None:
         from . import _build
 
-        lib = _build.load("moe_dispatch")
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.md_dispatch.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
-        lib.md_dispatch.restype = ctypes.c_int
-        _lib = lib
+        _lib = _build.load("moe_dispatch", _bind)
     return _lib
 
 

@@ -54,6 +54,16 @@ def reset_launch_counts() -> None:
 _lib = None
 
 
+def _bind(lib) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.sc_ssd_chunk.argtypes = [ptr] * 9 + [i32] * 5 + [ptr, ptr]
+    lib.sc_ssd_chunk.restype = ctypes.c_int
+    lib.sc_scratch_floats.argtypes = [i32, i32]
+    lib.sc_scratch_floats.restype = ctypes.c_longlong
+    lib.sc_kernel_info.argtypes = [ctypes.POINTER(i32)] * 3
+    lib.sc_kernel_info.restype = ctypes.c_int
+
+
 def _library():
     """The compiled kernel, built at first use; raises when it cannot be
     built."""
@@ -61,15 +71,7 @@ def _library():
     if _lib is None:
         from . import _build
 
-        lib = _build.load("ssd_chunk")
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.sc_ssd_chunk.argtypes = [ptr] * 9 + [i32] * 5 + [ptr, ptr]
-        lib.sc_ssd_chunk.restype = ctypes.c_int
-        lib.sc_scratch_floats.argtypes = [i32, i32]
-        lib.sc_scratch_floats.restype = ctypes.c_longlong
-        lib.sc_kernel_info.argtypes = [ctypes.POINTER(i32)] * 3
-        lib.sc_kernel_info.restype = ctypes.c_int
-        _lib = lib
+        _lib = _build.load("ssd_chunk", _bind)
     return _lib
 
 

@@ -15,14 +15,23 @@ wait) and hot-swaps to the solved layout between decode ticks.
         --smoke --device cpu --requests 8 --max-batch 4 \\
         --plan-store /path/to/store --telemetry --verify store
 
+With ``--fabric`` the cold solve runs on REMOTE shard workers: the
+launcher opens a :class:`~repro_torch.core.fabric.SolveFabric` listener
+(``--fabric-listen host:port``) and prints the address; attach any
+number of hosts with
+
+    PYTHONPATH=src python -m repro_torch.launch.solve_worker HOST:PORT
+
+and the server's best-so-far promotions / solved hot-swap work exactly
+as in-process -- the shards just ran somewhere else.
+
 Any family that ``models.get_model`` builds serves: the dense transformers,
 the MoE family (its expert buffer filled by the ``moe_dispatch`` kernel on
 the card), the Mamba2 SSM and the Zamba2 hybrid (one shared attention
 block).  The server prefills a request through the decode step, one token
 at a time, so the SSM families run their O(1) recurrence here and not the
 chunked scan of their ``prefill``.  Cold solves run on the service's
-in-process worker pool (a remote solve fabric is not part of this package
-yet).
+in-process worker pool, or on the fabric's workers with ``--fabric``.
 """
 
 from __future__ import annotations
@@ -43,6 +52,17 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="where the model, the cache and the record table "
                          "live (default cuda; fails without a card)")
+    ap.add_argument("--fabric", action="store_true",
+                    help="run cold solves on remote shard workers: opens a "
+                         "SolveFabric listener and prints the address to "
+                         "attach solve_worker processes to")
+    ap.add_argument("--fabric-listen", default="127.0.0.1:0",
+                    help="host:port the fabric accepts workers on "
+                         "(port 0 = ephemeral; bind a private interface)")
+    ap.add_argument("--fabric-wait-workers", type=int, default=0,
+                    help="block up to 30s for this many workers before "
+                         "serving (0 = serve immediately; a fabric with no "
+                         "workers falls back to the in-process pool)")
     ap.add_argument("--plan-store", default=None,
                     help="directory shared across serving processes; a warm "
                          "store answers the submit before the first tick")
@@ -62,11 +82,14 @@ def main(argv=None):
                     help="static verification: lint the KV-pool program "
                          "before solving and certify solver output before "
                          "it is cached (certificates persist beside stored "
-                         "plans, which re-verify on hydrate)")
+                         "plans, which re-verify on hydrate); \"all\" also "
+                         "certifies every result batch remote fabric "
+                         "workers stream back, rejecting forged ones")
     ap.add_argument("--tenant", default=None,
                     help="tenant name this server submits under on a "
                          "shared multi-tenant service (per-tenant stats "
-                         "slice, quotas, QoS band; see --qos)")
+                         "slice, quotas, QoS band; see --qos and "
+                         "launch/serve_fleet.py for the fleet story)")
     ap.add_argument("--qos", default=None,
                     choices=("interactive", "batch", "best_effort",
                              "default"),
@@ -116,13 +139,15 @@ def main(argv=None):
     import torch
 
     from ..configs import get_arch
+    from ..core.fabric import SolveFabric
     from ..core.service import PlanService
     from ..core.store import DirectoryStore
     from ..models import get_model
     from ..runtime.server import Request, Server, joint_ticket, page_ticket
 
-    # plan store first: sweeping stale-version entries and building the
-    # service both overlap the model build below
+    # plan store + fabric first: sweeping stale-version entries, binding
+    # the worker listener, and building the service all overlap the
+    # model build below
     store = None
     if args.plan_store:
         max_bytes = (int(args.plan_store_max_mb * 2 ** 20)
@@ -131,6 +156,20 @@ def main(argv=None):
         swept = store.sweep()
         if swept:
             print(f"plan store: swept {swept} stale-version entries")
+    fabric = None
+    if args.fabric:
+        host, _, port = args.fabric_listen.rpartition(":")
+        fabric = SolveFabric(listen=(host or "127.0.0.1", int(port)))
+        print(f"solve fabric listening on {fabric.address} -- attach "
+              f"workers with: python -m repro_torch.launch.solve_worker "
+              f"{fabric.address}")
+        if args.fabric_wait_workers:
+            if fabric.wait_for_workers(args.fabric_wait_workers,
+                                       timeout=30.0):
+                print(f"fabric: {fabric.workers_alive} workers attached")
+            else:
+                print("fabric: workers did not attach in time; cold "
+                      "solves fall back to the in-process pool")
     tenants = None
     if args.tenant:
         from ..runtime.tenancy import TenantRegistry
@@ -141,10 +180,14 @@ def main(argv=None):
     observe = (args.trace_dir is not None or args.metrics_port is not None
                or args.trace_slo_ms is not None)
     service = None
-    if store is not None or args.telemetry or args.verify != "off" \
-            or tenants is not None or observe:
-        service = PlanService(store=store, verify=args.verify,
-                              tenants=tenants)
+    if store is not None or fabric is not None or args.telemetry \
+            or args.verify != "off" or tenants is not None or observe:
+        service = PlanService(
+            store=store,
+            executor="fabric" if fabric is not None else "pool",
+            fabric=fabric,
+            verify=args.verify,
+            tenants=tenants)
     obs_server = None
     if observe:
         service.enable_tracing(slo_ms=args.trace_slo_ms,
@@ -164,7 +207,8 @@ def main(argv=None):
                   f"(also /traces, /stats)")
     if args.verify != "off":
         print(f"verification armed ({args.verify}): lint gate + "
-              f"independent conflict certification")
+              f"independent conflict certification"
+              + (" + fabric batch checking" if args.verify == "all" else ""))
     if args.telemetry:
         service.enable_telemetry()
         print("telemetry: measured-cost feedback enabled "
@@ -174,12 +218,22 @@ def main(argv=None):
         import threading
 
         def _stats_loop():
-            # per-tenant slices nest under "tenants" on EVERY periodic
-            # line, not just the exit report; with tracing on, the
-            # MetricsRegistry gauges ride along too
+            # per-tenant slices nest under "tenants" and the fabric's
+            # live counters (heartbeats included) under "fabric" on
+            # EVERY periodic line, not just the exit report; with
+            # tracing on, the MetricsRegistry gauges ride along too
             while True:
                 time.sleep(args.stats_interval)
                 line = service.stats.as_dict()
+                if fabric is not None:
+                    fs = fabric.stats
+                    line["fabric"] = {
+                        "workers_alive": fabric.workers_alive,
+                        "heartbeats": fs.heartbeats,
+                        "leases": fs.leases,
+                        "requeues": fs.requeues,
+                        "evaluated": fs.evaluated,
+                    }
                 if service.metrics is not None:
                     snap = service.metrics.snapshot()
                     if snap.get("gauges"):
@@ -264,10 +318,16 @@ def main(argv=None):
     print(f"served {args.requests} requests ({total_tokens} tokens) in "
           f"{server.ticks} ticks, {dt:.1f}s "
           f"({total_tokens/dt:.1f} tok/s on {where})")
+    if service is not None and service.stats.fabric_solves:
+        print(f"fabric: {service.stats.fabric_solves} remote solves, "
+              f"{service.stats.fabric_leases} leases, "
+              f"{service.stats.fabric_cut_broadcasts} cut broadcasts, "
+              f"{service.stats.fabric_requeues} requeues")
     if args.verify != "off" and service is not None:
         s = service.stats
         print(f"verification: {s.certified} certified, "
-              f"{s.cert_failures} refused, {s.lint_errors} lint refusals")
+              f"{s.cert_failures} refused, {s.cert_rejected} fabric "
+              f"batches rejected, {s.lint_errors} lint refusals")
     if args.tenant and service is not None:
         import json as json_mod
         slice_ = service.stats.for_tenant(args.tenant)
@@ -295,6 +355,8 @@ def main(argv=None):
                   f"(pass --trace-dir to keep the dumps)")
     if obs_server is not None:
         obs_server.shutdown()
+    if fabric is not None:
+        fabric.shutdown()
     return server
 
 

@@ -13,8 +13,13 @@ and ``decode_step`` -- what the server runs (it prefills through ``decode``);
 feed-forward.  The route of attention is fixed by the call: a layer without
 a cache (forward, prefill, the hybrid's shared block) attends over the
 prompt through the flash attention kernel (``kernels.ops.mha``), a layer
-with one (decode) through the eager ``chunked_attention``.  The loss and
-the grouped / int8 cache variants are not here yet.
+with one (decode) through the eager ``chunked_attention``.  Beside
+``decode_step`` stand its two variants: ``grouped_decode_step``, whose
+local-attention layers keep a ring of ``window`` rows (the slot ``pos mod
+W`` is a bank address of the paper's Eq. 1 with N = W, B = 1), and
+``decode_step_quant``, over an int8 cache with a scale per token and head.
+As in the JAX package, neither the server nor ``get_model`` uses them.
+The loss is not here yet.
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ import torch
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..kernels import ops
-from .layers import apply_rope, chunked_attention, dense_init, rms_norm, swiglu
+from .layers import (NEG_INF, apply_rope, chunked_attention, dense_init,
+                     rms_norm, swiglu)
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -289,3 +295,196 @@ def decode_step(cfg: ArchConfig, params: Params, cache: KVCache,
     h = rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = logits_fn(cfg, params, h)[:, 0]
     return logits, KVCache(cache.k, cache.v, pos + 1)
+
+
+# ---------------------------------------------------------------------------
+# Grouped decode for local:global architectures (gemma3)
+#
+# Local-attention layers keep only a ``window``-sized RING cache.  The ring
+# slot index is ``pos mod window`` -- a hyperplane bank address (Eq. 1) with
+# N = window, B = 1; with window a power of two the Sec-3.4 transform reduces
+# the bank resolution to a single AND mask.  Capacity and memory traffic of
+# the 5-of-6 local layers drop from O(S_ctx) to O(window).
+# ---------------------------------------------------------------------------
+
+
+class GroupedKVCache(NamedTuple):
+    k_local: Tensor   # (G, R, B, W, Hkv, Dh) ring buffers (R local layers/group)
+    v_local: Tensor
+    k_global: Tensor  # (G, B, Smax, Hkv, Dh)
+    v_global: Tensor
+    pos: int          # number of decode calls so far
+
+
+def grouped_layout(cfg: ArchConfig) -> Tuple[int, int]:
+    """(groups, locals_per_group); requires the 5:1-style layer pattern."""
+    if not (cfg.sliding_window and cfg.local_global_ratio):
+        raise ValueError(f"{cfg.name} has no local:global layer pattern")
+    period = cfg.local_global_ratio + 1
+    if cfg.n_layers % period:
+        raise ValueError(f"{cfg.n_layers} layers are not whole groups of "
+                         f"{period}")
+    return cfg.n_layers // period, cfg.local_global_ratio
+
+
+def init_grouped_cache(cfg: ArchConfig, batch: int, max_len: int,
+                       dtype=torch.bfloat16, device="cuda") -> GroupedKVCache:
+    device = resolve_device(device)
+    G, R = grouped_layout(cfg)
+    W = cfg.sliding_window
+    Hkv, Dh = cfg.n_kv_heads, cfg.hd
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return GroupedKVCache(zeros(G, R, batch, W, Hkv, Dh),
+                          zeros(G, R, batch, W, Hkv, Dh),
+                          zeros(G, batch, max_len, Hkv, Dh),
+                          zeros(G, batch, max_len, Hkv, Dh), 0)
+
+
+def _grouped_params(cfg: ArchConfig, params: Params):
+    """Restack (L, ...) layer params into local (G, R, ...) + global (G, ...)
+    views (no copy)."""
+    G, R = grouped_layout(cfg)
+    period = R + 1
+    local, glob = {}, {}
+    for k, v in params["layers"].items():
+        vg = v.reshape((G, period) + tuple(v.shape[1:]))
+        local[k], glob[k] = vg[:, :R], vg[:, R]
+    return local, glob
+
+
+def ring_slot(pos: int, window: int) -> int:
+    """The ring row of position ``pos``: ``pos mod window``, one AND when
+    ``window`` is a power of two."""
+    if window & (window - 1) == 0:
+        return pos & (window - 1)
+    return pos % window
+
+
+def _ring_layer(cfg: ArchConfig, lp, x, kc, vc, pos: int, slot: int):
+    """One local layer against its ring (``kc``/``vc`` (B, W, Hkv, Dh),
+    written in place at ``slot``): attention over the W rows, each masked
+    by the position the bank equation gives it back."""
+    B, S, _ = x.shape
+    W = cfg.sliding_window
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    k_new, v_new = _project_kv(cfg, lp, h, pos)
+    at = min(slot, W - S)          # a write past the ring's end is clamped
+    kc[:, at:at + S] = k_new.to(kc.dtype)
+    vc[:, at:at + S] = v_new.to(vc.dtype)
+    q = _project_q(cfg, lp, h, pos)
+    # rows (slot-W, slot] hold positions (pos-W, pos]: 0 = newest
+    row = torch.arange(W, device=x.device)
+    age = torch.remainder(slot - row + W, W)
+    k_pos = pos - age
+    valid = (k_pos >= 0) & (k_pos > pos - W)
+    q5 = (q.float() / (Dh ** 0.5)).reshape(B, S, Hkv, H // Hkv, Dh)
+    s = torch.einsum("bqhrd,bkhd->bqhrk", q5, kc.float())
+    s = torch.where(valid[None, None, None, None, :], s, NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = torch.einsum("bqhrk,bkhd->bqhrd", p, vc.float())
+    o = (o / torch.clamp(p.sum(-1)[..., None], min=1e-30)).reshape(
+        B, S, H * Dh)
+    x = x + torch.matmul(o.to(x.dtype), lp["wo"])
+    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + swiglu(h2, lp["w_gate"], lp["w_up"], lp["w_down"])
+
+
+@torch.no_grad()
+def grouped_decode_step(cfg: ArchConfig, params: Params,
+                        cache: GroupedKVCache, tokens: Tensor,
+                        block_k: int = 1024) -> Tuple[Tensor, GroupedKVCache]:
+    """One decode step with ring-buffered local layers: tokens (B, 1) ->
+    logits (B, V), the cache's buffers **updated in place** (the returned
+    cache shares them and carries ``pos + 1``).  The global layer of each
+    group is ``dense_layer`` against its full-length buffers."""
+    G, R = grouped_layout(cfg)
+    x = params["embed"].to(torch.bfloat16)[tokens]
+    pos = int(cache.pos)
+    slot = ring_slot(pos, cfg.sliding_window)
+    local_p, global_p = _grouped_params(cfg, params)
+    for g in range(G):
+        for r in range(R):
+            x = _ring_layer(cfg, {k: v[g, r] for k, v in local_p.items()}, x,
+                            cache.k_local[g, r], cache.v_local[g, r], pos,
+                            slot)
+        x, _ = dense_layer(cfg, {k: v[g] for k, v in global_p.items()}, x, 0,
+                           cache_kv=(cache.k_global[g], cache.v_global[g]),
+                           pos=pos, block_k=block_k)
+    h = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    logits = logits_fn(cfg, params, h)[:, 0]
+    return logits, cache._replace(pos=pos + 1)
+
+
+# ---------------------------------------------------------------------------
+# int8-quantized KV cache
+#
+# Banking view: the cache word width is the solver's ``word_bits`` -- halving
+# it halves both bank capacity and the bytes every decode step must stream.
+# Per-(token, head) max-abs scales keep the attention error ~0.5%.
+# ---------------------------------------------------------------------------
+
+
+class QuantKVCache(NamedTuple):
+    k_q: Tensor    # (L, B, Smax, Hkv, Dh) int8
+    v_q: Tensor
+    k_s: Tensor    # (L, B, Smax, Hkv) float32 scales
+    v_s: Tensor
+    pos: int
+
+
+def init_quant_cache(cfg: ArchConfig, batch: int, max_len: int,
+                     device="cuda") -> QuantKVCache:
+    device = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    return QuantKVCache(
+        torch.zeros(shape, dtype=torch.int8, device=device),
+        torch.zeros(shape, dtype=torch.int8, device=device),
+        torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+        torch.zeros(shape[:-1], dtype=torch.float32, device=device), 0)
+
+
+def _quant_rows(x: Tensor):
+    """x (B, S, Hkv, Dh) -> int8 rows + per-(token, head) scales."""
+    xf = x.float()
+    s = torch.clamp(xf.abs().amax(-1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127)
+    return q.to(torch.int8), s
+
+
+@torch.no_grad()
+def decode_step_quant(cfg: ArchConfig, params: Params, cache: QuantKVCache,
+                      tokens: Tensor, block_k: int = 1024
+                      ) -> Tuple[Tensor, QuantKVCache]:
+    """``decode_step`` against an int8 cache: new rows quantized on write
+    (in place, at ``pos``, clamped as ``dense_layer`` clamps), the layer's
+    whole buffer dequantized to bfloat16 on read."""
+    x = params["embed"].to(torch.bfloat16)[tokens]
+    windows = layer_windows(cfg)
+    pos = int(cache.pos)
+    S = x.shape[1]
+    at = min(max(pos, 0), cache.k_q.shape[2] - S)
+    for i in range(cfg.n_layers):
+        lp = _layer_params(params, i)
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        k_new, v_new = _project_kv(cfg, lp, h, pos)
+        for buf, scale, new in ((cache.k_q[i], cache.k_s[i], k_new),
+                                (cache.v_q[i], cache.v_s[i], v_new)):
+            q, s = _quant_rows(new)
+            buf[:, at:at + S] = q
+            scale[:, at:at + S] = s
+        k_deq = cache.k_q[i].to(torch.bfloat16) \
+            * cache.k_s[i][..., None].to(torch.bfloat16)
+        v_deq = cache.v_q[i].to(torch.bfloat16) \
+            * cache.v_s[i][..., None].to(torch.bfloat16)
+        x = x + _attn(cfg, lp, h, k_full=k_deq, v_full=v_deq,
+                      window=int(windows[i]), q_offset=pos, kv_len=pos + S,
+                      block_k=block_k)
+        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+    h = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    logits = logits_fn(cfg, params, h)[:, 0]
+    return logits, cache._replace(pos=pos + 1)

@@ -10,13 +10,16 @@ Covers: certifier/solver agreement over benchmark problems, concrete
 counterexamples from corrupted schemes (auto-rendered as pytest cases),
 machine-checked certificate round-trips, the lint diagnostics, store
 certificate sidecars + hydrate re-verification, PlanService verify
-modes, and the batch verifier that refuses forged solutions.  (The
-adversarial-worker case needs a solve fabric, which this package does not
-have yet.)
+modes, and the adversarial fabric worker whose forged solutions the
+batch verifier refuses.
 """
 
 import dataclasses
 import json
+import os
+import queue
+import socket
+import threading
 
 import numpy as np
 import pytest
@@ -27,11 +30,14 @@ from repro_torch.analysis import (CertificationError, LintError,
                             decide_delta, lint_program, make_batch_verifier)
 from repro_torch.analysis.certify import ConflictCertificate
 from repro_torch.core import (AccessDecl, Counter, Ctrl, MemorySpec,
-                              PlanService, Program, Sched, build_groups,
-                              problems, unroll)
-from repro_torch.core.candidates import evaluate, shard_from_indices
+                              PlanService, Program, Sched, SolveFabric,
+                              build_groups, problems, rank_solutions, unroll)
+from repro_torch.core.candidates import (evaluate, events_to_wire,
+                                         shard_from_indices, space_from_wire)
+from repro_torch.core.fabric import read_frame, write_frame
 from repro_torch.core.planner import BankingPlanner
 from repro_torch.core.polytope import Affine, Iterator, delta_can_hit_window
+from repro_torch.core.solver import solve_monolithic
 from repro_torch.core.store import DirectoryStore, MemoryStore
 
 # flat, duplication-split, and multidim certification paths
@@ -368,6 +374,109 @@ def test_service_cert_failure_aborts_caching(monkeypatch, tmp_path):
         assert svc.planner.lookup(ticket._prep) is None
     finally:
         svc.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# Untrusted fabric: adversarial worker injecting forged solutions
+# ---------------------------------------------------------------------------
+
+
+def _run_malicious_worker(address):
+    """Speaks the real worker wire protocol but corrupts every solution
+    it streams back: geometry forged to a single bank and the score
+    forced to -1e9, so an unchecked reducer would crown a colliding
+    scheme the winner."""
+    host, _, port = address.rpartition(":")
+    sock = socket.create_connection((host or "127.0.0.1", int(port)))
+    sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+    send_lock = threading.Lock()
+    write_frame(sock, {"t": "join", "pid": os.getpid(), "host": "evil"},
+                send_lock)
+    spaces, leases = {}, queue.Queue()
+
+    def reader():
+        try:
+            while True:
+                msg = read_frame(sock)
+                t = msg.get("t")
+                if t == "space":
+                    spaces[msg["solve_id"]] = space_from_wire(msg["payload"])
+                elif t == "lease":
+                    leases.put(msg)
+                elif t == "shutdown":
+                    break
+        except Exception:
+            pass
+        finally:
+            leases.put(None)
+
+    threading.Thread(target=reader, daemon=True).start()
+    while True:
+        msg = leases.get()
+        if msg is None:
+            break
+        sid, lid = msg["solve_id"], msg["lease_id"]
+        space = spaces.get(sid)
+        try:
+            if space is None:
+                write_frame(sock, {"t": "error", "lease_id": lid,
+                                   "error": "no space"}, send_lock)
+                continue
+            shard = shard_from_indices(space, msg["indices"])
+            batch = []
+            for ev in evaluate(shard):
+                forged = []
+                for sol in ev.solutions:
+                    if sol.kind == "flat":
+                        g = dataclasses.replace(sol.geometry, N=1, B=1)
+                        forged.append(dataclasses.replace(
+                            sol, geometry=g, score=-1e9, note="forged"))
+                    else:
+                        forged.append(dataclasses.replace(
+                            sol, score=-1e9, note="forged"))
+                batch.append(dataclasses.replace(ev, solutions=forged))
+            write_frame(sock, {"t": "results", "lease_id": lid,
+                               "payload": events_to_wire(batch)}, send_lock)
+            write_frame(sock, {"t": "done", "lease_id": lid,
+                               "evaluated": len(batch)}, send_lock)
+        except OSError:
+            break
+    try:
+        sock.close()
+    except OSError:
+        pass
+
+
+def test_adversarial_fabric_worker_is_rejected_and_solve_converges():
+    """Acceptance: a fabric solve with an adversarial worker
+    injecting bogus solutions still converges to the exact monolithic
+    answer, with ServiceStats.cert_rejected > 0 -- forged batches are
+    refused by the certifier gate, their units requeued away from the
+    sender and evaluated locally."""
+    prog, memname, up = _problem("sobel")
+    mono = _key(rank_solutions(list(solve_monolithic(
+        prog.memories[memname], build_groups(up, memname),
+        up.iterators)))[0])
+
+    fabric = SolveFabric(chunk=32)
+    t = threading.Thread(target=_run_malicious_worker,
+                         args=(fabric.address,), daemon=True)
+    t.start()
+    assert fabric.wait_for_workers(1, timeout=30)
+    svc = PlanService(workers=2, executor="fabric", fabric=fabric,
+                      verify="all")
+    try:
+        plan = svc.submit(prog, memname).result(timeout=240)
+        assert _key(plan.best) == mono, \
+            "forged solutions corrupted the solve"
+        assert svc.stats.cert_rejected > 0
+        assert fabric.stats.cert_rejected > 0
+        assert fabric.stats.local_evaluated > 0   # orphans ran locally
+        assert svc.stats.certified == 1           # final plan certified
+        assert plan.best.note != "forged"
+    finally:
+        svc.shutdown()
+        fabric.shutdown()
 
 
 def test_batch_verifier_accepts_honest_events():

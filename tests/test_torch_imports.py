@@ -64,6 +64,25 @@ print(len(names))
     assert int(res.stdout.strip()) >= 25
 
 
+@pytest.mark.parametrize("module", ["repro_torch.core.fabric",
+                                    "repro_torch.launch.solve_worker",
+                                    "repro_torch.launch.serve_fleet"])
+def test_fabric_worker_and_fleet_import_without_jax(module):
+    """The fabric, its worker and the fleet launcher, each imported alone
+    in a fresh interpreter, bring in neither JAX nor the JAX package."""
+    code = f"""
+import importlib, sys
+importlib.import_module({module!r})
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "triton"))
+assert not bad, bad
+print("ok")
+"""
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
 def test_package_exports_only_what_it_holds():
     import repro_torch
     import repro_torch.core as core
@@ -74,8 +93,8 @@ def test_package_exports_only_what_it_holds():
                        "lane_compile", "DirectoryStore", "JointTicket",
                        "MeasuredScorer", "Tracer", "TenantRegistry"):
         assert plan_plane in core.__all__, plan_plane
-    for later in ("SolveFabric", "spawn_local_workers"):
-        assert not hasattr(core, later), later
+    for fabric in ("SolveFabric", "spawn_local_workers"):
+        assert fabric in core.__all__ and hasattr(core, fabric), fabric
     assert repro_torch.__all__ == ["convert", "core", "resolve_device"]
     assert not hasattr(core.transforms, "lower_jnp")
     assert not hasattr(core.CompiledBankingPlan, "to_partition_spec")

@@ -405,3 +405,101 @@ def test_server_accepts_tickets_and_refuses_the_rest():
         PS.Server(get_model(cfg), max_batch=MAX_BATCH, max_len=MAX_LEN,
                   kv_plan=ref_ticket, device="cpu")
     svc.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# The solve fabric: the same plan over the wire, the same framing
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("app", ["sobel", "kv_pool"])
+def test_fabric_solve_gives_the_reference_planners_plan(app, tmp_path):
+    """A port service solving on its fabric, two port workers attached,
+    stores the plan the reference's planner stores for the same request:
+    the same signature and, timing fields masked, the same file."""
+    files = {}
+    for name, (core, server) in PACKAGES.items():
+        prog = (server._page_program(64, 16, 4) if app == "kv_pool"
+                else (ref_problems if core is ref_core
+                      else port_problems).build(app))
+        mem = "kv_pool" if app == "kv_pool" else list(prog.memories)[0]
+        store = core.DirectoryStore(tmp_path / name)
+        fabric, procs = None, []
+        if name == "port":
+            fabric = core.SolveFabric(chunk=16)
+            procs = core.spawn_local_workers(fabric.address, 2)
+        try:
+            if fabric is not None:
+                assert fabric.wait_for_workers(2, timeout=60)
+            svc = core.PlanService(
+                store=store, workers=1, fabric=fabric,
+                executor="pool" if fabric is None else "fabric")
+            plan = svc.submit(prog, mem).result(timeout=120)
+            svc.shutdown()
+            if fabric is not None:
+                assert svc.stats.fabric_solves == 1
+                assert svc.stats.fabric_fallbacks == 0
+                assert svc.stats.fabric_leases > 0
+                assert fabric.stats.evaluated > 0   # the work went remote
+        finally:
+            for p in procs:
+                p.terminate()
+            for p in procs:
+                p.wait(timeout=10)
+            if fabric is not None:
+                fabric.shutdown()
+        files[name] = (plan.signature, store.plan_path(
+            plan.signature, "proxy").read_text())
+    (rsig, rfile), (psig, pfile) = files["reference"], files["port"]
+    assert rsig == psig
+    assert _dump(json.loads(rfile)) == _dump(json.loads(pfile))
+
+
+FRAMES = [
+    {"t": "join", "pid": 4242, "host": "node-7"},
+    {"t": "lease", "solve_id": 3, "lease_id": 17, "indices": [4, 5, 6, 7],
+     "cuts": {0: 12, 2: 3}, "trace": "0123456789abcdef"},
+    {"t": "done", "lease_id": 17, "evaluated": 4,
+     "spans": [{"name": "w-eval", "start": 0.0, "end": 0.25,
+                "attrs": {"evaluated": 4}}]},
+    {"t": "hb"},
+    {"t": "results", "lease_id": 1, "payload": bytes(range(256)) * 3},
+]
+
+
+@pytest.mark.parametrize("frame", FRAMES, ids=[f["t"] for f in FRAMES])
+def test_write_frame_bytes_are_the_references(frame):
+    """The framing is the reference's: a plain dict is written as the same
+    bytes by both packages (4-byte big-endian length, then the pickle), and
+    each package reads what the other wrote."""
+    import socket
+
+    from repro.core import fabric as ref_fabric
+    from repro_torch.core import fabric as port_fabric
+
+    assert port_fabric._MAX_FRAME == ref_fabric._MAX_FRAME
+    wire = {}
+    for name, mod in (("reference", ref_fabric), ("port", port_fabric)):
+        a, b = socket.socketpair()
+        try:
+            mod.write_frame(a, frame, threading.Lock())
+            a.shutdown(socket.SHUT_WR)
+            chunks = []
+            while chunk := b.recv(1 << 16):
+                chunks.append(chunk)
+            wire[name] = b"".join(chunks)
+        finally:
+            a.close()
+            b.close()
+    assert wire["reference"] == wire["port"]
+    n = int.from_bytes(wire["port"][:4], "big")
+    assert n == len(wire["port"]) - 4
+    for writer, reader in ((ref_fabric, port_fabric),
+                           (port_fabric, ref_fabric)):
+        a, b = socket.socketpair()
+        try:
+            writer.write_frame(a, frame)
+            assert reader.read_frame(b) == frame
+        finally:
+            a.close()
+            b.close()

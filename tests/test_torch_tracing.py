@@ -8,25 +8,29 @@ bounded histogram quantiles, Prometheus text exposition), the tracer
 span lifecycle (begin/end nesting, retroactive record, finish popping
 the live trace into the recorder), the flight recorder's bounded ring
 and anomaly dumps, Chrome ``trace_event`` required keys, the traced
-1-shard solve + /metrics HTTP smoke the CI step runs (``-k smoke``).
-The fabric stories (worker spans stitched into the driver's trace, a
-worker kill's requeue span) need a solve fabric, which this package does
-not have yet.
+1-shard solve + /metrics HTTP smoke the CI step runs (``-k smoke``),
+and the fabric stories: worker spans stitched into the driver's trace, a
+worker kill's requeue span.
 """
 
 import itertools
 import json
+import signal
 import threading
 import time
 import urllib.request
 
 import pytest
 
-from repro_torch.core import (AccessDecl, Counter, Ctrl, FlightRecorder,
-                              MemorySpec, MetricsRegistry, PlanService,
-                              Program, QoSClass, Sched, TenantRegistry,
-                              Tracer, chrome_trace_events, new_trace_id,
-                              start_observability_server)
+from repro_torch.core import (AccessDecl, CandidateSpace, Counter, Ctrl,
+                              FlightRecorder, MemorySpec, MetricsRegistry,
+                              PlanService, Program, QoSClass, Sched,
+                              SolutionReducer, SolveFabric, SolverOptions,
+                              TenantRegistry, Tracer, build_groups,
+                              chrome_trace_events, new_trace_id,
+                              spawn_local_workers,
+                              start_observability_server, unroll)
+from repro_torch.core import problems
 from repro_torch.core.planner import BankingPlanner
 from repro_torch.core.polytope import Affine
 
@@ -46,6 +50,27 @@ def _program(tag):
                   accesses=[AccessDecl(name, (Affine.of(i=1),))]),
         memories={name: mem},
     ), name
+
+
+class _Cluster:
+    """A fabric plus n local worker subprocesses, cleaned up reliably."""
+
+    def __init__(self, n, **kw):
+        self.fabric = SolveFabric(**kw)
+        self.procs = spawn_local_workers(self.fabric.address, n) if n else []
+        if n:
+            assert self.fabric.wait_for_workers(n, timeout=60), \
+                f"{n} workers did not attach"
+
+    def kill(self, i):
+        self.procs[i].send_signal(signal.SIGKILL)
+
+    def close(self):
+        for p in self.procs:
+            p.terminate()
+        for p in self.procs:
+            p.wait(timeout=10)
+        self.fabric.shutdown()
 
 
 # ---------------------------------------------------------------------------
@@ -299,3 +324,85 @@ def test_tracing_disabled_leaves_no_observable_state():
     d = ticket.as_dict()
     assert d["queue_ms"] >= 0 and d["deferred_ms"] == 0.0
     svc.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# Fabric integration: stitched worker spans, requeue chains
+# ---------------------------------------------------------------------------
+
+
+def test_fabric_trace_stitches_worker_spans():
+    """A 2-worker fabric solve merges worker-side lease/eval spans into
+    the DRIVER's trace: same trace_id, per-worker origins, rebased
+    clocks."""
+    c = _Cluster(2, chunk=16)
+    try:
+        svc = PlanService(executor="fabric", fabric=c.fabric)
+        svc.enable_tracing()
+        prog = problems.build("sobel")
+        memname = list(prog.memories)[0]
+        ticket = svc.submit(prog, memname, use_cache=False)
+        assert ticket.result(timeout=120) is not None
+        trace = next(t for t in svc.recorder.traces()
+                     if t.trace_id == ticket.trace_id)
+        names = [s.name for s in trace.spans]
+        assert "serialize" in names and "fabric-solve" in names
+        assert "lease" in names
+        worker_spans = [s for s in trace.spans
+                        if s.origin.startswith("worker-")]
+        assert any(s.name == "w-lease" for s in worker_spans)
+        assert any(s.name == "w-eval" for s in worker_spans)
+        assert all(s.attrs.get("clock") == "rebased"
+                   for s in worker_spans)
+        # every span really is ONE trace: chrome events share one pid
+        events = chrome_trace_events([trace])
+        assert len({e["pid"] for e in events}) == 1
+        lanes = {e["args"]["name"] for e in events
+                 if e["ph"] == "M" and e["name"] == "thread_name"}
+        assert {"worker-0", "worker-1"} <= lanes or \
+            len([ln for ln in lanes if ln.startswith("worker-")]) >= 1
+        svc.shutdown()
+    finally:
+        c.close()
+
+
+def test_worker_kill_requeue_appears_in_trace():
+    """SIGKILLing a worker mid-solve leaves a requeue span chain in the
+    trace: the lost lease's unit re-issues and the solve converges."""
+    c = _Cluster(2, chunk=8, lease_window=2)
+    try:
+        tr = Tracer(recorder=FlightRecorder(capacity=4))
+        tid = new_trace_id()
+        prog = problems.build("sobel")
+        memname = list(prog.memories)[0]
+        up = unroll(prog)
+        space = CandidateSpace(prog.memories[memname],
+                               build_groups(up, memname),
+                               up.iterators, SolverOptions())
+        red = SolutionReducer(space)
+        done = {}
+
+        def run():
+            done["report"] = c.fabric.solve(space, reducer=red,
+                                            trace=(tr, tid))
+
+        th = threading.Thread(target=run)
+        th.start()
+        deadline = time.monotonic() + 60
+        while (c.fabric.stats.results_frames < 1
+               and time.monotonic() < deadline):
+            time.sleep(0.001)
+        assert c.fabric.stats.results_frames >= 1, "no results before kill"
+        c.kill(0)
+        th.join(timeout=120)
+        assert not th.is_alive(), "solve hung after the worker died"
+        assert done["report"].requeues >= 1
+        spans = tr.spans(tid)
+        requeues = [s for s in spans if s.name == "requeue"]
+        assert len(requeues) >= 1
+        assert requeues[0].attrs["units"] >= 1
+        # the re-issued unit produced lease spans AFTER the requeue
+        assert any(s.name == "lease" and s.start >= requeues[0].start
+                   for s in spans)
+    finally:
+        c.close()
