@@ -93,7 +93,22 @@ Run from the root of a checkout, with no arguments, it
    call (``banked_*`` and
    ``moe_dispatch_decode`` lines);
 5. checks each family's reduced model on the card against the same
-   weights on the CPU: a prefill of 4 rows, then three decode steps.
+   weights on the CPU: a prefill of 4 rows, then three decode steps;
+6. trains through ``runtime.trainer.train`` on the synthetic corpus of
+   ``data/pipeline.py`` with AdamW at the launcher's defaults: mamba2-370m
+   at full width and depth (4 x 2048 tokens, 6 steps; ``train``), the same
+   at 4 layers killed at step 5 and resumed from its step-4 checkpoint,
+   which must end bit for bit where the uninterrupted run ends
+   (``train_restart``), whisper-base (8 x 448, 4 steps;
+   ``train_attention``) and olmoe-1b-7b at 2 layers (2 x 2048, 3 steps;
+   ``train_moe``, whose loss must hold the load-balancing term) -- each
+   checked for finite losses, the last below the first, and B4, B5 and B6
+   launched twice a layer a step (forward and recompute); then holds the
+   three backwards at main-path shapes against autograd through the plain
+   versions on the card and times them beside their bounds, SDPA's
+   backward and ``index_add_`` (``grad_kernels``), and each family's
+   reduced training step on the card against the CPU, loss and every
+   gradient leaf (``small_train_reference``).
 
 Every phase prints one JSON line; the first failure ends the run with a
 non-zero exit code.  There is no CPU fallback: without a CUDA device, or
@@ -101,12 +116,13 @@ without the package beside this file, it exits non-zero and prints no
 result.  The last line is ``{"ok": true, "device": {...}}``.
 
 ``--layers`` cuts the models' depth (not the fleet's: ``serve_fleet``
-builds its servers from the catalog) and ``--skip-serve`` leaves phases 3-5
-out; both are for iterating on the kernels and change what the last line
-may claim: with ``--skip-serve`` there is no ``ok`` line.  ``--profile``
-adds a ``torch.profiler`` window over a few steady decode ticks of each
-served model and over one prefill of mamba2-370m, zamba2-2.7b, qwen2-7b
-and gemma3-12b.
+builds its servers from the catalog, nor the training runs') and
+``--skip-serve`` leaves phases 3-6 out, ``--train-only`` phases 2-5; they
+are for iterating and change what the last line may claim: with either
+flag there is no ``ok`` line.  ``--profile`` adds a ``torch.profiler``
+window over a few steady decode ticks of each served model, over one
+prefill of mamba2-370m, zamba2-2.7b, qwen2-7b and gemma3-12b, and over one
+step of each training run.
 """
 
 from __future__ import annotations
@@ -2753,6 +2769,542 @@ def phase_small_reference(torch, cfg, seed):
 
 
 # ---------------------------------------------------------------------------
+# Phase 6: training -- the trainer at full width, its bitwise restart, and
+# the backwards of B4, B5 and B6 against autograd through their plain
+# versions
+# ---------------------------------------------------------------------------
+
+
+def train_kernel_counts():
+    """Launches of the three kernels a training step reaches."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import ssd_chunk as sc
+
+    return {**fa.LAUNCHES, **md.LAUNCHES, **sc.LAUNCHES}
+
+
+def reset_train_kernel_counts():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import ssd_chunk as sc
+
+    for mod in (fa, md, sc):
+        mod.reset_launch_counts()
+
+
+def train_step_launches(cfg, S):
+    """B4, B5 and B6 launches of one training step over S tokens a row:
+    what a prefill launches, twice -- every layer runs forward once and
+    again in the backward's recompute; the backwards launch nothing."""
+    import math
+
+    want = {"flash_attention": attention_calls(cfg),
+            "moe_dispatch": cfg.n_layers if cfg.family == "moe" else 0,
+            "ssd_chunk": 0}
+    if cfg.family in ("ssm", "hybrid"):
+        want["ssd_chunk"] = ssm_layers(cfg) * math.ceil(
+            S / min(cfg.ssm_chunk, S))
+    return {k: 2 * n for k, n in want.items()}
+
+
+TRAIN_LR = 3e-4        # the launcher's default, and its warm-up below
+
+
+def train_run(torch, cfg, seed, batch, seq, steps, ckpt_dir, *,
+              ckpt_every=None, failure_hook=None):
+    """``runtime.trainer.train`` on the card: ``steps`` steps of ``batch``
+    rows of ``seq`` tokens from the data pipeline's synthetic corpus (and
+    frames for whisper), random bf16 weights from ``seed``, AdamW at
+    the launcher's defaults (``TRAIN_LR``, a tenth of the steps' warm-up);
+    the kernel counts set to 0 just before and read just
+    after.  Returns the trainer's result with the counts and the peak
+    memory."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import TrainConfig, train
+
+    model = get_model(cfg)
+    data = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
+                      seed=seed, frames_dim=cfg.d_model
+                      if cfg.family in ("encdec", "audio") else 0)
+    tcfg = TrainConfig(total_steps=steps, ckpt_every=ckpt_every or steps + 1,
+                       log_every=steps + 1, ckpt_dir=ckpt_dir, keep=2)
+    ocfg = adamw.AdamWConfig(lr_peak=TRAIN_LR, total_steps=steps,
+                             warmup_steps=max(steps // 10, 1))
+    free_device_memory(torch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_train_kernel_counts()                 # the main path starts here
+    out = train(model, data, tcfg, ocfg, failure_hook=failure_hook,
+                seed=seed, device="cuda")
+    out["launches"] = train_kernel_counts()     # ... and ends
+    torch.cuda.synchronize()
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+BACKWARDS = ("AttentionFnBackward", "SsdChunkFnBackward",
+             "DispatchFnBackward")
+
+
+def profile_train_step(torch, cfg, params, opt, seed, batch, seq, label):
+    """Optional (``--profile``): one more training step of the trained
+    model under ``torch.profiler`` after a warm one: the card's busy time,
+    its idle share, the kernels that take most of it, the port's own
+    kernels, and the device time spent under each kernel's autograd
+    backward (torch ops, no kernel of this repo)."""
+    from torch.profiler import ProfilerActivity, profile as profiler
+
+    from repro_torch.data.pipeline import DataConfig, get_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw
+
+    data = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
+                      seed=seed + 1, frames_dim=cfg.d_model
+                      if cfg.family in ("encdec", "audio") else 0)
+    step = make_train_step(get_model(cfg), adamw.AdamWConfig(
+        lr_peak=TRAIN_LR, warmup_steps=1))
+    step(params, opt, get_batch(data, 0))                  # warm
+    torch.cuda.synchronize()
+    with profiler(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, opt, get_batch(data, 1))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, n, top, own = device_kernels(prof)
+    under = {}
+    for e in prof.key_averages():
+        for name in BACKWARDS:
+            if e.key.endswith(name):
+                ms = getattr(e, "device_time_total",
+                             getattr(e, "cuda_time_total", 0.0)) / 1e3
+                under[name] = {"calls": e.count, "device_ms": ms,
+                               "share_of_busy": ms / busy_ms}
+    say("train_profile", run=label, arch=cfg.name, batch=batch, seq=seq,
+        device_busy_ms=busy_ms, device_launches=n, wall_ms_profiled=wall_ms,
+        device_idle_share=max(0.0, 1 - busy_ms / wall_ms), top_kernels=top,
+        own_kernels=own, backwards=under,
+        note="one step alone, its wall taken under the profiler, which "
+             "slows the host; a backward's device time is that of the "
+             "kernels launched under its autograd node")
+
+
+def phase_train(torch, cfg, seed, batch, seq, steps, ckpt_root, label,
+                reduced=None, profile=False):
+    """The trainer at the config's width: every loss finite and the last
+    below the first, each kernel launched as the layers imply, and the
+    median step, tokens/s, peak memory and the final sync checkpoint's
+    seconds printed (with ``profile``, one more step under the profiler).
+    Returns the launches and the trainer's result."""
+    import numpy as np
+
+    from repro_torch.optim.adamw import tree_leaves
+
+    ckpt_dir = tempfile.mkdtemp(prefix=f"{label}_", dir=ckpt_root)
+    out = train_run(torch, cfg, seed, batch, seq, steps, ckpt_dir)
+    losses = out["losses"]
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"{label}: losses {losses}")
+    check(losses[-1] < losses[0], f"{label}: the loss did not fall: "
+          f"{losses}")
+    per_step = train_step_launches(cfg, seq)
+    want = {k: n * steps for k, n in per_step.items()}
+    check(out["launches"] == want, f"{label}: launches {out['launches']} "
+          f"!= {want} ({per_step} a step: forward and recompute)")
+    for banned in ("jax", "repro"):
+        check(banned not in sys.modules, f"{label}: {banned} was imported")
+    step_s = out["step_seconds"]
+    median = float(np.median(step_s[1:] if len(step_s) > 1 else step_s))
+    n_params = sum(t.numel() for t in tree_leaves(out["params"]))
+    say("train", run=label, arch=cfg.name, family=cfg.family,
+        layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
+        reduced=reduced, parameters=n_params, batch=batch, seq=seq,
+        steps=steps, losses=losses, step_seconds=step_s,
+        median_step_ms=median * 1e3,
+        tokens_per_second=batch * seq / median,
+        peak_memory_bytes=out["peak_memory_bytes"],
+        final_save_seconds=out["final_save_seconds"],
+        launches=out["launches"], launches_per_step=per_step,
+        note="median over the steps after the first; a step's wall "
+             f"includes the loss read back; AdamW lr_peak {TRAIN_LR}, "
+             f"warm-up {max(steps // 10, 1)} (the launcher's)")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if profile:
+        profile_train_step(torch, cfg, out["params"], out["opt"], seed,
+                           batch, seq, label)
+    return out.pop("launches"), out
+
+
+def phase_train_restart(torch, cfg, seed, ckpt_root, batch=4, seq=2048,
+                        steps=8, kill_at=5):
+    """The trainer killed at step ``kill_at`` (after the step-4 async
+    checkpoint) and resumed must end where the uninterrupted run ends, bit
+    for bit: every parameter, and the losses of the steps both ran after
+    the checkpoint.  Returns the launches of the uninterrupted run."""
+    ref_dir = tempfile.mkdtemp(prefix="restart_ref_", dir=ckpt_root)
+    ft_dir = tempfile.mkdtemp(prefix="restart_ft_", dir=ckpt_root)
+    ref = train_run(torch, cfg, seed, batch, seq, steps, ref_dir,
+                    ckpt_every=4)
+
+    class Killed(Exception):
+        pass
+
+    def killer(step):
+        if step == kill_at:
+            raise Killed()
+
+    try:
+        train_run(torch, cfg, seed, batch, seq, steps, ft_dir, ckpt_every=4,
+                  failure_hook=killer)
+        fail("train_restart: the failure hook did not stop the run")
+    except Killed:
+        pass
+    resumed = train_run(torch, cfg, seed, batch, seq, steps, ft_dir,
+                        ckpt_every=4)
+    from repro_torch.optim.adamw import tree_leaves
+
+    leaves = list(zip(tree_leaves(ref["params"]),
+                      tree_leaves(resumed["params"])))
+    differ = sum(not torch.equal(a, b) for a, b in leaves)
+    tail = len(resumed["losses"])
+    check(differ == 0, f"train_restart: {differ} of {len(leaves)} parameter "
+          f"leaves differ from the uninterrupted run's")
+    check(resumed["losses"] == ref["losses"][-tail:],
+          f"train_restart: losses {resumed['losses']} != "
+          f"{ref['losses'][-tail:]}")
+    state_differ = sum(not torch.equal(a, b) for a, b in zip(
+        tree_leaves(ref["opt"].master), tree_leaves(resumed["opt"].master)))
+    check(state_differ == 0, "train_restart: the master copies differ")
+    shutil.rmtree(ref_dir, ignore_errors=True)
+    shutil.rmtree(ft_dir, ignore_errors=True)
+    say("train_restart", arch=cfg.name, layers=cfg.n_layers,
+        reduced=f"depth {cfg.n_layers} of 48 (checkpoints of ~1 GB)",
+        batch=batch, seq=seq, steps=steps, ckpt_every=4, killed_at=kill_at,
+        resumed_from=4, resumed_steps=tail, leaves=len(leaves),
+        leaves_differing=differ, losses=ref["losses"],
+        resumed_losses=resumed["losses"], bitwise=True,
+        final_save_seconds=ref["final_save_seconds"])
+    return ref["launches"]
+
+
+def phase_train_moe(torch, cfg, seed, ckpt_root, profile=False):
+    """olmoe-1b-7b at full width, depth 2, batch 2 x 2048, 3 steps: B4 and
+    B5 forward and B5's backward; the loss holds the load-balancing term
+    (checked on the trained weights: loss = cross-entropy + 0.01 aux, aux
+    > 0)."""
+    from repro_torch.models import get_model
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+
+    launches, out = phase_train(
+        torch, cfg, seed, 2, 2048, 3, ckpt_root, "train_moe",
+        reduced=f"depth {cfg.n_layers} of 16", profile=profile)
+    params = out["params"]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    toks = torch.randint(2, cfg.vocab - 1, (1, 512), generator=gen,
+                         device="cuda", dtype=torch.int64).to(torch.int32)
+    labels = torch.roll(toks, -1, dims=1)
+    with torch.no_grad():
+        h, aux = moe.forward(cfg, params, toks)
+        xent = tfm.chunked_xent(cfg, params, h, labels)
+        loss = get_model(cfg).loss(params, {"tokens": toks,
+                                            "labels": labels})
+    aux, xent, loss = float(aux), float(xent), float(loss)
+    check(aux > 0 and abs(loss - (xent + 0.01 * aux)) <= 1e-5 * abs(loss),
+          f"train_moe: loss {loss} is not xent {xent} + 0.01 aux {aux}")
+    say("train_moe_aux", arch=cfg.name, loss=loss, xent=xent, aux=aux,
+        aux_weight=0.01)
+    del out, params
+    return launches
+
+
+GRAD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def grad_held(torch, want, got, label, dtype):
+    """Each gradient against autograd through the plain version, within
+    ``GRAD_TOL`` of max(1, its largest magnitude); returns the worst share
+    of the tolerance."""
+    worst = 0.0
+    for name, w, g in zip(label[1], want, got):
+        tol = GRAD_TOL[dtype] * max(1.0, float(w.float().abs().max()))
+        d = max_abs_diff(w.float(), g.float())
+        check(d <= tol, f"grad_kernels {label[0]} d{name}: {d} > {tol}")
+        worst = max(worst, d / tol)
+    return worst
+
+
+def phase_grad_kernels(torch, seed):
+    """The three backwards on the card at main-path shapes against
+    ``torch.autograd`` through each kernel's plain version on the card (a
+    check, off the main path), and each backward's ms on the card beside
+    its bound; B4 also beside SDPA's backward (a yardstick, called nowhere
+    in the port)."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import ssd_chunk as sc
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+
+    def grads_through(fn, inputs, cts):
+        ts = [t.detach().clone().requires_grad_() for t in inputs]
+        out = fn(*ts)
+        out = out if isinstance(out, tuple) else (out,)
+        return torch.autograd.grad(out, ts, cts)
+
+    def plain_backward_ms(fn, inputs, cts, iters):
+        """autograd's backward through a plain version, its graph kept."""
+        ts = [t.detach().clone().requires_grad_() for t in inputs]
+        out = fn(*ts)
+        out = out if isinstance(out, tuple) else (out,)
+        ms = time_ms(torch, lambda: torch.autograd.grad(
+            out, ts, cts, retain_graph=True), iters=iters, warmup=2)
+        del out, ts
+        free_device_memory(torch)
+        return ms
+
+    # B4: qwen2-7b's 4 x 2048, 28 query heads over 4 kv heads, D 128, bf16
+    B, S, H, Hkv, D = 4, 2048, 28, 4, 128
+    q = torch.randn((B, S, H, D), generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn((B, S, Hkv, D), generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
+    do = torch.randn((B, S, H, D), generator=gen, device="cuda").bfloat16()
+    got = grads_through(lambda q, k, v: fa.AttentionFn.apply(
+        q, k, v, True, 0, None, None), (q, k, v), (do,))
+    want = grads_through(lambda q, k, v: fa.mha_plain(q, k, v, causal=True),
+                         (q, k, v), (do,))
+    err = grad_held(torch, want, got, ("B4", "qkv"), "bfloat16")
+    del want, got
+    free_device_memory(torch)
+    ms = time_ms(torch, lambda: fa.attention_backward(q, k, v, do,
+                                                      causal=True), iters=5,
+                 warmup=2)
+    plain_ms = plain_backward_ms(lambda q, k, v: fa.mha_plain(
+        q, k, v, causal=True), (q, k, v), (do,), 5)
+    nbytes, ops, _ = attention_work(B, S, S, H, Hkv, D, True, 0, 2)
+    bound = 2.5 * ops / BF16_FLOPS_PER_S * 1e3
+    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                       enable_gqa=True)
+    sdpa_ms = time_ms(torch, lambda: torch.autograd.grad(
+        o, (qs, ks, vs), do.transpose(1, 2), retain_graph=True), iters=10,
+        warmup=3)
+    del o, qs, ks, vs
+    rows.append({"name": "flash_attention_backward", "replaces_forward":
+                 REPLACES["flash_attention"], "shape": "qwen2-7b: B 4, S "
+                 "2048, H 28/4, D 128, causal, bf16", "ms": ms,
+                 "bound_ms": bound, "bound_by": "operations",
+                 "plain_backward_ms": plain_ms,
+                 "bound_note": "2.5x the forward's FLOPs over 989 TFLOP/s",
+                 "sdpa_backward_ms": sdpa_ms, "worst_share_of_tolerance": err,
+                 "tolerance": "2e-2 of max(1, max |grad|), bf16"})
+    del q, k, v, do
+    free_device_memory(torch)
+
+    # B6: mamba2's chunk (B 8, H 32, Q 256, P 64, N 128), float32
+    rng = np.random.default_rng(seed)
+    args = ssd_inputs(torch, rng, 8, 32, 256, 64, 128)
+    inputs = [args[a] for a in SSD_ARGS]
+    Bc, Hc, Q, P, N = 8, 32, 256, 64, 128
+    dy = torch.randn((Bc, Hc, Q, P), generator=gen, device="cuda")
+    ds = torch.randn((Bc, Hc, P, N), generator=gen, device="cuda")
+    got = grads_through(sc.SsdChunkFn.apply, inputs, (dy, ds))
+    want = grads_through(sc.ssd_chunk_plain, inputs, (dy, ds))
+    err = grad_held(torch, want, got, ("B6", SSD_ARGS), "float32")
+    del want, got
+    ms = time_ms(torch, lambda: sc.ssd_chunk_backward(*inputs, dy, ds),
+                 iters=20, warmup=3)
+    plain_ms = plain_backward_ms(sc.ssd_chunk_plain, inputs, (dy, ds), 20)
+    macs = (Bc * Hc * (2 * Q * Q * P + 5 * Q * P * N) + Bc * 3 * Q * Q * N)
+    nbytes = 2 * sum(t.numel() * 4 for t in inputs) + 4 * (dy.numel()
+                                                         + ds.numel())
+    rows.append({"name": "ssd_chunk_backward", "replaces_forward":
+                 REPLACES["ssd_chunk"], "shape": "mamba2 chunk: B 8, H 32, "
+                 "Q 256, P 64, N 128, float32", "ms": ms,
+                 "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                                 3 * 2 * macs / TF32_FLOPS_PER_S) * 1e3,
+                 "bound_by": "operations", "plain_backward_ms": plain_ms,
+                 "float32_fma_bound_ms": 2 * macs / FP32_FLOPS_PER_S * 1e3,
+                 "bound_note": "its ten products (2 Q^2 P + 5 Q P N a head, "
+                 "3 Q^2 N a batch row), three TF32 passes each over 495 "
+                 "TFLOP/s, as the forward's bound",
+                 "worst_share_of_tolerance": err,
+                 "tolerance": "2e-5 of max(1, max |grad|), float32"})
+    del inputs, args, dy, ds
+    free_device_memory(torch)
+
+    # B5: olmoe's prefill-size dispatch, 81,920 slots of (8193, 2048) bf16
+    olmoe = get_arch("olmoe_1b_7b")
+    T, Dm = 8192, olmoe.d_model
+    slot = routed_slots(torch, rng, T, olmoe)
+    x = torch.randn((T + 1, Dm), generator=gen, device="cuda").bfloat16()
+    dout = torch.randn((slot.shape[0], Dm), generator=gen,
+                       device="cuda").bfloat16()
+    got = grads_through(lambda x: md.DispatchFn.apply(x, slot), (x,),
+                        (dout,))
+    # the plain version's own bf16 backward adds the zeros row's thousands
+    # of empty slots in bf16; through it in float32 it is the exact sum
+    want = grads_through(lambda x: md.moe_dispatch_plain(x, slot),
+                         (x.float(),), (dout.float(),))
+    err = grad_held(torch, want, got, ("B5", ("x_padded",)), "bfloat16")
+    again = grads_through(lambda x: md.DispatchFn.apply(x, slot), (x,),
+                          (dout,))
+    check(torch.equal(again[0], got[0]), "B5's backward is not "
+          "deterministic: two runs differ")
+    del want, got, again
+    ms = time_ms(torch, lambda: md.moe_dispatch_backward(dout, slot, T + 1),
+                 iters=20, warmup=3)
+    plain_ms = plain_backward_ms(lambda x: md.moe_dispatch_plain(x, slot),
+                                 (x,), (dout,), 20)
+    idx = slot.long()
+    lib_ms = time_ms(torch, lambda: torch.zeros(
+        (T + 1, Dm), dtype=dout.dtype, device="cuda").index_add_(
+        0, idx, dout), iters=20, warmup=3)
+    nbytes = dout.numel() * 2 + slot.numel() * 4 + x.numel() * 2
+    rows.append({"name": "moe_dispatch_backward", "replaces_forward":
+                 REPLACES["moe_dispatch"], "shape": "olmoe prefill: "
+                 f"{slot.shape[0]} slots of (8193, 2048) bf16", "ms": ms,
+                 "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                                 dout.numel() / FP32_FLOPS_PER_S) * 1e3,
+                 "bound_by": "bytes", "plain_backward_ms": plain_ms,
+                 "index_add_ms": lib_ms,
+                 "bound_note": "dout and slot_token read once, the "
+                 "gradient written once, over 3.35 TB/s",
+                 "deterministic": True, "worst_share_of_tolerance": err,
+                 "tolerance": "2e-2 of max(1, max |grad|), bf16, against "
+                 "autograd through the plain version in float32"})
+    del x, dout, slot, idx
+    free_device_memory(torch)
+    say("grad_kernels", backwards=rows,
+        note="ms: CUDA events around back-to-back calls of each backward "
+             "alone; plain_backward_ms: autograd's backward through the "
+             "plain version (B5's in bf16, as autograd takes it); "
+             "index_add_ and SDPA's backward are yardsticks, called "
+             "nowhere in the port")
+    return rows
+
+
+def phase_small_train_reference(torch, cfg, seed):
+    """One training step of the reduced model on the card against the same
+    step on the CPU from the same weights: the loss and every gradient
+    leaf within 2e-2 of max(1, that leaf's largest magnitude) (bf16; the
+    kernels on the card, their plain versions on the CPU), then the
+    parameters after ``make_train_step``.  MoE batches are drawn until no
+    token sits within ``ROUTE_MARGIN`` of a routing tie."""
+    from repro_torch.launch.steps import make_train_step, value_and_grad
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw
+
+    small = cfg.reduced()
+    model = get_model(small)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    cpu_params = model.init(gen, device="cpu")
+
+    def to_cuda(tree):
+        return adamw.tree_map(lambda t: t.cuda(), tree)
+
+    gpu_params = to_cuda(cpu_params)
+    rows, S = 2, 32
+    draws, margin = 0, None
+    while True:
+        draws += 1
+        toks = torch.randint(2, small.vocab - 1, (rows, S + 1),
+                             generator=gen, dtype=torch.int64).to(torch.int32)
+        if small.family != "moe":
+            break
+        margin = routing_margin(torch, model, cpu_params, toks[:, :S])
+        if margin >= ROUTE_MARGIN:
+            break
+        check(draws < ROUTE_DRAWS, f"no batch without a routing near-tie "
+              f"in {ROUTE_DRAWS} draws")
+    batch = {"tokens": toks[:, :S], "labels": toks[:, 1:]}
+    if small.family in ("encdec", "audio"):
+        batch["frames"] = torch.randn((rows, S, small.d_model),
+                                      generator=gen) * 0.02
+    reset_train_kernel_counts()
+    loss_c, grads_c = value_and_grad(model, cpu_params, batch)
+    loss_g, grads_g = value_and_grad(model, gpu_params, batch)
+    launched = train_kernel_counts()
+    worst = 0.0
+
+    def held(what, want, got):
+        nonlocal worst
+        tol = 2e-2 * max(1.0, float(want.float().abs().max()))
+        d = max_abs_diff(want.float(), got.float().cpu())
+        worst = max(worst, d / tol)
+        check(d <= tol, f"small_train_reference {small.name} {what}: "
+              f"card and CPU differ by {d} > {tol}")
+
+    check(bool(torch.isfinite(loss_g)), f"{small.name}: the loss on the "
+          f"card is not finite")
+    held("loss", loss_c, loss_g)
+    names = []
+
+    def walk(a, b, prefix):
+        for k in a:
+            if isinstance(a[k], dict):
+                walk(a[k], b[k], f"{prefix}/{k}")
+            else:
+                names.append(f"{prefix}/{k}")
+                held(f"grad {prefix}/{k}", a[k], b[k])
+
+    walk(grads_c, grads_g, "")
+    want = train_step_launches(small, S)
+    check(launched == want, f"small_train_reference {small.name}: launches "
+          f"{launched} != {want} (the CPU's step launches nothing)")
+    step = make_train_step(model, adamw.AdamWConfig(
+        lr_peak=TRAIN_LR, warmup_steps=1, total_steps=3))
+    _, cpu_params, _ = step(cpu_params, adamw.init(cpu_params), batch)
+    _, gpu_params, _ = step(gpu_params, adamw.init(gpu_params), batch)
+    for a, b in zip(adamw.tree_leaves(cpu_params),
+                    adamw.tree_leaves(gpu_params)):
+        held("params after a step", a, b)
+    say("small_train_reference", arch=small.name, family=small.family,
+        batch=rows, seq=S, leaves=len(names), prompt_draws=draws,
+        routing_margin=margin, loss_cpu=float(loss_c),
+        loss_card=float(loss_g), launches=launched,
+        worst_share_of_tolerance=worst,
+        tolerance="2e-2 of max(1, max |leaf|), bf16")
+
+
+def run_training_phases(torch, seed, get_arch, small_archs=(),
+                        profile=False):
+    """Phase 6, in order: ``train`` (mamba2-370m at full width and depth),
+    ``train_restart``, ``train_attention`` (whisper-base), ``train_moe``
+    (olmoe-1b-7b, depth 2), ``grad_kernels``, then
+    ``small_train_reference`` for each of ``small_archs``.  Checkpoints go
+    to a temporary directory removed at exit."""
+    free_device_memory(torch)
+    ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    atexit.register(shutil.rmtree, ckpt_root, ignore_errors=True)
+    mamba2 = get_arch("mamba2_370m")
+    phase_train(torch, mamba2, seed, 4, 2048, 6, ckpt_root, "train",
+                profile=profile)
+    phase_train_restart(torch, dataclasses.replace(mamba2, n_layers=4), seed,
+                        ckpt_root)
+    phase_train(torch, get_arch("whisper_base"), seed, 8, 448, 4, ckpt_root,
+                "train_attention", profile=profile)
+    phase_train_moe(torch, dataclasses.replace(get_arch("olmoe_1b_7b"),
+                                               n_layers=2), seed, ckpt_root,
+                    profile=profile)
+    free_device_memory(torch)
+    phase_grad_kernels(torch, seed)
+    for cfg in small_archs:
+        phase_small_train_reference(torch, cfg, seed)
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 
 
 def main():
@@ -2762,10 +3314,14 @@ def main():
                     help="cut the models' depth (default: full)")
     ap.add_argument("--profile", action="store_true",
                     help="also profile a few steady decode ticks of each "
-                         "served model and one prefill of each SSM model, "
-                         "of qwen2-7b and of gemma3-12b")
+                         "served model, one prefill of each SSM model, "
+                         "of qwen2-7b and of gemma3-12b, and one step of "
+                         "each training run")
     ap.add_argument("--skip-serve", action="store_true",
                     help="toolchain and kernel phases only; no ok line")
+    ap.add_argument("--train-only", action="store_true",
+                    help="toolchain and the training phases only; no ok "
+                         "line")
     args = ap.parse_args()
 
     src = os.path.join(HERE, "src")
@@ -2780,6 +3336,12 @@ def main():
     from repro_torch.configs import get_arch
 
     card, banked = phase_toolchain(torch)
+    if args.train_only:
+        run_training_phases(torch, args.seed, get_arch, [get_arch(a) for a in (
+            "qwen2_7b", "olmoe_1b_7b", "mamba2_370m", "zamba2_2_7b",
+            "gemma3_12b", "whisper_base")], profile=args.profile)
+        print(card, flush=True)
+        return 0
     phase_kernels(torch, args.seed)
     phase_moe_kernel(torch, args.seed)
     phase_ssd_kernel(torch, args.seed)
@@ -2843,6 +3405,8 @@ def main():
     free_device_memory(torch)
     for cfg in archs:
         phase_small_reference(torch, cfg, args.seed)
+    run_training_phases(torch, args.seed, get_arch, archs,
+                        profile=args.profile)
     if args.profile:
         for cfg in archs[:4]:
             phase_profile(torch, cfg, args.seed)

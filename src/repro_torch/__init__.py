@@ -13,8 +13,12 @@ architecture configs, the prefill and decode paths of every model family
 CUDA kernels too; the ring-banked and int8 KV-cache decode variants of the
 dense transformer), and the continuous-batching decode server on plan
 tickets (``runtime.server``, ``launch.serve``) and a fleet of them over one
-plan plane (``launch.serve_fleet``).  Entry points run on ``cuda`` and
-raise when there is no card unless the caller passes ``device="cpu"``.
+plan plane (``launch.serve_fleet``), and training: every family's loss
+with gradients through the kernels' autograd functions, a hand-written
+AdamW (``optim``), the data pipeline (``data``), checkpoints (``ckpt``),
+the trainer (``runtime.trainer``) and its launcher (``launch.train``).
+Entry points run on ``cuda`` and raise when there is no card unless the
+caller passes ``device="cpu"``.
 """
 
 from . import convert, core

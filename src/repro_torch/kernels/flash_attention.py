@@ -44,6 +44,13 @@ original D, and the output is sliced back to D.  ``COPIES`` counts the calls
 that made such a copy.  The copy is neither the plain version nor the
 float32 kernel, and no model needs it (their head sizes are 64, 80, 128 and
 240, their q, k and v views aligned).  float32 takes any D and strides.
+
+**The gradient.**  The Pallas kernel has no backward (the JAX package trains
+through ``jnp``), and neither has this one: :class:`AttentionFn`, which
+``ops.mha`` calls, runs :func:`attention` forward and
+:func:`attention_backward` -- the gradient ``jax.grad`` takes through
+``ref.mha_reference``, recomputed over blocks of query rows in float32
+torch ops -- backward.  It launches nothing of its own.
 """
 
 from __future__ import annotations
@@ -274,6 +281,76 @@ def attention(q, k, v, *, causal=True, window=0, kv_len=None, scale=None
     if copied:
         COPIES["flash_attention"] += 1
     return out if Dk == D else out[..., :D]
+
+
+# The backward holds a few float32 (B, H, rows, Sk) tensors of one block of
+# query rows at a time; ``rows`` keeps each under this many bytes (at
+# qwen2-7b's 4 x 2048, 28 heads: 109 rows, about 0.4 GB for the block).
+BWD_TENSOR_BYTES = 96 << 20
+
+
+def attention_backward(q, k, v, dout, *, causal=True, window=0, kv_len=None,
+                       scale=None):
+    """``(dq, dk, dv)`` of :func:`attention` for the output gradient
+    ``dout``: the gradient ``jax.grad`` takes through ``ref.mha_reference``,
+    written out in torch ops (no kernel; the matrix products go to
+    ``torch.matmul`` through ``einsum``).
+
+    Over blocks of query rows it recomputes ``S = q k^T scale`` and the
+    masked softmax ``P`` in float32, then ``dV += P^T dO``, ``dS = P o (dO
+    V^T - rowsum(P o dO V^T))`` with the masked entries zeroed (the
+    gradient of the ``where``), ``dQ = dS K scale`` and ``dK += dS^T Q
+    scale``, summed over each kv head's group of query heads.  A row that
+    sees no key has a uniform ``P`` (its output is the mean of v), so it
+    passes ``dO / Sk`` to every key's ``dV`` and nothing to ``dQ`` and
+    ``dK``.  Accumulated in float32, returned in the inputs' dtypes."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    kf, vf = k.float(), v.float()
+    keep_all = _mask(Sq, Sk, causal, int(window), kv_len, q.device)
+    dq = torch.empty((B, Sq, H, D), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((B, Sk, Hkv, D), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    rows = max(1, BWD_TENSOR_BYTES // (B * H * Sk * 4))
+    for r0 in range(0, Sq, rows):
+        r1 = min(Sq, r0 + rows)
+        n = r1 - r0
+        q5 = (q[:, r0:r1].float() * scale).reshape(B, n, Hkv, rep, D)
+        do5 = dout[:, r0:r1].float().reshape(B, n, Hkv, rep, D)
+        hidden = ~keep_all[r0:r1]
+        s = torch.einsum("bqhrd,bkhd->bhrqk", q5, kf)
+        p = torch.softmax(s.masked_fill_(hidden, NEG_INF), dim=-1)
+        del s
+        dv += torch.einsum("bhrqk,bqhrd->bkhd", p, do5)
+        ds = torch.einsum("bqhrd,bkhd->bhrqk", do5, vf)
+        ds.sub_((p * ds).sum(-1, keepdim=True)).mul_(p)
+        del p
+        ds.masked_fill_(hidden, 0.0)
+        dq[:, r0:r1] = torch.einsum("bhrqk,bkhd->bqhrd", ds, kf).reshape(
+            B, n, H, D) * scale
+        dk += torch.einsum("bhrqk,bqhrd->bkhd", ds, q5)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class AttentionFn(torch.autograd.Function):
+    """:func:`attention` with its gradient: the forward is the wrapper as
+    it is (the kernel on a CUDA tensor, the plain version on the CPU), the
+    backward :func:`attention_backward`.  ``kernels.ops.mha`` calls it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, kv_len, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = dict(causal=causal, window=window, kv_len=kv_len,
+                        scale=scale)
+        return attention(q, k, v, **ctx.mask)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        return (*attention_backward(q, k, v, dout, **ctx.mask),
+                None, None, None, None)
 
 
 def kernel_info(D: int) -> Dict[str, int]:

@@ -23,6 +23,10 @@ Indices that arrive on the host (numpy, lists, CPU tensors) are
 range-checked and raise ``IndexError``; indices that already lie on the
 card are not inspected, since that would synchronize, and the kernel
 writes a zero row for one that is out of range.
+
+The gradient: :class:`DispatchFn`, which ``ops.dispatch`` calls, runs
+:func:`moe_dispatch` forward and :func:`moe_dispatch_backward` -- each
+row's slot gradients summed in a fixed order, in torch ops -- backward.
 """
 
 from __future__ import annotations
@@ -105,6 +109,61 @@ def moe_dispatch(x_padded: torch.Tensor, slot_token) -> torch.Tensor:
                            f"{err}")
     LAUNCHES["moe_dispatch"] += 1
     return out
+
+
+def moe_dispatch_backward(dout: torch.Tensor, slot_token: torch.Tensor,
+                          rows: int) -> torch.Tensor:
+    """The gradient of :func:`moe_dispatch` with respect to ``x_padded``
+    (``rows`` of them) for ``dout (S, D)``: row ``t`` gets the sum of the
+    gradients of the slots that read it (a token fills up to ``top_k``
+    slots, the zeros row every empty one), in float32, returned in
+    ``dout``'s dtype.
+
+    Deterministic, in torch ops, with no atomics and no host
+    synchronization: the slots are sorted stably by the row they read, and
+    a segmented scan (``log2(S)`` passes, each adding the partial sum
+    ``2^k`` places back where it lies in the same row) sums each row's
+    slots in a fixed order; a row's sum is its last slot's entry.  A float
+    ``index_add_`` would add in an order that changes from run to run on
+    the card."""
+    S, D = dout.shape
+    idx = slot_token.to(torch.int64)
+    order = torch.argsort(idx, stable=True)
+    seg = idx[order]
+    acc = dout[order].float()
+    step = 1
+    while step < S:
+        same = (seg[step:] == seg[:-step])[:, None]
+        acc = torch.cat([acc[:step],
+                         torch.where(same, acc[step:] + acc[:-step],
+                                     acc[step:])])
+        step *= 2
+    want = torch.arange(rows, device=dout.device)
+    last = torch.searchsorted(seg, want, right=True) - 1
+    read = (last >= 0) & (seg[last.clamp(min=0)] == want)
+    grad = torch.where(read[:, None], acc[last.clamp(min=0)], 0.0)
+    return grad.to(dout.dtype)
+
+
+class DispatchFn(torch.autograd.Function):
+    """:func:`moe_dispatch` with its gradient: the forward is the wrapper as
+    it is (the kernel on a CUDA tensor, the plain version on the CPU), the
+    backward :func:`moe_dispatch_backward`.  ``kernels.ops.dispatch`` calls
+    it; the zeros row's gradient is then dropped by the backward of the
+    ``F.pad`` that appended the row."""
+
+    @staticmethod
+    def forward(ctx, x_padded, slot_token):
+        out = moe_dispatch(x_padded, slot_token)
+        ctx.save_for_backward(as_index(slot_token, x_padded.device,
+                                       x_padded.shape[0], "slot_token"))
+        ctx.rows = x_padded.shape[0]
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        slot_token, = ctx.saved_tensors
+        return moe_dispatch_backward(dout, slot_token, ctx.rows), None
 
 
 def moe_combine(y_buf: torch.Tensor, slot_token: torch.Tensor,

@@ -7,7 +7,10 @@ versions for a table on the CPU.  ``dispatch`` fills the MoE expert buffer
 through ``kernels/moe_dispatch.py`` the same way, ``ssd`` runs one
 Mamba2 SSD chunk through ``kernels/ssd_chunk.py``, and ``mha`` attends over
 a whole prompt through ``kernels/flash_attention.py``; ``moe_combine`` is
-plain torch.
+plain torch.  ``dispatch``, ``ssd`` and ``mha`` carry gradients: each goes
+through its kernel module's ``torch.autograd.Function``, whose forward is
+the wrapper (the kernel on a CUDA tensor) and whose backward is written
+out in torch ops.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from ..core.artifact import as_compiled
 from . import flash_attention as _fa
 from . import moe_dispatch as _md
 from .moe_dispatch import moe_combine
-from .ssd_chunk import ssd_chunk
+from .ssd_chunk import SsdChunkFn
 
 
 def gather_banked(table, indices, compiled):
@@ -59,14 +62,14 @@ def dispatch(x, slot_token):
     """x: ``(T, D)`` tokens; slot_token: ``(E*C,)`` source token per slot,
     ``T`` for an empty one.  Appends the zeros row that empty slots read
     and returns the ``(E*C, D)`` expert buffer."""
-    return _md.moe_dispatch(F.pad(x, (0, 0, 0, 1)), slot_token)
+    return _md.DispatchFn.apply(F.pad(x, (0, 0, 0, 1)), slot_token)
 
 
 def ssd(x, dt, bm, cm, cum, s_prev):
     """One SSD chunk for every (batch, head): x ``(B, H, Q, P)``, dt and cum
     ``(B, H, Q)``, bm and cm ``(B, Q, N)``, s_prev ``(B, H, P, N)``, all
     float32.  Returns ``(y (B, H, Q, P), s_new (B, H, P, N))``."""
-    return ssd_chunk(x, dt, bm, cm, cum, s_prev)
+    return SsdChunkFn.apply(x, dt, bm, cm, cum, s_prev)
 
 
 def mha(q, k, v, *, causal=True, window=0, kv_len=None):
@@ -77,8 +80,7 @@ def mha(q, k, v, *, causal=True, window=0, kv_len=None):
     Positions count from 0 for q and k alike; a row that sees no key gets
     the mean of v over all keys, as the JAX oracle gives it (see
     ``kernels/flash_attention.py``)."""
-    return _fa.attention(q, k, v, causal=causal, window=window,
-                         kv_len=kv_len)
+    return _fa.AttentionFn.apply(q, k, v, causal, window, kv_len, None)
 
 
 __all__ = ["dispatch", "gather_banked", "mha", "moe_combine", "pack_banked",

@@ -198,6 +198,76 @@ def ssd_chunk(x, dt, bm, cm, cum, s_prev, out=None
     return y, s_new
 
 
+def ssd_chunk_backward(x, dt, bm, cm, cum, s_prev, dy, ds_new):
+    """The gradients of :func:`ssd_chunk`'s ``(y, S_new)`` with respect to
+    all six inputs, for the output gradients ``dy (B, H, Q, P)`` and
+    ``ds_new (B, H, P, N)``: what ``jax.grad`` takes through
+    ``ref.ssd_chunk_reference``, written out in torch ops (no kernel; the
+    products go to ``torch.matmul`` through ``einsum``).  With ``u = dt o
+    x``, ``G = C B^T``, ``W = G o L`` and ``e = exp(cum)``::
+
+        du     = W^T dy + exp(cum_Q - cum) o (B dS_new^T)
+        dW     = dy u^T          dG = sum_h dW o L      dL = dW o G
+        dcum   = rowsum(dL o L) - colsum(dL o L)        (L masked first)
+               + e o rowsum(dy o C S_prev^T)  - decay terms of S_new
+        dC     = dG B + sum_h (e o dy) S_prev        (B, C shared by heads)
+        dB     = dG^T C + sum_h (u o decay) dS_new
+        dS_prev = (e o dy)^T C + exp(cum_Q) dS_new
+
+    float32, like the forward."""
+    Q = x.shape[2]
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    rel = cum[..., :, None] - cum[..., None, :]
+    Lmat = torch.exp(rel.masked_fill(~causal, float("-inf")))  # mask, then exp
+    G = torch.einsum("bin,bjn->bij", cm, bm)
+    W = G[:, None] * Lmat
+    u = x * dt[..., None]
+    e = torch.exp(cum)
+    e_last = torch.exp(cum[..., -1])                           # (B, H)
+    decay = torch.exp(cum[..., -1:] - cum)                     # (B, H, Q)
+    # y_intra = W u
+    du = torch.einsum("bhij,bhip->bhjp", W, dy)
+    dW = torch.einsum("bhip,bhjp->bhij", dy, u)
+    dG = (dW * Lmat).sum(1)
+    drel = dW * G[:, None] * Lmat             # zero above the diagonal
+    dcum = drel.sum(-1) - drel.sum(-2)
+    dcm = torch.einsum("bij,bjn->bin", dG, bm)
+    dbm = torch.einsum("bij,bin->bjn", dG, cm)
+    # y_inter = e o (C S_prev^T)
+    Z = torch.einsum("bin,bhpn->bhip", cm, s_prev)
+    dcum = dcum + e * (dy * Z).sum(-1)
+    dZ = e[..., None] * dy
+    dcm = dcm + torch.einsum("bhip,bhpn->bin", dZ, s_prev)
+    ds_prev = torch.einsum("bhip,bin->bhpn", dZ, cm)
+    # S_new = e_last S_prev + (u o decay)^T B
+    ds_prev = ds_prev + e_last[..., None, None] * ds_new
+    d_last = e_last * (ds_new * s_prev).sum((-1, -2))
+    BdS = torch.einsum("bqn,bhpn->bhqp", bm, ds_new)
+    du = du + decay[..., None] * BdS
+    t = (u * BdS).sum(-1) * decay              # d decay o decay
+    d_last = d_last + t.sum(-1)
+    dcum = dcum - t
+    dcum[..., -1] += d_last
+    dbm = dbm + torch.einsum("bhqp,bhpn->bqn", u * decay[..., None], ds_new)
+    return du * dt[..., None], (du * x).sum(-1), dbm, dcm, dcum, ds_prev
+
+
+class SsdChunkFn(torch.autograd.Function):
+    """:func:`ssd_chunk` with its gradient: the forward is the wrapper as it
+    is (the kernel on a CUDA tensor, the plain version on the CPU), the
+    backward :func:`ssd_chunk_backward`.  ``models/ssm.ssd_chunked`` calls
+    it when gradients are wanted, ``kernels.ops.ssd`` always."""
+
+    @staticmethod
+    def forward(ctx, x, dt, bm, cm, cum, s_prev):
+        ctx.save_for_backward(x, dt, bm, cm, cum, s_prev)
+        return ssd_chunk(x, dt, bm, cm, cum, s_prev)
+
+    @staticmethod
+    def backward(ctx, dy, ds_new):
+        return ssd_chunk_backward(*ctx.saved_tensors, dy, ds_new)
+
+
 def kernel_info() -> Dict[str, int]:
     """Registers a thread, dynamic shared memory (bytes) and blocks
     resident on one SM of the kernel, as the CUDA runtime reports them;

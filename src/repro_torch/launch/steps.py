@@ -1,10 +1,38 @@
-"""Step functions shared by the server and the launchers."""
+"""Step functions shared by the trainer, the server and the launchers."""
 
 from __future__ import annotations
 
 import torch
 
 from ..models import Model
+from ..optim import adamw
+
+
+def value_and_grad(model: Model, params, batch):
+    """``(loss, grads)``: ``model.loss`` and its gradient with respect to
+    every parameter (``torch.autograd.grad`` where the JAX package takes
+    ``jax.value_and_grad``), ``grads`` a tree like ``params``.  The batch's
+    arrays (numpy or tensors anywhere) go to the parameters' device."""
+    device = params["embed"].device
+    batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    leaves = adamw.tree_map(lambda p: p.detach().requires_grad_(True),
+                            params)
+    loss = model.loss(leaves, batch)
+    grads = iter(torch.autograd.grad(loss, adamw.tree_leaves(leaves)))
+    return loss.detach(), adamw.tree_map(lambda _: next(grads), leaves)
+
+
+def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig):
+    """``train_step(params, opt_state, batch) -> (loss, params,
+    opt_state)``: :func:`value_and_grad`, then one AdamW update, which
+    writes the new parameters and state into the tensors it was given.
+    ``loss`` is a 0-d float32 tensor on the parameters' device."""
+    def train_step(params, opt_state, batch):
+        loss, grads = value_and_grad(model, params, batch)
+        params, opt_state = adamw.update(opt_cfg, grads, opt_state, params)
+        return loss, params, opt_state
+
+    return train_step
 
 
 def make_prefill_step(model: Model, max_len: int):

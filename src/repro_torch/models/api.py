@@ -3,18 +3,23 @@
 ``get_model(cfg)`` returns a ``Model`` with:
 
 * ``init(generator, device=..., dtype=...)`` -> params
+* ``loss(params, batch)``                    -> 0-d float32 tensor
 * ``prefill(params, batch, max_len)``        -> (logits, cache)
 * ``decode(params, cache, tokens)``          -> (logits, cache)
 * ``init_cache(batch, max_len, device=...)`` -> cache
 
-Every family has its prefill and decode paths here: the dense transformer
-(``dense`` and ``vlm`` -- chameleon: its VQ image tokens live in the shared
-vocabulary, frontend stubbed to token ids), the MoE transformer (``moe``,
-expert dispatch chosen by ``moe_impl``), the Mamba2 SSM (``ssm``), the
-Zamba2 hybrid (``hybrid``) and the Whisper encoder-decoder (``encdec`` /
-``audio``: its prefill takes ``batch["frames"]`` beside the tokens, and its
-``init_cache`` is ``None``, since the cross K/V come from the frames at
-prefill).  ``loss`` is ``None`` until the training side is ported.
+Every family has its loss, prefill and decode paths here: the dense
+transformer (``dense`` and ``vlm`` -- chameleon: its VQ image tokens live
+in the shared vocabulary, frontend stubbed to token ids), the MoE
+transformer (``moe``, expert dispatch chosen by ``moe_impl``), the Mamba2
+SSM (``ssm``), the Zamba2 hybrid (``hybrid``) and the Whisper
+encoder-decoder (``encdec`` / ``audio``: its prefill takes
+``batch["frames"]`` beside the tokens, and its ``init_cache`` is
+``None``, since the cross K/V come from the frames at prefill).
+``loss`` is the training objective (the chunked cross-entropy of
+``batch["labels"]``; the MoE family adds its load-balancing loss, the
+encoder-decoder reads ``batch["frames"]`` too); gradients flow through it
+into every parameter, through the kernels' autograd functions.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ Params = Dict[str, Any]
 class Model:
     cfg: ArchConfig
     init: Callable
-    loss: Optional[Callable]        # (params, batch) -> scalar
+    loss: Callable                  # (params, batch) -> scalar
     prefill: Optional[Callable]     # (params, batch, max_len) -> (logits, cache)
     decode: Callable                # (params, cache, tokens) -> (logits, cache)
     init_cache: Optional[Callable]  # (batch, max_len) -> cache; encdec: None
@@ -46,7 +51,7 @@ def get_model(cfg: ArchConfig, moe_impl: str = "sorted") -> Model:
         return Model(
             cfg=cfg,
             init=partial(tfm.init_dense_params, cfg),
-            loss=None,
+            loss=partial(tfm.lm_loss, cfg),
             prefill=lambda p, batch, max_len: tfm.prefill(
                 cfg, p, batch["tokens"], max_len),
             decode=partial(tfm.decode_step, cfg),
@@ -59,7 +64,7 @@ def get_model(cfg: ArchConfig, moe_impl: str = "sorted") -> Model:
         return Model(
             cfg=cfg,
             init=partial(moe.init_moe_params, cfg),
-            loss=None,
+            loss=partial(moe.lm_loss, cfg, impl=moe_impl),
             prefill=lambda p, batch, max_len: moe.prefill(
                 cfg, p, batch["tokens"], max_len, impl=moe_impl),
             decode=partial(moe.decode_step, cfg, impl=moe_impl),
@@ -72,7 +77,7 @@ def get_model(cfg: ArchConfig, moe_impl: str = "sorted") -> Model:
         return Model(
             cfg=cfg,
             init=partial(ssm.init_params, cfg),
-            loss=None,
+            loss=partial(ssm.lm_loss, cfg),
             prefill=lambda p, batch, max_len: ssm.prefill(
                 cfg, p, batch["tokens"]),
             decode=partial(ssm.decode_step, cfg),
@@ -82,7 +87,7 @@ def get_model(cfg: ArchConfig, moe_impl: str = "sorted") -> Model:
         return Model(
             cfg=cfg,
             init=partial(hybrid.init_params, cfg),
-            loss=None,
+            loss=partial(hybrid.lm_loss, cfg),
             prefill=lambda p, batch, max_len: hybrid.prefill(
                 cfg, p, batch["tokens"], max_len),
             decode=partial(hybrid.decode_step, cfg),
@@ -92,7 +97,7 @@ def get_model(cfg: ArchConfig, moe_impl: str = "sorted") -> Model:
         return Model(
             cfg=cfg,
             init=partial(encdec.init_params, cfg),
-            loss=None,
+            loss=partial(encdec.lm_loss, cfg),
             prefill=lambda p, batch, max_len: encdec.prefill(
                 cfg, p, batch["frames"], batch["tokens"], max_len),
             decode=partial(encdec.decode_step, cfg),

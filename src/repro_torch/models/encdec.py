@@ -13,8 +13,9 @@ Attention over a whole sequence -- the encoder's, the prefill's causal self
 attention and its cross attention (``S`` query rows over ``S_enc`` frames)
 -- goes through the flash attention kernel (``kernels.ops.mha``); a decode
 step's single query row attends against the caches through the eager
-``chunked_attention``, as in the JAX package.  The training pass and the
-loss are not here yet.
+``chunked_attention``, as in the JAX package.  ``lm_loss`` (the encoder,
+``decode_train`` over the whole target and the chunked cross-entropy)
+carries gradients; ``prefill`` runs the same encoder body without them.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from ..device import resolve_device
 from ..kernels import ops
 from . import transformer as tfm
 from .layers import (apply_rope, chunked_attention, dense_init, gelu_mlp,
-                     rms_norm)
+                     remat, rms_norm, unstack)
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -108,18 +109,60 @@ def _mlp(cfg: ArchConfig, lp, x):
     return gelu_mlp(x, m["w_up"], m["b_up"], m["w_down"], m["b_down"])
 
 
-@torch.no_grad()
-def encode(cfg: ArchConfig, params: Params, frames: Tensor) -> Tensor:
-    """frames: precomputed embeddings (B, S_enc, D) -- the frontend stub.
-    Bidirectional self attention in every layer."""
-    x = frames
-    for i in range(cfg.n_encoder_layers or cfg.n_layers):
-        lp = _layer(params["enc"], i)
+def _encode(cfg: ArchConfig, params: Params, frames: Tensor) -> Tensor:
+    """The encoder over ``frames (B, S_enc, D)``, gradients allowed: every
+    layer's bidirectional self attention through the flash attention
+    kernel, each layer recomputed in the backward when gradients are being
+    recorded."""
+    def block(lp, x):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         a, _ = _mha(cfg, lp["attn"], h, h, causal=False)
         x = x + a
-        x = x + _mlp(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps))
+        return x + _mlp(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps))
+
+    x = frames
+    for lp in unstack(params["enc"], cfg.n_encoder_layers or cfg.n_layers):
+        x = remat(block, lp, x)
     return rms_norm(x, params["ln_enc"], cfg.norm_eps)
+
+
+@torch.no_grad()
+def encode(cfg: ArchConfig, params: Params, frames: Tensor) -> Tensor:
+    """frames: precomputed embeddings (B, S_enc, D) -- the frontend stub.
+    Bidirectional self attention in every layer; no gradients (the
+    prefill's encoder)."""
+    return _encode(cfg, params, frames)
+
+
+def decode_train(cfg: ArchConfig, params: Params, enc_out: Tensor,
+                 tokens: Tensor) -> Tensor:
+    """The decoder over the whole of ``tokens (B, S)`` against ``enc_out``,
+    gradients allowed: causal self attention and cross attention through
+    the flash attention kernel, each layer recomputed in the backward.
+    Returns the final hidden states (B, S, D)."""
+    def block(lp, x):
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        a, _ = _mha(cfg, lp["self"], h, h, causal=True)
+        x = x + a
+        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        a, _ = _mha(cfg, lp["cross"], h, enc_out, causal=False)
+        x = x + a
+        return x + _mlp(cfg, lp, rms_norm(x, lp["ln3"], cfg.norm_eps))
+
+    x = tfm.embed_tokens(params, tokens)
+    for lp in unstack(params["dec"], cfg.n_layers):
+        x = remat(block, lp, x)
+    return rms_norm(x, params["ln_f"], cfg.norm_eps)
+
+
+def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, Tensor]
+            ) -> Tensor:
+    """Encode ``batch["frames"]`` (cast to bfloat16), decode
+    ``batch["tokens"]`` over them, and the chunked cross-entropy against
+    ``batch["labels"]``."""
+    enc_out = _encode(cfg, params, batch["frames"].to(torch.bfloat16))
+    h = decode_train(cfg, params, enc_out, batch["tokens"])
+    return tfm.chunked_xent(cfg, params, h, batch["labels"])
 
 
 class EncDecCache(NamedTuple):
@@ -144,7 +187,7 @@ def prefill(cfg: ArchConfig, params: Params, frames: Tensor, tokens: Tensor,
         raise ValueError(f"a prompt of {S} tokens does not fit a cache of "
                          f"max_len {max_len}")
     enc_out = encode(cfg, params, frames.to(torch.bfloat16))
-    x = params["embed"].to(torch.bfloat16)[tokens]
+    x = tfm.embed_tokens(params, tokens)
     L, S_enc = cfg.n_layers, enc_out.shape[1]
     kv = (L, B, max_len, cfg.n_kv_heads, cfg.hd)
     cross = (L, B, S_enc, cfg.n_kv_heads, cfg.hd)
@@ -175,7 +218,7 @@ def decode_step(cfg: ArchConfig, params: Params, cache: EncDecCache,
     ``pos + 1``.  The self K/V buffers are **updated in place** (a write
     past ``max_len`` is clamped to the last row, as the JAX package's
     ``dynamic_update_slice`` clamps it); the cross K/V are read only."""
-    x = params["embed"].to(torch.bfloat16)[tokens]
+    x = tfm.embed_tokens(params, tokens)
     pos = int(cache.pos)
     B, S, _ = x.shape
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd

@@ -8,8 +8,9 @@ re-applied at several depths (arXiv:2411.15242).  The SSM layers are stacked
 its own per site.  In a prefill the shared block attends over the prompt
 through the flash attention kernel (one launch a site); in a decode step
 through the eager attention against its cache.  Where the JAX package scans
-over groups and layers, two plain loops run here.  The training forward and
-the loss are not here yet.
+over groups and layers, two plain loops run here.  ``forward`` and
+``lm_loss`` carry gradients (through the kernels' autograd functions);
+prefill and decode do not.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from ..configs.base import ArchConfig
 from ..device import resolve_device
 from . import ssm as ssm_mod
 from . import transformer as tfm
-from .layers import dense_init, rms_norm
+from .layers import dense_init, remat, rms_norm, unstack
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -94,13 +95,39 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
         0)
 
 
+def forward(cfg: ArchConfig, params: Params, tokens: Tensor) -> Tensor:
+    """tokens (B, S) -> final hidden states (B, S, D): each group's SSM
+    blocks, then the shared block attending over the sequence through the
+    flash attention kernel; each group recomputed in the backward when
+    gradients are being recorded, as the JAX package checkpoints its group
+    body.  The shared block's weights gather the gradients of every site."""
+    x = tfm.embed_tokens(params, tokens)
+    G, per = _groups(cfg)
+    shared = params["shared_attn"]
+
+    def group(lps, x):
+        for lp in lps:
+            x, _ = ssm_mod.ssm_block(cfg, lp, x)
+        return tfm.dense_layer(cfg, shared, x, 0)[0]
+
+    for stacked in unstack(params["ssm"], G):
+        x = remat(group, unstack(stacked, per), x)
+    return rms_norm(x, params["ln_f"], cfg.norm_eps)
+
+
+def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, Tensor]
+            ) -> Tensor:
+    h = forward(cfg, params, batch["tokens"])
+    return tfm.chunked_xent(cfg, params, h, batch["labels"])
+
+
 @torch.no_grad()
 def decode_step(cfg: ArchConfig, params: Params, cache: HybridCache,
                 tokens: Tensor) -> Tuple[Tensor, HybridCache]:
     """One decode step: tokens (B, 1) -> logits (B, V), updated cache.  All
     of the cache's buffers are **updated in place**; the returned cache
     shares them and carries ``pos + 1``."""
-    x = params["embed"].to(torch.bfloat16)[tokens]
+    x = tfm.embed_tokens(params, tokens)
     G, per = _groups(cfg)
     pos = int(cache.pos)
     for g in range(G):
@@ -132,7 +159,7 @@ def prefill(cfg: ArchConfig, params: Params, tokens: Tensor, max_len: int
     if S > max_len:
         raise ValueError(f"a prompt of {S} tokens does not fit a cache of "
                          f"max_len {max_len}")
-    x = params["embed"].to(torch.bfloat16)[tokens]
+    x = tfm.embed_tokens(params, tokens)
     G, per = _groups(cfg)
     cache = init_cache(cfg, B, max_len, device=x.device)
     for g in range(G):

@@ -22,6 +22,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 Tensor = torch.Tensor
 
@@ -220,6 +221,34 @@ def naive_attention(q, k, v, *, causal=True, window=0, q_offset=0,
 
 
 ATTN_IMPLS = {"chunked": chunked_attention, "naive": naive_attention}
+
+
+# ---------------------------------------------------------------------------
+# Stacked layers under autograd
+# ---------------------------------------------------------------------------
+
+
+def unstack(tree, n: int) -> list:
+    """``n`` per-layer trees out of a tree whose leaves are stacked on a
+    leading axis of ``n``: each leaf is split once with ``torch.unbind``.
+    Under autograd the backward of one ``unbind`` stacks the layers'
+    gradients into one buffer per leaf; indexing ``w[i]`` inside the layer
+    loop instead gives every layer a zero-filled gradient of the whole
+    stack to sum."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree))
+
+
+def remat(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward when
+    gradients are being recorded -- the JAX package wraps every scanned
+    layer body in ``jax.checkpoint`` -- and a plain call otherwise."""
+    if torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------

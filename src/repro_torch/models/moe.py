@@ -22,8 +22,10 @@ parameters are stacked on a leading ``L`` axis as in the JAX package, so
 weights map one to one.  ``forward``, ``prefill`` and ``decode_step`` are
 the dense transformer's passes with the expert layer as every layer's
 feed-forward; in a prefill the ``sorted`` path fills its expert buffer at
-``T = B * S`` tokens.  The loss is not here yet; neither is the
-expert-parallel ``a2a`` dispatch, which needs a device mesh.
+``T = B * S`` tokens.  ``lm_loss`` adds the load-balancing loss to the
+cross-entropy; gradients reach the tokens through the dispatch kernel's
+autograd function.  The expert-parallel ``a2a`` dispatch, which needs a
+device mesh, is not here yet.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..kernels import ops
 from . import transformer as tfm
-from .layers import dense_init, swiglu
+from .layers import dense_init, remat, rms_norm, swiglu, unstack
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -197,14 +199,36 @@ def _ffn(cfg: ArchConfig, impl: str, aux=None):
     return ffn
 
 
-@torch.no_grad()
 def forward(cfg: ArchConfig, params: Params, tokens: Tensor,
             impl: str = "sorted") -> Tuple[Tensor, Tensor]:
     """tokens (B, S) -> (final hidden states (B, S, D), the load-balancing
-    loss averaged over the layers)."""
-    aux = []
-    h = tfm.forward(cfg, params, tokens, ffn=_ffn(cfg, impl, aux))
-    return h, sum(aux) / cfg.n_layers
+    loss averaged over the layers): ``transformer.forward``'s layers with
+    the expert layer as the feed-forward, each recomputed in the backward
+    when gradients are being recorded (the expert buffer through
+    ``ops.dispatch``'s autograd function).  Each layer returns its own aux
+    loss, so a recomputed layer adds nothing twice."""
+    x = tfm.embed_tokens(params, tokens)
+    windows = tfm.layer_windows(cfg)
+
+    def block(lp, x, window):
+        aux = []
+        x, _ = tfm.dense_layer(cfg, lp, x, window, ffn=_ffn(cfg, impl, aux))
+        return x, aux[0]
+
+    total = 0.0
+    for i, lp in enumerate(unstack(params["layers"], cfg.n_layers)):
+        x, aux_l = remat(block, lp, x, int(windows[i]))
+        total = total + aux_l
+    return rms_norm(x, params["ln_f"], cfg.norm_eps), total / cfg.n_layers
+
+
+def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, Tensor],
+            impl: str = "sorted", aux_weight: float = 0.01) -> Tensor:
+    """The chunked cross-entropy plus ``aux_weight`` times the
+    load-balancing loss, as in the JAX package."""
+    h, aux = forward(cfg, params, batch["tokens"], impl=impl)
+    return (tfm.chunked_xent(cfg, params, h, batch["labels"])
+            + aux_weight * aux)
 
 
 @torch.no_grad()

@@ -10,8 +10,8 @@ recurrence and never reaches the kernel.
 
 Layer parameters are stacked on a leading ``L`` axis, as in the JAX package,
 so weights map one to one; ``A_log``, ``D_skip`` and ``dt_bias`` are float32
-whatever the model's dtype.  The training forward and the loss are not here
-yet.
+whatever the model's dtype.  ``forward`` and ``lm_loss`` carry gradients
+(through the kernel's autograd function); prefill and decode do not.
 """
 
 from __future__ import annotations
@@ -23,9 +23,9 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
-from ..kernels.ssd_chunk import ssd_chunk
+from ..kernels.ssd_chunk import SsdChunkFn, ssd_chunk
 from . import transformer as tfm
-from .layers import dense_init, rms_norm
+from .layers import dense_init, remat, rms_norm, unstack
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -100,11 +100,30 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 
+class _Silu(torch.autograd.Function):
+    """``jax.nn.silu`` as XLA computes it, forward and backward, each op
+    rounded in ``x``'s dtype: the forward ``x * s`` with ``s = 1 / (1 +
+    exp(-x))`` written out, the backward JAX's rule for ``x *
+    logistic(x)``, ``ct * s + (ct * x) * (s * (1 - s))``.  In bfloat16
+    both are bit for bit the JAX package's; autograd through the
+    written-out sigmoid rounds elsewhere and differs in about 40 % of the
+    elements."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1.0 / (1.0 + torch.exp(-x))
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, s = ctx.saved_tensors
+        return ct * s + (ct * x) * (s * (1 - s))
+
+
 def _silu(x: Tensor) -> Tensor:
-    """``x * sigmoid(x)`` with the sigmoid written out as ``1 / (1 +
-    exp(-x))``, each op rounded in ``x``'s dtype: in bfloat16 this is
-    bit for bit the JAX package's ``jax.nn.silu`` as XLA computes it."""
-    return x * (1.0 / (1.0 + torch.exp(-x)))
+    """``x * sigmoid(x)`` as ``jax.nn.silu`` (see :class:`_Silu`)."""
+    return _Silu.apply(x)
 
 
 def _causal_conv(x: Tensor, w: Tensor, b: Tensor, state: Tensor = None):
@@ -129,7 +148,9 @@ def ssd_chunked(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
     Bm/Cm (B,S,N).  Returns (y (B,S,H,P) float32, final state (B,H,P,N)
     float32).  Each chunk is one call of ``ssd_chunk``, on views of the
     chunk as they lie (no copy), writing its y into one buffer for the
-    whole scan."""
+    whole scan -- or, when gradients are being recorded for an input, one
+    call of its autograd function ``SsdChunkFn``, whose chunks of y are
+    joined afterwards."""
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)
@@ -149,6 +170,20 @@ def ssd_chunked(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
 
     state = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
              if init_state is None else init_state.float())
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, A, Bm, Cm, init_state)):
+        # the kernel's write into a view of one buffer is invisible to
+        # autograd: each chunk's y comes out of the autograd function and
+        # the chunks are joined
+        ys = []
+        for c in range(nc):
+            sl = slice(c * Q, (c + 1) * Q)
+            y_c, state = SsdChunkFn.apply(
+                x[:, sl].transpose(1, 2), dt[:, sl].transpose(1, 2),
+                Bm[:, sl], Cm[:, sl], cum[:, c].transpose(1, 2), state)
+            ys.append(y_c.transpose(1, 2))
+        return torch.cat(ys, dim=1)[:, :S], state
     y = torch.empty((Bsz, nc * Q, H, P), dtype=torch.float32,
                     device=x.device)
     for c in range(nc):
@@ -230,6 +265,27 @@ def layer(stacked: Params, i) -> Params:
     return {name: w[i] for name, w in stacked.items()}
 
 
+def forward(cfg: ArchConfig, params: Params, tokens: Tensor) -> Tensor:
+    """tokens (B, S) -> final hidden states (B, S, D): every block runs the
+    chunked scan, each recomputed in the backward when gradients are being
+    recorded (so the ``ssd_chunk`` kernel runs ``ceil(S / ssm_chunk)``
+    times a layer in the forward and as many again in the recompute)."""
+    x = tfm.embed_tokens(params, tokens)
+
+    def block(lp, x):
+        return ssm_block(cfg, lp, x)[0]
+
+    for lp in unstack(params["layers"], cfg.n_layers):
+        x = remat(block, lp, x)
+    return rms_norm(x, params["ln_f"], cfg.norm_eps)
+
+
+def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, Tensor]
+            ) -> Tensor:
+    h = forward(cfg, params, batch["tokens"])
+    return tfm.chunked_xent(cfg, params, h, batch["labels"])
+
+
 @torch.no_grad()
 def decode_step(cfg: ArchConfig, params: Params, cache: SSMCache,
                 tokens: Tensor) -> Tuple[Tensor, SSMCache]:
@@ -238,7 +294,7 @@ def decode_step(cfg: ArchConfig, params: Params, cache: SSMCache,
     The cache's ``conv``/``state`` buffers are **updated in place** (the
     returned cache shares them and carries ``pos + 1``), as the dense
     family's KV cache is."""
-    x = params["embed"].to(torch.bfloat16)[tokens]
+    x = tfm.embed_tokens(params, tokens)
     for i in range(cfg.n_layers):
         x, (conv, state) = ssm_block(
             cfg, layer(params["layers"], i), x, conv_state=cache.conv[i],
@@ -257,7 +313,7 @@ def prefill(cfg: ArchConfig, params: Params, tokens: Tensor
     that decoding goes on from.  Every block runs the chunked scan: the
     ``ssd_chunk`` kernel ``ceil(S / ssm_chunk)`` times per layer."""
     B, S = tokens.shape
-    x = params["embed"].to(torch.bfloat16)[tokens]
+    x = tfm.embed_tokens(params, tokens)
     cache = init_cache(cfg, B, device=x.device)
     for i in range(cfg.n_layers):
         x, (conv, state) = ssm_block(cfg, layer(params["layers"], i), x)

@@ -19,7 +19,10 @@ local-attention layers keep a ring of ``window`` rows (the slot ``pos mod
 W`` is a bank address of the paper's Eq. 1 with N = W, B = 1), and
 ``decode_step_quant``, over an int8 cache with a scale per token and head.
 As in the JAX package, neither the server nor ``get_model`` uses them.
-The loss is not here yet.
+``lm_loss`` is the training objective: ``forward``, then the chunked
+cross-entropy; gradients flow through ``forward`` (and through the
+flash attention kernel's autograd function), while ``prefill`` and every
+decode step run without them.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..kernels import ops
 from .layers import (NEG_INF, apply_rope, chunked_attention, dense_init,
-                     rms_norm, swiglu)
+                     remat, rms_norm, swiglu, unstack)
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -212,19 +215,62 @@ def _layer_params(params: Params, i: int) -> Params:
     return {name: w[i] for name, w in params["layers"].items()}
 
 
-@torch.no_grad()
+def embed_tokens(params: Params, tokens: Tensor) -> Tensor:
+    """The bfloat16 residual stream's first value: the embedding rows of
+    ``tokens``, whatever the parameters' dtype."""
+    return params["embed"].to(torch.bfloat16)[tokens]
+
+
 def forward(cfg: ArchConfig, params: Params, tokens: Tensor, ffn=None
             ) -> Tensor:
     """tokens (B, S) -> final hidden states (B, S, D), bfloat16 residual
     stream; every layer attends over the sequence through the flash
-    attention kernel.  ``ffn(lp, h)`` overrides every layer's feed-forward
-    (the MoE family).  No gradients: the kernel has no backward yet."""
-    x = params["embed"].to(torch.bfloat16)[tokens]
+    attention kernel.  ``ffn(lp, h)`` overrides every layer's feed-forward.
+
+    Gradients flow when they are being recorded: through ``ops.mha``'s
+    autograd function, each layer recomputed in the backward (``remat``,
+    the JAX package's ``jax.checkpoint``), the stacked weights split once
+    (``unstack``) outside the recomputed bodies."""
+    x = embed_tokens(params, tokens)
     windows = layer_windows(cfg)
-    for i in range(cfg.n_layers):
-        x, _ = dense_layer(cfg, _layer_params(params, i), x, int(windows[i]),
-                           ffn=ffn)
+
+    def block(lp, x, window):
+        return dense_layer(cfg, lp, x, window, ffn=ffn)[0]
+
+    for i, lp in enumerate(unstack(params["layers"], cfg.n_layers)):
+        x = remat(block, lp, x, int(windows[i]))
     return rms_norm(x, params["ln_f"], cfg.norm_eps)
+
+
+def _xent(hc: Tensor, lc: Tensor, w: Tensor) -> Tensor:
+    """Per-token cross-entropy of one chunk: ``logsumexp - gold logit`` in
+    float32; the gold logit by a gather (exact, as the JAX package's
+    one-hot sum is)."""
+    logits = torch.matmul(hc.float(), w.T)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+    return lse - gold
+
+
+def chunked_xent(cfg: ArchConfig, params: Params, h: Tensor, labels: Tensor,
+                 chunk: int = 512) -> Tensor:
+    """Mean cross-entropy of ``h (B, S, D)`` against ``labels (B, S)``
+    without the ``(B, S, V)`` logits at once: ``max(1, S // chunk)``
+    chunks along S against the float32 ``lm_head`` (or the tied
+    embedding), each chunk's logits recomputed in the backward."""
+    B, S, D = h.shape
+    w = params.get("lm_head", params["embed"]).float()
+    nchunks = max(1, S // chunk)
+    hs = h.reshape(B, nchunks, S // nchunks, D)
+    ls = labels.reshape(B, nchunks, S // nchunks)
+    losses = [remat(_xent, hs[:, c], ls[:, c], w) for c in range(nchunks)]
+    return torch.stack(losses).mean()
+
+
+def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, Tensor]
+            ) -> Tensor:
+    h = forward(cfg, params, batch["tokens"])
+    return chunked_xent(cfg, params, h, batch["labels"])
 
 
 # ---------------------------------------------------------------------------
@@ -258,7 +304,7 @@ def prefill(cfg: ArchConfig, params: Params, tokens: Tensor, max_len: int,
     if S > max_len:
         raise ValueError(f"a prompt of {S} tokens does not fit a cache of "
                          f"max_len {max_len}")
-    x = params["embed"].to(torch.bfloat16)[tokens]
+    x = embed_tokens(params, tokens)
     windows = layer_windows(cfg)
     cache = init_cache(cfg, B, max_len, device=x.device)
     for i in range(cfg.n_layers):
@@ -285,7 +331,7 @@ def decode_step(cfg: ArchConfig, params: Params, cache: KVCache,
     only; so does this one (torch does not promote a bf16 @ fp32 product).
     ``ffn(lp, h)`` overrides every layer's feed-forward (the MoE family).
     """
-    x = params["embed"].to(torch.bfloat16)[tokens]
+    x = embed_tokens(params, tokens)
     windows = layer_windows(cfg)
     pos = int(cache.pos)
     for i in range(cfg.n_layers):
@@ -402,7 +448,7 @@ def grouped_decode_step(cfg: ArchConfig, params: Params,
     cache shares them and carries ``pos + 1``).  The global layer of each
     group is ``dense_layer`` against its full-length buffers."""
     G, R = grouped_layout(cfg)
-    x = params["embed"].to(torch.bfloat16)[tokens]
+    x = embed_tokens(params, tokens)
     pos = int(cache.pos)
     slot = ring_slot(pos, cfg.sliding_window)
     local_p, global_p = _grouped_params(cfg, params)
@@ -462,7 +508,7 @@ def decode_step_quant(cfg: ArchConfig, params: Params, cache: QuantKVCache,
     """``decode_step`` against an int8 cache: new rows quantized on write
     (in place, at ``pos``, clamped as ``dense_layer`` clamps), the layer's
     whole buffer dequantized to bfloat16 on read."""
-    x = params["embed"].to(torch.bfloat16)[tokens]
+    x = embed_tokens(params, tokens)
     windows = layer_windows(cfg)
     pos = int(cache.pos)
     S = x.shape[1]

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import repro_torch.core as port_core
+from repro_torch.configs import get_arch
 from repro_torch.kernels import banked_gather as bg
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import moe_dispatch as md
@@ -465,3 +466,138 @@ def test_rows_that_see_no_key_equal_the_plain_version(cuda, dtype, D, kw, S,
     tol = (2e-5 if dtype == torch.float32 else 2e-2) * max(
         1.0, float(want.float().abs().max()))
     assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+# ---------------------------------------------------------------------------
+# training: the kernels' backwards on the card, and the trainer's restart
+# ---------------------------------------------------------------------------
+
+
+def _grads_on(device, fn, arrays, cts, dtype=torch.float32):
+    ts = [torch.from_numpy(a).to(device=device, dtype=dtype).requires_grad_()
+          for a in arrays]
+    out = fn(*ts)
+    out = out if isinstance(out, tuple) else (out,)
+    return torch.autograd.grad(out, ts, tuple(
+        torch.from_numpy(c).to(device=device, dtype=dtype) for c in cts))
+
+
+def _same(want, got, tol):
+    for w, g in zip(want, got):
+        w, g = w.float().cpu(), g.float().cpu()
+        assert float((w - g).abs().max()) <= tol * max(
+            1.0, float(w.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask", [dict(causal=True), dict(causal=True,
+                                                          window=16),
+                                  dict(causal=False, kv_len=40)],
+                         ids=["causal", "window", "kv_len"])
+def test_attention_backward_on_the_card_matches_the_cpu(cuda, dtype, mask):
+    """``ops.mha``'s gradients with the kernel forward on the card against
+    the plain forward on the CPU (the same backward), GQA 2, 70 rows;
+    2e-5 (float32) or 2e-2 (bf16) of max(1, the largest magnitude)."""
+    rng = np.random.default_rng(len(mask))
+    B, S, H, Hkv, D = 2, 70, 4, 2, 64
+    arrays = [rng.normal(size=s).astype(np.float32) for s in
+              ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D))]
+    do = rng.normal(size=(B, S, H, D)).astype(np.float32)
+    launches = fa.LAUNCHES["flash_attention"]
+
+    def fn(q, k, v):
+        return ops.mha(q, k, v, **mask)
+
+    got = _grads_on(cuda, fn, arrays, (do,), dtype)
+    want = _grads_on("cpu", fn, arrays, (do,), dtype)
+    assert fa.LAUNCHES["flash_attention"] == launches + 1   # forward only
+    _same(want, got, 2e-5 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.gpu
+def test_ssd_chunk_backward_on_the_card_matches_the_cpu(cuda):
+    rng = np.random.default_rng(5)
+    B, H, Q, P, N = 2, 4, 64, 64, 128
+    dt = rng.uniform(0.01, 0.3, size=(B, H, Q))
+    arrays = [rng.normal(size=(B, H, Q, P)), dt, rng.normal(size=(B, Q, N)),
+              rng.normal(size=(B, Q, N)),
+              np.cumsum(-dt * rng.uniform(0.5, 2, size=(1, H, 1)), -1),
+              rng.normal(size=(B, H, P, N))]
+    arrays = [a.astype(np.float32) for a in arrays]
+    cts = (rng.normal(size=(B, H, Q, P)).astype(np.float32),
+           rng.normal(size=(B, H, P, N)).astype(np.float32))
+    launches = sc.LAUNCHES["ssd_chunk"]
+    got = _grads_on(cuda, ops.ssd, arrays, cts)
+    want = _grads_on("cpu", ops.ssd, arrays, cts)
+    assert sc.LAUNCHES["ssd_chunk"] == launches + 1
+    _same(want, got, 2e-5)
+
+
+@pytest.mark.gpu
+def test_dispatch_backward_on_the_card_matches_the_cpu(cuda):
+    """B5's backward on the card against the CPU, and two runs on the card
+    equal bit for bit (a fixed-order sum, no atomics)."""
+    cfg = get_arch("olmoe_1b_7b")
+    rng = np.random.default_rng(6)
+    T, D = 300, 64
+    top_i = np.stack([rng.permutation(cfg.n_experts)[:cfg.top_k]
+                      for _ in range(T)])
+    slot, *_ = moe.dispatch_slots(torch.from_numpy(top_i),
+                                  moe.capacity(cfg, T), cfg.n_experts)
+    x = rng.normal(size=(T, D)).astype(np.float32)
+    do = rng.normal(size=(slot.shape[0], D)).astype(np.float32)
+
+    def fn_on(device):
+        return lambda t: ops.dispatch(t, slot.to(device))
+
+    got = _grads_on(cuda, fn_on(cuda), [x], (do,), torch.bfloat16)
+    again = _grads_on(cuda, fn_on(cuda), [x], (do,), torch.bfloat16)
+    want = _grads_on("cpu", fn_on("cpu"), [x], (do,), torch.bfloat16)
+    assert torch.equal(got[0], again[0])
+    _same(want, got, 2e-2)
+
+
+@pytest.mark.gpu
+def test_tiny_trainer_on_the_card_restarts_bit_for_bit(cuda, tmp_path):
+    """The JAX package's ``_tiny`` config trained on the card for 4 steps
+    (checkpoints every 2), against a run killed at step 3 and resumed from
+    its step-2 checkpoint: every parameter and the last two losses equal
+    bit for bit."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import TrainConfig, train
+
+    cfg = dataclasses.replace(get_arch("qwen2_7b").reduced(), n_layers=2,
+                              d_model=64, d_ff=128, vocab=128, n_heads=2,
+                              n_kv_heads=2, head_dim=32)
+    model = get_model(cfg)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=4, seed=1)
+    oc = adamw.AdamWConfig(total_steps=4, warmup_steps=1)
+
+    def tc(d):
+        return TrainConfig(total_steps=4, ckpt_every=2, ckpt_dir=str(d))
+
+    launches = fa.LAUNCHES["flash_attention"]
+    ref = train(model, dc, tc(tmp_path / "ref"), oc, device=cuda)
+    assert fa.LAUNCHES["flash_attention"] == launches + 4 * 2 * 2
+
+    class Boom(Exception):
+        pass
+
+    def killer(step):
+        if step == 3:
+            raise Boom()
+
+    with pytest.raises(Boom):
+        train(model, dc, tc(tmp_path / "ft"), oc, failure_hook=killer,
+              device=cuda)
+    out = train(model, dc, tc(tmp_path / "ft"), oc, device=cuda)
+    assert out["params"]["embed"].is_cuda
+    for a, b in zip(adamw.tree_leaves(ref["params"]),
+                    adamw.tree_leaves(out["params"])):
+        assert torch.equal(a, b)
+    assert out["losses"] == ref["losses"][-2:]

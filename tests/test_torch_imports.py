@@ -66,15 +66,23 @@ print(len(names))
 
 @pytest.mark.parametrize("module", ["repro_torch.core.fabric",
                                     "repro_torch.launch.solve_worker",
-                                    "repro_torch.launch.serve_fleet"])
+                                    "repro_torch.launch.serve_fleet",
+                                    "repro_torch.optim.adamw",
+                                    "repro_torch.data.pipeline",
+                                    "repro_torch.ckpt.manager",
+                                    "repro_torch.runtime.trainer",
+                                    "repro_torch.launch.train"])
 def test_fabric_worker_and_fleet_import_without_jax(module):
-    """The fabric, its worker and the fleet launcher, each imported alone
-    in a fresh interpreter, bring in neither JAX nor the JAX package."""
+    """The fabric, its worker, the fleet launcher and the training modules
+    (optimizer, data pipeline, checkpoints, trainer, its launcher), each
+    imported alone in a fresh interpreter, bring in neither JAX nor the JAX
+    package -- nor ``ml_dtypes``, which the JAX package's checkpoints
+    need for bfloat16."""
     code = f"""
 import importlib, sys
 importlib.import_module({module!r})
-bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "repro", "triton"))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "repro", "triton", "ml_dtypes"))
 assert not bad, bad
 print("ok")
 """
@@ -101,11 +109,13 @@ def test_package_exports_only_what_it_holds():
 
 
 ENTRY_POINTS = ["Server", "init", "init_cache", "pack", "launch.serve",
-                "params_from_numpy", "resolve_device", "make_prefill_step"]
+                "params_from_numpy", "resolve_device", "make_prefill_step",
+                "train", "launch.train"]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
-def test_entry_points_raise_without_a_card_unless_asked_for_cpu(entry):
+def test_entry_points_raise_without_a_card_unless_asked_for_cpu(entry,
+                                                                tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device; the default works here")
     from repro_torch import convert, resolve_device
@@ -114,7 +124,10 @@ def test_entry_points_raise_without_a_card_unless_asked_for_cpu(entry):
     from repro_torch.launch import serve
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import get_model
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch import train as train_launcher
     from repro_torch.runtime.server import Server
+    from repro_torch.runtime.trainer import TrainConfig, train
 
     model = get_model(get_arch("qwen2_7b").reduced())
     ssm = get_model(get_arch("mamba2_370m").reduced())
@@ -134,6 +147,13 @@ def test_entry_points_raise_without_a_card_unless_asked_for_cpu(entry):
         # the prefill runs where the parameters are; numpy tokens follow
         "make_prefill_step": lambda **kw: make_prefill_step(ssm, 8)(
             ssm.init(gen, **kw), {"tokens": np.full((1, 4), 3, np.int32)}),
+        "train": lambda **kw: train(
+            ssm, DataConfig(vocab=ssm.cfg.vocab, seq_len=8, global_batch=1),
+            TrainConfig(total_steps=1, ckpt_dir=str(tmp_path / "t")), **kw),
+        "launch.train": lambda **kw: train_launcher.main(
+            ["--arch", "mamba2-370m", "--smoke", "--steps", "1", "--seq",
+             "8", "--batch", "1", "--ckpt-dir", str(tmp_path / "l")]
+            + (["--device", kw["device"]] if kw else [])) == 0,
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
