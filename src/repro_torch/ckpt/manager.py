@@ -16,8 +16,10 @@
   after) and writes in a background thread.
 * **GC**: keep the newest ``keep`` checkpoints.
 
-Restoring onto another device mesh (the JAX package's ``shardings=``)
-waits for the multi-device side of the port.
+* **Elastic restore**: the logical state does not depend on a mesh, so
+  ``restore(..., shardings=)`` places each leaf onto whatever
+  ``DeviceMesh`` the restoring job runs (a ``DTensor`` per leaf) -- the
+  JAX package's ``device_put`` onto a ``NamedSharding``.
 """
 
 from __future__ import annotations
@@ -173,12 +175,15 @@ class CheckpointManager:
             self._thread = None
 
     # -- restore -------------------------------------------------------------
-    def restore(self, template: Any, step: Optional[int] = None
-                ) -> Tuple[Any, Dict[str, Any]]:
+    def restore(self, template: Any, step: Optional[int] = None,
+                shardings: Any = None) -> Tuple[Any, Dict[str, Any]]:
         """Restore into ``template``'s structure (the newest checkpoint
         unless ``step`` is given): a tensor for every leaf, on the device of
         the template's leaf (the CPU where the leaf is not a tensor), in the
-        dtype it was saved in."""
+        dtype it was saved in.  With ``shardings`` -- a tree like
+        ``template`` whose leaves are ``(DeviceMesh, placements)`` pairs --
+        each leaf is distributed onto its mesh instead (every rank of the
+        mesh calls this): the elastic-rescale path."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError("no checkpoint found")
@@ -195,4 +200,25 @@ class CheckpointManager:
                             flat[k] = from_host(z[k], "")
         with open(os.path.join(d, "meta.json")) as f:
             meta = json.load(f)
-        return _unflatten_into(template, flat), meta
+        state = _unflatten_into(template, flat)
+        if shardings is not None:
+            state = _distribute(state, shardings)
+        return state, meta
+
+
+def _distribute(state: Any, shardings: Any) -> Any:
+    """``distribute_tensor`` over every tensor leaf of ``state`` with the
+    ``(mesh, placements)`` pair at the same place in ``shardings``."""
+    if isinstance(state, torch.Tensor):
+        from torch.distributed.tensor import distribute_tensor
+
+        mesh, places = shardings
+        return distribute_tensor(state.to(mesh.device_type), mesh,
+                                 list(places))
+    if isinstance(state, dict):
+        return {k: _distribute(v, shardings[k]) for k, v in state.items()}
+    if hasattr(state, "_fields"):
+        return type(state)(*(_distribute(getattr(state, k),
+                                         getattr(shardings, k))
+                             for k in state._fields))
+    return type(state)(_distribute(v, s) for v, s in zip(state, shardings))

@@ -10,7 +10,7 @@ module never sees a ``jax`` array type).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,4 +46,35 @@ def params_from_numpy(tree: Dict[str, Any], device="cuda",
         a = np.asarray(leaf)
         floating = a.dtype.name == "bfloat16" or a.dtype.kind == "f"
         out[name] = tensor_from_numpy(a, device, dtype if floating else None)
+    return out
+
+
+def for_ranks(tree: Dict[str, Any], *, stages: Optional[int] = None,
+              experts: Optional[Tuple[int, int]] = None) -> Dict[str, Any]:
+    """A layer tree cut for a world of processes; numpy arrays or tensors,
+    cut as views where the leaves allow.
+
+    ``stages=S``: every ``(L, ...)`` stack becomes stage-major ``(S, L/S,
+    ...)``, what ``parallel.pipeline.pipeline_apply`` takes.
+    ``experts=(rank, n)``: every expert stack (``we_*``, experts on dim -3)
+    keeps the ``rank``-th of ``n`` equal blocks of experts, what a rank of
+    a ``model`` axis of ``n`` holds in ``models.moe.moe_ffn_a2a``."""
+    out: Dict[str, Any] = {}
+    for name, leaf in tree.items():
+        if isinstance(leaf, dict):
+            out[name] = for_ranks(leaf, stages=stages, experts=experts)
+            continue
+        if stages is not None:
+            L = leaf.shape[0]
+            if L % stages:
+                raise ValueError(f"{name}: {L} layers in {stages} stages")
+            leaf = leaf.reshape((stages, L // stages) + tuple(leaf.shape[1:]))
+        if experts is not None and name.startswith("we_"):
+            rank, n = experts
+            E = leaf.shape[-3]
+            if E % n:
+                raise ValueError(f"{name}: {E} experts over {n} ranks")
+            blk = E // n
+            leaf = leaf[..., rank * blk:(rank + 1) * blk, :, :]
+        out[name] = leaf
     return out

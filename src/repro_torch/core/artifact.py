@@ -27,8 +27,8 @@ op graphs, DAG-preserving) in the same ``compiled-banking-plan/v1`` format
 as the JAX package writes, identical apart from the ``backend`` field, so
 a file saved by either package loads in the other.  ``compile_plan``
 lowers a planner's chosen scheme and ``lane_compile`` the first scheme
-fit for device-lane banking; ``to_partition_spec`` needs a device mesh
-and is not part of this package yet.
+fit for device-lane banking, whose ``to_partition_spec`` places the
+banked dim on a mesh axis (``parallel/sharding.py``).
 """
 
 from __future__ import annotations
@@ -477,6 +477,41 @@ class CompiledBankingPlan:
             return ()
         nz = tuple(d for d, a in enumerate(self.geometry.alpha) if a != 0)
         return nz
+
+    def to_partition_spec(self, mesh_axes):
+        """Map the banked dimensions onto mesh axes as a ``PartitionSpec``
+        (``parallel.sharding.PartitionSpec``: one entry per logical dim).
+
+        ``mesh_axes``: one axis name (or a tuple of names, sharded jointly)
+        for a scheme banking a single dimension, or a sequence with one
+        entry per banked dimension for multidimensional schemes.  Raises
+        ``ValueError`` for geometries with no orthogonal device analogue
+        (diagonal hyperplanes touch every dim at once -- there is no mesh
+        axis assignment that reproduces them).
+        """
+        from ..parallel.sharding import PartitionSpec
+
+        nd = len(self.layout.dims)
+        banked = self.banked_dims()
+        spec: List[object] = [None] * nd
+        if not banked:
+            return PartitionSpec(*spec)
+        if self.kind == "flat":
+            if len(banked) > 1:
+                raise ValueError(
+                    f"flat scheme with diagonal alpha={self.geometry.alpha} "
+                    f"has no orthogonal PartitionSpec")
+            spec[banked[0]] = mesh_axes  # str or tuple both legal entries
+            return PartitionSpec(*spec)
+        axes = ([mesh_axes] if isinstance(mesh_axes, str) else
+                list(mesh_axes))
+        if len(axes) != len(banked):
+            raise ValueError(
+                f"scheme banks dims {banked} but got {len(axes)} mesh "
+                f"axes ({axes})")
+        for d, ax in zip(banked, axes):
+            spec[d] = ax
+        return PartitionSpec(*spec)
 
     # -- serialization -----------------------------------------------------
     def to_json(self) -> dict:

@@ -65,17 +65,18 @@ PRIOR_ROWS = 64
 _MAX_SAMPLES = 64
 
 
-# HBM3 bytes/s of the card the port targets (NVIDIA H100 80GB HBM3, 700 W
-# board power): the figure the kernels' byte bounds use.  A measured
-# figure replaces it once this package has its own roofline module.
-HBM_BW = 3.35e12
-
-
 def roofline_bandwidth() -> float:
-    """HBM bytes/s behind the roofline prior: the H100's ``HBM_BW``.
+    """HBM bytes/s behind the roofline prior: ``launch/roofline.py``'s
+    ``HBM_BW``, the H100's measured copy rate, read once and cached.
     Priors are per-scheme constants over it, so the rankings they give do
     not depend on the figure, only their absolute value does."""
-    return HBM_BW
+    cached = roofline_bandwidth.__dict__.get("_bw")
+    if cached is None:
+        from ..launch.roofline import HBM_BW
+
+        cached = float(HBM_BW)
+        roofline_bandwidth.__dict__["_bw"] = cached
+    return cached
 
 
 def scheme_hash(obj) -> str:

@@ -1,3 +1,3 @@
-from .api import Model, get_model
+from .api import Model, get_model, param_shapes
 
-__all__ = ["Model", "get_model"]
+__all__ = ["Model", "get_model", "param_shapes"]

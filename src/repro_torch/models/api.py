@@ -104,3 +104,12 @@ def get_model(cfg: ArchConfig, moe_impl: str = "sorted") -> Model:
             init_cache=None,      # the cross K/V come from the frames
         )
     raise ValueError(f"unknown family {fam}")
+
+
+def param_shapes(model: Model) -> Params:
+    """The model's parameter tree on the ``meta`` device: every leaf's
+    shape and dtype, nothing allocated (the JAX package's
+    ``jax.eval_shape`` of ``init``)."""
+    import torch
+
+    return model.init(torch.Generator(), device="meta")

@@ -25,11 +25,10 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 
 from ..configs.base import ArchConfig
-from ..device import resolve_device
 from ..kernels import ops
 from . import transformer as tfm
 from .layers import (apply_rope, chunked_attention, dense_init, gelu_mlp,
-                     remat, rms_norm, unstack)
+                     param_device, remat, rms_norm, unstack)
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -41,10 +40,7 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     the JAX package's tree: ``embed``, ``ln_enc``, ``ln_f``, and ``enc`` /
     ``dec`` stacked over their layers.  One layer's float32 draw at a
     time."""
-    device = resolve_device(device)
-    if generator.device.type != device.type:
-        raise ValueError(f"generator lives on {generator.device}, "
-                         f"parameters are asked for on {device}")
+    device = param_device(generator, device)
     D, H, Hkv, Dh, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                         cfg.d_ff)
     Lenc = cfg.n_encoder_layers or cfg.n_layers

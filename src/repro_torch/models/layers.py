@@ -24,6 +24,8 @@ from typing import Optional
 import torch
 import torch.utils.checkpoint
 
+from ..device import resolve_device
+
 Tensor = torch.Tensor
 
 
@@ -256,12 +258,27 @@ def remat(fn, *args):
 # ---------------------------------------------------------------------------
 
 
+def param_device(generator: torch.Generator, device) -> torch.device:
+    """The device an ``init`` fills: ``device``, on which ``generator``
+    must live, so a card fills its own weights -- or ``"meta"``, which
+    draws nothing and gives the tree's shapes and dtypes alone (what the
+    sharding rules and the dry-run read)."""
+    device = resolve_device(device)
+    if device.type != "meta" and generator.device.type != device.type:
+        raise ValueError(f"generator lives on {generator.device}, "
+                         f"parameters are asked for on {device}")
+    return device
+
+
 def dense_init(generator: torch.Generator, shape, scale=None,
                dtype=torch.float32, device=None) -> Tensor:
     """Normal(0, scale) weights drawn in float32 from ``generator`` (on the
-    generator's device unless ``device`` says otherwise), then cast."""
+    generator's device unless ``device`` says otherwise), then cast; on the
+    ``meta`` device nothing is drawn."""
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
     device = device if device is not None else generator.device
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device)
     return (w * scale).to(device=device, dtype=dtype)

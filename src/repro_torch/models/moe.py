@@ -24,8 +24,9 @@ the dense transformer's passes with the expert layer as every layer's
 feed-forward; in a prefill the ``sorted`` path fills its expert buffer at
 ``T = B * S`` tokens.  ``lm_loss`` adds the load-balancing loss to the
 cross-entropy; gradients reach the tokens through the dispatch kernel's
-autograd function.  The expert-parallel ``a2a`` dispatch, which needs a
-device mesh, is not here yet.
+autograd function.  ``a2a`` is the expert-parallel dispatch over the
+``model`` axis of a ``DeviceMesh`` (``moe_ffn_a2a``); without one it is
+``sorted``.
 """
 
 from __future__ import annotations
@@ -166,11 +167,86 @@ def moe_ffn_sorted(cfg: ArchConfig, lp, h: Tensor) -> Tuple[Tensor, Tensor]:
     return out.reshape(B, S, D).to(h.dtype), aux
 
 
-def moe_ffn_a2a(cfg: ArchConfig, lp, h: Tensor):
-    raise NotImplementedError(
-        "moe_impl 'a2a' (expert-parallel dispatch over a device mesh) is not "
-        "in repro_torch yet: it comes with the multi-device side of the "
-        "port; use 'sorted'")
+def moe_ffn_a2a(cfg: ArchConfig, lp, h: Tensor) -> Tuple[Tensor, Tensor]:
+    """Expert-parallel dispatch over the ``model`` axis of the
+    ``DeviceMesh`` in the sharding policy (``parallel.hints``).
+
+    Banking view: experts are banks on the ``model`` axis; the dispatch
+    crossbar is *local selection* (every rank of a ``model`` group holds
+    the same tokens, as the block-input all-gather of the attention path
+    leaves them), and the combine crossbar is one reduce-scatter that lands
+    the output in the sequence-sharded residual layout.  Per layer the
+    collective bytes drop from O(E*C*D) buffer all-reduces to one (T x D)
+    reduce-scatter.
+
+    Process-local, as a rank sees it: ``h`` (B_loc, S, D) is this rank's
+    batch rows, ``lp["router"]`` the whole (D, E) router, and the expert
+    weights this rank's ``E/n`` experts (``convert.for_ranks``), with
+    ``"__fsdp__"`` in the policy also cut on their F dim over ``data`` and
+    gathered here, layer by layer.  Returns this rank's sequence block
+    (B_loc, S/n, D) of the combined output and the load-balancing loss
+    averaged over ``model``.  Without a mesh in the policy, or where E or
+    S does not divide by the ``model`` size, it is ``moe_ffn_sorted``, as
+    in the JAX package.
+    """
+    import torch.distributed as dist
+
+    from ..parallel.collectives import all_gather_dim, reduce_scatter_dim
+    from ..parallel.hints import policy_value
+    from ..parallel.sharding import dp_axes, mesh_axes
+
+    mesh = policy_value("__mesh__")
+    if mesh is None or "model" not in (getattr(mesh, "mesh_dim_names", None)
+                                       or ()):
+        return moe_ffn_sorted(cfg, lp, h)
+    n_model = mesh_axes(mesh)["model"]
+    E = cfg.n_experts
+    if E % n_model or h.shape[1] % n_model:
+        return moe_ffn_sorted(cfg, lp, h)
+    E_loc = E // n_model
+    fsdp_weights = (bool(policy_value("__fsdp__", False))
+                    and "data" in dp_axes(mesh))
+    we_gate, we_up, we_down = lp["we_gate"], lp["we_up"], lp["we_down"]
+    if we_gate.shape[0] != E_loc:
+        raise ValueError(f"expert weights hold {we_gate.shape[0]} experts; "
+                         f"a rank of a model axis of {n_model} holds "
+                         f"{E_loc} of {E}")
+    if fsdp_weights:
+        # cut on F over 'data': gathered here, per layer, so the whole
+        # copies are transient instead of living across the model
+        data = mesh.get_group("data")
+        we_gate = all_gather_dim(we_gate, 2, data)
+        we_up = all_gather_dim(we_up, 2, data)
+        we_down = all_gather_dim(we_down, 1, data)
+    group = mesh.get_group("model")
+    m = dist.get_rank(group)
+    B, S, D = h.shape
+    T, K = B * S, cfg.top_k
+    C = capacity(cfg, T)
+    xt = h.reshape(T, D)
+    top_p, top_i, aux = _route(cfg, lp["router"], xt)
+    # this rank's experts sort first by local index, every foreign pair
+    # after them under the key E_loc; stable, so a kept pair's rank is its
+    # rank within its expert over all tokens, as in moe_ffn_sorted
+    mine = top_i // E_loc == m
+    key = torch.where(mine, top_i - m * E_loc, E_loc)
+    slot_token, order, sorted_e, rank, keep = dispatch_slots(key, C,
+                                                             E_loc + 1)
+    keep = keep & (sorted_e < E_loc)
+    buf = ops.dispatch(xt, slot_token[:E_loc * C]).view(E_loc, C, D)  # B5
+    y = swiglu(buf, we_gate, we_up, we_down)             # (E_loc, C, D)
+
+    inv = torch.empty_like(order).scatter_(
+        0, order, torch.arange(T * K, device=h.device))
+    row = (torch.clamp(sorted_e, max=E_loc - 1) * C
+           + torch.clamp(rank, max=C - 1))[inv]
+    y_tok = y.reshape(E_loc * C, D)[row].masked_fill(~keep[inv][:, None], 0)
+    out = (y_tok.float() * top_p.reshape(-1, 1)).view(T, K, D).sum(1)
+    # the combine crossbar: each token's expert sums over the model axis,
+    # landing sequence-sharded (the residual layout)
+    out = reduce_scatter_dim(out.view(B, S, D), 1, group)
+    dist.all_reduce(aux, group=group)
+    return out.to(h.dtype), aux / n_model
 
 
 MOE_IMPLS = {"dense": moe_ffn_dense, "sorted": moe_ffn_sorted,

@@ -25,7 +25,7 @@ from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..kernels.ssd_chunk import SsdChunkFn, ssd_chunk
 from . import transformer as tfm
-from .layers import dense_init, remat, rms_norm, unstack
+from .layers import dense_init, param_device, remat, rms_norm, unstack
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -46,10 +46,7 @@ def init_ssm_layers(cfg: ArchConfig, generator: torch.Generator,
     (``(L,)`` here, ``(G, per)`` in the hybrid), one layer's float32 draw
     at a time from ``generator`` (on ``device``): the JAX package's
     ``init_ssm_layer`` tree and shapes, other numbers."""
-    device = resolve_device(device)
-    if generator.device.type != device.type:
-        raise ValueError(f"generator lives on {generator.device}, "
-                         f"parameters are asked for on {device}")
+    device = param_device(generator, device)
     lead = tuple(lead)
     D, W = cfg.d_model, cfg.ssm_conv
     d_inner, H, P, N = dims(cfg)

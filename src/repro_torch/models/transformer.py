@@ -36,7 +36,7 @@ from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..kernels import ops
 from .layers import (NEG_INF, apply_rope, chunked_attention, dense_init,
-                     remat, rms_norm, swiglu, unstack)
+                     param_device, remat, rms_norm, swiglu, unstack)
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -65,10 +65,7 @@ def init_dense_params(cfg: ArchConfig, generator: torch.Generator,
     so a card fills its own weights), same tree and shapes as the JAX
     package's; the numbers differ, since the two frameworks draw
     differently from a seed."""
-    device = resolve_device(device)
-    if generator.device.type != device.type:
-        raise ValueError(f"generator lives on {generator.device}, "
-                         f"parameters are asked for on {device}")
+    device = param_device(generator, device)
     L, D, F, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
 

@@ -16,8 +16,8 @@ own dtype.  :func:`update` writes the new moments, master and parameters
 returns them in the structures the JAX package returns: the state of a
 full-width model is then held once, not twice.
 
-The JAX package's ``zero1_specs`` (the optimizer state's sharding over a
-data-parallel mesh) waits for the multi-device side of the port.
+``zero1_specs`` gives the state's partition specs (ZeRO-1: the state
+inherits the parameters' specs), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -132,3 +132,14 @@ def update(cfg: AdamWConfig, grads: Params, state: AdamWState,
 
     params = tree_map(upd, grads, state.m, state.v, state.master, params)
     return params, AdamWState(step, state.m, state.v, state.master)
+
+
+def zero1_specs(pspecs: Any) -> AdamWState:
+    """Optimizer-state specs (``parallel.sharding.PartitionSpec`` trees):
+    m, v and master inherit the parameters' specs (already model- and
+    possibly data-cut; the moments never need gathering, so inheriting is
+    enough for any mesh), and ``step`` is replicated."""
+    from ..parallel.sharding import PartitionSpec
+
+    return AdamWState(step=PartitionSpec(), m=pspecs,
+                      v=tree_map(lambda s: s, pspecs), master=pspecs)

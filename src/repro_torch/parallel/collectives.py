@@ -1,0 +1,114 @@
+"""Distributed-optimization collectives, and the host staging of gloo.
+
+``compressed_grad_mean``: an int8-quantized gradient mean with
+error-feedback residuals.  At 1000+ nodes the pod-crossing gradient
+all-reduce is the slowest collective in the step; quantizing to int8 cuts
+its bytes 4x (bf16) / 8x (float32).  Error feedback keeps the *accumulated*
+quantization error bounded: each step's residual is added back before the
+next quantization, so the compressed trajectory tracks the exact one
+(Seide et al.; Karimireddy et al.).  The arithmetic is the JAX package's:
+a per-tensor max-abs scale in float32, round half to even, clip to +-127, a
+float32 all-reduce of ``q * scale`` divided by the group's size, and the
+residual ``x - deq`` exactly.  The group is a ``torch.distributed``
+process group that the caller hands in.
+
+``through_host`` is the one place where a collective is staged through
+host memory: the gloo backend carries tensors on the card for
+``all_reduce`` and ``broadcast`` only, so point-to-point, reduce-scatter
+and all-gather of CUDA tensors over gloo (several ranks on one card, which
+NCCL refuses) copy to the host and back.  ``STAGED`` counts those bytes.
+"""
+
+from __future__ import annotations
+
+from contextlib import contextmanager
+from typing import Any, Dict, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+# bytes copied between the card and the host for gloo, in this process
+STAGED: Dict[str, int] = {"bytes": 0}
+
+
+@contextmanager
+def through_host(group, reads: Sequence[torch.Tensor] = (),
+                 writes: Sequence[torch.Tensor] = ()):
+    """Yield ``(reads, writes)`` as tensors the group's backend can carry:
+    host copies of ``reads`` and host buffers for ``writes`` where the
+    backend is gloo and a tensor lies on the card (copied back into
+    ``writes`` on exit), else the tensors themselves."""
+    tensors = (*reads, *writes)
+    if dist.get_backend(group) != "gloo" or not any(t.is_cuda
+                                                    for t in tensors):
+        yield tuple(reads), tuple(writes)
+        return
+    host_reads = tuple(t.to("cpu") for t in reads)
+    host_writes = tuple(torch.empty(t.shape, dtype=t.dtype) for t in writes)
+    yield host_reads, host_writes
+    for t, h in zip(writes, host_writes):
+        t.copy_(h)
+    STAGED["bytes"] += sum(t.numel() * t.element_size() for t in tensors)
+
+
+def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(q int8, scale float32)``: ``scale = max(max|x|, 1e-12) / 127``,
+    ``q = clip(round(x / scale), -127, 127)``, round half to even."""
+    x = x.float()
+    scale = torch.clamp(x.abs().max(), min=1e-12) / 127.0
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.float() * scale
+
+
+def compressed_psum_leaf(x: torch.Tensor, residual: torch.Tensor, group
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One error-feedback compressed all-reduce step for one tensor over
+    ``group``: ``(mean, new_residual)``, both float32."""
+    x = x.float() + residual
+    q, scale = quantize_int8(x)
+    summed = q.float() * scale
+    dist.all_reduce(summed, group=group)
+    mean = summed / float(dist.get_world_size(group))
+    return mean, x - dequantize_int8(q, scale)
+
+
+def compressed_grad_mean(grads: Any, residuals: Any, group
+                         ) -> Tuple[Any, Any]:
+    """Error-feedback int8 mean of gradients over ``group``.
+
+    ``grads``/``residuals``: nested dicts of this rank's partial gradients
+    and its float32 residuals (zeros at the first step).  Returns
+    ``(mean_grads, new_residuals)`` as the same nesting, float32."""
+    if isinstance(grads, dict):
+        pairs = {k: compressed_grad_mean(g, residuals[k], group)
+                 for k, g in grads.items()}
+        return ({k: p[0] for k, p in pairs.items()},
+                {k: p[1] for k, p in pairs.items()})
+    return compressed_psum_leaf(grads, residuals, group)
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The group's tensors joined along ``dim`` in rank order (the JAX
+    package's tiled ``all_gather``)."""
+    src = x.movedim(dim, 0).contiguous()
+    out = torch.empty((dist.get_world_size(group) * src.shape[0],)
+                      + src.shape[1:], dtype=x.dtype, device=x.device)
+    with through_host(group, reads=[src], writes=[out]) as ((a,), (b,)):
+        dist.all_gather_into_tensor(b, a, group=group)
+    return out.movedim(0, dim)
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum over the group of ``x``, of which rank ``r`` keeps block
+    ``r`` of ``dim`` (the JAX package's tiled ``psum_scatter``)."""
+    src = x.movedim(dim, 0).contiguous()
+    n = dist.get_world_size(group)
+    out = torch.empty((src.shape[0] // n,) + src.shape[1:], dtype=x.dtype,
+                      device=x.device)
+    with through_host(group, reads=[src], writes=[out]) as ((a,), (b,)):
+        dist.reduce_scatter_tensor(b, a, group=group)
+    return out.movedim(0, dim)

@@ -1,0 +1,320 @@
+"""Banking-solver -> partition-spec bridge.
+
+Device-level banking: a tensor accessed by the unrolled lanes of
+data/tensor/expert-parallel execution is an array accessed by a concurrent
+access group; mesh axes are banks.  For each tensor *role* the matching
+1-D banking problem goes to the solver -- lanes = mesh axis size, array
+dim = the candidate partition dim -- and the partition dimension whose
+hyperplane (N = axis size, B = 1, alpha = unit) is conflict-free with
+fan-out 1 is accepted (each lane owns one shard: no crossbar, no
+collective on the access path).  Dims that cannot bank conflict-free (8 kv
+heads across a 16-way axis) fall back to the next candidate dim.
+
+The banking problems are submitted through the shared ``PlanService``
+(the serving runtime's front door, so lane problems share its plan store
+and in-flight dedup); the qualifying scheme comes back as a compiled
+artifact (``core.artifact.lane_compile``) whose ``to_partition_spec``
+places the banked dim on a mesh axis.
+
+The rules are the JAX package's, entry for entry.  A spec is a
+:class:`PartitionSpec` -- a tuple with one entry per tensor dim: ``None``,
+a mesh axis name, or a tuple of names sharded jointly, major to minor --
+and :func:`placements` turns one into the ``Shard``/``Replicate``
+placements of a ``DeviceMesh`` (the JAX package's ``NamedSharding``).  A
+mesh is anything with ``axis_names`` and a ``shape`` by name
+(``launch.mesh.MeshShape``) or a ``DeviceMesh``.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+from ..configs.base import ArchConfig, ShapeConfig
+from ..core.artifact import CompiledBankingPlan, lane_compile
+from ..core.controller import AccessDecl, Counter, Ctrl, Program, Sched
+from ..core.polytope import Affine, MemorySpec
+from ..core.service import default_service
+from ..core.solver import SolverOptions
+
+
+class PartitionSpec(tuple):
+    """One entry per tensor dim: ``None`` (replicated), an axis name, or a
+    tuple of axis names sharded jointly, major to minor -- the JAX
+    package's ``PartitionSpec``, compared entry by entry.  As there, a
+    list of names is a tuple, and a tuple of one name that name."""
+
+    def __new__(cls, *entries):
+        def entry(e):
+            if isinstance(e, (tuple, list)):
+                return e[0] if len(e) == 1 else tuple(e)
+            return e
+
+        return super().__new__(cls, tuple(entry(e) for e in entries))
+
+    def __repr__(self):
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+def mesh_axes(mesh) -> Dict[str, int]:
+    """A mesh's axis sizes by name, major to minor: a ``DeviceMesh``'s
+    ``mesh_dim_names`` and ``shape``, or ``axis_names`` and ``shape`` of
+    a mesh description."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, tuple(mesh.shape)))
+    return {a: mesh.shape[a] for a in mesh.axis_names}
+
+
+@functools.lru_cache(maxsize=None)
+def lane_artifact(dim_size: int, lanes: int) -> Optional[CompiledBankingPlan]:
+    """Compiled conflict-free FO=1 lane banking of `dim_size`, or None.
+
+    Poses the canonical strided access problem to the banking planner:
+    lanes read disjoint contiguous blocks.  Equivalent to lanes | dim
+    (block scheme), but answered by the solver so the decision is the
+    paper's -- and returned as the compiled artifact whose
+    ``to_partition_spec`` places the banked dim on a mesh axis.
+    """
+    if lanes <= 1 or dim_size < lanes or dim_size % lanes:
+        return None
+    blk = dim_size // lanes
+    mem = MemorySpec("t", dims=(dim_size,), ports=1)
+    # lane l owns the contiguous block [l*blk, (l+1)*blk): the outer
+    # counter supplies the lane, the inner synchronized one the offset
+    prog = Program(
+        root=Ctrl("rd", Sched.INNER,
+                  counters=[Counter("o", 0, 1, lanes, par=lanes),
+                            Counter("j", 0, 1, blk)],
+                  accesses=[AccessDecl("t", (Affine.of(o=blk, j=1),))]),
+        memories={"t": mem},
+    )
+    opts = SolverOptions(max_solutions=4, n_budget=8,
+                         b_candidates=(blk, 1) if blk > 1 else (1,),
+                         allow_multidim=False, allow_duplication=False)
+    plan = default_service().submit(prog, "t", opts=opts).result()
+    return lane_compile(plan, lanes)
+
+
+def bankable(dim_size: int, lanes: int) -> bool:
+    """Can `dim_size` be banked conflict-free FO=1 across `lanes` lanes?"""
+    return lanes <= 1 or lane_artifact(dim_size, lanes) is not None
+
+
+def first_bankable(dims: Sequence[int], candidates: Sequence[int],
+                   lanes: int) -> Optional[int]:
+    for d in candidates:
+        if d < len(dims) and bankable(dims[d], lanes):
+            return d
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Mesh-axis vocabulary
+# ---------------------------------------------------------------------------
+
+
+def dp_axes(mesh) -> Tuple[str, ...]:
+    names = mesh_axes(mesh)
+    return tuple(a for a in ("pod", "data") if a in names)
+
+
+def tp_axis(mesh) -> str:
+    return "model"
+
+
+# ---------------------------------------------------------------------------
+# Parameter sharding rules (driven by `bankable`)
+# ---------------------------------------------------------------------------
+
+# role table: candidate tp dims counted from the last dim, per leaf name
+ROLE_TP_DIMS = {
+    # attention
+    "wq": (0,), "wk": (0,), "wv": (0,), "wo": (1,),
+    "bq": (0,), "bk": (0,), "bv": (0,),
+    # mlps (gate/up shard F=last, down shards F=first-of-trailing-2)
+    "w_gate": (0,), "w_up": (0,), "w_down": (1,),
+    "b_up": (0,), "b_down": (),
+    # embeddings / heads: shard vocab
+    "embed": (1,), "lm_head": (1,),
+    # moe: shard experts (dim -3 of (E, D, F))
+    "we_gate": (2,), "we_up": (2,), "we_down": (2,),
+    "router": (0,),
+    # ssm
+    "in_proj": (0,), "out_proj": (1,), "conv_w": (0,), "conv_b": (0,),
+    "A_log": (0,), "D_skip": (0,), "dt_bias": (0,), "gate_ln": (0,),
+}
+
+
+def _param_spec(path: str, shape: Tuple[int, ...], tp_size: int,
+                fsdp_size: int, fsdp: bool,
+                fsdp_axes: Tuple[str, ...] = ("data",)) -> PartitionSpec:
+    """Choose (tp_dim, fsdp_dim) for one parameter by role."""
+    nd = len(shape)
+    name = path.split("/")[-1]
+    spec = [None] * nd
+    for c in ROLE_TP_DIMS.get(name, ()):
+        d = nd - 1 - c
+        if d < 0:
+            continue
+        if tp_size <= 1:
+            spec[d] = "model"   # single-lane axis: placement is free
+            break
+        art = lane_artifact(shape[d], tp_size)
+        if art is not None:
+            # the artifact's own bridge places the banked (single) dim of
+            # its 1-D problem on the mesh axis
+            spec[d] = art.to_partition_spec("model")[0]
+            break
+    if fsdp:
+        # ZeRO-3 style: also cut the largest remaining dim across data
+        # (and pod, for optimizer state -- fsdp_axes=("data", "pod"))
+        fsdp_entry = fsdp_axes if len(fsdp_axes) > 1 else fsdp_axes[0]
+        order = sorted(range(nd), key=lambda d: -shape[d])
+        for d in order:
+            if spec[d] is not None or shape[d] < 2 * fsdp_size:
+                continue
+            if fsdp_size <= 1:
+                spec[d] = fsdp_entry
+                break
+            art = lane_artifact(shape[d], fsdp_size)
+            if art is not None:
+                spec[d] = art.to_partition_spec(fsdp_entry)[0]
+                break
+    return PartitionSpec(*spec)
+
+
+def param_specs(params_shape: Any, mesh, fsdp: bool = False,
+                fsdp_axes: Tuple[str, ...] = ("data",)) -> Any:
+    """PartitionSpec tree matching a params shape tree (nested dicts whose
+    leaves have ``.shape``: tensors on the ``meta`` device do)."""
+    axes = mesh_axes(mesh)
+    tp_size = axes["model"]
+    fsdp_axes = tuple(a for a in fsdp_axes if a in axes)
+    fsdp_size = 1
+    for a in fsdp_axes:
+        fsdp_size *= axes[a]
+
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            return {k: walk(v, f"{prefix}/{k}" if prefix else str(k))
+                    for k, v in tree.items()}
+        return _param_spec(prefix, tuple(tree.shape), tp_size, fsdp_size,
+                           fsdp, fsdp_axes or ("data",))
+
+    return walk(params_shape, "")
+
+
+# ---------------------------------------------------------------------------
+# Batch / cache / activation sharding per shape-kind
+# ---------------------------------------------------------------------------
+
+
+def batch_specs(cfg: ArchConfig, shape: ShapeConfig, mesh
+                ) -> Dict[str, PartitionSpec]:
+    axes = mesh_axes(mesh)
+    dp = dp_axes(mesh)
+    dp_size = 1
+    for a in dp:
+        dp_size *= axes[a]
+    bdim = dp if shape.global_batch >= dp_size \
+        else dp[:1] if shape.global_batch > 1 else ()
+    b = bdim if bdim else None
+    specs = {"tokens": P(b, None), "labels": P(b, None)}
+    if cfg.family == "encdec":
+        specs["frames"] = P(b, None, None)
+    return specs
+
+
+def _seq_or_heads(mesh, heads: int, long: bool) -> Tuple[Any, Any]:
+    """(head_axis_spec, seq_axis_spec) for KV caches."""
+    if not long and bankable(heads, mesh_axes(mesh)["model"]):
+        return "model", None
+    return None, "model"
+
+
+def cache_specs(cfg: ArchConfig, shape: ShapeConfig, mesh) -> Any:
+    """PartitionSpec tree for the family's decode cache (the family's
+    cache type, a spec in each field)."""
+    dp = dp_axes(mesh)
+    long = shape.kind == "long_decode"
+    nb = None if shape.global_batch == 1 else dp
+    fam = cfg.family
+    if fam in ("dense", "vlm", "moe"):
+        h_ax, s_ax = _seq_or_heads(mesh, cfg.n_kv_heads, long)
+        if long and shape.global_batch == 1:
+            # B=1: spread the huge cache over every axis there is
+            kv = P(None, None, tuple(a for a in (*dp, "model")), None, None)
+        else:
+            kv = P(None, nb, s_ax, h_ax, None)
+        from ..models.transformer import KVCache
+        return KVCache(k=kv, v=kv, pos=P())
+    if fam == "ssm":
+        from ..models.ssm import SSMCache
+        return SSMCache(conv=P(None, nb, None, "model"),
+                        state=P(None, nb, "model", None, None),
+                        pos=P())
+    if fam == "hybrid":
+        from ..models.hybrid import HybridCache
+        h_ax, s_ax = _seq_or_heads(mesh, cfg.n_kv_heads, long)
+        if long and shape.global_batch == 1:
+            kv = P(None, None, tuple(a for a in (*dp, "model")), None, None)
+        else:
+            kv = P(None, nb, s_ax, h_ax, None)
+        return HybridCache(conv=P(None, None, nb, None, "model"),
+                           state=P(None, None, nb, "model", None, None),
+                           k=kv, v=kv, pos=P())
+    if fam == "encdec":
+        from ..models.encdec import EncDecCache
+        h_ax, s_ax = _seq_or_heads(mesh, cfg.n_kv_heads, long)
+        kv = P(None, nb, s_ax, h_ax, None)
+        return EncDecCache(k_self=kv, v_self=kv, k_cross=kv, v_cross=kv,
+                           pos=P())
+    raise ValueError(fam)
+
+
+def logits_spec(mesh, batch_sharded: bool = True) -> PartitionSpec:
+    dp = dp_axes(mesh)
+    return P(dp if batch_sharded else None, "model")
+
+
+# ---------------------------------------------------------------------------
+# DeviceMesh placements (the JAX package's NamedSharding)
+# ---------------------------------------------------------------------------
+
+
+def placements(spec: PartitionSpec, mesh) -> tuple:
+    """The DTensor placements of ``spec`` on the ``DeviceMesh`` ``mesh``:
+    one per mesh dim, ``Shard(d)`` where tensor dim ``d`` names that axis,
+    else ``Replicate()``.
+
+    A tuple entry shards one tensor dim over several axes, major to minor.
+    DTensor splits a dim sharded on several mesh dims in mesh-dim order,
+    the first the major one, so the entry's axes must come in the mesh's
+    order; another order has no plain ``Shard`` form and is refused."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate() for _ in names]
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        group = (entry,) if isinstance(entry, str) else tuple(entry)
+        idx = [names.index(a) for a in group]
+        if idx != sorted(idx):
+            raise ValueError(
+                f"entry {entry!r} of {spec!r} shards dim {d} over axes "
+                f"major to minor against the mesh's order {tuple(names)}")
+        for i in idx:
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+__all__ = [
+    "P", "PartitionSpec", "ROLE_TP_DIMS", "bankable", "batch_specs",
+    "cache_specs", "dp_axes", "first_bankable", "lane_artifact",
+    "logits_spec", "mesh_axes", "param_specs", "placements", "tp_axis",
+]

@@ -71,13 +71,22 @@ print(len(names))
                                     "repro_torch.data.pipeline",
                                     "repro_torch.ckpt.manager",
                                     "repro_torch.runtime.trainer",
-                                    "repro_torch.launch.train"])
+                                    "repro_torch.launch.train",
+                                    "repro_torch.parallel",
+                                    "repro_torch.parallel.sharding",
+                                    "repro_torch.parallel.hints",
+                                    "repro_torch.parallel.collectives",
+                                    "repro_torch.parallel.pipeline",
+                                    "repro_torch.launch.mesh",
+                                    "repro_torch.launch.roofline",
+                                    "repro_torch.launch.dryrun"])
 def test_fabric_worker_and_fleet_import_without_jax(module):
-    """The fabric, its worker, the fleet launcher and the training modules
-    (optimizer, data pipeline, checkpoints, trainer, its launcher), each
-    imported alone in a fresh interpreter, bring in neither JAX nor the JAX
-    package -- nor ``ml_dtypes``, which the JAX package's checkpoints
-    need for bfloat16."""
+    """The fabric, its worker, the fleet launcher, the training modules
+    (optimizer, data pipeline, checkpoints, trainer, its launcher) and the
+    multi-device side (sharding, hints, collectives, pipeline, meshes,
+    roofline, dry-run), each imported alone in a fresh interpreter, bring
+    in neither JAX nor the JAX package -- nor ``ml_dtypes``, which the JAX
+    package's checkpoints need for bfloat16."""
     code = f"""
 import importlib, sys
 importlib.import_module({module!r})
@@ -105,7 +114,7 @@ def test_package_exports_only_what_it_holds():
         assert fabric in core.__all__ and hasattr(core, fabric), fabric
     assert repro_torch.__all__ == ["convert", "core", "resolve_device"]
     assert not hasattr(core.transforms, "lower_jnp")
-    assert not hasattr(core.CompiledBankingPlan, "to_partition_spec")
+    assert hasattr(core.CompiledBankingPlan, "to_partition_spec")
 
 
 ENTRY_POINTS = ["Server", "init", "init_cache", "pack", "launch.serve",

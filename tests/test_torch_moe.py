@@ -254,10 +254,15 @@ def test_dense_and_sorted_decode_agree_without_drops():
 
 
 def test_moe_impl_a2a_waits_for_a_mesh_and_unknown_impls_raise():
+    """Without a mesh in the sharding policy ``a2a`` is ``sorted``, as in
+    the JAX package (the mesh path: ``test_torch_distributed.py``)."""
     model, params = _cpu_model(moe_impl="a2a")
-    with pytest.raises(NotImplementedError, match="a2a"):
-        model.decode(params, model.init_cache(1, 4, device="cpu"),
-                     torch.ones((1, 1), dtype=torch.int32))
+    sorted_model = get_model(model.cfg)
+    toks = torch.ones((1, 1), dtype=torch.int32)
+    a, _ = model.decode(params, model.init_cache(1, 4, device="cpu"), toks)
+    b, _ = sorted_model.decode(params, sorted_model.init_cache(
+        1, 4, device="cpu"), toks)
+    assert torch.equal(a, b)
     with pytest.raises(ValueError, match="moe_impl"):
         get_model(get_arch("olmoe_1b_7b"), moe_impl="sharded")
 

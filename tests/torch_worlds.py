@@ -1,0 +1,244 @@
+"""Worlds of processes for the port's multi-device side.
+
+:func:`run_world` starts one process a rank, each given its rank on the
+command line, waits for all of them within a time limit, and kills the
+rest when one fails or the limit passes: a rank that fails or hangs fails
+the world.  :func:`init_rank` joins such a process to its ``gloo`` process
+group through a file under the caller's directory (no port is taken, so
+worlds of parallel test workers never clash), with a timeout on every
+collective.
+
+Run as a script, this module is one rank of the CPU tests' worlds:
+
+    python tests/torch_worlds.py ENTRY RANK WORLD INIT_FILE OUT_DIR
+
+where ENTRY names a function of :data:`ENTRIES`.  It imports ``torch`` and
+the port only (neither JAX nor the JAX package), so a rank starts fast;
+``chip_smoke.py`` launches its own ranks on the card through
+:func:`run_world` too.
+"""
+
+from __future__ import annotations
+
+import datetime
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
+RANK_TIMEOUT_S = 120       # a collective that waits longer fails the rank
+
+
+def run_world(argv_of_rank, world, *, timeout=300, env=None):
+    """Run ``argv_of_rank(r)`` for every rank ``r`` of ``world`` at once.
+    Returns ``[(returncode, stdout, stderr)]`` by rank; raises
+    ``RuntimeError`` (with every rank's end of stderr) when a rank fails
+    or the world outlasts ``timeout`` seconds.  No process is left."""
+    env = dict(os.environ if env is None else env)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(ROOT, "src"), HERE] +
+        ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    procs = [subprocess.Popen(argv_of_rank(r), cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(world)]
+    deadline = time.monotonic() + timeout
+    outs = [None] * world
+    try:
+        for r, p in enumerate(procs):
+            try:
+                out, err = p.communicate(
+                    timeout=max(deadline - time.monotonic(), 0.1))
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"rank {r} of {world} outlasted "
+                                   f"{timeout} s")
+            outs[r] = (p.returncode, out, err)
+            if p.returncode != 0:
+                raise RuntimeError(f"rank {r} of {world} exited "
+                                   f"{p.returncode}:\n{err[-4000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for p in procs:
+            p.wait()
+    return outs
+
+
+def init_rank(rank, world, init_file):
+    """Join the world's gloo process group (file rendezvous, a timeout on
+    every collective)."""
+    import torch.distributed as dist
+
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.path.abspath(init_file),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+
+
+def python_rank(entry, world, tmp_path):
+    """``argv_of_rank`` for an entry of this module, writing under
+    ``tmp_path``."""
+    init = os.path.join(str(tmp_path), f"pg_{entry}")
+    return lambda r: [sys.executable, os.path.join(HERE, "torch_worlds.py"),
+                      entry, str(r), str(world), init, str(tmp_path)]
+
+
+# ---------------------------------------------------------------------------
+# The CPU tests' ranks: inputs from OUT_DIR/inputs.npz, results to
+# OUT_DIR/<entry>_<rank>.npz (arrays) or .json
+# ---------------------------------------------------------------------------
+
+
+def _inputs(out):
+    with np.load(os.path.join(out, "inputs.npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def rank_pipeline(rank, world, out):
+    """The tanh stack through ``pipeline_apply`` over every rank, the
+    placements of a 2x2 mesh and a hint's redistribution."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.hints import hint, sharding_policy
+    from repro_torch.parallel.pipeline import pipeline_apply
+
+    inp = _inputs(out)
+    Ws = torch.from_numpy(inp["pipe_w"])
+    x = torch.from_numpy(inp["pipe_x"])
+
+    def stage_fn(params, h):          # params (L_per, D, D)
+        for w in params:
+            h = torch.tanh(h @ w)
+        return h
+
+    got = pipeline_apply(stage_fn, Ws, x)
+    mesh = DeviceMesh("cpu", torch.arange(world).reshape(2, world // 2),
+                      mesh_dim_names=("data", "model"))
+    full = torch.arange(16.0).reshape(4, 4)
+    joint = distribute_tensor(full, mesh, list(shd.placements(
+        shd.P(("data", "model"), None), mesh)))
+    cols = distribute_tensor(full, mesh, list(shd.placements(
+        shd.P(None, "model"), mesh)))
+    with sharding_policy({"residual": shd.P("data", None)}):
+        moved = hint(cols, "residual")
+        plain = hint(full, "residual")
+    np.savez(os.path.join(out, f"pipeline_{rank}.npz"), got=got.numpy(),
+             joint=joint.to_local().numpy(),
+             coord=np.asarray(mesh.get_coordinate()),
+             moved=moved.to_local().numpy(),
+             moved_full=moved.full_tensor().numpy(),
+             plain_is_same=np.asarray(plain is full))
+
+
+def rank_pair(rank, world, out):
+    """On two ranks: the compressed gradient mean (the same gradients on
+    both ranks, then each rank's own, over two steps of error feedback),
+    the expert-parallel MoE layer over a model axis of 2 and with its
+    weights cut over a data axis of 2 (FSDP), and the elastic restore onto
+    meshes of 1 and 2."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import for_ranks, params_from_numpy
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.collectives import compressed_grad_mean
+    from repro_torch.parallel.hints import sharding_policy
+
+    inp = _inputs(out)
+    res = {}
+
+    def grads(prefix):
+        return {"a": torch.from_numpy(inp[prefix + "a"]),
+                "b": {"c": torch.from_numpy(inp[prefix + "c"])}}
+
+    same = grads("g0_")
+    zeros = {"a": torch.zeros_like(same["a"]),
+             "b": {"c": torch.zeros_like(same["b"]["c"])}}
+    m, r = compressed_grad_mean(same, zeros, None)
+    res.update(same_mean_a=m["a"], same_mean_c=m["b"]["c"],
+               same_res_a=r["a"], same_res_c=r["b"]["c"])
+    own = grads(f"g{rank}_")
+    m1, r1 = compressed_grad_mean(own, zeros, None)
+    m2, r2 = compressed_grad_mean(own, r1, None)
+    res.update(own_mean1_a=m1["a"], own_mean1_c=m1["b"]["c"],
+               own_res1_a=r1["a"], own_res1_c=r1["b"]["c"],
+               own_mean2_a=m2["a"], own_mean2_c=m2["b"]["c"],
+               own_res2_a=r2["a"], own_res2_c=r2["b"]["c"])
+
+    cfg = get_arch("olmoe_1b_7b").reduced()
+    lp = params_from_numpy({k[3:]: v for k, v in inp.items()
+                            if k.startswith("lp_")}, device="cpu")
+    lp = {k: v.to(torch.bfloat16) if k.startswith("we_") else v
+          for k, v in lp.items()}
+    mesh = make_host_mesh("cpu")
+    assert mesh.mesh_dim_names == ("data", "model")
+    assert tuple(mesh.shape) == (1, world)
+    h = torch.from_numpy(inp["moe_h"]).to(torch.bfloat16)
+    with sharding_policy({"__mesh__": mesh}):
+        y, aux = moe.moe_ffn_a2a(cfg, for_ranks(lp, experts=(rank, world)),
+                                 h)
+    res.update(moe_out=y.float(), moe_aux=aux)
+    # FSDP: every expert on a model axis of 1, each weight cut on its F
+    # dim over a data axis of 2 and gathered in the layer; a row a rank
+    data_mesh = DeviceMesh("cpu", torch.arange(world).reshape(world, 1),
+                           mesh_dim_names=("data", "model"))
+    blk = lp["we_gate"].shape[-1] // world
+    f = slice(rank * blk, (rank + 1) * blk)
+    cut = {"router": lp["router"], "we_gate": lp["we_gate"][..., f],
+           "we_up": lp["we_up"][..., f], "we_down": lp["we_down"][:, f]}
+    with sharding_policy({"__mesh__": data_mesh, "__fsdp__": True}):
+        y, aux = moe.moe_ffn_a2a(cfg, cut, h[rank:rank + 1])
+    res.update(fsdp_out=y.float(), fsdp_aux=aux)
+
+    mgr = CheckpointManager(os.path.join(out, "ckpt"))
+    template = {"w": torch.zeros(8, 8), "b": torch.zeros(4, 6,
+                                                         dtype=torch.bfloat16)}
+    groups = [dist.new_group([i]) for i in range(world)]
+    one = DeviceMesh.from_group(groups[rank], "cpu",
+                                mesh_dim_names=("model",))
+    two = DeviceMesh("cpu", torch.arange(world), mesh_dim_names=("model",))
+    for name, mesh_r in (("one", one), ("two", two)):
+        spec_w, spec_b = shd.P("model", None), shd.P(None, "model")
+        state, _ = mgr.restore(template, shardings={
+            "w": (mesh_r, shd.placements(spec_w, mesh_r)),
+            "b": (mesh_r, shd.placements(spec_b, mesh_r))})
+        res[f"{name}_w_full"] = state["w"].full_tensor()
+        res[f"{name}_b_full"] = state["b"].full_tensor().view(torch.int16)
+        res[f"{name}_w_local"] = state["w"].to_local()
+        res[f"{name}_b_local"] = state["b"].to_local().view(torch.int16)
+    np.savez(os.path.join(out, f"pair_{rank}.npz"),
+             **{k: v.detach().numpy() for k, v in res.items()})
+
+
+ENTRIES = {"pipeline": rank_pipeline, "pair": rank_pair}
+
+
+def main(argv):
+    entry, rank, world, init_file, out = argv
+    rank, world = int(rank), int(world)
+    init_rank(rank, world, init_file)
+    import torch.distributed as dist
+
+    try:
+        ENTRIES[entry](rank, world, out)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
