@@ -135,7 +135,29 @@ Run from the root of a checkout, with no arguments, it
    (added to the kernels line), bytes staged through the host and peak
    memory; at the end, ``dryrun`` lays out every (arch x shape) cell on
    both production meshes and prints each device's GB, whether it fits
-   80 GB and the dominant roofline term.
+   80 GB and the dominant roofline term;
+8. after the worlds, ``moe_model``: the whole expert-parallel model
+   (``get_model(cfg, moe_impl="a2a")`` under the dry-run's policy plus the
+   mesh, the residual cut on the sequence over ``model``) in worlds of 2
+   ranks on the card -- (d) olmoe-1b-7b at full width and depth, 32
+   experts a rank, a prefill of 2 x 2048 tokens held to the one-process
+   ``sorted`` prefill of the same weights with its experts' sums in the
+   ranks' order (``moe_ffn_in_rank_order``: every token-layer's experts
+   equal and the last-position logits bit for bit in both ranks, the
+   routing margin of the one-process pass read beside them, and the
+   distance from the plain ``sorted`` order read; layer 0's K/V bit for
+   bit; B5 and B4 16 times a rank); (e)
+   the same at depth 2, two ``make_train_step`` steps on 2 x 2048 tokens
+   of the data pipeline (losses within 2e-2 of one process, step 1's
+   gradient by (b)'s rule leaf by leaf, the leaves each rank holds whole
+   equal in both ranks); then ``examples``: the four twins of
+   ``examples/``, each in a process of its own (``--example``, which sets
+   every kernel count to 0 and writes them out) -- ``train_lm`` at
+   lm_100m for 300 steps alone (its median step ms and tokens/s; B4 in
+   every layer forward and in the recompute), then ``quickstart`` (B1),
+   ``serve_lm`` (its cold solve held for three ticks, so that it swaps:
+   B1, B2, B3) and ``banking_explorer`` together; their launches go into
+   the kernels line, with B4 rows at (d)'s and ``train_lm``'s shapes.
 
 Every phase prints one JSON line; the first failure ends the run with a
 non-zero exit code.  There is no CPU fallback: without a CUDA device, or
@@ -162,6 +184,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -3708,7 +3731,551 @@ def rank_pipeline(torch, rank, world, out, seed):
                         "share_of_max": held}}
 
 
-RANK_ENTRIES = {"moe": rank_moe, "dp": rank_dp, "pipeline": rank_pipeline}
+# ---------------------------------------------------------------------------
+# Worlds (d) and (e): the whole expert-parallel MoE model on a mesh
+# ---------------------------------------------------------------------------
+
+MOE_MODEL_TOKENS = (2, 2048)   # (d): batch x tokens of the prefill
+MOE_TRAIN_LAYERS = 2           # (e): olmoe-1b-7b at depth 2 of 16
+MOE_TRAIN_STEPS = 2
+MOE_TRAIN_BATCH = (2, 2048)    # (e): batch x tokens a step
+
+
+def _moe_model_tokens(torch, cfg, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    return torch.randint(2, cfg.vocab - 1, MOE_MODEL_TOKENS, generator=gen,
+                         device="cuda", dtype=torch.int64).to(torch.int32)
+
+
+def _moe_params(torch, model, seed):
+    """The model's weights from ``seed`` on the card, every expert."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return model.init(gen, device="cuda")
+
+
+def _own_experts(torch, params, rank, world):
+    """``params`` with only this rank's share of the experts, copied out
+    of the whole stacks, which are let go."""
+    from repro_torch.convert import for_ranks
+
+    cut = for_ranks(params["layers"], experts=(rank, world))
+    params["layers"] = {k: v.clone() if k.startswith("we_") else v
+                        for k, v in cut.items()}
+    del cut
+    free_device_memory(torch)
+    return params
+
+
+@contextlib.contextmanager
+def capturing_routes(into, gaps=None):
+    """Each call of the MoE router appends its experts, ``top_i`` sorted
+    by expert (on the host), to ``into``, and, where ``gaps`` is a list,
+    each token's gap between its ``top_k``-th and next router probability
+    to it; the routing itself is the router's."""
+    import torch as torch_mod
+
+    from repro_torch.models import moe
+
+    route = moe._route
+
+    def capturing(cfg, router_w, xt, **kw):
+        out = route(cfg, router_w, xt, **kw)
+        into.append(out[1].sort(dim=-1).values.cpu())
+        if gaps is not None:
+            p = torch_mod.softmax(xt.float() @ router_w.float(), dim=-1)
+            top = p.topk(cfg.top_k + 1, dim=-1).values
+            gaps.append((top[:, -2] - top[:, -1]).cpu())
+        return out
+
+    moe._route = capturing
+    try:
+        yield into
+    finally:
+        moe._route = route
+
+
+def moe_ffn_in_rank_order(cfg, lp, h, n=2):
+    """``moe_ffn_sorted`` of every expert, summed as the expert-parallel
+    layer of ``n`` ranks sums it (``moe_ffn_a2a``): each rank's ``E/n``
+    experts' SwiGLU apart, each token's pairs summed in float32 in choice
+    order per rank, the ranks' partial sums then added in rank order, as
+    the reduce-scatter does.  The same function as ``moe_ffn_sorted``,
+    rounded as the path is, so that a near-tie of the router routes
+    alike in both."""
+    import torch
+
+    from repro_torch.models import moe
+
+    B, S, D = h.shape
+    T, K, E = B * S, cfg.top_k, cfg.n_experts
+    El, C = E // n, moe.capacity(cfg, T)
+    xt = h.reshape(T, D)
+    top_p, top_i, aux = moe._route(cfg, lp["router"], xt)
+    slot_token, order, sorted_e, rank, keep = moe.dispatch_slots(top_i, C, E)
+    buf = moe.ops.dispatch(xt, slot_token).view(E, C, D)
+    y = torch.cat([moe.swiglu(buf[m * El:(m + 1) * El],
+                              *(lp[w][m * El:(m + 1) * El]
+                                for w in ("we_gate", "we_up", "we_down")))
+                   for m in range(n)])
+    inv = torch.empty_like(order).scatter_(
+        0, order, torch.arange(T * K, device=h.device))
+    row = (sorted_e * C + torch.clamp(rank, max=C - 1))[inv]
+    y_tok = y.reshape(E * C, D)[row].masked_fill(~keep[inv][:, None], 0)
+    pairs = (y_tok.float() * top_p.reshape(-1, 1)).view(T, K, D)
+    owner = (top_i // El)[..., None]
+    out = pairs.masked_fill(owner != 0, 0).sum(1)
+    for m in range(1, n):
+        out = out + pairs.masked_fill(owner != m, 0).sum(1)
+    return out.reshape(B, S, D).to(h.dtype), aux
+
+
+@contextlib.contextmanager
+def moe_impl_added(name, fn):
+    """``get_model(cfg, moe_impl=name)`` takes ``fn`` while it lasts."""
+    from repro_torch.models import moe
+
+    moe.MOE_IMPLS[name] = fn
+    try:
+        yield name
+    finally:
+        del moe.MOE_IMPLS[name]
+
+
+def _mesh_policy(cfg, shape_name):
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.dryrun import make_policy
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh("cuda")
+    return {**make_policy(cfg, SHAPES[shape_name], mesh), "__mesh__": mesh}
+
+
+def rank_moe_model(torch, rank, world, out, seed):
+    """(d) One rank of olmoe-1b-7b at full width and depth, the
+    expert-parallel model (``get_model(cfg, moe_impl="a2a")``) under the
+    dry-run's prefill policy plus the mesh: its share of the experts, the
+    whole non-expert weights, a prefill of ``MOE_MODEL_TOKENS`` whose
+    residual is this rank's block of the sequence; counted and timed."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import get_model
+    from repro_torch.parallel.hints import sharding_policy
+
+    cfg = get_arch("olmoe_1b_7b")
+    model = get_model(cfg, moe_impl="a2a")
+    params = _own_experts(torch, _moe_params(torch, model, seed), rank, world)
+    tokens = _moe_model_tokens(torch, cfg, seed)
+    policy = _mesh_policy(cfg, "prefill_32k")
+    routes = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _dist_reset()
+    t0 = time.perf_counter()
+    with sharding_policy(policy), capturing_routes(routes):
+        logits, cache = model.prefill(params, {"tokens": tokens},
+                                      tokens.shape[1])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {**_dist_counts(), **train_kernel_counts()}
+    torch.save({"logits": logits.cpu(), "k0": cache.k[0].cpu(),
+                "v0": cache.v[0].cpu(), "routes": routes,
+                "pos": cache.pos}, os.path.join(out, f"moe_model_{rank}.pt"))
+    return {"wall_s": wall, **counts,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "experts": params["layers"]["we_gate"].shape[1]}
+
+
+def rank_moe_train(torch, rank, world, out, seed):
+    """(e) One rank of olmoe-1b-7b at depth 2, full width, trained by
+    ``make_train_step`` under the dry-run's train policy plus the mesh
+    for ``MOE_TRAIN_STEPS`` steps on batches of the data pipeline.
+    Before them, outside the counted run: step 1's gradient of the
+    expert-parallel model (summed over the ranks) read leaf by leaf
+    (``grad_readings``) against the one-process ``sorted`` model's at the
+    same weights and batch; this rank's experts against their rows of it."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, get_batch
+    from repro_torch.launch.steps import make_train_step, value_and_grad
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.hints import sharding_policy
+
+    cfg = dataclasses.replace(get_arch("olmoe_1b_7b"),
+                              n_layers=MOE_TRAIN_LAYERS)
+    model = get_model(cfg, moe_impl="a2a")
+    data = DataConfig(vocab=cfg.vocab, seq_len=MOE_TRAIN_BATCH[1],
+                      global_batch=MOE_TRAIN_BATCH[0], seed=seed)
+    params = _moe_params(torch, model, seed)
+    # the yardstick: one process, every expert; not the path, not counted
+    want = value_and_grad(get_model(cfg), params, get_batch(data, 0))[1]
+    want = _own_experts(torch, want, rank, world)
+    params = _own_experts(torch, params, rank, world)
+    policy = _mesh_policy(cfg, "train_4k")
+    with sharding_policy(policy):
+        got = value_and_grad(model, params, get_batch(data, 0))[1]
+    names = _leaf_names(params)
+    readings = {n: grad_readings(w.float(), g.float()) for n, w, g in zip(
+        names, adamw.tree_leaves(want), adamw.tree_leaves(got))}
+    del want, got
+    free_device_memory(torch)
+    step = make_train_step(model, adamw.AdamWConfig(
+        lr_peak=TRAIN_LR, total_steps=MOE_TRAIN_STEPS, warmup_steps=1))
+    opt = adamw.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _dist_reset()
+    losses, walls = [], []
+    with sharding_policy(policy):
+        for i in range(MOE_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            loss, params, opt = step(params, opt, get_batch(data, i))
+            losses.append(float(loss))
+            walls.append(time.perf_counter() - t0)
+    counts = {**_dist_counts(), **train_kernel_counts()}
+    shared = [t for n, t in zip(names, adamw.tree_leaves(params))
+              if not n.rsplit("/", 1)[-1].startswith("we_")]
+    return {"losses": losses, "step_walls_s": walls, **counts,
+            "readings": readings, "shared_sha256": _digest(torch, shared),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def phase_moe_worlds(torch, seed):
+    """(d) and (e): the whole expert-parallel olmoe-1b-7b in worlds of 2
+    ranks on the one card, held to one process of the ``sorted`` model
+    from the same weights.  (d): every token-layer's experts equal and
+    the prefill's last-position logits bit for bit in each rank against
+    the one-process prefill summed in the ranks' order
+    (``moe_ffn_in_rank_order``), the routing margin of that pass read
+    (its tokens under ``ROUTE_MARGIN``), the distances from the plain
+    ``sorted`` prefill read beside it, layer 0's
+    K/V cache bit for bit, B5 and B4 16 times a rank.  (e): each step's
+    loss within bf16 2e-2, step 1's gradient by (b)'s rule leaf by leaf
+    in each rank, the leaves each rank holds whole equal in both ranks
+    after the steps.  Returns the ranks' launches and B4's row input."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, get_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw
+    from torch_parity import BF16_TOL as tol
+
+    free_device_memory(torch)
+    out = tempfile.mkdtemp(prefix="chip_smoke_moe_")
+    atexit.register(shutil.rmtree, out, ignore_errors=True)
+    launches = {"moe_dispatch": 0, "flash_attention": 0}
+    t_phase = time.perf_counter()
+
+    # (d) the prefill of the whole model
+    ranks, wall = run_ranks("moe_model", 2, out, seed)
+    cfg = get_arch("olmoe_1b_7b")
+    model = get_model(cfg)
+    params = _moe_params(torch, model, seed)
+    tokens = _moe_model_tokens(torch, cfg, seed)
+    parts = [torch.load(os.path.join(out, f"moe_model_{r}.pt"))
+             for r in range(2)]
+
+    def yardstick(m):
+        """One process's prefill, its routes and their differences from
+        rank 0's, the ranks' logits' distances from it."""
+        routes, gaps = [], []
+        with capturing_routes(routes, gaps):
+            logits, kv = m.prefill(params, {"tokens": tokens},
+                                   tokens.shape[1])
+        differ = sum(int((a != b).any(-1).sum()) for a, b in zip(
+            parts[0]["routes"], routes))
+        errs = [max_abs_diff(p["logits"].float(), logits.float().cpu())
+                for p in parts]
+        return logits, kv, torch.stack(gaps), differ, errs
+
+    # held: the sorted model summed in the ranks' order; read beside it:
+    # the sorted model as one process sums it
+    with moe_impl_added("in_rank_order", moe_ffn_in_rank_order) as impl:
+        want, cache, gaps, differ, errs = yardstick(get_model(cfg, impl))
+    plain = yardstick(model)
+    plain_differ, plain_errs = plain[3], plain[4]
+    del plain
+    check(differ == 0, f"(d) {differ} token-layers route to other experts "
+          f"than the one-process sorted prefill summed in the ranks' order")
+    for r, p in enumerate(parts):
+        check(bool(torch.isfinite(p["logits"].float()).all())
+              and tuple(p["logits"].shape) == (MOE_MODEL_TOKENS[0],
+                                               cfg.vocab),
+              f"(d) rank {r}: logits not finite (batch, vocab)")
+        check(torch.equal(p["logits"], want.cpu()), f"(d) rank {r}'s "
+              f"logits differ from the one-process sorted prefill summed "
+              f"in the ranks' order by {errs[r]}")
+        check(torch.equal(p["k0"], cache.k[0].cpu())
+              and torch.equal(p["v0"], cache.v[0].cpu()),
+              f"(d) rank {r}: layer 0's K/V differ from one process")
+        check(p["pos"] == MOE_MODEL_TOKENS[1], f"(d) rank {r}: cache pos")
+    check(all(r["moe_dispatch"] == cfg.n_layers
+              and r["flash_attention"] == cfg.n_layers for r in ranks),
+          f"(d) B5/B4 launches by rank: "
+          f"{[(r['moe_dispatch'], r['flash_attention']) for r in ranks]}")
+    for k in launches:
+        launches[k] += sum(r[k] for r in ranks)
+    d_line = {
+        "arch": "olmoe-1b-7b", "layers": cfg.n_layers,
+        "tokens": list(MOE_MODEL_TOKENS), "policy": "make_policy prefill "
+        "+ __mesh__ (residual cut on the sequence over model)",
+        "experts_per_rank": [r["experts"] for r in ranks],
+        "held": "logits bit for bit and every token-layer's experts "
+                "equal, against one process summed in the ranks' order",
+        "logits_max_abs_err": errs, "k0_v0_bit_for_bit": True,
+        "routing_margin_min": float(gaps.min()),
+        "token_layers_under_margin": int((gaps < ROUTE_MARGIN).sum()),
+        "token_layers": gaps.numel(),
+        "token_layer_expert_sets_differ": differ,
+        "one_process_order": {"logits_max_abs_err": plain_errs,
+                              "token_layer_expert_sets_differ":
+                              plain_differ},
+        "world_wall_s": wall, "prefill_wall_s": [r["wall_s"] for r in ranks],
+        "b5_launches": [r["moe_dispatch"] for r in ranks],
+        "b4_launches": [r["flash_attention"] for r in ranks],
+        "staged_bytes": [r["staged_bytes"] for r in ranks],
+        "peak_memory_bytes": [r["peak_memory_bytes"] for r in ranks]}
+    del params, want, cache, parts, gaps
+    free_device_memory(torch)
+
+    # (e) two train steps of the depth-2 model
+    ranks, wall = run_ranks("moe_train", 2, out, seed)
+    cfg2 = dataclasses.replace(cfg, n_layers=MOE_TRAIN_LAYERS)
+    model2 = get_model(cfg2)
+    params = _moe_params(torch, model2, seed)
+    data = DataConfig(vocab=cfg2.vocab, seq_len=MOE_TRAIN_BATCH[1],
+                      global_batch=MOE_TRAIN_BATCH[0], seed=seed)
+    step = make_train_step(model2, adamw.AdamWConfig(
+        lr_peak=TRAIN_LR, total_steps=MOE_TRAIN_STEPS, warmup_steps=1))
+    opt = adamw.init(params)
+    want = []
+    for i in range(MOE_TRAIN_STEPS):
+        loss, params, opt = step(params, opt, get_batch(data, i))
+        want.append(float(loss))
+    del params, opt
+    free_device_memory(torch)
+    for r, rk in enumerate(ranks):
+        for i, (w, g) in enumerate(zip(want, rk["losses"])):
+            check(abs(w - g) <= tol * max(1.0, abs(w)),
+                  f"(e) rank {r} step {i + 1}: loss {g} vs one process {w}")
+        bad = grad_rule_breaks(rk["readings"])
+        check(not bad, f"(e) rank {r}: step 1's gradient breaks the rule "
+              f"against one process at {bad}: "
+              f"{ {n: rk['readings'][n] for n in bad} }")
+    check(ranks[0]["shared_sha256"] == ranks[1]["shared_sha256"],
+          "(e) the leaves each rank holds whole differ between the ranks")
+    per_rank = 2 * MOE_TRAIN_LAYERS * MOE_TRAIN_STEPS  # forward + recompute
+    check(all(r["moe_dispatch"] == per_rank
+              and r["flash_attention"] == per_rank for r in ranks),
+          f"(e) B5/B4 launches by rank: "
+          f"{[(r['moe_dispatch'], r['flash_attention']) for r in ranks]}")
+    for k in launches:
+        launches[k] += sum(r[k] for r in ranks)
+    worst = {r: max(rk["readings"].items(),
+                    key=lambda kv: kv[1]["share_of_max"])
+             for r, rk in enumerate(ranks)}
+    e_line = {
+        "arch": "olmoe-1b-7b", "layers": MOE_TRAIN_LAYERS,
+        "batch": list(MOE_TRAIN_BATCH), "steps": MOE_TRAIN_STEPS,
+        "losses": [r["losses"] for r in ranks], "one_process_losses": want,
+        "grad_rule": f"step 1, every leaf: error within {GRAD_SHARE} of the "
+                     f"leaf's own largest value (own bounds: "
+                     f"{GRAD_SHARE_OWN}) and cosine above {GRAD_COSINE}",
+        "readings": [r["readings"] for r in ranks],
+        "worst_leaf": {r: [n, v] for r, (n, v) in worst.items()},
+        "shared_leaves_equal": True, "world_wall_s": wall,
+        "step_walls_s": [r["step_walls_s"] for r in ranks],
+        "b5_launches": [r["moe_dispatch"] for r in ranks],
+        "b4_launches": [r["flash_attention"] for r in ranks],
+        "staged_bytes": [r["staged_bytes"] for r in ranks],
+        "peak_memory_bytes": [r["peak_memory_bytes"] for r in ranks]}
+    free_device_memory(torch)
+    shutil.rmtree(out, ignore_errors=True)
+    say("moe_model", backend="gloo", device="cuda:0 in every rank",
+        tolerance="(e)'s losses: bf16 2e-2 of max(1, |ref|)",
+        moe_model=d_line,
+        moe_train=e_line, seconds=time.perf_counter() - t_phase)
+    # B4's shape in both worlds (a rank's rows, the whole sequence)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = attention_inputs(torch, gen, torch.bfloat16, cfg.hd,
+                               MOE_MODEL_TOKENS[0], cfg.n_kv_heads,
+                               cfg.n_heads // cfg.n_kv_heads,
+                               MOE_MODEL_TOKENS[1], MOE_MODEL_TOKENS[1])
+    held = attention_held(torch, q, k, v, "olmoe-1b-7b (d), (e)",
+                          causal=True)
+    return launches, [("olmoe-1b-7b a2a worlds (d), (e)", (q, k, v),
+                       {"causal": True}, launches["flash_attention"], held)]
+
+
+# ---------------------------------------------------------------------------
+# The twins of examples/, each in a process of its own
+# ---------------------------------------------------------------------------
+
+EXAMPLES = (
+    ("train_lm", []),                    # lm_100m, 300 steps, seq 256 x 8
+    ("quickstart", []),
+    ("serve_lm", []),
+    ("banking_explorer", ["sobel"]),
+)
+TRAIN_LM = {"layers": 12, "heads": 12, "head_dim": 64, "steps": 300,
+            "seq": 256, "batch": 8}
+
+
+def example_main(name, out_json, argv):
+    """One twin of ``examples/`` in this process, as ``python -m
+    repro_torch.examples.NAME ARGV`` runs it, with every kernel's count
+    set to 0 before and written to ``out_json`` after.  ``serve_lm``'s
+    cold solve is held (``SolveGate``) until its server has ticked
+    ``RELEASE_AFTER`` times, so that its page pool swaps mid-serve."""
+    import runpy
+
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import torch
+
+    from repro_torch.kernels import banked_gather as bg
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.runtime.server import Server
+
+    for counts in (bg.LAUNCHES, bg.SCATTER_ELEMS_PATHS):
+        for k in counts:
+            counts[k] = 0
+    reset_train_kernel_counts()
+    seen = {}
+    gate = SolveGate(hold=name == "serve_lm")
+    tick = Server.tick
+
+    def counting_tick(server):
+        seen["server"] = server
+        out = tick(server)
+        if server.ticks >= RELEASE_AFTER:
+            gate.event.set()
+        return out
+
+    Server.tick = counting_tick
+    sys.argv = [f"repro_torch.examples.{name}", *argv]
+    t0 = time.perf_counter()
+    try:
+        with gate:
+            runpy.run_module(f"repro_torch.examples.{name}",
+                             run_name="__main__")
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+    finally:
+        Server.tick = tick
+    res = {"wall_s": time.perf_counter() - t0, **bg.LAUNCHES,
+           **{f"banked_scatter_elems_{k}": n
+              for k, n in bg.SCATTER_ELEMS_PATHS.items()},
+           **train_kernel_counts(), "blind": fa.BLIND_LAUNCHES[
+               "flash_attention"],
+           "banned": sorted(m for m in sys.modules
+                            if m.split(".")[0] in ("jax", "repro"))}
+    if "server" in seen:
+        res.update(ticks=seen["server"].ticks, swaps=seen["server"].swaps)
+    with open(out_json, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def phase_examples(torch, seed):
+    """The four twins of ``examples/`` on the card, each in a process of
+    its own (``example_main``), each to exit 0 and print its lines:
+    ``train_lm`` at ``lm_100m`` for its default 300 steps (B4 forward
+    and recompute in each of its 12 layers, every step), ``quickstart``
+    (B1 through the fallback and the solved artifact, one launch for the
+    batched gather), ``serve_lm`` (B1 a tick, B2 a tick and an admit, B3
+    at the swap) and ``banking_explorer`` on ``sobel`` (no kernel).
+    Returns their launches and B4's row input at ``train_lm``'s shape."""
+    out = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    atexit.register(shutil.rmtree, out, ignore_errors=True)
+    launches, lines, t_phase = {}, {}, time.perf_counter()
+
+    def start(name, argv):
+        extra = (["--ckpt-dir", os.path.join(out, "ckpt")]
+                 if name == "train_lm" else [])
+        return subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--example",
+             name, os.path.join(out, f"{name}.json"), *argv, *extra],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=HERE)
+
+    # train_lm alone (its step times are read), then the three others
+    # together: they check what they print and launch, not their times
+    done = []
+    for group in (EXAMPLES[:1], EXAMPLES[1:]):
+        t0 = time.perf_counter()
+        procs = [(name, start(name, argv)) for name, argv in group]
+        for name, proc in procs:
+            try:
+                stdout, stderr = proc.communicate(timeout=600)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            done.append((name, proc.returncode, stdout, stderr,
+                         time.perf_counter() - t0))
+    for name, returncode, stdout, stderr, wall in done:
+        check(returncode == 0, f"example {name} exited "
+              f"{returncode}:\n{stdout[-2000:]}\n{stderr[-4000:]}")
+        with open(os.path.join(out, f"{name}.json")) as f:
+            res = json.load(f)
+        check(not res["banned"], f"example {name} imported {res['banned']}")
+        text = stdout
+        lines[name] = {"process_wall_s": wall, "run_wall_s": res["wall_s"],
+                       "stdout_tail": text.splitlines()[-4:]}
+        if name == "train_lm":
+            check("arch lm-100m: 137.8M params" in text
+                  and "training loss decreased" in text,
+                  f"train_lm: {text[-2000:]}")
+            m = re.search(r"step time: median ([\d.]+) ms over (\d+) steps, "
+                          r"(\d+) tokens/s", text)
+            check(m is not None and int(m.group(2)) == TRAIN_LM["steps"],
+                  f"train_lm: no step time line: {text[-1000:]}")
+            want = 2 * TRAIN_LM["layers"] * TRAIN_LM["steps"]
+            check(res["flash_attention"] == want, f"train_lm: B4 launched "
+                  f"{res['flash_attention']} times, {want} expected")
+            lines[name].update(median_step_ms=float(m.group(1)),
+                               tokens_per_s=int(m.group(3)),
+                               b4_launches=res["flash_attention"],
+                               loss_line=[ln for ln in text.splitlines()
+                                          if ln.startswith("loss:")])
+        elif name == "quickstart":
+            for needle in ("served from the fallback while the solver ran: "
+                           "exact", "hot-swapped to", "one kernel launch",
+                           "fabric   : same winner", "observe  :"):
+                check(needle in text, f"quickstart: no {needle!r}")
+            check(res["banked_gather"] == 3, f"quickstart: B1 launched "
+                  f"{res['banked_gather']} times, 3 expected")
+            lines[name]["b1_launches"] = res["banked_gather"]
+        elif name == "serve_lm":
+            check("served 6 requests in" in text
+                  and "hot-swapped to the solved layout mid-serve" in text,
+                  f"serve_lm: {text[-2000:]}")
+            check(res["banked_gather"] == res["ticks"]
+                  and res["banked_scatter_elems"] >= res["ticks"]
+                  and res["banked_scatter"] == res["swaps"] >= 1,
+                  f"serve_lm launches against its ticks and swaps: {res}")
+            lines[name].update({k: res[k] for k in (
+                "ticks", "swaps", "banked_gather", "banked_scatter_elems",
+                "banked_scatter")})
+        else:
+            check("pattern=sobel" in text and "[ours     ]" in text,
+                  f"banking_explorer: {text[-2000:]}")
+        for k, n in res.items():
+            if isinstance(n, int) and k not in ("ticks", "swaps", "blind"):
+                launches[k] = launches.get(k, 0) + n
+    shutil.rmtree(out, ignore_errors=True)
+    say("examples", seconds=time.perf_counter() - t_phase, **lines)
+    # B4 at train_lm's shape: a rank of 8 rows of 256 tokens, 12 heads
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = attention_inputs(torch, gen, torch.bfloat16,
+                               TRAIN_LM["head_dim"], TRAIN_LM["batch"],
+                               TRAIN_LM["heads"], 1, TRAIN_LM["seq"],
+                               TRAIN_LM["seq"])
+    held = attention_held(torch, q, k, v, "train_lm", causal=True)
+    return launches, [("lm-100m (train_lm)", (q, k, v), {"causal": True},
+                       launches.get("flash_attention", 0), held)]
+
+
+RANK_ENTRIES = {"moe": rank_moe, "dp": rank_dp, "pipeline": rank_pipeline,
+                "moe_model": rank_moe_model, "moe_train": rank_moe_train}
 
 
 def rank_main(entry, rank, world, init_file, out, seed):
@@ -3955,6 +4522,8 @@ def phase_dryrun(probe):
 
 
 def main():
+    if sys.argv[1:2] == ["--example"]:        # one twin of `examples`
+        return example_main(sys.argv[2], sys.argv[3], sys.argv[4:])
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--layers", type=int, default=None,
@@ -4053,6 +4622,10 @@ def main():
             ssd_held_by[cfg.name] = held
         attn_rows += rows
     add(phase_distributed(torch, args.seed))
+    for phase in (phase_moe_worlds, phase_examples):
+        n, rows = phase(torch, args.seed)
+        add(n)
+        attn_rows += rows
     kernels = phase_kernel_times(torch, args.seed, launches, served_flush,
                                  ssd_args, ssd_held_by, attn_rows, banked)
     del ssd_args, attn_rows

@@ -61,8 +61,7 @@ def make_policy(cfg: ArchConfig, shape: ShapeConfig, mesh
         if cfg.family in ("ssm", "hybrid"):
             pol["residual"] = P(dp, None, "model")
         else:
-            pol["residual"] = P(dp, "model", None)
-            pol["block_in"] = P(dp, None, None)
+            pol.update(shd.sequence_parallel_layout(mesh))
         pol["logits"] = P(dp, None, "model")
     return pol
 

@@ -26,10 +26,16 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig):
     """``train_step(params, opt_state, batch) -> (loss, params,
     opt_state)``: :func:`value_and_grad`, then one AdamW update, which
     writes the new parameters and state into the tensors it was given.
-    ``loss`` is a 0-d float32 tensor on the parameters' device."""
+    ``loss`` is a 0-d float32 tensor on the parameters' device.  Under a
+    sharding policy with a ``"__mesh__"`` the gradients come back summed
+    over the ranks (``models.transformer.spread_grads``) and the clip
+    takes the model's norm over every rank (``Model.grad_norm``), so the
+    leaves each rank holds whole stay equal in every rank."""
     def train_step(params, opt_state, batch):
         loss, grads = value_and_grad(model, params, batch)
-        params, opt_state = adamw.update(opt_cfg, grads, opt_state, params)
+        gnorm = model.grad_norm(grads) if model.grad_norm else None
+        params, opt_state = adamw.update(opt_cfg, grads, opt_state, params,
+                                         gnorm=gnorm)
         return loss, params, opt_state
 
     return train_step

@@ -43,6 +43,9 @@ class Model:
     prefill: Optional[Callable]     # (params, batch, max_len) -> (logits, cache)
     decode: Callable                # (params, cache, tokens) -> (logits, cache)
     init_cache: Optional[Callable]  # (batch, max_len) -> cache; encdec: None
+    # (grads) -> the global norm over every rank, where ranks hold
+    # different leaves (the expert-parallel MoE model); else None
+    grad_norm: Optional[Callable] = None
 
 
 def get_model(cfg: ArchConfig, moe_impl: str = "sorted") -> Model:
@@ -69,6 +72,8 @@ def get_model(cfg: ArchConfig, moe_impl: str = "sorted") -> Model:
                 cfg, p, batch["tokens"], max_len, impl=moe_impl),
             decode=partial(moe.decode_step, cfg, impl=moe_impl),
             init_cache=partial(tfm.init_cache, cfg),
+            grad_norm=(partial(moe.grad_norm, cfg) if moe_impl == "a2a"
+                       else None),
         )
     if fam == "ssm":
         def ssm_cache(batch, max_len, **kw):     # the state has no length

@@ -26,6 +26,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..kernels import ops
+from ..parallel.hints import hint, split_sequence
 from . import transformer as tfm
 from .layers import (apply_rope, chunked_attention, dense_init, gelu_mlp,
                      param_device, remat, rms_norm, unstack)
@@ -118,7 +119,7 @@ def _encode(cfg: ArchConfig, params: Params, frames: Tensor) -> Tensor:
 
     x = frames
     for lp in unstack(params["enc"], cfg.n_encoder_layers or cfg.n_layers):
-        x = remat(block, lp, x)
+        x = hint(remat(block, lp, x), "residual")
     return rms_norm(x, params["ln_enc"], cfg.norm_eps)
 
 
@@ -147,7 +148,7 @@ def decode_train(cfg: ArchConfig, params: Params, enc_out: Tensor,
 
     x = tfm.embed_tokens(params, tokens)
     for lp in unstack(params["dec"], cfg.n_layers):
-        x = remat(block, lp, x)
+        x = hint(remat(block, lp, x), "residual")
     return rms_norm(x, params["ln_f"], cfg.norm_eps)
 
 
@@ -156,9 +157,13 @@ def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, Tensor]
     """Encode ``batch["frames"]`` (cast to bfloat16), decode
     ``batch["tokens"]`` over them, and the chunked cross-entropy against
     ``batch["labels"]``."""
-    enc_out = _encode(cfg, params, batch["frames"].to(torch.bfloat16))
-    h = decode_train(cfg, params, enc_out, batch["tokens"])
-    return tfm.chunked_xent(cfg, params, h, batch["labels"])
+    # no sequence cut here yet: under a mesh the tokens are spread over
+    # 'data' alone (transformer.lm_loss)
+    with split_sequence(batch["tokens"].shape[1], cut=False) as split:
+        params = tfm.spread_grads(params, split)
+        enc_out = _encode(cfg, params, batch["frames"].to(torch.bfloat16))
+        h = decode_train(cfg, params, enc_out, batch["tokens"])
+        return tfm.chunked_xent(cfg, params, h, batch["labels"])
 
 
 class EncDecCache(NamedTuple):

@@ -21,6 +21,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
+from ..parallel.hints import hint, split_sequence
 from . import ssm as ssm_mod
 from . import transformer as tfm
 from .layers import dense_init, remat, rms_norm, unstack
@@ -111,14 +112,18 @@ def forward(cfg: ArchConfig, params: Params, tokens: Tensor) -> Tensor:
         return tfm.dense_layer(cfg, shared, x, 0)[0]
 
     for stacked in unstack(params["ssm"], G):
-        x = remat(group, unstack(stacked, per), x)
+        x = hint(remat(group, unstack(stacked, per), x), "residual")
     return rms_norm(x, params["ln_f"], cfg.norm_eps)
 
 
 def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, Tensor]
             ) -> Tensor:
-    h = forward(cfg, params, batch["tokens"])
-    return tfm.chunked_xent(cfg, params, h, batch["labels"])
+    # the residual's channel cut has no process-local form: under a mesh
+    # the tokens are spread over 'data' alone (transformer.lm_loss)
+    with split_sequence(batch["tokens"].shape[1], cut=False) as split:
+        params = tfm.spread_grads(params, split)
+        h = forward(cfg, params, batch["tokens"])
+        return tfm.chunked_xent(cfg, params, h, batch["labels"])
 
 
 @torch.no_grad()

@@ -248,7 +248,10 @@ def remat(fn, *args):
     gradients are being recorded -- the JAX package wraps every scanned
     layer body in ``jax.checkpoint`` -- and a plain call otherwise."""
     if torch.is_grad_enabled():
-        return torch.utils.checkpoint.checkpoint(fn, *args,
+        # the recomputation runs in the backward, after the pass: it takes
+        # the sharding policy of the pass (parallel/hints.py)
+        from ..parallel.hints import bound
+        return torch.utils.checkpoint.checkpoint(bound(fn), *args,
                                                  use_reentrant=False)
     return fn(*args)
 

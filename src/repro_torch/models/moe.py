@@ -26,7 +26,9 @@ feed-forward; in a prefill the ``sorted`` path fills its expert buffer at
 cross-entropy; gradients reach the tokens through the dispatch kernel's
 autograd function.  ``a2a`` is the expert-parallel dispatch over the
 ``model`` axis of a ``DeviceMesh`` (``moe_ffn_a2a``); without one it is
-``sorted``.
+``sorted``.  Under a mesh the ``a2a`` model's passes carry this rank's
+block of the sequence from the embedding on (``parallel/hints.py``), the
+layout its combine lands in.
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ import torch
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..kernels import ops
+from ..parallel.hints import (current_split, hint, policy_defaults,
+                              policy_value, residual_block, split_sequence)
 from . import transformer as tfm
 from .layers import dense_init, remat, rms_norm, swiglu, unstack
 
@@ -82,8 +86,16 @@ def init_moe_params(cfg: ArchConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 
-def _route(cfg: ArchConfig, router_w: Tensor, xt: Tensor):
-    """xt (T, D) -> (probs (T, K), idx (T, K), aux load-balance loss)."""
+def _route(cfg: ArchConfig, router_w: Tensor, xt: Tensor,
+           batch_fe: bool = False):
+    """xt (T, D) -> (probs (T, K), idx (T, K), aux load-balance loss).
+
+    ``batch_fe``: in a pass whose batch rows are cut over ``data``
+    (``parallel.hints.split_sequence``), the share of tokens each expert
+    takes first is the whole batch's, so that the mean of the ranks' aux
+    (``lm_loss``) is the whole batch's, as the JAX package's ``sorted``
+    and ``dense`` layers compute it under a mesh (its ``a2a`` layer
+    routes each data row apart)."""
     logits = xt.float() @ router_w.float()                 # (T, E)
     probs = torch.softmax(logits, dim=-1)
     top_p, top_i = torch.topk(probs, cfg.top_k, dim=-1)
@@ -92,6 +104,9 @@ def _route(cfg: ArchConfig, router_w: Tensor, xt: Tensor):
     E = probs.shape[-1]
     me = probs.mean(0)
     fe = torch.nn.functional.one_hot(top_i[:, 0], E).float().mean(0)
+    split = current_split() if batch_fe else None
+    if split is not None:
+        fe = split.batch_mean(fe)
     aux = E * torch.sum(fe * me)
     return top_p, top_i, aux
 
@@ -100,7 +115,7 @@ def moe_ffn_dense(cfg: ArchConfig, lp, h: Tensor) -> Tuple[Tensor, Tensor]:
     """Oracle path: run all experts on all tokens (small shapes only)."""
     B, S, D = h.shape
     xt = h.reshape(-1, D)
-    top_p, top_i, aux = _route(cfg, lp["router"], xt)
+    top_p, top_i, aux = _route(cfg, lp["router"], xt, batch_fe=True)
     gates = torch.zeros((xt.shape[0], cfg.n_experts), dtype=torch.float32,
                         device=h.device).scatter_(1, top_i, top_p)
     # every expert on every token: (1, T, D) against (E, D, F) batches
@@ -147,9 +162,10 @@ def moe_ffn_sorted(cfg: ArchConfig, lp, h: Tensor) -> Tuple[Tensor, Tensor]:
     K, E = cfg.top_k, cfg.n_experts
     C = capacity(cfg, T)
     xt = h.reshape(T, D)
-    top_p, top_i, aux = _route(cfg, lp["router"], xt)
+    top_p, top_i, aux = _route(cfg, lp["router"], xt, batch_fe=True)
     slot_token, order, sorted_e, rank, keep = dispatch_slots(top_i, C, E)
-    buf = ops.dispatch(xt, slot_token).view(E, C, D)     # the B5 kernel
+    buf = hint(ops.dispatch(xt, slot_token).view(E, C, D),  # the B5 kernel
+               "expert_buffer")
 
     y = swiglu(buf, lp["we_gate"], lp["we_up"], lp["we_down"])  # (E, C, D)
 
@@ -184,15 +200,15 @@ def moe_ffn_a2a(cfg: ArchConfig, lp, h: Tensor) -> Tuple[Tensor, Tensor]:
     weights this rank's ``E/n`` experts (``convert.for_ranks``), with
     ``"__fsdp__"`` in the policy also cut on their F dim over ``data`` and
     gathered here, layer by layer.  Returns this rank's sequence block
-    (B_loc, S/n, D) of the combined output and the load-balancing loss
-    averaged over ``model``.  Without a mesh in the policy, or where E or
-    S does not divide by the ``model`` size, it is ``moe_ffn_sorted``, as
-    in the JAX package.
+    (B_loc, S/n, D) of the combined output and the load-balancing loss of
+    ``h``'s tokens, the same in every rank of the ``model`` group
+    (``lm_loss`` takes its mean over the ranks).  Without a mesh in the
+    policy, or where E or S does not divide by the ``model`` size, it is
+    ``moe_ffn_sorted``, as in the JAX package.
     """
     import torch.distributed as dist
 
     from ..parallel.collectives import all_gather_dim, reduce_scatter_dim
-    from ..parallel.hints import policy_value
     from ..parallel.sharding import dp_axes, mesh_axes
 
     mesh = policy_value("__mesh__")
@@ -245,8 +261,7 @@ def moe_ffn_a2a(cfg: ArchConfig, lp, h: Tensor) -> Tuple[Tensor, Tensor]:
     # the combine crossbar: each token's expert sums over the model axis,
     # landing sequence-sharded (the residual layout)
     out = reduce_scatter_dim(out.view(B, S, D), 1, group)
-    dist.all_reduce(aux, group=group)
-    return out.to(h.dtype), aux / n_model
+    return out.to(h.dtype), aux
 
 
 MOE_IMPLS = {"dense": moe_ffn_dense, "sorted": moe_ffn_sorted,
@@ -269,10 +284,25 @@ def _ffn(cfg: ArchConfig, impl: str, aux=None):
         if aux is not None:
             aux.append(aux_l)
         if cfg.shared_expert:
-            delta = delta + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+            delta = residual_block(delta) + swiglu(
+                residual_block(h), lp["w_gate"], lp["w_up"], lp["w_down"])
         return delta
 
     return ffn
+
+
+def _layout(impl: str):
+    """The layout the pass takes: the ``a2a`` layer's combine lands in the
+    sequence-cut residual, so under a mesh whose policy says nothing of
+    the residual the pass takes the dry-run's attention layout (the
+    residual cut on the sequence over ``model``, the block inputs
+    whole)."""
+    mesh = policy_value("__mesh__")
+    if impl != "a2a" or mesh is None:
+        return policy_defaults()
+    from ..parallel.sharding import sequence_parallel_layout
+
+    return policy_defaults(**sequence_parallel_layout(mesh))
 
 
 def forward(cfg: ArchConfig, params: Params, tokens: Tensor,
@@ -282,37 +312,92 @@ def forward(cfg: ArchConfig, params: Params, tokens: Tensor,
     the expert layer as the feed-forward, each recomputed in the backward
     when gradients are being recorded (the expert buffer through
     ``ops.dispatch``'s autograd function).  Each layer returns its own aux
-    loss, so a recomputed layer adds nothing twice."""
-    x = tfm.embed_tokens(params, tokens)
-    windows = tfm.layer_windows(cfg)
+    loss, so a recomputed layer adds nothing twice.
 
-    def block(lp, x, window):
-        aux = []
-        x, _ = tfm.dense_layer(cfg, lp, x, window, ffn=_ffn(cfg, impl, aux))
-        return x, aux[0]
+    Under a policy whose ``"residual"`` cuts the sequence (with ``a2a``
+    and a mesh: always, see :func:`_layout`) the residual stream is this
+    rank's block from the embedding on, as in ``transformer.forward``;
+    the JAX package hints no embedding here, so the cut is made without a
+    hint."""
+    with _layout(impl), split_sequence(tokens.shape[1]):
+        x = residual_block(tfm.embed_tokens(params, tokens))
+        windows = tfm.layer_windows(cfg)
 
-    total = 0.0
-    for i, lp in enumerate(unstack(params["layers"], cfg.n_layers)):
-        x, aux_l = remat(block, lp, x, int(windows[i]))
-        total = total + aux_l
-    return rms_norm(x, params["ln_f"], cfg.norm_eps), total / cfg.n_layers
+        def block(lp, x, window):
+            aux = []
+            x, _ = tfm.dense_layer(cfg, lp, x, window,
+                                   ffn=_ffn(cfg, impl, aux))
+            return hint(x, "residual"), aux[0]
+
+        total = 0.0
+        for i, lp in enumerate(unstack(params["layers"], cfg.n_layers)):
+            x, aux_l = remat(block, lp, x, int(windows[i]))
+            total = total + aux_l
+        return (rms_norm(x, params["ln_f"], cfg.norm_eps),
+                total / cfg.n_layers)
 
 
 def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, Tensor],
             impl: str = "sorted", aux_weight: float = 0.01) -> Tensor:
     """The chunked cross-entropy plus ``aux_weight`` times the
-    load-balancing loss, as in the JAX package."""
-    h, aux = forward(cfg, params, batch["tokens"], impl=impl)
-    return (tfm.chunked_xent(cfg, params, h, batch["labels"])
-            + aux_weight * aux)
+    load-balancing loss, as in the JAX package.  Under a policy with a
+    ``"__mesh__"``: ``transformer.lm_loss``'s mean over the ranks and
+    summed gradients and, with ``a2a``, the experts' gradients each
+    rank's own.  Every rank of a ``model`` group routes its data row's
+    whole gathered sequence, so each holds the same load-balancing loss
+    (``a2a``: its row's; ``sorted`` and ``dense``: its row's router
+    probabilities against the whole batch's first choices, see
+    ``_route``): the loss takes the mean over every rank, as the
+    cross-entropy does, and each rank's gradient is its share of it
+    (summed over the ranks by ``spread_grads``)."""
+    with _layout(impl), split_sequence(batch["tokens"].shape[1]) as split:
+        params = tfm.spread_grads(
+            params, split, local=_own_leaves(impl))
+        h, aux = forward(cfg, params, batch["tokens"], impl=impl)
+        if split is not None:
+            aux = split.mean(aux)
+        return (tfm.chunked_xent(cfg, params, h, batch["labels"])
+                + aux_weight * aux)
+
+
+def grad_norm(cfg: ArchConfig, grads: Params) -> Tensor:
+    """The global norm of the ``a2a`` model's gradients over every rank:
+    the experts each rank holds its own share of count once from each
+    ``model`` rank (a sum of their squares over ``model``), every other
+    leaf once.  Without a mesh, or with every expert in this rank:
+    ``optim.adamw.global_norm``."""
+    import torch.distributed as dist
+
+    from ..optim.adamw import global_norm, tree_leaves
+
+    own = _own_leaves("a2a")
+    mesh = policy_value("__mesh__")
+    lyr = grads["layers"]
+    if mesh is None or lyr["we_gate"].shape[1] == cfg.n_experts:
+        return global_norm(grads)
+    rest = {k: v for k, v in grads.items() if k != "layers"}
+    rest["layers"] = {k: v for k, v in lyr.items() if k not in own}
+    sq = sum(torch.sum(torch.square(lyr[k].float())) for k in own)
+    dist.all_reduce(sq, group=mesh.get_group("model"))
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for x in tree_leaves(rest)) + sq)
+
+
+def _own_leaves(impl: str) -> tuple:
+    """The leaves a rank holds its own share of: the experts, under
+    ``a2a``."""
+    return ("we_gate", "we_up", "we_down") if impl == "a2a" else ()
 
 
 @torch.no_grad()
 def prefill(cfg: ArchConfig, params: Params, tokens: Tensor, max_len: int,
             impl: str = "sorted") -> Tuple[Tensor, tfm.KVCache]:
     """``transformer.prefill`` with the expert layer as the feed-forward:
-    last-position logits and a cache ``max_len`` long."""
-    return tfm.prefill(cfg, params, tokens, max_len, ffn=_ffn(cfg, impl))
+    last-position logits and a cache ``max_len`` long.  With ``a2a`` under
+    a mesh the residual is cut on the sequence (:func:`_layout`)."""
+    with _layout(impl):
+        return tfm.prefill(cfg, params, tokens, max_len, ffn=_ffn(cfg, impl),
+                           residual_hint=False)
 
 
 @torch.no_grad()

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..kernels.ssd_chunk import SsdChunkFn, ssd_chunk
+from ..parallel.hints import hint, split_sequence
 from . import transformer as tfm
 from .layers import dense_init, param_device, remat, rms_norm, unstack
 
@@ -273,14 +274,18 @@ def forward(cfg: ArchConfig, params: Params, tokens: Tensor) -> Tensor:
         return ssm_block(cfg, lp, x)[0]
 
     for lp in unstack(params["layers"], cfg.n_layers):
-        x = remat(block, lp, x)
+        x = hint(remat(block, lp, x), "residual")
     return rms_norm(x, params["ln_f"], cfg.norm_eps)
 
 
 def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, Tensor]
             ) -> Tensor:
-    h = forward(cfg, params, batch["tokens"])
-    return tfm.chunked_xent(cfg, params, h, batch["labels"])
+    # the residual's channel cut has no process-local form: under a mesh
+    # the tokens are spread over 'data' alone (transformer.lm_loss)
+    with split_sequence(batch["tokens"].shape[1], cut=False) as split:
+        params = tfm.spread_grads(params, split)
+        h = forward(cfg, params, batch["tokens"])
+        return tfm.chunked_xent(cfg, params, h, batch["labels"])
 
 
 @torch.no_grad()

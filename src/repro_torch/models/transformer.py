@@ -22,7 +22,10 @@ As in the JAX package, neither the server nor ``get_model`` uses them.
 ``lm_loss`` is the training objective: ``forward``, then the chunked
 cross-entropy; gradients flow through ``forward`` (and through the
 flash attention kernel's autograd function), while ``prefill`` and every
-decode step run without them.
+decode step run without them.  Under a sharding policy with a live mesh
+whose ``"residual"`` cuts the sequence, ``forward``, ``lm_loss`` and
+``prefill`` carry this rank's block of the sequence between layers
+(``parallel/hints.py``; Megatron sequence parallelism).
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ import torch
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..kernels import ops
+from ..parallel.hints import (current_split, hint, residual_block,
+                              split_sequence)
 from .layers import (NEG_INF, apply_rope, chunked_attention, dense_init,
                      param_device, remat, rms_norm, swiglu, unstack)
 
@@ -166,11 +171,19 @@ def dense_layer(cfg: ArchConfig, lp, x, window, *, cache_kv=None, pos=0,
     the JAX package: forward, prefill, the hybrid's shared block).
     ``ffn(lp, h)`` overrides the feed-forward.
 
+    In a pass that cuts the sequence over ``model``
+    (``parallel.hints.split_sequence``) ``x`` is this rank's block: the
+    ``"block_in"`` hints gather each block input whole, so attention runs
+    over the whole sequence of its rows (positions and masks unchanged,
+    the K/V whole), and each residual add takes this rank's block of what
+    was computed whole.  ``ffn`` may return the block itself (the
+    expert-parallel MoE layer's reduce-scatter lands there).
+
     A write that would run past the end of the buffer is clamped so that it
     fits (for one token: the last row is overwritten) while RoPE and the
     masks go on with the unclamped ``pos`` -- what the JAX package's
     ``dynamic_update_slice`` does."""
-    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    h = hint(rms_norm(x, lp["ln1"], cfg.norm_eps), "block_in")
     if cache_kv is None:
         if int(pos) != 0:
             raise ValueError(f"a layer without a cache attends over the "
@@ -188,12 +201,13 @@ def dense_layer(cfg: ArchConfig, lp, x, window, *, cache_kv=None, pos=0,
         attn = _attn(cfg, lp, h, k_full=k_buf, v_full=v_buf, window=window,
                      q_offset=pos, kv_len=pos + S, block_k=block_k)
         new_kv = (k_buf, v_buf)
-    x = x + attn
-    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    x = x + residual_block(attn)
+    h = hint(rms_norm(x, lp["ln2"], cfg.norm_eps), "block_in")
     if ffn is None:
-        delta = swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+        delta = swiglu(residual_block(h), lp["w_gate"], lp["w_up"],
+                       lp["w_down"])
     else:
-        delta = ffn(lp, h)
+        delta = residual_block(ffn(lp, h))
     x = x + delta
     return x, new_kv
 
@@ -212,10 +226,35 @@ def _layer_params(params: Params, i: int) -> Params:
     return {name: w[i] for name, w in params["layers"].items()}
 
 
+class _Embed(torch.autograd.Function):
+    """The bfloat16 rows of ``table`` at ``tokens``; the gradient of the
+    table sums each row's contributions in float32, in a fixed order
+    (``index_put_`` with ``accumulate``), and is cast to the table's dtype
+    once: a bfloat16 sum, add by add, over a token that repeats hundreds
+    of times in a batch loses several per cent of that row, in an order
+    that changes with the layout of the batch over ranks."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.table = (table.shape, table.dtype)
+        return table.to(torch.bfloat16)[tokens]
+
+    @staticmethod
+    def backward(ctx, ct):
+        (tokens,) = ctx.saved_tensors
+        shape, dtype = ctx.table
+        grad = torch.zeros(shape, dtype=torch.float32, device=ct.device)
+        grad.index_put_((tokens.reshape(-1).long(),),
+                        ct.reshape(-1, shape[-1]).float(), accumulate=True)
+        return grad.to(dtype), None
+
+
 def embed_tokens(params: Params, tokens: Tensor) -> Tensor:
     """The bfloat16 residual stream's first value: the embedding rows of
-    ``tokens``, whatever the parameters' dtype."""
-    return params["embed"].to(torch.bfloat16)[tokens]
+    ``tokens``, whatever the parameters' dtype (see :class:`_Embed` for
+    its gradient)."""
+    return _Embed.apply(params["embed"], tokens)
 
 
 def forward(cfg: ArchConfig, params: Params, tokens: Tensor, ffn=None
@@ -227,23 +266,29 @@ def forward(cfg: ArchConfig, params: Params, tokens: Tensor, ffn=None
     Gradients flow when they are being recorded: through ``ops.mha``'s
     autograd function, each layer recomputed in the backward (``remat``,
     the JAX package's ``jax.checkpoint``), the stacked weights split once
-    (``unstack``) outside the recomputed bodies."""
-    x = embed_tokens(params, tokens)
-    windows = layer_windows(cfg)
+    (``unstack``) outside the recomputed bodies.
 
-    def block(lp, x, window):
-        return dense_layer(cfg, lp, x, window, ffn=ffn)[0]
+    Under a policy whose ``"residual"`` cuts the sequence over ``model``
+    (``parallel/hints.py``) the residual stream is this rank's block
+    ``(B, S/n, D)`` from the embedding on, and so are the hidden states
+    returned."""
+    with split_sequence(tokens.shape[1]):
+        x = hint(embed_tokens(params, tokens), "residual")
+        windows = layer_windows(cfg)
 
-    for i, lp in enumerate(unstack(params["layers"], cfg.n_layers)):
-        x = remat(block, lp, x, int(windows[i]))
-    return rms_norm(x, params["ln_f"], cfg.norm_eps)
+        def block(lp, x, window):
+            return dense_layer(cfg, lp, x, window, ffn=ffn)[0]
+
+        for i, lp in enumerate(unstack(params["layers"], cfg.n_layers)):
+            x = hint(remat(block, lp, x, int(windows[i])), "residual")
+        return rms_norm(x, params["ln_f"], cfg.norm_eps)
 
 
 def _xent(hc: Tensor, lc: Tensor, w: Tensor) -> Tensor:
     """Per-token cross-entropy of one chunk: ``logsumexp - gold logit`` in
     float32; the gold logit by a gather (exact, as the JAX package's
     one-hot sum is)."""
-    logits = torch.matmul(hc.float(), w.T)
+    logits = hint(torch.matmul(hc.float(), w.T), "logits")
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
     return lse - gold
@@ -254,20 +299,56 @@ def chunked_xent(cfg: ArchConfig, params: Params, h: Tensor, labels: Tensor,
     """Mean cross-entropy of ``h (B, S, D)`` against ``labels (B, S)``
     without the ``(B, S, V)`` logits at once: ``max(1, S // chunk)``
     chunks along S against the float32 ``lm_head`` (or the tied
-    embedding), each chunk's logits recomputed in the backward."""
+    embedding), each chunk's logits recomputed in the backward.
+
+    In a pass that spreads the tokens over the mesh (``lm_loss`` under a
+    policy with a ``"__mesh__"``), ``h`` is this rank's share: the labels'
+    block is taken to match, and the loss is the mean over every rank."""
+    split = current_split()
+    if split is not None:
+        labels = split.block(labels)
     B, S, D = h.shape
     w = params.get("lm_head", params["embed"]).float()
     nchunks = max(1, S // chunk)
     hs = h.reshape(B, nchunks, S // nchunks, D)
     ls = labels.reshape(B, nchunks, S // nchunks)
     losses = [remat(_xent, hs[:, c], ls[:, c], w) for c in range(nchunks)]
-    return torch.stack(losses).mean()
+    loss = torch.stack(losses).mean()
+    return loss if split is None else split.mean(loss)
+
+
+def spread_grads(params: Params, split, local=()) -> Params:
+    """``params`` whose gradients are summed, in the backward, over the
+    ranks that share each leaf: every leaf over the groups the pass's
+    tokens are spread over (each rank saw only its share of them), the
+    leaves named in ``local`` -- the expert-parallel MoE layer's experts,
+    each rank's own over ``model``, which see every token of their data
+    row -- over ``data`` alone.  Without a split: ``params`` itself."""
+    if split is None:
+        return params
+    from ..parallel.collectives import summed_grads
+
+    groups = split.token_groups()
+    data = (split.data,) if split.n_data > 1 else ()
+
+    def wrap(tree):
+        return {k: wrap(v) if isinstance(v, dict) else summed_grads(
+            v, data if k in local else groups) for k, v in tree.items()}
+
+    return wrap(params)
 
 
 def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, Tensor]
             ) -> Tensor:
-    h = forward(cfg, params, batch["tokens"])
-    return chunked_xent(cfg, params, h, batch["labels"])
+    """``forward``, then :func:`chunked_xent`.  Under a policy with a
+    ``"__mesh__"`` the batch is this rank's rows, the loss is the mean
+    over every rank, and the gradients come back summed where ranks share
+    a leaf (:func:`spread_grads`): what ``jax.grad`` gives under the JAX
+    package's mesh."""
+    with split_sequence(batch["tokens"].shape[1]) as split:
+        params = spread_grads(params, split)
+        h = forward(cfg, params, batch["tokens"])
+        return chunked_xent(cfg, params, h, batch["labels"])
 
 
 # ---------------------------------------------------------------------------
@@ -291,26 +372,39 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 @torch.no_grad()
 def prefill(cfg: ArchConfig, params: Params, tokens: Tensor, max_len: int,
-            ffn=None) -> Tuple[Tensor, KVCache]:
+            ffn=None, residual_hint: bool = True) -> Tuple[Tensor, KVCache]:
     """tokens (B, S) -> logits of the last position (B, V) and the cache
     that decoding goes on from: ``max_len`` long, the prompt's K/V in its
     first ``S`` rows, zeros past them, ``pos = S``.  Each layer attends over
     the prompt through the flash attention kernel (one launch a layer);
-    ``ffn`` as in :func:`forward`."""
+    ``ffn`` as in :func:`forward`; ``residual_hint`` hints each layer's
+    output ``"residual"``, as the JAX package's dense prefill does (its
+    MoE prefill does not).
+
+    Under a policy whose ``"residual"`` cuts the sequence the residual
+    stream is this rank's block from the embedding on; the cache is the
+    whole sequence's (its K/V come from the gathered block inputs), and
+    the logits, computed by the rank of the last block, are broadcast to
+    every rank of the ``model`` group."""
     B, S = tokens.shape
     if S > max_len:
         raise ValueError(f"a prompt of {S} tokens does not fit a cache of "
                          f"max_len {max_len}")
-    x = embed_tokens(params, tokens)
-    windows = layer_windows(cfg)
-    cache = init_cache(cfg, B, max_len, device=x.device)
-    for i in range(cfg.n_layers):
-        x, (k, v) = dense_layer(cfg, _layer_params(params, i), x,
-                                int(windows[i]), ffn=ffn)
-        cache.k[i, :, :S] = k
-        cache.v[i, :, :S] = v
-    h = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    logits = logits_fn(cfg, params, h[:, -1:])[:, 0]
+    with split_sequence(S) as split:
+        x = residual_block(embed_tokens(params, tokens))
+        windows = layer_windows(cfg)
+        cache = init_cache(cfg, B, max_len, device=x.device)
+        for i in range(cfg.n_layers):
+            x, (k, v) = dense_layer(cfg, _layer_params(params, i), x,
+                                    int(windows[i]), ffn=ffn)
+            if residual_hint:
+                x = hint(x, "residual")
+            cache.k[i, :, :S] = k
+            cache.v[i, :, :S] = v
+        h = rms_norm(x, params["ln_f"], cfg.norm_eps)
+        logits = logits_fn(cfg, params, h[:, -1:])[:, 0]
+    if split is not None:
+        logits = split.last_block(logits)
     return logits, KVCache(cache.k, cache.v, S)
 
 
@@ -512,7 +606,7 @@ def decode_step_quant(cfg: ArchConfig, params: Params, cache: QuantKVCache,
     at = min(max(pos, 0), cache.k_q.shape[2] - S)
     for i in range(cfg.n_layers):
         lp = _layer_params(params, i)
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        h = hint(rms_norm(x, lp["ln1"], cfg.norm_eps), "block_in")
         k_new, v_new = _project_kv(cfg, lp, h, pos)
         for buf, scale, new in ((cache.k_q[i], cache.k_s[i], k_new),
                                 (cache.v_q[i], cache.v_s[i], v_new)):
@@ -526,7 +620,7 @@ def decode_step_quant(cfg: ArchConfig, params: Params, cache: QuantKVCache,
         x = x + _attn(cfg, lp, h, k_full=k_deq, v_full=v_deq,
                       window=int(windows[i]), q_offset=pos, kv_len=pos + S,
                       block_k=block_k)
-        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        h = hint(rms_norm(x, lp["ln2"], cfg.norm_eps), "block_in")
         x = x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
     h = rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = logits_fn(cfg, params, h)[:, 0]

@@ -101,14 +101,17 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 @torch.no_grad()
 def update(cfg: AdamWConfig, grads: Params, state: AdamWState,
-           params: Params) -> Tuple[Params, AdamWState]:
-    """One AdamW step: clip ``grads`` by their global norm, update the
-    moments and the master copy, cast the master back into ``params``.
-    Every tensor of ``state`` and ``params`` is updated in place; returns
-    ``(params, AdamWState(step + 1, m, v, master))``."""
+           params: Params, gnorm=None) -> Tuple[Params, AdamWState]:
+    """One AdamW step: clip ``grads`` by their global norm (``gnorm``
+    where the caller gives it: the norm over every rank of a model whose
+    leaves are cut over ranks), update the moments and the master copy,
+    cast the master back into ``params``.  Every tensor of ``state`` and
+    ``params`` is updated in place; returns ``(params, AdamWState(step +
+    1, m, v, master))``."""
     step = state.step + 1
     lr = cosine_lr(cfg, step)
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
     stepf = step.to(torch.float32)

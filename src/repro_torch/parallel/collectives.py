@@ -16,7 +16,14 @@ process group that the caller hands in.
 host memory: the gloo backend carries tensors on the card for
 ``all_reduce`` and ``broadcast`` only, so point-to-point, reduce-scatter
 and all-gather of CUDA tensors over gloo (several ranks on one card, which
-NCCL refuses) copy to the host and back.  ``STAGED`` counts those bytes.
+NCCL refuses) copy to the host and back.  ``STAGED`` counts those bytes,
+a backward's too.
+
+The collectives a model runs under a mesh are autograd functions:
+``all_gather_dim`` and ``reduce_scatter_dim``, each the other's gradient;
+``all_reduce_sum`` (the loss, the load-balancing loss), whose gradient
+passes through; and ``summed_grads``, the identity whose gradient is
+summed over the ranks that share a leaf.
 """
 
 from __future__ import annotations
@@ -91,9 +98,7 @@ def compressed_grad_mean(grads: Any, residuals: Any, group
     return compressed_psum_leaf(grads, residuals, group)
 
 
-def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """The group's tensors joined along ``dim`` in rank order (the JAX
-    package's tiled ``all_gather``)."""
+def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     src = x.movedim(dim, 0).contiguous()
     out = torch.empty((dist.get_world_size(group) * src.shape[0],)
                       + src.shape[1:], dtype=x.dtype, device=x.device)
@@ -102,9 +107,7 @@ def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return out.movedim(0, dim)
 
 
-def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """The sum over the group of ``x``, of which rank ``r`` keeps block
-    ``r`` of ``dim`` (the JAX package's tiled ``psum_scatter``)."""
+def _scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     src = x.movedim(dim, 0).contiguous()
     n = dist.get_world_size(group)
     out = torch.empty((src.shape[0] // n,) + src.shape[1:], dtype=x.dtype,
@@ -112,3 +115,82 @@ def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     with through_host(group, reads=[src], writes=[out]) as ((a,), (b,)):
         dist.reduce_scatter_tensor(b, a, group=group)
     return out.movedim(0, dim)
+
+
+class _AllGatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _scatter(ct, ctx.dim, ctx.group), None, None
+
+
+class _ReduceScatterDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _scatter(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _gather(ct, ctx.dim, ctx.group), None, None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, None
+
+
+class _SumGrads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        ct = ct.contiguous().clone()
+        for g in ctx.groups:
+            dist.all_reduce(ct, group=g)
+        return ct, None
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The group's tensors joined along ``dim`` in rank order (the JAX
+    package's tiled ``all_gather``).  Its gradient is the reduce-scatter
+    of the output's: each rank's block gets the sum over the group."""
+    return _AllGatherDim.apply(x, dim, group)
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum over the group of ``x``, of which rank ``r`` keeps block
+    ``r`` of ``dim`` (the JAX package's tiled ``psum_scatter``).  Its
+    gradient is the all-gather of the output's."""
+    return _ReduceScatterDim.apply(x, dim, group)
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over the group, a new tensor.  Its gradient passes
+    through unchanged: what follows the sum is the same in every rank, so
+    each rank's ``x`` takes the gradient of the one sum (the loss and the
+    load-balancing loss)."""
+    return _AllReduceSum.apply(x, group)
+
+
+def summed_grads(x: torch.Tensor, groups: Sequence) -> torch.Tensor:
+    """``x`` itself in the forward; in the backward its gradient summed
+    over every group of ``groups``: a leaf that is whole in each rank of a
+    group whose ranks each see only their share of the tokens."""
+    if not groups or not x.requires_grad:
+        return x
+    return _SumGrads.apply(x, tuple(groups))

@@ -126,6 +126,14 @@ def tp_axis(mesh) -> str:
     return "model"
 
 
+def sequence_parallel_layout(mesh) -> Dict[str, PartitionSpec]:
+    """The attention families' activation layout at train and prefill
+    (Megatron-SP): the residual stream cut on the sequence over
+    ``model``, the block inputs whole."""
+    dp = dp_axes(mesh)
+    return {"residual": P(dp, "model", None), "block_in": P(dp, None, None)}
+
+
 # ---------------------------------------------------------------------------
 # Parameter sharding rules (driven by `bankable`)
 # ---------------------------------------------------------------------------

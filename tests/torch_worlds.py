@@ -223,7 +223,113 @@ def rank_pair(rank, world, out):
              **{k: v.detach().numpy() for k, v in res.items()})
 
 
-ENTRIES = {"pipeline": rank_pipeline, "pair": rank_pair}
+def flatten(tree, prefix=""):
+    """Nested dicts -> ``{"a/b": leaf}``."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def unflatten(flat):
+    out = {}
+    for name, v in flat.items():
+        *path, leaf = name.split("/")
+        node = out
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return out
+
+
+MESH_MAX_LEN = 24          # the prefill's cache length in the mesh worlds
+
+
+def rank_mesh_model(rank, world, out):
+    """One rank of a ``(world // 2) x 2`` ``("data", "model")`` mesh
+    running whole models under the dry-run's policy plus the mesh: for
+    each case of OUT_DIR/mesh_cases.json, the loss and its gradients, the
+    prefill's logits and cache, and the parameters after one
+    ``make_train_step``; for the MoE case also the loss under a policy
+    that holds the mesh alone.  The batch rows are this rank's data
+    row's; the experts (``a2a``) this rank's share on ``model``."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.convert import for_ranks, params_from_numpy
+    from repro_torch.launch.dryrun import make_policy
+    from repro_torch.launch.steps import make_train_step, value_and_grad
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.hints import sharding_policy
+
+    with open(os.path.join(out, "mesh_cases.json")) as f:
+        cases = json.load(f)
+    inp = _inputs(out)
+    n_data = world // 2
+    d, m = divmod(rank, 2)
+    mesh = DeviceMesh("cpu", torch.arange(world).reshape(n_data, 2),
+                      mesh_dim_names=("data", "model"))
+    res = {}
+    for name, case in cases.items():
+        cfg = dataclasses.replace(get_arch(case["arch"]).reduced(),
+                                  **case["replace"])
+        model = get_model(cfg, moe_impl=case["impl"])
+
+        def fresh():
+            flat = {k[len(name) + 3:]: v for k, v in inp.items()
+                    if k.startswith(name + "/p/")}
+            p = params_from_numpy(unflatten(flat), device="cpu")
+            p = adamw.tree_map(
+                lambda t, dt: t.to(getattr(torch, dt)), p,
+                unflatten(case["dtypes"]))
+            if case["impl"] == "a2a":
+                p["layers"] = {k: v.clone() for k, v in for_ranks(
+                    p["layers"], experts=(m, 2)).items()}
+            return p
+
+        B = inp[name + "/tokens"].shape[0] // n_data
+        rows = slice(d * B, (d + 1) * B)
+        batch = {k: inp[f"{name}/{k}"][rows] for k in ("tokens", "labels")}
+        train = {**make_policy(cfg, SHAPES["train_4k"], mesh),
+                 "__mesh__": mesh}
+        prefill = {**make_policy(cfg, SHAPES["prefill_32k"], mesh),
+                   "__mesh__": mesh}
+        params = fresh()
+        with sharding_policy(train):
+            loss, grads = value_and_grad(model, params, batch)
+        res[f"{name}/loss"] = loss
+        res.update({f"{name}/g/{k}": v for k, v in flatten(grads).items()})
+        with sharding_policy(prefill):
+            logits, cache = model.prefill(
+                params, {"tokens": torch.as_tensor(batch["tokens"])},
+                MESH_MAX_LEN)
+        res[f"{name}/logits"] = logits
+        for field, v in cache._asdict().items():
+            if torch.is_tensor(v):
+                res[f"{name}/cache/{field}"] = v
+        if case["impl"] == "a2a":
+            with sharding_policy({"__mesh__": mesh}):
+                res[f"{name}/mesh_only_loss"] = model.loss(
+                    params, {k: torch.as_tensor(v) for k, v in batch.items()})
+        step = make_train_step(model, adamw.AdamWConfig(**case["opt"]))
+        with sharding_policy(train):
+            loss1, params1, _ = step(params, adamw.init(params), batch)
+        res[f"{name}/step_loss"] = loss1
+        res.update({f"{name}/s/{k}": v for k, v in flatten(params1).items()})
+    np.savez(os.path.join(out, f"mesh_model_{world}_{rank}.npz"),
+             **{k: v.detach().float().numpy() for k, v in res.items()})
+
+
+ENTRIES = {"pipeline": rank_pipeline, "pair": rank_pair,
+           "mesh_model": rank_mesh_model}
 
 
 def main(argv):
