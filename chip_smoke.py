@@ -157,7 +157,28 @@ Run from the root of a checkout, with no arguments, it
    every layer forward and in the recompute), then ``quickstart`` (B1),
    ``serve_lm`` (its cold solve held for three ticks, so that it swaps:
    B1, B2, B3) and ``banking_explorer`` together; their launches go into
-   the kernels line, with B4 rows at (d)'s and ``train_lm``'s shapes.
+   the kernels line, with B4 rows at (d)'s and ``train_lm``'s shapes;
+9. between ``moe_model`` and ``examples``, ``tensor_parallel``: worlds of
+   2 ranks whose weights are cut by ``param_specs`` on a (1, 2) mesh
+   (each leaf cut as it is drawn from ``--seed``) -- (f) qwen2-7b at full
+   width and depth, 14 query and 2 kv heads a rank, ``embed`` and
+   ``lm_head`` cut on the vocabulary, F on its columns: each rank's
+   parameter bytes equal to the dry-run's ``bytes_per_device_params`` to
+   the byte, a prefill of 1 x 2048 tokens under the prefill policy (the
+   residual cut on the sequence, B4 28 times a rank and held to its plain
+   version on the first call's inputs) and 8 serve steps on each rank's
+   kv heads of the cache, fed one process's greedy tokens: the prefill's
+   logits within 2e-2 of max(1, |ref|) of one process's prefill summed in
+   the ranks' order, the next token and every step's token equal to the
+   plain one process's where its top-2 gap clears twice that bound, and
+   every distance from the plain one process read; (g) olmoe-1b-7b at depth
+   2, attention, router, embedding, head and experts cut, two
+   ``make_train_step`` steps (the ``sorted`` layer under the expert cut)
+   on 2 x 2048 tokens against one process (losses within 2e-2, step 1's
+   gradient by (b)'s rule on each rank's blocks, the whole leaves equal
+   in both ranks, B4 and B5 8 times a rank and each held to its plain
+   version), with peak memory a rank; B4's row at (f)'s rank shape goes
+   into the kernels line.
 
 Every phase prints one JSON line; the first failure ends the run with a
 non-zero exit code.  There is no CPU fallback: without a CUDA device, or
@@ -4106,6 +4127,518 @@ def phase_moe_worlds(torch, seed):
 
 
 # ---------------------------------------------------------------------------
+# Tensor parallelism: weights cut by param_specs over model, in worlds of 2
+# ---------------------------------------------------------------------------
+
+TP_PREFILL_TOKENS = (1, 2048)  # (f): qwen2-7b's prompt, batch x tokens
+TP_DECODE_STEPS = 8            # (f): greedy decode steps after it
+TP_TRAIN_LAYERS = 2            # (g): olmoe-1b-7b at depth 2 of 16
+TP_TRAIN_STEPS = 2
+TP_TRAIN_BATCH = (2, 2048)
+
+
+def _tp_configs():
+    """(f)'s and (g)'s configs, by the names of their spec files."""
+    from repro_torch.configs import get_arch
+
+    return {"qwen2": get_arch("qwen2_7b"),
+            "olmoe": dataclasses.replace(get_arch("olmoe_1b_7b"),
+                                         n_layers=TP_TRAIN_LAYERS)}
+
+
+def _tp_tokens(torch, cfg, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    return torch.randint(2, cfg.vocab - 1, TP_PREFILL_TOKENS, generator=gen,
+                         device="cuda", dtype=torch.int64).to(torch.int32)
+
+
+def _tp_specs(out, name):
+    """The spec tree the main process wrote for ``name`` (the banking
+    solver is asked once, not once a rank)."""
+    from repro_torch.parallel.sharding import P
+
+    def spec(entries):
+        return P(*[tuple(e) if isinstance(e, list) else e for e in entries])
+
+    def walk(t):
+        return {k: walk(v) if isinstance(v, dict) else spec(v)
+                for k, v in t.items()}
+
+    with open(os.path.join(out, f"tp_specs_{name}.json")) as f:
+        return walk(json.load(f))
+
+
+@contextlib.contextmanager
+def capturing_first(module, name, into):
+    """``module.name`` keeps a copy of the tensors of its first call in
+    ``into`` (the call itself is the path's own)."""
+    import torch as torch_mod
+
+    fn = getattr(module, name)
+
+    def first(*args, **kw):
+        if not into:
+            into.extend(a.clone() if torch_mod.is_tensor(a) else a
+                        for a in args)
+            into.append(dict(kw))
+        return fn(*args, **kw)
+
+    setattr(module, name, first)
+    try:
+        yield into
+    finally:
+        setattr(module, name, fn)
+
+
+def _rank_params(torch, model, cfg, specs, mesh, seed):
+    """This rank's blocks of the model's weights from ``seed``: every leaf
+    cut as soon as it is drawn (``convert.block_init``), with the bytes
+    of the blocks, of their storage and allocated on the card for them."""
+    from repro_torch.convert import block_init
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.parallel.sharding import mesh_coords
+
+    free_device_memory(torch)
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = model.init(gen, device="cuda", keep=block_init(
+        specs, mesh, mesh_coords(mesh), head_dim=cfg.hd))
+    free_device_memory(torch)
+    leaves = tree_leaves(params)
+    return params, {
+        "param_bytes": sum(t.numel() * t.element_size() for t in leaves),
+        "storage_bytes": sum(t.untyped_storage().nbytes() for t in leaves),
+        "allocated_bytes": torch.cuda.memory_allocated() - base,
+        "heads": params["layers"]["wq"].shape[-1] // cfg.hd,
+        "kv_heads": params["layers"]["wk"].shape[-1] // cfg.hd}
+
+
+def rank_tp_prefill(torch, rank, world, out, seed):
+    """(f) One rank of qwen2-7b at full width and depth, its weights cut
+    by ``param_specs`` on a (1, 2) mesh: the prefill of
+    ``TP_PREFILL_TOKENS`` under the dry-run's prefill policy plus the mesh
+    (counted and timed), then ``TP_DECODE_STEPS`` serve steps on this
+    rank's kv heads of the cache under the decode policy, fed the tokens
+    the one-process run chose.  B4 is held to its plain version on the
+    prefill's first attention call, outside the counted run."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import get_model
+    from repro_torch.parallel.hints import sharding_policy
+
+    cfg = _tp_configs()["qwen2"]
+    model = get_model(cfg)
+    policy = _mesh_policy(cfg, "prefill_32k")
+    params, held = _rank_params(torch, model, cfg, _tp_specs(out, "qwen2"),
+                                policy["__mesh__"], seed)
+    tokens = _tp_tokens(torch, cfg, seed)
+    feed = torch.load(os.path.join(out, "tp_one_process.pt"))["feed"].cuda()
+    prefill = make_prefill_step(model, tokens.shape[1] + TP_DECODE_STEPS)
+    captured = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _dist_reset()
+    t0 = time.perf_counter()
+    with sharding_policy(policy), capturing_first(ops, "mha", captured):
+        logits, cache = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {**_dist_counts(), **train_kernel_counts()}
+    serve = make_serve_step(model)
+    steps = []
+    t0 = time.perf_counter()
+    with sharding_policy(_mesh_policy(cfg, "decode_32k")):
+        for i in range(TP_DECODE_STEPS):
+            tok, lg, cache = serve(params, cache, feed[:, i:i + 1])
+            steps.append((tok.cpu(), lg.float().cpu()))
+    torch.cuda.synchronize()
+    decode_wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    staged = _dist_counts()["staged_bytes"]
+    q, k, v, kw = captured
+    err, share = attention_held(torch, q, k, v, f"(f) rank {rank}", **kw)
+    torch.save({"logits": logits.float().cpu(), "steps": steps,
+                "cache_kv_heads": cache.k.shape[3], "pos": cache.pos},
+               os.path.join(out, f"tp_prefill_{rank}.pt"))
+    return {**held, "prefill_wall_s": wall, "decode_wall_s": decode_wall,
+            **counts, "staged_bytes_with_decode": staged,
+            "peak_memory_bytes": peak,
+            "b4_shape": [list(q.shape), list(k.shape)],
+            "b4_held": {"max_abs_err": err, "share": share}}
+
+
+def rank_tp_train(torch, rank, world, out, seed):
+    """(g) One rank of olmoe-1b-7b at depth 2, full width, its weights --
+    attention, router, embedding and head, and the experts -- cut by
+    ``param_specs`` on a (1, 2) mesh, trained by ``make_train_step``
+    (the ``sorted`` layer under the expert cut) under the dry-run's train
+    policy plus the mesh for ``TP_TRAIN_STEPS`` steps on batches of the
+    data pipeline.  Before them, outside the counted run: step 1's
+    gradient, every cut leaf gathered whole over the ranks, read leaf by
+    leaf (``grad_readings``) against the one-process gradient at the
+    same weights and batch; B4 and B5 are held to their plain versions on
+    that pass's first calls."""
+    from repro_torch.data.pipeline import DataConfig, get_batch
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step, value_and_grad
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.collectives import all_gather_dim
+    from repro_torch.parallel.hints import sharding_policy
+
+    cfg = _tp_configs()["olmoe"]
+    model = get_model(cfg)
+    policy = _mesh_policy(cfg, "train_4k")
+    mesh, specs = policy["__mesh__"], _tp_specs(out, "olmoe")
+    data = DataConfig(vocab=cfg.vocab, seq_len=TP_TRAIN_BATCH[1],
+                      global_batch=TP_TRAIN_BATCH[0], seed=seed)
+    whole = _moe_params(torch, model, seed)
+    # the yardstick: one process, whole weights; not the path, not counted
+    want = value_and_grad(model, whole, get_batch(data, 0))[1]
+    del whole
+    params, held = _rank_params(torch, model, cfg, specs, mesh, seed)
+    attn, disp = [], []
+    with sharding_policy(policy), capturing_first(ops, "mha", attn), \
+            capturing_first(ops, "dispatch", disp):
+        got = value_and_grad(model, params, get_batch(data, 0))[1]
+    names = _leaf_names(params)
+    group = mesh.get_group("model")
+
+    def gathered(w, g):
+        """``g`` joined over the ranks on the dim its block cuts."""
+        for d, (a, b) in enumerate(zip(w.shape, g.shape)):
+            if a != b:
+                return all_gather_dim(g, d, group)
+        return g
+
+    with torch.no_grad():
+        readings = {n: grad_readings(w.float(), gathered(w, g).float())
+                    for n, w, g in zip(names, adamw.tree_leaves(want),
+                                       adamw.tree_leaves(got))}
+    del want, got
+    free_device_memory(torch)
+    step = make_train_step(model, adamw.AdamWConfig(
+        lr_peak=TRAIN_LR, total_steps=TP_TRAIN_STEPS, warmup_steps=1))
+    opt = adamw.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _dist_reset()
+    losses, walls = [], []
+    with sharding_policy(policy):
+        for i in range(TP_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            loss, params, opt = step(params, opt, get_batch(data, i))
+            losses.append(float(loss))
+            walls.append(time.perf_counter() - t0)
+    counts = {**_dist_counts(), **train_kernel_counts()}
+    peak = torch.cuda.max_memory_allocated()
+    q, k, v, kw = attn
+    a_err, a_share = attention_held(torch, q, k, v, f"(g) rank {rank}", **kw)
+    xt, slot, _ = disp
+    d_err = max_abs_diff(ops.dispatch(xt, slot), md.moe_dispatch_plain(
+        torch.nn.functional.pad(xt, (0, 0, 0, 1)), slot))
+    check(d_err == 0.0, f"(g) rank {rank}: moe_dispatch differs from its "
+          f"plain version on the expert-cut slots by {d_err}")
+    whole_leaves = [t for n, t in zip(names, adamw.tree_leaves(params))
+                    if "model" not in str(_spec_at(specs, n))]
+    return {**held, "losses": losses, "step_walls_s": walls, **counts,
+            "readings": readings,
+            "whole_sha256": _digest(torch, whole_leaves),
+            "peak_memory_bytes": peak,
+            "b4_held": {"shape": [list(q.shape), list(k.shape)],
+                        "max_abs_err": a_err, "share": a_share},
+            "b5_held": {"rows": list(xt.shape), "slots": slot.numel(),
+                        "max_abs_err": d_err}}
+
+
+def _spec_at(specs, name):
+    for k in name.strip("/").split("/"):
+        specs = specs[k]
+    return specs
+
+
+def prefill_in_rank_order(torch, cfg, params, tokens, n=2):
+    """The last-position logits of one process's prefill of the whole
+    weights, computed as the ``n`` ranks of (f) compute them: every
+    product in a rank's shape (its query and kv heads, its columns of F,
+    its rows of the vocabulary) and every row-parallel end summed over
+    the ranks in float32 in rank order, as their all-reduce and
+    reduce-scatter sum it.  The same function as the plain prefill,
+    rounded as the path is."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import rms_norm, swiglu
+
+    cols = {"wq": cfg.n_heads * cfg.hd, "bq": cfg.n_heads * cfg.hd,
+            "wk": cfg.n_kv_heads * cfg.hd, "bk": cfg.n_kv_heads * cfg.hd,
+            "wv": cfg.n_kv_heads * cfg.hd, "bv": cfg.n_kv_heads * cfg.hd,
+            "w_gate": cfg.d_ff, "w_up": cfg.d_ff}
+    rows = {"wo": cfg.n_heads * cfg.hd, "w_down": cfg.d_ff}
+
+    def rank_lp(lp, r):
+        out = {}
+        for k, w in lp.items():
+            if k in cols:
+                b = cols[k] // n
+                w = w[..., r * b:(r + 1) * b]
+            elif k in rows:
+                b = rows[k] // n
+                w = w[r * b:(r + 1) * b]
+            out[k] = w
+        return out
+
+    def summed(parts):
+        total = parts[0].float()
+        for p in parts[1:]:
+            total = total + p.float()
+        return total.to(parts[0].dtype)
+
+    x = tfm.embed_tokens(params, tokens)
+    windows = tfm.layer_windows(cfg)
+    for i in range(cfg.n_layers):
+        lp = tfm._layer_params(params, i)
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        parts = []
+        for r in range(n):
+            lr = rank_lp(lp, r)
+            k, v = tfm._project_kv(cfg, lr, h, 0)
+            parts.append(tfm._attn_prompt(cfg, lr, h, k, v, int(windows[i])))
+        x = x + summed(parts)
+        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + summed([swiglu(h, *(rank_lp(lp, r)[w] for w in (
+            "w_gate", "w_up", "w_down"))) for r in range(n)])
+    h = rms_norm(x, params["ln_f"], cfg.norm_eps)[:, -1:]
+    w = params.get("lm_head", params["embed"])
+    b = cfg.vocab // n
+    return torch.cat([torch.matmul(h, w[r * b:(r + 1) * b].to(h.dtype).T)
+                      for r in range(n)], dim=-1)[:, 0]
+
+
+def phase_tensor_parallel(torch, seed):
+    """(f) and (g): tensor parallelism in worlds of 2 ranks on the one
+    card, each rank holding the blocks of the weights that
+    ``param_specs`` gives it on a (1, 2) mesh, held to one process of the
+    whole weights.  (f) qwen2-7b, 28 layers, full width: each rank's
+    parameter bytes equal to the dry-run's ``bytes_per_device_params``
+    to the byte and its storage no more; the prefill's last-position
+    logits within bf16 2e-2 of max(1, |ref|) of the one-process prefill
+    summed in the ranks' order (``prefill_in_rank_order``), their
+    distances from the plain one-process prefill read beside it;
+    ``TP_DECODE_STEPS`` serve steps fed the plain one-process tokens, the
+    prefill's next token and each step's token equal to one process's
+    wherever its top-2 gap exceeds twice that bound, each step's logits'
+    distance read; B4 28 times a rank.  (g) olmoe-1b-7b at depth 2: each step's
+    loss within bf16 2e-2 of one process's ``sorted`` steps, step 1's
+    gradient by (b)'s rule leaf by leaf, the whole leaves equal in both
+    ranks after the steps, B4 and B5 ``2 x layers x steps`` times a
+    rank.  Returns the ranks' launches and B4's row at (f)'s rank shape."""
+    from repro_torch.data.pipeline import DataConfig, get_batch
+    from repro_torch.launch.dryrun import (default_fsdp,
+                                           param_bytes_per_device)
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
+                                          make_train_step)
+    from repro_torch.models import get_model, param_shapes
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.sharding import param_specs
+    from torch_parity import BF16_TOL as tol
+
+    free_device_memory(torch)
+    out = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    atexit.register(shutil.rmtree, out, ignore_errors=True)
+    launches = {"moe_dispatch": 0, "flash_attention": 0}
+    t_phase = time.perf_counter()
+    mesh = MeshShape(("data", "model"), (1, 2))
+    configs = _tp_configs()
+    dryrun_bytes, t0 = {}, time.perf_counter()
+    for name, cfg in configs.items():
+        fsdp = default_fsdp(cfg, mesh)
+        specs = param_specs(param_shapes(get_model(cfg)), mesh, fsdp=fsdp)
+        with open(os.path.join(out, f"tp_specs_{name}.json"), "w") as f:
+            json.dump(specs, f)
+        dryrun_bytes[name] = param_bytes_per_device(cfg, mesh, fsdp=fsdp)
+    specs_s = time.perf_counter() - t0
+
+    # (f) one process first, whole weights: its prefill and greedy decode,
+    # and the prefill summed in the ranks' order
+    cfg = configs["qwen2"]
+    model = get_model(cfg)
+    params = _moe_params(torch, model, seed)
+    tokens = _tp_tokens(torch, cfg, seed)
+    t0 = time.perf_counter()
+    logits, cache = make_prefill_step(
+        model, tokens.shape[1] + TP_DECODE_STEPS)(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    one_wall = time.perf_counter() - t0
+    serve = make_serve_step(model)
+    want = [logits.float().cpu()]
+    feed = [torch.argmax(logits, -1).to(torch.int32)[:, None]]
+    for i in range(TP_DECODE_STEPS):
+        tok, lg, cache = serve(params, cache, feed[-1])
+        want.append(lg.float().cpu())
+        feed.append(tok)
+    feed = torch.cat(feed[:TP_DECODE_STEPS], dim=1).cpu()
+    torch.save({"feed": feed}, os.path.join(out, "tp_one_process.pt"))
+    del cache, logits
+    with torch.no_grad():
+        in_order = prefill_in_rank_order(torch, cfg, params, tokens)
+    in_order = in_order.float().cpu()
+    del params
+    free_device_memory(torch)
+    ranks, wall = run_ranks("tp_prefill", 2, out, seed)
+    parts = [torch.load(os.path.join(out, f"tp_prefill_{r}.pt"))
+             for r in range(2)]
+    errs, held_tokens, order_errs = [], 0, []
+    for r, (rk, part) in enumerate(zip(ranks, parts)):
+        bound = tol * max(1.0, float(in_order.abs().max()))
+        e = max_abs_diff(part["logits"], in_order)
+        order_errs.append(e)
+        check(e <= bound, f"(f) rank {r}: the prefill's logits are off the "
+              f"one-process prefill summed in the ranks' order by {e} "
+              f"(bound {bound})")
+        check(rk["param_bytes"] == dryrun_bytes["qwen2"],
+              f"(f) rank {r} holds {rk['param_bytes']} parameter bytes, the "
+              f"dry-run {dryrun_bytes['qwen2']}")
+        check(rk["storage_bytes"] == rk["param_bytes"],
+              f"(f) rank {r}: its leaves' storage ({rk['storage_bytes']}) is "
+              f"more than its blocks: a whole leaf is held")
+        check((rk["heads"], rk["kv_heads"]) == (cfg.n_heads // 2,
+                                                cfg.n_kv_heads // 2)
+              and part["cache_kv_heads"] == cfg.n_kv_heads // 2,
+              f"(f) rank {r}: heads {rk['heads']}/{rk['kv_heads']}, cache "
+              f"{part['cache_kv_heads']}")
+        got = [part["logits"]] + [lg for _, lg in part["steps"]]
+        toks = [torch.argmax(part["logits"], -1)] + [
+            t[:, 0].long() for t, _ in part["steps"]]
+        step_errs = []
+        for i, (w, g, t) in enumerate(zip(want, got, toks)):
+            check(bool(torch.isfinite(g).all()) and g.shape == (
+                TP_PREFILL_TOKENS[0], cfg.vocab), f"(f) rank {r} step {i}: "
+                f"logits not finite (batch, vocab)")
+            bound = tol * max(1.0, float(w.abs().max()))
+            step_errs.append(max_abs_diff(g, w)
+                             / max(1.0, float(w.abs().max())))
+            top2 = w.topk(2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > 2 * bound
+            check(bool((t[clear] == w.argmax(-1)[clear]).all()),
+                  f"(f) rank {r} step {i}: a token differs from one process "
+                  f"past the margin")
+            held_tokens += int(clear.sum())
+        errs.append(step_errs)
+    check(torch.equal(parts[0]["logits"], parts[1]["logits"]),
+          "(f) the ranks' prefill logits differ")
+    check(all(r["flash_attention"] == cfg.n_layers for r in ranks),
+          f"(f) B4 launches by rank: {[r['flash_attention'] for r in ranks]}")
+    launches["flash_attention"] += sum(r["flash_attention"] for r in ranks)
+    f_line = {
+        "arch": "qwen2-7b", "layers": cfg.n_layers,
+        "tokens": list(TP_PREFILL_TOKENS), "decode_steps": TP_DECODE_STEPS,
+        "policy": "make_policy prefill / decode + __mesh__ (1, 2)",
+        "heads_per_rank": [[r["heads"], r["kv_heads"]] for r in ranks],
+        "param_bytes": [r["param_bytes"] for r in ranks],
+        "dryrun_bytes_per_device_params": dryrun_bytes["qwen2"],
+        "storage_bytes": [r["storage_bytes"] for r in ranks],
+        "allocated_bytes": [r["allocated_bytes"] for r in ranks],
+        "held": "prefill logits against one process summed in the ranks' "
+                "order (bf16 bound); every step's token against the plain "
+                "one process where its top-2 gap clears twice the bound",
+        "logits_max_abs_err_rank_order": order_errs,
+        "logits_bit_for_bit_rank_order": [e == 0.0 for e in order_errs],
+        "plain_one_process_err_share_by_step": errs,
+        "tokens_held": held_tokens,
+        "one_process_prefill_wall_s": one_wall, "world_wall_s": wall,
+        "prefill_wall_s": [r["prefill_wall_s"] for r in ranks],
+        "decode_wall_s": [r["decode_wall_s"] for r in ranks],
+        "b4_launches": [r["flash_attention"] for r in ranks],
+        "b4_held": [r["b4_held"] for r in ranks],
+        "staged_bytes_prefill": [r["staged_bytes"] for r in ranks],
+        "staged_bytes_with_decode": [r["staged_bytes_with_decode"]
+                                     for r in ranks],
+        "peak_memory_bytes": [r["peak_memory_bytes"] for r in ranks]}
+    b4_shape = ranks[0]["b4_shape"]
+    say("tensor_parallel_prefill", backend="gloo",
+        device="cuda:0 in every rank", tolerance="bf16 2e-2 of max(1, "
+        "|ref|)", specs_s=specs_s, **f_line,
+        seconds=time.perf_counter() - t_phase)
+    del parts, want
+    free_device_memory(torch)
+    t_train = time.perf_counter()
+
+    # (g) two train steps of olmoe at depth 2, against one process
+    ranks, wall = run_ranks("tp_train", 2, out, seed)
+    cfg2 = configs["olmoe"]
+    model2 = get_model(cfg2)
+    params = _moe_params(torch, model2, seed)
+    data = DataConfig(vocab=cfg2.vocab, seq_len=TP_TRAIN_BATCH[1],
+                      global_batch=TP_TRAIN_BATCH[0], seed=seed)
+    step = make_train_step(model2, adamw.AdamWConfig(
+        lr_peak=TRAIN_LR, total_steps=TP_TRAIN_STEPS, warmup_steps=1))
+    opt = adamw.init(params)
+    want = []
+    for i in range(TP_TRAIN_STEPS):
+        loss, params, opt = step(params, opt, get_batch(data, i))
+        want.append(float(loss))
+    del params, opt
+    free_device_memory(torch)
+    for r, rk in enumerate(ranks):
+        check(rk["param_bytes"] == dryrun_bytes["olmoe"]
+              and rk["storage_bytes"] == rk["param_bytes"],
+              f"(g) rank {r}: {rk['param_bytes']} parameter bytes "
+              f"({rk['storage_bytes']} stored), the dry-run "
+              f"{dryrun_bytes['olmoe']}")
+        for i, (w, g) in enumerate(zip(want, rk["losses"])):
+            check(abs(w - g) <= tol * max(1.0, abs(w)),
+                  f"(g) rank {r} step {i + 1}: loss {g} vs one process {w}")
+        bad = grad_rule_breaks(rk["readings"])
+        check(not bad, f"(g) rank {r}: step 1's gradient breaks the rule "
+              f"against one process at {bad}: "
+              f"{ {n: rk['readings'][n] for n in bad} }")
+    check(ranks[0]["whole_sha256"] == ranks[1]["whole_sha256"],
+          "(g) the leaves each rank holds whole differ between the ranks")
+    per_rank = 2 * TP_TRAIN_LAYERS * TP_TRAIN_STEPS   # forward + recompute
+    check(all(r["moe_dispatch"] == per_rank
+              and r["flash_attention"] == per_rank for r in ranks),
+          f"(g) B5/B4 launches by rank: "
+          f"{[(r['moe_dispatch'], r['flash_attention']) for r in ranks]}")
+    for k in launches:
+        launches[k] += sum(r[k] for r in ranks)
+    worst = {r: max(rk["readings"].items(),
+                    key=lambda kv: kv[1]["share_of_max"])
+             for r, rk in enumerate(ranks)}
+    g_line = {
+        "arch": "olmoe-1b-7b", "layers": TP_TRAIN_LAYERS,
+        "batch": list(TP_TRAIN_BATCH), "steps": TP_TRAIN_STEPS,
+        "param_bytes": [r["param_bytes"] for r in ranks],
+        "dryrun_bytes_per_device_params": dryrun_bytes["olmoe"],
+        "losses": [r["losses"] for r in ranks], "one_process_losses": want,
+        "readings": [r["readings"] for r in ranks],
+        "worst_leaf": {r: [n, v] for r, (n, v) in worst.items()},
+        "whole_leaves_equal": True, "world_wall_s": wall,
+        "step_walls_s": [r["step_walls_s"] for r in ranks],
+        "b5_launches": [r["moe_dispatch"] for r in ranks],
+        "b4_launches": [r["flash_attention"] for r in ranks],
+        "b4_held": [r["b4_held"] for r in ranks],
+        "b5_held": [r["b5_held"] for r in ranks],
+        "staged_bytes": [r["staged_bytes"] for r in ranks],
+        "peak_memory_bytes": [r["peak_memory_bytes"] for r in ranks]}
+    free_device_memory(torch)
+    shutil.rmtree(out, ignore_errors=True)
+    say("tensor_parallel_train", backend="gloo",
+        device="cuda:0 in every rank", tolerance="losses bf16 2e-2 of "
+        "max(1, |ref|); step 1's gradient by (b)'s rule, gathered leaves",
+        **g_line, seconds=time.perf_counter() - t_train)
+    # B4 at (f)'s rank shape: H/2 query and Hkv/2 kv heads
+    (B, S, H, D), (_, _, Hkv, _) = b4_shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = attention_inputs(torch, gen, torch.bfloat16, D, B, Hkv,
+                               H // Hkv, S, S)
+    held = attention_held(torch, q, k, v, "qwen2-7b tensor-parallel rank "
+                          "(f)", causal=True)
+    return launches, [("qwen2-7b tensor-parallel rank (f)", (q, k, v),
+                       {"causal": True}, sum(f_line["b4_launches"]), held)]
+
+
+# ---------------------------------------------------------------------------
 # The twins of examples/, each in a process of its own
 # ---------------------------------------------------------------------------
 
@@ -4275,7 +4808,8 @@ def phase_examples(torch, seed):
 
 
 RANK_ENTRIES = {"moe": rank_moe, "dp": rank_dp, "pipeline": rank_pipeline,
-                "moe_model": rank_moe_model, "moe_train": rank_moe_train}
+                "moe_model": rank_moe_model, "moe_train": rank_moe_train,
+                "tp_prefill": rank_tp_prefill, "tp_train": rank_tp_train}
 
 
 def rank_main(entry, rank, world, init_file, out, seed):
@@ -4622,7 +5156,7 @@ def main():
             ssd_held_by[cfg.name] = held
         attn_rows += rows
     add(phase_distributed(torch, args.seed))
-    for phase in (phase_moe_worlds, phase_examples):
+    for phase in (phase_moe_worlds, phase_tensor_parallel, phase_examples):
         n, rows = phase(torch, args.seed)
         add(n)
         attn_rows += rows

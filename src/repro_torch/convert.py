@@ -50,20 +50,32 @@ def params_from_numpy(tree: Dict[str, Any], device="cuda",
 
 
 def for_ranks(tree: Dict[str, Any], *, stages: Optional[int] = None,
-              experts: Optional[Tuple[int, int]] = None) -> Dict[str, Any]:
-    """A layer tree cut for a world of processes; numpy arrays or tensors,
-    cut as views where the leaves allow.
+              experts: Optional[Tuple[int, int]] = None,
+              specs: Optional[Dict[str, Any]] = None, mesh=None,
+              coords: Optional[Dict[str, int]] = None,
+              head_dim: Optional[int] = None) -> Dict[str, Any]:
+    """A parameter tree cut for a world of processes; numpy arrays or
+    tensors, cut leaf by leaf as views where the leaves allow (hand the
+    reference's numpy tree in, then :func:`params_from_numpy`, and a rank
+    holds its blocks alone).
 
     ``stages=S``: every ``(L, ...)`` stack becomes stage-major ``(S, L/S,
     ...)``, what ``parallel.pipeline.pipeline_apply`` takes.
-    ``experts=(rank, n)``: every expert stack (``we_*``, experts on dim -3)
-    keeps the ``rank``-th of ``n`` equal blocks of experts, what a rank of
-    a ``model`` axis of ``n`` holds in ``models.moe.moe_ffn_a2a``."""
-    out: Dict[str, Any] = {}
-    for name, leaf in tree.items():
-        if isinstance(leaf, dict):
-            out[name] = for_ranks(leaf, stages=stages, experts=experts)
-            continue
+    ``specs``, ``mesh``, ``coords``: this rank's block of every leaf under
+    its spec (``parallel.sharding.param_specs``) on ``mesh`` at the rank's
+    coordinates (axis name -> index), what a rank of a tensor-parallel
+    model holds (``parallel.sharding.rank_blocks``, whose head-boundary
+    check ``head_dim`` turns on).  ``experts=(rank, n)``: the special
+    case of the expert stacks' specs: every ``we_*`` leaf keeps the
+    ``rank``-th of ``n`` equal blocks of experts (dim -3), the rest
+    whole, what a rank of a ``model`` axis of ``n`` holds in
+    ``models.moe.moe_ffn_a2a``."""
+    from .parallel.sharding import P, leaf_block, mesh_axes
+
+    axes = mesh_axes(mesh) if mesh is not None else None
+
+    def cut(path, leaf, spec):
+        name = path.rsplit("/", 1)[-1]
         if stages is not None:
             L = leaf.shape[0]
             if L % stages:
@@ -71,10 +83,46 @@ def for_ranks(tree: Dict[str, Any], *, stages: Optional[int] = None,
             leaf = leaf.reshape((stages, L // stages) + tuple(leaf.shape[1:]))
         if experts is not None and name.startswith("we_"):
             rank, n = experts
-            E = leaf.shape[-3]
-            if E % n:
-                raise ValueError(f"{name}: {E} experts over {n} ranks")
-            blk = E // n
-            leaf = leaf[..., rank * blk:(rank + 1) * blk, :, :]
-        out[name] = leaf
-    return out
+            nd = len(leaf.shape)
+            if leaf.shape[-3] % n:
+                raise ValueError(f"{name}: {leaf.shape[-3]} experts over "
+                                 f"{n} ranks")
+            leaf = leaf_block(path, leaf, P(*(["model" if d == nd - 3
+                                                else None
+                                                for d in range(nd)])),
+                              {"model": n}, {"model": rank})
+        if spec is not None:
+            leaf = leaf_block(path, leaf, spec, axes, coords, head_dim)
+        return leaf
+
+    def walk(t, s, prefix):
+        return {k: walk(v, None if s is None else s[k],
+                        f"{prefix}/{k}" if prefix else k)
+                if isinstance(v, dict) else
+                cut(f"{prefix}/{k}" if prefix else k, v,
+                    None if s is None else s[k])
+                for k, v in t.items()}
+
+    return walk(tree, specs, "")
+
+
+def block_init(specs: Dict[str, Any], mesh, coords: Dict[str, int],
+               head_dim: Optional[int] = None):
+    """The ``keep`` of a model's ``init``: each leaf, as soon as it is
+    drawn, replaced by a copy of this rank's block, so that a rank that
+    draws a whole model from a seed holds no more than its blocks and one
+    whole leaf."""
+    from .parallel.sharding import leaf_block, mesh_axes
+
+    axes = mesh_axes(mesh)
+
+    def keep(path, leaf):
+        spec = specs
+        for k in path.split("/"):
+            if k not in spec:         # drawn, then dropped by the init
+                return leaf
+            spec = spec[k]
+        block = leaf_block(path, leaf, spec, axes, coords, head_dim)
+        return block if block is leaf else block.clone()
+
+    return keep

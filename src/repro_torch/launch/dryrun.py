@@ -166,6 +166,27 @@ def params_structs(cfg: ArchConfig, mesh, fsdp: bool):
     return _tree_structs(shapes, specs), specs
 
 
+def default_fsdp(cfg: ArchConfig, mesh) -> bool:
+    """The cell's rule: parameters cut over ``model`` only, unless the
+    bf16 copy would not fit comfortably a device (more than 2 GiB after
+    the ``model`` cut) -- then over the data axis too (FSDP / ZeRO-3)."""
+    pbytes = sum(t.numel() * t.dtype.itemsize for t in
+                 adamw.tree_leaves(param_shapes(get_model(cfg))))
+    return pbytes / shd.mesh_axes(mesh)["model"] > 2 * 2**30
+
+
+def param_bytes_per_device(cfg: ArchConfig, mesh,
+                           fsdp: Optional[bool] = None) -> int:
+    """``bytes_per_device_params`` of a (config, mesh) pair without a
+    whole cell: the bytes of one device's blocks of the parameters under
+    ``param_specs`` (``fsdp`` by :func:`default_fsdp` unless given) --
+    what a rank of a tensor-parallel model holds."""
+    if fsdp is None:
+        fsdp = default_fsdp(cfg, mesh)
+    return tree_bytes(params_structs(cfg, mesh, fsdp=fsdp)[0],
+                      shd.mesh_axes(mesh))
+
+
 def _spec_json(spec) -> list:
     return [list(e) if isinstance(e, tuple) else e for e in spec]
 
@@ -183,12 +204,8 @@ def lower_cell(arch: str, shape_name: str, mesh, *,
     axes = shd.mesh_axes(mesh)
     t0 = time.time()
     if fsdp is None:
-        # params: model-axis sharding only unless the bf16 copy would not
-        # fit comfortably per device -- then cut the data axis too (FSDP /
-        # ZeRO-3).  Optimizer state is always data+model cut (ZeRO-1).
-        pbytes = sum(t.numel() * t.dtype.itemsize for t in
-                     adamw.tree_leaves(param_shapes(get_model(cfg))))
-        fsdp = pbytes / axes["model"] > 2 * 2**30
+        # optimizer state is always data+model cut (ZeRO-1)
+        fsdp = default_fsdp(cfg, mesh)
 
     policy = make_policy(cfg, shape, mesh)
     if variant == "moe_a2a":

@@ -29,8 +29,10 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig):
     ``loss`` is a 0-d float32 tensor on the parameters' device.  Under a
     sharding policy with a ``"__mesh__"`` the gradients come back summed
     over the ranks (``models.transformer.spread_grads``) and the clip
-    takes the model's norm over every rank (``Model.grad_norm``), so the
-    leaves each rank holds whole stay equal in every rank."""
+    takes the model's norm over every rank (``Model.grad_norm``: a leaf
+    cut over ``model`` counted once, from its blocks), so the leaves each
+    rank holds whole stay equal in every rank and AdamW updates each
+    rank's blocks as the whole model's step would."""
     def train_step(params, opt_state, batch):
         loss, grads = value_and_grad(model, params, batch)
         gnorm = model.grad_norm(grads) if model.grad_norm else None

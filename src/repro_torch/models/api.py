@@ -43,8 +43,9 @@ class Model:
     prefill: Optional[Callable]     # (params, batch, max_len) -> (logits, cache)
     decode: Callable                # (params, cache, tokens) -> (logits, cache)
     init_cache: Optional[Callable]  # (batch, max_len) -> cache; encdec: None
-    # (grads) -> the global norm over every rank, where ranks hold
-    # different leaves (the expert-parallel MoE model); else None
+    # (grads) -> the global norm over every rank, where ranks may hold
+    # different blocks of the leaves (tensor parallelism, the
+    # expert-parallel MoE model); else None
     grad_norm: Optional[Callable] = None
 
 
@@ -59,6 +60,7 @@ def get_model(cfg: ArchConfig, moe_impl: str = "sorted") -> Model:
                 cfg, p, batch["tokens"], max_len),
             decode=partial(tfm.decode_step, cfg),
             init_cache=partial(tfm.init_cache, cfg),
+            grad_norm=partial(tfm.grad_norm, cfg),
         )
     if fam == "moe":
         if moe_impl not in moe.MOE_IMPLS:
@@ -72,8 +74,7 @@ def get_model(cfg: ArchConfig, moe_impl: str = "sorted") -> Model:
                 cfg, p, batch["tokens"], max_len, impl=moe_impl),
             decode=partial(moe.decode_step, cfg, impl=moe_impl),
             init_cache=partial(tfm.init_cache, cfg),
-            grad_norm=(partial(moe.grad_norm, cfg) if moe_impl == "a2a"
-                       else None),
+            grad_norm=partial(moe.grad_norm, cfg),
         )
     if fam == "ssm":
         def ssm_cache(batch, max_len, **kw):     # the state has no length

@@ -49,6 +49,23 @@ def swiglu(x: Tensor, w_gate: Tensor, w_up: Tensor, w_down: Tensor) -> Tensor:
     return torch.matmul((g * torch.sigmoid(g)) * u, w_down)
 
 
+def parallel_swiglu(x: Tensor, w_gate: Tensor, w_up: Tensor, w_down: Tensor,
+                    d_ff: int) -> Tensor:
+    """A block's SwiGLU feed-forward on the residual's layout.  Whole
+    weights: the SwiGLU of this rank's block of ``x`` where the pass cuts
+    the sequence (``hints.residual_block``).  Weights cut over ``model``
+    (``w_gate``/``w_up`` on F's columns, ``w_down`` on F's rows, fewer
+    than ``d_ff`` of them): this rank's columns of F over the whole
+    sequence (``hints.column_in``), then the row-parallel end -- the sum
+    over ``model``, reduce-scattered into this rank's block under a
+    sequence cut (``hints.row_parallel_end``)."""
+    from ..parallel.hints import column_in, residual_block, row_parallel_end
+
+    if w_gate.shape[-1] == d_ff:
+        return swiglu(residual_block(x), w_gate, w_up, w_down)
+    return row_parallel_end(swiglu(column_in(x), w_gate, w_up, w_down))
+
+
 def gelu_tanh(x: Tensor) -> Tensor:
     """``jax.nn.gelu``'s default (tanh) form, ``x * 0.5 (1 + tanh(c (x +
     0.044715 x^3)))``, written out op by op in ``x``'s dtype with its two

@@ -41,23 +41,26 @@ import torch
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..kernels import ops
-from ..parallel.hints import (current_split, hint, policy_defaults,
-                              policy_value, residual_block, split_sequence)
+from ..parallel.hints import (column_in, current_split, hint, model_axis,
+                              policy_defaults, policy_value, residual_block,
+                              row_parallel_end, split_sequence)
 from . import transformer as tfm
-from .layers import dense_init, remat, rms_norm, swiglu, unstack
+from .layers import (dense_init, parallel_swiglu, remat, rms_norm, swiglu,
+                     unstack)
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
 
 
 def init_moe_params(cfg: ArchConfig, generator: torch.Generator,
-                    dtype=torch.bfloat16, device="cuda") -> Params:
+                    dtype=torch.bfloat16, device="cuda", keep=None) -> Params:
     """Random parameters from ``generator`` (on ``device``), the JAX
     package's tree: the dense transformer's, with a float32 ``router``
     ``(L, D, E)`` and expert weights ``we_gate``/``we_up`` ``(L, E, D, F)``
     and ``we_down`` ``(L, E, F, D)``; the dense FFN is dropped unless the
-    config has a shared expert.  One layer's float32 draw at a time."""
-    p = tfm.init_dense_params(cfg, generator, dtype, device)
+    config has a shared expert.  One layer's float32 draw at a time;
+    ``keep`` as in ``transformer.init_dense_params``."""
+    p = tfm.init_dense_params(cfg, generator, dtype, device, keep=keep)
     device = resolve_device(device)
     L, D, E = cfg.n_layers, cfg.d_model, cfg.n_experts
     Fm = cfg.moe_d_ff or cfg.d_ff
@@ -74,10 +77,15 @@ def init_moe_params(cfg: ArchConfig, generator: torch.Generator,
                                 device=device)
         return out
 
-    lyr["router"] = stack((D, E), 0.02, torch.float32)
-    lyr["we_gate"] = stack((E, D, Fm), 1 / math.sqrt(D), dtype)
-    lyr["we_up"] = stack((E, D, Fm), 1 / math.sqrt(D), dtype)
-    lyr["we_down"] = stack((E, Fm, D), 1 / math.sqrt(Fm), dtype)
+    def leaf(name, t):
+        return t if keep is None else keep("layers/" + name, t)
+
+    lyr["router"] = leaf("router", stack((D, E), 0.02, torch.float32))
+    lyr["we_gate"] = leaf("we_gate", stack((E, D, Fm), 1 / math.sqrt(D),
+                                           dtype))
+    lyr["we_up"] = leaf("we_up", stack((E, D, Fm), 1 / math.sqrt(D), dtype))
+    lyr["we_down"] = leaf("we_down", stack((E, Fm, D), 1 / math.sqrt(Fm),
+                                           dtype))
     return p
 
 
@@ -95,8 +103,14 @@ def _route(cfg: ArchConfig, router_w: Tensor, xt: Tensor,
     takes first is the whole batch's, so that the mean of the ranks' aux
     (``lm_loss``) is the whole batch's, as the JAX package's ``sorted``
     and ``dense`` layers compute it under a mesh (its ``a2a`` layer
-    routes each data row apart)."""
+    routes each data row apart).  A router cut on the experts over
+    ``model`` gives this rank's ``(T, E/n)`` logits, gathered whole before
+    the softmax and the top-k, so that the routing is the whole row's and
+    the same in every rank."""
     logits = xt.float() @ router_w.float()                 # (T, E)
+    if logits.shape[-1] < cfg.n_experts:
+        from ..parallel.collectives import all_gather_dim
+        logits = all_gather_dim(logits, 1, model_axis()[0])
     probs = torch.softmax(logits, dim=-1)
     top_p, top_i = torch.topk(probs, cfg.top_k, dim=-1)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
@@ -156,18 +170,48 @@ def dispatch_slots(top_i: Tensor, C: int, E: int):
 
 
 def moe_ffn_sorted(cfg: ArchConfig, lp, h: Tensor) -> Tuple[Tensor, Tensor]:
-    """Serving path: sort-based capacity dispatch (see module doc)."""
+    """Serving path: sort-based capacity dispatch (see module doc).
+
+    In a pass whose batch rows are cut over ``data``
+    (``hints.current_split``), the pairs kept are the whole batch's, as
+    the JAX package's layer keeps them under a mesh: every rank's choices
+    gathered over ``data``, sorted by expert in the same stable order and
+    ranked against ``capacity(cfg, T_whole)``; each rank fills its own
+    tokens' slots and returns its own rows.  With expert weights (and
+    router) cut over ``model`` (the ``"expert_buffer"`` expert cut) each
+    rank runs its ``E/n`` experts' rows of the buffer and the combine of
+    their pairs, summed over ``model`` by ``hints.row_parallel_end``."""
     B, S, D = h.shape
     T = B * S
     K, E = cfg.top_k, cfg.n_experts
-    C = capacity(cfg, T)
+    E_loc = lp["we_gate"].shape[-3]
+    cut = E_loc < E
+    if cut or lp["router"].shape[-1] < E:
+        h = column_in(h)
     xt = h.reshape(T, D)
     top_p, top_i, aux = _route(cfg, lp["router"], xt, batch_fe=True)
-    slot_token, order, sorted_e, rank, keep = dispatch_slots(top_i, C, E)
-    buf = hint(ops.dispatch(xt, slot_token).view(E, C, D),  # the B5 kernel
+    split = current_split()
+    n_data = 1 if split is None else split.n_data
+    C = capacity(cfg, T * n_data)
+    if n_data == 1:
+        slot_token, order, sorted_e, rank, keep = dispatch_slots(top_i, C, E)
+    else:
+        import torch.distributed as dist
+
+        from ..parallel.collectives import all_gather_dim
+        slot_token, order, sorted_e, rank, keep = dispatch_slots(
+            all_gather_dim(top_i, 0, split.data), C, E)
+        # the whole batch's slots, of which this rank fills its tokens'
+        lo = dist.get_rank(split.data) * T
+        mine = (slot_token >= lo) & (slot_token < lo + T)
+        slot_token = torch.where(mine, slot_token - lo, T).to(torch.int32)
+    if cut:              # this rank's experts' slots
+        m = model_axis()[2]
+        slot_token = slot_token[m * E_loc * C:(m + 1) * E_loc * C]
+    buf = hint(ops.dispatch(xt, slot_token).view(E_loc, C, D),  # the B5 kernel
                "expert_buffer")
 
-    y = swiglu(buf, lp["we_gate"], lp["we_up"], lp["we_down"])  # (E, C, D)
+    y = swiglu(buf, lp["we_gate"], lp["we_up"], lp["we_down"])
 
     # Combine.  The JAX package adds every pair into its token with a
     # scatter-add; on the card that is atomics in no fixed order, and a
@@ -176,11 +220,21 @@ def moe_ffn_sorted(cfg: ArchConfig, lp, h: Tensor) -> Tuple[Tensor, Tensor]:
     # sort and summed in float32 in that order: the same sum, in another
     # order than the JAX package's, within float32 rounding of it.
     inv = torch.empty_like(order).scatter_(
-        0, order, torch.arange(T * K, device=h.device))
+        0, order, torch.arange(order.shape[0], device=h.device))
     row = (sorted_e * C + torch.clamp(rank, max=C - 1))[inv]
-    y_tok = y.reshape(E * C, D)[row].masked_fill(~keep[inv][:, None], 0)
+    keep = keep[inv]
+    if n_data > 1:       # this rank's tokens' pairs
+        pairs = slice(lo * K, (lo + T) * K)
+        row, keep = row[pairs], keep[pairs]
+    if cut:              # the pairs of this rank's experts
+        keep = keep & (top_i.reshape(-1) // E_loc == m)
+        row = torch.where(keep, row - m * E_loc * C, 0)
+    y_tok = y.reshape(E_loc * C, D)[row].masked_fill(~keep[:, None], 0)
     out = (y_tok.float() * top_p.reshape(-1, 1)).view(T, K, D).sum(1)
-    return out.reshape(B, S, D).to(h.dtype), aux
+    out = out.reshape(B, S, D)
+    if cut:
+        out = row_parallel_end(out)
+    return out.to(h.dtype), aux
 
 
 def moe_ffn_a2a(cfg: ArchConfig, lp, h: Tensor) -> Tuple[Tensor, Tensor]:
@@ -196,8 +250,9 @@ def moe_ffn_a2a(cfg: ArchConfig, lp, h: Tensor) -> Tuple[Tensor, Tensor]:
     reduce-scatter.
 
     Process-local, as a rank sees it: ``h`` (B_loc, S, D) is this rank's
-    batch rows, ``lp["router"]`` the whole (D, E) router, and the expert
-    weights this rank's ``E/n`` experts (``convert.for_ranks``), with
+    batch rows, ``lp["router"]`` the whole (D, E) router (or its ``E/n``
+    columns under tensor parallelism, gathered by ``_route``), and the
+    expert weights this rank's ``E/n`` experts (``convert.for_ranks``), with
     ``"__fsdp__"`` in the policy also cut on their F dim over ``data`` and
     gathered here, layer by layer.  Returns this rank's sequence block
     (B_loc, S/n, D) of the combined output and the load-balancing loss of
@@ -284,8 +339,8 @@ def _ffn(cfg: ArchConfig, impl: str, aux=None):
         if aux is not None:
             aux.append(aux_l)
         if cfg.shared_expert:
-            delta = residual_block(delta) + swiglu(
-                residual_block(h), lp["w_gate"], lp["w_up"], lp["w_down"])
+            delta = residual_block(delta) + parallel_swiglu(
+                h, lp["w_gate"], lp["w_up"], lp["w_down"], cfg.d_ff)
         return delta
 
     return ffn
@@ -320,7 +375,7 @@ def forward(cfg: ArchConfig, params: Params, tokens: Tensor,
     the JAX package hints no embedding here, so the cut is made without a
     hint."""
     with _layout(impl), split_sequence(tokens.shape[1]):
-        x = residual_block(tfm.embed_tokens(params, tokens))
+        x = residual_block(tfm.embed_tokens(params, tokens, cfg.vocab))
         windows = tfm.layer_windows(cfg)
 
         def block(lp, x, window):
@@ -342,51 +397,33 @@ def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, Tensor],
     """The chunked cross-entropy plus ``aux_weight`` times the
     load-balancing loss, as in the JAX package.  Under a policy with a
     ``"__mesh__"``: ``transformer.lm_loss``'s mean over the ranks and
-    summed gradients and, with ``a2a``, the experts' gradients each
-    rank's own.  Every rank of a ``model`` group routes its data row's
-    whole gathered sequence, so each holds the same load-balancing loss
-    (``a2a``: its row's; ``sorted`` and ``dense``: its row's router
-    probabilities against the whole batch's first choices, see
-    ``_route``): the loss takes the mean over every rank, as the
-    cross-entropy does, and each rank's gradient is its share of it
-    (summed over the ranks by ``spread_grads``)."""
+    summed gradients and, for the leaves cut over ``model`` (the experts
+    of ``a2a``, every cut leaf under tensor parallelism), each rank's own.
+    Every rank of a ``model`` group routes its data row's whole gathered
+    sequence, so each holds the same load-balancing loss (``a2a``: its
+    row's; ``sorted`` and ``dense``: its row's router probabilities
+    against the whole batch's first choices, see ``_route``): the loss
+    takes the mean over every rank -- over the ``model`` group too where
+    the router is cut, sequence cut or not -- and each rank's gradient is
+    its share of it (summed over the ranks by ``spread_grads`` and the
+    router's gather)."""
     with _layout(impl), split_sequence(batch["tokens"].shape[1]) as split:
-        params = tfm.spread_grads(
-            params, split, local=_own_leaves(impl))
+        params = tfm.spread_grads(params, split,
+                                  tfm.whole_shapes(cfg, init_moe_params))
         h, aux = forward(cfg, params, batch["tokens"], impl=impl)
         if split is not None:
-            aux = split.mean(aux)
+            aux = (split.mean_with_model(aux)
+                   if params["layers"]["router"].shape[-1] < cfg.n_experts
+                   else split.mean(aux))
         return (tfm.chunked_xent(cfg, params, h, batch["labels"])
                 + aux_weight * aux)
 
 
 def grad_norm(cfg: ArchConfig, grads: Params) -> Tensor:
-    """The global norm of the ``a2a`` model's gradients over every rank:
-    the experts each rank holds its own share of count once from each
-    ``model`` rank (a sum of their squares over ``model``), every other
-    leaf once.  Without a mesh, or with every expert in this rank:
-    ``optim.adamw.global_norm``."""
-    import torch.distributed as dist
-
-    from ..optim.adamw import global_norm, tree_leaves
-
-    own = _own_leaves("a2a")
-    mesh = policy_value("__mesh__")
-    lyr = grads["layers"]
-    if mesh is None or lyr["we_gate"].shape[1] == cfg.n_experts:
-        return global_norm(grads)
-    rest = {k: v for k, v in grads.items() if k != "layers"}
-    rest["layers"] = {k: v for k, v in lyr.items() if k not in own}
-    sq = sum(torch.sum(torch.square(lyr[k].float())) for k in own)
-    dist.all_reduce(sq, group=mesh.get_group("model"))
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(rest)) + sq)
-
-
-def _own_leaves(impl: str) -> tuple:
-    """The leaves a rank holds its own share of: the experts, under
-    ``a2a``."""
-    return ("we_gate", "we_up", "we_down") if impl == "a2a" else ()
+    """``transformer.grad_norm`` of the MoE tree: the global norm over
+    every rank, the leaves cut over ``model`` (the experts of ``a2a``,
+    every cut leaf under tensor parallelism) summed over it."""
+    return tfm.grad_norm(cfg, grads, init_moe_params)
 
 
 @torch.no_grad()

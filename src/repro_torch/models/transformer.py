@@ -32,16 +32,20 @@ from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Tuple
 
+import functools
+
 import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..kernels import ops
-from ..parallel.hints import (current_split, hint, residual_block,
+from ..parallel.hints import (column_in, current_split, hint, model_axis,
+                              policy_value, residual_block, row_parallel_end,
                               split_sequence)
 from .layers import (NEG_INF, apply_rope, chunked_attention, dense_init,
-                     param_device, remat, rms_norm, swiglu, unstack)
+                     param_device, parallel_swiglu, remat, rms_norm, swiglu,
+                     unstack)
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -65,11 +69,14 @@ def layer_windows(cfg: ArchConfig) -> np.ndarray:
 
 
 def init_dense_params(cfg: ArchConfig, generator: torch.Generator,
-                      dtype=torch.bfloat16, device="cuda") -> Params:
+                      dtype=torch.bfloat16, device="cuda", keep=None
+                      ) -> Params:
     """Random parameters from ``generator`` (which must live on ``device``,
     so a card fills its own weights), same tree and shapes as the JAX
     package's; the numbers differ, since the two frameworks draw
-    differently from a seed."""
+    differently from a seed.  ``keep(path, leaf)``, where given, replaces
+    each leaf as soon as it is drawn (``convert.block_init``: a rank's
+    block of it), the draws unchanged."""
     device = param_device(generator, device)
     L, D, F, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -87,27 +94,30 @@ def init_dense_params(cfg: ArchConfig, generator: torch.Generator,
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
 
+    def leaf(path, t):
+        return t if keep is None else keep(path, t)
+
     p: Params = {
-        "embed": init((V, D), scale=0.02),
-        "ln_f": zeros(D),
+        "embed": leaf("embed", init((V, D), scale=0.02)),
+        "ln_f": leaf("ln_f", zeros(D)),
         "layers": {
-            "ln1": zeros(L, D),
-            "ln2": zeros(L, D),
-            "wq": stack((D, H * Dh)),
-            "wk": stack((D, Hkv * Dh)),
-            "wv": stack((D, Hkv * Dh)),
-            "wo": stack((H * Dh, D)),
-            "w_gate": stack((D, F)),
-            "w_up": stack((D, F)),
-            "w_down": stack((F, D)),
+            "ln1": leaf("layers/ln1", zeros(L, D)),
+            "ln2": leaf("layers/ln2", zeros(L, D)),
+            "wq": leaf("layers/wq", stack((D, H * Dh))),
+            "wk": leaf("layers/wk", stack((D, Hkv * Dh))),
+            "wv": leaf("layers/wv", stack((D, Hkv * Dh))),
+            "wo": leaf("layers/wo", stack((H * Dh, D))),
+            "w_gate": leaf("layers/w_gate", stack((D, F))),
+            "w_up": leaf("layers/w_up", stack((D, F))),
+            "w_down": leaf("layers/w_down", stack((F, D))),
         },
     }
     if cfg.qkv_bias:
-        p["layers"]["bq"] = zeros(L, H * Dh)
-        p["layers"]["bk"] = zeros(L, Hkv * Dh)
-        p["layers"]["bv"] = zeros(L, Hkv * Dh)
+        p["layers"]["bq"] = leaf("layers/bq", zeros(L, H * Dh))
+        p["layers"]["bk"] = leaf("layers/bk", zeros(L, Hkv * Dh))
+        p["layers"]["bv"] = leaf("layers/bv", zeros(L, Hkv * Dh))
     if not cfg.tie_embeddings:
-        p["lm_head"] = init((V, D), scale=0.02)
+        p["lm_head"] = leaf("lm_head", init((V, D), scale=0.02))
     return p
 
 
@@ -125,7 +135,7 @@ def _project_q(cfg, lp, x, q_offset):
     q = torch.matmul(x, lp["wq"])
     if "bq" in lp:
         q = q + lp["bq"]
-    q = q.reshape(B, S, cfg.n_heads, cfg.hd)
+    q = q.reshape(B, S, -1, cfg.hd)       # this rank's heads
     return apply_rope(q, _positions(S, q_offset, x.device), cfg.rope_theta)
 
 
@@ -149,15 +159,21 @@ def _attn_prompt(cfg: ArchConfig, lp, x, k, v, window):
     return torch.matmul(out.reshape(B, S, -1), lp["wo"])
 
 
+def heads_cut(cfg: ArchConfig, lp) -> bool:
+    """Whether a layer's attention weights are cut over ``model``: its
+    ``wq`` holds fewer than every head (tensor parallelism)."""
+    return lp["wq"].shape[-1] < cfg.n_heads * cfg.hd
+
+
 def _project_kv(cfg, lp, x, q_offset):
     B, S, _ = x.shape
-    Hkv, Dh = cfg.n_kv_heads, cfg.hd
+    Dh = cfg.hd
     k = torch.matmul(x, lp["wk"])
     v = torch.matmul(x, lp["wv"])
     if "bk" in lp:
         k, v = k + lp["bk"], v + lp["bv"]
-    k = k.reshape(B, S, Hkv, Dh)
-    v = v.reshape(B, S, Hkv, Dh)
+    k = k.reshape(B, S, -1, Dh)           # this rank's kv heads
+    v = v.reshape(B, S, -1, Dh)
     k = apply_rope(k, _positions(S, q_offset, x.device), cfg.rope_theta)
     return k, v
 
@@ -179,33 +195,50 @@ def dense_layer(cfg: ArchConfig, lp, x, window, *, cache_kv=None, pos=0,
     was computed whole.  ``ffn`` may return the block itself (the
     expert-parallel MoE layer's reduce-scatter lands there).
 
+    With weights cut over ``model`` (:func:`heads_cut`: this rank's
+    ``H/n`` query and ``Hkv/n`` kv heads, ``wo``'s rows of them, the FFN
+    cut on F) the layer attends over its own heads -- the GQA group is
+    the same in every rank -- and ends ``wo`` and the FFN with
+    ``hints.row_parallel_end``: the sum over ``model``, reduce-scattered
+    into this rank's block under a sequence cut, all-reduced otherwise.
+    A cache then holds this rank's kv heads (``cache_specs``' head cut).
+
     A write that would run past the end of the buffer is clamped so that it
     fits (for one token: the last row is overwritten) while RoPE and the
     masks go on with the unclamped ``pos`` -- what the JAX package's
     ``dynamic_update_slice`` does."""
     h = hint(rms_norm(x, lp["ln1"], cfg.norm_eps), "block_in")
+    tp = heads_cut(cfg, lp)
+    ha = column_in(h) if tp else h
     if cache_kv is None:
         if int(pos) != 0:
             raise ValueError(f"a layer without a cache attends over the "
                              f"sequence from position 0, got pos={pos}")
-        k, v = _project_kv(cfg, lp, h, 0)
-        attn = _attn_prompt(cfg, lp, h, k, v, window)
+        k, v = _project_kv(cfg, lp, ha, 0)
+        attn = _attn_prompt(cfg, lp, ha, k, v, window)
         new_kv = (k, v)
     else:
-        k_new, v_new = _project_kv(cfg, lp, h, pos)
+        k_new, v_new = _project_kv(cfg, lp, ha, pos)
         k_buf, v_buf = cache_kv
+        if k_buf.shape[2] != k_new.shape[2]:
+            raise ValueError(
+                f"a cache of {k_buf.shape[2]} kv heads for a layer of "
+                f"{k_new.shape[2]}: a tensor-parallel layer's cache holds "
+                f"its rank's kv heads (a cache cut on the sequence is not "
+                f"supported)")
         S = x.shape[1]
         at = min(max(int(pos), 0), k_buf.shape[1] - S)
         k_buf[:, at:at + S] = k_new.to(k_buf.dtype)
         v_buf[:, at:at + S] = v_new.to(v_buf.dtype)
-        attn = _attn(cfg, lp, h, k_full=k_buf, v_full=v_buf, window=window,
-                     q_offset=pos, kv_len=pos + S, block_k=block_k)
+        attn = _attn(cfg, lp, ha, k_full=k_buf, v_full=v_buf,
+                     window=window, q_offset=pos, kv_len=pos + S,
+                     block_k=block_k)
         new_kv = (k_buf, v_buf)
-    x = x + residual_block(attn)
+    x = x + (row_parallel_end(attn) if tp else residual_block(attn))
     h = hint(rms_norm(x, lp["ln2"], cfg.norm_eps), "block_in")
     if ffn is None:
-        delta = swiglu(residual_block(h), lp["w_gate"], lp["w_up"],
-                       lp["w_down"])
+        delta = parallel_swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"],
+                                cfg.d_ff)
     else:
         delta = residual_block(ffn(lp, h))
     x = x + delta
@@ -213,8 +246,16 @@ def dense_layer(cfg: ArchConfig, lp, x, window, *, cache_kv=None, pos=0,
 
 
 def logits_fn(cfg: ArchConfig, params: Params, h: Tensor) -> Tensor:
+    """The whole vocabulary's logits of ``h``: with an ``lm_head`` (or a
+    tied embedding) cut on the vocabulary over ``model``, this rank's
+    ``V/n`` columns all-gathered in rank order (``h`` the same in every
+    rank of the group)."""
     w = params.get("lm_head", params["embed"])
-    return torch.matmul(h, w.to(h.dtype).T)
+    logits = torch.matmul(h, w.to(h.dtype).T)
+    if w.shape[0] == cfg.vocab:
+        return logits
+    from ..parallel.collectives import all_gather_dim
+    return all_gather_dim(logits, logits.dim() - 1, model_axis()[0])
 
 
 # ---------------------------------------------------------------------------
@@ -235,26 +276,47 @@ class _Embed(torch.autograd.Function):
     that changes with the layout of the batch over ranks."""
 
     @staticmethod
-    def forward(ctx, table, tokens):
-        ctx.save_for_backward(tokens)
+    def forward(ctx, table, tokens, lo):
         ctx.table = (table.shape, table.dtype)
-        return table.to(torch.bfloat16)[tokens]
+        if lo is None:
+            ctx.save_for_backward(tokens)
+            return table.to(torch.bfloat16)[tokens]
+        # a block of the vocabulary from row ``lo``: its rows, zeros for
+        # the tokens outside it
+        local = tokens.long() - lo
+        valid = (local >= 0) & (local < table.shape[0])
+        local = torch.where(valid, local, 0)
+        ctx.save_for_backward(local, valid)
+        return table.to(torch.bfloat16)[local].masked_fill(
+            ~valid[..., None], 0)
 
     @staticmethod
     def backward(ctx, ct):
-        (tokens,) = ctx.saved_tensors
         shape, dtype = ctx.table
+        if len(ctx.saved_tensors) == 2:
+            tokens, valid = ctx.saved_tensors
+            ct = ct.masked_fill(~valid[..., None], 0)
+        else:
+            (tokens,) = ctx.saved_tensors
         grad = torch.zeros(shape, dtype=torch.float32, device=ct.device)
         grad.index_put_((tokens.reshape(-1).long(),),
                         ct.reshape(-1, shape[-1]).float(), accumulate=True)
-        return grad.to(dtype), None
+        return grad.to(dtype), None, None
 
 
-def embed_tokens(params: Params, tokens: Tensor) -> Tensor:
+def embed_tokens(params: Params, tokens: Tensor, vocab=None) -> Tensor:
     """The bfloat16 residual stream's first value: the embedding rows of
     ``tokens``, whatever the parameters' dtype (see :class:`_Embed` for
-    its gradient)."""
-    return _Embed.apply(params["embed"], tokens)
+    its gradient).  With a table of fewer than ``vocab`` rows -- cut on
+    the vocabulary over ``model`` -- each rank gives the rows of its
+    range and zeros elsewhere, summed over ``model`` by
+    ``hints.row_parallel_end``: under a sequence cut this rank's block of
+    the sequence, otherwise the whole."""
+    table = params["embed"]
+    if vocab is None or table.shape[0] == vocab:
+        return _Embed.apply(table, tokens, None)
+    return row_parallel_end(_Embed.apply(
+        table, tokens, model_axis()[2] * table.shape[0]))
 
 
 def forward(cfg: ArchConfig, params: Params, tokens: Tensor, ffn=None
@@ -273,7 +335,7 @@ def forward(cfg: ArchConfig, params: Params, tokens: Tensor, ffn=None
     ``(B, S/n, D)`` from the embedding on, and so are the hidden states
     returned."""
     with split_sequence(tokens.shape[1]):
-        x = hint(embed_tokens(params, tokens), "residual")
+        x = hint(embed_tokens(params, tokens, cfg.vocab), "residual")
         windows = layer_windows(cfg)
 
         def block(lp, x, window):
@@ -284,13 +346,27 @@ def forward(cfg: ArchConfig, params: Params, tokens: Tensor, ffn=None
         return rms_norm(x, params["ln_f"], cfg.norm_eps)
 
 
-def _xent(hc: Tensor, lc: Tensor, w: Tensor) -> Tensor:
+def _xent(hc: Tensor, lc: Tensor, w: Tensor, lo=None, group=None
+          ) -> Tensor:
     """Per-token cross-entropy of one chunk: ``logsumexp - gold logit`` in
     float32; the gold logit by a gather (exact, as the JAX package's
-    one-hot sum is)."""
+    one-hot sum is).  With ``group``, ``w`` is this rank's block of the
+    vocabulary from row ``lo`` (vocabulary-parallel): the max and the sum
+    of exponentials are taken over the group, and the gold logit comes
+    from the rank that holds it."""
     logits = hint(torch.matmul(hc.float(), w.T), "logits")
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+    if group is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+        return lse - gold
+    from ..parallel.collectives import all_reduce_max, all_reduce_sum
+    m = all_reduce_max(logits.amax(-1), group)
+    lse = m + torch.log(all_reduce_sum(
+        torch.exp(logits - m[..., None]).sum(-1), group))
+    local = lc.long() - lo
+    valid = (local >= 0) & (local < w.shape[0])
+    gold = torch.gather(logits, -1, torch.where(valid, local, 0)[..., None])
+    gold = all_reduce_sum(gold[..., 0].masked_fill(~valid, 0.0), group)
     return lse - gold
 
 
@@ -303,27 +379,57 @@ def chunked_xent(cfg: ArchConfig, params: Params, h: Tensor, labels: Tensor,
 
     In a pass that spreads the tokens over the mesh (``lm_loss`` under a
     policy with a ``"__mesh__"``), ``h`` is this rank's share: the labels'
-    block is taken to match, and the loss is the mean over every rank."""
+    block is taken to match, and the loss is the mean over every rank.
+    With an ``lm_head`` cut on the vocabulary over ``model`` the loss is
+    vocabulary-parallel: ``h`` is gathered whole (``hints.column_in``),
+    each rank takes its ``V/n`` logits of every token of its data row,
+    the ``(B, S, V)`` logits are never gathered, and the loss, the same
+    in every rank of a ``model`` group, is the mean over ``data``."""
     split = current_split()
-    if split is not None:
+    w = params.get("lm_head", params["embed"]).float()
+    cut = () if w.shape[0] == cfg.vocab else None
+    if cut is None:
+        group, _, m = model_axis()
+        cut = (m * w.shape[0], group)
+        h = column_in(h)
+    elif split is not None:
         labels = split.block(labels)
     B, S, D = h.shape
-    w = params.get("lm_head", params["embed"]).float()
     nchunks = max(1, S // chunk)
     hs = h.reshape(B, nchunks, S // nchunks, D)
     ls = labels.reshape(B, nchunks, S // nchunks)
-    losses = [remat(_xent, hs[:, c], ls[:, c], w) for c in range(nchunks)]
+    losses = [remat(_xent, hs[:, c], ls[:, c], w, *cut)
+              for c in range(nchunks)]
     loss = torch.stack(losses).mean()
-    return loss if split is None else split.mean(loss)
+    if split is None:
+        return loss
+    return split.row_mean(loss) if cut else split.mean(loss)
 
 
-def spread_grads(params: Params, split, local=()) -> Params:
+@functools.lru_cache(maxsize=None)
+def whole_shapes(cfg: ArchConfig, init=None) -> Params:
+    """The shape of every leaf of the whole model (``init``'s tree on the
+    ``meta`` device, the dense transformer's by default), against which a
+    rank's leaves show whether they are cut."""
+    tree = (init or init_dense_params)(cfg, torch.Generator(),
+                                       device="meta")
+
+    def walk(t):
+        return {k: walk(v) if isinstance(v, dict) else tuple(v.shape)
+                for k, v in t.items()}
+
+    return walk(tree)
+
+
+def spread_grads(params: Params, split, whole=None) -> Params:
     """``params`` whose gradients are summed, in the backward, over the
-    ranks that share each leaf: every leaf over the groups the pass's
-    tokens are spread over (each rank saw only its share of them), the
-    leaves named in ``local`` -- the expert-parallel MoE layer's experts,
-    each rank's own over ``model``, which see every token of their data
-    row -- over ``data`` alone.  Without a split: ``params`` itself."""
+    ranks that share each leaf: a whole leaf over the groups the pass's
+    tokens are spread over (each rank saw only its share of them); a leaf
+    cut over ``model`` -- its shape differs from ``whole``'s
+    (:func:`whole_shapes`): tensor parallelism, or the expert-parallel MoE
+    layer's experts -- is this rank's own, which saw every token of its
+    data row, and is summed over ``data`` alone.  Without a split:
+    ``params`` itself."""
     if split is None:
         return params
     from ..parallel.collectives import summed_grads
@@ -331,11 +437,40 @@ def spread_grads(params: Params, split, local=()) -> Params:
     groups = split.token_groups()
     data = (split.data,) if split.n_data > 1 else ()
 
-    def wrap(tree):
-        return {k: wrap(v) if isinstance(v, dict) else summed_grads(
-            v, data if k in local else groups) for k, v in tree.items()}
+    def wrap(tree, shapes):
+        return {k: wrap(v, shapes and shapes[k]) if isinstance(v, dict)
+                else summed_grads(v, data if shapes and tuple(v.shape)
+                                  != shapes[k] else groups)
+                for k, v in tree.items()}
 
-    return wrap(params)
+    return wrap(params, whole)
+
+
+def grad_norm(cfg: ArchConfig, grads: Params, init=None) -> Tensor:
+    """The global norm of the gradients over every rank: the squares of
+    the leaves cut over ``model`` (their shapes differ from
+    :func:`whole_shapes`) summed over the ``model`` group, every whole
+    leaf counted once.  Without a mesh, or with every leaf whole:
+    ``optim.adamw.global_norm``."""
+    import torch.distributed as dist
+
+    from ..optim.adamw import global_norm
+
+    def pairs(tree, shapes):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from pairs(v, shapes[k])
+            else:
+                yield v, tuple(v.shape) != shapes[k]
+
+    leaves, cut = zip(*pairs(grads, whole_shapes(cfg, init)))
+    if policy_value("__mesh__") is None or not any(cut):
+        return global_norm(grads)
+    sq = sum(torch.sum(torch.square(g.float()))
+             for g, c in zip(leaves, cut) if c)
+    dist.all_reduce(sq, group=model_axis()[0])
+    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                          for g, c in zip(leaves, cut) if not c) + sq)
 
 
 def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, Tensor]
@@ -346,7 +481,7 @@ def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, Tensor]
     a leaf (:func:`spread_grads`): what ``jax.grad`` gives under the JAX
     package's mesh."""
     with split_sequence(batch["tokens"].shape[1]) as split:
-        params = spread_grads(params, split)
+        params = spread_grads(params, split, whole_shapes(cfg))
         h = forward(cfg, params, batch["tokens"])
         return chunked_xent(cfg, params, h, batch["labels"])
 
@@ -363,9 +498,12 @@ class KVCache(NamedTuple):
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device="cuda") -> KVCache:
+               dtype=torch.bfloat16, device="cuda", kv_heads=None) -> KVCache:
+    """Zeros; ``kv_heads`` of them a layer (default: every kv head; a
+    tensor-parallel rank holds its own, ``cache_specs``' head cut)."""
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    shape = (cfg.n_layers, batch, max_len, kv_heads or cfg.n_kv_heads,
+             cfg.hd)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device), 0)
 
@@ -385,15 +523,20 @@ def prefill(cfg: ArchConfig, params: Params, tokens: Tensor, max_len: int,
     stream is this rank's block from the embedding on; the cache is the
     whole sequence's (its K/V come from the gathered block inputs), and
     the logits, computed by the rank of the last block, are broadcast to
-    every rank of the ``model`` group."""
+    every rank of the ``model`` group.  With weights cut over ``model``
+    the cache holds this rank's kv heads, and the last position's hidden
+    state is broadcast instead, for every rank's block of the vocabulary
+    (the logits gathered whole, :func:`logits_fn`)."""
     B, S = tokens.shape
     if S > max_len:
         raise ValueError(f"a prompt of {S} tokens does not fit a cache of "
                          f"max_len {max_len}")
     with split_sequence(S) as split:
-        x = residual_block(embed_tokens(params, tokens))
+        x = residual_block(embed_tokens(params, tokens, cfg.vocab))
         windows = layer_windows(cfg)
-        cache = init_cache(cfg, B, max_len, device=x.device)
+        cache = init_cache(cfg, B, max_len, device=x.device,
+                           kv_heads=params["layers"]["wk"].shape[-1]
+                           // cfg.hd)
         for i in range(cfg.n_layers):
             x, (k, v) = dense_layer(cfg, _layer_params(params, i), x,
                                     int(windows[i]), ffn=ffn)
@@ -402,9 +545,15 @@ def prefill(cfg: ArchConfig, params: Params, tokens: Tensor, max_len: int,
             cache.k[i, :, :S] = k
             cache.v[i, :, :S] = v
         h = rms_norm(x, params["ln_f"], cfg.norm_eps)
-        logits = logits_fn(cfg, params, h[:, -1:])[:, 0]
-    if split is not None:
-        logits = split.last_block(logits)
+        head = params.get("lm_head", params["embed"])
+        if head.shape[0] == cfg.vocab:
+            logits = logits_fn(cfg, params, h[:, -1:])[:, 0]
+            if split is not None:
+                logits = split.last_block(logits)
+        else:
+            last = h[:, -1:]
+            logits = logits_fn(cfg, params, last if split is None
+                               else split.last_block(last))[:, 0]
     return logits, KVCache(cache.k, cache.v, S)
 
 
@@ -421,16 +570,22 @@ def decode_step(cfg: ArchConfig, params: Params, cache: KVCache,
     package, whose decode step therefore runs with bfloat16 parameters
     only; so does this one (torch does not promote a bf16 @ fp32 product).
     ``ffn(lp, h)`` overrides every layer's feed-forward (the MoE family).
+    Under a policy with a ``"__mesh__"`` the step declares its one token a
+    row (uncut), so that a layer reads the mesh's ``data`` group; with
+    weights cut over ``model`` the cache holds this rank's kv heads and
+    the logits are the whole vocabulary's.
     """
-    x = embed_tokens(params, tokens)
-    windows = layer_windows(cfg)
-    pos = int(cache.pos)
-    for i in range(cfg.n_layers):
-        x, _ = dense_layer(cfg, _layer_params(params, i), x, int(windows[i]),
-                           cache_kv=(cache.k[i], cache.v[i]), pos=pos,
-                           block_k=block_k, ffn=ffn)
-    h = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    logits = logits_fn(cfg, params, h)[:, 0]
+    with split_sequence(tokens.shape[1], cut=False):
+        x = embed_tokens(params, tokens, cfg.vocab)
+        windows = layer_windows(cfg)
+        pos = int(cache.pos)
+        for i in range(cfg.n_layers):
+            x, _ = dense_layer(cfg, _layer_params(params, i), x,
+                               int(windows[i]),
+                               cache_kv=(cache.k[i], cache.v[i]), pos=pos,
+                               block_k=block_k, ffn=ffn)
+        h = rms_norm(x, params["ln_f"], cfg.norm_eps)
+        logits = logits_fn(cfg, params, h)[:, 0]
     return logits, KVCache(cache.k, cache.v, pos + 1)
 
 

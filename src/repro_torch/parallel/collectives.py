@@ -21,9 +21,11 @@ a backward's too.
 
 The collectives a model runs under a mesh are autograd functions:
 ``all_gather_dim`` and ``reduce_scatter_dim``, each the other's gradient;
-``all_reduce_sum`` (the loss, the load-balancing loss), whose gradient
-passes through; and ``summed_grads``, the identity whose gradient is
-summed over the ranks that share a leaf.
+``all_reduce_sum`` (the loss, the load-balancing loss, the row-parallel
+end of a tensor-parallel layer), whose gradient passes through;
+``summed_grads``, the identity whose gradient is summed over the ranks
+that share a leaf; and ``all_reduce_max``, outside autograd (the shift of
+the vocabulary-parallel logsumexp, which takes no gradient).
 """
 
 from __future__ import annotations
@@ -185,6 +187,14 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     each rank's ``x`` takes the gradient of the one sum (the loss and the
     load-balancing loss)."""
     return _AllReduceSum.apply(x, group)
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of ``x`` over the group, a new tensor outside
+    autograd."""
+    out = x.detach().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
 
 
 def summed_grads(x: torch.Tensor, groups: Sequence) -> torch.Tensor:

@@ -28,9 +28,22 @@ plain tensor converts between the whole sequence and this rank's block
   block over the ``model`` group in rank order, and passes a whole one.
 
 Every other spec passes a plain tensor through, as does every hint
-outside such a pass: the channel cut of the SSM and hybrid residual
-(``P(dp, None, "model")``), the vocabulary cut of ``"logits"`` and the
-expert cut of ``"expert_buffer"`` have no process-local form here yet.
+outside such a pass.  Two of them are already in their process-local
+form when a layer's weights are cut over ``model`` (tensor parallelism,
+``parallel.sharding.rank_blocks``): the vocabulary cut of ``"logits"``
+(``P(dp, None, "model")``) is the ``V/n`` columns that this rank's
+``lm_head`` rows give, and the expert cut of ``"expert_buffer"``
+(``P("model", None, None)``) the ``E/n`` experts' rows of the buffer that
+this rank's expert weights take; with whole weights both are whole.
+The cut is made by the weights, so the hint passes either.  Still open:
+the channel cut of the SSM and hybrid residual (``P(dp, None,
+"model")``) and the encoder-decoder's cuts, which pass through.
+
+A layer knows that it is tensor-parallel from its weights' shapes, never
+from a flag.  Its products with weights cut on their output columns take
+:func:`column_in` of their input, and its products with weights cut on
+their input rows end with :func:`row_parallel_end`, which sums the
+ranks' partial sums over ``model`` (Megatron's f and g).
 """
 
 from __future__ import annotations
@@ -142,6 +155,27 @@ class Split:
             x = all_reduce_sum(x, g)
         return x / float(self.n * self.n_data)
 
+    def mean_with_model(self, x):
+        """:meth:`mean` with the ``model`` group taken in where the
+        sequence is not cut: the mean of a value each rank of a
+        tensor-parallel ``model`` group holds alike (the load-balancing
+        loss), so that each rank's gradient is its share of it."""
+        if self.cut:
+            return self.mean(x)
+        from .collectives import all_reduce_sum
+        group, n_model, _ = model_axis()
+        return all_reduce_sum(self.mean(x), group) / float(n_model)
+
+    def row_mean(self, x):
+        """The mean over the ``data`` group of ``x``, a value each rank of
+        a ``model`` group holds alike (the vocabulary-parallel
+        cross-entropy of its data row's whole sequence); its gradient
+        passes through."""
+        if self.n_data == 1:
+            return x
+        from .collectives import all_reduce_sum
+        return all_reduce_sum(x, self.data) / float(self.n_data)
+
     def batch_mean(self, x):
         """The mean over the ``data`` group of ``x``, a mean over this
         rank's rows (as many in every rank), outside autograd."""
@@ -223,6 +257,53 @@ def bound(fn):
             _LOCAL.policy, _LOCAL.split = old_policy, old_split
 
     return run
+
+
+def model_axis():
+    """``(group, n, rank)`` of the ``model`` axis of the live mesh in the
+    policy: what a layer whose weights are cut over ``model`` reduces
+    over.  A cut weight without such a mesh is a layout fault."""
+    mesh = policy_value("__mesh__")
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    if "model" not in names:
+        raise ValueError("weights cut over 'model' (tensor parallelism) "
+                         "need a live DeviceMesh with a 'model' axis in "
+                         "the sharding policy's '__mesh__'")
+    return (mesh.get_group("model"), mesh.size(names.index("model")),
+            mesh.get_local_rank("model"))
+
+
+def column_in(h):
+    """The input of products whose weights are cut on their output
+    columns over ``model`` (``wq``/``wk``/``wv``, ``w_gate``/``w_up``,
+    the router, ``lm_head``): under a sequence cut the whole sequence
+    (the ``"block_in"`` gather; a whole ``h`` passes), whose gradient is
+    reduce-scattered -- each rank's share summed; otherwise ``h`` itself,
+    whose gradient is summed over ``model`` in the backward."""
+    split = current_split()
+    if split is not None and split.cut:
+        return split.gather(h)
+    from .collectives import summed_grads
+    return summed_grads(h, (model_axis()[0],))
+
+
+def row_parallel_end(t):
+    """The end of a product whose weight is cut on its input rows over
+    ``model`` (``wo``, ``w_down``, the vocabulary-parallel embedding, the
+    expert-cut combine): ``t`` holds this rank's partial sums over the
+    whole sequence.  Under a sequence cut their sum is reduce-scattered
+    into this rank's block (what :func:`residual_block` takes of a whole
+    output); otherwise (decode, a sequence that ``model`` does not divide)
+    all-reduced.  Summed in float32, returned in ``t``'s dtype."""
+    from .collectives import all_reduce_sum, reduce_scatter_dim
+    group = model_axis()[0]
+    split = current_split()
+    if split is not None and split.cut:
+        if not split._whole(t, 1):
+            raise ValueError("a row-parallel product over a block of the "
+                             "sequence: its input must be whole")
+        return reduce_scatter_dim(t.float(), 1, group).to(t.dtype)
+    return all_reduce_sum(t.float(), group).to(t.dtype)
 
 
 def residual_block(t):

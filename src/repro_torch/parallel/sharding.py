@@ -30,6 +30,8 @@ from __future__ import annotations
 import functools
 from typing import Any, Dict, Optional, Sequence, Tuple
 
+import numpy as np
+
 from ..configs.base import ArchConfig, ShapeConfig
 from ..core.artifact import CompiledBankingPlan, lane_compile
 from ..core.controller import AccessDecl, Counter, Ctrl, Program, Sched
@@ -217,6 +219,118 @@ def param_specs(params_shape: Any, mesh, fsdp: bool = False,
 
 
 # ---------------------------------------------------------------------------
+# A rank's blocks of a parameter tree (tensor parallelism)
+# ---------------------------------------------------------------------------
+
+# the dim of a leaf that holds its heads, from the last: a cut of it must
+# fall on a head boundary
+HEAD_DIMS = {"wq": 1, "wk": 1, "wv": 1, "bq": 1, "bk": 1, "bv": 1, "wo": 2}
+
+
+def mesh_coords(mesh) -> Dict[str, int]:
+    """This process's coordinate on each axis of a ``DeviceMesh``."""
+    return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+
+
+def _model_dim(path: str, spec: PartitionSpec, axes: Dict[str, int]
+               ) -> Optional[int]:
+    """The dim that ``spec`` cuts over an axis of more than one rank,
+    which must be ``model``; None where it cuts nothing (an axis of size
+    1 cuts nothing)."""
+    cut = None
+    for d, entry in enumerate(spec):
+        live = [a for a in ((entry,) if isinstance(entry, str) else
+                            (entry or ())) if axes[a] > 1]
+        if not live:
+            continue
+        if live != ["model"]:
+            raise ValueError(
+                f"{path}: {spec!r} cuts dim {d} over {live}; only the "
+                f"'model' axis cuts a running model's weights (a ZeRO-3 "
+                f"cut over 'data' is not supported)")
+        if cut is not None:
+            raise ValueError(f"{path}: {spec!r} cuts two dims over 'model'")
+        cut = d
+    return cut
+
+
+def leaf_block(path: str, leaf, spec: PartitionSpec, axes: Dict[str, int],
+               coords: Dict[str, int], head_dim: Optional[int] = None):
+    """This rank's block of one leaf (tensor or numpy array) under
+    ``spec``: a view.  Where the cut of a head dim (``HEAD_DIMS``) would
+    not fall on a boundary of ``head_dim`` it raises, naming the leaf and
+    the spec."""
+    d = _model_dim(path, spec, axes)
+    if d is None:
+        return leaf
+    if leaf.shape[d] % axes["model"]:
+        raise ValueError(f"{path}: dim {d} of {tuple(leaf.shape)} does not "
+                         f"divide by the 'model' axis of {axes['model']} "
+                         f"({spec!r})")
+    blk = leaf.shape[d] // axes["model"]
+    name = path.rsplit("/", 1)[-1]
+    if (head_dim and name in HEAD_DIMS
+            and d == len(leaf.shape) - HEAD_DIMS[name] and blk % head_dim):
+        raise ValueError(
+            f"{path}: {spec!r} cuts dim {d} ({leaf.shape[d]}) over a "
+            f"'model' axis of {axes['model']} into blocks of {blk}, not "
+            f"whole heads of {head_dim}: head-misaligned cuts are not "
+            f"supported")
+    at = coords["model"] * blk
+    return leaf[(slice(None),) * d + (slice(at, at + blk),)]
+
+
+def rank_blocks(tree: Any, specs: Any, mesh, coords: Dict[str, int],
+                head_dim: Optional[int] = None) -> Any:
+    """This rank's block of every leaf of a parameter tree (nested dicts
+    of tensors or numpy arrays, views where the layout allows) under its
+    spec tree (:func:`param_specs`) on ``mesh``, at ``coords`` (axis name
+    -> index, :func:`mesh_coords`).  A leaf that its spec leaves whole,
+    or cuts over axes of size 1 only, stays whole.  ``head_dim``: the
+    attention leaves' cuts must fall on head boundaries."""
+    axes = mesh_axes(mesh)
+
+    def walk(t, s, prefix):
+        if isinstance(t, dict):
+            return {k: walk(v, s[k], f"{prefix}/{k}" if prefix else k)
+                    for k, v in t.items()}
+        return leaf_block(prefix, t, s, axes, coords, head_dim)
+
+    return walk(tree, specs, "")
+
+
+def join_blocks(trees: Sequence[Any], specs: Any, mesh) -> Any:
+    """The whole tree from every rank's blocks (``trees`` by rank, in the
+    mesh's row-major order): each cut leaf joined over the ``model``
+    ranks of the first data row, a whole leaf as the first rank holds
+    it.  numpy arrays or tensors."""
+    axes = mesh_axes(mesh)
+    names = list(axes)
+
+    def rank_at(m):
+        r = 0
+        for a in names:
+            r = r * axes[a] + (m if a == "model" else 0)
+        return r
+
+    def walk(ts, s, prefix):
+        if isinstance(ts[0], dict):
+            return {k: walk([t[k] for t in ts], s[k],
+                            f"{prefix}/{k}" if prefix else k)
+                    for k in ts[0]}
+        d = _model_dim(prefix, s, axes)
+        if d is None:
+            return ts[0]
+        parts = [ts[rank_at(m)] for m in range(axes["model"])]
+        if isinstance(parts[0], np.ndarray):
+            return np.concatenate(parts, axis=d)
+        import torch
+        return torch.cat(parts, dim=d)
+
+    return walk(list(trees), specs, "")
+
+
+# ---------------------------------------------------------------------------
 # Batch / cache / activation sharding per shape-kind
 # ---------------------------------------------------------------------------
 
@@ -323,6 +437,7 @@ def placements(spec: PartitionSpec, mesh) -> tuple:
 
 __all__ = [
     "P", "PartitionSpec", "ROLE_TP_DIMS", "bankable", "batch_specs",
-    "cache_specs", "dp_axes", "first_bankable", "lane_artifact",
-    "logits_spec", "mesh_axes", "param_specs", "placements", "tp_axis",
+    "cache_specs", "dp_axes", "first_bankable", "join_blocks",
+    "lane_artifact", "leaf_block", "logits_spec", "mesh_axes", "mesh_coords",
+    "param_specs", "placements", "rank_blocks", "tp_axis",
 ]

@@ -80,6 +80,13 @@ print(len(names))
                                     "repro_torch.launch.mesh",
                                     "repro_torch.launch.roofline",
                                     "repro_torch.launch.dryrun",
+                                    "repro_torch.launch.steps",
+                                    "repro_torch.convert",
+                                    "repro_torch.models",
+                                    "repro_torch.models.api",
+                                    "repro_torch.models.layers",
+                                    "repro_torch.models.transformer",
+                                    "repro_torch.models.moe",
                                     "repro_torch.examples.quickstart",
                                     "repro_torch.examples.serve_lm",
                                     "repro_torch.examples.train_lm",
@@ -88,7 +95,9 @@ def test_fabric_worker_and_fleet_import_without_jax(module):
     """The fabric, its worker, the fleet launcher, the training modules
     (optimizer, data pipeline, checkpoints, trainer, its launcher) and the
     multi-device side (sharding, hints, collectives, pipeline, meshes,
-    roofline, dry-run) and the twins of ``examples/``, each imported alone in a fresh interpreter, bring
+    roofline, dry-run), the step functions, the parameter conversion, the
+    models whose layers run tensor-parallel and the twins of
+    ``examples/``, each imported alone in a fresh interpreter, bring
     in neither JAX nor the JAX package -- nor ``ml_dtypes``, which the JAX
     package's checkpoints need for bfloat16."""
     code = f"""

@@ -2,11 +2,13 @@
 worlds of CPU ``gloo`` processes, against the JAX package on a 2x2 mesh of
 XLA host devices.
 
-Five cases: the reduced olmoe-1b-7b with 4 experts, top-2 and a capacity
+Six cases: the reduced olmoe-1b-7b with 4 experts, top-2 and a capacity
 factor of 8 (no token dropped at any batch size, so the data rows a rank
 routes do not change what is kept) through the expert-parallel ``a2a``
 layer, and the same model through ``sorted``, which routes the whole
-gathered sequence in every ``model`` rank; the reduced qwen2-7b, whose
+gathered sequence in every ``model`` rank, also at a capacity factor of
+1.0, which drops pairs: ``sorted`` ranks the whole batch's pairs, over
+the data cut too, against one capacity; the reduced qwen2-7b, whose
 residual is cut on the sequence like the MoE model's; the reduced
 mamba2-370m and zamba2-2.7b, whose residual is cut on channels and
 passes a process-local tensor through.  Each runs
@@ -56,6 +58,11 @@ CASES = {
     "olmoe_sorted": dict(arch="olmoe_1b_7b", impl="sorted",
                          replace=dict(n_experts=4, top_k=2,
                                       capacity_factor=8.0)),
+    # a capacity that drops pairs: the whole batch's pairs are ranked
+    # against one capacity, as the reference ranks them, over the data cut
+    "olmoe_sorted_drop": dict(arch="olmoe_1b_7b", impl="sorted",
+                              replace=dict(n_experts=4, top_k=2,
+                                           capacity_factor=1.0)),
     "qwen2": dict(arch="qwen2_7b", impl="sorted", replace={}),
     "mamba2": dict(arch="mamba2_370m", impl="sorted", replace={}),
     "zamba2": dict(arch="zamba2_2_7b", impl="sorted", replace={}),

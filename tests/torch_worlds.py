@@ -328,8 +328,108 @@ def rank_mesh_model(rank, world, out):
              **{k: v.detach().float().numpy() for k, v in res.items()})
 
 
+TP_DECODE_STEPS = 3        # decode steps after the tensor-parallel prefill
+
+
+def rank_tensor_parallel(rank, world, out):
+    """One rank of a ``(world // 2) x 2`` ``("data", "model")`` mesh
+    running tensor-parallel models: for each case of
+    OUT_DIR/tp_cases.json the reference's weights cut into this rank's
+    blocks by ``param_specs`` (``convert.for_ranks``), then under the
+    dry-run's policies plus the mesh the loss and its gradients, the
+    prefill's logits and this rank's kv heads of the cache,
+    ``TP_DECODE_STEPS`` serve steps fed the tokens of
+    ``<case>/decode_tokens``, and the parameters after one
+    ``make_train_step``; beside them the bytes and storage bytes of the
+    rank's parameters and the dry-run's bytes a device."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.convert import for_ranks, params_from_numpy
+    from repro_torch.launch.dryrun import make_policy, param_bytes_per_device
+    from repro_torch.launch.steps import (make_serve_step, make_train_step,
+                                          value_and_grad)
+    from repro_torch.models import get_model, param_shapes
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.hints import sharding_policy
+
+    with open(os.path.join(out, "tp_cases.json")) as f:
+        cases = json.load(f)
+    inp = _inputs(out)
+    n_data = world // 2
+    d = rank // 2
+    mesh = DeviceMesh("cpu", torch.arange(world).reshape(n_data, 2),
+                      mesh_dim_names=("data", "model"))
+    res = {}
+    for name, case in cases.items():
+        cfg = dataclasses.replace(get_arch(case["arch"]).reduced(),
+                                  **case["replace"])
+        model = get_model(cfg, moe_impl=case["impl"])
+        specs = shd.param_specs(param_shapes(model), mesh)
+
+        def policy(shape):
+            return {**make_policy(cfg, SHAPES[shape], mesh),
+                    "__mesh__": mesh}
+
+        def fresh():
+            flat = {k[len(name) + 3:]: v for k, v in inp.items()
+                    if k.startswith(name + "/p/")}
+            blocks = for_ranks(unflatten(flat), specs=specs, mesh=mesh,
+                               coords=shd.mesh_coords(mesh),
+                               head_dim=cfg.hd)
+            p = params_from_numpy(blocks, device="cpu")
+            return adamw.tree_map(lambda t, dt: t.to(getattr(torch, dt)), p,
+                                  unflatten(case["dtypes"]))
+
+        B = inp[name + "/tokens"].shape[0] // n_data
+        rows = slice(d * B, (d + 1) * B)
+        batch = {k: inp[f"{name}/{k}"][rows] for k in ("tokens", "labels")}
+        params = fresh()
+        leaves = adamw.tree_leaves(params)
+        res[f"{name}/param_bytes"] = torch.tensor(
+            sum(t.numel() * t.element_size() for t in leaves))
+        res[f"{name}/storage_bytes"] = torch.tensor(
+            sum(t.untyped_storage().nbytes() for t in leaves))
+        res[f"{name}/dryrun_bytes"] = torch.tensor(
+            param_bytes_per_device(cfg, mesh))
+        res.update({f"{name}/shape/{k}": torch.tensor(v.shape)
+                    for k, v in flatten(params).items()})
+        with sharding_policy(policy("train_4k")):
+            loss, grads = value_and_grad(model, params, batch)
+        res[f"{name}/loss"] = loss
+        res.update({f"{name}/g/{k}": v for k, v in flatten(grads).items()})
+        with sharding_policy(policy("prefill_32k")):
+            logits, cache = model.prefill(
+                params, {"tokens": torch.as_tensor(batch["tokens"])},
+                MESH_MAX_LEN)
+        res[f"{name}/logits"] = logits
+        res[f"{name}/cache/k"] = cache.k.clone()   # decoding writes in place
+        res[f"{name}/cache/v"] = cache.v.clone()
+        serve = make_serve_step(model)
+        feed = torch.as_tensor(inp[f"{name}/decode_tokens"][rows])
+        with sharding_policy(policy("decode_32k")):
+            for i in range(TP_DECODE_STEPS):
+                tok, logits, cache = serve(params, cache, feed[:, i:i + 1])
+                res[f"{name}/decode{i}/logits"] = logits
+                res[f"{name}/decode{i}/tokens"] = tok
+        step = make_train_step(model, adamw.AdamWConfig(**case["opt"]))
+        with sharding_policy(policy("train_4k")):
+            loss1, params1, _ = step(params, adamw.init(params), batch)
+        res[f"{name}/step_loss"] = loss1
+        res.update({f"{name}/s/{k}": v for k, v in flatten(params1).items()})
+    np.savez(os.path.join(out, f"tensor_parallel_{world}_{rank}.npz"),
+             **{k: v.detach().float().numpy() if v.is_floating_point()
+                else v.numpy() for k, v in res.items()})
+
+
 ENTRIES = {"pipeline": rank_pipeline, "pair": rank_pair,
-           "mesh_model": rank_mesh_model}
+           "mesh_model": rank_mesh_model,
+           "tensor_parallel": rank_tensor_parallel}
 
 
 def main(argv):
