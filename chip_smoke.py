@@ -178,7 +178,18 @@ Run from the root of a checkout, with no arguments, it
    gradient by (b)'s rule on each rank's blocks, the whole leaves equal
    in both ranks, B4 and B5 8 times a rank and each held to its plain
    version), with peak memory a rank; B4's row at (f)'s rank shape goes
-   into the kernels line.
+   into the kernels line;
+10. after ``tensor_parallel``, ``tensor_parallel_ssm``: worlds of 2 ranks
+   cut the same way, the residual cut on its channels under the train
+   and prefill policies -- (h) zamba2-2.7b at full width and depth,
+   parameter and cache bytes a rank the dry-run's, a prefill of 1 x 2048
+   and 8 serve steps bit for bit against one process in the ranks' order
+   (``hybrid_in_rank_order``); (i) mamba2-370m at full width, step 1's
+   gradient by (b)'s rule against one process at 4 layers and read at 48,
+   then two ``make_train_step`` steps at full depth; (j) whisper-base at
+   full width and depth, 1500 frames and 64 tokens, ``embed`` whole; B6
+   and B4 on a rank's heads, held to their plain versions, their rows at
+   the ranks' shapes in the kernels line.
 
 Every phase prints one JSON line; the first failure ends the run with a
 non-zero exit code.  There is no CPU fallback: without a CUDA device, or
@@ -201,6 +212,7 @@ import argparse
 import atexit
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -4639,6 +4651,904 @@ def phase_tensor_parallel(torch, seed):
 
 
 # ---------------------------------------------------------------------------
+# Tensor parallelism of the SSM, hybrid and encoder-decoder families
+# ---------------------------------------------------------------------------
+
+TP_SSM_PREFILL = (1, 2048)       # (h): zamba2-2.7b's prompt, batch x tokens
+TP_SSM_TRAIN_BATCH = (2, 2048)   # (i): mamba2-370m's batch
+TP_SSM_TRAIN_STEPS = 2
+TP_SSM_GRAD_LAYERS = 4           # (i): the depth at which (b)'s rule holds
+TP_ENCDEC_FRAMES = 1500          # (j): whisper-base's frames ...
+TP_ENCDEC_PROMPT = (1, 64)       # ... and its prompt, batch x tokens
+
+
+def _tp_ssm_configs():
+    """(h)'s, (i)'s and (j)'s configs, by the names of their spec files:
+    each at full width and depth, and (i)'s at ``TP_SSM_GRAD_LAYERS``."""
+    from repro_torch.configs import get_arch
+
+    mamba2 = get_arch("mamba2_370m")
+    return {"zamba2": get_arch("zamba2_2_7b"), "mamba2": mamba2,
+            "mamba2_grad": dataclasses.replace(
+                mamba2, n_layers=TP_SSM_GRAD_LAYERS),
+            "whisper": get_arch("whisper_base")}
+
+
+def _tp_ssm_inputs(torch, cfg, seed):
+    """(h)'s and (j)'s prompt tokens (and (j)'s frames, normal x 0.02,
+    the data pipeline's scale), drawn on the card from ``seed``: the same
+    in every process."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    shape = TP_ENCDEC_PROMPT if cfg.family == "encdec" else TP_SSM_PREFILL
+    batch = {"tokens": torch.randint(2, cfg.vocab - 1, shape, generator=gen,
+                                     device="cuda", dtype=torch.int64)
+             .to(torch.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(
+            (shape[0], TP_ENCDEC_FRAMES, cfg.d_model), generator=gen,
+            device="cuda") * 0.02
+        batch["labels"] = torch.randint(2, cfg.vocab - 1, shape,
+                                        generator=gen, device="cuda",
+                                        dtype=torch.int64).to(torch.int32)
+    return batch
+
+
+def _rank_blocks(torch, model, cfg, specs, mesh, seed):
+    """This rank's blocks of the model's weights from ``seed``, every leaf
+    cut as soon as it is drawn (``convert.block_init``, the head checks of
+    every kind of head on), with the bytes of the blocks, of their storage
+    and allocated on the card for them."""
+    from repro_torch.convert import block_init
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.parallel.sharding import head_widths, mesh_coords
+
+    free_device_memory(torch)
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = model.init(gen, device="cuda", keep=block_init(
+        specs, mesh, mesh_coords(mesh), head_dim=head_widths(cfg)))
+    free_device_memory(torch)
+    leaves = tree_leaves(params)
+    return params, {
+        "param_bytes": sum(t.numel() * t.element_size() for t in leaves),
+        "storage_bytes": sum(t.untyped_storage().nbytes() for t in leaves),
+        "allocated_bytes": torch.cuda.memory_allocated() - base}
+
+
+def _cache_bytes(cache):
+    """A cache's bytes as the dry-run counts them (``pos`` a 0-d int32)."""
+    import torch as torch_mod
+
+    return 4 + sum(t.numel() * t.element_size() for t in cache
+                   if torch_mod.is_tensor(t))
+
+
+def rank_tp_hybrid(torch, rank, world, out, seed):
+    """(h) One rank of zamba2-2.7b at full width and depth, its weights
+    cut by ``param_specs`` on a (1, 2) mesh: the prefill of
+    ``TP_SSM_PREFILL`` under the dry-run's prefill policy plus the mesh
+    (the residual cut on its channels; counted and timed), then
+    ``TP_DECODE_STEPS`` serve steps on this rank's share of the cache
+    under the decode policy, fed the tokens the one-process run chose.
+    B6 and B4 are held to their plain versions on the prefill's first
+    calls, outside the counted run."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import get_model
+    from repro_torch.parallel.hints import sharding_policy
+
+    cfg = _tp_ssm_configs()["zamba2"]
+    model = get_model(cfg)
+    policy = _mesh_policy(cfg, "prefill_32k")
+    params, held = _rank_blocks(torch, model, cfg, _tp_specs(out, "zamba2"),
+                                policy["__mesh__"], seed)
+    tokens = _tp_ssm_inputs(torch, cfg, seed)["tokens"]
+    feed = torch.load(os.path.join(out, "tp_hybrid_one.pt"))["feed"].cuda()
+    prefill = make_prefill_step(model, tokens.shape[1] + TP_DECODE_STEPS)
+    chunks, attn = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _dist_reset()
+    t0 = time.perf_counter()
+    with sharding_policy(policy), capturing_chunks(chunks, 1), \
+            capturing_first(ops, "mha", attn):
+        logits, cache = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {**_dist_counts(), **train_kernel_counts()}
+    cache_bytes = _cache_bytes(cache)
+    cache_shapes = {f: list(t.shape) for f, t in cache._asdict().items()
+                    if torch.is_tensor(t)}
+    serve = make_serve_step(model)
+    steps = []
+    t0 = time.perf_counter()
+    with sharding_policy(_mesh_policy(cfg, "decode_32k")):
+        for i in range(TP_DECODE_STEPS):
+            tok, lg, cache = serve(params, cache, feed[:, i:i + 1])
+            steps.append((tok.cpu(), lg.float().cpu()))
+    torch.cuda.synchronize()
+    decode_wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    staged = _dist_counts()["staged_bytes"]
+    b6_share = chunks_held(torch, chunks, f"(h) rank {rank}")
+    q, k, v, kw = attn
+    err, share = attention_held(torch, q, k, v, f"(h) rank {rank}", **kw)
+    torch.save({"logits": logits.float().cpu(), "steps": steps,
+                "chunk": [a.cpu() for a in chunks[0]]},
+               os.path.join(out, f"tp_hybrid_{rank}.pt"))
+    return {**held, "prefill_wall_s": wall, "decode_wall_s": decode_wall,
+            **counts, "staged_bytes_with_decode": staged,
+            "peak_memory_bytes": peak, "cache_bytes": cache_bytes,
+            "cache_shapes": cache_shapes,
+            "ssm_heads": params["ssm"]["A_log"].shape[-1],
+            "heads": params["shared_attn"]["wq"].shape[-1] // cfg.hd,
+            "b6_shape": list(chunks[0][0].shape),
+            "b6_held": {"share_of_max": b6_share},
+            "b4_shape": [list(q.shape), list(k.shape)],
+            "b4_held": {"max_abs_err": err, "share": share}}
+
+
+def _tp_step1_grads(torch, cfg, specs, policy, seed, batch, chunks=None):
+    """Step 1's gradient of the SSM model ``cfg`` on ``batch``: this
+    rank's, drawn from ``seed`` in its blocks (``specs``) and taken under
+    ``policy``, every cut leaf gathered whole over ``model``, read leaf by
+    leaf (``grad_readings``) against one process's gradient on the whole
+    weights in its own order (``"plain"``) and in the ranks'
+    (``ssm_grads_in_rank_order``, ``"rank_order"``), and those two
+    yardsticks against each other (``"yardsticks"``).  The yardsticks are
+    not the path and are not counted.  Returns this rank's weights, their
+    bytes and the readings; ``chunks`` takes the first SSD chunk of the
+    rank's pass."""
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.collectives import all_gather_dim
+    from repro_torch.parallel.hints import sharding_policy
+
+    model = get_model(cfg)
+    whole = _moe_params(torch, model, seed)
+    plain = adamw.tree_leaves(value_and_grad(model, whole, batch)[1])
+    order = ssm_grads_in_rank_order(torch, cfg, whole, batch)
+    del whole
+    params, held = _rank_blocks(torch, model, cfg, specs,
+                                policy["__mesh__"], seed)
+    with sharding_policy(policy), capturing_chunks(
+            [] if chunks is None else chunks, 1):
+        got = value_and_grad(model, params, batch)[1]
+    group = policy["__mesh__"].get_group("model")
+
+    def gathered(w, g):
+        """``g`` joined over the ranks on the dim its block cuts."""
+        for d, (a, b) in enumerate(zip(w.shape, g.shape)):
+            if a != b:
+                return all_gather_dim(g, d, group)
+        return g
+
+    readings = {"plain": {}, "rank_order": {}, "yardsticks": {}}
+    with torch.no_grad():
+        for n, w, o, g in zip(_leaf_names(params), plain, order,
+                              adamw.tree_leaves(got)):
+            g = gathered(w, g).float()
+            readings["plain"][n] = grad_readings(w.float(), g)
+            readings["rank_order"][n] = grad_readings(o.float(), g)
+            readings["yardsticks"][n] = grad_readings(w.float(), o.float())
+    del plain, order, got
+    free_device_memory(torch)
+    return params, held, readings
+
+
+def rank_tp_ssm_train(torch, rank, world, out, seed):
+    """(i) One rank of mamba2-370m, its weights cut by ``param_specs`` on
+    a (1, 2) mesh under the dry-run's train policy plus the mesh (the
+    residual cut on its channels).  First, outside the counted run, step
+    1's gradient on the data pipeline's first batch (``_tp_step1_grads``):
+    at ``TP_SSM_GRAD_LAYERS`` layers, where (b)'s rule holds it against
+    one process, and at full depth, read.  Then at full width and depth
+    ``make_train_step`` for ``TP_SSM_TRAIN_STEPS`` steps, counted and
+    timed; B6 (``SsdChunkFn``) is held to its plain version on the full
+    depth gradient pass's first chunk, forward and backward."""
+    from repro_torch.data.pipeline import DataConfig, get_batch
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.hints import sharding_policy
+
+    configs = _tp_ssm_configs()
+    cfg = configs["mamba2"]
+    data = DataConfig(vocab=cfg.vocab, seq_len=TP_SSM_TRAIN_BATCH[1],
+                      global_batch=TP_SSM_TRAIN_BATCH[0], seed=seed)
+    shallow = configs["mamba2_grad"]
+    _, held_shallow, readings_shallow = _tp_step1_grads(
+        torch, shallow, _tp_specs(out, "mamba2_grad"),
+        _mesh_policy(shallow, "train_4k"), seed, get_batch(data, 0))
+    model = get_model(cfg)
+    policy = _mesh_policy(cfg, "train_4k")
+    specs = _tp_specs(out, "mamba2")
+    chunks = []
+    params, held, readings = _tp_step1_grads(
+        torch, cfg, specs, policy, seed, get_batch(data, 0), chunks)
+    names = _leaf_names(params)
+    step = make_train_step(model, adamw.AdamWConfig(
+        lr_peak=TRAIN_LR, total_steps=TP_SSM_TRAIN_STEPS, warmup_steps=1))
+    opt = adamw.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _dist_reset()
+    losses, walls = [], []
+    with sharding_policy(policy):
+        for i in range(TP_SSM_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            loss, params, opt = step(params, opt, get_batch(data, i))
+            losses.append(float(loss))
+            walls.append(time.perf_counter() - t0)
+    counts = {**_dist_counts(), **train_kernel_counts()}
+    peak = torch.cuda.max_memory_allocated()
+    b6_share = chunks_held(torch, chunks, f"(i) rank {rank}")
+    gen = torch.Generator(device="cuda").manual_seed(seed + rank)
+    inputs = chunks[0]
+    dy = torch.randn(sc.ssd_chunk_plain(*inputs)[0].shape, generator=gen,
+                     device="cuda")
+    ds = torch.randn(inputs[5].shape, generator=gen, device="cuda")
+
+    def grads_through(fn):
+        ts = [t.detach().clone().requires_grad_() for t in inputs]
+        return torch.autograd.grad(fn(*ts), ts, (dy, ds))
+
+    b6_grad = grad_held(torch, grads_through(sc.ssd_chunk_plain),
+                        grads_through(sc.SsdChunkFn.apply),
+                        (f"B6 (i) rank {rank}", SSD_ARGS), "float32")
+    whole_leaves = [t for n, t in zip(names, adamw.tree_leaves(params))
+                    if "model" not in str(_spec_at(specs, n))]
+    return {**held, "losses": losses, "step_walls_s": walls, **counts,
+            "shallow_param_bytes": held_shallow["param_bytes"],
+            "shallow_readings": readings_shallow, "readings": readings,
+            "whole_sha256": _digest(torch, whole_leaves),
+            "peak_memory_bytes": peak,
+            "ssm_heads": params["layers"]["A_log"].shape[-1],
+            "b6_shape": list(inputs[0].shape),
+            "b6_held": {"share_of_max": b6_share,
+                        "backward_worst_share_of_tolerance": b6_grad}}
+
+
+def rank_tp_encdec(torch, rank, world, out, seed):
+    """(j) One rank of whisper-base at full width and depth, its weights
+    cut by ``param_specs`` on a (1, 2) mesh (``embed`` whole: 51,865 rows
+    do not divide): the prefill of ``TP_ENCDEC_FRAMES`` frames and a
+    ``TP_ENCDEC_PROMPT`` prompt under the prefill policy plus the mesh
+    (both sequences cut; counted and timed), ``TP_DECODE_STEPS`` serve
+    steps on this rank's kv heads of the caches, fed the one-process
+    tokens, and one ``make_train_step`` under the train policy.  B4 is
+    held to its plain version on the prefill's first call (the encoder's
+    self attention), outside the counted run."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
+                                          make_train_step)
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.hints import sharding_policy
+
+    cfg = _tp_ssm_configs()["whisper"]
+    model = get_model(cfg)
+    policy = _mesh_policy(cfg, "prefill_32k")
+    specs = _tp_specs(out, "whisper")
+    params, held = _rank_blocks(torch, model, cfg, specs,
+                                policy["__mesh__"], seed)
+    batch = _tp_ssm_inputs(torch, cfg, seed)
+    feed = torch.load(os.path.join(out, "tp_encdec_one.pt"))["feed"].cuda()
+    prefill = make_prefill_step(model, batch["tokens"].shape[1]
+                                + TP_DECODE_STEPS)
+    attn = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _dist_reset()
+    t0 = time.perf_counter()
+    with sharding_policy(policy), capturing_first(ops, "mha", attn):
+        logits, cache = prefill(params, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {**_dist_counts(), **train_kernel_counts()}
+    cache_shapes = {f: list(t.shape) for f, t in cache._asdict().items()
+                    if torch.is_tensor(t)}
+    serve = make_serve_step(model)
+    steps = []
+    t0 = time.perf_counter()
+    with sharding_policy(_mesh_policy(cfg, "decode_32k")):
+        for i in range(TP_DECODE_STEPS):
+            tok, lg, cache = serve(params, cache, feed[:, i:i + 1])
+            steps.append((tok.cpu(), lg.float().cpu()))
+    torch.cuda.synchronize()
+    decode_wall = time.perf_counter() - t0
+    del cache
+    step = make_train_step(model, adamw.AdamWConfig(
+        lr_peak=TRAIN_LR, total_steps=1, warmup_steps=1))
+    opt = adamw.init(params)
+    reset_train_kernel_counts()
+    t0 = time.perf_counter()
+    with sharding_policy(_mesh_policy(cfg, "train_4k")):
+        loss, params, opt = step(params, opt, batch)
+    torch.cuda.synchronize()
+    step_wall = time.perf_counter() - t0
+    step_counts = train_kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+    q, k, v, kw = attn
+    err, share = attention_held(torch, q, k, v, f"(j) rank {rank}", **kw)
+    names = _leaf_names(params)
+    whole_leaves = [t for n, t in zip(names, adamw.tree_leaves(params))
+                    if "model" not in str(_spec_at(specs, n))]
+    torch.save({"logits": logits.float().cpu(), "steps": steps},
+               os.path.join(out, f"tp_encdec_{rank}.pt"))
+    return {**held, "prefill_wall_s": wall, "decode_wall_s": decode_wall,
+            **counts, "step_loss": float(loss), "step_wall_s": step_wall,
+            "step_launches": step_counts, "peak_memory_bytes": peak,
+            "cache_shapes": cache_shapes,
+            "embed_rows": params["embed"].shape[0],
+            "heads": params["enc"]["attn"]["wq"].shape[-1] // cfg.hd,
+            "whole_sha256": _digest(torch, whole_leaves),
+            "b4_shape": [list(q.shape), list(k.shape)],
+            "b4_held": {"max_abs_err": err, "share": share}}
+
+
+class RankOrder:
+    """One process computing a tensor-parallel Mamba2 block as the ``n``
+    ranks of (h) and (i) compute it: every product in a rank's shape (its
+    block of ``in_proj``'s columns, of the conv channels, its SSM heads;
+    each block a contiguous copy, as a rank holds it: a product's
+    rounding may follow the layout), the gated norm's sum of squares and
+    ``out_proj``'s float32 partial sums summed over the ranks in rank
+    order, as their all-reduce and reduce-scatter sum them.  The same function
+    as ``ssm.ssm_block``, rounded as the path is."""
+
+    def __init__(self, torch, cfg, n=2):
+        from repro_torch.models import ssm as ssm_mod
+
+        self.torch, self.cfg, self.n, self.ssm = torch, cfg, n, ssm_mod
+        d_inner, H, P, N = ssm_mod.dims(cfg)
+        self.dims = (d_inner, H, P, N)
+        self.widths = {"in_proj": 2 * d_inner + 2 * N + H,
+                       "conv": d_inner + 2 * N, "heads": H, "inner": d_inner}
+        if cfg.n_heads:
+            self.widths.update(q=cfg.n_heads * cfg.hd,
+                               kv=cfg.n_kv_heads * cfg.hd, ff=cfg.d_ff)
+
+    def cols(self, w, r, kind):
+        b = self.widths[kind] // self.n
+        return w[..., r * b:(r + 1) * b].contiguous()
+
+    def rows(self, w, r, kind):
+        b = self.widths[kind] // self.n
+        return w[r * b:(r + 1) * b]
+
+    @staticmethod
+    def summed(parts):
+        total = parts[0].float()
+        for p in parts[1:]:
+            total = total + p.float()
+        return total.to(parts[0].dtype)
+
+    def ssm_block(self, lp, x, states=None, key=None, streaming=False):
+        """``x`` after the block; ``states[key, r]`` (conv tail, SSM
+        state) of each rank, read where ``streaming`` and written."""
+        from repro_torch.models.layers import rms_norm
+
+        torch, cfg, n, cols = self.torch, self.cfg, self.n, self.cols
+        d_inner, H, P, N = self.dims
+        states = {} if states is None else states
+        Bsz, S, _ = x.shape
+        h = rms_norm(x, lp["ln"], cfg.norm_eps)
+        proj = torch.cat([torch.matmul(h, cols(lp["in_proj"], r, "in_proj"))
+                          for r in range(n)], dim=-1)
+        z, xin, bc, dt_raw = torch.split(proj, [d_inner, d_inner, 2 * N, H],
+                                         dim=-1)
+        conv_in = torch.cat([xin, bc], dim=-1)
+        outs, tails = [], []
+        for r in range(n):
+            o, tail = self.ssm._causal_conv(
+                cols(conv_in, r, "conv"), cols(lp["conv_w"], r, "conv"),
+                cols(lp["conv_b"], r, "conv"),
+                states[key, r][0] if streaming else None)
+            outs.append(o)
+            tails.append(tail)
+        xin, Bm, Cm = torch.split(torch.cat(outs, dim=-1), [d_inner, N, N],
+                                  dim=-1)
+        gs = []
+        for r in range(n):
+            lr = {k: cols(lp[k], r, "heads")
+                  for k in ("A_log", "D_skip", "dt_bias")}
+            xh = cols(xin, r, "inner").reshape(Bsz, S, H // n, P)
+            y, new_state = self.ssm._scan(
+                cfg, lr, xh, cols(dt_raw, r, "heads"), Bm, Cm,
+                states[key, r][1] if streaming else None, streaming)
+            states[key, r] = (tails[r], new_state)
+            y = y.reshape(Bsz, S, d_inner // n).to(x.dtype)
+            gs.append(y.float()
+                      * self.ssm._silu(cols(z, r, "inner")).float())
+        var = self.summed([torch.sum(g * g, dim=-1, keepdim=True)
+                           for g in gs]) / d_inner
+        return x + self.summed([torch.matmul(
+            ((g * torch.rsqrt(var + cfg.norm_eps))
+             * (1.0 + cols(lp["gate_ln"], r, "inner").float()))
+            .to(x.dtype).float(),
+            self.rows(lp["out_proj"], r, "inner").float())
+            for r, g in enumerate(gs)]).to(x.dtype)
+
+
+def hybrid_in_rank_order(torch, cfg, params, tokens, feed, n=2):
+    """(h)'s yardstick: one process's prefill of the hybrid's whole
+    weights over ``tokens`` and its serve steps fed ``feed``, computed as
+    the ``n`` ranks compute them (:class:`RankOrder`; the shared block on
+    a rank's query and kv heads and columns of F, its attention and FFN
+    summed over the ranks in float32 in rank order; every state and cache
+    a rank's share; the logits a rank's rows of the vocabulary each).
+    The same function as the plain prefill and decode, rounded as the
+    path is.  Returns the last position's logits of the prefill and of
+    each step, on the host."""
+    from repro_torch.models import hybrid
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import rms_norm, swiglu
+
+    ro = RankOrder(torch, cfg, n)
+    cols, rows, summed = ro.cols, ro.rows, ro.summed
+
+    def rank_lp(lp, r):
+        out = dict(lp)
+        for k, kind in (("wq", "q"), ("wk", "kv"), ("wv", "kv"),
+                        ("w_gate", "ff"), ("w_up", "ff")):
+            out[k] = cols(lp[k], r, kind)
+        out["wo"] = rows(lp["wo"], r, "q")
+        out["w_down"] = rows(lp["w_down"], r, "ff")
+        return out
+
+    B, S = tokens.shape
+    max_len = S + feed.shape[1]
+    states, kv = {}, {}              # (block | site, rank) -> a rank's share
+
+    def shared_block(lp, x, g, pos):
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        parts = []
+        for r in range(n):
+            lr = rank_lp(lp, r)
+            k, v = tfm._project_kv(cfg, lr, h, pos)
+            if pos == 0:
+                kb = torch.zeros((B, max_len) + tuple(k.shape[2:]),
+                                 dtype=k.dtype, device=k.device)
+                kv[g, r] = (kb, torch.zeros_like(kb))
+                kv[g, r][0][:, :S], kv[g, r][1][:, :S] = k, v
+                parts.append(tfm._attn_prompt(cfg, lr, h, k, v, 0))
+            else:
+                kb, vb = kv[g, r]
+                kb[:, pos:pos + 1], vb[:, pos:pos + 1] = k, v
+                parts.append(tfm._attn(cfg, lr, h, k_full=kb, v_full=vb,
+                                       window=0, q_offset=pos,
+                                       kv_len=pos + 1))
+        x = x + summed(parts)
+        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        return x + summed([swiglu(h, *(rank_lp(lp, r)[w] for w in (
+            "w_gate", "w_up", "w_down"))) for r in range(n)])
+
+    def logits(x):
+        h = rms_norm(x, params["ln_f"], cfg.norm_eps)[:, -1:]
+        w = params.get("lm_head", params["embed"])
+        b = cfg.vocab // n
+        return torch.cat([torch.matmul(h, w[r * b:(r + 1) * b]
+                                       .to(h.dtype).T)
+                          for r in range(n)], dim=-1)[:, 0].float().cpu()
+
+    G, per = hybrid._groups(cfg)
+
+    def run(tok, pos):
+        x = tfm.embed_tokens(params, tok)
+        for g in range(G):
+            for i in range(per):
+                x = ro.ssm_block(ssm_mod.layer(params["ssm"], (g, i)), x,
+                                 states, (g, i), pos > 0)
+            x = shared_block(params["shared_attn"], x, g, pos)
+        return logits(x)
+
+    out = [run(tokens, 0)]
+    for i in range(feed.shape[1]):
+        out.append(run(feed[:, i:i + 1], S + i))
+    return out
+
+
+def ssm_grads_in_rank_order(torch, cfg, params, batch, n=2):
+    """(i)'s second yardstick: the gradient of the SSM model's loss on
+    ``batch`` from one process whose blocks compute as the ``n`` ranks
+    do (:class:`RankOrder`, each block recomputed in the backward), the
+    embedding, the final norm and the loss whole.  The same function as
+    the plain gradient, its forward rounded as the path's; its backward
+    is autograd's, not the path's collectives."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import remat, rms_norm, unstack
+    from repro_torch.optim import adamw
+
+    ro = RankOrder(torch, cfg, n)
+    leaves = adamw.tree_map(lambda p: p.detach().requires_grad_(True),
+                            params)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    x = tfm.embed_tokens(leaves, batch["tokens"])
+    for lp in unstack(leaves["layers"], cfg.n_layers):
+        x = remat(lambda lp, x: ro.ssm_block(lp, x), lp, x)
+    h = rms_norm(x, leaves["ln_f"], cfg.norm_eps)
+    loss = tfm.chunked_xent(cfg, leaves, h, batch["labels"])
+    grads = torch.autograd.grad(loss, adamw.tree_leaves(leaves))
+    return list(grads)
+
+
+def _greedy_one_process(torch, model, params, batch):
+    """One process's prefill of ``batch`` and ``TP_DECODE_STEPS`` greedy
+    serve steps on whole weights: the logits of each (on the host) and
+    the tokens it fed, ``(B, TP_DECODE_STEPS)``."""
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+
+    S = batch["tokens"].shape[1]
+    logits, cache = make_prefill_step(model, S + TP_DECODE_STEPS)(
+        params, {k: v for k, v in batch.items() if k != "labels"})
+    serve = make_serve_step(model)
+    want = [logits.float().cpu()]
+    feed = [torch.argmax(logits, -1).to(torch.int32)[:, None]]
+    for _ in range(TP_DECODE_STEPS):
+        tok, lg, cache = serve(params, cache, feed[-1])
+        want.append(lg.float().cpu())
+        feed.append(tok)
+    return want, torch.cat(feed[:TP_DECODE_STEPS], dim=1).cpu()
+
+
+def _held_steps(torch, label, want, part, vocab, rows, tol, plain=None):
+    """A rank's prefill and serve steps' logits against ``want``'s (one
+    process's, or one process's in the ranks' order): finite, (rows,
+    vocab), within ``tol`` of max(1, |want|), and its tokens equal to
+    ``want``'s wherever the top-2 gap clears twice that bound.  Returns
+    each step's distance from ``want``, its distance from ``plain`` (one
+    process in its own order; default ``want``) as a share of max(1,
+    |plain|), read, and the tokens held."""
+    got = [part["logits"]] + [lg for _, lg in part["steps"]]
+    toks = [torch.argmax(part["logits"], -1)] + [
+        t[:, 0].long() for t, _ in part["steps"]]
+    errs, shares, held = [], [], 0
+    for i, (w, g, t) in enumerate(zip(want, got, toks)):
+        check(bool(torch.isfinite(g).all()) and g.shape == (rows, vocab),
+              f"{label} step {i}: logits not finite (batch, vocab)")
+        bound = tol * max(1.0, float(w.abs().max()))
+        errs.append(max_abs_diff(g, w))
+        check(errs[-1] <= bound, f"{label} step {i}: logits off by "
+              f"{errs[-1]} (bound {bound})")
+        p = w if plain is None else plain[i]
+        shares.append(max_abs_diff(g, p) / max(1.0, float(p.abs().max())))
+        top2 = w.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * bound
+        check(bool((t[clear] == w.argmax(-1)[clear]).all()),
+              f"{label} step {i}: a token differs past the margin")
+        held += int(clear.sum())
+    return errs, shares, held
+
+
+def phase_tensor_parallel_ssm(torch, seed, ssd_args, ssd_held_by):
+    """(h), (i) and (j): tensor parallelism of the SSM, hybrid and
+    encoder-decoder families in worlds of 2 ranks on the one card, each
+    rank holding the blocks that ``param_specs`` gives it on a (1, 2)
+    mesh, held to one process of the whole weights.  (h) zamba2-2.7b at
+    full width and depth: each rank's parameter and cache bytes equal to
+    the dry-run's to the byte; the prefill's last-position logits within
+    bf16 2e-2 of max(1, |ref|) of the one-process prefill summed in the
+    ranks' order (``hybrid_in_rank_order``), and so are
+    ``TP_DECODE_STEPS`` serve steps fed the plain one process's greedy
+    tokens, their tokens equal past the margin; the plain one process's
+    distance read beside them (a 54-layer random hybrid spreads several
+    per cent under another reduction order, ROADMAP F23); B6 on 40 heads
+    and B4 on 16 a rank.  (i) mamba2-370m at full width: step 1's
+    gradient, every cut leaf gathered, held leaf by leaf by (b)'s rule
+    against one process at ``TP_SSM_GRAD_LAYERS`` layers, the depth at
+    which (b) holds its own; at full depth read against one process in
+    its own order and in the ranks' (``ssm_grads_in_rank_order``), and
+    those two against each other, not held; then at full depth two train
+    steps' losses within the bound of one process's, the whole leaves
+    equal in both ranks, B6 and its backward on 16 heads a rank.  (j) whisper-base at full width and
+    depth: 1500 frames and a 64-token prompt, the prefill and the serve
+    steps against one process, one train step's loss, ``embed`` whole in
+    both ranks, B4 on 4 heads a rank.  Adds B6's rank-shape chunk of (h)
+    to ``ssd_args`` / ``ssd_held_by``; returns the ranks' launches and
+    B4's rows at (h)'s and (j)'s rank shapes."""
+    from repro_torch.data.pipeline import DataConfig, get_batch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import (cache_structs, default_fsdp,
+                                           param_bytes_per_device,
+                                           tree_bytes)
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import get_model, param_shapes
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.sharding import mesh_axes, param_specs
+    from torch_parity import BF16_TOL as tol
+
+    free_device_memory(torch)
+    out = tempfile.mkdtemp(prefix="chip_smoke_tp_ssm_")
+    atexit.register(shutil.rmtree, out, ignore_errors=True)
+    launches = {"ssd_chunk": 0, "flash_attention": 0}
+    t_phase = time.perf_counter()
+    mesh = MeshShape(("data", "model"), (1, 2))
+    configs = _tp_ssm_configs()
+    dryrun_bytes, t0 = {}, time.perf_counter()
+    for name, cfg in configs.items():
+        fsdp = default_fsdp(cfg, mesh)
+        specs = param_specs(param_shapes(get_model(cfg)), mesh, fsdp=fsdp)
+        with open(os.path.join(out, f"tp_specs_{name}.json"), "w") as f:
+            json.dump(specs, f)
+        dryrun_bytes[name] = param_bytes_per_device(cfg, mesh, fsdp=fsdp)
+    specs_s = time.perf_counter() - t0
+
+    # (h) one process first, whole weights: its prefill and greedy decode,
+    # and the prefill summed in the ranks' order
+    cfg = configs["zamba2"]
+    model = get_model(cfg)
+    params = _moe_params(torch, model, seed)
+    batch = _tp_ssm_inputs(torch, cfg, seed)
+    t0 = time.perf_counter()
+    want, feed = _greedy_one_process(torch, model, params, batch)
+    one_wall = time.perf_counter() - t0
+    torch.save({"feed": feed}, os.path.join(out, "tp_hybrid_one.pt"))
+    with torch.no_grad():
+        in_order = hybrid_in_rank_order(torch, cfg, params, batch["tokens"],
+                                        feed.cuda())
+    del params
+    free_device_memory(torch)
+    ranks, wall = run_ranks("tp_hybrid", 2, out, seed)
+    parts = [torch.load(os.path.join(out, f"tp_hybrid_{r}.pt"))
+             for r in range(2)]
+    S = TP_SSM_PREFILL[1]
+    structs = cache_structs(cfg, ShapeConfig(
+        "tp_hybrid", S + TP_DECODE_STEPS, TP_SSM_PREFILL[0], "decode"), mesh)
+    want_cache = tree_bytes(structs, mesh_axes(mesh))
+    order_errs, shares, held_tokens = [], [], 0
+    for r, (rk, part) in enumerate(zip(ranks, parts)):
+        check(rk["param_bytes"] == dryrun_bytes["zamba2"]
+              and rk["storage_bytes"] == rk["param_bytes"],
+              f"(h) rank {r}: {rk['param_bytes']} parameter bytes "
+              f"({rk['storage_bytes']} stored), the dry-run "
+              f"{dryrun_bytes['zamba2']}")
+        check(rk["cache_bytes"] == want_cache, f"(h) rank {r} holds "
+              f"{rk['cache_bytes']} cache bytes, the dry-run {want_cache}")
+        check((rk["ssm_heads"], rk["heads"]) == (
+            cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim // 2,
+            cfg.n_heads // 2), f"(h) rank {r}: heads {rk['ssm_heads']} / "
+              f"{rk['heads']}")
+        e, sh, h = _held_steps(torch, f"(h) rank {r} against one process "
+                               f"in the ranks' order", in_order, part,
+                               cfg.vocab, TP_SSM_PREFILL[0], tol, want)
+        order_errs.append(e)
+        shares.append(sh)
+        held_tokens += h
+    check(torch.equal(parts[0]["logits"], parts[1]["logits"]),
+          "(h) the ranks' prefill logits differ")
+    n_b6 = ssm_layers(cfg) * math.ceil(S / min(cfg.ssm_chunk, S))
+    check(all(r["ssd_chunk"] == n_b6
+              and r["flash_attention"] == attention_calls(cfg)
+              for r in ranks), f"(h) B6/B4 launches by rank: "
+          f"{[(r['ssd_chunk'], r['flash_attention']) for r in ranks]}")
+    for k in launches:
+        launches[k] += sum(r[k] for r in ranks)
+    label_h = "zamba2-2.7b tensor-parallel rank (h)"
+    ssd_args[label_h] = [t.cuda() for t in parts[0]["chunk"]]
+    ssd_held_by[label_h] = {S: max(r["b6_held"]["share_of_max"]
+                                   for r in ranks)}
+    say("tensor_parallel_ssm", case="(h)", arch=cfg.name,
+        layers=cfg.n_layers, tokens=list(TP_SSM_PREFILL),
+        decode_steps=TP_DECODE_STEPS, backend="gloo",
+        device="cuda:0 in every rank",
+        policy="make_policy prefill / decode + __mesh__ (1, 2): the "
+               "residual cut on its channels",
+        tolerance="bf16 2e-2 of max(1, |ref|)", specs_s=specs_s,
+        ssm_heads_per_rank=[r["ssm_heads"] for r in ranks],
+        heads_per_rank=[r["heads"] for r in ranks],
+        param_bytes=[r["param_bytes"] for r in ranks],
+        dryrun_bytes_per_device_params=dryrun_bytes["zamba2"],
+        storage_bytes=[r["storage_bytes"] for r in ranks],
+        allocated_bytes=[r["allocated_bytes"] for r in ranks],
+        cache_bytes=[r["cache_bytes"] for r in ranks],
+        dryrun_cache_bytes_per_device=want_cache,
+        cache_shapes=ranks[0]["cache_shapes"],
+        held="the prefill's and every step's logits and tokens against one "
+             "process in the ranks' order (bf16 bound, tokens past twice "
+             "it); the plain one process's distance read",
+        logits_max_abs_err_rank_order_by_step=order_errs,
+        logits_bit_for_bit_rank_order=[all(e == 0.0 for e in errs)
+                                       for errs in order_errs],
+        plain_one_process_err_share_by_step=shares,
+        tokens_held=held_tokens, one_process_wall_s=one_wall,
+        world_wall_s=wall,
+        prefill_wall_s=[r["prefill_wall_s"] for r in ranks],
+        decode_wall_s=[r["decode_wall_s"] for r in ranks],
+        b6_launches=[r["ssd_chunk"] for r in ranks],
+        b4_launches=[r["flash_attention"] for r in ranks],
+        b6_shape=ranks[0]["b6_shape"],
+        b6_held=[r["b6_held"] for r in ranks],
+        b4_shape=ranks[0]["b4_shape"],
+        b4_held=[r["b4_held"] for r in ranks],
+        staged_bytes_prefill=[r["staged_bytes"] for r in ranks],
+        staged_bytes_with_decode=[r["staged_bytes_with_decode"]
+                                  for r in ranks],
+        peak_memory_bytes=[r["peak_memory_bytes"] for r in ranks],
+        seconds=time.perf_counter() - t_phase)
+    b4_h = ranks[0]["b4_shape"]
+    del parts, want
+    free_device_memory(torch)
+
+    # (i) two train steps of mamba2-370m, against one process
+    t_case = time.perf_counter()
+    ranks, wall = run_ranks("tp_ssm_train", 2, out, seed)
+    cfg = configs["mamba2"]
+    model = get_model(cfg)
+    params = _moe_params(torch, model, seed)
+    data = DataConfig(vocab=cfg.vocab, seq_len=TP_SSM_TRAIN_BATCH[1],
+                      global_batch=TP_SSM_TRAIN_BATCH[0], seed=seed)
+    step = make_train_step(model, adamw.AdamWConfig(
+        lr_peak=TRAIN_LR, total_steps=TP_SSM_TRAIN_STEPS, warmup_steps=1))
+    opt = adamw.init(params)
+    want = []
+    for i in range(TP_SSM_TRAIN_STEPS):
+        loss, params, opt = step(params, opt, get_batch(data, i))
+        want.append(float(loss))
+    del params, opt
+    free_device_memory(torch)
+
+    for r, rk in enumerate(ranks):
+        for name, got in (("mamba2", rk["param_bytes"]),
+                          ("mamba2_grad", rk["shallow_param_bytes"])):
+            check(got == dryrun_bytes[name], f"(i) rank {r}: {got} "
+                  f"parameter bytes of {name}, the dry-run "
+                  f"{dryrun_bytes[name]}")
+        check(rk["storage_bytes"] == rk["param_bytes"],
+              f"(i) rank {r}: {rk['storage_bytes']} bytes stored")
+        for i, (w, g) in enumerate(zip(want, rk["losses"])):
+            check(abs(w - g) <= tol * max(1.0, abs(w)),
+                  f"(i) rank {r} step {i + 1}: loss {g} vs one process {w}")
+        held = rk["shallow_readings"]["plain"]
+        bad = grad_rule_breaks(held)
+        check(not bad, f"(i) rank {r}: step 1's gradient at "
+              f"{TP_SSM_GRAD_LAYERS} layers breaks (b)'s rule against one "
+              f"process at {bad}: {held}")
+        check(rk["ssm_heads"] == cfg.ssm_expand * cfg.d_model
+              // cfg.ssm_head_dim // 2, f"(i) rank {r}: {rk['ssm_heads']} "
+              f"heads")
+    check(ranks[0]["whole_sha256"] == ranks[1]["whole_sha256"],
+          "(i) the leaves each rank holds whole differ between the ranks")
+    per_rank = train_step_launches(cfg, TP_SSM_TRAIN_BATCH[1])["ssd_chunk"] \
+        * TP_SSM_TRAIN_STEPS
+    check(all(r["ssd_chunk"] == per_rank for r in ranks),
+          f"(i) B6 launches by rank: {[r['ssd_chunk'] for r in ranks]}")
+    launches["ssd_chunk"] += sum(r["ssd_chunk"] for r in ranks)
+
+    def worst(readings):
+        return max(readings.items(), key=lambda kv: kv[1]["share_of_max"])
+
+    say("tensor_parallel_ssm", case="(i)", arch=cfg.name,
+        layers=cfg.n_layers, batch=list(TP_SSM_TRAIN_BATCH),
+        steps=TP_SSM_TRAIN_STEPS, backend="gloo",
+        device="cuda:0 in every rank",
+        policy="make_policy train + __mesh__ (1, 2): the residual cut on "
+               "its channels",
+        tolerance=f"losses bf16 2e-2 of max(1, |ref|); step 1's gradient, "
+                  f"every cut leaf gathered, at {TP_SSM_GRAD_LAYERS} layers "
+                  f"by (b)'s rule against one process; at {cfg.n_layers} "
+                  f"read, not held",
+        grad_rule_layers=TP_SSM_GRAD_LAYERS,
+        grad_held_plain=[r["shallow_readings"]["plain"] for r in ranks],
+        grad_read_by_depth={
+            depth: {kind: [worst(r[key][kind]) for r in ranks]
+                    for kind in ("plain", "rank_order", "yardsticks")}
+            for depth, key in ((TP_SSM_GRAD_LAYERS, "shallow_readings"),
+                               (cfg.n_layers, "readings"))},
+        grad_read_full_depth=ranks[0]["readings"],
+        param_bytes=[r["param_bytes"] for r in ranks],
+        shallow_param_bytes=[r["shallow_param_bytes"] for r in ranks],
+        dryrun_bytes_per_device_params=dryrun_bytes["mamba2"],
+        losses=[r["losses"] for r in ranks], one_process_losses=want,
+        whole_leaves_equal=True, world_wall_s=wall,
+        step_walls_s=[r["step_walls_s"] for r in ranks],
+        b6_launches=[r["ssd_chunk"] for r in ranks],
+        b6_shape=ranks[0]["b6_shape"],
+        b6_held=[r["b6_held"] for r in ranks],
+        staged_bytes=[r["staged_bytes"] for r in ranks],
+        peak_memory_bytes=[r["peak_memory_bytes"] for r in ranks],
+        seconds=time.perf_counter() - t_case)
+    free_device_memory(torch)
+
+    # (j) whisper-base: one process first, then the world
+    t_case = time.perf_counter()
+    cfg = configs["whisper"]
+    model = get_model(cfg)
+    params = _moe_params(torch, model, seed)
+    batch = _tp_ssm_inputs(torch, cfg, seed)
+    want, feed = _greedy_one_process(torch, model, params, batch)
+    torch.save({"feed": feed}, os.path.join(out, "tp_encdec_one.pt"))
+    step = make_train_step(model, adamw.AdamWConfig(
+        lr_peak=TRAIN_LR, total_steps=1, warmup_steps=1))
+    want_loss = float(step(params, adamw.init(params), batch)[0])
+    del params
+    free_device_memory(torch)
+    ranks, wall = run_ranks("tp_encdec", 2, out, seed)
+    parts = [torch.load(os.path.join(out, f"tp_encdec_{r}.pt"))
+             for r in range(2)]
+    shares, held_tokens = [], 0
+    for r, (rk, part) in enumerate(zip(ranks, parts)):
+        check(rk["param_bytes"] == dryrun_bytes["whisper"]
+              and rk["storage_bytes"] == rk["param_bytes"],
+              f"(j) rank {r}: {rk['param_bytes']} parameter bytes "
+              f"({rk['storage_bytes']} stored), the dry-run "
+              f"{dryrun_bytes['whisper']}")
+        check(rk["embed_rows"] == cfg.vocab, f"(j) rank {r}: embed has "
+              f"{rk['embed_rows']} rows, not the whole {cfg.vocab}")
+        check(rk["heads"] == cfg.n_heads // 2, f"(j) rank {r}: "
+              f"{rk['heads']} heads")
+        check(abs(rk["step_loss"] - want_loss) <= tol * max(1.0,
+                                                            abs(want_loss)),
+              f"(j) rank {r}: the train step's loss {rk['step_loss']} vs "
+              f"one process {want_loss}")
+        _, sh, h = _held_steps(torch, f"(j) rank {r}", want, part,
+                               cfg.vocab, TP_ENCDEC_PROMPT[0], tol)
+        shares.append(sh)
+        held_tokens += h
+    check(torch.equal(parts[0]["logits"], parts[1]["logits"]),
+          "(j) the ranks' prefill logits differ")
+    check(ranks[0]["whole_sha256"] == ranks[1]["whole_sha256"],
+          "(j) the leaves each rank holds whole differ between the ranks")
+    n_b4 = attention_calls(cfg)
+    check(all(r["flash_attention"] == n_b4
+              and r["step_launches"]["flash_attention"] == 2 * n_b4
+              for r in ranks), f"(j) B4 launches by rank: "
+          f"{[(r['flash_attention'], r['step_launches']) for r in ranks]}")
+    launches["flash_attention"] += sum(
+        r["flash_attention"] + r["step_launches"]["flash_attention"]
+        for r in ranks)
+    say("tensor_parallel_ssm", case="(j)", arch=cfg.name,
+        layers=[cfg.n_encoder_layers, cfg.n_layers],
+        frames=TP_ENCDEC_FRAMES, tokens=list(TP_ENCDEC_PROMPT),
+        decode_steps=TP_DECODE_STEPS, backend="gloo",
+        device="cuda:0 in every rank",
+        policy="make_policy prefill / decode / train + __mesh__ (1, 2): "
+               "both sequences cut over model",
+        tolerance="bf16 2e-2 of max(1, |ref|)",
+        heads_per_rank=[r["heads"] for r in ranks],
+        embed_rows=[r["embed_rows"] for r in ranks],
+        param_bytes=[r["param_bytes"] for r in ranks],
+        dryrun_bytes_per_device_params=dryrun_bytes["whisper"],
+        cache_shapes=ranks[0]["cache_shapes"],
+        plain_one_process_err_share_by_step=shares,
+        tokens_held=held_tokens,
+        step_loss=[r["step_loss"] for r in ranks],
+        one_process_step_loss=want_loss, world_wall_s=wall,
+        prefill_wall_s=[r["prefill_wall_s"] for r in ranks],
+        decode_wall_s=[r["decode_wall_s"] for r in ranks],
+        step_wall_s=[r["step_wall_s"] for r in ranks],
+        b4_launches=[r["flash_attention"] for r in ranks],
+        step_launches=[r["step_launches"] for r in ranks],
+        b4_shape=ranks[0]["b4_shape"],
+        b4_held=[r["b4_held"] for r in ranks],
+        staged_bytes=[r["staged_bytes"] for r in ranks],
+        peak_memory_bytes=[r["peak_memory_bytes"] for r in ranks],
+        seconds=time.perf_counter() - t_case)
+    b4_j = ranks[0]["b4_shape"]
+    del parts, want
+    free_device_memory(torch)
+    shutil.rmtree(out, ignore_errors=True)
+
+    # B4 at (h)'s and (j)'s rank shapes: H/2 query and Hkv/2 kv heads
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for label, ((B, Sq, H, D), (_, Sk, Hkv, _)), causal, calls in (
+            ("zamba2-2.7b tensor-parallel rank (h)", b4_h, True,
+             2 * attention_calls(configs["zamba2"])),
+            ("whisper-base encoder tensor-parallel rank (j)", b4_j, False,
+             2 * 3 * configs["whisper"].n_encoder_layers)):
+        q, k, v = attention_inputs(torch, gen, torch.bfloat16, D, B, Hkv,
+                                   H // Hkv, Sq, Sk)
+        held = attention_held(torch, q, k, v, label, causal=causal)
+        rows.append((label, (q, k, v), {"causal": causal}, calls, held))
+    return launches, rows
+
+
+# ---------------------------------------------------------------------------
 # The twins of examples/, each in a process of its own
 # ---------------------------------------------------------------------------
 
@@ -4809,7 +5719,10 @@ def phase_examples(torch, seed):
 
 RANK_ENTRIES = {"moe": rank_moe, "dp": rank_dp, "pipeline": rank_pipeline,
                 "moe_model": rank_moe_model, "moe_train": rank_moe_train,
-                "tp_prefill": rank_tp_prefill, "tp_train": rank_tp_train}
+                "tp_prefill": rank_tp_prefill, "tp_train": rank_tp_train,
+                "tp_hybrid": rank_tp_hybrid,
+                "tp_ssm_train": rank_tp_ssm_train,
+                "tp_encdec": rank_tp_encdec}
 
 
 def rank_main(entry, rank, world, init_file, out, seed):
@@ -5156,7 +6069,11 @@ def main():
             ssd_held_by[cfg.name] = held
         attn_rows += rows
     add(phase_distributed(torch, args.seed))
-    for phase in (phase_moe_worlds, phase_tensor_parallel, phase_examples):
+    for phase in (phase_moe_worlds, phase_tensor_parallel,
+                  functools.partial(phase_tensor_parallel_ssm,
+                                    ssd_args=ssd_args,
+                                    ssd_held_by=ssd_held_by),
+                  phase_examples):
         n, rows = phase(torch, args.seed)
         add(n)
         attn_rows += rows

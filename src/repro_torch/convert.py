@@ -53,7 +53,7 @@ def for_ranks(tree: Dict[str, Any], *, stages: Optional[int] = None,
               experts: Optional[Tuple[int, int]] = None,
               specs: Optional[Dict[str, Any]] = None, mesh=None,
               coords: Optional[Dict[str, int]] = None,
-              head_dim: Optional[int] = None) -> Dict[str, Any]:
+              head_dim=None) -> Dict[str, Any]:
     """A parameter tree cut for a world of processes; numpy arrays or
     tensors, cut leaf by leaf as views where the leaves allow (hand the
     reference's numpy tree in, then :func:`params_from_numpy`, and a rank
@@ -65,8 +65,10 @@ def for_ranks(tree: Dict[str, Any], *, stages: Optional[int] = None,
     its spec (``parallel.sharding.param_specs``) on ``mesh`` at the rank's
     coordinates (axis name -> index), what a rank of a tensor-parallel
     model holds (``parallel.sharding.rank_blocks``, whose head-boundary
-    check ``head_dim`` turns on).  ``experts=(rank, n)``: the special
-    case of the expert stacks' specs: every ``we_*`` leaf keeps the
+    check ``head_dim`` turns on: the attention heads' width, or
+    ``parallel.sharding.head_widths(cfg)`` for every kind of head).
+    ``experts=(rank, n)``: the special case of the expert stacks' specs:
+    every ``we_*`` leaf keeps the
     ``rank``-th of ``n`` equal blocks of experts (dim -3), the rest
     whole, what a rank of a ``model`` axis of ``n`` holds in
     ``models.moe.moe_ffn_a2a``."""
@@ -107,7 +109,7 @@ def for_ranks(tree: Dict[str, Any], *, stages: Optional[int] = None,
 
 
 def block_init(specs: Dict[str, Any], mesh, coords: Dict[str, int],
-               head_dim: Optional[int] = None):
+               head_dim=None):
     """The ``keep`` of a model's ``init``: each leaf, as soon as it is
     drawn, replaced by a copy of this rank's block, so that a rank that
     draws a whole model from a seed holds no more than its blocks and one

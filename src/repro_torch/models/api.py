@@ -88,6 +88,7 @@ def get_model(cfg: ArchConfig, moe_impl: str = "sorted") -> Model:
                 cfg, p, batch["tokens"]),
             decode=partial(ssm.decode_step, cfg),
             init_cache=ssm_cache,
+            grad_norm=partial(tfm.grad_norm, cfg, init=ssm.init_params),
         )
     if fam == "hybrid":
         return Model(
@@ -98,6 +99,7 @@ def get_model(cfg: ArchConfig, moe_impl: str = "sorted") -> Model:
                 cfg, p, batch["tokens"], max_len),
             decode=partial(hybrid.decode_step, cfg),
             init_cache=partial(hybrid.init_cache, cfg),
+            grad_norm=partial(tfm.grad_norm, cfg, init=hybrid.init_params),
         )
     if fam in ("encdec", "audio"):
         return Model(
@@ -108,6 +110,7 @@ def get_model(cfg: ArchConfig, moe_impl: str = "sorted") -> Model:
                 cfg, p, batch["frames"], batch["tokens"], max_len),
             decode=partial(encdec.decode_step, cfg),
             init_cache=None,      # the cross K/V come from the frames
+            grad_norm=partial(tfm.grad_norm, cfg, init=encdec.init_params),
         )
     raise ValueError(f"unknown family {fam}")
 

@@ -16,6 +16,19 @@ step's single query row attends against the caches through the eager
 ``chunked_attention``, as in the JAX package.  ``lm_loss`` (the encoder,
 ``decode_train`` over the whole target and the chunked cross-entropy)
 carries gradients; ``prefill`` runs the same encoder body without them.
+
+Under a policy whose ``"residual"`` cuts the sequence over ``model``
+(the attention families' layout, ``parallel/hints.py``) the encoder's
+pass over the frames and the decoder's over the tokens each declare
+their sequence (both are cut, or neither): the residual is this rank's
+block, each block input is gathered whole, and the encoder's output is
+gathered once for every decoder layer's cross K/V (its gradient
+reduce-scattered).  With weights cut by ``param_specs`` over ``model``
+(tensor parallelism) the self and cross attention run on this rank's
+query and kv heads, ``wo`` and the MLP end with the row-parallel sum
+(the MLP's whole ``b_down`` added once, after it), the caches hold this
+rank's kv heads, and the embedding and logits are vocabulary-parallel
+where the vocabulary is cut (an odd one, 51,865 at full width, is not).
 """
 
 from __future__ import annotations
@@ -26,21 +39,24 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..kernels import ops
-from ..parallel.hints import hint, split_sequence
+from ..parallel.hints import (column_in, current_split, hint, residual_block,
+                              row_parallel_end, split_sequence)
 from . import transformer as tfm
-from .layers import (apply_rope, chunked_attention, dense_init, gelu_mlp,
-                     param_device, remat, rms_norm, unstack)
+from .layers import (apply_rope, chunked_attention, dense_init,
+                     parallel_gelu_mlp, param_device, remat, rms_norm,
+                     unstack)
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
-                dtype=torch.bfloat16, device="cuda") -> Params:
+                dtype=torch.bfloat16, device="cuda", keep=None) -> Params:
     """Random parameters from ``generator`` (which must live on ``device``),
     the JAX package's tree: ``embed``, ``ln_enc``, ``ln_f``, and ``enc`` /
     ``dec`` stacked over their layers.  One layer's float32 draw at a
-    time."""
+    time.  ``keep(path, leaf)``, where given, replaces each leaf as soon
+    as it is drawn (``convert.block_init``), the draws unchanged."""
     device = param_device(generator, device)
     D, H, Hkv, Dh, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                         cfg.d_ff)
@@ -56,24 +72,34 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
             out[i] = dense_init(generator, shape, dtype=dtype, device=device)
         return out
 
-    def attn(L):
-        return {"wq": stack(L, (D, H * Dh)), "wk": stack(L, (D, Hkv * Dh)),
-                "wv": stack(L, (D, Hkv * Dh)), "wo": stack(L, (H * Dh, D))}
+    def leaf(path, t):
+        return t if keep is None else keep(path, t)
 
-    def mlp(L):
-        return {"w_up": stack(L, (D, F)), "b_up": zeros(L, F),
-                "w_down": stack(L, (F, D)), "b_down": zeros(L, D)}
+    def attn(path, L):
+        return {k: leaf(f"{path}/{k}", stack(L, shape)) for k, shape in (
+            ("wq", (D, H * Dh)), ("wk", (D, Hkv * Dh)),
+            ("wv", (D, Hkv * Dh)), ("wo", (H * Dh, D)))}
 
-    enc = {"ln1": zeros(Lenc, D), "ln2": zeros(Lenc, D), "attn": attn(Lenc),
-           "mlp": mlp(Lenc)}
-    dec = {"ln1": zeros(Ldec, D), "ln2": zeros(Ldec, D),
-           "ln3": zeros(Ldec, D), "self": attn(Ldec), "cross": attn(Ldec),
-           "mlp": mlp(Ldec)}
+    def mlp(path, L):
+        return {"w_up": leaf(path + "/w_up", stack(L, (D, F))),
+                "b_up": leaf(path + "/b_up", zeros(L, F)),
+                "w_down": leaf(path + "/w_down", stack(L, (F, D))),
+                "b_down": leaf(path + "/b_down", zeros(L, D))}
+
+    enc = {"ln1": leaf("enc/ln1", zeros(Lenc, D)),
+           "ln2": leaf("enc/ln2", zeros(Lenc, D)),
+           "attn": attn("enc/attn", Lenc), "mlp": mlp("enc/mlp", Lenc)}
+    dec = {"ln1": leaf("dec/ln1", zeros(Ldec, D)),
+           "ln2": leaf("dec/ln2", zeros(Ldec, D)),
+           "ln3": leaf("dec/ln3", zeros(Ldec, D)),
+           "self": attn("dec/self", Ldec), "cross": attn("dec/cross", Ldec),
+           "mlp": mlp("dec/mlp", Ldec)}
     return {
-        "embed": dense_init(generator, (cfg.vocab, D), scale=0.02,
-                            dtype=dtype, device=device),
-        "ln_enc": zeros(D),
-        "ln_f": zeros(D),
+        "embed": leaf("embed", dense_init(generator, (cfg.vocab, D),
+                                          scale=0.02, dtype=dtype,
+                                          device=device)),
+        "ln_enc": leaf("ln_enc", zeros(D)),
+        "ln_f": leaf("ln_f", zeros(D)),
         "enc": enc,
         "dec": dec,
     }
@@ -85,84 +111,151 @@ def _layer(tree: Params, i: int) -> Params:
             for k, v in tree.items()}
 
 
+def heads_cut(cfg: ArchConfig, ap) -> bool:
+    """Whether an attention's weights are cut over ``model``: its ``wq``
+    holds fewer than every head (tensor parallelism)."""
+    return ap["wq"].shape[-1] < cfg.n_heads * cfg.hd
+
+
+def _whole_sequence(h, tp: bool):
+    """A block input over the whole sequence of its rows: with weights
+    cut over ``model``, ``hints.column_in`` (the sequence gathered under a
+    cut, else the gradient summed over ``model``); with whole weights the
+    sequence gathered where the pass cuts it; else ``h``."""
+    if tp:
+        return column_in(h)
+    split = current_split()
+    return h if split is None else split.gather(h)
+
+
+def _end(t, tp: bool):
+    """What the residual add takes of an attention's projected output
+    over the whole sequence: with weights cut over ``model`` the
+    row-parallel sum (reduce-scattered into this rank's block under a
+    cut), else this rank's block of it."""
+    return row_parallel_end(t) if tp else residual_block(t)
+
+
 def _mha(cfg: ArchConfig, ap, xq, xkv, *, causal):
     """Attention of ``xq`` (B, Sq, D) over ``xkv`` (B, Sk, D), both from
     position 0, through the flash attention kernel; returns the projected
-    output and the (roped) k, v that a cache keeps."""
+    output and the (roped) k, v that a cache keeps.  With weights cut over
+    ``model``: this rank's heads, and the output its partial sums."""
     B, Sq, _ = xq.shape
     Sk = xkv.shape[1]
-    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = torch.matmul(xq, ap["wq"]).reshape(B, Sq, H, Dh)
-    k = torch.matmul(xkv, ap["wk"]).reshape(B, Sk, Hkv, Dh)
-    v = torch.matmul(xkv, ap["wv"]).reshape(B, Sk, Hkv, Dh)
+    Dh = cfg.hd
+    q = torch.matmul(xq, ap["wq"]).reshape(B, Sq, -1, Dh)
+    k = torch.matmul(xkv, ap["wk"]).reshape(B, Sk, -1, Dh)
+    v = torch.matmul(xkv, ap["wv"]).reshape(B, Sk, -1, Dh)
     q = apply_rope(q, tfm._positions(Sq, 0, xq.device), cfg.rope_theta)
     k = apply_rope(k, tfm._positions(Sk, 0, xq.device), cfg.rope_theta)
     out = ops.mha(q, k, v, causal=causal)
-    return torch.matmul(out.reshape(B, Sq, H * Dh), ap["wo"]), (k, v)
+    return torch.matmul(out.reshape(B, Sq, -1), ap["wo"]), (k, v)
 
 
 def _mlp(cfg: ArchConfig, lp, x):
     m = lp["mlp"]
-    return gelu_mlp(x, m["w_up"], m["b_up"], m["w_down"], m["b_down"])
+    return parallel_gelu_mlp(x, m["w_up"], m["b_up"], m["w_down"],
+                             m["b_down"], cfg.d_ff)
 
 
-def _encode(cfg: ArchConfig, params: Params, frames: Tensor) -> Tensor:
+def _enc_layer(cfg: ArchConfig, lp, x):
+    """One encoder layer: bidirectional self attention, then the MLP."""
+    tp = heads_cut(cfg, lp["attn"])
+    h = _whole_sequence(rms_norm(x, lp["ln1"], cfg.norm_eps), tp)
+    a, _ = _mha(cfg, lp["attn"], h, h, causal=False)
+    x = x + _end(a, tp)
+    return x + _mlp(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps))
+
+
+def _dec_layer(cfg: ArchConfig, lp, x, enc_out):
+    """One decoder layer over the prompt: causal self attention, cross
+    attention over ``enc_out`` (the whole sequence of frames), the MLP.
+    Returns ``x`` and the self and cross ``(k, v)`` a cache keeps."""
+    tp = heads_cut(cfg, lp["self"])
+    h = _whole_sequence(rms_norm(x, lp["ln1"], cfg.norm_eps), tp)
+    a, kv_self = _mha(cfg, lp["self"], h, h, causal=True)
+    x = x + _end(a, tp)
+    h = _whole_sequence(rms_norm(x, lp["ln2"], cfg.norm_eps), tp)
+    a, kv_cross = _mha(cfg, lp["cross"], h, enc_out, causal=False)
+    x = x + _end(a, tp)
+    x = x + _mlp(cfg, lp, rms_norm(x, lp["ln3"], cfg.norm_eps))
+    return x, kv_self, kv_cross
+
+
+def both_cut(S_enc: int, S_dec: int) -> bool:
+    """Whether the policy in force cuts both the encoder's sequence of
+    ``S_enc`` frames and the decoder's of ``S_dec`` tokens: the passes
+    are cut together or not at all, so that every whole leaf's gradient
+    is summed over the same groups."""
+    cut = []
+    for S in (S_enc, S_dec):
+        with split_sequence(S) as split:
+            cut.append(split is not None and split.cut)
+    return all(cut)
+
+
+def _encode(cfg: ArchConfig, params: Params, frames: Tensor,
+            cut: bool = True) -> Tensor:
     """The encoder over ``frames (B, S_enc, D)``, gradients allowed: every
     layer's bidirectional self attention through the flash attention
     kernel, each layer recomputed in the backward when gradients are being
-    recorded."""
-    def block(lp, x):
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        a, _ = _mha(cfg, lp["attn"], h, h, causal=False)
-        x = x + a
-        return x + _mlp(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps))
+    recorded.  Under a sequence cut (``cut`` and the policy's) the
+    residual is this rank's block of the frames; the output is the whole
+    sequence, gathered once (its gradient reduce-scattered) for every
+    decoder layer's cross K/V."""
+    with split_sequence(frames.shape[1], cut):
+        def block(lp, x):
+            return _enc_layer(cfg, lp, x)
 
-    x = frames
-    for lp in unstack(params["enc"], cfg.n_encoder_layers or cfg.n_layers):
-        x = hint(remat(block, lp, x), "residual")
-    return rms_norm(x, params["ln_enc"], cfg.norm_eps)
+        x = residual_block(frames)
+        for lp in unstack(params["enc"],
+                          cfg.n_encoder_layers or cfg.n_layers):
+            x = hint(remat(block, lp, x), "residual")
+        return _whole_sequence(rms_norm(x, params["ln_enc"], cfg.norm_eps),
+                               heads_cut(cfg, params["dec"]["cross"]))
 
 
 @torch.no_grad()
-def encode(cfg: ArchConfig, params: Params, frames: Tensor) -> Tensor:
+def encode(cfg: ArchConfig, params: Params, frames: Tensor,
+           cut: bool = True) -> Tensor:
     """frames: precomputed embeddings (B, S_enc, D) -- the frontend stub.
     Bidirectional self attention in every layer; no gradients (the
     prefill's encoder)."""
-    return _encode(cfg, params, frames)
+    return _encode(cfg, params, frames, cut)
 
 
 def decode_train(cfg: ArchConfig, params: Params, enc_out: Tensor,
-                 tokens: Tensor) -> Tensor:
-    """The decoder over the whole of ``tokens (B, S)`` against ``enc_out``,
-    gradients allowed: causal self attention and cross attention through
-    the flash attention kernel, each layer recomputed in the backward.
-    Returns the final hidden states (B, S, D)."""
-    def block(lp, x):
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        a, _ = _mha(cfg, lp["self"], h, h, causal=True)
-        x = x + a
-        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        a, _ = _mha(cfg, lp["cross"], h, enc_out, causal=False)
-        x = x + a
-        return x + _mlp(cfg, lp, rms_norm(x, lp["ln3"], cfg.norm_eps))
+                 tokens: Tensor, cut: bool = True) -> Tensor:
+    """The decoder over the whole of ``tokens (B, S)`` against ``enc_out``
+    (the whole sequence of frames), gradients allowed: causal self
+    attention and cross attention through the flash attention kernel,
+    each layer recomputed in the backward.  Returns the final hidden
+    states (B, S, D): this rank's block of the sequence under a cut."""
+    with split_sequence(tokens.shape[1], cut):
+        def block(lp, x):
+            return _dec_layer(cfg, lp, x, enc_out)[0]
 
-    x = tfm.embed_tokens(params, tokens)
-    for lp in unstack(params["dec"], cfg.n_layers):
-        x = hint(remat(block, lp, x), "residual")
-    return rms_norm(x, params["ln_f"], cfg.norm_eps)
+        x = residual_block(tfm.embed_tokens(params, tokens, cfg.vocab))
+        for lp in unstack(params["dec"], cfg.n_layers):
+            x = hint(remat(block, lp, x), "residual")
+        return rms_norm(x, params["ln_f"], cfg.norm_eps)
 
 
 def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, Tensor]
             ) -> Tensor:
     """Encode ``batch["frames"]`` (cast to bfloat16), decode
     ``batch["tokens"]`` over them, and the chunked cross-entropy against
-    ``batch["labels"]``."""
-    # no sequence cut here yet: under a mesh the tokens are spread over
-    # 'data' alone (transformer.lm_loss)
-    with split_sequence(batch["tokens"].shape[1], cut=False) as split:
-        params = tfm.spread_grads(params, split)
-        enc_out = _encode(cfg, params, batch["frames"].to(torch.bfloat16))
-        h = decode_train(cfg, params, enc_out, batch["tokens"])
+    ``batch["labels"]``.  Under a policy with a ``"__mesh__"`` the
+    gradients come back summed where ranks share a leaf
+    (``transformer.spread_grads``)."""
+    frames, tokens = batch["frames"], batch["tokens"]
+    cut = both_cut(frames.shape[1], tokens.shape[1])
+    with split_sequence(tokens.shape[1], cut) as split:
+        params = tfm.spread_grads(params, split,
+                                  tfm.whole_shapes(cfg, init_params))
+        enc_out = _encode(cfg, params, frames.to(torch.bfloat16), cut)
+        h = decode_train(cfg, params, enc_out, tokens, cut)
         return tfm.chunked_xent(cfg, params, h, batch["labels"])
 
 
@@ -182,33 +275,32 @@ def prefill(cfg: ArchConfig, params: Params, frames: Tensor, tokens: Tensor,
     (B, V) and the cache, its self K/V ``max_len`` long (zeros past ``S``)
     and its cross K/V over the frames.  One flash attention launch per
     encoder layer and two per decoder layer (the causal self attention and
-    the cross attention)."""
+    the cross attention).  Under a sequence cut the logits are the last
+    block's rank's, in every rank (``transformer.last_logits``); with
+    weights cut over ``model`` the caches hold this rank's kv heads."""
     B, S = tokens.shape
     if S > max_len:
         raise ValueError(f"a prompt of {S} tokens does not fit a cache of "
                          f"max_len {max_len}")
-    enc_out = encode(cfg, params, frames.to(torch.bfloat16))
-    x = tfm.embed_tokens(params, tokens)
-    L, S_enc = cfg.n_layers, enc_out.shape[1]
-    kv = (L, B, max_len, cfg.n_kv_heads, cfg.hd)
-    cross = (L, B, S_enc, cfg.n_kv_heads, cfg.hd)
-    k_self = torch.zeros(kv, dtype=x.dtype, device=x.device)
-    v_self = torch.zeros(kv, dtype=x.dtype, device=x.device)
-    k_cross = torch.empty(cross, dtype=x.dtype, device=x.device)
-    v_cross = torch.empty(cross, dtype=x.dtype, device=x.device)
-    for i in range(L):
-        lp = _layer(params["dec"], i)
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        a, (k, v) = _mha(cfg, lp["self"], h, h, causal=True)
-        k_self[i, :, :S], v_self[i, :, :S] = k, v
-        x = x + a
-        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        a, (k, v) = _mha(cfg, lp["cross"], h, enc_out, causal=False)
-        k_cross[i], v_cross[i] = k, v
-        x = x + a
-        x = x + _mlp(cfg, lp, rms_norm(x, lp["ln3"], cfg.norm_eps))
-    h = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    logits = tfm.logits_fn(cfg, params, h[:, -1:])[:, 0]
+    cut = both_cut(frames.shape[1], S)
+    enc_out = encode(cfg, params, frames.to(torch.bfloat16), cut)
+    with split_sequence(S, cut) as split:
+        x = residual_block(tfm.embed_tokens(params, tokens, cfg.vocab))
+        L, S_enc = cfg.n_layers, enc_out.shape[1]
+        Hkv = params["dec"]["self"]["wk"].shape[-1] // cfg.hd
+        kv = (L, B, max_len, Hkv, cfg.hd)
+        cross = (L, B, S_enc, Hkv, cfg.hd)
+        k_self = torch.zeros(kv, dtype=x.dtype, device=x.device)
+        v_self = torch.zeros(kv, dtype=x.dtype, device=x.device)
+        k_cross = torch.empty(cross, dtype=x.dtype, device=x.device)
+        v_cross = torch.empty(cross, dtype=x.dtype, device=x.device)
+        for i in range(L):
+            x, (k, v), (kc, vc) = _dec_layer(cfg, _layer(params["dec"], i),
+                                             x, enc_out)
+            k_self[i, :, :S], v_self[i, :, :S] = k, v
+            k_cross[i], v_cross[i] = kc, vc
+        h = rms_norm(x, params["ln_f"], cfg.norm_eps)
+        logits = tfm.last_logits(cfg, params, h, split)
     return logits, EncDecCache(k_self, v_self, k_cross, v_cross, S)
 
 
@@ -218,35 +310,53 @@ def decode_step(cfg: ArchConfig, params: Params, cache: EncDecCache,
     """One decode step: tokens (B, 1) -> logits (B, V), the cache with
     ``pos + 1``.  The self K/V buffers are **updated in place** (a write
     past ``max_len`` is clamped to the last row, as the JAX package's
-    ``dynamic_update_slice`` clamps it); the cross K/V are read only."""
-    x = tfm.embed_tokens(params, tokens)
+    ``dynamic_update_slice`` clamps it); the cross K/V are read only.
+    With weights cut over ``model`` each attention runs on this rank's
+    heads against this rank's kv heads of the caches, and ``wo`` and the
+    MLP end with the all-reduce."""
     pos = int(cache.pos)
-    B, S, _ = x.shape
-    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    for i in range(cfg.n_layers):
-        lp = _layer(params["dec"], i)
-        k_s, v_s = cache.k_self[i], cache.v_self[i]
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        k_new = torch.matmul(h, lp["self"]["wk"]).reshape(B, S, Hkv, Dh)
-        v_new = torch.matmul(h, lp["self"]["wv"]).reshape(B, S, Hkv, Dh)
-        k_new = apply_rope(k_new, tfm._positions(S, pos, x.device),
+    Dh = cfg.hd
+    with split_sequence(tokens.shape[1], cut=False):
+        x = tfm.embed_tokens(params, tokens, cfg.vocab)
+        B, S, _ = x.shape
+        for i in range(cfg.n_layers):
+            lp = _layer(params["dec"], i)
+            tp = heads_cut(cfg, lp["self"])
+            k_s, v_s = cache.k_self[i], cache.v_self[i]
+            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            if tp:
+                h = column_in(h)
+            k_new = torch.matmul(h, lp["self"]["wk"]).reshape(B, S, -1, Dh)
+            v_new = torch.matmul(h, lp["self"]["wv"]).reshape(B, S, -1, Dh)
+            if k_s.shape[2] != k_new.shape[2]:
+                raise ValueError(
+                    f"a cache of {k_s.shape[2]} kv heads for a layer of "
+                    f"{k_new.shape[2]}: a tensor-parallel layer's cache "
+                    f"holds its rank's kv heads")
+            k_new = apply_rope(k_new, tfm._positions(S, pos, x.device),
+                               cfg.rope_theta)
+            at = min(max(pos, 0), k_s.shape[1] - S)
+            k_s[:, at:at + S] = k_new.to(k_s.dtype)
+            v_s[:, at:at + S] = v_new.to(v_s.dtype)
+            q = torch.matmul(h, lp["self"]["wq"]).reshape(B, S, -1, Dh)
+            q = apply_rope(q, tfm._positions(S, pos, x.device),
                            cfg.rope_theta)
-        at = min(max(pos, 0), k_s.shape[1] - S)
-        k_s[:, at:at + S] = k_new.to(k_s.dtype)
-        v_s[:, at:at + S] = v_new.to(v_s.dtype)
-        q = torch.matmul(h, lp["self"]["wq"]).reshape(B, S, H, Dh)
-        q = apply_rope(q, tfm._positions(S, pos, x.device), cfg.rope_theta)
-        a = chunked_attention(q, k_s, v_s, causal=True, q_offset=pos,
-                              kv_len=pos + 1)
-        x = x + torch.matmul(a.reshape(B, S, H * Dh), lp["self"]["wo"])
-        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        q = torch.matmul(h, lp["cross"]["wq"]).reshape(B, S, H, Dh)
-        q = apply_rope(q, tfm._positions(S, pos, x.device), cfg.rope_theta)
-        a = chunked_attention(q, cache.k_cross[i], cache.v_cross[i],
-                              causal=False)
-        x = x + torch.matmul(a.reshape(B, S, H * Dh), lp["cross"]["wo"])
-        x = x + _mlp(cfg, lp, rms_norm(x, lp["ln3"], cfg.norm_eps))
-    h = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    logits = tfm.logits_fn(cfg, params, h)[:, 0]
+            a = chunked_attention(q, k_s, v_s, causal=True, q_offset=pos,
+                                  kv_len=pos + 1)
+            o = torch.matmul(a.reshape(B, S, -1), lp["self"]["wo"])
+            x = x + (row_parallel_end(o) if tp else o)
+            h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+            if tp:
+                h = column_in(h)
+            q = torch.matmul(h, lp["cross"]["wq"]).reshape(B, S, -1, Dh)
+            q = apply_rope(q, tfm._positions(S, pos, x.device),
+                           cfg.rope_theta)
+            a = chunked_attention(q, cache.k_cross[i], cache.v_cross[i],
+                                  causal=False)
+            o = torch.matmul(a.reshape(B, S, -1), lp["cross"]["wo"])
+            x = x + (row_parallel_end(o) if tp else o)
+            x = x + _mlp(cfg, lp, rms_norm(x, lp["ln3"], cfg.norm_eps))
+        h = rms_norm(x, params["ln_f"], cfg.norm_eps)
+        logits = tfm.logits_fn(cfg, params, h)[:, 0]
     return logits, EncDecCache(cache.k_self, cache.v_self, cache.k_cross,
                                cache.v_cross, pos + 1)

@@ -11,6 +11,15 @@ through the eager attention against its cache.  Where the JAX package scans
 over groups and layers, two plain loops run here.  ``forward`` and
 ``lm_loss`` carry gradients (through the kernels' autograd functions);
 prefill and decode do not.
+
+Tensor parallelism: a rank holds the blocks ``param_specs`` gives it.
+The SSM groups run as ``models/ssm.py`` runs them on a rank's heads, and
+the shared block as ``transformer.dense_layer`` runs on a rank's query
+and kv heads and columns of F; under the train and prefill policies the
+residual is cut on its channels between every block, each block's input
+gathered on them and its row-parallel ends reduce-scattered on them.  The
+cache holds the rank's conv channels, SSM heads and kv heads
+(``cache_specs``).
 """
 
 from __future__ import annotations
@@ -21,7 +30,8 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
-from ..parallel.hints import hint, split_sequence
+from ..parallel.hints import (hint, residual_block, split_sequence,
+                              whole_channels)
 from . import ssm as ssm_mod
 from . import transformer as tfm
 from .layers import dense_init, remat, rms_norm, unstack
@@ -40,12 +50,15 @@ def _groups(cfg: ArchConfig) -> Tuple[int, int]:
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
-                dtype=torch.bfloat16, device="cuda") -> Params:
+                dtype=torch.bfloat16, device="cuda", keep=None) -> Params:
     """Random parameters from ``generator`` (which must live on ``device``),
     the JAX package's tree: ``ssm`` stacked ``(G, per, ...)``, one
-    ``shared_attn`` parameter set, ``embed`` and ``ln_f``."""
+    ``shared_attn`` parameter set, ``embed`` and ``ln_f``.  ``keep(path,
+    leaf)``, where given, replaces each leaf as soon as it is drawn
+    (``convert.block_init``), the draws unchanged."""
     G, per = _groups(cfg)
-    layers = ssm_mod.init_ssm_layers(cfg, generator, (G, per), dtype, device)
+    layers = ssm_mod.init_ssm_layers(cfg, generator, (G, per), dtype, device,
+                                     keep=keep, prefix="ssm")
     device = resolve_device(device)
     D, H, Hkv, Dh, Fd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                          cfg.d_ff)
@@ -57,16 +70,18 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     def zeros(n):
         return torch.zeros((n,), dtype=dtype, device=device)
 
-    shared = {
-        "ln1": zeros(D), "ln2": zeros(D),
-        "wq": init((D, H * Dh)), "wk": init((D, Hkv * Dh)),
-        "wv": init((D, Hkv * Dh)), "wo": init((H * Dh, D)),
-        "w_gate": init((D, Fd)), "w_up": init((D, Fd)),
-        "w_down": init((Fd, D)),
-    }
+    def leaf(path, t):
+        return t if keep is None else keep(path, t)
+
+    shared = {name: leaf("shared_attn/" + name, t) for name, t in (
+        ("ln1", zeros(D)), ("ln2", zeros(D)),
+        ("wq", init((D, H * Dh))), ("wk", init((D, Hkv * Dh))),
+        ("wv", init((D, Hkv * Dh))), ("wo", init((H * Dh, D))),
+        ("w_gate", init((D, Fd))), ("w_up", init((D, Fd))),
+        ("w_down", init((Fd, D))))}
     return {
-        "embed": init((cfg.vocab, D), scale=0.02),
-        "ln_f": zeros(D),
+        "embed": leaf("embed", init((cfg.vocab, D), scale=0.02)),
+        "ln_f": leaf("ln_f", zeros(D)),
         "ssm": layers,           # stacked (G, per, ...)
         "shared_attn": shared,   # one parameter set, reused at G sites
     }
@@ -81,15 +96,20 @@ class HybridCache(NamedTuple):
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device="cuda") -> HybridCache:
+               dtype=torch.bfloat16, device="cuda", heads=None,
+               conv_channels=None, kv_heads=None) -> HybridCache:
+    """Zeros; ``heads``, ``conv_channels`` and ``kv_heads`` of them a
+    layer (default: every one; a tensor-parallel rank holds its own,
+    ``cache_specs``' cut)."""
     device = resolve_device(device)
     d_inner, H, P, N = ssm_mod.dims(cfg)
     G, per = _groups(cfg)
-    kv = (G, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    kv = (G, batch, max_len, kv_heads or cfg.n_kv_heads, cfg.hd)
     return HybridCache(
-        torch.zeros((G, per, batch, cfg.ssm_conv - 1, d_inner + 2 * N),
+        torch.zeros((G, per, batch, cfg.ssm_conv - 1,
+                     conv_channels or d_inner + 2 * N),
                     dtype=dtype, device=device),
-        torch.zeros((G, per, batch, H, P, N), dtype=torch.float32,
+        torch.zeros((G, per, batch, heads or H, P, N), dtype=torch.float32,
                     device=device),
         torch.zeros(kv, dtype=dtype, device=device),
         torch.zeros(kv, dtype=dtype, device=device),
@@ -101,27 +121,34 @@ def forward(cfg: ArchConfig, params: Params, tokens: Tensor) -> Tensor:
     blocks, then the shared block attending over the sequence through the
     flash attention kernel; each group recomputed in the backward when
     gradients are being recorded, as the JAX package checkpoints its group
-    body.  The shared block's weights gather the gradients of every site."""
-    x = tfm.embed_tokens(params, tokens)
-    G, per = _groups(cfg)
-    shared = params["shared_attn"]
+    body.  The shared block's weights gather the gradients of every site.
+    Under a policy whose ``"residual"`` cuts the channels the residual
+    between blocks is this rank's channels, gathered whole for the final
+    norm."""
+    with split_sequence(tokens.shape[1], channels=cfg.d_model):
+        x = residual_block(tfm.embed_tokens(params, tokens, cfg.vocab))
+        G, per = _groups(cfg)
+        shared = params["shared_attn"]
 
-    def group(lps, x):
-        for lp in lps:
-            x, _ = ssm_mod.ssm_block(cfg, lp, x)
-        return tfm.dense_layer(cfg, shared, x, 0)[0]
+        def group(lps, x):
+            for lp in lps:
+                x, _ = ssm_mod.ssm_block(cfg, lp, x)
+            return tfm.dense_layer(cfg, shared, x, 0)[0]
 
-    for stacked in unstack(params["ssm"], G):
-        x = hint(remat(group, unstack(stacked, per), x), "residual")
-    return rms_norm(x, params["ln_f"], cfg.norm_eps)
+        for stacked in unstack(params["ssm"], G):
+            x = hint(remat(group, unstack(stacked, per), x), "residual")
+        return rms_norm(whole_channels(x), params["ln_f"], cfg.norm_eps)
 
 
 def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, Tensor]
             ) -> Tensor:
-    # the residual's channel cut has no process-local form: under a mesh
-    # the tokens are spread over 'data' alone (transformer.lm_loss)
-    with split_sequence(batch["tokens"].shape[1], cut=False) as split:
-        params = tfm.spread_grads(params, split)
+    """``forward``, then the chunked cross-entropy; under a policy with a
+    ``"__mesh__"`` the gradients come back summed where ranks share a
+    leaf (``transformer.spread_grads``)."""
+    with split_sequence(batch["tokens"].shape[1],
+                        channels=cfg.d_model) as split:
+        params = tfm.spread_grads(params, split,
+                                  tfm.whole_shapes(cfg, init_params))
         h = forward(cfg, params, batch["tokens"])
         return tfm.chunked_xent(cfg, params, h, batch["labels"])
 
@@ -131,22 +158,25 @@ def decode_step(cfg: ArchConfig, params: Params, cache: HybridCache,
                 tokens: Tensor) -> Tuple[Tensor, HybridCache]:
     """One decode step: tokens (B, 1) -> logits (B, V), updated cache.  All
     of the cache's buffers are **updated in place**; the returned cache
-    shares them and carries ``pos + 1``."""
-    x = tfm.embed_tokens(params, tokens)
+    shares them and carries ``pos + 1``.  With leaves cut over ``model``
+    the cache holds this rank's share of every state."""
     G, per = _groups(cfg)
     pos = int(cache.pos)
-    for g in range(G):
-        for i in range(per):
-            x, (conv, state) = ssm_mod.ssm_block(
-                cfg, ssm_mod.layer(params["ssm"], (g, i)), x,
-                conv_state=cache.conv[g, i], ssm_state=cache.state[g, i],
-                streaming=True)
-            cache.conv[g, i] = conv
-            cache.state[g, i] = state
-        x, _ = tfm.dense_layer(cfg, params["shared_attn"], x, 0,
-                               cache_kv=(cache.k[g], cache.v[g]), pos=pos)
-    h = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    logits = tfm.logits_fn(cfg, params, h)[:, 0]
+    with split_sequence(tokens.shape[1], cut=False):
+        x = tfm.embed_tokens(params, tokens, cfg.vocab)
+        for g in range(G):
+            for i in range(per):
+                x, (conv, state) = ssm_mod.ssm_block(
+                    cfg, ssm_mod.layer(params["ssm"], (g, i)), x,
+                    conv_state=cache.conv[g, i],
+                    ssm_state=cache.state[g, i], streaming=True)
+                cache.conv[g, i] = conv
+                cache.state[g, i] = state
+            x, _ = tfm.dense_layer(cfg, params["shared_attn"], x, 0,
+                                   cache_kv=(cache.k[g], cache.v[g]),
+                                   pos=pos)
+        h = rms_norm(x, params["ln_f"], cfg.norm_eps)
+        logits = tfm.logits_fn(cfg, params, h)[:, 0]
     return logits, HybridCache(cache.conv, cache.state, cache.k, cache.v,
                                pos + 1)
 
@@ -159,23 +189,29 @@ def prefill(cfg: ArchConfig, params: Params, tokens: Tensor, max_len: int
     ``S``).  Every SSM block runs the chunked scan (the ``ssd_chunk``
     kernel ``ceil(S / ssm_chunk)`` times per layer); the shared block
     attends over the prompt without a cache, through the flash attention
-    kernel, once per site."""
+    kernel, once per site.  Under a policy that cuts the residual's
+    channels it is this rank's channels between blocks; with leaves cut
+    over ``model`` the cache holds this rank's share of every state."""
     B, S = tokens.shape
     if S > max_len:
         raise ValueError(f"a prompt of {S} tokens does not fit a cache of "
                          f"max_len {max_len}")
-    x = tfm.embed_tokens(params, tokens)
     G, per = _groups(cfg)
-    cache = init_cache(cfg, B, max_len, device=x.device)
-    for g in range(G):
-        for i in range(per):
-            x, (conv, state) = ssm_mod.ssm_block(
-                cfg, ssm_mod.layer(params["ssm"], (g, i)), x)
-            cache.conv[g, i] = conv
-            cache.state[g, i] = state
-        x, (k, v) = tfm.dense_layer(cfg, params["shared_attn"], x, 0)
-        cache.k[g, :, :S] = k
-        cache.v[g, :, :S] = v
-    h = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    logits = tfm.logits_fn(cfg, params, h[:, -1:])[:, 0]
+    with split_sequence(S, channels=cfg.d_model):
+        x = residual_block(tfm.embed_tokens(params, tokens, cfg.vocab))
+        cache = init_cache(
+            cfg, B, max_len, device=x.device,
+            kv_heads=params["shared_attn"]["wk"].shape[-1] // cfg.hd,
+            **ssm_mod.rank_cache_dims(params["ssm"]))
+        for g in range(G):
+            for i in range(per):
+                x, (conv, state) = ssm_mod.ssm_block(
+                    cfg, ssm_mod.layer(params["ssm"], (g, i)), x)
+                cache.conv[g, i] = conv
+                cache.state[g, i] = state
+            x, (k, v) = tfm.dense_layer(cfg, params["shared_attn"], x, 0)
+            cache.k[g, :, :S] = k
+            cache.v[g, :, :S] = v
+        h = rms_norm(whole_channels(x), params["ln_f"], cfg.norm_eps)
+        logits = tfm.logits_fn(cfg, params, h[:, -1:])[:, 0]
     return logits, HybridCache(cache.conv, cache.state, cache.k, cache.v, S)

@@ -53,15 +53,20 @@ def parallel_swiglu(x: Tensor, w_gate: Tensor, w_up: Tensor, w_down: Tensor,
                     d_ff: int) -> Tensor:
     """A block's SwiGLU feed-forward on the residual's layout.  Whole
     weights: the SwiGLU of this rank's block of ``x`` where the pass cuts
-    the sequence (``hints.residual_block``).  Weights cut over ``model``
-    (``w_gate``/``w_up`` on F's columns, ``w_down`` on F's rows, fewer
-    than ``d_ff`` of them): this rank's columns of F over the whole
-    sequence (``hints.column_in``), then the row-parallel end -- the sum
-    over ``model``, reduce-scattered into this rank's block under a
-    sequence cut (``hints.row_parallel_end``)."""
-    from ..parallel.hints import column_in, residual_block, row_parallel_end
+    the sequence (``hints.residual_block``), this rank's channels of the
+    SwiGLU of the whole ``x`` where it cuts the channels.  Weights cut
+    over ``model`` (``w_gate``/``w_up`` on F's columns, ``w_down`` on F's
+    rows, fewer than ``d_ff`` of them): this rank's columns of F over the
+    whole sequence (``hints.column_in``), then the row-parallel end --
+    the sum over ``model``, reduce-scattered into this rank's block under
+    a cut (``hints.row_parallel_end``)."""
+    from ..parallel.hints import (column_in, current_split, residual_block,
+                                  row_parallel_end)
 
     if w_gate.shape[-1] == d_ff:
+        split = current_split()
+        if split is not None and split.channels:
+            return residual_block(swiglu(x, w_gate, w_up, w_down))
         return swiglu(residual_block(x), w_gate, w_up, w_down)
     return row_parallel_end(swiglu(column_in(x), w_gate, w_up, w_down))
 
@@ -81,6 +86,26 @@ def gelu_mlp(x: Tensor, w_up: Tensor, b_up: Tensor, w_down: Tensor,
              b_down: Tensor) -> Tensor:
     h = gelu_tanh(torch.matmul(x, w_up) + b_up)
     return torch.matmul(h, w_down) + b_down
+
+
+def parallel_gelu_mlp(x: Tensor, w_up: Tensor, b_up: Tensor, w_down: Tensor,
+                      b_down: Tensor, d_ff: int) -> Tensor:
+    """A block's gelu MLP with biases on the residual's layout.  Whole
+    weights: the MLP of ``x`` as it lies (a block of the sequence gives a
+    block: the MLP is per token), this rank's block of its output where
+    ``x`` is whole and the pass cuts it (``hints.residual_block``).
+    Weights cut over ``model`` (``w_up`` and ``b_up`` on F's columns,
+    ``w_down`` on F's rows, fewer than ``d_ff`` of them): this rank's
+    columns of F over the whole sequence (``hints.column_in``), the
+    row-parallel end (``hints.row_parallel_end``), then the whole
+    ``b_down`` once, after the sum -- added in every rank before it, it
+    would be counted ``n`` times."""
+    from ..parallel.hints import column_in, residual_block, row_parallel_end
+
+    if w_up.shape[-1] == d_ff:
+        return residual_block(gelu_mlp(x, w_up, b_up, w_down, b_down))
+    h = gelu_tanh(torch.matmul(column_in(x), w_up) + b_up)
+    return row_parallel_end(torch.matmul(h, w_down)) + b_down
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,23 @@ Layer parameters are stacked on a leading ``L`` axis, as in the JAX package,
 so weights map one to one; ``A_log``, ``D_skip`` and ``dt_bias`` are float32
 whatever the model's dtype.  ``forward`` and ``lm_loss`` carry gradients
 (through the kernel's autograd function); prefill and decode do not.
+
+Tensor parallelism: a rank holds exactly the blocks that ``param_specs``
+gives it (``parallel.sharding.rank_blocks``).  Those of ``in_proj`` (its
+``2 d_inner + 2N + H`` output columns), ``conv_w`` and ``conv_b`` (the
+``d_inner + 2N`` conv channels) are contiguous and do not fall on heads;
+those of ``A_log``, ``D_skip``, ``dt_bias``, ``gate_ln`` and
+``out_proj`` are whole heads.  The block bridges the two with two
+activation gathers over ``model``: ``h @ in_proj`` is gathered whole, and
+the rank takes its heads' ``z``, ``x`` and ``dt`` and the whole ``B`` and
+``C`` (shared by every head); the causal conv runs on the rank's block of
+the conv channels, with its own conv tail (``cache_specs``' ``conv``
+block), and its output is gathered and sliced the same way.  The SSD scan
+(B6) runs on the rank's ``H/n`` heads, the gated norm's mean of squares
+is summed over ``model`` in float32, and ``out_proj`` ends with the
+row-parallel sum of its float32 partial sums, rounded once.  Under the train and prefill policies the residual is
+cut on its channels (``parallel/hints.py``): each block gathers its
+input's channels before its norm.
 """
 
 from __future__ import annotations
@@ -24,7 +41,11 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..kernels.ssd_chunk import SsdChunkFn, ssd_chunk
-from ..parallel.hints import hint, split_sequence
+from ..parallel.collectives import (all_gather_dim, all_reduce_sum,
+                                    summed_grads)
+from ..parallel.hints import (column_in, hint, model_axis, residual_block,
+                              row_parallel_end, split_sequence,
+                              whole_channels)
 from . import transformer as tfm
 from .layers import dense_init, param_device, remat, rms_norm, unstack
 
@@ -42,11 +63,13 @@ def dims(cfg: ArchConfig):
 
 def init_ssm_layers(cfg: ArchConfig, generator: torch.Generator,
                     lead: Sequence[int], dtype=torch.bfloat16,
-                    device="cuda") -> Params:
+                    device="cuda", keep=None, prefix="layers") -> Params:
     """Random Mamba2 block parameters stacked on the leading axes ``lead``
     (``(L,)`` here, ``(G, per)`` in the hybrid), one layer's float32 draw
     at a time from ``generator`` (on ``device``): the JAX package's
-    ``init_ssm_layer`` tree and shapes, other numbers."""
+    ``init_ssm_layer`` tree and shapes, other numbers.  ``keep(path,
+    leaf)``, where given, replaces each leaf (path ``prefix/name``) as
+    soon as it is drawn, as in ``transformer.init_dense_params``."""
     device = param_device(generator, device)
     lead = tuple(lead)
     D, W = cfg.d_model, cfg.ssm_conv
@@ -64,31 +87,43 @@ def init_ssm_layers(cfg: ArchConfig, generator: torch.Generator,
     def full(shape, value, dt):
         return torch.full(lead + shape, value, dtype=dt, device=device)
 
+    def leaf(name, t):
+        return t if keep is None else keep(f"{prefix}/{name}", t)
+
     a_log = torch.log(torch.linspace(1.0, 16.0, H, device=device))
     return {
-        "ln": full((D,), 0.0, dtype),
-        "in_proj": stack((D, 2 * d_inner + 2 * N + H)),
-        "conv_w": stack((W, conv_dim), scale=0.2),
-        "conv_b": full((conv_dim,), 0.0, dtype),
-        "A_log": a_log.expand(lead + (H,)).contiguous(),
-        "D_skip": full((H,), 1.0, torch.float32),
-        "dt_bias": full((H,), 0.0, torch.float32),
-        "gate_ln": full((d_inner,), 0.0, dtype),
-        "out_proj": stack((d_inner, D)),
+        "ln": leaf("ln", full((D,), 0.0, dtype)),
+        "in_proj": leaf("in_proj", stack((D, 2 * d_inner + 2 * N + H))),
+        "conv_w": leaf("conv_w", stack((W, conv_dim), scale=0.2)),
+        "conv_b": leaf("conv_b", full((conv_dim,), 0.0, dtype)),
+        "A_log": leaf("A_log", a_log.expand(lead + (H,)).contiguous()),
+        "D_skip": leaf("D_skip", full((H,), 1.0, torch.float32)),
+        "dt_bias": leaf("dt_bias", full((H,), 0.0, torch.float32)),
+        "gate_ln": leaf("gate_ln", full((d_inner,), 0.0, dtype)),
+        "out_proj": leaf("out_proj", stack((d_inner, D))),
     }
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
-                dtype=torch.bfloat16, device="cuda") -> Params:
+                dtype=torch.bfloat16, device="cuda", keep=None) -> Params:
     """Random parameters from ``generator`` (which must live on ``device``),
     the JAX package's tree: ``embed``, ``ln_f`` and the blocks stacked on
-    ``L``."""
-    layers = init_ssm_layers(cfg, generator, (cfg.n_layers,), dtype, device)
+    ``L``.  ``keep(path, leaf)``, where given, replaces each leaf as soon
+    as it is drawn (``convert.block_init``: a rank's block of it), the
+    draws unchanged."""
+    layers = init_ssm_layers(cfg, generator, (cfg.n_layers,), dtype, device,
+                             keep=keep)
     device = resolve_device(device)
+
+    def leaf(path, t):
+        return t if keep is None else keep(path, t)
+
     return {
-        "embed": dense_init(generator, (cfg.vocab, cfg.d_model), scale=0.02,
-                            dtype=dtype, device=device),
-        "ln_f": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
+        "embed": leaf("embed", dense_init(generator, (cfg.vocab, cfg.d_model),
+                                          scale=0.02, dtype=dtype,
+                                          device=device)),
+        "ln_f": leaf("ln_f", torch.zeros((cfg.d_model,), dtype=dtype,
+                                         device=device)),
         "layers": layers,
     }
 
@@ -193,24 +228,15 @@ def ssd_chunked(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
     return y[:, :S], state
 
 
-def ssm_block(cfg: ArchConfig, lp, x: Tensor, *, conv_state=None,
-              ssm_state=None, streaming=False):
-    """One Mamba2 block.  x (B, S, D).  Streaming mode threads conv/ssm
-    states (decode); otherwise states start at zero (prefill).  Returns
-    ``(x, (conv tail, ssm state))``."""
-    Bsz, S, D = x.shape
-    d_inner, H, P, N = dims(cfg)
-    h = rms_norm(x, lp["ln"], cfg.norm_eps)
-    proj = torch.matmul(h, lp["in_proj"])   # (B, S, 2*d_inner + 2N + H)
-    z, xin, bc, dt_raw = torch.split(proj, [d_inner, d_inner, 2 * N, H],
-                                     dim=-1)
-    conv_in = torch.cat([xin, bc], dim=-1)
-    conv_out, new_conv = _causal_conv(conv_in, lp["conv_w"], lp["conv_b"],
-                                      conv_state)
-    xin, Bm, Cm = torch.split(conv_out, [d_inner, N, N], dim=-1)
+def _scan(cfg: ArchConfig, lp, xh: Tensor, dt_raw: Tensor, Bm: Tensor,
+          Cm: Tensor, ssm_state, streaming: bool):
+    """The SSD mixer over the heads of ``xh (B, S, h, P)``: ``dt``, the
+    recurrence (one token of a stream) or the chunked scan, and the ``D``
+    skip; ``lp``'s per-head leaves hold those ``h`` heads.  Returns
+    ``(y (B, S, h, P) float32, new state)``."""
+    S = xh.shape[1]
     dt = F.softplus(dt_raw.float() + lp["dt_bias"])
     A = -torch.exp(lp["A_log"])
-    xh = xin.reshape(Bsz, S, H, P)
     if streaming and S == 1:
         # O(1) recurrence for single-token decode
         dA = torch.exp(dt[:, 0] * A)                       # (B, H)
@@ -223,14 +249,100 @@ def ssm_block(cfg: ArchConfig, lp, x: Tensor, *, conv_state=None,
     else:
         y, new_state = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk,
                                    ssm_state)
-    y = y + lp["D_skip"][:, None] * xh.float()
+    return y + lp["D_skip"][:, None] * xh.float(), new_state
+
+
+def heads_cut(cfg: ArchConfig, lp) -> bool:
+    """Whether a Mamba2 block's leaves are cut over ``model``: its
+    ``out_proj`` holds the rows of fewer than every head (tensor
+    parallelism); then ``in_proj`` and ``conv_w`` must be cut too."""
+    d_inner = dims(cfg)[0]
+    if lp["out_proj"].shape[-2] == d_inner:
+        return False
+    C = 2 * d_inner + 2 * cfg.ssm_state + dims(cfg)[1]
+    if (lp["in_proj"].shape[-1] == C
+            or lp["conv_w"].shape[-1] == d_inner + 2 * cfg.ssm_state):
+        raise ValueError("a Mamba2 block cut on its heads with a whole "
+                         "in_proj or conv_w: param_specs cuts all three "
+                         "over 'model'")
+    return True
+
+
+def _rank_mixer(cfg: ArchConfig, lp, h: Tensor, conv_state, ssm_state,
+                streaming: bool):
+    """The block between its norm and ``out_proj`` on this rank's heads
+    (module docstring): ``h (B, S, D)`` whole; returns this rank's
+    ``out_proj`` partial sums (B, S, D) and its ``(conv tail, state)``."""
+    Bsz, S, _ = h.shape
+    d_inner, H, P, N = dims(cfg)
+    group, _, m = model_axis()
+    Hr = lp["A_log"].shape[-1]                 # this rank's heads
+    dr = Hr * P
+    cb = lp["conv_w"].shape[-1]                # its block of conv channels
+    # h @ in_proj's block of columns, gathered whole over 'model'
+    proj = all_gather_dim(torch.matmul(h, lp["in_proj"]), 2, group,
+                          torch.float32)
+    z, xin, bc, dt_raw = torch.split(proj, [d_inner, d_inner, 2 * N, H],
+                                     dim=-1)
+    conv_in = torch.cat([xin, bc], dim=-1)[..., m * cb:(m + 1) * cb]
+    conv_out, new_conv = _causal_conv(conv_in, lp["conv_w"], lp["conv_b"],
+                                      conv_state)
+    conv_out = all_gather_dim(conv_out, 2, group, torch.float32)
+    xin, Bm, Cm = torch.split(conv_out, [d_inner, N, N], dim=-1)
+    mine = slice(m * dr, (m + 1) * dr)
+    xh = xin[..., mine].reshape(Bsz, S, Hr, P)
+    y, new_state = _scan(cfg, lp, xh, dt_raw[..., m * Hr:(m + 1) * Hr], Bm,
+                         Cm, ssm_state, streaming)
+    y = y.reshape(Bsz, S, dr).to(h.dtype)
+    # the gated norm over the whole d_inner: this rank's sum of squares
+    # summed over 'model' in float32; each rank uses the sum for its own
+    # channels, so its gradient is summed over 'model' too
+    g = y.float() * _silu(z[..., mine]).float()
+    var = all_reduce_sum(summed_grads(torch.sum(g * g, dim=-1, keepdim=True),
+                                      (group,)), group) / d_inner
+    y = ((g * torch.rsqrt(var + cfg.norm_eps))
+         * (1.0 + lp["gate_ln"].float())).to(h.dtype)
+    # out_proj's partial sums stay float32 until they are summed over
+    # 'model', so the block's output is rounded once, as the whole
+    # product's is
+    return (torch.matmul(y.float(), lp["out_proj"].float()),
+            (new_conv, new_state))
+
+
+def ssm_block(cfg: ArchConfig, lp, x: Tensor, *, conv_state=None,
+              ssm_state=None, streaming=False):
+    """One Mamba2 block.  x (B, S, D).  Streaming mode threads conv/ssm
+    states (decode); otherwise states start at zero (prefill).  Returns
+    ``(x, (conv tail, ssm state))``.
+
+    Under a channel cut ``x`` is this rank's channels, gathered whole for
+    the norm; the residual add takes this rank's channels.  With leaves
+    cut over ``model`` (:func:`heads_cut`) the block runs on this rank's
+    heads (:func:`_rank_mixer`) and its states are this rank's conv
+    channels and heads."""
+    Bsz, S, _ = x.shape
+    d_inner, H, P, N = dims(cfg)
+    h = rms_norm(whole_channels(x), lp["ln"], cfg.norm_eps)
+    if heads_cut(cfg, lp):
+        out, states = _rank_mixer(cfg, lp, column_in(h), conv_state,
+                                  ssm_state, streaming)
+        return x + row_parallel_end(out).to(x.dtype), states
+    proj = torch.matmul(h, lp["in_proj"])   # (B, S, 2*d_inner + 2N + H)
+    z, xin, bc, dt_raw = torch.split(proj, [d_inner, d_inner, 2 * N, H],
+                                     dim=-1)
+    conv_in = torch.cat([xin, bc], dim=-1)
+    conv_out, new_conv = _causal_conv(conv_in, lp["conv_w"], lp["conv_b"],
+                                      conv_state)
+    xin, Bm, Cm = torch.split(conv_out, [d_inner, N, N], dim=-1)
+    xh = xin.reshape(Bsz, S, H, P)
+    y, new_state = _scan(cfg, lp, xh, dt_raw, Bm, Cm, ssm_state, streaming)
     y = y.reshape(Bsz, S, d_inner).to(x.dtype)
     # the gated product goes into the norm unrounded, as XLA fuses it in the
     # JAX package; the norm's output is rounded to the working dtype once
     y = rms_norm(y.float() * _silu(z).float(), lp["gate_ln"],
                  cfg.norm_eps).to(x.dtype)
     out = torch.matmul(y, lp["out_proj"])
-    return x + out, (new_conv, new_state)
+    return x + residual_block(out), (new_conv, new_state)
 
 
 # ---------------------------------------------------------------------------
@@ -245,15 +357,27 @@ class SSMCache(NamedTuple):
 
 
 def init_cache(cfg: ArchConfig, batch: int, dtype=torch.bfloat16,
-               device="cuda") -> SSMCache:
+               device="cuda", heads=None, conv_channels=None) -> SSMCache:
+    """Zeros; ``heads`` and ``conv_channels`` of them a layer (default:
+    every head and conv channel; a tensor-parallel rank holds its own,
+    ``cache_specs``' cut, :func:`rank_cache_dims`)."""
     device = resolve_device(device)
     d_inner, H, P, N = dims(cfg)
     L = cfg.n_layers
     return SSMCache(
-        torch.zeros((L, batch, cfg.ssm_conv - 1, d_inner + 2 * N),
+        torch.zeros((L, batch, cfg.ssm_conv - 1,
+                     conv_channels or d_inner + 2 * N),
                     dtype=dtype, device=device),
-        torch.zeros((L, batch, H, P, N), dtype=torch.float32, device=device),
+        torch.zeros((L, batch, heads or H, P, N), dtype=torch.float32,
+                    device=device),
         0)
+
+
+def rank_cache_dims(layers: Params) -> Dict[str, int]:
+    """The heads and conv channels of the states of the blocks whose
+    stacked leaves are ``layers``: this rank's where they are cut."""
+    return {"heads": layers["A_log"].shape[-1],
+            "conv_channels": layers["conv_w"].shape[-1]}
 
 
 def layer(stacked: Params, i) -> Params:
@@ -267,23 +391,30 @@ def forward(cfg: ArchConfig, params: Params, tokens: Tensor) -> Tensor:
     """tokens (B, S) -> final hidden states (B, S, D): every block runs the
     chunked scan, each recomputed in the backward when gradients are being
     recorded (so the ``ssd_chunk`` kernel runs ``ceil(S / ssm_chunk)``
-    times a layer in the forward and as many again in the recompute)."""
-    x = tfm.embed_tokens(params, tokens)
+    times a layer in the forward and as many again in the recompute).
+    Under a policy whose ``"residual"`` cuts the channels the residual
+    between blocks is this rank's channels, gathered whole for the final
+    norm."""
+    with split_sequence(tokens.shape[1], channels=cfg.d_model):
+        x = residual_block(tfm.embed_tokens(params, tokens, cfg.vocab))
 
-    def block(lp, x):
-        return ssm_block(cfg, lp, x)[0]
+        def block(lp, x):
+            return ssm_block(cfg, lp, x)[0]
 
-    for lp in unstack(params["layers"], cfg.n_layers):
-        x = hint(remat(block, lp, x), "residual")
-    return rms_norm(x, params["ln_f"], cfg.norm_eps)
+        for lp in unstack(params["layers"], cfg.n_layers):
+            x = hint(remat(block, lp, x), "residual")
+        return rms_norm(whole_channels(x), params["ln_f"], cfg.norm_eps)
 
 
 def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, Tensor]
             ) -> Tensor:
-    # the residual's channel cut has no process-local form: under a mesh
-    # the tokens are spread over 'data' alone (transformer.lm_loss)
-    with split_sequence(batch["tokens"].shape[1], cut=False) as split:
-        params = tfm.spread_grads(params, split)
+    """``forward``, then the chunked cross-entropy; under a policy with a
+    ``"__mesh__"`` the gradients come back summed where ranks share a
+    leaf (``transformer.spread_grads``)."""
+    with split_sequence(batch["tokens"].shape[1],
+                        channels=cfg.d_model) as split:
+        params = tfm.spread_grads(params, split,
+                                  tfm.whole_shapes(cfg, init_params))
         h = forward(cfg, params, batch["tokens"])
         return tfm.chunked_xent(cfg, params, h, batch["labels"])
 
@@ -295,16 +426,20 @@ def decode_step(cfg: ArchConfig, params: Params, cache: SSMCache,
 
     The cache's ``conv``/``state`` buffers are **updated in place** (the
     returned cache shares them and carries ``pos + 1``), as the dense
-    family's KV cache is."""
-    x = tfm.embed_tokens(params, tokens)
-    for i in range(cfg.n_layers):
-        x, (conv, state) = ssm_block(
-            cfg, layer(params["layers"], i), x, conv_state=cache.conv[i],
-            ssm_state=cache.state[i], streaming=True)
-        cache.conv[i] = conv
-        cache.state[i] = state
-    h = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    logits = tfm.logits_fn(cfg, params, h)[:, 0]
+    family's KV cache is.  With leaves cut over ``model`` the cache holds
+    this rank's conv channels and heads, and the logits are the whole
+    vocabulary's."""
+    with split_sequence(tokens.shape[1], cut=False):
+        x = tfm.embed_tokens(params, tokens, cfg.vocab)
+        for i in range(cfg.n_layers):
+            x, (conv, state) = ssm_block(
+                cfg, layer(params["layers"], i), x,
+                conv_state=cache.conv[i], ssm_state=cache.state[i],
+                streaming=True)
+            cache.conv[i] = conv
+            cache.state[i] = state
+        h = rms_norm(x, params["ln_f"], cfg.norm_eps)
+        logits = tfm.logits_fn(cfg, params, h)[:, 0]
     return logits, SSMCache(cache.conv, cache.state, int(cache.pos) + 1)
 
 
@@ -313,14 +448,19 @@ def prefill(cfg: ArchConfig, params: Params, tokens: Tensor
             ) -> Tuple[Tensor, SSMCache]:
     """tokens (B, S) -> logits of the last position (B, V) and the cache
     that decoding goes on from.  Every block runs the chunked scan: the
-    ``ssd_chunk`` kernel ``ceil(S / ssm_chunk)`` times per layer."""
+    ``ssd_chunk`` kernel ``ceil(S / ssm_chunk)`` times per layer.  Under a
+    policy that cuts the residual's channels it is this rank's channels
+    between blocks; with leaves cut over ``model`` the cache holds this
+    rank's conv channels and heads."""
     B, S = tokens.shape
-    x = tfm.embed_tokens(params, tokens)
-    cache = init_cache(cfg, B, device=x.device)
-    for i in range(cfg.n_layers):
-        x, (conv, state) = ssm_block(cfg, layer(params["layers"], i), x)
-        cache.conv[i] = conv
-        cache.state[i] = state
-    h = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    logits = tfm.logits_fn(cfg, params, h[:, -1:])[:, 0]
+    with split_sequence(S, channels=cfg.d_model):
+        x = residual_block(tfm.embed_tokens(params, tokens, cfg.vocab))
+        cache = init_cache(cfg, B, device=x.device,
+                           **rank_cache_dims(params["layers"]))
+        for i in range(cfg.n_layers):
+            x, (conv, state) = ssm_block(cfg, layer(params["layers"], i), x)
+            cache.conv[i] = conv
+            cache.state[i] = state
+        h = rms_norm(whole_channels(x), params["ln_f"], cfg.norm_eps)
+        logits = tfm.logits_fn(cfg, params, h[:, -1:])[:, 0]
     return logits, SSMCache(cache.conv, cache.state, S)

@@ -42,7 +42,7 @@ from ..device import resolve_device
 from ..kernels import ops
 from ..parallel.hints import (column_in, current_split, hint, model_axis,
                               policy_value, residual_block, row_parallel_end,
-                              split_sequence)
+                              split_sequence, whole_channels)
 from .layers import (NEG_INF, apply_rope, chunked_attention, dense_init,
                      param_device, parallel_swiglu, remat, rms_norm, swiglu,
                      unstack)
@@ -203,11 +203,17 @@ def dense_layer(cfg: ArchConfig, lp, x, window, *, cache_kv=None, pos=0,
     into this rank's block under a sequence cut, all-reduced otherwise.
     A cache then holds this rank's kv heads (``cache_specs``' head cut).
 
+    In a pass that cuts the residual's channels (the hybrid's shared
+    block; ``hints.whole_channels``) ``x`` is this rank's channels: each
+    norm's input is gathered whole on them, and each residual add takes
+    this rank's channels (the row-parallel ends reduce-scatter on them).
+
     A write that would run past the end of the buffer is clamped so that it
     fits (for one token: the last row is overwritten) while RoPE and the
     masks go on with the unclamped ``pos`` -- what the JAX package's
     ``dynamic_update_slice`` does."""
-    h = hint(rms_norm(x, lp["ln1"], cfg.norm_eps), "block_in")
+    h = hint(rms_norm(whole_channels(x), lp["ln1"], cfg.norm_eps),
+             "block_in")
     tp = heads_cut(cfg, lp)
     ha = column_in(h) if tp else h
     if cache_kv is None:
@@ -235,7 +241,8 @@ def dense_layer(cfg: ArchConfig, lp, x, window, *, cache_kv=None, pos=0,
                      block_k=block_k)
         new_kv = (k_buf, v_buf)
     x = x + (row_parallel_end(attn) if tp else residual_block(attn))
-    h = hint(rms_norm(x, lp["ln2"], cfg.norm_eps), "block_in")
+    h = hint(rms_norm(whole_channels(x), lp["ln2"], cfg.norm_eps),
+             "block_in")
     if ffn is None:
         delta = parallel_swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"],
                                 cfg.d_ff)
@@ -393,7 +400,7 @@ def chunked_xent(cfg: ArchConfig, params: Params, h: Tensor, labels: Tensor,
         cut = (m * w.shape[0], group)
         h = column_in(h)
     elif split is not None:
-        labels = split.block(labels)
+        labels = split.block(labels, 1)
     B, S, D = h.shape
     nchunks = max(1, S // chunk)
     hs = h.reshape(B, nchunks, S // nchunks, D)
@@ -424,8 +431,10 @@ def whole_shapes(cfg: ArchConfig, init=None) -> Params:
 def spread_grads(params: Params, split, whole=None) -> Params:
     """``params`` whose gradients are summed, in the backward, over the
     ranks that share each leaf: a whole leaf over the groups the pass's
-    tokens are spread over (each rank saw only its share of them); a leaf
-    cut over ``model`` -- its shape differs from ``whole``'s
+    tokens are spread over (each rank saw only its share of them; under
+    a channel cut, its share of the channels: the norm gains that read a
+    gathered input take a partial gradient in each rank); a leaf cut over
+    ``model`` -- its shape differs from ``whole``'s
     (:func:`whole_shapes`): tensor parallelism, or the expert-parallel MoE
     layer's experts -- is this rank's own, which saw every token of its
     data row, and is summed over ``data`` alone.  Without a split:
@@ -545,16 +554,25 @@ def prefill(cfg: ArchConfig, params: Params, tokens: Tensor, max_len: int,
             cache.k[i, :, :S] = k
             cache.v[i, :, :S] = v
         h = rms_norm(x, params["ln_f"], cfg.norm_eps)
-        head = params.get("lm_head", params["embed"])
-        if head.shape[0] == cfg.vocab:
-            logits = logits_fn(cfg, params, h[:, -1:])[:, 0]
-            if split is not None:
-                logits = split.last_block(logits)
-        else:
-            last = h[:, -1:]
-            logits = logits_fn(cfg, params, last if split is None
-                               else split.last_block(last))[:, 0]
+        logits = last_logits(cfg, params, h, split)
     return logits, KVCache(cache.k, cache.v, S)
+
+
+def last_logits(cfg: ArchConfig, params: Params, h: Tensor, split
+                ) -> Tensor:
+    """The last position's logits (B, V) of a prefill's final hidden
+    states ``h``, in every rank of a ``model`` group: under a sequence
+    cut ``h`` is this rank's block, and the rank of the last block
+    broadcasts its logits -- or, with a head cut on the vocabulary, its
+    last hidden state, for every rank's block of the vocabulary (the
+    logits gathered whole, :func:`logits_fn`)."""
+    head = params.get("lm_head", params["embed"])
+    if head.shape[0] == cfg.vocab:
+        logits = logits_fn(cfg, params, h[:, -1:])[:, 0]
+        return logits if split is None else split.last_block(logits)
+    last = h[:, -1:]
+    return logits_fn(cfg, params, last if split is None
+                     else split.last_block(last))[:, 0]
 
 
 @torch.no_grad()

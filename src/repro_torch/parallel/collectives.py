@@ -106,7 +106,9 @@ def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
                       + src.shape[1:], dtype=x.dtype, device=x.device)
     with through_host(group, reads=[src], writes=[out]) as ((a,), (b,)):
         dist.all_gather_into_tensor(b, a, group=group)
-    return out.movedim(0, dim)
+    # laid out as a tensor of that shape computed in one process: a sum
+    # over the last dim (a norm) or a product then takes the same order
+    return out.movedim(0, dim).contiguous()
 
 
 def _scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -116,18 +118,21 @@ def _scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
                       device=x.device)
     with through_host(group, reads=[src], writes=[out]) as ((a,), (b,)):
         dist.reduce_scatter_tensor(b, a, group=group)
-    return out.movedim(0, dim)
+    return out.movedim(0, dim).contiguous()
 
 
 class _AllGatherDim(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dim, group):
-        ctx.dim, ctx.group = dim, group
+    def forward(ctx, x, dim, group, sum_dtype):
+        ctx.dim, ctx.group, ctx.sum_dtype = dim, group, sum_dtype
         return _gather(x, dim, group)
 
     @staticmethod
     def backward(ctx, ct):
-        return _scatter(ct, ctx.dim, ctx.group), None, None
+        if ctx.sum_dtype is None or ct.dtype == ctx.sum_dtype:
+            return _scatter(ct, ctx.dim, ctx.group), None, None, None
+        return (_scatter(ct.to(ctx.sum_dtype), ctx.dim, ctx.group)
+                .to(ct.dtype), None, None, None)
 
 
 class _ReduceScatterDim(torch.autograd.Function):
@@ -167,11 +172,14 @@ class _SumGrads(torch.autograd.Function):
         return ct, None
 
 
-def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+def all_gather_dim(x: torch.Tensor, dim: int, group,
+                   sum_dtype: torch.dtype = None) -> torch.Tensor:
     """The group's tensors joined along ``dim`` in rank order (the JAX
     package's tiled ``all_gather``).  Its gradient is the reduce-scatter
-    of the output's: each rank's block gets the sum over the group."""
-    return _AllGatherDim.apply(x, dim, group)
+    of the output's: each rank's block gets the sum over the group, taken
+    in ``sum_dtype`` where given (the ranks' partial cotangents of a
+    bfloat16 activation summed in float32) and cast back."""
+    return _AllGatherDim.apply(x, dim, group, sum_dtype)
 
 
 def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:

@@ -35,9 +35,32 @@ form when a layer's weights are cut over ``model`` (tensor parallelism,
 ``lm_head`` rows give, and the expert cut of ``"expert_buffer"``
 (``P("model", None, None)``) the ``E/n`` experts' rows of the buffer that
 this rank's expert weights take; with whole weights both are whole.
-The cut is made by the weights, so the hint passes either.  Still open:
-the channel cut of the SSM and hybrid residual (``P(dp, None,
-"model")``) and the encoder-decoder's cuts, which pass through.
+The cut is made by the weights, so the hint passes either.
+
+The SSM and hybrid families cut the residual on its channels instead
+(``"residual"`` is ``P(dp, None, "model")``: the SSD scan cannot have its
+sequence cut).  Their passes declare the residual's width ``D`` too
+(``split_sequence(S, channels=D)``); where ``model`` divides it, a
+:class:`Split` of ``dim`` 2 holds, under which
+
+* the residual between blocks is this rank's ``D/n`` channels (the
+  ``"residual"`` hint keeps them; no other hint reads the channel cut:
+  ``"logits"`` names the same spec for the vocabulary);
+* a block's input is all-gathered on its channels before its first norm
+  (:func:`whole_channels`), and the gradient of the gather is
+  reduce-scattered, summed in float32: each rank's partial cotangent of
+  the gathered input is summed over ``model`` there, once, so
+  :func:`column_in` passes its input untouched under such a cut;
+* :func:`row_parallel_end` reduce-scatters the ranks' partial sums on the
+  channels, in float32, and :func:`residual_block` takes this rank's
+  channels of an output computed whole.
+
+The gains of the norms that read the gathered input (``ln``, ``ln1``,
+``ln2``, ``ln_f``) are whole in every rank and take a partial gradient
+there; ``models.transformer.spread_grads`` sums them over ``model``, as
+it sums every whole leaf of a pass whose tokens or channels are cut.
+Decode has no ``"residual"`` entry in the policy: its residual stays
+whole and the row-parallel ends all-reduce.
 
 A layer knows that it is tensor-parallel from its weights' shapes, never
 from a flag.  Its products with weights cut on their output columns take
@@ -99,11 +122,12 @@ def _names(entry) -> tuple:
 
 @dataclass(frozen=True)
 class Split:
-    """How a pass's tokens lie over the live mesh: the sequence of length
-    ``S`` cut into ``n`` blocks over the ``model`` group (``n == 1``: not
-    cut, every ``model`` rank holds it whole), this rank's block
-    ``rank``; the batch rows cut over the ``data`` group (``None`` where
-    the mesh's data axis has one rank)."""
+    """How a pass's tokens lie over the live mesh: the residual's ``dim``
+    (1: the sequence; 2: the channels, the SSM and hybrid families'
+    cut) of length ``S`` cut into ``n`` blocks over the ``model`` group
+    (``n == 1``: not cut, every ``model`` rank holds it whole), this
+    rank's block ``rank``; the batch rows cut over the ``data`` group
+    (``None`` where the mesh's data axis has one rank)."""
 
     S: int
     n: int
@@ -111,36 +135,48 @@ class Split:
     model: object
     data: object
     n_data: int
+    dim: int = 1
 
     @property
     def cut(self) -> bool:
         return self.n > 1
 
+    @property
+    def channels(self) -> bool:
+        """Whether the residual's channels are cut (``dim`` 2)."""
+        return self.cut and self.dim == 2
+
     def _whole(self, t, dim: int) -> bool:
-        """Whether ``t`` holds the whole sequence along ``dim`` (else this
-        rank's block of it); any other length is a layout fault."""
+        """Whether ``t`` is whole along ``dim`` (else this rank's block of
+        it); any other length is a layout fault."""
         if t.shape[dim] not in (self.S, self.S // self.n):
             raise ValueError(
-                f"a tensor of {t.shape[dim]} positions along dim {dim} in "
-                f"a pass over {self.S} cut in {self.n} blocks: neither the "
-                f"whole sequence nor a block of it")
+                f"a tensor of {t.shape[dim]} along dim {dim} in a pass "
+                f"that cuts {self.S} in {self.n} blocks: neither the whole "
+                f"of it nor a block")
         return t.shape[dim] == self.S
 
-    def block(self, t, dim: int = 1):
-        """This rank's block of a whole ``t`` along ``dim`` (a block
-        passes)."""
-        if not self.cut or not self._whole(t, dim):
+    def block(self, t, dim: int = None):
+        """This rank's block of a whole ``t`` along ``dim`` (default: the
+        cut dim; a block passes, and so does a tensor along a dim the
+        pass does not cut)."""
+        dim = self.dim if dim is None else dim
+        if not self.cut or dim != self.dim or not self._whole(t, dim):
             return t
         b = self.S // self.n
         return t.narrow(dim, self.rank * b, b)
 
     def gather(self, t):
-        """The whole sequence from this rank's block of it (dim 1; a whole
-        one passes)."""
-        if not self.cut or self._whole(t, 1):
+        """The whole of ``t`` along the cut dim from this rank's block of
+        it (a whole one passes).  The channels' gather sums its gradient
+        in float32."""
+        if not self.cut or self._whole(t, self.dim):
             return t
+        import torch
+
         from .collectives import all_gather_dim
-        return all_gather_dim(t, 1, self.model)
+        return all_gather_dim(t, self.dim, self.model,
+                              torch.float32 if self.dim == 2 else None)
 
     def token_groups(self) -> tuple:
         """The groups over which this pass's tokens are spread."""
@@ -187,9 +223,9 @@ class Split:
         return x / float(self.n_data)
 
     def last_block(self, t):
-        """``t`` of the rank holding the last block, in every rank of the
-        ``model`` group (a broadcast from it)."""
-        if not self.cut:
+        """``t`` of the rank holding the last block of the sequence, in
+        every rank of the ``model`` group (a broadcast from it)."""
+        if not self.cut or self.dim != 1:
             return t
         import torch.distributed as dist
         t = t.contiguous()
@@ -198,30 +234,39 @@ class Split:
         return t
 
 
-def _sequence_split(S: int, cut: bool) -> Optional[Split]:
+def _sequence_split(S: int, cut: bool, channels: Optional[int]
+                    ) -> Optional[Split]:
     """The :class:`Split` of a pass over ``S`` tokens a row under the
-    policy in force: ``None`` without a ``"__mesh__"``; the sequence cut
-    over ``model`` where ``cut`` and the policy's ``"residual"`` cuts dim
-    1 over ``model``, ``model`` has more than one rank and divides ``S``."""
+    policy in force: ``None`` without a ``"__mesh__"``; where ``cut``,
+    ``model`` has more than one rank and the policy's ``"residual"`` cuts
+    over it, the sequence cut (dim 1, ``model`` divides ``S``) or, for a
+    pass that gives its residual's width ``channels``, the channel cut
+    (dim 2, ``model`` divides ``channels``)."""
     mesh = policy_value("__mesh__")
     if mesh is None:
         return None
     import torch.distributed as dist
     names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
-    n, rank, model = 1, 0, None
+    length, n, rank, model, dim = S, 1, 0, None, 1
     if "model" in names:
         spec = policy_value("residual")
         n_model = mesh.size(names.index("model"))
-        if (cut and spec is not None and len(spec) > 1
-                and "model" in _names(spec[1]) and n_model > 1
-                and S % n_model == 0):
+        if cut and spec is not None and n_model > 1:
+            if (len(spec) > 1 and "model" in _names(spec[1])
+                    and S % n_model == 0):
+                n = n_model
+            elif (channels is not None and len(spec) > 2
+                    and "model" in _names(spec[2])
+                    and channels % n_model == 0):
+                n, length, dim = n_model, channels, 2
+        if n > 1:
             model = mesh.get_group("model")
-            n, rank = n_model, dist.get_rank(model)
+            rank = dist.get_rank(model)
     data, n_data = None, 1
     if "data" in names and mesh.size(names.index("data")) > 1:
         data = mesh.get_group("data")
         n_data = mesh.size(names.index("data"))
-    return Split(S, n, rank, model, data, n_data)
+    return Split(length, n, rank, model, data, n_data, dim)
 
 
 def current_split() -> Optional[Split]:
@@ -230,12 +275,13 @@ def current_split() -> Optional[Split]:
 
 
 @contextmanager
-def split_sequence(S: int, cut: bool = True):
-    """Declare a pass over a whole sequence of ``S`` tokens a row: yields
-    its :class:`Split` (``None`` without a mesh) and holds it for
-    the hints until the pass ends."""
+def split_sequence(S: int, cut: bool = True, channels: Optional[int] = None):
+    """Declare a pass over a whole sequence of ``S`` tokens a row (its
+    residual ``channels`` wide, for a family whose ``"residual"`` may cut
+    the channels): yields its :class:`Split` (``None`` without a mesh) and
+    holds it for the hints until the pass ends."""
     old = current_split()
-    _LOCAL.split = _sequence_split(S, cut)
+    _LOCAL.split = _sequence_split(S, cut, channels)
     try:
         yield _LOCAL.split
     finally:
@@ -276,13 +322,16 @@ def model_axis():
 def column_in(h):
     """The input of products whose weights are cut on their output
     columns over ``model`` (``wq``/``wk``/``wv``, ``w_gate``/``w_up``,
-    the router, ``lm_head``): under a sequence cut the whole sequence
-    (the ``"block_in"`` gather; a whole ``h`` passes), whose gradient is
-    reduce-scattered -- each rank's share summed; otherwise ``h`` itself,
-    whose gradient is summed over ``model`` in the backward."""
+    the router, ``lm_head``, ``in_proj``): under a sequence cut the whole
+    sequence (the ``"block_in"`` gather; a whole ``h`` passes), whose
+    gradient is reduce-scattered -- each rank's share summed; under a
+    channel cut ``h`` itself, computed from the gathered channels
+    (:func:`whole_channels`), whose gather sums the gradient; otherwise
+    ``h`` itself, whose gradient is summed over ``model`` in the
+    backward."""
     split = current_split()
     if split is not None and split.cut:
-        return split.gather(h)
+        return h if split.channels else split.gather(h)
     from .collectives import summed_grads
     return summed_grads(h, (model_axis()[0],))
 
@@ -293,25 +342,36 @@ def row_parallel_end(t):
     expert-cut combine): ``t`` holds this rank's partial sums over the
     whole sequence.  Under a sequence cut their sum is reduce-scattered
     into this rank's block (what :func:`residual_block` takes of a whole
-    output); otherwise (decode, a sequence that ``model`` does not divide)
-    all-reduced.  Summed in float32, returned in ``t``'s dtype."""
+    output), under a channel cut into this rank's channels; otherwise
+    (decode, a sequence that ``model`` does not divide) all-reduced.
+    Summed in float32, returned in ``t``'s dtype."""
     from .collectives import all_reduce_sum, reduce_scatter_dim
     group = model_axis()[0]
     split = current_split()
     if split is not None and split.cut:
-        if not split._whole(t, 1):
+        if not split._whole(t, split.dim):
             raise ValueError("a row-parallel product over a block of the "
-                             "sequence: its input must be whole")
-        return reduce_scatter_dim(t.float(), 1, group).to(t.dtype)
+                             "residual: its input must be whole")
+        return reduce_scatter_dim(t.float(), split.dim, group).to(t.dtype)
     return all_reduce_sum(t.float(), group).to(t.dtype)
 
 
 def residual_block(t):
-    """``t``'s block of the sequence where the pass in flight cuts it and
-    ``t`` is whole, else ``t``: what the residual add takes of an output
-    computed over the whole sequence.  Not a hint: no spec is read."""
+    """``t``'s block of the sequence (or of the channels) where the pass
+    in flight cuts it and ``t`` is whole, else ``t``: what the residual
+    add takes of an output computed whole.  Not a hint: no spec is
+    read."""
     split = current_split()
     return t if split is None else split.block(t)
+
+
+def whole_channels(x):
+    """The whole channels of the residual ``x`` where the pass in flight
+    cuts them (all-gathered over ``model``; the gather's gradient is
+    reduce-scattered, summed in float32), else ``x`` itself: a block's
+    input before its first norm.  Not a hint: no spec is read."""
+    split = current_split()
+    return x if split is None or not split.channels else split.gather(x)
 
 
 def hint(x, name: str):
@@ -330,6 +390,10 @@ def hint(x, name: str):
     split = current_split()
     if split is None or not split.cut:
         return x
+    if split.channels:
+        # the residual's channel cut; "logits" names the same spec for the
+        # vocabulary, which the weights cut
+        return split.block(x) if name == "residual" else x
     if len(spec) > 1 and "model" in _names(spec[1]):
         return split.block(x)
     if all("model" not in _names(e) for e in spec):

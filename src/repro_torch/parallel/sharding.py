@@ -222,9 +222,30 @@ def param_specs(params_shape: Any, mesh, fsdp: bool = False,
 # A rank's blocks of a parameter tree (tensor parallelism)
 # ---------------------------------------------------------------------------
 
-# the dim of a leaf that holds its heads, from the last: a cut of it must
-# fall on a head boundary
-HEAD_DIMS = {"wq": 1, "wk": 1, "wv": 1, "bq": 1, "bk": 1, "bv": 1, "wo": 2}
+# the dim of a leaf that holds its heads, from the last, and the kind of
+# head along it (its width: ``head_widths``): a cut of it must fall on a
+# head boundary.  Mamba2's contiguous cuts of ``in_proj``, ``conv_w`` and
+# ``conv_b`` need not (``models/ssm.py`` gathers across them).
+HEAD_DIMS = {"wq": (1, "attention"), "wk": (1, "attention"),
+             "wv": (1, "attention"), "bq": (1, "attention"),
+             "bk": (1, "attention"), "bv": (1, "attention"),
+             "wo": (2, "attention"),
+             "A_log": (1, "ssm_heads"), "D_skip": (1, "ssm_heads"),
+             "dt_bias": (1, "ssm_heads"), "gate_ln": (1, "ssm"),
+             "out_proj": (2, "ssm")}
+
+
+def head_widths(cfg: ArchConfig) -> Dict[str, int]:
+    """The width of one head along each kind of head dim of
+    ``HEAD_DIMS``: an attention head's ``hd``, a Mamba2 head's
+    ``ssm_head_dim`` channels, and one entry in Mamba2's per-head leaves;
+    a kind the config lacks is left out."""
+    out = {"ssm_heads": 1}
+    if cfg.n_heads:
+        out["attention"] = cfg.hd
+    if cfg.ssm_state:
+        out["ssm"] = cfg.ssm_head_dim
+    return out
 
 
 def mesh_coords(mesh) -> Dict[str, int]:
@@ -255,11 +276,12 @@ def _model_dim(path: str, spec: PartitionSpec, axes: Dict[str, int]
 
 
 def leaf_block(path: str, leaf, spec: PartitionSpec, axes: Dict[str, int],
-               coords: Dict[str, int], head_dim: Optional[int] = None):
+               coords: Dict[str, int], head_dim=None):
     """This rank's block of one leaf (tensor or numpy array) under
     ``spec``: a view.  Where the cut of a head dim (``HEAD_DIMS``) would
-    not fall on a boundary of ``head_dim`` it raises, naming the leaf and
-    the spec."""
+    not fall on a boundary of a head it raises, naming the leaf and the
+    spec; ``head_dim``: the attention heads' width, or the widths of every
+    kind of head (:func:`head_widths`)."""
     d = _model_dim(path, spec, axes)
     if d is None:
         return leaf
@@ -269,25 +291,28 @@ def leaf_block(path: str, leaf, spec: PartitionSpec, axes: Dict[str, int],
                          f"({spec!r})")
     blk = leaf.shape[d] // axes["model"]
     name = path.rsplit("/", 1)[-1]
-    if (head_dim and name in HEAD_DIMS
-            and d == len(leaf.shape) - HEAD_DIMS[name] and blk % head_dim):
+    widths = (head_dim if isinstance(head_dim, dict)
+              else {"attention": head_dim})
+    at_dim, kind = HEAD_DIMS.get(name, (None, None))
+    width = widths.get(kind)
+    if width and d == len(leaf.shape) - at_dim and blk % width:
         raise ValueError(
             f"{path}: {spec!r} cuts dim {d} ({leaf.shape[d]}) over a "
             f"'model' axis of {axes['model']} into blocks of {blk}, not "
-            f"whole heads of {head_dim}: head-misaligned cuts are not "
+            f"whole heads of {width}: head-misaligned cuts are not "
             f"supported")
     at = coords["model"] * blk
     return leaf[(slice(None),) * d + (slice(at, at + blk),)]
 
 
 def rank_blocks(tree: Any, specs: Any, mesh, coords: Dict[str, int],
-                head_dim: Optional[int] = None) -> Any:
+                head_dim=None) -> Any:
     """This rank's block of every leaf of a parameter tree (nested dicts
     of tensors or numpy arrays, views where the layout allows) under its
     spec tree (:func:`param_specs`) on ``mesh``, at ``coords`` (axis name
     -> index, :func:`mesh_coords`).  A leaf that its spec leaves whole,
     or cuts over axes of size 1 only, stays whole.  ``head_dim``: the
-    attention leaves' cuts must fall on head boundaries."""
+    head leaves' cuts must fall on head boundaries (:func:`leaf_block`)."""
     axes = mesh_axes(mesh)
 
     def walk(t, s, prefix):
@@ -328,6 +353,99 @@ def join_blocks(trees: Sequence[Any], specs: Any, mesh) -> Any:
         return torch.cat(parts, dim=d)
 
     return walk(list(trees), specs, "")
+
+
+def _live_cuts(spec: PartitionSpec, axes: Dict[str, int]):
+    """``(dim, axes major to minor)`` of every dim that ``spec`` cuts over
+    axes of more than one rank."""
+    for d, entry in enumerate(spec):
+        live = [a for a in ((entry,) if isinstance(entry, str) else
+                            (entry or ())) if axes[a] > 1]
+        if live:
+            yield d, live
+
+
+def cache_blocks(cache, specs, mesh, coords: Dict[str, int]):
+    """This rank's block of every tensor of a decode cache (the family's
+    cache type) under :func:`cache_specs` on ``mesh`` at ``coords``: each
+    dim cut over every live axis its spec names (the batch over ``data``
+    too), views; other fields (``pos``) as they are."""
+    axes = mesh_axes(mesh)
+
+    def block(t, spec):
+        if not hasattr(t, "shape") or not len(getattr(t, "shape", ())):
+            return t
+        for d, live in _live_cuts(spec, axes):
+            n, i = 1, 0
+            for a in live:
+                n, i = n * axes[a], i * axes[a] + coords[a]
+            if t.shape[d] % n:
+                raise ValueError(f"cache dim {d} of {tuple(t.shape)} does "
+                                 f"not divide by {n} ({spec!r})")
+            b = t.shape[d] // n
+            t = t[(slice(None),) * d + (slice(i * b, (i + 1) * b),)]
+        return t
+
+    return type(cache)(*(block(t, s) for t, s in zip(cache, specs)))
+
+
+def join_caches(caches: Sequence[Any], specs, mesh):
+    """The whole cache from every rank's blocks (``caches`` by rank, in
+    the mesh's row-major order), :func:`cache_blocks`' inverse: a rank
+    that holds a block another rank holds too must hold the same values.
+    numpy arrays or tensors; other fields as the first rank holds them."""
+    axes = mesh_axes(mesh)
+    names = list(axes)
+
+    def coords_of(r):
+        out = {}
+        for a in reversed(names):
+            r, out[a] = divmod(r, axes[a])
+        return out
+
+    def cat(parts, d):
+        if isinstance(parts[0], np.ndarray):
+            return np.concatenate(parts, axis=d)
+        import torch
+        return torch.cat(parts, dim=d)
+
+    def join(field, spec):
+        if not hasattr(field[0], "shape") or not len(field[0].shape):
+            return field[0]
+        cuts = list(_live_cuts(spec, axes))
+        blocks = {}
+        for r, t in enumerate(field):
+            c = coords_of(r)
+            key = tuple(c[a] for _, live in cuts for a in live)
+            if key in blocks:
+                same = (np.array_equal(np.asarray(blocks[key]), np.asarray(t))
+                        if isinstance(t, np.ndarray) else
+                        bool((blocks[key] == t).all()))
+                if not same:
+                    raise ValueError(f"ranks hold different values of the "
+                                     f"block {key} of a cache ({spec!r})")
+            blocks[key] = t
+
+        def build(prefix, rest):
+            if not rest:
+                return blocks[prefix]
+            (d, live), more = rest[0], rest[1:]
+            n = 1
+            for a in live:
+                n *= axes[a]
+            parts = []
+            for i in range(n):
+                sub, j = [], i
+                for a in reversed(live):
+                    j, k = divmod(j, axes[a])
+                    sub.insert(0, k)
+                parts.append(build(prefix + tuple(sub), more))
+            return cat(parts, d)
+
+        return build((), cuts)
+
+    return type(caches[0])(*(join([c[i] for c in caches], s)
+                             for i, s in enumerate(specs)))
 
 
 # ---------------------------------------------------------------------------
@@ -437,7 +555,8 @@ def placements(spec: PartitionSpec, mesh) -> tuple:
 
 __all__ = [
     "P", "PartitionSpec", "ROLE_TP_DIMS", "bankable", "batch_specs",
-    "cache_specs", "dp_axes", "first_bankable", "join_blocks",
-    "lane_artifact", "leaf_block", "logits_spec", "mesh_axes", "mesh_coords",
-    "param_specs", "placements", "rank_blocks", "tp_axis",
+    "cache_blocks", "cache_specs", "dp_axes", "first_bankable",
+    "head_widths", "join_blocks", "join_caches", "lane_artifact",
+    "leaf_block", "logits_spec", "mesh_axes", "mesh_coords", "param_specs",
+    "placements", "rank_blocks", "tp_axis",
 ]

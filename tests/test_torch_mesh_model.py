@@ -10,8 +10,8 @@ gathered sequence in every ``model`` rank, also at a capacity factor of
 1.0, which drops pairs: ``sorted`` ranks the whole batch's pairs, over
 the data cut too, against one capacity; the reduced qwen2-7b, whose
 residual is cut on the sequence like the MoE model's; the reduced
-mamba2-370m and zamba2-2.7b, whose residual is cut on channels and
-passes a process-local tensor through.  Each runs
+mamba2-370m and zamba2-2.7b, whose residual is cut on its channels
+(each block gathers its input's channels whole).  Each runs
 in a world of 2 ranks (``model`` 2) and of 4 (``data`` 2 x ``model`` 2):
 the loss and every gradient leaf, the prefill's last-position logits and
 cache, and the parameters after one ``make_train_step``, each rank on its

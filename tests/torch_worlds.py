@@ -337,11 +337,13 @@ def rank_tensor_parallel(rank, world, out):
     OUT_DIR/tp_cases.json the reference's weights cut into this rank's
     blocks by ``param_specs`` (``convert.for_ranks``), then under the
     dry-run's policies plus the mesh the loss and its gradients, the
-    prefill's logits and this rank's kv heads of the cache,
+    prefill's logits and this rank's share of every tensor of the cache
+    (kv heads; the SSM families' conv channels and heads),
     ``TP_DECODE_STEPS`` serve steps fed the tokens of
     ``<case>/decode_tokens``, and the parameters after one
     ``make_train_step``; beside them the bytes and storage bytes of the
-    rank's parameters and the dry-run's bytes a device."""
+    rank's parameters and the dry-run's bytes a device.  The
+    encoder-decoder's batch and prefill take ``<case>/frames`` too."""
     import dataclasses
 
     import torch
@@ -381,14 +383,18 @@ def rank_tensor_parallel(rank, world, out):
                     if k.startswith(name + "/p/")}
             blocks = for_ranks(unflatten(flat), specs=specs, mesh=mesh,
                                coords=shd.mesh_coords(mesh),
-                               head_dim=cfg.hd)
+                               head_dim=shd.head_widths(cfg))
             p = params_from_numpy(blocks, device="cpu")
             return adamw.tree_map(lambda t, dt: t.to(getattr(torch, dt)), p,
                                   unflatten(case["dtypes"]))
 
         B = inp[name + "/tokens"].shape[0] // n_data
         rows = slice(d * B, (d + 1) * B)
-        batch = {k: inp[f"{name}/{k}"][rows] for k in ("tokens", "labels")}
+        batch = {k: inp[f"{name}/{k}"][rows]
+                 for k in ("tokens", "labels", "frames")
+                 if f"{name}/{k}" in inp}
+        prompt = {k: torch.as_tensor(v) for k, v in batch.items()
+                  if k != "labels"}
         params = fresh()
         leaves = adamw.tree_leaves(params)
         res[f"{name}/param_bytes"] = torch.tensor(
@@ -404,12 +410,11 @@ def rank_tensor_parallel(rank, world, out):
         res[f"{name}/loss"] = loss
         res.update({f"{name}/g/{k}": v for k, v in flatten(grads).items()})
         with sharding_policy(policy("prefill_32k")):
-            logits, cache = model.prefill(
-                params, {"tokens": torch.as_tensor(batch["tokens"])},
-                MESH_MAX_LEN)
+            logits, cache = model.prefill(params, prompt, MESH_MAX_LEN)
         res[f"{name}/logits"] = logits
-        res[f"{name}/cache/k"] = cache.k.clone()   # decoding writes in place
-        res[f"{name}/cache/v"] = cache.v.clone()
+        for field, v in cache._asdict().items():
+            if torch.is_tensor(v):      # decoding writes in place
+                res[f"{name}/cache/{field}"] = v.clone()
         serve = make_serve_step(model)
         feed = torch.as_tensor(inp[f"{name}/decode_tokens"][rows])
         with sharding_policy(policy("decode_32k")):
