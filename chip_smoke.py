@@ -189,7 +189,17 @@ Run from the root of a checkout, with no arguments, it
    then two ``make_train_step`` steps at full depth; (j) whisper-base at
    full width and depth, 1500 frames and 64 tokens, ``embed`` whole; B6
    and B4 on a rank's heads, held to their plain versions, their rows at
-   the ranks' shapes in the kernels line.
+   the ranks' shapes in the kernels line;
+11. after ``tensor_parallel_ssm``, ``tensor_parallel_misaligned``: (k)
+   qwen2-7b at full width and depth over 8 ranks on a (1, 8) mesh, cut
+   off head boundaries (3.5 query heads and half a kv head a rank) and
+   its cache cut on the positions (257 of 2056 a rank, every kv head,
+   declared to the passes with ``"__cache__"``): parameter and cache
+   bytes a rank the dry-run's, a prefill of 1 x 1796 within 2e-2 of one
+   process in the ranks' order (``split_prefill_in_rank_order``), 8
+   serve steps across the block boundary at position 1799 with their
+   tokens equal to one process's past the margin, B4 28 times a rank;
+   its row at the rank's shape goes into the kernels line.
 
 Every phase prints one JSON line; the first failure ends the run with a
 non-zero exit code.  There is no CPU fallback: without a CUDA device, or
@@ -5549,6 +5559,434 @@ def phase_tensor_parallel_ssm(torch, seed, ssd_args, ssd_held_by):
 
 
 # ---------------------------------------------------------------------------
+# Tensor parallelism off head boundaries: qwen2-7b over 8 ranks, (k)
+# ---------------------------------------------------------------------------
+
+TP_SPLIT_RANKS = 8                   # (k): a (1, 8) mesh, 3.5 heads a rank
+TP_SPLIT_PROMPT = (1, 1792)          # (k): the prefill; 8 | 1792 cuts it
+TP_SPLIT_STEPS = 16                  # serve steps at 1792-1807 (7 | 9 rows)
+TP_SPLIT_MAX_LEN = 2056              # its cache: 257 positions a rank
+TP_SPLIT_PARAM_BYTES = 1_904_261_632  # the dry-run's bytes a device
+TP_SPLIT_CACHE_BYTES = 14_737_408     # k and v: 28 x 1 x 257 x 4 x 128 bf16
+
+
+def _split_policy(cfg, shape_name):
+    """The dry-run's policy of ``shape_name`` plus the mesh and the cache's
+    layout it declares (``"__cache__"``: ``cache_specs``; 4 kv heads do
+    not bank over 8 ranks, so the positions are cut)."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.parallel.sharding import cache_specs
+
+    policy = _mesh_policy(cfg, shape_name)
+    policy["__cache__"] = cache_specs(cfg, SHAPES[shape_name],
+                                      policy["__mesh__"])
+    return policy
+
+
+def _split_tokens(torch, cfg, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    return torch.randint(2, cfg.vocab - 1, TP_SPLIT_PROMPT, generator=gen,
+                         device="cuda", dtype=torch.int64).to(torch.int32)
+
+
+def rank_tp_split(torch, rank, world, out, seed):
+    """(k) One rank of qwen2-7b at full width and depth, its weights cut
+    by ``param_specs`` on a (1, 8) mesh off head boundaries (448 columns
+    of ``wq``, 3.5 heads; 64 of ``wk``/``wv``, half a kv head): the
+    prefill of ``TP_SPLIT_PROMPT`` under the dry-run's prefill policy
+    plus the mesh and the declared cache (counted and timed), then
+    ``TP_SPLIT_STEPS`` serve steps on this rank's block of 257
+    positions of every kv head under the decode policy, fed the tokens
+    the one-process run chose.  B4 is held to its plain version on the
+    prefill's first attention call, outside the counted run; the merge
+    of the blocks' partial softmax on layer 0's cache after the last
+    step, to plain attention over that cache gathered whole
+    (:func:`split_merge_held`).  The ranks
+    draw their weights in turn: each holds a whole leaf and its float32
+    draw while it cuts it (up to 6.6 GB), too much for eight at once
+    beside what the script holds."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import get_model
+    from repro_torch.parallel.hints import sharding_policy
+
+    cfg = _tp_configs()["qwen2"]
+    model = get_model(cfg)
+    policy = _split_policy(cfg, "prefill_32k")
+    t0 = time.perf_counter()
+    for turn in range(world):
+        if turn == rank:
+            params, held = _rank_blocks(torch, model, cfg,
+                                        _tp_specs(out, "qwen2_split"),
+                                        policy["__mesh__"], seed)
+        dist.barrier()
+    held["init_wall_s"] = time.perf_counter() - t0
+    tokens = _split_tokens(torch, cfg, seed)
+    feed = torch.load(os.path.join(out, "tp_split_one.pt"))["feed"].cuda()
+    prefill = make_prefill_step(model, TP_SPLIT_MAX_LEN)
+    captured = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _dist_reset()
+    t0 = time.perf_counter()
+    with sharding_policy(policy), capturing_first(ops, "mha", captured):
+        logits, cache = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {**_dist_counts(), **train_kernel_counts()}
+    cache_shape = list(cache.k.shape)
+    cache_bytes = _cache_bytes(cache) - 4
+    serve = make_serve_step(model)
+    steps = []
+    t0 = time.perf_counter()
+    decode = _split_policy(cfg, "decode_32k")
+    with sharding_policy(decode):
+        for i in range(TP_SPLIT_STEPS):
+            tok, lg, cache = serve(params, cache, feed[:, i:i + 1])
+            steps.append((tok.cpu(), lg.float().cpu()))
+    torch.cuda.synchronize()
+    decode_wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    staged = _dist_counts()["staged_bytes"]
+    # the positions of this rank's block that hold a row, in every layer
+    rows = [int((cache.k[i, 0].abs().amax((-1, -2)) > 0).sum())
+            for i in range(cfg.n_layers)]
+    with sharding_policy(decode):
+        merge = split_merge_held(torch, cfg, cache, seed)
+    q, k, v, kw = captured
+    err, share = attention_held(torch, q, k, v, f"(k) rank {rank}", **kw)
+    torch.save({"logits": logits.float().cpu(), "steps": steps},
+               os.path.join(out, f"tp_split_{rank}.pt"))
+    return {**held, "prefill_wall_s": wall, "decode_wall_s": decode_wall,
+            **counts, "staged_bytes_with_decode": staged,
+            "peak_memory_bytes": peak, "cache_shape": cache_shape,
+            "cache_bytes": cache_bytes, "rows_held": rows,
+            "wq_columns": params["layers"]["wq"].shape[-1],
+            "wk_columns": params["layers"]["wk"].shape[-1],
+            "b4_shape": [list(q.shape), list(k.shape)],
+            "b4_held": {"max_abs_err": err, "share": share},
+            "merge_held": merge}
+
+
+def split_merge_held(torch, cfg, cache, seed):
+    """(k) The decode attention's merge over the cache's blocks, on the
+    card's own rows: a random query at the last serve step's position
+    against layer 0's cache, this rank's partial softmax
+    (``layers.attention_partials``) merged over the cut's ranks, to
+    ``chunked_attention`` over the ranks' blocks gathered whole.  Returns
+    ``(max abs err, its bound)``, the bound bf16 2e-2 of max(1,
+    |ref|)."""
+    from repro_torch.models.layers import (attention_partials,
+                                           chunked_attention, merge_partials)
+    from repro_torch.parallel.collectives import all_gather_dim
+    from repro_torch.parallel.hints import cache_cut
+    from torch_parity import BF16_TOL
+
+    seq = cache_cut()[0]
+    end = TP_SPLIT_PROMPT[1] + TP_SPLIT_STEPS
+    k, v = cache.k[0], cache.v[0]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    q = torch.randn((1, 1, cfg.n_heads, cfg.hd), generator=gen,
+                    device="cuda").to(k.dtype)
+    kw = dict(causal=True, q_offset=end - 1, kv_len=end)
+    got = merge_partials(*attention_partials(
+        q, k, v, k_offset=seq.index * k.shape[1], **kw), seq.amax, seq.total)
+    (group,) = seq.groups
+    want = chunked_attention(q, all_gather_dim(k, 1, group),
+                             all_gather_dim(v, 1, group), **kw).float()
+    return (max_abs_diff(got.cpu(), want.cpu()),
+            BF16_TOL * max(1.0, float(want.abs().max())))
+
+
+def split_prefill_in_rank_order(torch, cfg, params, tokens,
+                                n=TP_SPLIT_RANKS):
+    """(k)'s yardstick: the last-position logits of one process's prefill
+    of the whole weights, computed as the ``n`` ranks compute them off
+    head boundaries: each rank's block of ``wq``'s, ``wk``'s and
+    ``wv``'s columns projected, bias included (a contiguous copy, as a
+    rank holds it), joined in rank order as the gathers join them, RoPE
+    on whole heads, each rank's attention on the heads its channels touch
+    (its ``H hd / n`` channels' heads, reckoned here; its kv heads
+    repeated per query head), its channels times its ``wo`` rows in
+    float32, its columns of
+    F; every row-parallel end summed over the ranks in float32 in rank
+    order.  The same function as the plain prefill, rounded as the path
+    is but for the order of gloo's sums over 8 ranks."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import apply_rope, rms_norm, swiglu
+
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    width = {"q": H * hd, "k": Hkv * hd, "v": Hkv * hd, "f": cfg.d_ff}
+
+    def cols(w, kind, r):
+        b = width[kind] // n
+        return w[..., r * b:(r + 1) * b].contiguous()
+
+    def rows(w, kind, r):
+        b = width[kind] // n
+        return w[r * b:(r + 1) * b]
+
+    def summed(parts):
+        total = parts[0].float()
+        for p in parts[1:]:
+            total = total + p.float()
+        return total
+
+    B, S = tokens.shape
+    pos = torch.arange(S, device=tokens.device)
+    x = tfm.embed_tokens(params, tokens)
+    windows = tfm.layer_windows(cfg)
+    for i in range(cfg.n_layers):
+        lp = tfm._layer_params(params, i)
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+
+        def whole(kind, heads):
+            parts = []
+            for r in range(n):
+                t = torch.matmul(h, cols(lp["w" + kind], kind, r))
+                if "b" + kind in lp:
+                    t = t + cols(lp["b" + kind], kind, r)
+                parts.append(t)
+            return torch.cat(parts, dim=-1).reshape(B, S, heads, hd)
+
+        q = apply_rope(whole("q", H), pos, cfg.rope_theta)
+        k = apply_rope(whole("k", Hkv), pos, cfg.rope_theta)
+        v = whole("v", Hkv)
+        parts = []
+        for r in range(n):
+            lo, hi = r * H * hd // n, (r + 1) * H * hd // n
+            h0, h1 = lo // hd, -(-hi // hd)
+            kv_of = torch.arange(h0, h1, device=q.device) // (H // Hkv)
+            o = ops.mha(q[:, :, h0:h1], k[:, :, kv_of], v[:, :, kv_of],
+                        causal=True, window=int(windows[i]))
+            o = o.reshape(B, S, -1)[..., lo - h0 * hd:hi - h0 * hd]
+            parts.append(torch.matmul(o.float(), rows(lp["wo"], "q",
+                                                      r).float()))
+        x = x + summed(parts).to(x.dtype)
+        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + summed([swiglu(h, cols(lp["w_gate"], "f", r),
+                               cols(lp["w_up"], "f", r),
+                               rows(lp["w_down"], "f", r))
+                        for r in range(n)]).to(x.dtype)
+    h = rms_norm(x, params["ln_f"], cfg.norm_eps)[:, -1:]
+    w = params.get("lm_head", params["embed"])
+    b = cfg.vocab // n
+    return torch.cat([torch.matmul(h, w[r * b:(r + 1) * b].to(h.dtype).T)
+                      for r in range(n)], dim=-1)[:, 0]
+
+
+def phase_tensor_parallel_misaligned(torch, seed):
+    """(k): qwen2-7b at full width and depth over 8 ranks on the one card,
+    each holding the blocks ``param_specs`` gives it on a (1, 8) mesh --
+    3.5 query heads and half a kv head a rank -- and its block of 257 of
+    the cache's 2056 positions, every kv head (``cache_specs``' cut on
+    the positions, declared to the passes).  Held: each rank's parameter
+    bytes the dry-run's 1,904,261,632 to the byte, its storage no more,
+    its cache bytes the dry-run's 14,737,408 (28 x 1 x 257 x 4 x 128, k
+    and v); the prefill's last-position logits (1 x 1792 tokens, 8 | 1792:
+    the residual cut on the sequence, 224 positions a rank) within bf16
+    2e-2 of max(1, |ref|) of one process's prefill in the ranks' order
+    (``split_prefill_in_rank_order``), equal in every rank, the plain one
+    process's distance read beside it; ``TP_SPLIT_STEPS`` serve steps at
+    positions 1792-1807, fed the plain one process's greedy tokens,
+    across the block boundary at 1799 (rank 6 writes the first seven
+    rows, rank 7 the rest; every rank's block holds the rows its
+    positions imply), their logits equal in every rank, each step's token
+    equal to one process's where its top-2 gap clears twice the bound,
+    at least one held at a position of rank 7's block; the merge of the
+    blocks' partial softmax on layer 0's cache within the bound of plain
+    attention over it (:func:`split_merge_held`); B4 28 times a rank.
+    The steps' logits are read, not held, against the plain one process:
+    28 random layers spread gloo's order of the float32 sums to 1.5-2 %
+    of the max, the bound's own size.  Returns the ranks' launches and
+    B4's row at (k)'s rank shape."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import (cache_structs, default_fsdp,
+                                           param_bytes_per_device,
+                                           tree_bytes)
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import get_model, param_shapes
+    from repro_torch.parallel.sharding import mesh_axes, param_specs
+    from torch_parity import BF16_TOL as tol
+
+    free_device_memory(torch)
+    out = tempfile.mkdtemp(prefix="chip_smoke_tp_split_")
+    atexit.register(shutil.rmtree, out, ignore_errors=True)
+    t_phase = time.perf_counter()
+    n = TP_SPLIT_RANKS
+    mesh = MeshShape(("data", "model"), (1, n))
+    cfg = _tp_configs()["qwen2"]
+    model = get_model(cfg)
+    t0 = time.perf_counter()
+    fsdp = default_fsdp(cfg, mesh)
+    specs = param_specs(param_shapes(model), mesh, fsdp=fsdp)
+    with open(os.path.join(out, "tp_specs_qwen2_split.json"), "w") as f:
+        json.dump(specs, f)
+    dry_params = param_bytes_per_device(cfg, mesh, fsdp=fsdp)
+    dry_cache = tree_bytes(cache_structs(cfg, ShapeConfig(
+        "tp_split", TP_SPLIT_MAX_LEN, TP_SPLIT_PROMPT[0], "decode"), mesh),
+        mesh_axes(mesh)) - 4                  # pos: a 0-d int32
+    specs_s = time.perf_counter() - t0
+    check(dry_params == TP_SPLIT_PARAM_BYTES
+          and dry_cache == TP_SPLIT_CACHE_BYTES,
+          f"(k) the dry-run gives {dry_params} parameter and {dry_cache} "
+          f"cache bytes a device")
+
+    # one process first, whole weights: its prefill and greedy decode, and
+    # the prefill in the ranks' order
+    params = _moe_params(torch, model, seed)
+    tokens = _split_tokens(torch, cfg, seed)
+    t0 = time.perf_counter()
+    logits, cache = make_prefill_step(model, TP_SPLIT_MAX_LEN)(
+        params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    one_wall = time.perf_counter() - t0
+    serve = make_serve_step(model)
+    want = [logits.float().cpu()]
+    feed = [torch.argmax(logits, -1).to(torch.int32)[:, None]]
+    for i in range(TP_SPLIT_STEPS):
+        tok, lg, cache = serve(params, cache, feed[-1])
+        want.append(lg.float().cpu())
+        feed.append(tok)
+    feed = torch.cat(feed[:TP_SPLIT_STEPS], dim=1).cpu()
+    torch.save({"feed": feed}, os.path.join(out, "tp_split_one.pt"))
+    del cache, logits
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        in_order = split_prefill_in_rank_order(torch, cfg, params, tokens)
+    in_order = in_order.float().cpu()
+    order_wall = time.perf_counter() - t0
+    del params
+    free_device_memory(torch)
+    ranks, wall = run_ranks("tp_split", n, out, seed)
+    parts = [torch.load(os.path.join(out, f"tp_split_{r}.pt"))
+             for r in range(n)]
+    bound = tol * max(1.0, float(in_order.abs().max()))
+    held_tokens, order_errs, plain_errs, clear_at = 0, [], [], set()
+    S = TP_SPLIT_PROMPT[1]
+    b = TP_SPLIT_MAX_LEN // n
+    for r, (rk, part) in enumerate(zip(ranks, parts)):
+        e = max_abs_diff(part["logits"], in_order)
+        order_errs.append(e)
+        check(e <= bound, f"(k) rank {r}: the prefill's logits are off the "
+              f"one-process prefill in the ranks' order by {e} (bound "
+              f"{bound})")
+        check(rk["param_bytes"] == TP_SPLIT_PARAM_BYTES
+              and rk["storage_bytes"] == rk["param_bytes"],
+              f"(k) rank {r} holds {rk['param_bytes']} parameter bytes "
+              f"({rk['storage_bytes']} stored), the dry-run {dry_params}")
+        check(rk["cache_bytes"] == TP_SPLIT_CACHE_BYTES
+              and rk["cache_shape"] == [cfg.n_layers, TP_SPLIT_PROMPT[0],
+                                        TP_SPLIT_MAX_LEN // n,
+                                        cfg.n_kv_heads, cfg.hd],
+              f"(k) rank {r}: a cache of {rk['cache_shape']}, "
+              f"{rk['cache_bytes']} bytes")
+        check((rk["wq_columns"], rk["wk_columns"]) == (
+            cfg.n_heads * cfg.hd // n, cfg.n_kv_heads * cfg.hd // n),
+            f"(k) rank {r}: wq {rk['wq_columns']}, wk {rk['wk_columns']} "
+            f"columns")
+        rows = min(b, max(0, S + TP_SPLIT_STEPS - r * b))
+        check(rk["rows_held"] == [rows] * cfg.n_layers,
+              f"(k) rank {r}: rows held by layer {rk['rows_held']}, the "
+              f"positions imply {rows}")
+        got = [part["logits"]] + [lg for _, lg in part["steps"]]
+        toks = [torch.argmax(part["logits"], -1)] + [
+            t[:, 0].long() for t, _ in part["steps"]]
+        step_errs = []
+        for i, (w, g, t) in enumerate(zip(want, got, toks)):
+            check(bool(torch.isfinite(g).all()) and g.shape == (
+                TP_SPLIT_PROMPT[0], cfg.vocab), f"(k) rank {r} step {i}: "
+                f"logits not finite (batch, vocab)")
+            step_bound = tol * max(1.0, float(w.abs().max()))
+            step_errs.append(max_abs_diff(g, w)
+                             / max(1.0, float(w.abs().max())))
+            top2 = w.topk(2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > 2 * step_bound
+            check(bool((t[clear] == w.argmax(-1)[clear]).all()),
+                  f"(k) rank {r} step {i}: a token differs from one "
+                  f"process past the margin")
+            held_tokens += int(clear.sum())
+            if clear.any():
+                clear_at.add(S + i - 1)        # the position the step fed
+        plain_errs.append(step_errs)
+        e, merge_bound = rk["merge_held"]
+        check(e <= merge_bound, f"(k) rank {r}: the merged partial softmax "
+              f"is off attention over the whole cache by {e} (bound "
+              f"{merge_bound})")
+    clear_at = sorted(clear_at)
+    check(any(p >= (n - 1) * b for p in clear_at),
+          f"(k) no token clear of the bound to hold at a position of rank "
+          f"{n - 1}'s block ({(n - 1) * b} on); clear at {clear_at}")
+    check(all(torch.equal(p["logits"], parts[0]["logits"])
+              and all(torch.equal(a[1], z[1])
+                      for a, z in zip(p["steps"], parts[0]["steps"]))
+              for p in parts), "(k) the ranks' logits differ")
+    check(all(r["flash_attention"] == cfg.n_layers for r in ranks),
+          f"(k) B4 launches by rank: {[r['flash_attention'] for r in ranks]}")
+    launches = {"flash_attention": sum(r["flash_attention"] for r in ranks)}
+    line = {
+        "arch": "qwen2-7b", "layers": cfg.n_layers, "ranks": n,
+        "tokens": list(TP_SPLIT_PROMPT), "max_len": TP_SPLIT_MAX_LEN,
+        "decode_steps": TP_SPLIT_STEPS,
+        "decode_positions": [S, S + TP_SPLIT_STEPS - 1],
+        "policy": "make_policy prefill / decode + __mesh__ (1, 8) + "
+                  "__cache__ (cache_specs: positions over model)",
+        "wq_wk_columns": [ranks[0]["wq_columns"], ranks[0]["wk_columns"]],
+        "param_bytes": [r["param_bytes"] for r in ranks],
+        "dryrun_bytes_per_device_params": dry_params,
+        "storage_bytes": [r["storage_bytes"] for r in ranks],
+        "allocated_bytes": [r["allocated_bytes"] for r in ranks],
+        "cache_shape": ranks[0]["cache_shape"],
+        "cache_bytes": [r["cache_bytes"] for r in ranks],
+        "dryrun_cache_bytes": dry_cache,
+        "rows_held_layer0": [r["rows_held"][0] for r in ranks],
+        "held": "prefill logits against one process in the ranks' order "
+                "(bf16 bound); every step's token against the plain one "
+                "process where its top-2 gap clears twice the bound, one "
+                "at least in rank 7's block; the merge against attention "
+                "over the whole cache",
+        "bound": bound,
+        "logits_max_abs_err_rank_order": order_errs,
+        "logits_bit_for_bit_rank_order": [e == 0.0 for e in order_errs],
+        "plain_one_process_err_share_by_step": plain_errs,
+        "tokens_held": held_tokens, "clear_at_positions": clear_at,
+        "merge_held": [r["merge_held"] for r in ranks],
+        "one_process_prefill_wall_s": one_wall,
+        "rank_order_wall_s": order_wall, "specs_s": specs_s,
+        "world_wall_s": wall,
+        "init_in_turn_wall_s": ranks[0]["init_wall_s"],
+        "prefill_wall_s": [r["prefill_wall_s"] for r in ranks],
+        "decode_wall_s": [r["decode_wall_s"] for r in ranks],
+        "b4_launches": [r["flash_attention"] for r in ranks],
+        "b4_shape": ranks[0]["b4_shape"],
+        "b4_held": [r["b4_held"] for r in ranks],
+        "staged_bytes_prefill": [r["staged_bytes"] for r in ranks],
+        "staged_bytes_with_decode": [r["staged_bytes_with_decode"]
+                                     for r in ranks],
+        "peak_memory_bytes": [r["peak_memory_bytes"] for r in ranks]}
+    del parts, want
+    free_device_memory(torch)
+    shutil.rmtree(out, ignore_errors=True)
+    say("tensor_parallel_misaligned", backend="gloo",
+        device="cuda:0 in every rank", tolerance="bf16 2e-2 of max(1, "
+        "|ref|)", **line, seconds=time.perf_counter() - t_phase)
+    # B4 at (k)'s rank shape: the 4 heads 3.5 a rank touch, their kv heads
+    # repeated per query head
+    (B, Sq, H, D), (_, Sk, Hkv, _) = ranks[0]["b4_shape"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = attention_inputs(torch, gen, torch.bfloat16, D, B, Hkv,
+                               H // Hkv, Sq, Sk)
+    label = "qwen2-7b tensor-parallel rank (k), 3.5 heads"
+    held = attention_held(torch, q, k, v, label, causal=True)
+    return launches, [(label, (q, k, v), {"causal": True},
+                       launches["flash_attention"], held)]
+
+
+# ---------------------------------------------------------------------------
 # The twins of examples/, each in a process of its own
 # ---------------------------------------------------------------------------
 
@@ -5722,7 +6160,7 @@ RANK_ENTRIES = {"moe": rank_moe, "dp": rank_dp, "pipeline": rank_pipeline,
                 "tp_prefill": rank_tp_prefill, "tp_train": rank_tp_train,
                 "tp_hybrid": rank_tp_hybrid,
                 "tp_ssm_train": rank_tp_ssm_train,
-                "tp_encdec": rank_tp_encdec}
+                "tp_encdec": rank_tp_encdec, "tp_split": rank_tp_split}
 
 
 def rank_main(entry, rank, world, init_file, out, seed):
@@ -6073,7 +6511,7 @@ def main():
                   functools.partial(phase_tensor_parallel_ssm,
                                     ssd_args=ssd_args,
                                     ssd_held_by=ssd_held_by),
-                  phase_examples):
+                  phase_tensor_parallel_misaligned, phase_examples):
         n, rows = phase(torch, args.seed)
         add(n)
         attn_rows += rows

@@ -64,9 +64,9 @@ def for_ranks(tree: Dict[str, Any], *, stages: Optional[int] = None,
     ``specs``, ``mesh``, ``coords``: this rank's block of every leaf under
     its spec (``parallel.sharding.param_specs``) on ``mesh`` at the rank's
     coordinates (axis name -> index), what a rank of a tensor-parallel
-    model holds (``parallel.sharding.rank_blocks``, whose head-boundary
-    check ``head_dim`` turns on: the attention heads' width, or
-    ``parallel.sharding.head_widths(cfg)`` for every kind of head).
+    model holds (``parallel.sharding.rank_blocks``: an attention leaf's
+    block may split a head; ``head_dim``, ``parallel.sharding.
+    head_widths(cfg)``, turns on the check that a Mamba2 head is not).
     ``experts=(rank, n)``: the special case of the expert stacks' specs:
     every ``we_*`` leaf keeps the
     ``rank``-th of ``n`` equal blocks of experts (dim -3), the rest

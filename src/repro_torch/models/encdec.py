@@ -29,6 +29,13 @@ query and kv heads, ``wo`` and the MLP end with the row-parallel sum
 (the MLP's whole ``b_down`` added once, after it), the caches hold this
 rank's kv heads, and the embedding and logits are vocabulary-parallel
 where the vocabulary is cut (an odd one, 51,865 at full width, is not).
+Where the cut splits a head (whisper-base's 8 heads over 16 ranks) each
+attention runs on whole heads as ``transformer.dense_layer`` runs it
+(q, k and v gathered, this rank's channels times its ``wo`` rows); where
+the policy's ``"__cache__"`` cuts the caches on their positions, the
+self cache holds the rank's block of ``max_len / n`` positions and the
+cross cache its block of the frames, every kv head, and each decode
+step's attention is a partial softmax merged over the cut's ranks.
 """
 
 from __future__ import annotations
@@ -136,11 +143,15 @@ def _end(t, tp: bool):
     return row_parallel_end(t) if tp else residual_block(t)
 
 
-def _mha(cfg: ArchConfig, ap, xq, xkv, *, causal):
+def _mha(cfg: ArchConfig, ap, xq, xkv, *, causal, seq=None):
     """Attention of ``xq`` (B, Sq, D) over ``xkv`` (B, Sk, D), both from
     position 0, through the flash attention kernel; returns the projected
     output and the (roped) k, v that a cache keeps.  With weights cut over
-    ``model``: this rank's heads, and the output its partial sums."""
+    ``model``: this rank's heads, and the output its partial sums; on
+    whole heads (``transformer.on_whole_heads``) the k, v of every kv
+    head and float32 partial sums."""
+    if tfm.on_whole_heads(cfg, ap, seq):
+        return tfm.whole_heads_attention(cfg, ap, xq, xkv, causal=causal)
     B, Sq, _ = xq.shape
     Sk = xkv.shape[1]
     Dh = cfg.hd
@@ -164,21 +175,24 @@ def _enc_layer(cfg: ArchConfig, lp, x):
     tp = heads_cut(cfg, lp["attn"])
     h = _whole_sequence(rms_norm(x, lp["ln1"], cfg.norm_eps), tp)
     a, _ = _mha(cfg, lp["attn"], h, h, causal=False)
-    x = x + _end(a, tp)
+    x = x + _end(a, tp).to(x.dtype)
     return x + _mlp(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps))
 
 
-def _dec_layer(cfg: ArchConfig, lp, x, enc_out):
+def _dec_layer(cfg: ArchConfig, lp, x, enc_out, seq=None, seq_cross=None):
     """One decoder layer over the prompt: causal self attention, cross
     attention over ``enc_out`` (the whole sequence of frames), the MLP.
-    Returns ``x`` and the self and cross ``(k, v)`` a cache keeps."""
+    Returns ``x`` and the self and cross ``(k, v)`` a cache keeps
+    (``seq``, ``seq_cross``: the caches' cuts on their positions, whose
+    K/V are every kv head's)."""
     tp = heads_cut(cfg, lp["self"])
     h = _whole_sequence(rms_norm(x, lp["ln1"], cfg.norm_eps), tp)
-    a, kv_self = _mha(cfg, lp["self"], h, h, causal=True)
-    x = x + _end(a, tp)
+    a, kv_self = _mha(cfg, lp["self"], h, h, causal=True, seq=seq)
+    x = x + _end(a, tp).to(x.dtype)
     h = _whole_sequence(rms_norm(x, lp["ln2"], cfg.norm_eps), tp)
-    a, kv_cross = _mha(cfg, lp["cross"], h, enc_out, causal=False)
-    x = x + _end(a, tp)
+    a, kv_cross = _mha(cfg, lp["cross"], h, enc_out, causal=False,
+                       seq=seq_cross)
+    x = x + _end(a, tp).to(x.dtype)
     x = x + _mlp(cfg, lp, rms_norm(x, lp["ln3"], cfg.norm_eps))
     return x, kv_self, kv_cross
 
@@ -277,7 +291,10 @@ def prefill(cfg: ArchConfig, params: Params, frames: Tensor, tokens: Tensor,
     encoder layer and two per decoder layer (the causal self attention and
     the cross attention).  Under a sequence cut the logits are the last
     block's rank's, in every rank (``transformer.last_logits``); with
-    weights cut over ``model`` the caches hold this rank's kv heads."""
+    weights cut over ``model`` the caches hold this rank's kv heads
+    (``transformer.kv_layout``), or, where the policy's ``"__cache__"``
+    cuts them on their positions, every kv head of this rank's block of
+    positions and of frames."""
     B, S = tokens.shape
     if S > max_len:
         raise ValueError(f"a prompt of {S} tokens does not fit a cache of "
@@ -287,18 +304,24 @@ def prefill(cfg: ArchConfig, params: Params, frames: Tensor, tokens: Tensor,
     with split_sequence(S, cut) as split:
         x = residual_block(tfm.embed_tokens(params, tokens, cfg.vocab))
         L, S_enc = cfg.n_layers, enc_out.shape[1]
-        Hkv = params["dec"]["self"]["wk"].shape[-1] // cfg.hd
-        kv = (L, B, max_len, Hkv, cfg.hd)
-        cross = (L, B, S_enc, Hkv, cfg.hd)
+        dec = params["dec"]
+        Hkv, seq = tfm.kv_layout(cfg, dec["self"]["wk"], "k_self")
+        Hkv_x, seq_x = tfm.kv_layout(cfg, dec["cross"]["wk"], "k_cross")
+        kv = (L, B, tfm.cache_block(cfg, max_len, Hkv, "k_self")[0], Hkv,
+              cfg.hd)
+        cross = (L, B, tfm.cache_block(cfg, S_enc, Hkv_x, "k_cross")[0],
+                 Hkv_x, cfg.hd)
         k_self = torch.zeros(kv, dtype=x.dtype, device=x.device)
         v_self = torch.zeros(kv, dtype=x.dtype, device=x.device)
         k_cross = torch.empty(cross, dtype=x.dtype, device=x.device)
         v_cross = torch.empty(cross, dtype=x.dtype, device=x.device)
         for i in range(L):
-            x, (k, v), (kc, vc) = _dec_layer(cfg, _layer(params["dec"], i),
-                                             x, enc_out)
-            k_self[i, :, :S], v_self[i, :, :S] = k, v
-            k_cross[i], v_cross[i] = kc, vc
+            x, (k, v), (kc, vc) = _dec_layer(cfg, _layer(dec, i), x,
+                                             enc_out, seq, seq_x)
+            for buf, t, cut in ((k_self[i], k, seq), (v_self[i], v, seq),
+                                (k_cross[i], kc, seq_x),
+                                (v_cross[i], vc, seq_x)):
+                tfm.store_prompt(buf, t, cut)
         h = rms_norm(x, params["ln_f"], cfg.norm_eps)
         logits = tfm.last_logits(cfg, params, h, split)
     return logits, EncDecCache(k_self, v_self, k_cross, v_cross, S)
@@ -313,12 +336,18 @@ def decode_step(cfg: ArchConfig, params: Params, cache: EncDecCache,
     ``dynamic_update_slice`` clamps it); the cross K/V are read only.
     With weights cut over ``model`` each attention runs on this rank's
     heads against this rank's kv heads of the caches, and ``wo`` and the
-    MLP end with the all-reduce."""
+    MLP end with the all-reduce; on whole heads
+    (``transformer.on_whole_heads``) every query head attends, over a
+    cache cut on its positions as a partial softmax merged over the cut's
+    ranks, the new token written by the rank whose block holds ``pos``."""
     pos = int(cache.pos)
     Dh = cfg.hd
     with split_sequence(tokens.shape[1], cut=False):
         x = tfm.embed_tokens(params, tokens, cfg.vocab)
         B, S, _ = x.shape
+        seq = tfm.kv_layout(cfg, params["dec"]["self"]["wk"], "k_self")[1]
+        seq_x = tfm.kv_layout(cfg, params["dec"]["cross"]["wk"],
+                              "k_cross")[1]
         for i in range(cfg.n_layers):
             lp = _layer(params["dec"], i)
             tp = heads_cut(cfg, lp["self"])
@@ -326,35 +355,48 @@ def decode_step(cfg: ArchConfig, params: Params, cache: EncDecCache,
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
             if tp:
                 h = column_in(h)
-            k_new = torch.matmul(h, lp["self"]["wk"]).reshape(B, S, -1, Dh)
-            v_new = torch.matmul(h, lp["self"]["wv"]).reshape(B, S, -1, Dh)
-            if k_s.shape[2] != k_new.shape[2]:
-                raise ValueError(
-                    f"a cache of {k_s.shape[2]} kv heads for a layer of "
-                    f"{k_new.shape[2]}: a tensor-parallel layer's cache "
-                    f"holds its rank's kv heads")
-            k_new = apply_rope(k_new, tfm._positions(S, pos, x.device),
+            if tfm.on_whole_heads(cfg, lp["self"], seq):
+                o, _ = tfm.whole_heads_attention(
+                    cfg, lp["self"], h, h, cache_kv=(k_s, v_s), pos=pos,
+                    seq=seq)
+            else:
+                k_new = torch.matmul(h, lp["self"]["wk"]).reshape(
+                    B, S, -1, Dh)
+                v_new = torch.matmul(h, lp["self"]["wv"]).reshape(
+                    B, S, -1, Dh)
+                if k_s.shape[2] != k_new.shape[2]:
+                    raise ValueError(
+                        f"a cache of {k_s.shape[2]} kv heads for a layer of "
+                        f"{k_new.shape[2]}: a tensor-parallel layer's cache "
+                        f"holds its rank's kv heads")
+                k_new = apply_rope(k_new, tfm._positions(S, pos, x.device),
+                                   cfg.rope_theta)
+                at = min(max(pos, 0), k_s.shape[1] - S)
+                k_s[:, at:at + S] = k_new.to(k_s.dtype)
+                v_s[:, at:at + S] = v_new.to(v_s.dtype)
+                q = torch.matmul(h, lp["self"]["wq"]).reshape(B, S, -1, Dh)
+                q = apply_rope(q, tfm._positions(S, pos, x.device),
                                cfg.rope_theta)
-            at = min(max(pos, 0), k_s.shape[1] - S)
-            k_s[:, at:at + S] = k_new.to(k_s.dtype)
-            v_s[:, at:at + S] = v_new.to(v_s.dtype)
-            q = torch.matmul(h, lp["self"]["wq"]).reshape(B, S, -1, Dh)
-            q = apply_rope(q, tfm._positions(S, pos, x.device),
-                           cfg.rope_theta)
-            a = chunked_attention(q, k_s, v_s, causal=True, q_offset=pos,
-                                  kv_len=pos + 1)
-            o = torch.matmul(a.reshape(B, S, -1), lp["self"]["wo"])
-            x = x + (row_parallel_end(o) if tp else o)
+                a = chunked_attention(q, k_s, v_s, causal=True, q_offset=pos,
+                                      kv_len=pos + 1)
+                o = torch.matmul(a.reshape(B, S, -1), lp["self"]["wo"])
+            x = x + (row_parallel_end(o) if tp else o).to(x.dtype)
             h = rms_norm(x, lp["ln2"], cfg.norm_eps)
             if tp:
                 h = column_in(h)
-            q = torch.matmul(h, lp["cross"]["wq"]).reshape(B, S, -1, Dh)
-            q = apply_rope(q, tfm._positions(S, pos, x.device),
-                           cfg.rope_theta)
-            a = chunked_attention(q, cache.k_cross[i], cache.v_cross[i],
-                                  causal=False)
-            o = torch.matmul(a.reshape(B, S, -1), lp["cross"]["wo"])
-            x = x + (row_parallel_end(o) if tp else o)
+            if tfm.on_whole_heads(cfg, lp["cross"], seq_x):
+                o, _ = tfm.whole_heads_attention(
+                    cfg, lp["cross"], h, None, causal=False,
+                    cache_kv=(cache.k_cross[i], cache.v_cross[i]), pos=pos,
+                    seq=seq_x)
+            else:
+                q = torch.matmul(h, lp["cross"]["wq"]).reshape(B, S, -1, Dh)
+                q = apply_rope(q, tfm._positions(S, pos, x.device),
+                               cfg.rope_theta)
+                a = chunked_attention(q, cache.k_cross[i], cache.v_cross[i],
+                                      causal=False)
+                o = torch.matmul(a.reshape(B, S, -1), lp["cross"]["wo"])
+            x = x + (row_parallel_end(o) if tp else o).to(x.dtype)
             x = x + _mlp(cfg, lp, rms_norm(x, lp["ln3"], cfg.norm_eps))
         h = rms_norm(x, params["ln_f"], cfg.norm_eps)
         logits = tfm.logits_fn(cfg, params, h)[:, 0]

@@ -19,7 +19,10 @@ and kv heads and columns of F; under the train and prefill policies the
 residual is cut on its channels between every block, each block's input
 gathered on them and its row-parallel ends reduce-scattered on them.  The
 cache holds the rank's conv channels, SSM heads and kv heads
-(``cache_specs``).
+(``cache_specs``) -- or, where the policy's ``"__cache__"`` cuts the
+shared block's KV on its positions, every kv head of the rank's block of
+positions, attended as ``transformer.dense_layer`` attends a cache cut
+so.
 """
 
 from __future__ import annotations
@@ -100,11 +103,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                conv_channels=None, kv_heads=None) -> HybridCache:
     """Zeros; ``heads``, ``conv_channels`` and ``kv_heads`` of them a
     layer (default: every one; a tensor-parallel rank holds its own,
-    ``cache_specs``' cut)."""
+    ``cache_specs``' cut); the KV buffers are the rank's block that the
+    policy's ``"__cache__"`` declares (``transformer.cache_block``)."""
     device = resolve_device(device)
     d_inner, H, P, N = ssm_mod.dims(cfg)
     G, per = _groups(cfg)
-    kv = (G, batch, max_len, kv_heads or cfg.n_kv_heads, cfg.hd)
+    rows, kv_heads = tfm.cache_block(cfg, max_len, kv_heads)
+    kv = (G, batch, rows, kv_heads, cfg.hd)
     return HybridCache(
         torch.zeros((G, per, batch, cfg.ssm_conv - 1,
                      conv_channels or d_inner + 2 * N),
@@ -164,6 +169,7 @@ def decode_step(cfg: ArchConfig, params: Params, cache: HybridCache,
     pos = int(cache.pos)
     with split_sequence(tokens.shape[1], cut=False):
         x = tfm.embed_tokens(params, tokens, cfg.vocab)
+        seq = tfm.kv_layout(cfg, params["shared_attn"]["wk"])[1]
         for g in range(G):
             for i in range(per):
                 x, (conv, state) = ssm_mod.ssm_block(
@@ -174,7 +180,7 @@ def decode_step(cfg: ArchConfig, params: Params, cache: HybridCache,
                 cache.state[g, i] = state
             x, _ = tfm.dense_layer(cfg, params["shared_attn"], x, 0,
                                    cache_kv=(cache.k[g], cache.v[g]),
-                                   pos=pos)
+                                   pos=pos, seq=seq)
         h = rms_norm(x, params["ln_f"], cfg.norm_eps)
         logits = tfm.logits_fn(cfg, params, h)[:, 0]
     return logits, HybridCache(cache.conv, cache.state, cache.k, cache.v,
@@ -199,19 +205,20 @@ def prefill(cfg: ArchConfig, params: Params, tokens: Tensor, max_len: int
     G, per = _groups(cfg)
     with split_sequence(S, channels=cfg.d_model):
         x = residual_block(tfm.embed_tokens(params, tokens, cfg.vocab))
-        cache = init_cache(
-            cfg, B, max_len, device=x.device,
-            kv_heads=params["shared_attn"]["wk"].shape[-1] // cfg.hd,
-            **ssm_mod.rank_cache_dims(params["ssm"]))
+        kv_heads, seq = tfm.kv_layout(cfg, params["shared_attn"]["wk"])
+        cache = init_cache(cfg, B, max_len, device=x.device,
+                           kv_heads=kv_heads,
+                           **ssm_mod.rank_cache_dims(params["ssm"]))
         for g in range(G):
             for i in range(per):
                 x, (conv, state) = ssm_mod.ssm_block(
                     cfg, ssm_mod.layer(params["ssm"], (g, i)), x)
                 cache.conv[g, i] = conv
                 cache.state[g, i] = state
-            x, (k, v) = tfm.dense_layer(cfg, params["shared_attn"], x, 0)
-            cache.k[g, :, :S] = k
-            cache.v[g, :, :S] = v
+            x, (k, v) = tfm.dense_layer(cfg, params["shared_attn"], x, 0,
+                                        seq=seq)
+            tfm.store_prompt(cache.k[g], k, seq)
+            tfm.store_prompt(cache.v[g], v, seq)
         h = rms_norm(whole_channels(x), params["ln_f"], cfg.norm_eps)
         logits = tfm.logits_fn(cfg, params, h[:, -1:])[:, 0]
     return logits, HybridCache(cache.conv, cache.state, cache.k, cache.v, S)

@@ -243,6 +243,48 @@ def chunked_attention(
     return out.reshape(B, Sq, H, Dh).to(q.dtype)
 
 
+def attention_partials(q, k, v, *, causal=True, window=0, q_offset=0,
+                       k_offset=0, kv_len=None, scale=None):
+    """The unnormalised attention of ``q (B, Sq, H, Dh)`` over a block of
+    keys ``k``, ``v (B, Sk, Hkv, Dh)`` at absolute positions ``k_offset +
+    [0, Sk)`` (a rank's block of a cache cut on its positions), masked by
+    absolute positions as :func:`chunked_attention` masks them: float32
+    ``(m, l, o)``, each row and head's max score over the block's valid
+    keys (``NEG_INF`` where none is valid), its sum of ``exp(s - m)`` and
+    the sum of ``exp(s - m) v`` -- zeros where no key is valid, so such
+    a block adds nothing to :func:`merge_partials`."""
+    B, Sq, H, Dh = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
+    q5 = (q.float() * scale).reshape(B, Sq, Hkv, rep, Dh)
+    s = torch.einsum("bqhrd,bkhd->bqhrk", q5, k.float())
+    q_pos = torch.arange(Sq, device=q.device) + q_offset
+    k_pos = torch.arange(Sk, device=q.device) + k_offset
+    mask = _block_mask(q_pos, k_pos, causal, window)
+    if kv_len is not None:
+        mask &= (k_pos < kv_len)[None, :]
+    mask = mask[None, :, None, None, :]
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(-1)
+    p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+    o = torch.einsum("bqhrk,bkhd->bqhrd", p, v.float())
+    return (m.reshape(B, Sq, H), p.sum(-1).reshape(B, Sq, H),
+            o.reshape(B, Sq, H, Dh))
+
+
+def merge_partials(m, l, o, amax, total):
+    """The attention output (float32, ``o``'s shape) of the blocks whose
+    :func:`attention_partials` are ``(m, l, o)``: each block's sums
+    rescaled by ``exp(m - max m)`` and summed.  ``amax`` and ``total``
+    reduce over the blocks: over a leading dim that stacks them in one
+    process, or over the ranks of a cut (``hints.SequenceCut``); the
+    sums and outputs are reduced together."""
+    c = torch.exp(m - amax(m))
+    lo = total(torch.cat([(l * c)[..., None], o * c[..., None]], dim=-1))
+    return lo[..., 1:] / torch.clamp(lo[..., :1], min=1e-30)
+
+
 def naive_attention(q, k, v, *, causal=True, window=0, q_offset=0,
                     kv_len=None, scale=None) -> Tensor:
     """Reference implementation (materializes scores) -- small shapes only."""

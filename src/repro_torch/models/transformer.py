@@ -25,7 +25,12 @@ flash attention kernel's autograd function), while ``prefill`` and every
 decode step run without them.  Under a sharding policy with a live mesh
 whose ``"residual"`` cuts the sequence, ``forward``, ``lm_loss`` and
 ``prefill`` carry this rank's block of the sequence between layers
-(``parallel/hints.py``; Megatron sequence parallelism).
+(``parallel/hints.py``; Megatron sequence parallelism).  With weights cut
+over ``model`` a layer runs on this rank's heads; where the cut splits a
+head, or the policy's ``"__cache__"`` cuts the KV cache on its positions,
+on whole heads gathered over ``model`` (:func:`whole_heads`), a decode
+step's attention over the cache then a partial softmax merged over the
+ranks that hold its blocks.
 """
 
 from __future__ import annotations
@@ -40,10 +45,13 @@ import torch
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..kernels import ops
-from ..parallel.hints import (column_in, current_split, hint, model_axis,
-                              policy_value, residual_block, row_parallel_end,
-                              split_sequence, whole_channels)
-from .layers import (NEG_INF, apply_rope, chunked_attention, dense_init,
+from ..parallel.hints import (cache_cut, column_in, current_split, hint,
+                              model_axis, policy_value, residual_block,
+                              row_parallel_end, split_sequence,
+                              whole_channels)
+from ..parallel.sharding import head_span
+from .layers import (NEG_INF, apply_rope, attention_partials,
+                     chunked_attention, dense_init, merge_partials,
                      param_device, parallel_swiglu, remat, rms_norm, swiglu,
                      unstack)
 
@@ -165,6 +173,167 @@ def heads_cut(cfg: ArchConfig, lp) -> bool:
     return lp["wq"].shape[-1] < cfg.n_heads * cfg.hd
 
 
+def heads_split(cfg: ArchConfig, lp) -> bool:
+    """Whether a layer's attention weights are cut over ``model`` off head
+    boundaries: its block of ``wq``'s or ``wk``'s columns is not whole
+    heads (``parallel.sharding.head_span``)."""
+    return bool(lp["wq"].shape[-1] % cfg.hd or lp["wk"].shape[-1] % cfg.hd)
+
+
+def on_whole_heads(cfg: ArchConfig, lp, seq=None) -> bool:
+    """Whether an attention runs on whole heads (the section below): its
+    weights cut off head boundaries, or its cache cut on its positions
+    (``seq``)."""
+    return seq is not None or (heads_cut(cfg, lp) and heads_split(cfg, lp))
+
+
+# ---------------------------------------------------------------------------
+# Attention on whole heads: weights cut off head boundaries, or a cache cut
+# on its positions.  Each rank projects its block of columns (bias
+# included) and gathers q, k and v whole on the channels over ``model``
+# (RoPE pairs channel i with i + hd/2 of a head); over a prompt it attends
+# on the whole heads its ``wo`` rows touch (``head_span``), over a cache on
+# every head; then it multiplies its own channels by its ``wo`` rows, the
+# partial sums kept in float32 for the row-parallel end.
+# ---------------------------------------------------------------------------
+
+
+def whole_heads(cfg: ArchConfig, lp, h, name: str, offset=None):
+    """``h (B, S, D)`` projected by ``lp[name]`` (``wq``, ``wk`` or
+    ``wv``; plus its bias ``bq``/``bk``/``bv`` where the layer has one) on
+    every head: ``(B, S, heads, hd)``.  A block of columns cut over
+    ``model`` is all-gathered in rank order, the gather's gradient
+    reduce-scattered and summed in float32 (a head two ranks touch takes
+    both ranks' cotangents).  RoPE at positions from ``offset`` where
+    given."""
+    B, S, _ = h.shape
+    heads = cfg.n_heads if name == "wq" else cfg.n_kv_heads
+    t = torch.matmul(h, lp[name])
+    bias = "b" + name[1:]
+    if bias in lp:
+        t = t + lp[bias]
+    if t.shape[-1] != heads * cfg.hd:
+        from ..parallel.collectives import all_gather_dim
+        t = all_gather_dim(t, 2, model_axis()[0], torch.float32)
+    t = t.reshape(B, S, heads, cfg.hd)
+    if offset is None:
+        return t
+    return apply_rope(t, _positions(S, offset, h.device), cfg.rope_theta)
+
+
+def out_span(cfg: ArchConfig, lp):
+    """This rank's channels ``(lo, hi)`` of the attention output (its
+    rows of ``wo``) and the whole heads ``(h0, h1)`` they touch: the cut's
+    :func:`parallel.sharding.head_span`, or every channel and head."""
+    width = cfg.n_heads * cfg.hd
+    if lp["wo"].shape[-2] == width:
+        return (0, width), (0, cfg.n_heads)
+    _, n, m = model_axis()
+    return head_span(width, n, m, cfg.hd)
+
+
+def attend_prompt(cfg: ArchConfig, lp, q, k, v, *, causal=True, window=0):
+    """Attention over a prompt from position 0 on the whole heads this
+    rank's channels touch (:func:`out_span`), through the flash attention
+    kernel, its kv heads repeated per query head of the range (a touched
+    range need not be whole GQA groups); returns this rank's channels of
+    the output, ``(B, Sq, hi - lo)``."""
+    B, Sq = q.shape[:2]
+    (lo, hi), (h0, h1) = out_span(cfg, lp)
+    kv_of = torch.arange(h0, h1, device=q.device) // (
+        cfg.n_heads // cfg.n_kv_heads)
+    out = ops.mha(q[:, :, h0:h1], k[:, :, kv_of], v[:, :, kv_of],
+                  causal=causal, window=int(window))
+    return out.reshape(B, Sq, -1)[..., lo - h0 * cfg.hd:hi - h0 * cfg.hd]
+
+
+def attend_cache(cfg: ArchConfig, lp, q, k_buf, v_buf, seq, *,
+                 causal=True, window=0, q_offset=0, kv_len=None):
+    """Attention of every query head ``q (B, Sq, H, hd)`` against every
+    kv head of this rank's block of positions of a cache cut on them
+    (``seq``, ``hints.SequenceCut``): each rank's partial softmax
+    (``layers.attention_partials``, absolute positions for the causal and
+    window masks) merged over the cut's ranks.  Returns this rank's
+    channels of the output (:func:`out_span`) in ``q``'s dtype."""
+    B, Sq = q.shape[:2]
+    (lo, hi), _ = out_span(cfg, lp)
+    rows = k_buf.shape[1]
+    out = merge_partials(*attention_partials(
+        q, k_buf, v_buf, causal=causal, window=window, q_offset=q_offset,
+        k_offset=seq.index * rows, kv_len=kv_len), seq.amax, seq.total)
+    return out.to(q.dtype).reshape(B, Sq, -1)[..., lo:hi]
+
+
+def out_proj(lp, o, width: int):
+    """``o``, this rank's channels of the attention output, times its
+    rows of ``wo``: float32 partial sums where ``wo`` is cut over
+    ``model`` (``hints.row_parallel_end`` sums them), else the whole
+    product in ``o``'s dtype (``width``: the whole ``wo``'s rows)."""
+    if lp["wo"].shape[-2] == width:
+        return torch.matmul(o, lp["wo"])
+    return torch.matmul(o.float(), lp["wo"].float())
+
+
+def write_rows(k_buf, v_buf, k, v, pos, seq=None):
+    """The new rows ``k``, ``v (B, S, Hkv, hd)`` at position ``pos`` of
+    the whole cache, **in place**: a write past the whole buffer's end
+    (this block's rows times ``seq.n``) is clamped to fit, as the JAX
+    package's ``dynamic_update_slice`` clamps it; a rank holding a block
+    of positions (``seq``) writes only the rows its block holds."""
+    S, rows = k.shape[1], k_buf.shape[1]
+    at = min(max(int(pos), 0), rows * (seq.n if seq else 1) - S)
+    base = seq.index * rows if seq else 0
+    a, b = max(at, base), min(at + S, base + rows)
+    if a < b:
+        k_buf[:, a - base:b - base] = k[:, a - at:b - at].to(k_buf.dtype)
+        v_buf[:, a - base:b - base] = v[:, a - at:b - at].to(v_buf.dtype)
+
+
+def store_prompt(buf, t, seq=None):
+    """A prompt's rows ``t (B, S, ...)`` from position 0 into ``buf (B,
+    rows, ...)``: its first ``S`` rows, or, for a rank's block of
+    positions (``seq``), the prompt's rows that the block holds."""
+    rows = buf.shape[1]
+    base = seq.index * rows if seq else 0
+    end = min(base + rows, t.shape[1])
+    if end > base:
+        buf[:, :end - base] = t[:, base:end]
+
+
+def whole_heads_attention(cfg: ArchConfig, lp, h, kv_in, *, causal=True,
+                          window=0, cache_kv=None, pos=0, seq=None):
+    """An attention on whole heads (the section above) of ``h (B, S, D)``
+    over keys and values projected from ``kv_in`` at position ``pos``:
+    over them alone (a prompt from position 0), or written into this
+    rank's block of a cache cut on its positions, ``cache_kv`` (``seq``),
+    and attended over its first ``pos + S`` rows.  ``kv_in`` None attends
+    a cache that already holds every key and value (a decode step's cross
+    attention).  Returns ``(wo's product, (k, v))``: the product this
+    rank's float32 partial sums where the weights are cut, ``k``/``v``
+    every kv head of the new rows (None without ``kv_in``)."""
+    q = whole_heads(cfg, lp, h, "wq", pos)
+    k = v = None
+    if kv_in is not None:
+        k = whole_heads(cfg, lp, kv_in, "wk", pos)
+        v = whole_heads(cfg, lp, kv_in, "wv")
+    if cache_kv is None:
+        o = attend_prompt(cfg, lp, q, k, v, causal=causal, window=window)
+    else:
+        k_buf, v_buf = cache_kv
+        if seq is None or k_buf.shape[2] != cfg.n_kv_heads:
+            raise ValueError(
+                f"a cache of {k_buf.shape[2]} kv heads, "
+                f"{'uncut' if seq is None else 'cut'} on its positions, for "
+                f"a layer on whole heads: it holds every kv head "
+                f"({cfg.n_kv_heads}) of a block of positions")
+        if k is not None:
+            write_rows(k_buf, v_buf, k, v, pos, seq)
+        o = attend_cache(cfg, lp, q, k_buf, v_buf, seq, causal=causal,
+                         window=window, q_offset=pos,
+                         kv_len=None if k is None else pos + h.shape[1])
+    return out_proj(lp, o, cfg.n_heads * cfg.hd), (k, v)
+
+
 def _project_kv(cfg, lp, x, q_offset):
     B, S, _ = x.shape
     Dh = cfg.hd
@@ -179,7 +348,7 @@ def _project_kv(cfg, lp, x, q_offset):
 
 
 def dense_layer(cfg: ArchConfig, lp, x, window, *, cache_kv=None, pos=0,
-                block_k=1024, ffn=None):
+                block_k=1024, ffn=None, seq=None):
     """One transformer block.  cache_kv=(k,v) full-length buffers for decode,
     **written in place** at ``pos``; otherwise self-attention over the
     current sequence through the flash attention kernel, which counts
@@ -203,6 +372,18 @@ def dense_layer(cfg: ArchConfig, lp, x, window, *, cache_kv=None, pos=0,
     into this rank's block under a sequence cut, all-reduced otherwise.
     A cache then holds this rank's kv heads (``cache_specs``' head cut).
 
+    With weights cut off head boundaries (:func:`heads_split`: 3.5 heads
+    a rank), or a cache cut on its positions (``seq``, the pass's
+    ``hints.SequenceCut``), the attention runs on whole heads (the
+    section above :func:`whole_heads`): q, k and v gathered whole, the
+    prompt attended on the heads this rank's channels touch, a cache on
+    every head -- with ``seq`` a partial softmax over this rank's
+    positions merged over the cut's ranks, the new rows written by the
+    rank whose block holds them -- and this rank's channels times its
+    ``wo`` rows, summed over ``model`` in float32.  Without ``seq`` the
+    returned and cached K/V are every kv head's (whole weights: as
+    before).
+
     In a pass that cuts the residual's channels (the hybrid's shared
     block; ``hints.whole_channels``) ``x`` is this rank's channels: each
     norm's input is gathered whole on them, and each residual add takes
@@ -216,10 +397,14 @@ def dense_layer(cfg: ArchConfig, lp, x, window, *, cache_kv=None, pos=0,
              "block_in")
     tp = heads_cut(cfg, lp)
     ha = column_in(h) if tp else h
-    if cache_kv is None:
-        if int(pos) != 0:
-            raise ValueError(f"a layer without a cache attends over the "
-                             f"sequence from position 0, got pos={pos}")
+    if cache_kv is None and int(pos) != 0:
+        raise ValueError(f"a layer without a cache attends over the "
+                         f"sequence from position 0, got pos={pos}")
+    if on_whole_heads(cfg, lp, seq):
+        attn, new_kv = whole_heads_attention(
+            cfg, lp, ha, ha, window=window, cache_kv=cache_kv, pos=pos,
+            seq=seq)
+    elif cache_kv is None:
         k, v = _project_kv(cfg, lp, ha, 0)
         attn = _attn_prompt(cfg, lp, ha, k, v, window)
         new_kv = (k, v)
@@ -230,8 +415,8 @@ def dense_layer(cfg: ArchConfig, lp, x, window, *, cache_kv=None, pos=0,
             raise ValueError(
                 f"a cache of {k_buf.shape[2]} kv heads for a layer of "
                 f"{k_new.shape[2]}: a tensor-parallel layer's cache holds "
-                f"its rank's kv heads (a cache cut on the sequence is not "
-                f"supported)")
+                f"its rank's kv heads, or every kv head of its block of "
+                f"positions where the policy's '__cache__' cuts them")
         S = x.shape[1]
         at = min(max(int(pos), 0), k_buf.shape[1] - S)
         k_buf[:, at:at + S] = k_new.to(k_buf.dtype)
@@ -240,7 +425,9 @@ def dense_layer(cfg: ArchConfig, lp, x, window, *, cache_kv=None, pos=0,
                      window=window, q_offset=pos, kv_len=pos + S,
                      block_k=block_k)
         new_kv = (k_buf, v_buf)
-    x = x + (row_parallel_end(attn) if tp else residual_block(attn))
+    # a float32 sum of the whole-heads path's partials is rounded once
+    x = x + (row_parallel_end(attn) if tp else residual_block(attn)).to(
+        x.dtype)
     h = hint(rms_norm(whole_channels(x), lp["ln2"], cfg.norm_eps),
              "block_in")
     if ffn is None:
@@ -506,13 +693,50 @@ class KVCache(NamedTuple):
     pos: int    # number of decode calls so far, ONE count for all slots
 
 
+def kv_layout(cfg: ArchConfig, wk, field: str = "k"):
+    """How a rank holds the KV cache of layers whose ``wk`` is its block:
+    ``(kv heads, hints.SequenceCut or None)``.  The policy's
+    ``"__cache__"`` declares it (``hints.cache_cut``): every kv head of a
+    block of positions, or this rank's kv heads.  Without it, the kv
+    heads of a ``wk`` cut on a head boundary (every kv head of a whole
+    one); a cut that splits a kv head needs the cache cut on its
+    positions, declared."""
+    declared = cache_cut(field)
+    blk = wk.shape[-1]
+    if blk % cfg.hd and (declared is None or declared[0] is None):
+        raise ValueError(
+            f"a wk of {blk} columns splits a kv head of {cfg.hd}: its cache "
+            f"is cut on its positions, which the policy's '__cache__' "
+            f"declares (cache_specs)")
+    if declared is None:
+        return blk // cfg.hd, None
+    seq, head_blocks = declared
+    return cfg.n_kv_heads // head_blocks, seq
+
+
+def cache_block(cfg: ArchConfig, max_len: int, kv_heads=None,
+                field: str = "k"):
+    """``(positions, kv heads)`` of a rank's block of a KV cache
+    ``max_len`` long: what the policy's ``"__cache__"`` declares (its
+    block of positions, or its kv heads), ``kv_heads`` where given, and
+    otherwise the whole cache."""
+    declared = cache_cut(field)
+    if declared is None:
+        return max_len, kv_heads or cfg.n_kv_heads
+    seq, head_blocks = declared
+    lo, hi = (0, max_len) if seq is None else seq.span(max_len)
+    return hi - lo, kv_heads or cfg.n_kv_heads // head_blocks
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda", kv_heads=None) -> KVCache:
-    """Zeros; ``kv_heads`` of them a layer (default: every kv head; a
-    tensor-parallel rank holds its own, ``cache_specs``' head cut)."""
+    """Zeros: this rank's block of the cache (:func:`cache_block`): under
+    a policy whose ``"__cache__"`` cuts its positions ``max_len / n`` rows
+    of every kv head, or its kv heads; ``kv_heads`` of them a layer where
+    given; otherwise the whole cache."""
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, kv_heads or cfg.n_kv_heads,
-             cfg.hd)
+    rows, heads = cache_block(cfg, max_len, kv_heads)
+    shape = (cfg.n_layers, batch, rows, heads, cfg.hd)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device), 0)
 
@@ -533,9 +757,14 @@ def prefill(cfg: ArchConfig, params: Params, tokens: Tensor, max_len: int,
     whole sequence's (its K/V come from the gathered block inputs), and
     the logits, computed by the rank of the last block, are broadcast to
     every rank of the ``model`` group.  With weights cut over ``model``
-    the cache holds this rank's kv heads, and the last position's hidden
-    state is broadcast instead, for every rank's block of the vocabulary
-    (the logits gathered whole, :func:`logits_fn`)."""
+    the cache holds this rank's kv heads (:func:`kv_layout`; a cut that
+    splits a kv head needs the declared cut on the positions below), and
+    the last position's hidden state is broadcast instead, for every
+    rank's block of the vocabulary (the logits gathered whole,
+    :func:`logits_fn`).  Where the policy's
+    ``"__cache__"`` cuts the positions, the cache is this rank's block of
+    ``max_len / n`` positions of every kv head, which holds the prompt's
+    rows that fall in it."""
     B, S = tokens.shape
     if S > max_len:
         raise ValueError(f"a prompt of {S} tokens does not fit a cache of "
@@ -543,16 +772,16 @@ def prefill(cfg: ArchConfig, params: Params, tokens: Tensor, max_len: int,
     with split_sequence(S) as split:
         x = residual_block(embed_tokens(params, tokens, cfg.vocab))
         windows = layer_windows(cfg)
+        kv_heads, seq = kv_layout(cfg, params["layers"]["wk"])
         cache = init_cache(cfg, B, max_len, device=x.device,
-                           kv_heads=params["layers"]["wk"].shape[-1]
-                           // cfg.hd)
+                           kv_heads=kv_heads)
         for i in range(cfg.n_layers):
             x, (k, v) = dense_layer(cfg, _layer_params(params, i), x,
-                                    int(windows[i]), ffn=ffn)
+                                    int(windows[i]), ffn=ffn, seq=seq)
             if residual_hint:
                 x = hint(x, "residual")
-            cache.k[i, :, :S] = k
-            cache.v[i, :, :S] = v
+            store_prompt(cache.k[i], k, seq)
+            store_prompt(cache.v[i], v, seq)
         h = rms_norm(x, params["ln_f"], cfg.norm_eps)
         logits = last_logits(cfg, params, h, split)
     return logits, KVCache(cache.k, cache.v, S)
@@ -590,18 +819,23 @@ def decode_step(cfg: ArchConfig, params: Params, cache: KVCache,
     ``ffn(lp, h)`` overrides every layer's feed-forward (the MoE family).
     Under a policy with a ``"__mesh__"`` the step declares its one token a
     row (uncut), so that a layer reads the mesh's ``data`` group; with
-    weights cut over ``model`` the cache holds this rank's kv heads and
-    the logits are the whole vocabulary's.
+    weights cut over ``model`` the cache holds this rank's kv heads (as
+    :func:`prefill` laid it, :func:`kv_layout`) and the logits are the
+    whole vocabulary's.  Where the policy's ``"__cache__"`` cuts the
+    cache's positions, each layer's attention is a partial softmax over
+    this rank's block merged over the cut's ranks, and the new token's
+    K/V are written by the rank whose block holds ``pos``.
     """
     with split_sequence(tokens.shape[1], cut=False):
         x = embed_tokens(params, tokens, cfg.vocab)
         windows = layer_windows(cfg)
         pos = int(cache.pos)
+        seq = kv_layout(cfg, params["layers"]["wk"])[1]
         for i in range(cfg.n_layers):
             x, _ = dense_layer(cfg, _layer_params(params, i), x,
                                int(windows[i]),
                                cache_kv=(cache.k[i], cache.v[i]), pos=pos,
-                               block_k=block_k, ffn=ffn)
+                               block_k=block_k, ffn=ffn, seq=seq)
         h = rms_norm(x, params["ln_f"], cfg.norm_eps)
         logits = logits_fn(cfg, params, h)[:, 0]
     return logits, KVCache(cache.k, cache.v, pos + 1)

@@ -10,8 +10,21 @@ This is the activation-side twin of the parameter banking bridge
 (``parallel/sharding.py``).  On a ``DTensor`` a hint redistributes to the
 spec's placements on the tensor's own mesh -- the JAX package's
 ``with_sharding_constraint``.  Entries that are not specs (``"__mesh__"``,
-the live ``DeviceMesh`` the expert-parallel MoE layer reads, and
-``"__fsdp__"``) are read with :func:`policy_value`.
+the live ``DeviceMesh`` the expert-parallel MoE layer reads,
+``"__fsdp__"``, and ``"__cache__"``, the decode cache's layout) are read
+with :func:`policy_value`.
+
+``"__cache__"`` declares how a prefill or a decode step holds the KV
+cache: ``parallel.sharding.cache_specs(cfg, shape, mesh)`` of the shape
+being served, a spec in each field of the family's cache type.  Where a
+KV field's spec cuts the positions (dim 2) over live axes, a rank holds
+its block of ``Smax/n`` positions of every kv head (:func:`cache_cut`,
+:class:`SequenceCut`: ``n`` is ``model``, or ``data`` x ``model``, data
+major, under ``long_decode`` at batch 1) and its attention over the cache
+is a partial softmax merged over those ranks; where it cuts the kv heads
+(dim 3), the rank's kv heads.  Without the entry the layout follows the
+weights: a rank's kv heads where ``wk`` is cut on a head boundary, every
+kv head and position otherwise.
 
 A plain tensor is process-local: its rows are this rank's rows of the
 batch (the caller cuts dim 0 over the data axes), so a spec's batch entry
@@ -303,6 +316,70 @@ def bound(fn):
             _LOCAL.policy, _LOCAL.split = old_policy, old_split
 
     return run
+
+
+@dataclass(frozen=True)
+class SequenceCut:
+    """A cache's positions cut into ``n`` contiguous blocks over the live
+    mesh axes of its spec, major to minor; this rank holds block
+    ``index``; ``groups``: those axes' process groups, over which the
+    attention's partial softmax is merged."""
+
+    n: int
+    index: int
+    groups: tuple
+
+    def span(self, length: int):
+        """This rank's positions ``(lo, hi)`` of a whole ``length``."""
+        if length % self.n:
+            raise ValueError(f"a cache of {length} positions does not cut "
+                             f"into {self.n} blocks")
+        b = length // self.n
+        return self.index * b, (self.index + 1) * b
+
+    def amax(self, t):
+        """The elementwise max of ``t`` over the cut's ranks."""
+        from .collectives import all_reduce_max
+        for g in self.groups:
+            t = all_reduce_max(t, g)
+        return t
+
+    def total(self, t):
+        """The sum of ``t`` over the cut's ranks."""
+        from .collectives import all_reduce_sum
+        for g in self.groups:
+            t = all_reduce_sum(t, g)
+        return t
+
+
+def cache_cut(field: str = "k"):
+    """The layout the policy's ``"__cache__"`` declares for the KV field
+    ``field`` of the family's cache on its live ``"__mesh__"``:
+    ``(SequenceCut or None, head blocks)``, the kv heads cut into ``head
+    blocks`` over ``model`` (1: every kv head); ``None`` where the policy
+    declares nothing."""
+    specs, mesh = policy_value("__cache__"), policy_value("__mesh__")
+    if specs is None or mesh is None:
+        return None
+    names = tuple(mesh.mesh_dim_names)
+    spec = getattr(specs, field)
+
+    def live(d):
+        return [a for a in (_names(spec[d]) if d < len(spec) else ())
+                if mesh.size(names.index(a)) > 1]
+
+    seq = None
+    axes = live(2)
+    if axes:
+        n, index = 1, 0
+        for a in axes:
+            k = mesh.size(names.index(a))
+            n, index = n * k, index * k + mesh.get_local_rank(a)
+        seq = SequenceCut(n, index, tuple(mesh.get_group(a) for a in axes))
+    heads = 1
+    for a in live(3):
+        heads *= mesh.size(names.index(a))
+    return seq, heads
 
 
 def model_axis():

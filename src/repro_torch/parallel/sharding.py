@@ -223,9 +223,11 @@ def param_specs(params_shape: Any, mesh, fsdp: bool = False,
 # ---------------------------------------------------------------------------
 
 # the dim of a leaf that holds its heads, from the last, and the kind of
-# head along it (its width: ``head_widths``): a cut of it must fall on a
-# head boundary.  Mamba2's contiguous cuts of ``in_proj``, ``conv_w`` and
-# ``conv_b`` need not (``models/ssm.py`` gathers across them).
+# head along it (its width: ``head_widths``).  A cut of a Mamba2 head dim
+# must fall on a head boundary; an attention leaf may be cut anywhere
+# (``head_span`` gives a rank's columns and the heads they touch, and the
+# layer gathers across them), and so may Mamba2's ``in_proj``, ``conv_w``
+# and ``conv_b`` (``models/ssm.py`` gathers across them).
 HEAD_DIMS = {"wq": (1, "attention"), "wk": (1, "attention"),
              "wv": (1, "attention"), "bq": (1, "attention"),
              "bk": (1, "attention"), "bv": (1, "attention"),
@@ -233,6 +235,8 @@ HEAD_DIMS = {"wq": (1, "attention"), "wk": (1, "attention"),
              "A_log": (1, "ssm_heads"), "D_skip": (1, "ssm_heads"),
              "dt_bias": (1, "ssm_heads"), "gate_ln": (1, "ssm"),
              "out_proj": (2, "ssm")}
+# the kinds whose cuts must fall on head boundaries
+WHOLE_HEAD_KINDS = ("ssm_heads", "ssm")
 
 
 def head_widths(cfg: ArchConfig) -> Dict[str, int]:
@@ -275,13 +279,31 @@ def _model_dim(path: str, spec: PartitionSpec, axes: Dict[str, int]
     return cut
 
 
+def head_span(width: int, n: int, m: int, head: int
+              ) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """Rank ``m``'s columns ``(lo, hi)`` of a head leaf ``width`` columns
+    wide cut into ``n`` contiguous blocks over ``model`` (``wq``'s
+    columns, ``wo``'s rows), and the whole heads ``(h0, h1)`` of ``head``
+    columns that the range touches: on a head boundary ``h1 - h0`` is
+    the rank's own heads, else one or two heads more, shared with the
+    neighbouring ranks (3.5 heads a rank touch 4)."""
+    if width % n:
+        raise ValueError(f"{width} columns do not divide by {n} ranks")
+    blk = width // n
+    lo, hi = m * blk, (m + 1) * blk
+    return (lo, hi), (lo // head, -(-hi // head))
+
+
 def leaf_block(path: str, leaf, spec: PartitionSpec, axes: Dict[str, int],
                coords: Dict[str, int], head_dim=None):
     """This rank's block of one leaf (tensor or numpy array) under
-    ``spec``: a view.  Where the cut of a head dim (``HEAD_DIMS``) would
-    not fall on a boundary of a head it raises, naming the leaf and the
-    spec; ``head_dim``: the attention heads' width, or the widths of every
-    kind of head (:func:`head_widths`)."""
+    ``spec``: a view, the contiguous range of the dim that ``spec`` cuts
+    over ``model``.  An attention leaf's block may split a head
+    (:func:`head_span`); where the cut of a Mamba2 head dim
+    (``HEAD_DIMS``, ``WHOLE_HEAD_KINDS``) would not fall on a boundary of
+    a head it raises, naming the leaf and the spec.  ``head_dim``: the
+    widths of every kind of head (:func:`head_widths`); a number is the
+    attention heads' width, which no cut must respect."""
     d = _model_dim(path, spec, axes)
     if d is None:
         return leaf
@@ -291,16 +313,14 @@ def leaf_block(path: str, leaf, spec: PartitionSpec, axes: Dict[str, int],
                          f"({spec!r})")
     blk = leaf.shape[d] // axes["model"]
     name = path.rsplit("/", 1)[-1]
-    widths = (head_dim if isinstance(head_dim, dict)
-              else {"attention": head_dim})
+    widths = head_dim if isinstance(head_dim, dict) else {}
     at_dim, kind = HEAD_DIMS.get(name, (None, None))
-    width = widths.get(kind)
+    width = widths.get(kind) if kind in WHOLE_HEAD_KINDS else None
     if width and d == len(leaf.shape) - at_dim and blk % width:
         raise ValueError(
             f"{path}: {spec!r} cuts dim {d} ({leaf.shape[d]}) over a "
             f"'model' axis of {axes['model']} into blocks of {blk}, not "
-            f"whole heads of {width}: head-misaligned cuts are not "
-            f"supported")
+            f"whole heads of {width}: a Mamba2 head is not split")
     at = coords["model"] * blk
     return leaf[(slice(None),) * d + (slice(at, at + blk),)]
 
@@ -312,7 +332,8 @@ def rank_blocks(tree: Any, specs: Any, mesh, coords: Dict[str, int],
     spec tree (:func:`param_specs`) on ``mesh``, at ``coords`` (axis name
     -> index, :func:`mesh_coords`).  A leaf that its spec leaves whole,
     or cuts over axes of size 1 only, stays whole.  ``head_dim``: the
-    head leaves' cuts must fall on head boundaries (:func:`leaf_block`)."""
+    Mamba2 head leaves' cuts must fall on head boundaries
+    (:func:`leaf_block`)."""
     axes = mesh_axes(mesh)
 
     def walk(t, s, prefix):
@@ -556,7 +577,7 @@ def placements(spec: PartitionSpec, mesh) -> tuple:
 __all__ = [
     "P", "PartitionSpec", "ROLE_TP_DIMS", "bankable", "batch_specs",
     "cache_blocks", "cache_specs", "dp_axes", "first_bankable",
-    "head_widths", "join_blocks", "join_caches", "lane_artifact",
+    "head_span", "head_widths", "join_blocks", "join_caches", "lane_artifact",
     "leaf_block", "logits_spec", "mesh_axes", "mesh_coords", "param_specs",
     "placements", "rank_blocks", "tp_axis",
 ]

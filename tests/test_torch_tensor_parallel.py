@@ -24,9 +24,12 @@ reference's run, the worlds and the checks are ``tests/torch_tp.py``'s,
 shared with the SSM, hybrid and encoder-decoder files.
 
 Without worlds: the blocks of every leaf of qwen2-7b, gemma3-12b and
-olmoe-1b-7b at full width (shapes on ``meta``) on ``model`` 2 and 4
-against what ``param_specs`` implies and the dry-run's bytes; the error
-of a head-misaligned cut; the ``experts=`` cut as the expert specs' case;
+olmoe-1b-7b at full width (shapes on ``meta``) on ``model`` 2 and 4, and
+of all ten configs on the production meshes (1, 8), (1, 16) and
+(16, 16), against what ``param_specs`` implies and the dry-run's bytes
+(the four FSDP configs refused at (16, 16) by the ZeRO-3 check); a
+head-misaligned cut's blocks, contiguous ranges of columns joined back
+whole; the ``experts=`` cut as the expert specs' case;
 and, with whole weights and no mesh, every output of the changed layers
 ``torch.equal`` to the code path before tensor parallelism
 (``tests/torch_parent_layers.py``).
@@ -38,6 +41,7 @@ import pytest
 import torch
 
 import torch_tp
+from repro_torch.configs import ARCH_IDS
 from torch_worlds import flatten
 
 MOE = dict(n_experts=4, top_k=2)
@@ -162,28 +166,70 @@ def test_full_width_blocks_are_what_the_specs_imply(arch, n):
         leaves, tree_leaves(shapes))) >= 8
 
 
+# the configs whose bf16 parameters pass 2 GiB a device after a cut over
+# 16: the dry-run cuts them over 'data' too (ZeRO-3) at (16, 16)
+FSDP_ARCHS = ("deepseek_67b", "internlm2_20b", "chameleon_34b",
+              "llama4_maverick")
+PRODUCTION_MESHES = [(1, 8), (1, 16), (16, 16)]
+
+
+@pytest.mark.parametrize("mesh", PRODUCTION_MESHES, ids=str)
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_production_meshes_give_every_rank_its_blocks(arch, mesh):
+    """Every config on the reference's production meshes at full width
+    (shapes on ``meta``): every ``model`` rank's block of every leaf has
+    the shape ``param_specs`` implies and a rank's bytes are the
+    dry-run's -- qwen2-7b's 3.5 heads a rank at (1, 8), gemma3-12b's and
+    whisper-base's half a kv head at (1, 16) included -- but for the four
+    FSDP configs at (16, 16), which ``param_specs`` cuts over ``data``
+    too: refused as a ZeRO-3 cut."""
+    data, n = mesh
+    if data > 1 and arch in FSDP_ARCHS:
+        with pytest.raises(ValueError, match="ZeRO-3"):
+            torch_tp.check_full_width_blocks(arch, n, data)
+        return
+    assert torch_tp.check_full_width_blocks(arch, n, data)
+
+
 @pytest.mark.parametrize("leaf,heads", [("wk", dict(n_kv_heads=2)),
                                         ("wq", dict(n_heads=4,
                                                     n_kv_heads=4))])
 def test_a_head_misaligned_cut_raises(leaf, heads):
     """The reduced qwen2-7b (head dim 32) on a model axis of 4 with 2 kv
     heads, and of 8 with 4 heads: ``param_specs`` cuts the columns (they
-    divide), but not on a head boundary, which is refused by name."""
+    divide) off head boundaries -- half a head a rank -- which a rank
+    takes no longer raises on: every rank's block is the contiguous
+    range of columns the spec implies, and ``join_blocks`` gives the
+    whole leaf back."""
     from repro_torch.configs import get_arch
     from repro_torch.convert import for_ranks
     from repro_torch.launch.mesh import MeshShape
-    from repro_torch.models import get_model, param_shapes
-    from repro_torch.parallel.sharding import param_specs
+    from repro_torch.models import get_model
+    from repro_torch.parallel.sharding import (head_span, head_widths,
+                                               join_blocks, param_specs)
 
     cfg = dataclasses.replace(get_arch("qwen2_7b").reduced(), **heads)
     n = 4 if leaf == "wk" else 8
     mesh = MeshShape(("data", "model"), (1, n))
-    shapes = param_shapes(get_model(cfg))
-    specs = param_specs(shapes, mesh)
+    params = get_model(cfg).init(torch.Generator().manual_seed(0),
+                                 device="cpu")
+    specs = param_specs(params, mesh)
     assert "model" in specs["layers"][leaf]
-    with pytest.raises(ValueError, match=f"layers/{leaf}.*not whole heads"):
-        for_ranks(shapes, specs=specs, mesh=mesh,
-                  coords={"data": 0, "model": 1}, head_dim=cfg.hd)
+    whole = params["layers"][leaf]
+    width = whole.shape[-1]
+    assert (width // n) % cfg.hd
+    blocks = [for_ranks(params, specs=specs, mesh=mesh,
+                        coords={"data": 0, "model": m},
+                        head_dim=head_widths(cfg)) for m in range(n)]
+    for m, tree in enumerate(blocks):
+        (lo, hi), (h0, h1) = head_span(width, n, m, cfg.hd)
+        got = tree["layers"][leaf]
+        assert torch.equal(got, whole[..., lo:hi])
+        assert got.data_ptr() == whole[..., lo:hi].data_ptr()
+        assert h1 - h0 == 1 and h0 == lo // cfg.hd
+    joined = join_blocks(blocks, specs, mesh)
+    for k, v in flatten(params).items():
+        assert torch.equal(flatten(joined)[k], v), k
 
 
 def test_a_zero3_cut_over_data_raises():

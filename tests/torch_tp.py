@@ -1,6 +1,7 @@
 """Shared harness of the tensor-parallel tests
 (``tests/test_torch_tensor_parallel.py``, ``tests/test_torch_tp_ssm.py``,
-``tests/test_torch_tp_encdec.py``): the reference's run on a mesh of XLA
+``tests/test_torch_tp_encdec.py``, ``tests/test_torch_tp_split_heads.py``,
+``tests/test_torch_tp_long_cache.py``): the reference's run on a mesh of XLA
 host devices with its parameters placed by its own ``param_specs``, the
 port's worlds of 2 (``model`` 2) and 4 (``data`` 2 x ``model`` 2) gloo
 ranks (``torch_worlds.rank_tensor_parallel``), and the checks each file
@@ -11,8 +12,11 @@ The reference runs once in a subprocess with 4 host devices on an
 for a (world, case), under the dry-run's policies: the train policy for
 the loss, its gradients and one ``make_train_step``, the prefill policy
 for the prefill, the decode policy for three serve steps fed the same
-tokens in both packages.  Every tensor of the cache is kept and the
-ranks' blocks are joined per ``cache_specs``.  Tolerances: bf16 2e-2 of
+tokens in both packages (a case may name its own ``"serve"`` shapes,
+``long_500k`` for both, and its ``"batch"``: a batch of one row is not
+trained).  The port's prefill and serve policies also declare the
+cache's layout (``"__cache__"``).  Every tensor of the cache is kept and
+the ranks' blocks are joined per ``cache_specs``.  Tolerances: bf16 2e-2 of
 max(1, |ref|) for every value, a cosine above 0.999 for every gradient
 leaf, a token held where the reference's top-2 gap exceeds twice the
 bound.
@@ -119,17 +123,25 @@ for mesh_id, name in {RUNS!r}:
              for k in ("tokens", "labels", "frames")
              if name + "/" + k in inp}}
     prompt = {{k: v for k, v in batch.items() if k != "labels"}}
+    prefill_shape, decode_shape = case["serve"]
     policy = {{s: dict(make_policy(cfg, SHAPES[s], mesh), __mesh__=mesh)
-              for s in ("train_4k", "prefill_32k", "decode_32k")}}
-    with mesh, sharding_policy(policy["train_4k"]):
-        loss, grads = jax.jit(jax.value_and_grad(model.loss))(params, batch)
-        step = jax.jit(make_train_step(model, adamw.AdamWConfig(**case["opt"])))
-        loss1, params1, _ = step(params, adamw.init(params), batch)
-    with mesh, sharding_policy(policy["prefill_32k"]):
+              for s in ("train_4k", prefill_shape, decode_shape)}}
+    if case["train"]:
+        with mesh, sharding_policy(policy["train_4k"]):
+            loss, grads = jax.jit(jax.value_and_grad(model.loss))(params,
+                                                                 batch)
+            step = jax.jit(make_train_step(model,
+                                           adamw.AdamWConfig(**case["opt"])))
+            loss1, params1, _ = step(params, adamw.init(params), batch)
+        res[key + "/loss"] = np.asarray(loss, np.float32)
+        res[key + "/step_loss"] = np.asarray(loss1, np.float32)
+        res.update({{key + "/g/" + k: v for k, v in flatten(grads).items()}})
+        res.update({{key + "/s/" + k: v for k, v in flatten(params1).items()}})
+    with mesh, sharding_policy(policy[prefill_shape]):
         logits, cache = model.prefill(params, prompt, {MAX_LEN})
     res[key + "/cut_leaves"] = np.asarray(cut)
-    res[key + "/loss"] = np.asarray(loss, np.float32)
-    res[key + "/step_loss"] = np.asarray(loss1, np.float32)
+    res.update({{key + "/whole/" + k: np.asarray(v.shape)
+                for k, v in flat.items()}})
     res[key + "/logits"] = np.asarray(logits, np.float32)
     for field, v in cache._asdict().items():
         if np.ndim(v):
@@ -144,16 +156,32 @@ for mesh_id, name in {RUNS!r}:
                     v, np.float32)
     serve = make_serve_step(model)
     feed = jnp.asarray(inp[name + "/decode_tokens"])
-    with mesh, sharding_policy(policy["decode_32k"]):
+    with mesh, sharding_policy(policy[decode_shape]):
         for i in range({STEPS}):
             tok, lg, cache = serve(params, cache, feed[:, i:i + 1])
             res[key + "/decode%d/logits" % i] = np.asarray(lg, np.float32)
             res[key + "/decode%d/tokens" % i] = np.asarray(tok)
-    res.update({{key + "/g/" + k: v for k, v in flatten(grads).items()}})
-    res.update({{key + "/s/" + k: v for k, v in flatten(params1).items()}})
 np.savez(out + "/tp_ref.npz", **res)
 print("REF-OK")
 """
+
+
+def batch_of(case):
+    """The case's global batch: ``B`` unless it names its own."""
+    return (case or {}).get("batch", B)
+
+
+def serve_shapes(case):
+    """The shapes whose dry-run policies the case's prefill and its serve
+    steps run under: ``("prefill_32k", "decode_32k")`` unless it names
+    its own (``"serve"``, e.g. ``long_500k`` for both)."""
+    return tuple(case.get("serve", ("prefill_32k", "decode_32k")))
+
+
+def trains(case):
+    """Whether the case trains: a batch of one row has no data rows to
+    train on."""
+    return batch_of(case) > 1
 
 
 def config(case, package="repro_torch"):
@@ -177,13 +205,14 @@ def _case_inputs(name, case):
 
     cfg = config(case, "repro")
     impl = case.get("impl", "sorted")
+    rows = batch_of(case)
     params = ref_get_model(cfg, moe_impl=impl).init(jax.random.PRNGKey(0))
     if cfg.family == "moe":
         from test_torch_attention import ROUTE_MARGIN, _routing_margin
     for seed in range(1, 80):
-        batch = batch_for(cfg, seed, B=B, S=S)
+        batch = batch_for(cfg, seed, B=rows, S=S)
         feed = np.random.default_rng(seed).integers(
-            2, cfg.vocab - 1, size=(B, TP_DECODE_STEPS)).astype(np.int32)
+            2, cfg.vocab - 1, size=(rows, TP_DECODE_STEPS)).astype(np.int32)
         toks = np.concatenate([batch["tokens"], feed], 1)
         if (cfg.family != "moe"
                 or _routing_margin(cfg, params, toks) >= ROUTE_MARGIN):
@@ -197,7 +226,9 @@ def _case_inputs(name, case):
     arrays[f"{name}/decode_tokens"] = feed
     dtypes = {k: str(v.dtype) for k, v in flat.items()}
     return arrays, dict(case, impl=impl, dtypes=dtypes, opt=OPT,
-                        self_spread=cfg.family in SELF_SPREAD)
+                        self_spread=cfg.family in SELF_SPREAD,
+                        serve=list(serve_shapes(case)),
+                        train=trains(case))
 
 
 def run(tmp, cases, ref_mesh=None):
@@ -266,10 +297,15 @@ def specs_of(case, world):
     return flatten(shd.param_specs(param_shapes(model), mesh_of(world)))
 
 
-def _row(world, r):
-    n_data = world // 2
+def _row(world, r, case):
+    """Rank ``r``'s rows of the case's batch: its data row's share, or
+    the whole batch where it has fewer rows than the data axis (the
+    dry-run's ``batch_specs`` leaves such a batch uncut)."""
+    n_data, rows = world // 2, batch_of(case)
+    if rows < n_data:
+        return slice(0, rows)
     d = r // 2
-    return slice(d * B // n_data, (d + 1) * B // n_data)
+    return slice(d * rows // n_data, (d + 1) * rows // n_data)
 
 
 def _joined(ranks, name, case, kind, world):
@@ -289,12 +325,16 @@ def _joined(ranks, name, case, kind, world):
     return join_blocks(trees, specs, mesh_of(world))
 
 
-def cache_shape(length):
-    """The prefill's cache as the dry-run sees it: ``B`` rows over the
-    world's data rows, ``length`` positions."""
-    from repro_torch.configs.base import ShapeConfig
+def cache_shape(length, case=None):
+    """The prefill's cache as the dry-run sees it: the case's batch over
+    the world's data rows, ``length`` positions, of the kind of the
+    shape its serve steps run under (``decode``, or ``long_decode``,
+    whose cache at batch 1 is cut over every axis)."""
+    from repro_torch.configs.base import SHAPES, ShapeConfig
 
-    return ShapeConfig("tp_prefill", length, B, "decode")
+    case = case or {}
+    return ShapeConfig("tp_prefill", length, batch_of(case),
+                       SHAPES[serve_shapes(case)[1]].kind)
 
 
 def cache_type(cfg):
@@ -333,18 +373,18 @@ def check_blocks(runs, name, case, world, must_cut):
     specs = specs_of(case, world)
     mesh = mesh_of(world)
     axes = mesh_axes(mesh)
-    structs = cache_structs(cfg, cache_shape(MESH_MAX_LEN), mesh)
+    structs = cache_structs(cfg, cache_shape(MESH_MAX_LEN, case), mesh)
     if cfg.family == "encdec":
         # the dry-run gives the cross K/V the cell's length; a prefill's
         # are its frames' (S here)
-        frames = cache_structs(cfg, cache_shape(S), mesh)
+        frames = cache_structs(cfg, cache_shape(S, case), mesh)
         structs = structs._replace(k_cross=frames.k_cross,
                                    v_cross=frames.v_cross)
     ref = ref_of(runs, name, world)
     for r, got in enumerate(runs["worlds"][world]):
         for leaf, spec in specs.items():
-            whole = ref[f"{name}/g/{leaf}"]
-            want = Struct(whole.shape, torch.float32, spec).local_shape(axes)
+            whole = tuple(ref[f"{name}/whole/{leaf}"])
+            want = Struct(whole, torch.float32, spec).local_shape(axes)
             assert tuple(got[f"{name}/shape/{leaf}"]) == want, (leaf, r)
         assert got[f"{name}/param_bytes"] == got[f"{name}/dryrun_bytes"]
         assert got[f"{name}/storage_bytes"] == got[f"{name}/param_bytes"]
@@ -398,11 +438,11 @@ def check_prefill(runs, name, case, world):
     for r, got in enumerate(ranks):
         np.testing.assert_array_equal(got[f"{name}/logits"],
                                       ranks[r - r % 2][f"{name}/logits"])
-        assert_same(ref[f"{name}/logits"][_row(world, r)],
+        assert_same(ref[f"{name}/logits"][_row(world, r, case)],
                     got[f"{name}/logits"], tol=BF16_TOL,
                     what=f"{name} logits rank {r}")
     mesh = mesh_of(world)
-    specs = cache_specs(cfg, cache_shape(MESH_MAX_LEN), mesh)
+    specs = cache_specs(cfg, cache_shape(MESH_MAX_LEN, case), mesh)
     whole = join_caches([_rank_cache(got, name, cfg) for got in ranks],
                         specs, mesh)
     fields = [f for f in whole._fields if f"{name}/cache/{f}" in ref]
@@ -431,7 +471,7 @@ def check_prefill(runs, name, case, world):
             f"the bound, by up to {float(over.max())}")
 
 
-def check_decode(runs, name, world):
+def check_decode(runs, name, world, case=None):
     """Three serve steps on the rank's share of the cache, fed the same
     tokens: the whole vocabulary's logits within the bf16 bound, and the
     next token equal wherever the reference's top-2 gap exceeds twice
@@ -444,7 +484,7 @@ def check_decode(runs, name, world):
         bound = BF16_TOL * max(1.0, float(np.abs(want).max()))
         top2 = np.sort(want, axis=-1)[:, -2:]
         for r, got in enumerate(ranks):
-            sl = _row(world, r)
+            sl = _row(world, r, case)
             assert_same(want[sl], got[key + "/logits"], tol=BF16_TOL,
                         what=f"{key} rank {r}")
             clear = (top2[sl, 1] - top2[sl, 0]) > 2 * bound
@@ -473,12 +513,13 @@ def check_train_step(runs, name, case, world):
 # ---------------------------------------------------------------------------
 
 
-def check_full_width_blocks(arch, n):
-    """At full width on a (1, n) mesh, with the dry-run's FSDP rule (its
-    ``data`` entries on an axis of 1 cut nothing): every rank's block of
-    every leaf, on ``meta``, has the shape ``param_specs`` implies and a
-    rank's bytes are the dry-run's bytes a device.  Returns the names of
-    the leaves that are cut."""
+def check_full_width_blocks(arch, n, data=1):
+    """At full width on a (data, n) mesh, with the dry-run's FSDP rule
+    (its ``data`` entries on an axis of 1 cut nothing): every ``model``
+    rank's block of every leaf, on ``meta``, has the shape
+    ``param_specs`` implies -- the contiguous range of its cut dim, head
+    boundary or not -- and a rank's bytes are the dry-run's bytes a
+    device.  Returns the names of the leaves that are cut."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.dryrun import (default_fsdp,
                                            param_bytes_per_device,
@@ -488,11 +529,11 @@ def check_full_width_blocks(arch, n):
     from repro_torch.parallel.sharding import head_widths, rank_blocks
 
     cfg = get_arch(arch)
-    mesh = MeshShape(("data", "model"), (1, n))
+    mesh = MeshShape(("data", "model"), (data, n))
     fsdp = default_fsdp(cfg, mesh)
     structs, specs = params_structs(cfg, mesh, fsdp=fsdp)
     shapes = param_shapes(get_model(cfg))
-    axes = {"data": 1, "model": n}
+    axes = {"data": data, "model": n}
     want = [s.local_shape(axes) for s in flatten(structs).values()]
     for m in range(n):
         blocks = flatten(rank_blocks(shapes, specs, mesh,

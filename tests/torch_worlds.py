@@ -343,7 +343,12 @@ def rank_tensor_parallel(rank, world, out):
     ``<case>/decode_tokens``, and the parameters after one
     ``make_train_step``; beside them the bytes and storage bytes of the
     rank's parameters and the dry-run's bytes a device.  The
-    encoder-decoder's batch and prefill take ``<case>/frames`` too."""
+    encoder-decoder's batch and prefill take ``<case>/frames`` too.  The
+    prefill and serve policies declare the cache's layout
+    (``"__cache__"``: ``cache_specs`` of their shapes, the case's
+    ``"serve"``); a case that does not ``"train"`` (a batch of one row,
+    held whole by every data row) runs the prefill and serve steps
+    alone."""
     import dataclasses
 
     import torch
@@ -374,9 +379,11 @@ def rank_tensor_parallel(rank, world, out):
         model = get_model(cfg, moe_impl=case["impl"])
         specs = shd.param_specs(param_shapes(model), mesh)
 
-        def policy(shape):
-            return {**make_policy(cfg, SHAPES[shape], mesh),
-                    "__mesh__": mesh}
+        def policy(shape, cache=False):
+            pol = {**make_policy(cfg, SHAPES[shape], mesh), "__mesh__": mesh}
+            if cache:
+                pol["__cache__"] = shd.cache_specs(cfg, SHAPES[shape], mesh)
+            return pol
 
         def fresh():
             flat = {k[len(name) + 3:]: v for k, v in inp.items()
@@ -388,11 +395,17 @@ def rank_tensor_parallel(rank, world, out):
             return adamw.tree_map(lambda t, dt: t.to(getattr(torch, dt)), p,
                                   unflatten(case["dtypes"]))
 
-        B = inp[name + "/tokens"].shape[0] // n_data
-        rows = slice(d * B, (d + 1) * B)
+        B = inp[name + "/tokens"].shape[0]
+        # the batch over the data rows, or whole in each where it has
+        # fewer rows (the dry-run's batch_specs)
+        rows = (slice(d * B // n_data, (d + 1) * B // n_data)
+                if B >= n_data else slice(0, B))
         batch = {k: inp[f"{name}/{k}"][rows]
                  for k in ("tokens", "labels", "frames")
                  if f"{name}/{k}" in inp}
+        prefill_shape, decode_shape = case.get(
+            "serve", ("prefill_32k", "decode_32k"))
+        train = case.get("train", True)
         prompt = {k: torch.as_tensor(v) for k, v in batch.items()
                   if k != "labels"}
         params = fresh()
@@ -405,11 +418,13 @@ def rank_tensor_parallel(rank, world, out):
             param_bytes_per_device(cfg, mesh))
         res.update({f"{name}/shape/{k}": torch.tensor(v.shape)
                     for k, v in flatten(params).items()})
-        with sharding_policy(policy("train_4k")):
-            loss, grads = value_and_grad(model, params, batch)
-        res[f"{name}/loss"] = loss
-        res.update({f"{name}/g/{k}": v for k, v in flatten(grads).items()})
-        with sharding_policy(policy("prefill_32k")):
+        if train:
+            with sharding_policy(policy("train_4k")):
+                loss, grads = value_and_grad(model, params, batch)
+            res[f"{name}/loss"] = loss
+            res.update({f"{name}/g/{k}": v
+                        for k, v in flatten(grads).items()})
+        with sharding_policy(policy(prefill_shape, cache=True)):
             logits, cache = model.prefill(params, prompt, MESH_MAX_LEN)
         res[f"{name}/logits"] = logits
         for field, v in cache._asdict().items():
@@ -417,11 +432,13 @@ def rank_tensor_parallel(rank, world, out):
                 res[f"{name}/cache/{field}"] = v.clone()
         serve = make_serve_step(model)
         feed = torch.as_tensor(inp[f"{name}/decode_tokens"][rows])
-        with sharding_policy(policy("decode_32k")):
+        with sharding_policy(policy(decode_shape, cache=True)):
             for i in range(TP_DECODE_STEPS):
                 tok, logits, cache = serve(params, cache, feed[:, i:i + 1])
                 res[f"{name}/decode{i}/logits"] = logits
                 res[f"{name}/decode{i}/tokens"] = tok
+        if not train:
+            continue
         step = make_train_step(model, adamw.AdamWConfig(**case["opt"]))
         with sharding_policy(policy("train_4k")):
             loss1, params1, _ = step(params, adamw.init(params), batch)
