@@ -199,7 +199,21 @@ Run from the root of a checkout, with no arguments, it
    process in the ranks' order (``split_prefill_in_rank_order``), 8
    serve steps across the block boundary at position 1799 with their
    tokens equal to one process's past the margin, B4 28 times a rank;
-   its row at the rank's shape goes into the kernels line.
+   its row at the rank's shape goes into the kernels line;
+12. after ``tensor_parallel_misaligned``, ``tensor_parallel_zero``:
+   internlm2-20b on the dry-run's own (2, 2) FSDP layout, four ranks, the
+   weights cut over ``data`` as well as ``model`` (ZeRO-3) and declared to
+   the passes (``"__params__"``), each layer gathered over ``data``
+   inside its body -- (l) all 48 layers, 9,930,872,832 parameter bytes a
+   rank, a row of 1 x 2048 a data rank prefilled and stepped once, its
+   logits and tokens bit for bit those of a (1, 2) world of the same
+   weights running each row alone, B4 48 times a rank; (m) at depth 4,
+   two ``make_train_step`` steps with the AdamW state cut by the
+   dry-run's opt specs (ZeRO-1, ``"__opt__"``), against the same world
+   with the weights whole over ``data``: step 1's loss bit for bit, its
+   gradient by (b)'s rule (the leaves bit for bit counted), step 2's
+   loss within 2e-2; B4's row at (l)'s rank shape goes into the kernels
+   line.
 
 Every phase prints one JSON line; the first failure ends the run with a
 non-zero exit code.  There is no CPU fallback: without a CUDA device, or
@@ -220,6 +234,7 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
@@ -3884,13 +3899,26 @@ def moe_impl_added(name, fn):
         del moe.MOE_IMPLS[name]
 
 
-def _mesh_policy(cfg, shape_name):
+def _mesh_policy(cfg, shape_name, weights):
+    """The dry-run's policy of ``shape_name`` plus the live mesh of the
+    world's ranks and the spec tree their weights were cut by
+    (``"__params__"``)."""
     from repro_torch.configs.base import SHAPES
     from repro_torch.launch.dryrun import make_policy
     from repro_torch.launch.mesh import make_host_mesh
 
     mesh = make_host_mesh("cuda")
-    return {**make_policy(cfg, SHAPES[shape_name], mesh), "__mesh__": mesh}
+    return {**make_policy(cfg, SHAPES[shape_name], mesh), "__mesh__": mesh,
+            "__params__": weights}
+
+
+def _expert_specs(model):
+    """The expert-parallel cut's spec tree of ``model``'s parameters:
+    what :func:`_own_experts` keeps."""
+    from repro_torch.models import param_shapes
+    from repro_torch.parallel.sharding import expert_specs
+
+    return expert_specs(param_shapes(model))
 
 
 def rank_moe_model(torch, rank, world, out, seed):
@@ -3907,7 +3935,7 @@ def rank_moe_model(torch, rank, world, out, seed):
     model = get_model(cfg, moe_impl="a2a")
     params = _own_experts(torch, _moe_params(torch, model, seed), rank, world)
     tokens = _moe_model_tokens(torch, cfg, seed)
-    policy = _mesh_policy(cfg, "prefill_32k")
+    policy = _mesh_policy(cfg, "prefill_32k", _expert_specs(model))
     routes = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3952,7 +3980,7 @@ def rank_moe_train(torch, rank, world, out, seed):
     want = value_and_grad(get_model(cfg), params, get_batch(data, 0))[1]
     want = _own_experts(torch, want, rank, world)
     params = _own_experts(torch, params, rank, world)
-    policy = _mesh_policy(cfg, "train_4k")
+    policy = _mesh_policy(cfg, "train_4k", _expert_specs(model))
     with sharding_policy(policy):
         got = value_and_grad(model, params, get_batch(data, 0))[1]
     names = _leaf_names(params)
@@ -4168,6 +4196,28 @@ def _tp_configs():
                                          n_layers=TP_TRAIN_LAYERS)}
 
 
+def tp_dryrun_specs(configs):
+    """``{name: (param_specs, bytes a device)}`` of each config on the
+    (1, 2) mesh under the dry-run's FSDP rule.  The banking solver's lane
+    plans behind them (``sharding.lane_artifact``, kept for the process)
+    take ~25 s on the host for qwen2-7b's vocabulary: :func:`main` asks
+    for them on a thread while ``nvcc`` builds the kernels."""
+    from repro_torch.launch.dryrun import (default_fsdp,
+                                           param_bytes_per_device)
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models import get_model, param_shapes
+    from repro_torch.parallel.sharding import param_specs
+
+    mesh = MeshShape(("data", "model"), (1, 2))
+    out = {}
+    for name, cfg in configs.items():
+        fsdp = default_fsdp(cfg, mesh)
+        out[name] = (param_specs(param_shapes(get_model(cfg)), mesh,
+                                 fsdp=fsdp),
+                     param_bytes_per_device(cfg, mesh, fsdp=fsdp))
+    return out
+
+
 def _tp_tokens(torch, cfg, seed):
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     return torch.randint(2, cfg.vocab - 1, TP_PREFILL_TOKENS, generator=gen,
@@ -4250,9 +4300,10 @@ def rank_tp_prefill(torch, rank, world, out, seed):
 
     cfg = _tp_configs()["qwen2"]
     model = get_model(cfg)
-    policy = _mesh_policy(cfg, "prefill_32k")
-    params, held = _rank_params(torch, model, cfg, _tp_specs(out, "qwen2"),
-                                policy["__mesh__"], seed)
+    specs = _tp_specs(out, "qwen2")
+    policy = _mesh_policy(cfg, "prefill_32k", specs)
+    params, held = _rank_params(torch, model, cfg, specs, policy["__mesh__"],
+                                seed)
     tokens = _tp_tokens(torch, cfg, seed)
     feed = torch.load(os.path.join(out, "tp_one_process.pt"))["feed"].cuda()
     prefill = make_prefill_step(model, tokens.shape[1] + TP_DECODE_STEPS)
@@ -4269,7 +4320,7 @@ def rank_tp_prefill(torch, rank, world, out, seed):
     serve = make_serve_step(model)
     steps = []
     t0 = time.perf_counter()
-    with sharding_policy(_mesh_policy(cfg, "decode_32k")):
+    with sharding_policy(_mesh_policy(cfg, "decode_32k", specs)):
         for i in range(TP_DECODE_STEPS):
             tok, lg, cache = serve(params, cache, feed[:, i:i + 1])
             steps.append((tok.cpu(), lg.float().cpu()))
@@ -4311,8 +4362,9 @@ def rank_tp_train(torch, rank, world, out, seed):
 
     cfg = _tp_configs()["olmoe"]
     model = get_model(cfg)
-    policy = _mesh_policy(cfg, "train_4k")
-    mesh, specs = policy["__mesh__"], _tp_specs(out, "olmoe")
+    specs = _tp_specs(out, "olmoe")
+    policy = _mesh_policy(cfg, "train_4k", specs)
+    mesh = policy["__mesh__"]
     data = DataConfig(vocab=cfg.vocab, seq_len=TP_TRAIN_BATCH[1],
                       global_batch=TP_TRAIN_BATCH[0], seed=seed)
     whole = _moe_params(torch, model, seed)
@@ -4455,14 +4507,10 @@ def phase_tensor_parallel(torch, seed):
     ranks after the steps, B4 and B5 ``2 x layers x steps`` times a
     rank.  Returns the ranks' launches and B4's row at (f)'s rank shape."""
     from repro_torch.data.pipeline import DataConfig, get_batch
-    from repro_torch.launch.dryrun import (default_fsdp,
-                                           param_bytes_per_device)
-    from repro_torch.launch.mesh import MeshShape
     from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
                                           make_train_step)
-    from repro_torch.models import get_model, param_shapes
+    from repro_torch.models import get_model
     from repro_torch.optim import adamw
-    from repro_torch.parallel.sharding import param_specs
     from torch_parity import BF16_TOL as tol
 
     free_device_memory(torch)
@@ -4470,15 +4518,12 @@ def phase_tensor_parallel(torch, seed):
     atexit.register(shutil.rmtree, out, ignore_errors=True)
     launches = {"moe_dispatch": 0, "flash_attention": 0}
     t_phase = time.perf_counter()
-    mesh = MeshShape(("data", "model"), (1, 2))
     configs = _tp_configs()
     dryrun_bytes, t0 = {}, time.perf_counter()
-    for name, cfg in configs.items():
-        fsdp = default_fsdp(cfg, mesh)
-        specs = param_specs(param_shapes(get_model(cfg)), mesh, fsdp=fsdp)
+    for name, (specs, nbytes) in tp_dryrun_specs(configs).items():
         with open(os.path.join(out, f"tp_specs_{name}.json"), "w") as f:
             json.dump(specs, f)
-        dryrun_bytes[name] = param_bytes_per_device(cfg, mesh, fsdp=fsdp)
+        dryrun_bytes[name] = nbytes
     specs_s = time.perf_counter() - t0
 
     # (f) one process first, whole weights: its prefill and greedy decode,
@@ -4716,7 +4761,8 @@ def _rank_blocks(torch, model, cfg, specs, mesh, seed):
     base = torch.cuda.memory_allocated()
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = model.init(gen, device="cuda", keep=block_init(
-        specs, mesh, mesh_coords(mesh), head_dim=head_widths(cfg)))
+        specs, mesh, mesh_coords(mesh), head_dim=head_widths(cfg),
+        family=cfg.family))
     free_device_memory(torch)
     leaves = tree_leaves(params)
     return params, {
@@ -4749,8 +4795,9 @@ def rank_tp_hybrid(torch, rank, world, out, seed):
 
     cfg = _tp_ssm_configs()["zamba2"]
     model = get_model(cfg)
-    policy = _mesh_policy(cfg, "prefill_32k")
-    params, held = _rank_blocks(torch, model, cfg, _tp_specs(out, "zamba2"),
+    specs = _tp_specs(out, "zamba2")
+    policy = _mesh_policy(cfg, "prefill_32k", specs)
+    params, held = _rank_blocks(torch, model, cfg, specs,
                                 policy["__mesh__"], seed)
     tokens = _tp_ssm_inputs(torch, cfg, seed)["tokens"]
     feed = torch.load(os.path.join(out, "tp_hybrid_one.pt"))["feed"].cuda()
@@ -4772,7 +4819,7 @@ def rank_tp_hybrid(torch, rank, world, out, seed):
     serve = make_serve_step(model)
     steps = []
     t0 = time.perf_counter()
-    with sharding_policy(_mesh_policy(cfg, "decode_32k")):
+    with sharding_policy(_mesh_policy(cfg, "decode_32k", specs)):
         for i in range(TP_DECODE_STEPS):
             tok, lg, cache = serve(params, cache, feed[:, i:i + 1])
             steps.append((tok.cpu(), lg.float().cpu()))
@@ -4869,12 +4916,14 @@ def rank_tp_ssm_train(torch, rank, world, out, seed):
     data = DataConfig(vocab=cfg.vocab, seq_len=TP_SSM_TRAIN_BATCH[1],
                       global_batch=TP_SSM_TRAIN_BATCH[0], seed=seed)
     shallow = configs["mamba2_grad"]
+    shallow_specs = _tp_specs(out, "mamba2_grad")
     _, held_shallow, readings_shallow = _tp_step1_grads(
-        torch, shallow, _tp_specs(out, "mamba2_grad"),
-        _mesh_policy(shallow, "train_4k"), seed, get_batch(data, 0))
+        torch, shallow, shallow_specs,
+        _mesh_policy(shallow, "train_4k", shallow_specs), seed,
+        get_batch(data, 0))
     model = get_model(cfg)
-    policy = _mesh_policy(cfg, "train_4k")
     specs = _tp_specs(out, "mamba2")
+    policy = _mesh_policy(cfg, "train_4k", specs)
     chunks = []
     params, held, readings = _tp_step1_grads(
         torch, cfg, specs, policy, seed, get_batch(data, 0), chunks)
@@ -4940,8 +4989,8 @@ def rank_tp_encdec(torch, rank, world, out, seed):
 
     cfg = _tp_ssm_configs()["whisper"]
     model = get_model(cfg)
-    policy = _mesh_policy(cfg, "prefill_32k")
     specs = _tp_specs(out, "whisper")
+    policy = _mesh_policy(cfg, "prefill_32k", specs)
     params, held = _rank_blocks(torch, model, cfg, specs,
                                 policy["__mesh__"], seed)
     batch = _tp_ssm_inputs(torch, cfg, seed)
@@ -4963,7 +5012,7 @@ def rank_tp_encdec(torch, rank, world, out, seed):
     serve = make_serve_step(model)
     steps = []
     t0 = time.perf_counter()
-    with sharding_policy(_mesh_policy(cfg, "decode_32k")):
+    with sharding_policy(_mesh_policy(cfg, "decode_32k", specs)):
         for i in range(TP_DECODE_STEPS):
             tok, lg, cache = serve(params, cache, feed[:, i:i + 1])
             steps.append((tok.cpu(), lg.float().cpu()))
@@ -4975,7 +5024,7 @@ def rank_tp_encdec(torch, rank, world, out, seed):
     opt = adamw.init(params)
     reset_train_kernel_counts()
     t0 = time.perf_counter()
-    with sharding_policy(_mesh_policy(cfg, "train_4k")):
+    with sharding_policy(_mesh_policy(cfg, "train_4k", specs)):
         loss, params, opt = step(params, opt, batch)
     torch.cuda.synchronize()
     step_wall = time.perf_counter() - t0
@@ -5570,14 +5619,15 @@ TP_SPLIT_PARAM_BYTES = 1_904_261_632  # the dry-run's bytes a device
 TP_SPLIT_CACHE_BYTES = 14_737_408     # k and v: 28 x 1 x 257 x 4 x 128 bf16
 
 
-def _split_policy(cfg, shape_name):
-    """The dry-run's policy of ``shape_name`` plus the mesh and the cache's
-    layout it declares (``"__cache__"``: ``cache_specs``; 4 kv heads do
-    not bank over 8 ranks, so the positions are cut)."""
+def _split_policy(cfg, shape_name, weights):
+    """The dry-run's policy of ``shape_name`` plus the mesh, the weights'
+    cut (``"__params__"``) and the cache's layout it declares
+    (``"__cache__"``: ``cache_specs``; 4 kv heads do not bank over 8
+    ranks, so the positions are cut)."""
     from repro_torch.configs.base import SHAPES
     from repro_torch.parallel.sharding import cache_specs
 
-    policy = _mesh_policy(cfg, shape_name)
+    policy = _mesh_policy(cfg, shape_name, weights)
     policy["__cache__"] = cache_specs(cfg, SHAPES[shape_name],
                                       policy["__mesh__"])
     return policy
@@ -5614,12 +5664,12 @@ def rank_tp_split(torch, rank, world, out, seed):
 
     cfg = _tp_configs()["qwen2"]
     model = get_model(cfg)
-    policy = _split_policy(cfg, "prefill_32k")
+    specs = _tp_specs(out, "qwen2_split")
+    policy = _split_policy(cfg, "prefill_32k", specs)
     t0 = time.perf_counter()
     for turn in range(world):
         if turn == rank:
-            params, held = _rank_blocks(torch, model, cfg,
-                                        _tp_specs(out, "qwen2_split"),
+            params, held = _rank_blocks(torch, model, cfg, specs,
                                         policy["__mesh__"], seed)
         dist.barrier()
     held["init_wall_s"] = time.perf_counter() - t0
@@ -5641,7 +5691,7 @@ def rank_tp_split(torch, rank, world, out, seed):
     serve = make_serve_step(model)
     steps = []
     t0 = time.perf_counter()
-    decode = _split_policy(cfg, "decode_32k")
+    decode = _split_policy(cfg, "decode_32k", specs)
     with sharding_policy(decode):
         for i in range(TP_SPLIT_STEPS):
             tok, lg, cache = serve(params, cache, feed[:, i:i + 1])
@@ -5987,6 +6037,581 @@ def phase_tensor_parallel_misaligned(torch, seed):
 
 
 # ---------------------------------------------------------------------------
+# Worlds (l) and (m): the weights cut over ``data`` (ZeRO-3) and the AdamW
+# state over cut leaves (ZeRO-1), internlm2-20b on a (2, 2) mesh
+# ---------------------------------------------------------------------------
+
+TP_ZERO_PROMPT = (2, 2048)            # (l): batch x tokens, a row a data rank
+TP_ZERO_STEPS = 1                     # (l): serve steps after the prefill
+TP_ZERO_MAX_LEN = 2056                # (l): the cache's positions
+TP_ZERO_PARAM_BYTES = 9_930_872_832   # (l): the dry-run's bytes on (2, 2)
+TP_ZERO_YARD_BYTES = 19_861_745_664   # its yardstick's on (1, 2)
+TP_ZERO_CACHE_BYTES = 202_113_024     # k and v: 48 x 1 x 2056 x 4 x 128 bf16
+TP_ZERO_TRAIN_LAYERS = 4              # (m): internlm2-20b at depth 4 of 48
+TP_ZERO_TRAIN_STEPS = 2
+TP_ZERO_TRAIN_BATCH = (2, 2048)       # (m): batch x tokens, a row a data rank
+
+
+def _zero_config(layers=None):
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("internlm2_20b")
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def _zero_mesh(torch, data):
+    """The live ``(data, 2)`` mesh of the world's ranks on the card."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return DeviceMesh("cuda", torch.arange(2 * data).reshape(data, 2),
+                      mesh_dim_names=("data", "model"))
+
+
+def _zero_policy(cfg, shape_name, mesh, weights, opt=None):
+    """The dry-run's policy of ``shape_name`` plus the live mesh, the
+    weights' declared cut (``"__params__"``), the cache's layout to a
+    prefill or a decode step (``"__cache__"``) and the optimizer state's
+    cut to a train step (``"__opt__"``)."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.dryrun import make_policy
+    from repro_torch.parallel.sharding import cache_specs
+
+    shape = SHAPES[shape_name]
+    policy = {**make_policy(cfg, shape, mesh), "__mesh__": mesh,
+              "__params__": weights}
+    if shape.kind == "train":
+        policy["__opt__"] = opt
+    else:
+        policy["__cache__"] = cache_specs(cfg, shape, mesh)
+    return policy
+
+
+def _zero_tokens(torch, cfg, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+    return torch.randint(2, cfg.vocab - 1, TP_ZERO_PROMPT, generator=gen,
+                         device="cuda", dtype=torch.int64).to(torch.int32)
+
+
+def _blocks_in_turns(torch, model, cfg, specs, mesh, seed, rank, turns,
+                     draws=True):
+    """This rank's blocks (:func:`_rank_blocks`), the ranks drawing in
+    ``turns`` groups one after the other: a rank holds a whole leaf and
+    its block while it cuts it (internlm2-20b's ``w_gate`` stack 9.7 GB
+    and 4.8 GB), too much for four at once beside what the others hold.
+    Every rank of the world takes part in the turns; one that ``draws``
+    nothing gets ``(None, {})``."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    params, held = None, {}
+    for turn in range(turns):
+        if draws and turn == rank % turns:
+            params, held = _rank_blocks(torch, model, cfg, specs, mesh, seed)
+        dist.barrier()
+    held["init_wall_s"] = time.perf_counter() - t0
+    return params, held
+
+
+def _zero_serve(torch, model, params, tokens, feed, policies):
+    """A prefill of ``tokens`` then ``len(feed[0])`` serve steps fed
+    ``feed`` (None: each step's own greedy token), counted and timed:
+    ``(logits by step, tokens by step, readings)``."""
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.parallel.collectives import host_buffer_bytes
+    from repro_torch.parallel.hints import sharding_policy
+
+    prefill = make_prefill_step(model, TP_ZERO_MAX_LEN)
+    serve = make_serve_step(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _dist_reset()
+    t0 = time.perf_counter()
+    with sharding_policy(policies[0]):
+        logits, cache = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {**_dist_counts(), **train_kernel_counts()}
+    cache_bytes = _cache_bytes(cache) - 4
+    got = [logits.float().cpu()]
+    toks = [torch.argmax(logits, -1).to(torch.int32)[:, None]]
+    t0 = time.perf_counter()
+    with sharding_policy(policies[1]):
+        for i in range(TP_ZERO_STEPS):
+            fed = toks[-1] if feed is None else feed[:, i:i + 1]
+            tok, lg, cache = serve(params, cache, fed)
+            got.append(lg.float().cpu())
+            toks.append(tok)
+    torch.cuda.synchronize()
+    return got, torch.cat(toks, 1).cpu(), {
+        "prefill_wall_s": wall,
+        "decode_wall_s": time.perf_counter() - t0, **counts,
+        "staged_bytes_with_decode": _dist_counts()["staged_bytes"],
+        "host_buffer_bytes": host_buffer_bytes(),
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "cache_shape": list(cache.k.shape), "cache_bytes": cache_bytes}
+
+
+def _zero_yardstick(torch, model, cfg, rank, out, seed):
+    """(l)'s yardstick, in the first two ranks of (l)'s world: internlm2-20b
+    at full width and depth on a (1, 2) mesh of their own (the
+    tensor-parallel path: its weights cut over ``model`` alone), each row
+    of ``TP_ZERO_PROMPT`` prefilled and stepped ``TP_ZERO_STEPS`` times
+    alone at batch 1, greedy, so that every GEMM and every B4 launch has
+    (l)'s shape; rank 0 writes its tokens, (l)'s feed.  Ranks 2 and 3 join
+    the mesh's groups and the turns, and hold nothing.  Returns this
+    rank's readings (``None`` in ranks 2 and 3)."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    mesh = _zero_mesh(torch, 1)
+    specs = _tp_specs(out, "zero_yard")
+    params, held = _blocks_in_turns(torch, model, cfg, specs, mesh, seed,
+                                    rank, 2, draws=rank < 2)
+    readings = None
+    if rank < 2:
+        tokens = _zero_tokens(torch, cfg, seed)
+        policies = [_zero_policy(cfg, s, mesh, specs)
+                    for s in ("prefill_32k", "decode_32k")]
+        rows, readings = [], []
+        for r in range(TP_ZERO_PROMPT[0]):
+            got, toks, read = _zero_serve(torch, model, params,
+                                          tokens[r:r + 1], None, policies)
+            rows.append({"logits": got, "tokens": toks})
+            readings.append(read)
+        torch.save(rows, os.path.join(out, f"tp_zero_yard_{rank}.pt"))
+        if rank == 0:
+            torch.save(torch.cat([r["tokens"] for r in rows]),
+                       os.path.join(out, "tp_zero_feed.pt"))
+        readings = {**held, "rows": readings}
+    del params
+    free_device_memory(torch)
+    dist.barrier()
+    if readings is not None:
+        readings["wall_s"] = time.perf_counter() - t0
+    return readings
+
+
+def rank_tp_zero_serve(torch, rank, world, out, seed):
+    """(l) One rank of internlm2-20b at full width and depth on a (2, 2)
+    mesh, after its yardstick in the same processes
+    (:func:`_zero_yardstick`): its weights cut by ``param_specs`` with the
+    dry-run's FSDP rule (over ``data`` and ``model``: 9,930,872,832
+    bytes), drawn two ranks at a time: its data row's prefill of
+    ``TP_ZERO_PROMPT`` under the prefill policy declaring the weights' cut
+    (counted and timed; every layer gathered over ``data`` inside its
+    body), then ``TP_ZERO_STEPS`` serve steps fed the yardstick's greedy
+    tokens.  B4 is held to its plain version on the prefill's first
+    attention call, outside the counted run."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import get_model
+
+    cfg = _zero_config()
+    model = get_model(cfg)
+    yard = _zero_yardstick(torch, model, cfg, rank, out, seed)
+    mesh = _zero_mesh(torch, 2)
+    specs = _tp_specs(out, "zero")
+    params, held = _blocks_in_turns(torch, model, cfg, specs, mesh, seed,
+                                    rank, 2)
+    d = rank // 2
+    tokens = _zero_tokens(torch, cfg, seed)[d:d + 1]
+    feed = torch.load(os.path.join(out, "tp_zero_feed.pt"))[d:d + 1].cuda()
+    policies = [_zero_policy(cfg, s, mesh, specs)
+                for s in ("prefill_32k", "decode_32k")]
+    captured = []
+    with capturing_first(ops, "mha", captured):
+        got, toks, read = _zero_serve(torch, model, params, tokens, feed,
+                                      policies)
+    q, k, v, kw = captured
+    err, share = attention_held(torch, q, k, v, f"(l) rank {rank}", **kw)
+    torch.save({"logits": got, "tokens": toks},
+               os.path.join(out, f"tp_zero_serve_{rank}.pt"))
+    return {**held, **read, "b4_shape": [list(q.shape), list(k.shape)],
+            "b4_held": {"max_abs_err": err, "share": share},
+            "wq_shape": list(params["layers"]["wq"].shape),
+            "yardstick": yard}
+
+
+def _data_block(torch, path, t, spec, mesh):
+    """This rank's block of ``t``, a ``model`` block, over the data axes
+    that ``spec`` cuts it over (what ZeRO-3 holds of it)."""
+    from repro_torch.parallel.sharding import (block_index, mesh_coords,
+                                               weight_cuts)
+
+    axes = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+    for d, live in weight_cuts(path, spec, axes):
+        if live != ["model"]:
+            n, i = block_index(live, axes, mesh_coords(mesh))
+            b = t.shape[d] // n
+            t = t.narrow(d, i * b, b)
+    return t
+
+
+def rank_tp_zero_train(torch, rank, world, out, seed):
+    """(m) One rank of internlm2-20b at depth 4, full width, on a (2, 2)
+    mesh, trained by ``make_train_step`` for ``TP_ZERO_TRAIN_STEPS``
+    steps on its data row of batches of the data pipeline, AdamW at
+    ``TRAIN_LR`` with the state cut by the dry-run's opt specs
+    (``"__opt__"``): first the yardstick, the weights whole over ``data``
+    (ZeRO-1 alone: each rank updates its block of the state and gathers
+    the new weight), then the weights cut over ``data`` too (ZeRO-3, the
+    dry-run's rule at this depth), in the same processes.  Step 1's
+    gradient, as the update takes it (copied to the host after the
+    step); ZeRO-3's held leaf by leaf to the yardstick's block of it.
+    Digests of the leaves two ranks hold alike after each step."""
+    from repro_torch.data.pipeline import DataConfig, get_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.collectives import host_buffer_bytes
+    from repro_torch.parallel.hints import sharding_policy, state_layout
+
+    cfg = _zero_config(TP_ZERO_TRAIN_LAYERS)
+    model = get_model(cfg)
+    mesh = _zero_mesh(torch, 2)
+    opt = _tp_specs(out, "zero_train_opt")
+    zero3 = _tp_specs(out, "zero_train")
+    d = rank // 2
+    data = DataConfig(vocab=cfg.vocab, seq_len=TP_ZERO_TRAIN_BATCH[1],
+                      global_batch=TP_ZERO_TRAIN_BATCH[0], seed=seed)
+
+    def batch(i):
+        return {k: v[d:d + 1] for k, v in get_batch(data, i).items()}
+
+    names = None
+
+    def in_zero3(tree, specs):
+        """Each leaf of ``tree`` (laid out by ``specs``) as ZeRO-3 holds
+        it: a host copy of this rank's block over the data axes."""
+        return {n: (t if specs is zero3 else _data_block(
+            torch, n.strip("/"), t, _spec_at(zero3, n), mesh)).cpu()
+            for n, t in zip(names, adamw.tree_leaves(tree))}
+
+    def run(specs, shared):
+        nonlocal names
+        params, held = _blocks_in_turns(torch, model, cfg, specs, mesh,
+                                        seed, rank, 1)
+        names = _leaf_names(params)
+        policy = _zero_policy(cfg, "train_4k", mesh, specs, opt)
+        with sharding_policy(policy):
+            state = adamw.init(params, cuts=state_layout(params))
+        state_bytes = sum(t.numel() * t.element_size()
+                          for part in state for t in adamw.tree_leaves(part))
+        step = make_train_step(model, adamw.AdamWConfig(
+            lr_peak=TRAIN_LR, total_steps=TP_ZERO_TRAIN_STEPS,
+            warmup_steps=1))
+        free_device_memory(torch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _dist_reset()
+        losses, walls, digests, update = [], [], [], []
+        with sharding_policy(policy), capturing_first(adamw, "update",
+                                                      update):
+            for i in range(TP_ZERO_TRAIN_STEPS):
+                t0 = time.perf_counter()
+                loss, params, state = step(params, state, batch(i))
+                losses.append(float(loss))
+                walls.append(time.perf_counter() - t0)
+                if i == 0:       # step 1's gradient, as the update took it
+                    grads = in_zero3(update[1], specs)
+                    update[:] = [None]
+                digests.append(_digest(torch, [
+                    t for n, t in zip(names, adamw.tree_leaves(params))
+                    if shared(_spec_at(specs, n))]))
+        read = {**held, **_dist_counts(), **train_kernel_counts(),
+                "losses": losses, "step_walls_s": walls,
+                "digests": digests, "state_bytes": state_bytes,
+                "host_buffer_bytes": host_buffer_bytes(),
+                "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        after = in_zero3(params, specs)
+        del params, state
+        free_device_memory(torch)
+        return grads, after, read
+
+    # ZeRO-1 alone: every leaf whole over data, alike in both data rows;
+    # ZeRO-3: a leaf whole over model alike in both ranks of a data row
+    want, want_after, yard = run(_tp_specs(out, "zero_train_zero1"),
+                                 lambda s: True)
+    got, got_after, path = run(zero3, lambda s: "model" not in str(s))
+    readings = {n: grad_readings(want[n].cuda().float(),
+                                 got[n].cuda().float()) for n in names}
+    same = [n for n in names if torch.equal(want[n], got[n])]
+    same_after = [n for n in names
+                  if torch.equal(want_after[n], got_after[n])]
+    return {"yardstick": yard, **path, "readings": readings,
+            "grads_bit_for_bit": same, "params_bit_for_bit": same_after,
+            "leaves": names}
+
+
+def phase_tensor_parallel_zero(torch, seed):
+    """(l) and (m): the weights cut over ``data`` as well as ``model``
+    (ZeRO-3) and the AdamW state over cut leaves (ZeRO-1), internlm2-20b
+    at full width on the dry-run's own (2, 2) FSDP layout, four ranks on
+    the one card over gloo, every weight gathered over ``data`` layer by
+    layer where it is used.  (l), all 48 layers: each rank's parameter
+    bytes the dry-run's 9,930,872,832 to the byte and its storage no
+    more, its cache bytes the dry-run's; its data row's prefill (1 x
+    2048) and ``TP_ZERO_STEPS`` serve steps fed the yardstick's greedy
+    tokens, their logits and tokens bit for bit those of a (1, 2) world
+    of the same weights (no data cut) prefilling and stepping each row
+    alone -- the gather adds no arithmetic, and a float32 sum of two terms
+    does not depend on its order -- read against (f)'s rule beside it; B4
+    48 times a rank.  (m), 4 of 48 layers: two ``make_train_step`` steps
+    with the state cut by the dry-run's opt specs, against the same steps
+    with the weights whole over ``data``: step 1's loss bit for bit, step
+    1's gradient by (b)'s rule leaf by leaf (its leaves bit for bit
+    counted), step 2's loss within bf16 2e-2 of max(1, |ref|), the
+    leaves two ranks hold alike equal after each step, the state's bytes
+    a rank the dry-run's opt specs'.  Returns the ranks' launches and
+    B4's row at (l)'s rank shape."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import (_tree_structs, cache_structs,
+                                           default_fsdp,
+                                           param_bytes_per_device,
+                                           tree_bytes)
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models import get_model, param_shapes
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.sharding import P, mesh_axes, param_specs
+    from torch_parity import BF16_TOL as tol
+
+    free_device_memory(torch)
+    out = tempfile.mkdtemp(prefix="chip_smoke_tp_zero_")
+    atexit.register(shutil.rmtree, out, ignore_errors=True)
+    t_phase = time.perf_counter()
+    mesh, yard_mesh = (MeshShape(("data", "model"), (2, 2)),
+                       MeshShape(("data", "model"), (1, 2)))
+    cfg, cfg4 = _zero_config(), _zero_config(TP_ZERO_TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    check(default_fsdp(cfg, mesh) and default_fsdp(cfg4, mesh),
+          "(l), (m): the dry-run's rule leaves internlm2-20b whole over "
+          "data on (2, 2)")
+    shapes, shapes4 = (param_shapes(get_model(cfg)),
+                       param_shapes(get_model(cfg4)))
+    opt = param_specs(shapes4, mesh, fsdp=True, fsdp_axes=("data", "pod"))
+    for name, specs in (
+            ("zero", param_specs(shapes, mesh, fsdp=True)),
+            ("zero_yard", param_specs(shapes, yard_mesh,
+                                      fsdp=default_fsdp(cfg, yard_mesh))),
+            ("zero_train", param_specs(shapes4, mesh, fsdp=True)),
+            ("zero_train_zero1", param_specs(shapes4, mesh)),
+            ("zero_train_opt", opt)):
+        with open(os.path.join(out, f"tp_specs_{name}.json"), "w") as f:
+            json.dump(specs, f)
+    dry = {"params": param_bytes_per_device(cfg, mesh),
+           "yardstick_params": param_bytes_per_device(cfg, yard_mesh),
+           "cache": tree_bytes(cache_structs(cfg, ShapeConfig(
+               "tp_zero", TP_ZERO_MAX_LEN, TP_ZERO_PROMPT[0], "decode"),
+               mesh), mesh_axes(mesh)) - 4,          # pos: a 0-d int32
+           "train_params": param_bytes_per_device(cfg4, mesh, fsdp=True),
+           "train_state": tree_bytes(_tree_structs(
+               adamw.init(shapes4), adamw.AdamWState(P(), opt, opt, opt)),
+               mesh_axes(mesh))}
+    specs_s = time.perf_counter() - t0
+    check((dry["params"], dry["yardstick_params"], dry["cache"]) == (
+        TP_ZERO_PARAM_BYTES, TP_ZERO_YARD_BYTES, TP_ZERO_CACHE_BYTES),
+        f"(l) the dry-run gives {dry}")
+
+    # (l)'s yardstick, then (l) fed its greedy tokens, in one world
+    ranks, wall = run_ranks("tp_zero_serve", 4, out, seed)
+    yard = [rk["yardstick"] for rk in ranks[:2]]
+    rows = [torch.load(os.path.join(out, f"tp_zero_yard_{r}.pt"))
+            for r in range(2)]
+    check(all(torch.equal(a["logits"][i], b["logits"][i])
+              for a, b in zip(*rows) for i in range(TP_ZERO_STEPS + 1)),
+          "(l) the yardstick's two ranks' logits differ")
+    rows = rows[0]
+    errs, bit, held_tokens = [], [], 0
+    for r, rk in enumerate(ranks):
+        part = torch.load(os.path.join(out, f"tp_zero_serve_{r}.pt"))
+        want = rows[r // 2]
+        e = [max_abs_diff(g, w) for g, w in zip(part["logits"],
+                                                want["logits"])]
+        errs.append(e)
+        bit.append(all(torch.equal(g, w) for g, w in zip(part["logits"],
+                                                         want["logits"]))
+                   and torch.equal(part["tokens"], want["tokens"]))
+        for i, (g, w) in enumerate(zip(part["logits"], want["logits"])):
+            check(bool(torch.isfinite(g).all()) and g.shape == (1, cfg.vocab),
+                  f"(l) rank {r} step {i}: logits not finite (1, vocab)")
+            bound = tol * max(1.0, float(w.abs().max()))
+            check(e[i] <= bound, f"(l) rank {r} step {i}: logits off the "
+                  f"yardstick by {e[i]} (bound {bound})")
+            top2 = w.topk(2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > 2 * bound
+            check(bool((part["tokens"][:, i][clear]
+                        == want["tokens"][:, i][clear]).all()),
+                  f"(l) rank {r} step {i}: a token differs from the "
+                  f"yardstick's past the margin")
+            held_tokens += int(clear.sum())
+        check(rk["param_bytes"] == TP_ZERO_PARAM_BYTES
+              and rk["storage_bytes"] == rk["param_bytes"],
+              f"(l) rank {r} holds {rk['param_bytes']} parameter bytes "
+              f"({rk['storage_bytes']} stored), the dry-run "
+              f"{TP_ZERO_PARAM_BYTES}")
+        check(rk["cache_bytes"] == TP_ZERO_CACHE_BYTES,
+              f"(l) rank {r}: a cache of {rk['cache_shape']}, "
+              f"{rk['cache_bytes']} bytes, the dry-run {dry['cache']}")
+        check(rk["flash_attention"] == cfg.n_layers,
+              f"(l) rank {r}: B4 {rk['flash_attention']} times")
+    for r, rk in enumerate(yard):
+        check(rk["param_bytes"] == TP_ZERO_YARD_BYTES,
+              f"(l) yardstick rank {r} holds {rk['param_bytes']} bytes")
+    # the weights' gathers over data stage each rank's block to the host
+    # and the whole model block back, once a pass: 3 x its bytes
+    passes = 1 + TP_ZERO_STEPS
+    line_l = {
+        "arch": "internlm2-20b", "layers": cfg.n_layers, "mesh": [2, 2],
+        "ranks": 4, "tokens": list(TP_ZERO_PROMPT),
+        "max_len": TP_ZERO_MAX_LEN, "decode_steps": TP_ZERO_STEPS,
+        "policy": "make_policy prefill / decode + __mesh__ (2, 2) + "
+                  "__params__ (param_specs fsdp=True) + __cache__",
+        "wq_block": ranks[0]["wq_shape"],
+        "param_bytes": [r["param_bytes"] for r in ranks],
+        "dryrun_bytes_per_device_params": dry["params"],
+        "storage_bytes": [r["storage_bytes"] for r in ranks],
+        "allocated_bytes": [r["allocated_bytes"] for r in ranks],
+        "cache_bytes": [r["cache_bytes"] for r in ranks],
+        "dryrun_cache_bytes": dry["cache"],
+        "yardstick": "(1, 2) mesh of ranks 0 and 1 of the world, before "
+                     "(l), the same weights, each row alone",
+        "yardstick_param_bytes": [r["param_bytes"] for r in yard],
+        "bit_for_bit": bit, "logits_max_abs_err_by_step": errs,
+        "tokens_held": held_tokens,
+        "world_wall_s": wall, "yardstick_wall_s": yard[0]["wall_s"],
+        "init_in_turns_wall_s": ranks[0]["init_wall_s"],
+        "yardstick_init_wall_s": yard[0]["init_wall_s"],
+        "prefill_wall_s": [r["prefill_wall_s"] for r in ranks],
+        "decode_wall_s": [r["decode_wall_s"] for r in ranks],
+        "yardstick_prefill_wall_s": [[w["prefill_wall_s"] for w in r["rows"]]
+                                     for r in yard],
+        "yardstick_decode_wall_s": [[w["decode_wall_s"] for w in r["rows"]]
+                                    for r in yard],
+        "b4_launches": [r["flash_attention"] for r in ranks],
+        "b4_shape": ranks[0]["b4_shape"],
+        "b4_held": [r["b4_held"] for r in ranks],
+        "staged_bytes_prefill": [r["staged_bytes"] for r in ranks],
+        "staged_bytes_with_decode": [r["staged_bytes_with_decode"]
+                                     for r in ranks],
+        "staged_bytes_predicted_prefill": [
+            yard[r % 2]["rows"][r // 2]["staged_bytes"]
+            + 3 * TP_ZERO_PARAM_BYTES for r in range(4)],
+        "staged_bytes_predicted_with_decode": [
+            yard[r % 2]["rows"][r // 2]["staged_bytes_with_decode"]
+            + 3 * passes * TP_ZERO_PARAM_BYTES for r in range(4)],
+        "yardstick_staged_bytes_with_decode": [
+            [w["staged_bytes_with_decode"] for w in r["rows"]]
+            for r in yard],
+        "peak_memory_bytes": [r["peak_memory_bytes"] for r in ranks],
+        "yardstick_peak_memory_bytes": [
+            max(w["peak_memory_bytes"] for w in r["rows"]) for r in yard],
+        "host_buffer_bytes": [r["host_buffer_bytes"] for r in ranks]}
+    say("tensor_parallel_zero_serve", backend="gloo",
+        device="cuda:0 in every rank", tolerance="bit for bit, read "
+        "against bf16 2e-2 of max(1, |ref|)", **line_l)
+    launches = {"flash_attention": sum(r["flash_attention"] for r in ranks)}
+    l_ranks = ranks
+    del rows
+    free_device_memory(torch)
+
+    # (m): ZeRO-1 alone, then ZeRO-3 with it, in one world.  Four ranks
+    # at 15-19 GB each beside this process fill the card: no rank keeps
+    # cached blocks it cannot reuse
+    main_reserved = torch.cuda.memory_reserved()
+    ranks, wall = run_ranks("tp_zero_train", 4, out, seed, env=dict(
+        os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"))
+    per_rank = 2 * TP_ZERO_TRAIN_LAYERS * TP_ZERO_TRAIN_STEPS
+    for r, rk in enumerate(ranks):
+        yd = rk["yardstick"]
+        check(rk["losses"][0] == yd["losses"][0],
+              f"(m) rank {r}: step 1's loss {rk['losses'][0]} vs "
+              f"{yd['losses'][0]} with the weights whole over data")
+        w, g = yd["losses"][1], rk["losses"][1]
+        check(abs(w - g) <= tol * max(1.0, abs(w)),
+              f"(m) rank {r} step 2: loss {g} vs {w}")
+        bad = grad_rule_breaks(rk["readings"])
+        check(not bad, f"(m) rank {r}: step 1's gradient breaks the rule "
+              f"at {bad}: { {n: rk['readings'][n] for n in bad} }")
+        for run_ in (yd, rk):
+            check(run_["state_bytes"] == dry["train_state"],
+                  f"(m) rank {r}: a state of {run_['state_bytes']} bytes, "
+                  f"the dry-run's opt specs {dry['train_state']}")
+            check(run_["flash_attention"] == per_rank,
+                  f"(m) rank {r}: B4 {run_['flash_attention']} times")
+        check(rk["param_bytes"] == dry["train_params"],
+              f"(m) rank {r} holds {rk['param_bytes']} parameter bytes")
+    for i in range(TP_ZERO_TRAIN_STEPS):
+        check(ranks[0]["yardstick"]["digests"][i]
+              == ranks[2]["yardstick"]["digests"][i]
+              and ranks[1]["yardstick"]["digests"][i]
+              == ranks[3]["yardstick"]["digests"][i],
+              f"(m) step {i + 1}: the data ranks' weights differ with the "
+              f"weights whole over data")
+        check(ranks[0]["digests"][i] == ranks[1]["digests"][i]
+              and ranks[2]["digests"][i] == ranks[3]["digests"][i],
+              f"(m) step {i + 1}: the leaves whole over model differ "
+              f"between a data row's ranks")
+    launches["flash_attention"] += sum(
+        r["flash_attention"] + r["yardstick"]["flash_attention"]
+        for r in ranks)
+    n_leaves = len(ranks[0]["leaves"])
+    line_m = {
+        "arch": "internlm2-20b", "layers": TP_ZERO_TRAIN_LAYERS,
+        "mesh": [2, 2], "ranks": 4, "batch": list(TP_ZERO_TRAIN_BATCH),
+        "steps": TP_ZERO_TRAIN_STEPS, "lr": TRAIN_LR,
+        "policy": "make_policy train_4k + __mesh__ (2, 2) + __params__ + "
+                  "__opt__ (param_specs fsdp=True, fsdp_axes data, pod)",
+        "yardstick": "the same world, the weights whole over data, the "
+                     "state cut (ZeRO-1 alone)",
+        "losses": [r["losses"] for r in ranks],
+        "yardstick_losses": [r["yardstick"]["losses"] for r in ranks],
+        "grad_leaves": n_leaves,
+        "grad_leaves_bit_for_bit": [len(r["grads_bit_for_bit"])
+                                    for r in ranks],
+        "grad_leaves_not_bit_for_bit": sorted(
+            set(ranks[0]["leaves"]) - set(ranks[0]["grads_bit_for_bit"])),
+        "grad_worst_share_of_max": max(
+            v["share_of_max"] for r in ranks for v in r["readings"].values()),
+        "grad_lowest_cosine": min(
+            v["cosine"] for r in ranks for v in r["readings"].values()),
+        "params_after_bit_for_bit": [len(r["params_bit_for_bit"])
+                                     for r in ranks],
+        "param_bytes": [r["param_bytes"] for r in ranks],
+        "yardstick_param_bytes": [r["yardstick"]["param_bytes"]
+                                  for r in ranks],
+        "dryrun_bytes_per_device_params": dry["train_params"],
+        "state_bytes": [r["state_bytes"] for r in ranks],
+        "dryrun_state_bytes": dry["train_state"],
+        "step_walls_s": [r["step_walls_s"] for r in ranks],
+        "yardstick_step_walls_s": [r["yardstick"]["step_walls_s"]
+                                   for r in ranks],
+        "staged_bytes": [r["staged_bytes"] for r in ranks],
+        "yardstick_staged_bytes": [r["yardstick"]["staged_bytes"]
+                                   for r in ranks],
+        "peak_memory_bytes": [r["peak_memory_bytes"] for r in ranks],
+        "yardstick_peak_memory_bytes": [
+            r["yardstick"]["peak_memory_bytes"] for r in ranks],
+        "b4_launches": [r["flash_attention"] for r in ranks],
+        "host_buffer_bytes": [r["host_buffer_bytes"] for r in ranks],
+        "main_process_reserved_bytes": main_reserved,
+        "world_wall_s": wall, "specs_s": specs_s}
+    shutil.rmtree(out, ignore_errors=True)
+    say("tensor_parallel_zero_train", backend="gloo",
+        device="cuda:0 in every rank", tolerance="step 1's loss bit for "
+        "bit; (b)'s rule; step 2's loss bf16 2e-2 of max(1, |ref|)",
+        **line_m, seconds=time.perf_counter() - t_phase)
+    # B4 at (l)'s rank shape: 24 heads and 4 kv heads of 128 a rank
+    (B, Sq, H, D), (_, Sk, Hkv, _) = l_ranks[0]["b4_shape"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = attention_inputs(torch, gen, torch.bfloat16, D, B, Hkv,
+                               H // Hkv, Sq, Sk)
+    label = "internlm2-20b ZeRO-3 rank (l), 24 heads"
+    held = attention_held(torch, q, k, v, label, causal=True)
+    return launches, [(label, (q, k, v), {"causal": True},
+                       launches["flash_attention"], held)]
+
+
+# ---------------------------------------------------------------------------
 # The twins of examples/, each in a process of its own
 # ---------------------------------------------------------------------------
 
@@ -6005,12 +6630,16 @@ def example_main(name, out_json, argv):
     repro_torch.examples.NAME ARGV`` runs it, with every kernel's count
     set to 0 before and written to ``out_json`` after.  ``serve_lm``'s
     cold solve is held (``SolveGate``) until its server has ticked
-    ``RELEASE_AFTER`` times, so that its page pool swaps mid-serve."""
+    ``RELEASE_AFTER`` times, then waited for through the plan ticket the
+    server was built with (``PlanTicket.wait``), so that its page pool
+    swaps mid-serve, at the next tick."""
+    import inspect
     import runpy
 
     sys.path.insert(0, os.path.join(HERE, "src"))
     import torch
 
+    from repro_torch.core.service import PlanTicket
     from repro_torch.kernels import banked_gather as bg
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.runtime.server import Server
@@ -6021,16 +6650,26 @@ def example_main(name, out_json, argv):
     reset_train_kernel_counts()
     seen = {}
     gate = SolveGate(hold=name == "serve_lm")
-    tick = Server.tick
+    init, tick = Server.__init__, Server.tick
+
+    def recording_init(server, *args, **kw):
+        init(server, *args, **kw)
+        seen["plan"] = inspect.signature(init).bind(
+            server, *args, **kw).arguments.get("kv_plan")
 
     def counting_tick(server):
         seen["server"] = server
         out = tick(server)
-        if server.ticks >= RELEASE_AFTER:
+        if server.ticks >= RELEASE_AFTER and not gate.event.is_set():
             gate.event.set()
+            # the released solve lands before the next tick, which swaps:
+            # a race with the remaining ticks would leave the swap to the
+            # host's speed
+            if isinstance(seen["plan"], PlanTicket):
+                seen["plan"].wait(120)
         return out
 
-    Server.tick = counting_tick
+    Server.__init__, Server.tick = recording_init, counting_tick
     sys.argv = [f"repro_torch.examples.{name}", *argv]
     t0 = time.perf_counter()
     try:
@@ -6040,7 +6679,7 @@ def example_main(name, out_json, argv):
         if torch.cuda.is_initialized():
             torch.cuda.synchronize()
     finally:
-        Server.tick = tick
+        Server.__init__, Server.tick = init, tick
     res = {"wall_s": time.perf_counter() - t0, **bg.LAUNCHES,
            **{f"banked_scatter_elems_{k}": n
               for k, n in bg.SCATTER_ELEMS_PATHS.items()},
@@ -6160,7 +6799,9 @@ RANK_ENTRIES = {"moe": rank_moe, "dp": rank_dp, "pipeline": rank_pipeline,
                 "tp_prefill": rank_tp_prefill, "tp_train": rank_tp_train,
                 "tp_hybrid": rank_tp_hybrid,
                 "tp_ssm_train": rank_tp_ssm_train,
-                "tp_encdec": rank_tp_encdec, "tp_split": rank_tp_split}
+                "tp_encdec": rank_tp_encdec, "tp_split": rank_tp_split,
+                "tp_zero_serve": rank_tp_zero_serve,
+                "tp_zero_train": rank_tp_zero_train}
 
 
 def rank_main(entry, rank, world, init_file, out, seed):
@@ -6170,6 +6811,7 @@ def rank_main(entry, rank, world, init_file, out, seed):
     import torch
     import torch.distributed as dist
 
+    from repro_torch.parallel.collectives import release_host_buffers
     from torch_worlds import init_rank
 
     rank, world = int(rank), int(world)
@@ -6180,15 +6822,17 @@ def rank_main(entry, rank, world, init_file, out, seed):
         dist.barrier()
     finally:
         dist.destroy_process_group()
+        release_host_buffers()
     res["device"] = str(torch.device("cuda", torch.cuda.current_device()))
     with open(os.path.join(out, f"{entry}_{rank}.json"), "w") as f:
         json.dump(res, f)
     return 0
 
 
-def run_ranks(entry, world, out, seed):
-    """A world of ``world`` processes of ``rank_main`` on the one card;
-    returns the ranks' JSON and the world's wall."""
+def run_ranks(entry, world, out, seed, env=None):
+    """A world of ``world`` processes of ``rank_main`` on the one card
+    (``env``: their environment, this process's by default); returns the
+    ranks' JSON and the world's wall."""
     from torch_worlds import run_world
 
     init = os.path.join(out, f"pg_{entry}")
@@ -6197,7 +6841,7 @@ def run_ranks(entry, world, out, seed):
                       str(world), init, out]
     t0 = time.perf_counter()
     try:
-        run_world(argv, world, timeout=DIST_TIMEOUT_S)
+        run_world(argv, world, timeout=DIST_TIMEOUT_S, env=env)
     except RuntimeError as e:
         fail(f"distributed {entry}: {e}")
     wall = time.perf_counter() - t0
@@ -6441,7 +7085,13 @@ def main():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
     from repro_torch.configs import get_arch
 
+    # the tensor-parallel phases' lane plans, solved on the host while the
+    # kernels build (joined before the card runs anything else)
+    warm = concurrent.futures.ThreadPoolExecutor(1)
+    specs_solved = warm.submit(tp_dryrun_specs, _tp_configs())
     card, banked = phase_toolchain(torch)
+    specs_solved.result()
+    warm.shutdown()
     probe = phase_roofline_probe(torch, card)
     if args.train_only:
         run_training_phases(torch, args.seed, get_arch, [get_arch(a) for a in (
@@ -6511,7 +7161,8 @@ def main():
                   functools.partial(phase_tensor_parallel_ssm,
                                     ssd_args=ssd_args,
                                     ssd_held_by=ssd_held_by),
-                  phase_tensor_parallel_misaligned, phase_examples):
+                  phase_tensor_parallel_misaligned,
+                  phase_tensor_parallel_zero, phase_examples):
         n, rows = phase(torch, args.seed)
         add(n)
         attn_rows += rows

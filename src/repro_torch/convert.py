@@ -53,7 +53,7 @@ def for_ranks(tree: Dict[str, Any], *, stages: Optional[int] = None,
               experts: Optional[Tuple[int, int]] = None,
               specs: Optional[Dict[str, Any]] = None, mesh=None,
               coords: Optional[Dict[str, int]] = None,
-              head_dim=None) -> Dict[str, Any]:
+              head_dim=None, family: Optional[str] = None) -> Dict[str, Any]:
     """A parameter tree cut for a world of processes; numpy arrays or
     tensors, cut leaf by leaf as views where the leaves allow (hand the
     reference's numpy tree in, then :func:`params_from_numpy`, and a rank
@@ -64,15 +64,18 @@ def for_ranks(tree: Dict[str, Any], *, stages: Optional[int] = None,
     ``specs``, ``mesh``, ``coords``: this rank's block of every leaf under
     its spec (``parallel.sharding.param_specs``) on ``mesh`` at the rank's
     coordinates (axis name -> index), what a rank of a tensor-parallel
-    model holds (``parallel.sharding.rank_blocks``: an attention leaf's
-    block may split a head; ``head_dim``, ``parallel.sharding.
-    head_widths(cfg)``, turns on the check that a Mamba2 head is not).
-    ``experts=(rank, n)``: the special case of the expert stacks' specs:
-    every ``we_*`` leaf keeps the
+    model holds, cut over ``model`` and, under ZeRO-3, over the data axes
+    (``parallel.sharding.rank_blocks``: an attention leaf's block may
+    split a head; ``head_dim``, ``parallel.sharding.head_widths(cfg)``,
+    turns on the check that a Mamba2 head is not; ``family``, the
+    config's, the refusal of a data cut where the family's passes do not
+    gather one).
+    ``experts=(rank, n)``: the expert stacks' specs
+    (``parallel.sharding.expert_specs``): every ``we_*`` leaf keeps the
     ``rank``-th of ``n`` equal blocks of experts (dim -3), the rest
     whole, what a rank of a ``model`` axis of ``n`` holds in
     ``models.moe.moe_ffn_a2a``."""
-    from .parallel.sharding import P, leaf_block, mesh_axes
+    from .parallel.sharding import expert_specs, leaf_block, mesh_axes
 
     axes = mesh_axes(mesh) if mesh is not None else None
 
@@ -83,18 +86,16 @@ def for_ranks(tree: Dict[str, Any], *, stages: Optional[int] = None,
             if L % stages:
                 raise ValueError(f"{name}: {L} layers in {stages} stages")
             leaf = leaf.reshape((stages, L // stages) + tuple(leaf.shape[1:]))
-        if experts is not None and name.startswith("we_"):
+        if experts is not None:
             rank, n = experts
-            nd = len(leaf.shape)
-            if leaf.shape[-3] % n:
+            if name.startswith("we_") and leaf.shape[-3] % n:
                 raise ValueError(f"{name}: {leaf.shape[-3]} experts over "
                                  f"{n} ranks")
-            leaf = leaf_block(path, leaf, P(*(["model" if d == nd - 3
-                                                else None
-                                                for d in range(nd)])),
+            leaf = leaf_block(path, leaf, expert_specs({name: leaf})[name],
                               {"model": n}, {"model": rank})
         if spec is not None:
-            leaf = leaf_block(path, leaf, spec, axes, coords, head_dim)
+            leaf = leaf_block(path, leaf, spec, axes, coords, head_dim,
+                              family)
         return leaf
 
     def walk(t, s, prefix):
@@ -109,11 +110,14 @@ def for_ranks(tree: Dict[str, Any], *, stages: Optional[int] = None,
 
 
 def block_init(specs: Dict[str, Any], mesh, coords: Dict[str, int],
-               head_dim=None):
+               head_dim=None, family: Optional[str] = None):
     """The ``keep`` of a model's ``init``: each leaf, as soon as it is
-    drawn, replaced by a copy of this rank's block, so that a rank that
-    draws a whole model from a seed holds no more than its blocks and one
-    whole leaf."""
+    drawn, replaced by a copy of this rank's block (over ``model`` and the
+    data axes alike; ``head_dim`` and ``family`` as in
+    :func:`for_ranks`), so that a rank that draws a whole model from a
+    seed holds no more than its blocks and one whole leaf.  A whole leaf
+    of a full-width model is large (internlm2-20b's ``w_gate`` stack 9.7
+    GB in bfloat16): ranks that share a card draw in turn."""
     from .parallel.sharding import leaf_block, mesh_axes
 
     axes = mesh_axes(mesh)
@@ -124,7 +128,7 @@ def block_init(specs: Dict[str, Any], mesh, coords: Dict[str, int],
             if k not in spec:         # drawn, then dropped by the init
                 return leaf
             spec = spec[k]
-        block = leaf_block(path, leaf, spec, axes, coords, head_dim)
+        block = leaf_block(path, leaf, spec, axes, coords, head_dim, family)
         return block if block is leaf else block.clone()
 
     return keep

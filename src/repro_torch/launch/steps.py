@@ -6,6 +6,7 @@ import torch
 
 from ..models import Model
 from ..optim import adamw
+from ..parallel.hints import state_layout
 
 
 def value_and_grad(model: Model, params, batch):
@@ -32,12 +33,18 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig):
     takes the model's norm over every rank (``Model.grad_norm``: a leaf
     cut over ``model`` counted once, from its blocks), so the leaves each
     rank holds whole stay equal in every rank and AdamW updates each
-    rank's blocks as the whole model's step would."""
+    rank's blocks as the whole model's step would.  Where the policy
+    declares the optimizer state cut beyond the weights (``"__opt__"``,
+    ZeRO-1: ``parallel.hints.state_layout``), ``opt_state`` holds this
+    rank's blocks (``adamw.init(params, cuts=state_layout(params))``
+    under the same policy) and each weight is gathered from the ranks'
+    updated blocks."""
     def train_step(params, opt_state, batch):
         loss, grads = value_and_grad(model, params, batch)
         gnorm = model.grad_norm(grads) if model.grad_norm else None
         params, opt_state = adamw.update(opt_cfg, grads, opt_state, params,
-                                         gnorm=gnorm)
+                                         gnorm=gnorm,
+                                         cuts=state_layout(params))
         return loss, params, opt_state
 
     return train_step

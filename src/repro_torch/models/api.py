@@ -60,7 +60,7 @@ def get_model(cfg: ArchConfig, moe_impl: str = "sorted") -> Model:
                 cfg, p, batch["tokens"], max_len),
             decode=partial(tfm.decode_step, cfg),
             init_cache=partial(tfm.init_cache, cfg),
-            grad_norm=partial(tfm.grad_norm, cfg),
+            grad_norm=tfm.grad_norm,
         )
     if fam == "moe":
         if moe_impl not in moe.MOE_IMPLS:
@@ -74,7 +74,7 @@ def get_model(cfg: ArchConfig, moe_impl: str = "sorted") -> Model:
                 cfg, p, batch["tokens"], max_len, impl=moe_impl),
             decode=partial(moe.decode_step, cfg, impl=moe_impl),
             init_cache=partial(tfm.init_cache, cfg),
-            grad_norm=partial(moe.grad_norm, cfg),
+            grad_norm=tfm.grad_norm,
         )
     if fam == "ssm":
         def ssm_cache(batch, max_len, **kw):     # the state has no length
@@ -88,7 +88,7 @@ def get_model(cfg: ArchConfig, moe_impl: str = "sorted") -> Model:
                 cfg, p, batch["tokens"]),
             decode=partial(ssm.decode_step, cfg),
             init_cache=ssm_cache,
-            grad_norm=partial(tfm.grad_norm, cfg, init=ssm.init_params),
+            grad_norm=tfm.grad_norm,
         )
     if fam == "hybrid":
         return Model(
@@ -99,7 +99,7 @@ def get_model(cfg: ArchConfig, moe_impl: str = "sorted") -> Model:
                 cfg, p, batch["tokens"], max_len),
             decode=partial(hybrid.decode_step, cfg),
             init_cache=partial(hybrid.init_cache, cfg),
-            grad_norm=partial(tfm.grad_norm, cfg, init=hybrid.init_params),
+            grad_norm=tfm.grad_norm,
         )
     if fam in ("encdec", "audio"):
         return Model(
@@ -110,7 +110,7 @@ def get_model(cfg: ArchConfig, moe_impl: str = "sorted") -> Model:
                 cfg, p, batch["frames"], batch["tokens"], max_len),
             decode=partial(encdec.decode_step, cfg),
             init_cache=None,      # the cross K/V come from the frames
-            grad_norm=partial(tfm.grad_norm, cfg, init=encdec.init_params),
+            grad_norm=tfm.grad_norm,
         )
     raise ValueError(f"unknown family {fam}")
 

@@ -266,8 +266,7 @@ def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, Tensor]
     frames, tokens = batch["frames"], batch["tokens"]
     cut = both_cut(frames.shape[1], tokens.shape[1])
     with split_sequence(tokens.shape[1], cut) as split:
-        params = tfm.spread_grads(params, split,
-                                  tfm.whole_shapes(cfg, init_params))
+        params = tfm.spread_grads(params, split)
         enc_out = _encode(cfg, params, frames.to(torch.bfloat16), cut)
         h = decode_train(cfg, params, enc_out, tokens, cut)
         return tfm.chunked_xent(cfg, params, h, batch["labels"])
@@ -305,8 +304,10 @@ def prefill(cfg: ArchConfig, params: Params, frames: Tensor, tokens: Tensor,
         x = residual_block(tfm.embed_tokens(params, tokens, cfg.vocab))
         L, S_enc = cfg.n_layers, enc_out.shape[1]
         dec = params["dec"]
-        Hkv, seq = tfm.kv_layout(cfg, dec["self"]["wk"], "k_self")
-        Hkv_x, seq_x = tfm.kv_layout(cfg, dec["cross"]["wk"], "k_cross")
+        Hkv, seq = tfm.kv_layout(cfg, dec["self"]["wk"], "k_self",
+                                 "dec/self/wk")
+        Hkv_x, seq_x = tfm.kv_layout(cfg, dec["cross"]["wk"], "k_cross",
+                                     "dec/cross/wk")
         kv = (L, B, tfm.cache_block(cfg, max_len, Hkv, "k_self")[0], Hkv,
               cfg.hd)
         cross = (L, B, tfm.cache_block(cfg, S_enc, Hkv_x, "k_cross")[0],
@@ -345,9 +346,10 @@ def decode_step(cfg: ArchConfig, params: Params, cache: EncDecCache,
     with split_sequence(tokens.shape[1], cut=False):
         x = tfm.embed_tokens(params, tokens, cfg.vocab)
         B, S, _ = x.shape
-        seq = tfm.kv_layout(cfg, params["dec"]["self"]["wk"], "k_self")[1]
+        seq = tfm.kv_layout(cfg, params["dec"]["self"]["wk"], "k_self",
+                            "dec/self/wk")[1]
         seq_x = tfm.kv_layout(cfg, params["dec"]["cross"]["wk"],
-                              "k_cross")[1]
+                              "k_cross", "dec/cross/wk")[1]
         for i in range(cfg.n_layers):
             lp = _layer(params["dec"], i)
             tp = heads_cut(cfg, lp["self"])

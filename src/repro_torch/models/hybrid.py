@@ -152,8 +152,7 @@ def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, Tensor]
     leaf (``transformer.spread_grads``)."""
     with split_sequence(batch["tokens"].shape[1],
                         channels=cfg.d_model) as split:
-        params = tfm.spread_grads(params, split,
-                                  tfm.whole_shapes(cfg, init_params))
+        params = tfm.spread_grads(params, split)
         h = forward(cfg, params, batch["tokens"])
         return tfm.chunked_xent(cfg, params, h, batch["labels"])
 
@@ -169,7 +168,8 @@ def decode_step(cfg: ArchConfig, params: Params, cache: HybridCache,
     pos = int(cache.pos)
     with split_sequence(tokens.shape[1], cut=False):
         x = tfm.embed_tokens(params, tokens, cfg.vocab)
-        seq = tfm.kv_layout(cfg, params["shared_attn"]["wk"])[1]
+        seq = tfm.kv_layout(cfg, params["shared_attn"]["wk"],
+                            path="shared_attn/wk")[1]
         for g in range(G):
             for i in range(per):
                 x, (conv, state) = ssm_mod.ssm_block(
@@ -205,7 +205,8 @@ def prefill(cfg: ArchConfig, params: Params, tokens: Tensor, max_len: int
     G, per = _groups(cfg)
     with split_sequence(S, channels=cfg.d_model):
         x = residual_block(tfm.embed_tokens(params, tokens, cfg.vocab))
-        kv_heads, seq = tfm.kv_layout(cfg, params["shared_attn"]["wk"])
+        kv_heads, seq = tfm.kv_layout(cfg, params["shared_attn"]["wk"],
+                                      path="shared_attn/wk")
         cache = init_cache(cfg, B, max_len, device=x.device,
                            kv_heads=kv_heads,
                            **ssm_mod.rank_cache_dims(params["ssm"]))

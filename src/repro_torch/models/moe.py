@@ -41,9 +41,10 @@ import torch
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..kernels import ops
-from ..parallel.hints import (column_in, current_split, hint, model_axis,
+from ..parallel.hints import (column_in, current_split, hint, layer_blocks,
+                              model_axis, model_block, model_shape,
                               policy_defaults, policy_value, residual_block,
-                              row_parallel_end, split_sequence)
+                              row_parallel_end, split_sequence, whole_layers)
 from . import transformer as tfm
 from .layers import (dense_init, parallel_swiglu, remat, rms_norm, swiglu,
                      unstack)
@@ -252,9 +253,12 @@ def moe_ffn_a2a(cfg: ArchConfig, lp, h: Tensor) -> Tuple[Tensor, Tensor]:
     Process-local, as a rank sees it: ``h`` (B_loc, S, D) is this rank's
     batch rows, ``lp["router"]`` the whole (D, E) router (or its ``E/n``
     columns under tensor parallelism, gathered by ``_route``), and the
-    expert weights this rank's ``E/n`` experts (``convert.for_ranks``), with
-    ``"__fsdp__"`` in the policy also cut on their F dim over ``data`` and
-    gathered here, layer by layer.  Returns this rank's sequence block
+    expert weights this rank's ``E/n`` experts (``convert.for_ranks``),
+    each a ``model`` block: where the policy declares them cut over the
+    data axes too (``"__params__"``, the dry-run's FSDP specs: F at full
+    width, D where F does not bank), the pass has gathered them on the
+    dim their spec cuts (``hints.layer_blocks``), layer by layer.
+    Returns this rank's sequence block
     (B_loc, S/n, D) of the combined output and the load-balancing loss of
     ``h``'s tokens, the same in every rank of the ``model`` group
     (``lm_loss`` takes its mean over the ranks).  Without a mesh in the
@@ -263,8 +267,8 @@ def moe_ffn_a2a(cfg: ArchConfig, lp, h: Tensor) -> Tuple[Tensor, Tensor]:
     """
     import torch.distributed as dist
 
-    from ..parallel.collectives import all_gather_dim, reduce_scatter_dim
-    from ..parallel.sharding import dp_axes, mesh_axes
+    from ..parallel.collectives import reduce_scatter_dim
+    from ..parallel.sharding import mesh_axes
 
     mesh = policy_value("__mesh__")
     if mesh is None or "model" not in (getattr(mesh, "mesh_dim_names", None)
@@ -275,20 +279,11 @@ def moe_ffn_a2a(cfg: ArchConfig, lp, h: Tensor) -> Tuple[Tensor, Tensor]:
     if E % n_model or h.shape[1] % n_model:
         return moe_ffn_sorted(cfg, lp, h)
     E_loc = E // n_model
-    fsdp_weights = (bool(policy_value("__fsdp__", False))
-                    and "data" in dp_axes(mesh))
     we_gate, we_up, we_down = lp["we_gate"], lp["we_up"], lp["we_down"]
     if we_gate.shape[0] != E_loc:
         raise ValueError(f"expert weights hold {we_gate.shape[0]} experts; "
                          f"a rank of a model axis of {n_model} holds "
                          f"{E_loc} of {E}")
-    if fsdp_weights:
-        # cut on F over 'data': gathered here, per layer, so the whole
-        # copies are transient instead of living across the model
-        data = mesh.get_group("data")
-        we_gate = all_gather_dim(we_gate, 2, data)
-        we_up = all_gather_dim(we_up, 2, data)
-        we_down = all_gather_dim(we_down, 1, data)
     group = mesh.get_group("model")
     m = dist.get_rank(group)
     B, S, D = h.shape
@@ -380,16 +375,17 @@ def forward(cfg: ArchConfig, params: Params, tokens: Tensor,
 
         def block(lp, x, window):
             aux = []
-            x, _ = tfm.dense_layer(cfg, lp, x, window,
+            x, _ = tfm.dense_layer(cfg, layer_blocks(lp), x, window,
                                    ffn=_ffn(cfg, impl, aux))
             return hint(x, "residual"), aux[0]
 
         total = 0.0
-        for i, lp in enumerate(unstack(params["layers"], cfg.n_layers)):
+        layers = whole_layers(params["layers"])
+        for i, lp in enumerate(unstack(layers, cfg.n_layers)):
             x, aux_l = remat(block, lp, x, int(windows[i]))
             total = total + aux_l
-        return (rms_norm(x, params["ln_f"], cfg.norm_eps),
-                total / cfg.n_layers)
+        return (rms_norm(x, model_block(params["ln_f"], "ln_f"),
+                         cfg.norm_eps), total / cfg.n_layers)
 
 
 def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, Tensor],
@@ -408,22 +404,15 @@ def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, Tensor],
     its share of it (summed over the ranks by ``spread_grads`` and the
     router's gather)."""
     with _layout(impl), split_sequence(batch["tokens"].shape[1]) as split:
-        params = tfm.spread_grads(params, split,
-                                  tfm.whole_shapes(cfg, init_moe_params))
+        params = tfm.spread_grads(params, split)
         h, aux = forward(cfg, params, batch["tokens"], impl=impl)
         if split is not None:
-            aux = (split.mean_with_model(aux)
-                   if params["layers"]["router"].shape[-1] < cfg.n_experts
+            router = model_shape(params["layers"]["router"],
+                                 "layers/router")
+            aux = (split.mean_with_model(aux) if router[-1] < cfg.n_experts
                    else split.mean(aux))
         return (tfm.chunked_xent(cfg, params, h, batch["labels"])
                 + aux_weight * aux)
-
-
-def grad_norm(cfg: ArchConfig, grads: Params) -> Tensor:
-    """``transformer.grad_norm`` of the MoE tree: the global norm over
-    every rank, the leaves cut over ``model`` (the experts of ``a2a``,
-    every cut leaf under tensor parallelism) summed over it."""
-    return tfm.grad_norm(cfg, grads, init_moe_params)
 
 
 @torch.no_grad()

@@ -413,8 +413,7 @@ def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, Tensor]
     leaf (``transformer.spread_grads``)."""
     with split_sequence(batch["tokens"].shape[1],
                         channels=cfg.d_model) as split:
-        params = tfm.spread_grads(params, split,
-                                  tfm.whole_shapes(cfg, init_params))
+        params = tfm.spread_grads(params, split)
         h = forward(cfg, params, batch["tokens"])
         return tfm.chunked_xent(cfg, params, h, batch["labels"])
 

@@ -30,14 +30,16 @@ over ``model`` a layer runs on this rank's heads; where the cut splits a
 head, or the policy's ``"__cache__"`` cuts the KV cache on its positions,
 on whole heads gathered over ``model`` (:func:`whole_heads`), a decode
 step's attention over the cache then a partial softmax merged over the
-ranks that hold its blocks.
+ranks that hold its blocks.  Where the policy's ``"__params__"`` declares
+the weights cut over the data axes too (ZeRO-3), every pass gathers each
+layer's leaves into their ``model`` blocks inside the layer's body, and
+the whole-model leaves where they are used (``parallel.hints.
+layer_blocks``, ``model_block``).
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Tuple
-
-import functools
 
 import numpy as np
 import torch
@@ -45,10 +47,11 @@ import torch
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..kernels import ops
-from ..parallel.hints import (cache_cut, column_in, current_split, hint,
-                              model_axis, policy_value, residual_block,
-                              row_parallel_end, split_sequence,
-                              whole_channels)
+from ..parallel.hints import (cache_cut, column_in, current_split,
+                              cut_axes, hint, layer_blocks, model_axis,
+                              model_block, model_shape, policy_value,
+                              residual_block, row_parallel_end,
+                              split_sequence, whole_channels, whole_layers)
 from ..parallel.sharding import head_span
 from .layers import (NEG_INF, apply_rope, attention_partials,
                      chunked_attention, dense_init, merge_partials,
@@ -439,12 +442,19 @@ def dense_layer(cfg: ArchConfig, lp, x, window, *, cache_kv=None, pos=0,
     return x, new_kv
 
 
+def _head(params: Params) -> Tensor:
+    """The ``lm_head`` (or the tied embedding) as this rank's ``model``
+    block of it (``hints.model_block``)."""
+    name = "lm_head" if "lm_head" in params else "embed"
+    return model_block(params[name], name)
+
+
 def logits_fn(cfg: ArchConfig, params: Params, h: Tensor) -> Tensor:
     """The whole vocabulary's logits of ``h``: with an ``lm_head`` (or a
     tied embedding) cut on the vocabulary over ``model``, this rank's
     ``V/n`` columns all-gathered in rank order (``h`` the same in every
     rank of the group)."""
-    w = params.get("lm_head", params["embed"])
+    w = _head(params)
     logits = torch.matmul(h, w.to(h.dtype).T)
     if w.shape[0] == cfg.vocab:
         return logits
@@ -458,7 +468,10 @@ def logits_fn(cfg: ArchConfig, params: Params, h: Tensor) -> Tensor:
 
 
 def _layer_params(params: Params, i: int) -> Params:
-    return {name: w[i] for name, w in params["layers"].items()}
+    """Layer ``i``'s leaves as this rank's ``model`` blocks
+    (``hints.layer_blocks``); a stack whose layer dim is cut over the
+    data axes must have been gathered whole (``hints.whole_layers``)."""
+    return layer_blocks({name: w[i] for name, w in params["layers"].items()})
 
 
 class _Embed(torch.autograd.Function):
@@ -506,7 +519,7 @@ def embed_tokens(params: Params, tokens: Tensor, vocab=None) -> Tensor:
     range and zeros elsewhere, summed over ``model`` by
     ``hints.row_parallel_end``: under a sequence cut this rank's block of
     the sequence, otherwise the whole."""
-    table = params["embed"]
+    table = model_block(params["embed"], "embed")
     if vocab is None or table.shape[0] == vocab:
         return _Embed.apply(table, tokens, None)
     return row_parallel_end(_Embed.apply(
@@ -533,11 +546,12 @@ def forward(cfg: ArchConfig, params: Params, tokens: Tensor, ffn=None
         windows = layer_windows(cfg)
 
         def block(lp, x, window):
-            return dense_layer(cfg, lp, x, window, ffn=ffn)[0]
+            return dense_layer(cfg, layer_blocks(lp), x, window, ffn=ffn)[0]
 
-        for i, lp in enumerate(unstack(params["layers"], cfg.n_layers)):
+        layers = whole_layers(params["layers"])
+        for i, lp in enumerate(unstack(layers, cfg.n_layers)):
             x = hint(remat(block, lp, x, int(windows[i])), "residual")
-        return rms_norm(x, params["ln_f"], cfg.norm_eps)
+        return rms_norm(x, model_block(params["ln_f"], "ln_f"), cfg.norm_eps)
 
 
 def _xent(hc: Tensor, lc: Tensor, w: Tensor, lo=None, group=None
@@ -580,7 +594,7 @@ def chunked_xent(cfg: ArchConfig, params: Params, h: Tensor, labels: Tensor,
     the ``(B, S, V)`` logits are never gathered, and the loss, the same
     in every rank of a ``model`` group, is the mean over ``data``."""
     split = current_split()
-    w = params.get("lm_head", params["embed"]).float()
+    w = _head(params).float()
     cut = () if w.shape[0] == cfg.vocab else None
     if cut is None:
         group, _, m = model_axis()
@@ -600,73 +614,76 @@ def chunked_xent(cfg: ArchConfig, params: Params, h: Tensor, labels: Tensor,
     return split.row_mean(loss) if cut else split.mean(loss)
 
 
-@functools.lru_cache(maxsize=None)
-def whole_shapes(cfg: ArchConfig, init=None) -> Params:
-    """The shape of every leaf of the whole model (``init``'s tree on the
-    ``meta`` device, the dense transformer's by default), against which a
-    rank's leaves show whether they are cut."""
-    tree = (init or init_dense_params)(cfg, torch.Generator(),
-                                       device="meta")
-
-    def walk(t):
-        return {k: walk(v) if isinstance(v, dict) else tuple(v.shape)
-                for k, v in t.items()}
-
-    return walk(tree)
-
-
-def spread_grads(params: Params, split, whole=None) -> Params:
+def spread_grads(params: Params, split) -> Params:
     """``params`` whose gradients are summed, in the backward, over the
-    ranks that share each leaf: a whole leaf over the groups the pass's
-    tokens are spread over (each rank saw only its share of them; under
-    a channel cut, its share of the channels: the norm gains that read a
-    gathered input take a partial gradient in each rank); a leaf cut over
-    ``model`` -- its shape differs from ``whole``'s
-    (:func:`whole_shapes`): tensor parallelism, or the expert-parallel MoE
-    layer's experts -- is this rank's own, which saw every token of its
-    data row, and is summed over ``data`` alone.  Without a split:
-    ``params`` itself."""
+    ranks that share each leaf: over each group the pass's tokens are
+    spread over (each rank saw only its share of them; under a channel
+    cut, its share of the channels: the norm gains that read a gathered
+    input take a partial gradient in each rank) whose axis does not cut
+    the leaf (``hints.cut_axes``: the policy's declared ``"__params__"``;
+    every leaf whole where nothing is declared).  A leaf cut over
+    ``model`` -- tensor parallelism, or the expert-parallel MoE layer's
+    experts -- saw every token of its data row and is summed over
+    ``data`` alone; a leaf cut over the data axes (ZeRO-3) is summed by
+    its gather's backward (``hints.layer_blocks``), over ``model`` too
+    where it is whole there.  Without a split: ``params`` itself."""
     if split is None:
         return params
     from ..parallel.collectives import summed_grads
 
-    groups = split.token_groups()
-    data = (split.data,) if split.n_data > 1 else ()
+    token = [(a, g) for a, g, k in (("model", split.model, split.n),
+                                    ("data", split.data, split.n_data))
+             if k > 1]
 
-    def wrap(tree, shapes):
-        return {k: wrap(v, shapes and shapes[k]) if isinstance(v, dict)
-                else summed_grads(v, data if shapes and tuple(v.shape)
-                                  != shapes[k] else groups)
-                for k, v in tree.items()}
+    def wrap(tree, prefix):
+        out = {}
+        for k, v in tree.items():
+            path = f"{prefix}/{k}" if prefix else k
+            if isinstance(v, dict):
+                out[k] = wrap(v, path)
+                continue
+            cut = cut_axes(path)
+            groups = () if cut - {"model"} else tuple(
+                g for a, g in token if a not in cut)
+            out[k] = summed_grads(v, groups)
+        return out
 
-    return wrap(params, whole)
+    return wrap(params, "")
 
 
-def grad_norm(cfg: ArchConfig, grads: Params, init=None) -> Tensor:
+def grad_norm(grads: Params) -> Tensor:
     """The global norm of the gradients over every rank: the squares of
-    the leaves cut over ``model`` (their shapes differ from
-    :func:`whole_shapes`) summed over the ``model`` group, every whole
-    leaf counted once.  Without a mesh, or with every leaf whole:
+    each leaf's block summed over every axis that cuts it
+    (``hints.cut_axes``: the policy's declared ``"__params__"``), every
+    whole leaf counted once.  Without a mesh, or with every leaf whole:
     ``optim.adamw.global_norm``."""
     import torch.distributed as dist
 
     from ..optim.adamw import global_norm
 
-    def pairs(tree, shapes):
+    def pairs(tree, prefix):
         for k, v in tree.items():
+            path = f"{prefix}/{k}" if prefix else k
             if isinstance(v, dict):
-                yield from pairs(v, shapes[k])
+                yield from pairs(v, path)
             else:
-                yield v, tuple(v.shape) != shapes[k]
+                yield v, cut_axes(path)
 
-    leaves, cut = zip(*pairs(grads, whole_shapes(cfg, init)))
-    if policy_value("__mesh__") is None or not any(cut):
+    leaves, cuts = zip(*pairs(grads, ""))
+    mesh = policy_value("__mesh__")
+    if mesh is None or not any(cuts):
         return global_norm(grads)
-    sq = sum(torch.sum(torch.square(g.float()))
-             for g, c in zip(leaves, cut) if c)
-    dist.all_reduce(sq, group=model_axis()[0])
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g, c in zip(leaves, cut) if not c) + sq)
+    total = sum(torch.sum(torch.square(g.float()))
+                for g, c in zip(leaves, cuts) if not c)
+    names = tuple(mesh.mesh_dim_names)
+    for key in sorted({c for c in cuts if c},
+                      key=lambda c: sorted(names.index(a) for a in c)):
+        sq = sum(torch.sum(torch.square(g.float()))
+                 for g, c in zip(leaves, cuts) if c == key)
+        for a in sorted(key, key=names.index, reverse=True):
+            dist.all_reduce(sq, group=mesh.get_group(a))
+        total = total + sq
+    return torch.sqrt(total)
 
 
 def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, Tensor]
@@ -677,7 +694,7 @@ def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, Tensor]
     a leaf (:func:`spread_grads`): what ``jax.grad`` gives under the JAX
     package's mesh."""
     with split_sequence(batch["tokens"].shape[1]) as split:
-        params = spread_grads(params, split, whole_shapes(cfg))
+        params = spread_grads(params, split)
         h = forward(cfg, params, batch["tokens"])
         return chunked_xent(cfg, params, h, batch["labels"])
 
@@ -693,8 +710,9 @@ class KVCache(NamedTuple):
     pos: int    # number of decode calls so far, ONE count for all slots
 
 
-def kv_layout(cfg: ArchConfig, wk, field: str = "k"):
-    """How a rank holds the KV cache of layers whose ``wk`` is its block:
+def kv_layout(cfg: ArchConfig, wk, field: str = "k", path: str = "layers/wk"):
+    """How a rank holds the KV cache of layers whose ``wk`` (the leaf
+    ``path``) is its block:
     ``(kv heads, hints.SequenceCut or None)``.  The policy's
     ``"__cache__"`` declares it (``hints.cache_cut``): every kv head of a
     block of positions, or this rank's kv heads.  Without it, the kv
@@ -702,7 +720,7 @@ def kv_layout(cfg: ArchConfig, wk, field: str = "k"):
     one); a cut that splits a kv head needs the cache cut on its
     positions, declared."""
     declared = cache_cut(field)
-    blk = wk.shape[-1]
+    blk = model_shape(wk, path)[-1]
     if blk % cfg.hd and (declared is None or declared[0] is None):
         raise ValueError(
             f"a wk of {blk} columns splits a kv head of {cfg.hd}: its cache "
@@ -773,6 +791,7 @@ def prefill(cfg: ArchConfig, params: Params, tokens: Tensor, max_len: int,
         x = residual_block(embed_tokens(params, tokens, cfg.vocab))
         windows = layer_windows(cfg)
         kv_heads, seq = kv_layout(cfg, params["layers"]["wk"])
+        params = {**params, "layers": whole_layers(params["layers"])}
         cache = init_cache(cfg, B, max_len, device=x.device,
                            kv_heads=kv_heads)
         for i in range(cfg.n_layers):
@@ -782,7 +801,7 @@ def prefill(cfg: ArchConfig, params: Params, tokens: Tensor, max_len: int,
                 x = hint(x, "residual")
             store_prompt(cache.k[i], k, seq)
             store_prompt(cache.v[i], v, seq)
-        h = rms_norm(x, params["ln_f"], cfg.norm_eps)
+        h = rms_norm(x, model_block(params["ln_f"], "ln_f"), cfg.norm_eps)
         logits = last_logits(cfg, params, h, split)
     return logits, KVCache(cache.k, cache.v, S)
 
@@ -795,8 +814,8 @@ def last_logits(cfg: ArchConfig, params: Params, h: Tensor, split
     broadcasts its logits -- or, with a head cut on the vocabulary, its
     last hidden state, for every rank's block of the vocabulary (the
     logits gathered whole, :func:`logits_fn`)."""
-    head = params.get("lm_head", params["embed"])
-    if head.shape[0] == cfg.vocab:
+    name = "lm_head" if "lm_head" in params else "embed"
+    if model_shape(params[name], name)[0] == cfg.vocab:
         logits = logits_fn(cfg, params, h[:, -1:])[:, 0]
         return logits if split is None else split.last_block(logits)
     last = h[:, -1:]
@@ -831,12 +850,13 @@ def decode_step(cfg: ArchConfig, params: Params, cache: KVCache,
         windows = layer_windows(cfg)
         pos = int(cache.pos)
         seq = kv_layout(cfg, params["layers"]["wk"])[1]
+        params = {**params, "layers": whole_layers(params["layers"])}
         for i in range(cfg.n_layers):
             x, _ = dense_layer(cfg, _layer_params(params, i), x,
                                int(windows[i]),
                                cache_kv=(cache.k[i], cache.v[i]), pos=pos,
                                block_k=block_k, ffn=ffn, seq=seq)
-        h = rms_norm(x, params["ln_f"], cfg.norm_eps)
+        h = rms_norm(x, model_block(params["ln_f"], "ln_f"), cfg.norm_eps)
         logits = logits_fn(cfg, params, h)[:, 0]
     return logits, KVCache(cache.k, cache.v, pos + 1)
 

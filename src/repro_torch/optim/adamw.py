@@ -17,7 +17,14 @@ returns them in the structures the JAX package returns: the state of a
 full-width model is then held once, not twice.
 
 ``zero1_specs`` gives the state's partition specs (ZeRO-1: the state
-inherits the parameters' specs), as in the JAX package.
+inherits the parameters' specs), as in the JAX package.  A state cut
+beyond its weight -- the dry-run's opt specs cut every leaf over the data
+axes, the weights of a small model only over ``model`` -- is given as a
+tree of cuts (``parallel.hints.state_layout``: ``take`` a rank's block of
+a tensor shaped like its weight, ``put`` the weight back from every
+rank's block): :func:`init` keeps the rank's block of each moment and
+master, :func:`update` its block of each gradient, and the new weight is
+gathered from the ranks' blocks.
 """
 
 from __future__ import annotations
@@ -78,19 +85,31 @@ def cosine_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return torch.where(step < cfg.warmup_steps, warm, cos)
 
 
-def init(params: Params, moment_dtype=torch.float32) -> AdamWState:
+def _no_cuts(params: Params) -> Any:
+    return tree_map(lambda p: None, params)
+
+
+def init(params: Params, moment_dtype=torch.float32, cuts=None
+         ) -> AdamWState:
     """Zero moments in ``moment_dtype`` (bfloat16 halves their memory; the
     master copy stays float32) and a float32 master copy of every leaf,
-    on the parameters' device."""
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=moment_dtype, device=p.device)
+    on the parameters' device; with ``cuts`` (module docstring) of this
+    rank's block of each leaf where its cut is given."""
+    def block(p, c):
+        return p.detach() if c is None else c.take(p.detach())
 
+    def zeros(p, c):
+        return torch.zeros(block(p, c).shape, dtype=moment_dtype,
+                           device=p.device)
+
+    cuts = _no_cuts(params) if cuts is None else cuts
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32,
                          device=tree_leaves(params)[0].device),
-        m=tree_map(zeros, params), v=tree_map(zeros, params),
-        master=tree_map(lambda p: p.detach().to(torch.float32, copy=True),
-                        params))
+        m=tree_map(zeros, params, cuts), v=tree_map(zeros, params, cuts),
+        master=tree_map(lambda p, c: block(p, c).to(torch.float32,
+                                                    copy=True),
+                        params, cuts))
 
 
 def global_norm(tree: Any) -> torch.Tensor:
@@ -101,13 +120,17 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 @torch.no_grad()
 def update(cfg: AdamWConfig, grads: Params, state: AdamWState,
-           params: Params, gnorm=None) -> Tuple[Params, AdamWState]:
+           params: Params, gnorm=None, cuts=None
+           ) -> Tuple[Params, AdamWState]:
     """One AdamW step: clip ``grads`` by their global norm (``gnorm``
     where the caller gives it: the norm over every rank of a model whose
     leaves are cut over ranks), update the moments and the master copy,
     cast the master back into ``params``.  Every tensor of ``state`` and
     ``params`` is updated in place; returns ``(params, AdamWState(step +
-    1, m, v, master))``."""
+    1, m, v, master))``.  With ``cuts`` (module docstring) a leaf's state
+    is this rank's block of it: the update takes that block of the
+    gradient, and the weight is gathered from every rank's new block
+    (cast to the weight's dtype first)."""
     step = state.step + 1
     lr = cosine_lr(cfg, step)
     if gnorm is None:
@@ -120,20 +143,31 @@ def update(cfg: AdamWConfig, grads: Params, state: AdamWState,
     b2c = 1 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32,
                                      device=stepf.device), stepf)
 
-    def upd(g, m, v, master, p):
+    def upd(g, m, v, master, p, cut):
+        if cut is not None:
+            g = cut.take(g)
+        if g.shape != master.shape:
+            raise ValueError(f"a state of {tuple(master.shape)} for a "
+                             f"gradient block of {tuple(g.shape)}: the "
+                             f"state is cut as the cuts given say")
         g = g.float() * scale
         m32 = cfg.b1 * m.float() + (1 - cfg.b1) * g
         v32 = cfg.b2 * v.float() + (1 - cfg.b2) * g * g
         mh, vh = m32 / b1c, v32 / b2c
-        new_master = master - lr * (mh / (torch.sqrt(vh) + cfg.eps)
-                                    + cfg.weight_decay * master)
         m.copy_(m32)
         v.copy_(v32)
-        master.copy_(new_master)
-        p.copy_(new_master)
+        # each float32 temporary of the leaf freed as soon as it is spent:
+        # a full-width leaf's take several GB
+        del g, m32, v32
+        master.copy_(master - lr * (mh / (torch.sqrt(vh) + cfg.eps)
+                                    + cfg.weight_decay * master))
+        del mh, vh
+        p.copy_(master if cut is None else cut.put(master.to(p.dtype)))
         return p
 
-    params = tree_map(upd, grads, state.m, state.v, state.master, params)
+    cuts = _no_cuts(params) if cuts is None else cuts
+    params = tree_map(upd, grads, state.m, state.v, state.master, params,
+                      cuts)
     return params, AdamWState(step, state.m, state.v, state.master)
 
 

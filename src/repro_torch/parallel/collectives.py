@@ -30,6 +30,7 @@ the vocabulary-parallel logsumexp, which takes no gradient).
 
 from __future__ import annotations
 
+import threading
 from contextlib import contextmanager
 from typing import Any, Dict, Sequence, Tuple
 
@@ -38,6 +39,47 @@ import torch.distributed as dist
 
 # bytes copied between the card and the host for gloo, in this process
 STAGED: Dict[str, int] = {"bytes": 0}
+# through_host's host buffers, per thread (the autograd engine's own for
+# a backward), by (role, index): each one buffer grown to the largest
+# tensor staged there, viewed as each call's shape -- a pass stages the
+# same few shapes layer after layer, and a fresh buffer costs its page
+# faults or its page-locking every time
+_HOST = threading.local()
+_EVERY_THREAD: list = []         # each thread's dict of buffers
+_LOCK = threading.Lock()
+
+
+def _host_buffer(role: str, i: int, t: torch.Tensor) -> torch.Tensor:
+    """A host tensor of ``t``'s shape and dtype in this thread's buffer
+    ``(role, i)``, page-locked where a card is present; valid until the
+    next call for the same buffer in this thread."""
+    held = getattr(_HOST, "buffers", None)
+    if held is None:
+        held = _HOST.buffers = {}
+        with _LOCK:
+            _EVERY_THREAD.append(held)
+    n = t.numel() * t.element_size()
+    buf = held.get((role, i))
+    if buf is None or buf.numel() < n:
+        held.pop((role, i), None)          # freed before the larger one
+        buf = held[(role, i)] = torch.empty(
+            n, dtype=torch.uint8, pin_memory=torch.cuda.is_available())
+    return buf[:n].view(t.dtype).view(t.shape)
+
+
+def host_buffer_bytes() -> int:
+    """The bytes of every thread's host buffers of :func:`through_host`:
+    in each thread, role and index, the largest tensor staged there."""
+    with _LOCK:
+        return sum(b.numel() for held in _EVERY_THREAD
+                   for b in list(held.values()))
+
+
+def release_host_buffers() -> None:
+    """Free every thread's host buffers (at a world's end)."""
+    with _LOCK:
+        for held in _EVERY_THREAD:
+            held.clear()
 
 
 @contextmanager
@@ -46,14 +88,19 @@ def through_host(group, reads: Sequence[torch.Tensor] = (),
     """Yield ``(reads, writes)`` as tensors the group's backend can carry:
     host copies of ``reads`` and host buffers for ``writes`` where the
     backend is gloo and a tensor lies on the card (copied back into
-    ``writes`` on exit), else the tensors themselves."""
+    ``writes`` on exit), else the tensors themselves.  The host buffers
+    are this thread's, page-locked and reused by the next call
+    (:func:`_host_buffer`): what the caller is yielded is valid until it
+    returns."""
     tensors = (*reads, *writes)
     if dist.get_backend(group) != "gloo" or not any(t.is_cuda
                                                     for t in tensors):
         yield tuple(reads), tuple(writes)
         return
-    host_reads = tuple(t.to("cpu") for t in reads)
-    host_writes = tuple(torch.empty(t.shape, dtype=t.dtype) for t in writes)
+    host_reads = tuple(_host_buffer("r", i, t).copy_(t)
+                       for i, t in enumerate(reads))
+    host_writes = tuple(_host_buffer("w", i, t)
+                        for i, t in enumerate(writes))
     yield host_reads, host_writes
     for t, h in zip(writes, host_writes):
         t.copy_(h)

@@ -11,8 +11,29 @@ This is the activation-side twin of the parameter banking bridge
 spec's placements on the tensor's own mesh -- the JAX package's
 ``with_sharding_constraint``.  Entries that are not specs (``"__mesh__"``,
 the live ``DeviceMesh`` the expert-parallel MoE layer reads,
-``"__fsdp__"``, and ``"__cache__"``, the decode cache's layout) are read
-with :func:`policy_value`.
+``"__fsdp__"``, the dry-run's flag, which the passes read through
+``"__params__"``, ``"__cache__"``, the decode cache's layout,
+``"__params__"``, the parameters', and ``"__opt__"``, the optimizer
+state's) are read with :func:`policy_value`.
+
+``"__params__"`` declares the spec tree the ranks' weights were cut by
+(``parallel.sharding.param_specs``, ``convert.for_ranks``).  Where it
+cuts a leaf over the data axes (ZeRO-3), a pass gathers the leaf into its
+``model`` block where it is used, layer by layer (:func:`layer_blocks`,
+inside the layer's recomputed body; :func:`whole_layers` for a stack
+whose layer dim is cut; :func:`model_block` for the whole-model leaves),
+and the gather's gradient is the reduce-scatter, summed in float32.
+Every reading of a leaf's cut -- the gradients' sums
+(``models.transformer.spread_grads``), the global norm -- takes the
+declared spec, over ``model`` as over the data axes; without the entry
+every leaf is whole (:func:`cut_axes`).  A world whose ranks hold cut
+weights -- tensor parallelism, the expert-parallel experts
+(``parallel.sharding.expert_specs``), ZeRO-3 -- declares them.
+``"__opt__"`` declares the
+optimizer state's spec tree (the dry-run's opt specs, cut over the data
+axes: ZeRO-1); where it cuts a leaf beyond its weight, each rank updates
+its own block of the state and gathers the new weight over the data axes
+(:func:`state_layout`).
 
 ``"__cache__"`` declares how a prefill or a decode step holds the KV
 cache: ``parallel.sharding.cache_specs(cfg, shape, mesh)`` of the shape
@@ -84,10 +105,11 @@ ranks' partial sums over ``model`` (Megatron's f and g).
 
 from __future__ import annotations
 
+import math
 import threading
 from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 _LOCAL = threading.local()
 
@@ -476,3 +498,181 @@ def hint(x, name: str):
     if all("model" not in _names(e) for e in spec):
         return split.gather(x)
     return x
+
+
+# ---------------------------------------------------------------------------
+# Weights cut over the data axes (ZeRO-3) and the optimizer state (ZeRO-1)
+# ---------------------------------------------------------------------------
+
+
+def _mesh_sizes(mesh) -> Dict[str, int]:
+    return {a: mesh.size(i) for i, a in enumerate(mesh.mesh_dim_names)}
+
+
+def declared_spec(path: str):
+    """The spec the policy's ``"__params__"`` declares for the leaf
+    ``path`` (``"layers/wq"``), or ``None`` where the policy declares
+    none."""
+    specs = policy_value("__params__")
+    if specs is None:
+        return None
+    for k in path.split("/"):
+        specs = specs[k]
+    return specs
+
+
+def cut_axes(path: str) -> frozenset:
+    """The live mesh axes that cut the leaf ``path``: those of the spec
+    the policy's ``"__params__"`` declares for it, none where nothing is
+    declared."""
+    spec = declared_spec(path)
+    if spec is None:
+        return frozenset()
+    from .sharding import weight_cuts
+    sizes = _mesh_sizes(policy_value("__mesh__"))
+    return frozenset(a for _, live in weight_cuts(path, spec, sizes)
+                     for a in live)
+
+
+def _gathered(t, path: str, spec, dims):
+    """``t`` with each of ``dims`` (``{dim of t: dim of spec}``) that
+    ``spec`` cuts over the data axes all-gathered over them, minor axis
+    first, in rank order; the gradient reduce-scattered, summed in
+    float32.  A leaf whole over ``model`` in a pass whose tokens are cut
+    over ``model`` takes its gradient's sum over ``model`` here, before
+    the data sum: the order of the same leaf held whole over the data
+    axes (``models.transformer.spread_grads``), so that both give the
+    same bits."""
+    import torch
+
+    from .collectives import all_gather_dim, summed_grads
+    from .sharding import weight_cuts
+
+    mesh = policy_value("__mesh__")
+    cuts = weight_cuts(path, spec, _mesh_sizes(mesh))
+    data = {d: live for d, live in cuts if live != ["model"]}
+    done = False
+    for at, d in dims.items():
+        for a in reversed(data.get(d, ())):
+            t = all_gather_dim(t, at, mesh.get_group(a), torch.float32)
+            done = True
+    split = current_split()
+    if (done and len(data) == len(cuts) and split is not None
+            and split.cut and split.dim == 1):
+        t = summed_grads(t, (split.model,))
+    return t
+
+
+def model_block(t, path: str):
+    """``t``, this rank's block of the whole-model leaf ``path``
+    (``embed``, ``ln_f``, ``lm_head``), as its ``model`` block: every dim
+    the declared spec cuts over the data axes all-gathered
+    (:func:`_gathered`); ``t`` itself where nothing is declared or no data
+    axis cuts it."""
+    spec = declared_spec(path)
+    if spec is None:
+        return t
+    return _gathered(t, path, spec, {d: d for d in range(len(spec))})
+
+
+def whole_layers(layers: Dict[str, Any], prefix: str = "layers"):
+    """The stacked layer leaves with each stack whose layer dim (0) the
+    declared spec cuts over the data axes gathered whole on it (biases
+    and gains: a rank of qwen2-7b holds 14 of 28 layers' ``bq`` at
+    (2, 2)), so that the stack unbinds into every layer; the others as
+    they are."""
+    if policy_value("__params__") is None:
+        return layers
+    return {k: _gathered(w, f"{prefix}/{k}", declared_spec(f"{prefix}/{k}"),
+                         {0: 0}) for k, w in layers.items()}
+
+
+def layer_blocks(lp: Dict[str, Any], prefix: str = "layers"):
+    """One layer's leaves (slices of :func:`whole_layers`' stacks), each
+    as its ``model`` block: every dim past the layer dim that the
+    declared spec cuts over the data axes all-gathered.  Called inside the
+    layer's recomputed body (``layers.remat``), so that the gathered
+    copies are not kept for the backward."""
+    if policy_value("__params__") is None:
+        return lp
+    out = {}
+    for k, w in lp.items():
+        spec = declared_spec(f"{prefix}/{k}")
+        out[k] = _gathered(w, f"{prefix}/{k}", spec,
+                           {d - 1: d for d in range(1, len(spec))})
+    return out
+
+
+def model_shape(t, path: str) -> tuple:
+    """The shape of the ``model`` block of the leaf ``path`` whose rank's
+    block is ``t``: each dim the declared spec cuts over the data axes
+    taken whole (``t``'s own shape where nothing is declared: no leaf is
+    then cut over the data axes)."""
+    spec = declared_spec(path)
+    if spec is None:
+        return tuple(t.shape)
+    from .sharding import weight_cuts
+
+    sizes = _mesh_sizes(policy_value("__mesh__"))
+    shape = list(t.shape)
+    for d, live in weight_cuts(path, spec, sizes):
+        if live != ["model"]:
+            shape[d] *= math.prod(sizes[a] for a in live)
+    return tuple(shape)
+
+
+@dataclass(frozen=True)
+class StateCut:
+    """A leaf's optimizer state as this rank's block of its weight block
+    (ZeRO-1): ``cuts``, ``(dim, blocks, index, groups major to minor)``
+    of each dim the state cuts beyond the weight."""
+
+    cuts: tuple
+
+    def take(self, t):
+        """This rank's block of ``t``, shaped like the weight block."""
+        for d, n, i, _ in self.cuts:
+            b = t.shape[d] // n
+            t = t.narrow(d, i * b, b)
+        return t
+
+    def put(self, block):
+        """The weight block from every rank's ``block`` of it: gathered
+        over each cut's groups, minor axis first, in rank order."""
+        from .collectives import all_gather_dim
+        for d, _, _, groups in reversed(self.cuts):
+            for g in reversed(groups):
+                block = all_gather_dim(block, d, g)
+        return block
+
+
+def state_layout(params: Dict[str, Any]):
+    """The optimizer state's layout under the policy in force: a tree
+    like ``params`` of :class:`StateCut` where the declared ``"__opt__"``
+    cuts a leaf's state beyond the declared ``"__params__"``
+    (``parallel.sharding.state_cuts``), ``None`` elsewhere; ``None``
+    without ``"__opt__"``."""
+    opt = policy_value("__opt__")
+    if opt is None:
+        return None
+    weights, mesh = policy_value("__params__"), policy_value("__mesh__")
+    if weights is None or mesh is None:
+        raise ValueError("'__opt__' declares the optimizer state's cut "
+                         "against the weights': the policy declares "
+                         "'__params__' and a '__mesh__' beside it")
+    from .sharding import block_index, state_cuts
+
+    sizes = _mesh_sizes(mesh)
+    coords = {a: mesh.get_local_rank(a) for a in sizes}
+
+    def walk(t, ps, ss):
+        if isinstance(t, dict):
+            return {k: walk(v, ps[k], ss[k]) for k, v in t.items()}
+        cuts = state_cuts(ps, ss, sizes)
+        if not cuts:
+            return None
+        return StateCut(tuple(
+            (d, *block_index(live, sizes, coords),
+             tuple(mesh.get_group(a) for a in live)) for d, live in cuts))
+
+    return walk(params, weights, opt)

@@ -218,6 +218,22 @@ def param_specs(params_shape: Any, mesh, fsdp: bool = False,
     return walk(params_shape, "")
 
 
+def expert_specs(params_shape: Any) -> Any:
+    """The spec tree of the expert-parallel cut: every expert stack
+    (``we_*``) cut on its experts (dim -3) over ``model``, every other
+    leaf whole -- what a rank of ``models.moe.moe_ffn_a2a`` holds
+    (``convert.for_ranks(experts=)``) and declares (``"__params__"``)."""
+    def walk(tree, name):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        nd = len(tree.shape)
+        return PartitionSpec(*("model" if name.startswith("we_")
+                               and d == nd - 3 else None
+                               for d in range(nd)))
+
+    return walk(params_shape, "")
+
+
 # ---------------------------------------------------------------------------
 # A rank's blocks of a parameter tree (tensor parallelism)
 # ---------------------------------------------------------------------------
@@ -257,28 +273,6 @@ def mesh_coords(mesh) -> Dict[str, int]:
     return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
 
 
-def _model_dim(path: str, spec: PartitionSpec, axes: Dict[str, int]
-               ) -> Optional[int]:
-    """The dim that ``spec`` cuts over an axis of more than one rank,
-    which must be ``model``; None where it cuts nothing (an axis of size
-    1 cuts nothing)."""
-    cut = None
-    for d, entry in enumerate(spec):
-        live = [a for a in ((entry,) if isinstance(entry, str) else
-                            (entry or ())) if axes[a] > 1]
-        if not live:
-            continue
-        if live != ["model"]:
-            raise ValueError(
-                f"{path}: {spec!r} cuts dim {d} over {live}; only the "
-                f"'model' axis cuts a running model's weights (a ZeRO-3 "
-                f"cut over 'data' is not supported)")
-        if cut is not None:
-            raise ValueError(f"{path}: {spec!r} cuts two dims over 'model'")
-        cut = d
-    return cut
-
-
 def head_span(width: int, n: int, m: int, head: int
               ) -> Tuple[Tuple[int, int], Tuple[int, int]]:
     """Rank ``m``'s columns ``(lo, hi)`` of a head leaf ``width`` columns
@@ -294,96 +288,188 @@ def head_span(width: int, n: int, m: int, head: int
     return (lo, hi), (lo // head, -(-hi // head))
 
 
+# the families whose weights a running model may hold cut over the data
+# axes (ZeRO-3); the others are refused there (ROADMAP A11c-2b)
+ZERO3_FAMILIES = ("dense", "vlm", "moe")
+
+
+def _live_cuts(spec: PartitionSpec, axes: Dict[str, int]):
+    """``(dim, axes major to minor)`` of every dim that ``spec`` cuts over
+    axes of more than one rank: a tuple entry in the tuple's order, which
+    need not be the mesh's (``('data', 'pod')`` is data-major on a mesh
+    ``('pod', 'data', 'model')``)."""
+    for d, entry in enumerate(spec):
+        live = [a for a in ((entry,) if isinstance(entry, str) else
+                            (entry or ())) if axes[a] > 1]
+        if live:
+            yield d, live
+
+
+def block_index(live: Sequence[str], axes: Dict[str, int],
+                coords: Dict[str, int]) -> Tuple[int, int]:
+    """``(blocks, index)``: the number of blocks a dim cut over ``live``
+    (major to minor) is cut into, and the one at ``coords``."""
+    n, i = 1, 0
+    for a in live:
+        n, i = n * axes[a], i * axes[a] + coords[a]
+    return n, i
+
+
+def _cut(t, d: int, n: int, i: int, what: str):
+    """Block ``i`` of ``n`` contiguous blocks of ``t`` along ``d``, a
+    view."""
+    if t.shape[d] % n:
+        raise ValueError(f"{what}: dim {d} of {tuple(t.shape)} does not "
+                         f"divide by {n}")
+    b = t.shape[d] // n
+    return t[(slice(None),) * d + (slice(i * b, (i + 1) * b),)]
+
+
+def weight_cuts(path: str, spec: PartitionSpec, axes: Dict[str, int],
+                family: Optional[str] = None):
+    """:func:`_live_cuts` of a weight's spec, checked: ``model`` cuts one
+    dim at most, and alone; the data axes (ZeRO-3) cut a leaf of the
+    families of ``ZERO3_FAMILIES`` only, where ``family`` is given."""
+    cuts = list(_live_cuts(spec, axes))
+    model = [d for d, live in cuts if "model" in live]
+    if len(model) > 1:
+        raise ValueError(f"{path}: {spec!r} cuts two dims over 'model'")
+    for d, live in cuts:
+        if "model" in live and live != ["model"]:
+            raise ValueError(f"{path}: {spec!r} cuts dim {d} over {live}: "
+                             f"'model' and another axis on one dim")
+        if (live != ["model"] and family is not None
+                and family not in ZERO3_FAMILIES):
+            raise ValueError(
+                f"{path}: {spec!r} cuts dim {d} over {live}: a ZeRO-3 cut "
+                f"of the {family} family's weights over the data axes is "
+                f"not supported (ROADMAP A11c-2b)")
+    return cuts
+
+
 def leaf_block(path: str, leaf, spec: PartitionSpec, axes: Dict[str, int],
-               coords: Dict[str, int], head_dim=None):
+               coords: Dict[str, int], head_dim=None, family=None):
     """This rank's block of one leaf (tensor or numpy array) under
-    ``spec``: a view, the contiguous range of the dim that ``spec`` cuts
-    over ``model``.  An attention leaf's block may split a head
-    (:func:`head_span`); where the cut of a Mamba2 head dim
-    (``HEAD_DIMS``, ``WHOLE_HEAD_KINDS``) would not fall on a boundary of
-    a head it raises, naming the leaf and the spec.  ``head_dim``: the
-    widths of every kind of head (:func:`head_widths`); a number is the
-    attention heads' width, which no cut must respect."""
-    d = _model_dim(path, spec, axes)
-    if d is None:
-        return leaf
-    if leaf.shape[d] % axes["model"]:
-        raise ValueError(f"{path}: dim {d} of {tuple(leaf.shape)} does not "
-                         f"divide by the 'model' axis of {axes['model']} "
-                         f"({spec!r})")
-    blk = leaf.shape[d] // axes["model"]
+    ``spec``: a view, the contiguous range at this rank's coordinates of
+    every dim that ``spec`` cuts -- over ``model`` (tensor parallelism)
+    and over the data axes (ZeRO-3), a tuple entry's axes major to minor
+    (:func:`weight_cuts`).  An attention leaf's block may split a head
+    (:func:`head_span`); where the cut of a Mamba2 head dim over
+    ``model`` (``HEAD_DIMS``, ``WHOLE_HEAD_KINDS``) would not fall on a
+    boundary of a head it raises, naming the leaf and the spec.
+    ``head_dim``: the widths of every kind of head (:func:`head_widths`);
+    a number is the attention heads' width, which no cut must respect.
+    ``family``: the config's, whose weights a data axis may cut or not
+    (``ZERO3_FAMILIES``)."""
     name = path.rsplit("/", 1)[-1]
     widths = head_dim if isinstance(head_dim, dict) else {}
     at_dim, kind = HEAD_DIMS.get(name, (None, None))
     width = widths.get(kind) if kind in WHOLE_HEAD_KINDS else None
-    if width and d == len(leaf.shape) - at_dim and blk % width:
-        raise ValueError(
-            f"{path}: {spec!r} cuts dim {d} ({leaf.shape[d]}) over a "
-            f"'model' axis of {axes['model']} into blocks of {blk}, not "
-            f"whole heads of {width}: a Mamba2 head is not split")
-    at = coords["model"] * blk
-    return leaf[(slice(None),) * d + (slice(at, at + blk),)]
+    for d, live in weight_cuts(path, spec, axes, family):
+        n, i = block_index(live, axes, coords)
+        if leaf.shape[d] % n:
+            raise ValueError(f"{path}: dim {d} of {tuple(leaf.shape)} does "
+                             f"not divide by the {live} axes' {n} ranks "
+                             f"({spec!r})")
+        blk = leaf.shape[d] // n
+        if (live == ["model"] and width and d == len(leaf.shape) - at_dim
+                and blk % width):
+            raise ValueError(
+                f"{path}: {spec!r} cuts dim {d} ({leaf.shape[d]}) over a "
+                f"'model' axis of {n} into blocks of {blk}, not whole heads "
+                f"of {width}: a Mamba2 head is not split")
+        leaf = _cut(leaf, d, n, i, path)
+    return leaf
 
 
 def rank_blocks(tree: Any, specs: Any, mesh, coords: Dict[str, int],
-                head_dim=None) -> Any:
+                head_dim=None, family=None) -> Any:
     """This rank's block of every leaf of a parameter tree (nested dicts
     of tensors or numpy arrays, views where the layout allows) under its
     spec tree (:func:`param_specs`) on ``mesh``, at ``coords`` (axis name
     -> index, :func:`mesh_coords`).  A leaf that its spec leaves whole,
-    or cuts over axes of size 1 only, stays whole.  ``head_dim``: the
-    Mamba2 head leaves' cuts must fall on head boundaries
-    (:func:`leaf_block`)."""
+    or cuts over axes of size 1 only, stays whole.  ``head_dim`` and
+    ``family`` as in :func:`leaf_block`."""
     axes = mesh_axes(mesh)
 
     def walk(t, s, prefix):
         if isinstance(t, dict):
             return {k: walk(v, s[k], f"{prefix}/{k}" if prefix else k)
                     for k, v in t.items()}
-        return leaf_block(prefix, t, s, axes, coords, head_dim)
+        return leaf_block(prefix, t, s, axes, coords, head_dim, family)
 
     return walk(tree, specs, "")
 
 
+def _coords_of(r: int, axes: Dict[str, int]) -> Dict[str, int]:
+    """The coordinates of rank ``r`` of a mesh in row-major order."""
+    out = {}
+    for a in reversed(list(axes)):
+        r, out[a] = divmod(r, axes[a])
+    return out
+
+
+def _join(parts: Sequence[Any], spec: PartitionSpec, axes: Dict[str, int],
+          what: str):
+    """One tensor whole from every rank's block of it under ``spec``
+    (``parts`` by rank, in the mesh's row-major order): the blocks joined
+    over every live axis that cuts a dim, major to minor as the spec names
+    them.  Ranks that hold the same block must hold the same values
+    (``meta`` tensors are not compared)."""
+    cuts = list(_live_cuts(spec, axes))
+    blocks = {}
+    for r, t in enumerate(parts):
+        c = _coords_of(r, axes)
+        key = tuple(c[a] for _, live in cuts for a in live)
+        if key in blocks and (isinstance(t, np.ndarray)
+                              or t.device.type != "meta"):
+            same = (np.array_equal(np.asarray(blocks[key]), np.asarray(t))
+                    if isinstance(t, np.ndarray) else
+                    bool((blocks[key] == t).all()))
+            if not same:
+                raise ValueError(f"ranks hold different values of the "
+                                 f"block {key} of {what} ({spec!r})")
+        blocks.setdefault(key, t)
+
+    def cat(ps, d):
+        if isinstance(ps[0], np.ndarray):
+            return np.concatenate(ps, axis=d)
+        import torch
+        return torch.cat(ps, dim=d)
+
+    def build(prefix, rest):
+        if not rest:
+            return blocks[prefix]
+        (d, live), more = rest[0], rest[1:]
+        n = block_index(live, axes, {a: 0 for a in live})[0]
+        out = []
+        for i in range(n):
+            sub, j = [], i
+            for a in reversed(live):
+                j, k = divmod(j, axes[a])
+                sub.insert(0, k)
+            out.append(build(prefix + tuple(sub), more))
+        return cat(out, d)
+
+    return build((), cuts)
+
+
 def join_blocks(trees: Sequence[Any], specs: Any, mesh) -> Any:
     """The whole tree from every rank's blocks (``trees`` by rank, in the
-    mesh's row-major order): each cut leaf joined over the ``model``
-    ranks of the first data row, a whole leaf as the first rank holds
-    it.  numpy arrays or tensors."""
+    mesh's row-major order), :func:`rank_blocks`' inverse: each leaf
+    joined over every axis that cuts it (``model`` and the data axes); a
+    rank that holds a block another rank holds too must hold the same
+    values.  numpy arrays or tensors."""
     axes = mesh_axes(mesh)
-    names = list(axes)
-
-    def rank_at(m):
-        r = 0
-        for a in names:
-            r = r * axes[a] + (m if a == "model" else 0)
-        return r
 
     def walk(ts, s, prefix):
         if isinstance(ts[0], dict):
             return {k: walk([t[k] for t in ts], s[k],
                             f"{prefix}/{k}" if prefix else k)
                     for k in ts[0]}
-        d = _model_dim(prefix, s, axes)
-        if d is None:
-            return ts[0]
-        parts = [ts[rank_at(m)] for m in range(axes["model"])]
-        if isinstance(parts[0], np.ndarray):
-            return np.concatenate(parts, axis=d)
-        import torch
-        return torch.cat(parts, dim=d)
+        return _join(ts, s, axes, prefix)
 
     return walk(list(trees), specs, "")
-
-
-def _live_cuts(spec: PartitionSpec, axes: Dict[str, int]):
-    """``(dim, axes major to minor)`` of every dim that ``spec`` cuts over
-    axes of more than one rank."""
-    for d, entry in enumerate(spec):
-        live = [a for a in ((entry,) if isinstance(entry, str) else
-                            (entry or ())) if axes[a] > 1]
-        if live:
-            yield d, live
 
 
 def cache_blocks(cache, specs, mesh, coords: Dict[str, int]):
@@ -397,14 +483,8 @@ def cache_blocks(cache, specs, mesh, coords: Dict[str, int]):
         if not hasattr(t, "shape") or not len(getattr(t, "shape", ())):
             return t
         for d, live in _live_cuts(spec, axes):
-            n, i = 1, 0
-            for a in live:
-                n, i = n * axes[a], i * axes[a] + coords[a]
-            if t.shape[d] % n:
-                raise ValueError(f"cache dim {d} of {tuple(t.shape)} does "
-                                 f"not divide by {n} ({spec!r})")
-            b = t.shape[d] // n
-            t = t[(slice(None),) * d + (slice(i * b, (i + 1) * b),)]
+            t = _cut(t, d, *block_index(live, axes, coords),
+                     f"cache ({spec!r})")
         return t
 
     return type(cache)(*(block(t, s) for t, s in zip(cache, specs)))
@@ -416,57 +496,38 @@ def join_caches(caches: Sequence[Any], specs, mesh):
     that holds a block another rank holds too must hold the same values.
     numpy arrays or tensors; other fields as the first rank holds them."""
     axes = mesh_axes(mesh)
-    names = list(axes)
-
-    def coords_of(r):
-        out = {}
-        for a in reversed(names):
-            r, out[a] = divmod(r, axes[a])
-        return out
-
-    def cat(parts, d):
-        if isinstance(parts[0], np.ndarray):
-            return np.concatenate(parts, axis=d)
-        import torch
-        return torch.cat(parts, dim=d)
 
     def join(field, spec):
         if not hasattr(field[0], "shape") or not len(field[0].shape):
             return field[0]
-        cuts = list(_live_cuts(spec, axes))
-        blocks = {}
-        for r, t in enumerate(field):
-            c = coords_of(r)
-            key = tuple(c[a] for _, live in cuts for a in live)
-            if key in blocks:
-                same = (np.array_equal(np.asarray(blocks[key]), np.asarray(t))
-                        if isinstance(t, np.ndarray) else
-                        bool((blocks[key] == t).all()))
-                if not same:
-                    raise ValueError(f"ranks hold different values of the "
-                                     f"block {key} of a cache ({spec!r})")
-            blocks[key] = t
-
-        def build(prefix, rest):
-            if not rest:
-                return blocks[prefix]
-            (d, live), more = rest[0], rest[1:]
-            n = 1
-            for a in live:
-                n *= axes[a]
-            parts = []
-            for i in range(n):
-                sub, j = [], i
-                for a in reversed(live):
-                    j, k = divmod(j, axes[a])
-                    sub.insert(0, k)
-                parts.append(build(prefix + tuple(sub), more))
-            return cat(parts, d)
-
-        return build((), cuts)
+        return _join(field, spec, axes, "a cache")
 
     return type(caches[0])(*(join([c[i] for c in caches], s)
                              for i, s in enumerate(specs)))
+
+
+def state_cuts(param_spec: PartitionSpec, state_spec: PartitionSpec,
+               axes: Dict[str, int]):
+    """How a leaf's optimizer state cut by ``state_spec`` (ZeRO-1: the
+    dry-run's opt specs) lies in the rank's block of the weight cut by
+    ``param_spec``: ``[(dim, axes major to minor)]``, the live axes that
+    cut the state's dim beyond the weight's.  On every dim the weight's
+    live axes must lead the state's (the state a block of the weight's
+    block)."""
+    weight = dict(_live_cuts(param_spec, axes))
+    out = []
+    for d, live in _live_cuts(state_spec, axes):
+        have = weight.pop(d, [])
+        if live[:len(have)] != have:
+            raise ValueError(f"a state cut {state_spec!r} is not a block "
+                             f"of the weight's {param_spec!r} on dim {d}")
+        if len(live) > len(have):
+            out.append((d, live[len(have):]))
+    if weight:
+        raise ValueError(f"a state cut {state_spec!r} leaves whole dims "
+                         f"{sorted(weight)} the weight's {param_spec!r} "
+                         f"cuts")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -576,8 +637,9 @@ def placements(spec: PartitionSpec, mesh) -> tuple:
 
 __all__ = [
     "P", "PartitionSpec", "ROLE_TP_DIMS", "bankable", "batch_specs",
-    "cache_blocks", "cache_specs", "dp_axes", "first_bankable",
+    "ZERO3_FAMILIES", "block_index", "cache_blocks", "cache_specs",
+    "dp_axes", "first_bankable",
     "head_span", "head_widths", "join_blocks", "join_caches", "lane_artifact",
     "leaf_block", "logits_spec", "mesh_axes", "mesh_coords", "param_specs",
-    "placements", "rank_blocks", "tp_axis",
+    "placements", "rank_blocks", "state_cuts", "tp_axis", "weight_cuts",
 ]

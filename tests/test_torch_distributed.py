@@ -289,10 +289,11 @@ def test_moe_a2a_matches_sorted_and_the_reference(worlds):
 
 
 def test_moe_a2a_gathers_fsdp_cut_experts(worlds):
-    """``__fsdp__`` on a (data 2, model 1) mesh: each rank holds every
-    expert cut in half on F, gathers them in the layer and routes its own
-    row: equal to ``moe_ffn_sorted`` on that row and to the reference's
-    row."""
+    """FSDP on a (data 2, model 1) mesh: each rank holds every expert
+    cut in half on F, declared by ``"__params__"`` (the reference's
+    ``"__fsdp__"`` cut), gathers them for the layer
+    (``hints.layer_blocks``) and routes its own row: equal to
+    ``moe_ffn_sorted`` on that row and to the reference's row."""
     inp = worlds["inputs"]
     cfg = get_arch("olmoe_1b_7b").reduced()
     lp = params_from_numpy({k[3:]: v for k, v in inp.items()

@@ -24,11 +24,15 @@ reference's run, the worlds and the checks are ``tests/torch_tp.py``'s,
 shared with the SSM, hybrid and encoder-decoder files.
 
 Without worlds: the blocks of every leaf of qwen2-7b, gemma3-12b and
-olmoe-1b-7b at full width (shapes on ``meta``) on ``model`` 2 and 4, and
-of all ten configs on the production meshes (1, 8), (1, 16) and
-(16, 16), against what ``param_specs`` implies and the dry-run's bytes
-(the four FSDP configs refused at (16, 16) by the ZeRO-3 check); a
-head-misaligned cut's blocks, contiguous ranges of columns joined back
+olmoe-1b-7b at full width (shapes on ``meta``) on ``model`` 2 and 4, of
+all ten configs on the production meshes (1, 8), (1, 16) and (16, 16),
+every rank's, and of the four configs the dry-run cuts over ``data`` too
+(ZeRO-3) on (2, 2), against what ``param_specs`` implies and the
+dry-run's bytes, joined back whole; a data-cut tree's blocks joined back
+whole; the AdamW state of all ten configs on the multi-pod mesh (2, 16,
+16), cut over ``('data', 'pod')``, data-major; the SSM, hybrid and
+encoder-decoder families refused under a ``data`` cut (ROADMAP A11c-2b);
+a head-misaligned cut's blocks, contiguous ranges of columns joined back
 whole; the ``experts=`` cut as the expert specs' case;
 and, with whole weights and no mesh, every output of the changed layers
 ``torch.equal`` to the code path before tensor parallelism
@@ -42,6 +46,7 @@ import torch
 
 import torch_tp
 from repro_torch.configs import ARCH_IDS
+from repro_torch.parallel.sharding import P
 from torch_worlds import flatten
 
 MOE = dict(n_experts=4, top_k=2)
@@ -177,18 +182,35 @@ PRODUCTION_MESHES = [(1, 8), (1, 16), (16, 16)]
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_production_meshes_give_every_rank_its_blocks(arch, mesh):
     """Every config on the reference's production meshes at full width
-    (shapes on ``meta``): every ``model`` rank's block of every leaf has
-    the shape ``param_specs`` implies and a rank's bytes are the
-    dry-run's -- qwen2-7b's 3.5 heads a rank at (1, 8), gemma3-12b's and
-    whisper-base's half a kv head at (1, 16) included -- but for the four
-    FSDP configs at (16, 16), which ``param_specs`` cuts over ``data``
-    too: refused as a ZeRO-3 cut."""
+    (shapes on ``meta``): every rank's block of every leaf, ``data`` and
+    ``model`` coordinates alike, has the shape ``param_specs`` implies, a
+    rank's bytes are the dry-run's and the blocks join back whole --
+    qwen2-7b's 3.5 heads a rank at (1, 8), gemma3-12b's and
+    whisper-base's half a kv head at (1, 16) included, and the four FSDP
+    configs at (16, 16), which ``param_specs`` cuts over ``data`` too
+    (ZeRO-3): a rank holds 1/256 of them."""
     data, n = mesh
+    cut = torch_tp.check_full_width_blocks(arch, n, data)
+    assert cut
     if data > 1 and arch in FSDP_ARCHS:
-        with pytest.raises(ValueError, match="ZeRO-3"):
-            torch_tp.check_full_width_blocks(arch, n, data)
-        return
-    assert torch_tp.check_full_width_blocks(arch, n, data)
+        assert "layers/ln1" in cut and "ln_f" in cut
+
+
+@pytest.mark.parametrize("arch", FSDP_ARCHS)
+def test_zero3_on_a_2x2_mesh_gives_every_rank_its_blocks(arch):
+    """The four FSDP configs on the dry-run's (2, 2) layout at full
+    width: every one of the four ranks' blocks as ``param_specs(...,
+    fsdp=True)`` implies, the dry-run's bytes a device (internlm2-20b's
+    9,930,872,832), joined back whole."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.dryrun import param_bytes_per_device
+    from repro_torch.launch.mesh import MeshShape
+
+    cut = torch_tp.check_full_width_blocks(arch, 2, 2)
+    assert {"layers/ln1", "ln_f", "embed"} <= cut
+    if arch == "internlm2_20b":
+        mesh = MeshShape(("data", "model"), (2, 2))
+        assert param_bytes_per_device(get_arch(arch), mesh) == 9_930_872_832
 
 
 @pytest.mark.parametrize("leaf,heads", [("wk", dict(n_kv_heads=2)),
@@ -234,19 +256,115 @@ def test_a_head_misaligned_cut_raises(leaf, heads):
 
 def test_a_zero3_cut_over_data_raises():
     """A spec that names ``data`` on an axis of more than one rank (FSDP
-    / ZeRO-3) is not a tensor-parallel cut and is refused."""
+    / ZeRO-3) cuts a running model's weights since ZeRO-3 reached the
+    port: every rank's blocks of the reduced qwen2-7b at 4 layers on a
+    (2, 2) mesh under ``param_specs(..., fsdp=True)`` are views of their
+    ranges, the two data rows hold different blocks of a data-cut leaf
+    (``bq``'s layers, ``wq``'s rows), and ``join_blocks`` gives every
+    leaf back whole, refusing ranks that hold one block with different
+    values."""
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import for_ranks
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models import get_model
+    from repro_torch.parallel.sharding import join_blocks, param_specs
+
+    cfg = dataclasses.replace(get_arch("qwen2_7b").reduced(), n_layers=4)
+    mesh = MeshShape(("data", "model"), (2, 2))
+    params = get_model(cfg).init(torch.Generator().manual_seed(0),
+                                 device="cpu")
+    specs = param_specs(params, mesh, fsdp=True)
+    assert specs["layers"]["bq"] == ("data", "model")
+    assert specs["layers"]["wq"] == (None, "data", "model")
+    blocks = [for_ranks(params, specs=specs, mesh=mesh,
+                        coords={"data": r // 2, "model": r % 2},
+                        family=cfg.family) for r in range(4)]
+    whole = params["layers"]["bq"]
+    for r, tree in enumerate(blocks):
+        d, m = divmod(r, 2)
+        got = tree["layers"]["bq"]
+        want = whole[2 * d:2 * d + 2, 64 * m:64 * m + 64]
+        assert torch.equal(got, want) and got.data_ptr() == want.data_ptr()
+        assert tree["layers"]["wq"].shape == (4, 64, 64)
+    joined = flatten(join_blocks(blocks, specs, mesh))
+    for k, v in flatten(params).items():
+        assert torch.equal(joined[k], v), k
+    # ranks (1, 0) and (1, 1) hold ln_f's second block: they must agree
+    blocks[2] = {**blocks[2], "ln_f": blocks[2]["ln_f"] + 1}
+    with pytest.raises(ValueError, match="different values"):
+        join_blocks(blocks, specs, mesh)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_adamw_state_on_the_multipod_mesh_is_cut_over_data_and_pod(arch):
+    """The dry-run's AdamW state specs (``param_specs(..., fsdp=True,
+    fsdp_axes=("data", "pod"))`` of ``m``, ``v`` and ``master``) of every
+    config on the multi-pod mesh (2, 16, 16): every leaf the rule cuts
+    over the data axes names ``('data', 'pod')``, ``model`` where the
+    weights' rule puts it; a rank's blocks of the state, on ``meta``,
+    have the shapes the specs imply and the dry-run's optimizer bytes a
+    device; and the entry is data-major, against the mesh's order: the
+    rank at pod 1, data 0 holds block 1 of 32, at pod 0, data 1 block
+    2."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.dryrun import _tree_structs, tree_bytes
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import get_model, param_shapes
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.sharding import (leaf_block, mesh_axes,
+                                               param_specs, rank_blocks)
+
+    cfg = get_arch(arch)
+    mesh = make_production_mesh(multi_pod=True)
+    axes = mesh_axes(mesh)
+    assert tuple(axes) == ("pod", "data", "model")
+    state = adamw.init(param_shapes(get_model(cfg)))
+    opt = param_specs(state.m, mesh, fsdp=True, fsdp_axes=("data", "pod"))
+    weights = flatten(param_specs(state.m, mesh))
+    entries = [e for s in flatten(opt).values() for e in s]
+    assert ("data", "pod") in entries
+    assert all(e in (None, "model", ("data", "pod")) for e in entries)
+    for k, s in flatten(opt).items():
+        assert [e == "model" for e in s] == [e == "model"
+                                            for e in weights[k]], k
+    specs = adamw.AdamWState(P(), opt, opt, opt)
+    structs = _tree_structs(state, specs)
+    coords = {"pod": 1, "data": 7, "model": 3}
+    blocks = [rank_blocks(t, s, mesh, coords) for t, s in
+              zip(state[1:], specs[1:])]
+    got = 4 + sum(b.numel() * b.element_size()
+                  for t in blocks for b in flatten(t).values())
+    assert got == tree_bytes(structs, axes)
+    x = torch.arange(64.0)
+    spec = P(("data", "pod"))
+    for c, block in (({"pod": 1, "data": 0}, 1), ({"pod": 0, "data": 1}, 2)):
+        assert torch.equal(leaf_block("x", x, spec, axes, {**c, "model": 0}),
+                           x[2 * block:2 * block + 2])
+
+
+@pytest.mark.parametrize("arch", ["mamba2_370m", "zamba2_2_7b",
+                                  "whisper_base"])
+def test_the_ssm_hybrid_and_encdec_families_refuse_a_data_cut(arch):
+    """The families whose passes gather no weight over ``data`` yet
+    refuse a ZeRO-3 cut when a rank takes its blocks, naming the queue's
+    item (ROADMAP A11c-2b): their reduced configs on (2, 2) under
+    ``param_specs(..., fsdp=True)``; the same weights cut over ``model``
+    alone are taken."""
     from repro_torch.configs import get_arch
     from repro_torch.convert import for_ranks
     from repro_torch.launch.mesh import MeshShape
     from repro_torch.models import get_model, param_shapes
     from repro_torch.parallel.sharding import param_specs
 
-    cfg = get_arch("qwen2_7b").reduced()
+    cfg = get_arch(arch).reduced()
     mesh = MeshShape(("data", "model"), (2, 2))
     shapes = param_shapes(get_model(cfg))
-    with pytest.raises(ValueError, match="ZeRO-3"):
+    coords = {"data": 1, "model": 0}
+    with pytest.raises(ValueError, match="ZeRO-3.*A11c-2b"):
         for_ranks(shapes, specs=param_specs(shapes, mesh, fsdp=True),
-                  mesh=mesh, coords={"data": 0, "model": 0})
+                  mesh=mesh, coords=coords, family=cfg.family)
+    assert for_ranks(shapes, specs=param_specs(shapes, mesh), mesh=mesh,
+                     coords=coords, family=cfg.family)
 
 
 @pytest.mark.parametrize("rank", [0, 1])

@@ -114,7 +114,7 @@ for mesh_id, name in {RUNS!r}:
     flat = {{k[len(name) + 3:]: jnp.asarray(v, case["dtypes"][k[len(name) + 3:]])
             for k, v in inp.items() if k.startswith(name + "/p/")}}
     whole = unflatten(flat)
-    specs = shd.param_specs(whole, mesh)
+    specs = shd.param_specs(whole, mesh, fsdp=case["fsdp"])
     params = place(whole, specs, mesh)
     cut = sum(len(leaf.sharding.device_set) > 1
               and leaf.addressable_shards[0].data.shape != leaf.shape
@@ -226,19 +226,20 @@ def _case_inputs(name, case):
     arrays[f"{name}/decode_tokens"] = feed
     dtypes = {k: str(v.dtype) for k, v in flat.items()}
     return arrays, dict(case, impl=impl, dtypes=dtypes, opt=OPT,
+                        fsdp=case.get("fsdp", False),
                         self_spread=cfg.family in SELF_SPREAD,
                         serve=list(serve_shapes(case)),
                         train=trains(case))
 
 
-def run(tmp, cases, ref_mesh=None):
-    """The reference's run and the port's worlds of 2 and 4 ranks on the
-    cases, in ``tmp``: ``{"ref": {...}, "ref_mesh": {(world, name):
-    mesh}, "worlds": {world: [by rank]}}``.  ``ref_mesh`` names the
-    reference's mesh ("2x2", the default, or "1x2") a (world, case) is
-    held to."""
+def run(tmp, cases, ref_mesh=None, worlds=WORLDS):
+    """The reference's run and the port's worlds of 2 and 4 ranks (or
+    ``worlds``) on the cases, in ``tmp``: ``{"ref": {...}, "ref_mesh":
+    {(world, name): mesh}, "worlds": {world: [by rank]}}``.  ``ref_mesh``
+    names the reference's mesh ("2x2", the default, or "1x2") a (world,
+    case) is held to."""
     ref_mesh = {(w, n): (ref_mesh or {}).get((w, n), "2x2")
-                for w in WORLDS for n in cases}
+                for w in worlds for n in cases}
     arrays, spec = {}, {}
     for name, case in cases.items():
         a, spec[name] = _case_inputs(name, case)
@@ -255,7 +256,7 @@ def run(tmp, cases, ref_mesh=None):
                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                            text=True)
     try:
-        for world in WORLDS:
+        for world in worlds:
             run_world(python_rank("tensor_parallel", world, tmp), world,
                       timeout=400)
         out, err = ref.communicate(timeout=600)
@@ -271,7 +272,7 @@ def run(tmp, cases, ref_mesh=None):
 
     return {"ref": load("tp_ref.npz"), "ref_mesh": ref_mesh,
             "worlds": {w: [load(f"tensor_parallel_{w}_{r}.npz")
-                           for r in range(w)] for w in WORLDS}}
+                           for r in range(w)] for w in worlds}}
 
 
 def ref_of(runs, name, world):
@@ -288,13 +289,16 @@ def mesh_of(world):
     return MeshShape(("data", "model"), (world // 2, 2))
 
 
-def specs_of(case, world):
-    """The port's spec of every leaf of the case on the world's mesh."""
+def specs_of(case, world, fsdp=None):
+    """The port's spec of every leaf of the case on the world's mesh (cut
+    over ``data`` too where the case, or ``fsdp``, says so)."""
     from repro_torch.models import get_model, param_shapes
     from repro_torch.parallel import sharding as shd
 
     model = get_model(config(case), moe_impl=case.get("impl", "sorted"))
-    return flatten(shd.param_specs(param_shapes(model), mesh_of(world)))
+    fsdp = case.get("fsdp", False) if fsdp is None else fsdp
+    return flatten(shd.param_specs(param_shapes(model), mesh_of(world),
+                                   fsdp=fsdp))
 
 
 def _row(world, r, case):
@@ -308,20 +312,17 @@ def _row(world, r, case):
     return slice(d * rows // n_data, (d + 1) * rows // n_data)
 
 
-def _joined(ranks, name, case, kind, world):
+def _joined(ranks, name, case, kind, world, fsdp=None):
     """Every leaf of ``kind`` (``g`` or ``s``) joined from the ranks'
-    blocks per its spec, after checking that the ranks that hold the same
-    block hold the same values: a cut leaf equal in every data row, a
-    whole leaf in every rank."""
+    blocks per its spec (``specs_of``), ``join_blocks`` checking that the
+    ranks that hold the same block hold the same values: a leaf cut over
+    ``model`` alone equal in every data row, a whole leaf in every
+    rank."""
     from repro_torch.parallel.sharding import join_blocks
 
-    specs = specs_of(case, world)
+    specs = specs_of(case, world, fsdp)
     trees = [{leaf: got[f"{name}/{kind}/{leaf}"] for leaf in specs}
              for got in ranks]
-    for leaf in specs:
-        for r, tree in enumerate(trees):
-            np.testing.assert_array_equal(
-                tree[leaf], trees[r % 2][leaf], err_msg=f"{leaf} rank {r}")
     return join_blocks(trees, specs, mesh_of(world))
 
 
@@ -515,18 +516,21 @@ def check_train_step(runs, name, case, world):
 
 def check_full_width_blocks(arch, n, data=1):
     """At full width on a (data, n) mesh, with the dry-run's FSDP rule
-    (its ``data`` entries on an axis of 1 cut nothing): every ``model``
-    rank's block of every leaf, on ``meta``, has the shape
-    ``param_specs`` implies -- the contiguous range of its cut dim, head
-    boundary or not -- and a rank's bytes are the dry-run's bytes a
-    device.  Returns the names of the leaves that are cut."""
+    (its ``data`` entries on an axis of 1 cut nothing; on more, ZeRO-3):
+    every rank's block of every leaf -- each ``data`` and ``model``
+    coordinate -- on ``meta``, has the shape ``param_specs`` implies (the
+    contiguous range of each cut dim, head boundary or not), a rank's
+    bytes are the dry-run's bytes a device, and ``join_blocks`` gives
+    every leaf back whole.  Returns the names of the leaves that are
+    cut."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.dryrun import (default_fsdp,
                                            param_bytes_per_device,
                                            params_structs)
     from repro_torch.launch.mesh import MeshShape
     from repro_torch.models import get_model, param_shapes
-    from repro_torch.parallel.sharding import head_widths, rank_blocks
+    from repro_torch.parallel.sharding import (head_widths, join_blocks,
+                                               rank_blocks)
 
     cfg = get_arch(arch)
     mesh = MeshShape(("data", "model"), (data, n))
@@ -535,15 +539,22 @@ def check_full_width_blocks(arch, n, data=1):
     shapes = param_shapes(get_model(cfg))
     axes = {"data": data, "model": n}
     want = [s.local_shape(axes) for s in flatten(structs).values()]
-    for m in range(n):
+    dry = param_bytes_per_device(cfg, mesh)
+    trees = []
+    for r in range(data * n):
         blocks = flatten(rank_blocks(shapes, specs, mesh,
-                                     {"data": 0, "model": m},
-                                     head_dim=head_widths(cfg)))
+                                     {"data": r // n, "model": r % n},
+                                     head_dim=head_widths(cfg),
+                                     family=cfg.family))
         assert [tuple(b.shape) for b in blocks.values()] == want
         assert all(b.device.type == "meta" for b in blocks.values())
-        assert (sum(b.numel() * b.element_size() for b in blocks.values())
-                == param_bytes_per_device(cfg, mesh))
+        assert sum(b.numel() * b.element_size()
+                   for b in blocks.values()) == dry
+        trees.append(blocks)
     whole = flatten(shapes)
+    joined = join_blocks(trees, flatten(specs), mesh)
+    assert {k: tuple(v.shape) for k, v in joined.items()} == {
+        k: tuple(v.shape) for k, v in whole.items()}
     return {k for k, b in blocks.items()
             if tuple(b.shape) != tuple(whole[k].shape)}
 

@@ -155,7 +155,7 @@ def rank_pair(rank, world, out):
     from repro_torch.models import moe
     from repro_torch.parallel import sharding as shd
     from repro_torch.parallel.collectives import compressed_grad_mean
-    from repro_torch.parallel.hints import sharding_policy
+    from repro_torch.parallel.hints import layer_blocks, sharding_policy
 
     inp = _inputs(out)
     res = {}
@@ -192,15 +192,20 @@ def rank_pair(rank, world, out):
                                  h)
     res.update(moe_out=y.float(), moe_aux=aux)
     # FSDP: every expert on a model axis of 1, each weight cut on its F
-    # dim over a data axis of 2 and gathered in the layer; a row a rank
+    # dim over a data axis of 2, declared so, and gathered for the layer
+    # (the stacks' specs: a leading layer dim); a row a rank
     data_mesh = DeviceMesh("cpu", torch.arange(world).reshape(world, 1),
                            mesh_dim_names=("data", "model"))
     blk = lp["we_gate"].shape[-1] // world
     f = slice(rank * blk, (rank + 1) * blk)
     cut = {"router": lp["router"], "we_gate": lp["we_gate"][..., f],
            "we_up": lp["we_up"][..., f], "we_down": lp["we_down"][:, f]}
-    with sharding_policy({"__mesh__": data_mesh, "__fsdp__": True}):
-        y, aux = moe.moe_ffn_a2a(cfg, cut, h[rank:rank + 1])
+    specs = {"layers": {"router": shd.P(None, None, None),
+                        "we_gate": shd.P(None, None, None, "data"),
+                        "we_up": shd.P(None, None, None, "data"),
+                        "we_down": shd.P(None, None, "data", None)}}
+    with sharding_policy({"__mesh__": data_mesh, "__params__": specs}):
+        y, aux = moe.moe_ffn_a2a(cfg, layer_blocks(cut), h[rank:rank + 1])
     res.update(fsdp_out=y.float(), fsdp_aux=aux)
 
     mgr = CheckpointManager(os.path.join(out, "ckpt"))
@@ -255,7 +260,8 @@ def rank_mesh_model(rank, world, out):
     prefill's logits and cache, and the parameters after one
     ``make_train_step``; for the MoE case also the loss under a policy
     that holds the mesh alone.  The batch rows are this rank's data
-    row's; the experts (``a2a``) this rank's share on ``model``."""
+    row's; the experts (``a2a``) this rank's share on ``model``, declared
+    (``"__params__"``: ``expert_specs``)."""
     import dataclasses
 
     import torch
@@ -266,9 +272,10 @@ def rank_mesh_model(rank, world, out):
     from repro_torch.convert import for_ranks, params_from_numpy
     from repro_torch.launch.dryrun import make_policy
     from repro_torch.launch.steps import make_train_step, value_and_grad
-    from repro_torch.models import get_model
+    from repro_torch.models import get_model, param_shapes
     from repro_torch.optim import adamw
     from repro_torch.parallel.hints import sharding_policy
+    from repro_torch.parallel.sharding import expert_specs
 
     with open(os.path.join(out, "mesh_cases.json")) as f:
         cases = json.load(f)
@@ -298,10 +305,13 @@ def rank_mesh_model(rank, world, out):
         B = inp[name + "/tokens"].shape[0] // n_data
         rows = slice(d * B, (d + 1) * B)
         batch = {k: inp[f"{name}/{k}"][rows] for k in ("tokens", "labels")}
+        # the experts' cut, declared; every leaf whole elsewhere
+        weights = ({"__params__": expert_specs(param_shapes(model))}
+                   if case["impl"] == "a2a" else {})
         train = {**make_policy(cfg, SHAPES["train_4k"], mesh),
-                 "__mesh__": mesh}
+                 "__mesh__": mesh, **weights}
         prefill = {**make_policy(cfg, SHAPES["prefill_32k"], mesh),
-                   "__mesh__": mesh}
+                   "__mesh__": mesh, **weights}
         params = fresh()
         with sharding_policy(train):
             loss, grads = value_and_grad(model, params, batch)
@@ -336,19 +346,24 @@ def rank_tensor_parallel(rank, world, out):
     running tensor-parallel models: for each case of
     OUT_DIR/tp_cases.json the reference's weights cut into this rank's
     blocks by ``param_specs`` (``convert.for_ranks``), then under the
-    dry-run's policies plus the mesh the loss and its gradients, the
-    prefill's logits and this rank's share of every tensor of the cache
-    (kv heads; the SSM families' conv channels and heads),
-    ``TP_DECODE_STEPS`` serve steps fed the tokens of
-    ``<case>/decode_tokens``, and the parameters after one
-    ``make_train_step``; beside them the bytes and storage bytes of the
-    rank's parameters and the dry-run's bytes a device.  The
+    dry-run's policies plus the mesh and the weights' declared cut
+    (``"__params__"``) the loss and its gradients, the prefill's logits
+    and this rank's share of every tensor of the cache (kv heads; the SSM
+    families' conv channels and heads), ``TP_DECODE_STEPS`` serve steps
+    fed the tokens of ``<case>/decode_tokens``, and the parameters after
+    one ``make_train_step``; beside them the bytes and storage bytes of
+    the rank's parameters and the dry-run's bytes a device.  The
     encoder-decoder's batch and prefill take ``<case>/frames`` too.  The
     prefill and serve policies declare the cache's layout
     (``"__cache__"``: ``cache_specs`` of their shapes, the case's
     ``"serve"``); a case that does not ``"train"`` (a batch of one row,
     held whole by every data row) runs the prefill and serve steps
-    alone."""
+    alone.  A case with ``"fsdp"`` cuts the weights over ``data`` too
+    (``param_specs(..., fsdp=True)``, ZeRO-3) and its optimizer state by
+    the dry-run's opt specs (``"__opt__"``, ZeRO-1, with the state's
+    bytes and the dry-run's beside them); it then runs again in the same
+    processes with the weights whole over ``data`` and the state still
+    cut, its outputs under ``<case>/zero1/``."""
     import dataclasses
 
     import torch
@@ -357,13 +372,15 @@ def rank_tensor_parallel(rank, world, out):
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import SHAPES
     from repro_torch.convert import for_ranks, params_from_numpy
-    from repro_torch.launch.dryrun import make_policy, param_bytes_per_device
+    from repro_torch.launch.dryrun import (_tree_structs, make_policy,
+                                           param_bytes_per_device,
+                                           tree_bytes)
     from repro_torch.launch.steps import (make_serve_step, make_train_step,
                                           value_and_grad)
     from repro_torch.models import get_model, param_shapes
     from repro_torch.optim import adamw
     from repro_torch.parallel import sharding as shd
-    from repro_torch.parallel.hints import sharding_policy
+    from repro_torch.parallel.hints import sharding_policy, state_layout
 
     with open(os.path.join(out, "tp_cases.json")) as f:
         cases = json.load(f)
@@ -377,20 +394,27 @@ def rank_tensor_parallel(rank, world, out):
         cfg = dataclasses.replace(get_arch(case["arch"]).reduced(),
                                   **case["replace"])
         model = get_model(cfg, moe_impl=case["impl"])
-        specs = shd.param_specs(param_shapes(model), mesh)
+        shapes = param_shapes(model)
+        fsdp = case.get("fsdp", False)
+        opt = (shd.param_specs(shapes, mesh, fsdp=True,
+                               fsdp_axes=("data", "pod")) if fsdp else None)
 
-        def policy(shape, cache=False):
-            pol = {**make_policy(cfg, SHAPES[shape], mesh), "__mesh__": mesh}
+        def policy(shape, weights, cache=False):
+            pol = {**make_policy(cfg, SHAPES[shape], mesh), "__mesh__": mesh,
+                   "__params__": weights}
             if cache:
                 pol["__cache__"] = shd.cache_specs(cfg, SHAPES[shape], mesh)
+            if opt is not None and SHAPES[shape].kind == "train":
+                pol["__opt__"] = opt
             return pol
 
-        def fresh():
+        def fresh(weights):
             flat = {k[len(name) + 3:]: v for k, v in inp.items()
                     if k.startswith(name + "/p/")}
-            blocks = for_ranks(unflatten(flat), specs=specs, mesh=mesh,
+            blocks = for_ranks(unflatten(flat), specs=weights, mesh=mesh,
                                coords=shd.mesh_coords(mesh),
-                               head_dim=shd.head_widths(cfg))
+                               head_dim=shd.head_widths(cfg),
+                               family=cfg.family)
             p = params_from_numpy(blocks, device="cpu")
             return adamw.tree_map(lambda t, dt: t.to(getattr(torch, dt)), p,
                                   unflatten(case["dtypes"]))
@@ -408,42 +432,60 @@ def rank_tensor_parallel(rank, world, out):
         train = case.get("train", True)
         prompt = {k: torch.as_tensor(v) for k, v in batch.items()
                   if k != "labels"}
-        params = fresh()
-        leaves = adamw.tree_leaves(params)
-        res[f"{name}/param_bytes"] = torch.tensor(
-            sum(t.numel() * t.element_size() for t in leaves))
-        res[f"{name}/storage_bytes"] = torch.tensor(
-            sum(t.untyped_storage().nbytes() for t in leaves))
-        res[f"{name}/dryrun_bytes"] = torch.tensor(
-            param_bytes_per_device(cfg, mesh))
-        res.update({f"{name}/shape/{k}": torch.tensor(v.shape)
-                    for k, v in flatten(params).items()})
-        if train:
-            with sharding_policy(policy("train_4k")):
-                loss, grads = value_and_grad(model, params, batch)
-            res[f"{name}/loss"] = loss
-            res.update({f"{name}/g/{k}": v
-                        for k, v in flatten(grads).items()})
-        with sharding_policy(policy(prefill_shape, cache=True)):
-            logits, cache = model.prefill(params, prompt, MESH_MAX_LEN)
-        res[f"{name}/logits"] = logits
-        for field, v in cache._asdict().items():
-            if torch.is_tensor(v):      # decoding writes in place
-                res[f"{name}/cache/{field}"] = v.clone()
-        serve = make_serve_step(model)
-        feed = torch.as_tensor(inp[f"{name}/decode_tokens"][rows])
-        with sharding_policy(policy(decode_shape, cache=True)):
-            for i in range(TP_DECODE_STEPS):
-                tok, logits, cache = serve(params, cache, feed[:, i:i + 1])
-                res[f"{name}/decode{i}/logits"] = logits
-                res[f"{name}/decode{i}/tokens"] = tok
-        if not train:
-            continue
-        step = make_train_step(model, adamw.AdamWConfig(**case["opt"]))
-        with sharding_policy(policy("train_4k")):
-            loss1, params1, _ = step(params, adamw.init(params), batch)
-        res[f"{name}/step_loss"] = loss1
-        res.update({f"{name}/s/{k}": v for k, v in flatten(params1).items()})
+
+        def run(key, data_cut):
+            weights = shd.param_specs(shapes, mesh, fsdp=data_cut)
+            params = fresh(weights)
+            leaves = adamw.tree_leaves(params)
+            res[f"{key}/param_bytes"] = torch.tensor(
+                sum(t.numel() * t.element_size() for t in leaves))
+            res[f"{key}/storage_bytes"] = torch.tensor(
+                sum(t.untyped_storage().nbytes() for t in leaves))
+            res[f"{key}/dryrun_bytes"] = torch.tensor(
+                param_bytes_per_device(cfg, mesh, fsdp=data_cut))
+            res.update({f"{key}/shape/{k}": torch.tensor(v.shape)
+                        for k, v in flatten(params).items()})
+            if train:
+                with sharding_policy(policy("train_4k", weights)):
+                    loss, grads = value_and_grad(model, params, batch)
+                res[f"{key}/loss"] = loss
+                res.update({f"{key}/g/{k}": v
+                            for k, v in flatten(grads).items()})
+            with sharding_policy(policy(prefill_shape, weights, cache=True)):
+                logits, cache = model.prefill(params, prompt, MESH_MAX_LEN)
+            res[f"{key}/logits"] = logits
+            for field, v in cache._asdict().items():
+                if torch.is_tensor(v):      # decoding writes in place
+                    res[f"{key}/cache/{field}"] = v.clone()
+            serve = make_serve_step(model)
+            feed = torch.as_tensor(inp[f"{name}/decode_tokens"][rows])
+            with sharding_policy(policy(decode_shape, weights, cache=True)):
+                for i in range(TP_DECODE_STEPS):
+                    tok, logits, cache = serve(params, cache,
+                                               feed[:, i:i + 1])
+                    res[f"{key}/decode{i}/logits"] = logits
+                    res[f"{key}/decode{i}/tokens"] = tok
+            if not train:
+                return
+            step = make_train_step(model, adamw.AdamWConfig(**case["opt"]))
+            with sharding_policy(policy("train_4k", weights)):
+                state = adamw.init(params, cuts=state_layout(params))
+                loss1, params1, state = step(params, state, batch)
+            res[f"{key}/step_loss"] = loss1
+            res.update({f"{key}/s/{k}": v
+                        for k, v in flatten(params1).items()})
+            if opt is not None:
+                res[f"{key}/state_bytes"] = torch.tensor(sum(
+                    t.numel() * t.element_size()
+                    for part in state for t in adamw.tree_leaves(part)))
+                meta = adamw.init(shapes)
+                res[f"{key}/dryrun_state_bytes"] = torch.tensor(tree_bytes(
+                    _tree_structs(meta, adamw.AdamWState(
+                        shd.P(), opt, opt, opt)), shd.mesh_axes(mesh)))
+
+        run(name, fsdp)
+        if fsdp:
+            run(f"{name}/zero1", False)
     np.savez(os.path.join(out, f"tensor_parallel_{world}_{rank}.npz"),
              **{k: v.detach().float().numpy() if v.is_floating_point()
                 else v.numpy() for k, v in res.items()})
