@@ -146,7 +146,11 @@ Run from the root of a checkout, with no arguments, it
    equal and the last-position logits bit for bit in both ranks, the
    routing margin of the one-process pass read beside them, and the
    distance from the plain ``sorted`` order read; layer 0's K/V bit for
-   bit; B5 and B4 16 times a rank); (e)
+   bit; B5 and B4 16 times a rank); (d)+ then 4 serve steps, each layer's
+   one token taking ``moe_ffn_a2a``'s fallback to ``moe_ffn_sorted`` over
+   the rank's experts (the branches counted), bit for bit the one-process
+   ``sorted`` decode in the ranks' order, B5 64 times a rank and held to
+   its plain version at that shape; (e)
    the same at depth 2, two ``make_train_step`` steps on 2 x 2048 tokens
    of the data pipeline (losses within 2e-2 of one process, step 1's
    gradient by (b)'s rule leaf by leaf, the leaves each rank holds whole
@@ -179,17 +183,38 @@ Run from the root of a checkout, with no arguments, it
    in both ranks, B4 and B5 8 times a rank and each held to its plain
    version), with peak memory a rank; B4's row at (f)'s rank shape goes
    into the kernels line;
-10. after ``tensor_parallel``, ``tensor_parallel_ssm``: worlds of 2 ranks
-   cut the same way, the residual cut on its channels under the train
-   and prefill policies -- (h) zamba2-2.7b at full width and depth,
-   parameter and cache bytes a rank the dry-run's, a prefill of 1 x 2048
-   and 8 serve steps bit for bit against one process in the ranks' order
-   (``hybrid_in_rank_order``); (i) mamba2-370m at full width, step 1's
-   gradient by (b)'s rule against one process at 4 layers and read at 48,
-   then two ``make_train_step`` steps at full depth; (j) whisper-base at
-   full width and depth, 1500 frames and 64 tokens, ``embed`` whole; B6
-   and B4 on a rank's heads, held to their plain versions, their rows at
-   the ranks' shapes in the kernels line;
+   (f)+: in (f)'s world, ``decode_step_quant`` under the dry-run's decode
+   layout (the int8 cache cut on its 4 kv heads) and long layout (on its
+   positions) at one row: a random int8 history of positions 0-1019 in a
+   cache 2048 long, 8 steps at 1020-1027 across the block boundary, each
+   rank's cache blocks bit for bit one process's in the ranks' order
+   (``VariantsInRankOrder``), the logits within 2e-2 of it, the softmax
+   within 0.05 of the rank's ``decode_step``, the cache bytes those of
+   ``quant_cache_specs``;
+10. after ``tensor_parallel``, ``tensor_parallel_ring``: (n) gemma3-12b
+   at full width and depth over 2 ranks, ``grouped_decode_step`` under
+   the dry-run's two layouts (``ring_cache_specs``: a batch of 2, each
+   ring whole over ``model``, the global buffers cut on their positions;
+   one row, each ring's slots cut over ``model``), 8 steps from a random
+   history across the ring's wrap at 1024: every rank's ring and global
+   blocks bit for bit one process's in the ranks' order, the logits
+   within 2e-2 of it, the bytes a rank the dry-run's; then
+   ``tensor_parallel_ssm``: worlds of 2 ranks cut the same way, the
+   residual cut on its channels under the train policy -- (i)
+   mamba2-370m at full width, step 1's gradient by (b)'s rule against
+   one process at 4 layers and read at 24, then two ``make_train_step``
+   steps at 24 of its 48 layers; (j) whisper-base at full width and
+   depth, 1500 frames and 64 tokens, ``embed`` whole; then
+   ``tensor_parallel_hybrid_zero``, one world of 4 ranks: (h) zamba2-2.7b
+   at full width and depth in ranks 0 and 1 on a (1, 2) mesh, parameter
+   and cache bytes a rank the dry-run's, a prefill of 1 x 2048 and 8
+   serve steps against one process in the ranks' order
+   (``hybrid_in_rank_order``); (o) the same on (2, 2) under the dry-run's
+   FSDP rule (ZeRO-3), its bytes a rank the dry-run's, a prefill and a
+   step bit for bit (h)'s, then at depth 12 two ``make_train_step``
+   steps bit for bit against the weights whole over ``data``; B6 and B4
+   on a rank's heads, held to their plain versions, their rows at the
+   ranks' shapes in the kernels line;
 11. after ``tensor_parallel_ssm``, ``tensor_parallel_misaligned``: (k)
    qwen2-7b at full width and depth over 8 ranks on a (1, 8) mesh, cut
    off head boundaries (3.5 query heads and half a kv head a rank) and
@@ -204,10 +229,11 @@ Run from the root of a checkout, with no arguments, it
    internlm2-20b on the dry-run's own (2, 2) FSDP layout, four ranks, the
    weights cut over ``data`` as well as ``model`` (ZeRO-3) and declared to
    the passes (``"__params__"``), each layer gathered over ``data``
-   inside its body -- (l) all 48 layers, 9,930,872,832 parameter bytes a
-   rank, a row of 1 x 2048 a data rank prefilled and stepped once, its
-   logits and tokens bit for bit those of a (1, 2) world of the same
-   weights running each row alone, B4 48 times a rank; (m) at depth 4,
+   inside its body -- (l) 24 of its 48 layers, cut as the dry-run's rule
+   cuts the whole config, 5,249,734,656 parameter bytes a rank, a row of
+   1 x 2048 a data rank prefilled and stepped once, its logits and tokens
+   bit for bit those of a (1, 2) world of the same weights running each
+   row alone, B4 24 times a rank; (m) at depth 4,
    two ``make_train_step`` steps with the AdamW state cut by the
    dry-run's opt specs (ZeRO-1, ``"__opt__"``), against the same world
    with the weights whole over ``data``: step 1's loss bit for bit, its
@@ -241,6 +267,7 @@ import functools
 import gc
 import json
 import math
+import multiprocessing
 import os
 import re
 import shutil
@@ -285,6 +312,12 @@ REPLACES = {
 
 
 STARTED = time.perf_counter()
+# spec trees solved in a process of their own while the card works, by
+# name: futures of tp_dryrun_specs' items
+SPECS_SOLVED = {}
+# B5 at the worlds' own shapes, for the kernels line: (label, (x, slots),
+# launches at that shape)
+B5_ROWS = []
 
 
 def say(phase, **fields):
@@ -2684,6 +2717,24 @@ def phase_kernel_times(torch, seed, launches, served_flush, ssd_args,
                        lambda: md.moe_dispatch(x_padded, slot),
                        lambda: torch.index_select(x_padded, 0, slot),
                        "index_select", slots=S)
+    b5_calls = call_ms["moe_dispatch"]
+    for label, (xw, sw), calls in B5_ROWS:
+        xw_padded = torch.cat([xw, xw.new_zeros((1, xw.shape[1]))])
+        want = md.moe_dispatch_plain(xw_padded, sw)
+        row = entry("moe_dispatch",
+                    lambda: md.moe_dispatch(xw_padded, sw),
+                    lambda: md.moe_dispatch_plain(xw_padded, sw),
+                    lambda: torch.index_select(xw_padded, 0, sw),
+                    max_abs_diff(kops.dispatch(xw, sw), want),
+                    (xw_padded.numel() + sw.numel() * xw.shape[1]) * 2
+                    + 4 * sw.numel(), 0, calls=calls)
+        row["shape"] = {"label": label, "rows": list(xw.shape),
+                        "slots": sw.numel()}
+        check(row["max_abs_err"] == 0.0, f"B5 at {label} differs from its "
+              f"plain version")
+        call_ms[label] = call_ms.pop("moe_dispatch")
+        out.append(row)
+    call_ms["moe_dispatch"] = b5_calls
 
     # B6: one 256-row chunk of each prefill, on the prefill's own inputs,
     # laid out as the chunk loop hands them over
@@ -3794,6 +3845,7 @@ def rank_pipeline(torch, rank, world, out, seed):
 # ---------------------------------------------------------------------------
 
 MOE_MODEL_TOKENS = (2, 2048)   # (d): batch x tokens of the prefill
+MOE_DECODE_STEPS = 4           # (d)+: a2a serve steps after it (fallback)
 MOE_TRAIN_LAYERS = 2           # (e): olmoe-1b-7b at depth 2 of 16
 MOE_TRAIN_STEPS = 2
 MOE_TRAIN_BATCH = (2, 2048)    # (e): batch x tokens a step
@@ -3899,15 +3951,15 @@ def moe_impl_added(name, fn):
         del moe.MOE_IMPLS[name]
 
 
-def _mesh_policy(cfg, shape_name, weights):
+def _mesh_policy(cfg, shape_name, weights, mesh=None):
     """The dry-run's policy of ``shape_name`` plus the live mesh of the
-    world's ranks and the spec tree their weights were cut by
-    (``"__params__"``)."""
+    world's ranks (``mesh``, or every rank on ``model``) and the spec tree
+    their weights were cut by (``"__params__"``)."""
     from repro_torch.configs.base import SHAPES
     from repro_torch.launch.dryrun import make_policy
     from repro_torch.launch.mesh import make_host_mesh
 
-    mesh = make_host_mesh("cuda")
+    mesh = make_host_mesh("cuda") if mesh is None else mesh
     return {**make_policy(cfg, SHAPES[shape_name], mesh), "__mesh__": mesh,
             "__params__": weights}
 
@@ -3921,14 +3973,30 @@ def _expert_specs(model):
     return expert_specs(param_shapes(model))
 
 
+def _moe_decode_feed(torch, cfg, seed):
+    """(d)+'s tokens, fed to every serve step in the ranks and in the
+    yardstick alike."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    return torch.randint(2, cfg.vocab - 1,
+                         (MOE_MODEL_TOKENS[0], MOE_DECODE_STEPS),
+                         generator=gen, device="cuda",
+                         dtype=torch.int64).to(torch.int32)
+
+
 def rank_moe_model(torch, rank, world, out, seed):
     """(d) One rank of olmoe-1b-7b at full width and depth, the
     expert-parallel model (``get_model(cfg, moe_impl="a2a")``) under the
     dry-run's prefill policy plus the mesh: its share of the experts, the
     whole non-expert weights, a prefill of ``MOE_MODEL_TOKENS`` whose
-    residual is this rank's block of the sequence; counted and timed."""
+    residual is this rank's block of the sequence; counted and timed.
+    (d)+: then ``MOE_DECODE_STEPS`` serve steps under the decode policy,
+    fed :func:`_moe_decode_feed`: each layer's one token takes
+    ``moe_ffn_a2a``'s fallback to ``moe_ffn_sorted`` over the rank's
+    experts (the branches counted); B5 held to its plain version at the
+    first step's dispatch shape, outside the counted run."""
     from repro_torch.configs import get_arch
-    from repro_torch.models import get_model
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.models import get_model, moe
     from repro_torch.parallel.hints import sharding_policy
 
     cfg = get_arch("olmoe_1b_7b")
@@ -3940,19 +4008,47 @@ def rank_moe_model(torch, rank, world, out, seed):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _dist_reset()
+    moe.A2A_BRANCHES.update(a2a=0, sorted=0)
     t0 = time.perf_counter()
     with sharding_policy(policy), capturing_routes(routes):
         logits, cache = model.prefill(params, {"tokens": tokens},
-                                      tokens.shape[1])
+                                      tokens.shape[1] + MOE_DECODE_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {**_dist_counts(), **train_kernel_counts()}
+    prefill_branches = dict(moe.A2A_BRANCHES)
     torch.save({"logits": logits.cpu(), "k0": cache.k[0].cpu(),
                 "v0": cache.v[0].cpu(), "routes": routes,
                 "pos": cache.pos}, os.path.join(out, f"moe_model_{rank}.pt"))
+    # (d)+ the serve steps: S = 1 does not divide by model, the fallback
+    feed = _moe_decode_feed(torch, cfg, seed)
+    decode = _mesh_policy(cfg, "decode_32k", _expert_specs(model))
+    captured, steps = [], []
+    _dist_reset()
+    moe.A2A_BRANCHES.update(a2a=0, sorted=0)
+    t0 = time.perf_counter()
+    with sharding_policy(decode), capturing_first(moe.ops, "dispatch",
+                                                  captured):
+        for i in range(MOE_DECODE_STEPS):
+            lg, cache = model.decode(params, cache, feed[:, i:i + 1])
+            steps.append(lg.float().cpu())
+    torch.cuda.synchronize()
+    decode_wall = time.perf_counter() - t0
+    decode_counts = {**_dist_counts(), **train_kernel_counts()}
+    decode_branches = dict(moe.A2A_BRANCHES)
+    xt, slot, _ = captured
+    b5_err = max_abs_diff(moe.ops.dispatch(xt, slot), md.moe_dispatch_plain(
+        torch.nn.functional.pad(xt, (0, 0, 0, 1)), slot))
+    torch.save({"steps": steps, "b5": (xt.cpu(), slot.cpu())},
+               os.path.join(out, f"moe_decode_{rank}.pt"))
     return {"wall_s": wall, **counts,
             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-            "experts": params["layers"]["we_gate"].shape[1]}
+            "experts": params["layers"]["we_gate"].shape[1],
+            "prefill_branches": prefill_branches,
+            "decode_branches": decode_branches,
+            "decode_wall_s": decode_wall, "decode_counts": decode_counts,
+            "b5_decode_held": {"rows": list(xt.shape),
+                               "slots": slot.numel(), "max_abs_err": b5_err}}
 
 
 def rank_moe_train(torch, rank, world, out, seed):
@@ -4018,7 +4114,11 @@ def phase_moe_worlds(torch, seed):
     (``moe_ffn_in_rank_order``), the routing margin of that pass read
     (its tokens under ``ROUTE_MARGIN``), the distances from the plain
     ``sorted`` prefill read beside it, layer 0's
-    K/V cache bit for bit, B5 and B4 16 times a rank.  (e): each step's
+    K/V cache bit for bit, B5 and B4 16 times a rank.  (d)+:
+    ``MOE_DECODE_STEPS`` serve steps after it, every layer taking the
+    a2a layer's fallback (S = 1), their logits bit for bit that process's
+    decode from its cache, the branches counted, B5 16 times a step and
+    held to its plain version at the step's shape.  (e): each step's
     loss within bf16 2e-2, step 1's gradient by (b)'s rule leaf by leaf
     in each rank, the leaves each rank holds whole equal in both ranks
     after the steps.  Returns the ranks' launches and B4's row input."""
@@ -4035,34 +4135,62 @@ def phase_moe_worlds(torch, seed):
     launches = {"moe_dispatch": 0, "flash_attention": 0}
     t_phase = time.perf_counter()
 
-    # (d) the prefill of the whole model
-    ranks, wall = run_ranks("moe_model", 2, out, seed)
+    # (d), then (e), in one world; then (d)'s one process
+    worlds, wall = run_ranks("moe_model+moe_train", 2, out, seed)
+    ranks = worlds["moe_model"]
     cfg = get_arch("olmoe_1b_7b")
     model = get_model(cfg)
     params = _moe_params(torch, model, seed)
     tokens = _moe_model_tokens(torch, cfg, seed)
-    parts = [torch.load(os.path.join(out, f"moe_model_{r}.pt"))
-             for r in range(2)]
+    feed = _moe_decode_feed(torch, cfg, seed)
 
     def yardstick(m):
-        """One process's prefill, its routes and their differences from
-        rank 0's, the ranks' logits' distances from it."""
+        """One process's prefill, its routes, layer 0's K/V and the
+        routing margins; then (d)+'s serve steps from its cache, each
+        step's logits."""
         routes, gaps = [], []
         with capturing_routes(routes, gaps):
             logits, kv = m.prefill(params, {"tokens": tokens},
-                                   tokens.shape[1])
-        differ = sum(int((a != b).any(-1).sum()) for a, b in zip(
-            parts[0]["routes"], routes))
-        errs = [max_abs_diff(p["logits"].float(), logits.float().cpu())
-                for p in parts]
-        return logits, kv, torch.stack(gaps), differ, errs
+                                   tokens.shape[1] + MOE_DECODE_STEPS)
+        k0, v0 = (t[0].to("cpu", copy=True) for t in (kv.k, kv.v))
+        decoded = []
+        for i in range(MOE_DECODE_STEPS):
+            lg, kv = m.decode(params, kv, feed[:, i:i + 1])
+            decoded.append(lg.float().cpu())
+        return logits.cpu(), (k0, v0), torch.stack(gaps), routes, decoded
 
     # held: the sorted model summed in the ranks' order; read beside it:
     # the sorted model as one process sums it
     with moe_impl_added("in_rank_order", moe_ffn_in_rank_order) as impl:
-        want, cache, gaps, differ, errs = yardstick(get_model(cfg, impl))
+        want, cache, gaps, routes, want_steps = yardstick(
+            get_model(cfg, impl))
     plain = yardstick(model)
-    plain_differ, plain_errs = plain[3], plain[4]
+    parts = [torch.load(os.path.join(out, f"moe_model_{r}.pt"))
+             for r in range(2)]
+    decoded = [torch.load(os.path.join(out, f"moe_decode_{r}.pt"))
+               for r in range(2)]
+    steps = [d["steps"] for d in decoded]
+    # B5 at the decode fallback's shape in a rank, for the kernels line
+    B5_ROWS.append(("olmoe-1b-7b a rank's decode fallback (d)+",
+                    [t.cuda() for t in decoded[0]["b5"]],
+                    sum(r["decode_counts"]["moe_dispatch"] for r in ranks)))
+    del decoded
+
+    def distances(logits, routes, decoded):
+        """The ranks' differences from one process's pass: token-layers
+        routed to other experts (rank 0's), the prefill's logits' and
+        each step's largest distance."""
+        differ = sum(int((a != b).any(-1).sum()) for a, b in zip(
+            parts[0]["routes"], routes))
+        errs = [max_abs_diff(p["logits"].float(), logits.float())
+                for p in parts]
+        step_errs = [[max_abs_diff(g, w) for g, w in zip(s, decoded)]
+                     for s in steps]
+        return differ, errs, step_errs
+
+    differ, errs, step_errs = distances(want, routes, want_steps)
+    plain_differ, plain_errs, plain_step_errs = distances(
+        plain[0], plain[3], plain[4])
     del plain
     check(differ == 0, f"(d) {differ} token-layers route to other experts "
           f"than the one-process sorted prefill summed in the ranks' order")
@@ -4074,16 +4202,29 @@ def phase_moe_worlds(torch, seed):
         check(torch.equal(p["logits"], want.cpu()), f"(d) rank {r}'s "
               f"logits differ from the one-process sorted prefill summed "
               f"in the ranks' order by {errs[r]}")
-        check(torch.equal(p["k0"], cache.k[0].cpu())
-              and torch.equal(p["v0"], cache.v[0].cpu()),
+        check(torch.equal(p["k0"], cache[0].cpu())
+              and torch.equal(p["v0"], cache[1].cpu()),
               f"(d) rank {r}: layer 0's K/V differ from one process")
         check(p["pos"] == MOE_MODEL_TOKENS[1], f"(d) rank {r}: cache pos")
-    check(all(r["moe_dispatch"] == cfg.n_layers
-              and r["flash_attention"] == cfg.n_layers for r in ranks),
-          f"(d) B5/B4 launches by rank: "
-          f"{[(r['moe_dispatch'], r['flash_attention']) for r in ranks]}")
+        check(all(torch.equal(g, w) for g, w in zip(steps[r], want_steps)),
+              f"(d)+ rank {r}: the serve steps' logits differ from one "
+              f"process's sorted decode summed in the ranks' order by "
+              f"{step_errs[r]}")
+    n_decode = cfg.n_layers * MOE_DECODE_STEPS
+    for r, rk in enumerate(ranks):
+        check(rk["prefill_branches"] == {"a2a": cfg.n_layers, "sorted": 0}
+              and rk["decode_branches"] == {"a2a": 0, "sorted": n_decode},
+              f"(d)+ rank {r}: moe_ffn_a2a's branches, prefill "
+              f"{rk['prefill_branches']}, decode {rk['decode_branches']}")
+        check(rk["b5_decode_held"]["max_abs_err"] == 0.0,
+              f"(d)+ rank {r}: B5 at the decode fallback's shape differs "
+              f"from its plain version: {rk['b5_decode_held']}")
+    by_rank = [(r["moe_dispatch"], r["flash_attention"],
+                r["decode_counts"]["moe_dispatch"]) for r in ranks]
+    check(all(n == (cfg.n_layers, cfg.n_layers, n_decode) for n in by_rank),
+          f"(d) B5/B4 prefill and B5 decode launches by rank: {by_rank}")
     for k in launches:
-        launches[k] += sum(r[k] for r in ranks)
+        launches[k] += sum(r[k] + r["decode_counts"][k] for r in ranks)
     d_line = {
         "arch": "olmoe-1b-7b", "layers": cfg.n_layers,
         "tokens": list(MOE_MODEL_TOKENS), "policy": "make_policy prefill "
@@ -4099,16 +4240,34 @@ def phase_moe_worlds(torch, seed):
         "one_process_order": {"logits_max_abs_err": plain_errs,
                               "token_layer_expert_sets_differ":
                               plain_differ},
-        "world_wall_s": wall, "prefill_wall_s": [r["wall_s"] for r in ranks],
+        "world_wall_s": wall, "world": "(d), then (e), in one world",
+        "entry_wall_s": [r["entry_wall_s"] for r in ranks],
+        "prefill_wall_s": [r["wall_s"] for r in ranks],
         "b5_launches": [r["moe_dispatch"] for r in ranks],
         "b4_launches": [r["flash_attention"] for r in ranks],
         "staged_bytes": [r["staged_bytes"] for r in ranks],
-        "peak_memory_bytes": [r["peak_memory_bytes"] for r in ranks]}
-    del params, want, cache, parts, gaps
+        "peak_memory_bytes": [r["peak_memory_bytes"] for r in ranks],
+        "decode": {
+            "steps": MOE_DECODE_STEPS, "policy": "make_policy decode + "
+            "__mesh__ + __params__ (expert_specs)",
+            "branches_prefill": [r["prefill_branches"] for r in ranks],
+            "branches_decode": [r["decode_branches"] for r in ranks],
+            "held": "every step's logits bit for bit against one process's "
+                    "sorted decode summed in the ranks' order",
+            "logits_max_abs_err_by_step": step_errs,
+            "one_process_order_logits_max_abs_err_by_step":
+                plain_step_errs,
+            "decode_wall_s": [r["decode_wall_s"] for r in ranks],
+            "b5_launches": [r["decode_counts"]["moe_dispatch"]
+                            for r in ranks],
+            "b5_decode_held": [r["b5_decode_held"] for r in ranks],
+            "staged_bytes": [r["decode_counts"]["staged_bytes"]
+                             for r in ranks]}}
+    del params, want, cache, parts, gaps, steps
     free_device_memory(torch)
 
-    # (e) two train steps of the depth-2 model
-    ranks, wall = run_ranks("moe_train", 2, out, seed)
+    # (e) two train steps of the depth-2 model, against one process's
+    ranks = worlds["moe_train"]
     cfg2 = dataclasses.replace(cfg, n_layers=MOE_TRAIN_LAYERS)
     model2 = get_model(cfg2)
     params = _moe_params(torch, model2, seed)
@@ -4152,7 +4311,8 @@ def phase_moe_worlds(torch, seed):
                      f"{GRAD_SHARE_OWN}) and cosine above {GRAD_COSINE}",
         "readings": [r["readings"] for r in ranks],
         "worst_leaf": {r: [n, v] for r, (n, v) in worst.items()},
-        "shared_leaves_equal": True, "world_wall_s": wall,
+        "shared_leaves_equal": True,
+        "entry_wall_s": [r["entry_wall_s"] for r in ranks],
         "step_walls_s": [r["step_walls_s"] for r in ranks],
         "b5_launches": [r["moe_dispatch"] for r in ranks],
         "b4_launches": [r["flash_attention"] for r in ranks],
@@ -4330,14 +4490,78 @@ def rank_tp_prefill(torch, rank, world, out, seed):
     staged = _dist_counts()["staged_bytes"]
     q, k, v, kw = captured
     err, share = attention_held(torch, q, k, v, f"(f) rank {rank}", **kw)
+    cache_kv_heads = cache.k.shape[3]
+    del cache
+    quant, quant_logits = {}, {}
+    for layout, shape_name in TP_QUANT_LAYOUTS.items():
+        quant[layout], quant_logits[layout] = rank_quant_layout(
+            torch, cfg, params, specs, policy["__mesh__"], seed, shape_name)
     torch.save({"logits": logits.float().cpu(), "steps": steps,
-                "cache_kv_heads": cache.k.shape[3], "pos": cache.pos},
+                "cache_kv_heads": cache_kv_heads, "quant": quant_logits},
                os.path.join(out, f"tp_prefill_{rank}.pt"))
     return {**held, "prefill_wall_s": wall, "decode_wall_s": decode_wall,
             **counts, "staged_bytes_with_decode": staged,
             "peak_memory_bytes": peak,
             "b4_shape": [list(q.shape), list(k.shape)],
-            "b4_held": {"max_abs_err": err, "share": share}}
+            "b4_held": {"max_abs_err": err, "share": share},
+            "quant": quant}
+
+
+def rank_quant_layout(torch, cfg, params, specs, mesh, seed, shape_name):
+    """(f)+ in a rank of (f): ``decode_step_quant`` under the dry-run's
+    policy of ``shape_name`` at a batch of one row (the decode layout: the
+    int8 cache cut on its kv heads; the long layout: on its positions)
+    plus the mesh, ``"__params__"`` and ``"__cache__"``
+    (``quant_cache_specs``), ``VARIANT_STEPS`` steps fed
+    :func:`variant_feed` from the rank's block of the random int8 history
+    (:func:`variant_history`); beside it ``decode_step`` from the same
+    history dequantized, under ``cache_specs``' layout of the same shape,
+    and each step's largest softmax difference between the two.  Returns
+    the readings and each step's logits."""
+    from repro_torch.launch.dryrun import make_policy
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel.sharding import (cache_blocks, cache_specs,
+                                               mesh_coords,
+                                               quant_cache_specs)
+
+    shape = variant_shape(shape_name, 1)
+    coords = mesh_coords(mesh)
+    qspecs, kspecs = (quant_cache_specs(cfg, shape, mesh),
+                      cache_specs(cfg, shape, mesh))
+    whole = variant_history(torch, cfg, seed, 1, quant=True)
+    exact = tfm.KVCache(tfm._dequant(whole.k_q, whole.k_s),
+                        tfm._dequant(whole.v_q, whole.v_s), whole.pos)
+
+    def mine(cache, specs):
+        return type(cache)(*(t.clone() if torch.is_tensor(t) else t
+                             for t in cache_blocks(cache, specs, mesh,
+                                                   coords)))
+
+    quant, exact = mine(whole, qspecs), mine(exact, kspecs)
+    del whole
+    free_device_memory(torch)
+    base = {**make_policy(cfg, shape, mesh), "__mesh__": mesh,
+            "__params__": specs}
+    feed = variant_feed(torch, cfg, seed, 1)
+    _dist_reset()
+    got, quant, wall = variant_steps(torch, tfm.decode_step_quant, cfg,
+                                     params, quant, feed,
+                                     {**base, "__cache__": qspecs})
+    staged = _dist_counts()["staged_bytes"]
+    ref, exact, exact_wall = variant_steps(torch, tfm.decode_step, cfg,
+                                           params, exact, feed,
+                                           {**base, "__cache__": kspecs})
+    softmax = [max_abs_diff(torch.softmax(a, -1), torch.softmax(b, -1))
+               for a, b in zip(got, ref)]
+    read = {"wall_s": wall, "exact_wall_s": exact_wall,
+            "staged_bytes": staged, "max_softmax_diff": softmax,
+            "digests": cache_digests(torch, quant),
+            "shapes": {f: list(t.shape) for f, t in quant._asdict().items()
+                       if torch.is_tensor(t)},
+            "cache_bytes": _cache_bytes(quant) - 4}
+    del quant, exact
+    free_device_memory(torch)
+    return read, got
 
 
 def rank_tp_train(torch, rank, world, out, seed):
@@ -4488,6 +4712,109 @@ def prefill_in_rank_order(torch, cfg, params, tokens, n=2):
                       for r in range(n)], dim=-1)[:, 0]
 
 
+def quant_yardstick(torch, cfg, params, seed):
+    """(f)+'s yardsticks for each layout of ``TP_QUANT_LAYOUTS``, from the
+    whole weights: one process computing ``decode_step_quant``'s steps in
+    the ranks' order (:class:`VariantsInRankOrder`: each step's logits,
+    each rank's cache blocks' digests), and the plain one process's
+    logits; the dry-run's cache bytes a device."""
+    from repro_torch.launch.dryrun import _tree_structs, tree_bytes
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel.sharding import mesh_axes, quant_cache_specs
+
+    mesh = MeshShape(("data", "model"), (1, 2))
+    ro = VariantsInRankOrder(torch, cfg, params)
+    out = {}
+    for layout, shape_name in TP_QUANT_LAYOUTS.items():
+        qspecs = quant_cache_specs(cfg, variant_shape(shape_name, 1), mesh)
+        whole = variant_history(torch, cfg, seed, 1, quant=True)
+        feed = variant_feed(torch, cfg, seed, 1)
+        blocks = variant_blocks(torch, whole, qspecs)
+        want = ro.steps(blocks, feed, True, layout == "long")
+        digests = [cache_digests(torch, c) for c in blocks]
+        del blocks
+        plain = []
+        for j in range(VARIANT_STEPS):
+            lg, whole = tfm.decode_step_quant(cfg, params, whole,
+                                              feed[:, j:j + 1])
+            plain.append(lg.float().cpu())
+        del whole
+        dry = tree_bytes(_tree_structs(tfm.init_quant_cache(
+            cfg, 1, VARIANT_MAX_LEN, device="meta"), qspecs),
+            mesh_axes(mesh)) - 4
+        out[layout] = {"want": want, "digests": digests, "plain": plain,
+                       "dryrun_cache_bytes": dry}
+        free_device_memory(torch)
+    return out
+
+
+def quant_held(torch, cfg, ranks, parts, yard):
+    """(f)+'s checks: each rank's int8 cache blocks, by digest, bit for bit
+    those of one process in the ranks' order, its bytes the dry-run's;
+    the logits within bf16 2e-2 of max(1, |ref|) of that process's, the
+    tokens equal past twice that; each step's softmax within
+    ``QUANT_SOFTMAX_TOL`` of the rank's ``decode_step`` on the
+    dequantized history.  Returns the readings."""
+    from torch_parity import BF16_TOL as tol
+
+    line = {}
+    for layout in TP_QUANT_LAYOUTS:
+        y = yard[layout]
+        errs, shares, held = [], [], 0
+        for r, (rk, part) in enumerate(zip(ranks, parts)):
+            read = rk["quant"][layout]
+            check(read["digests"] == y["digests"][r],
+                  f"(f)+ {layout} rank {r}: its int8 cache blocks differ "
+                  f"from one process's in the ranks' order")
+            check(read["cache_bytes"] == y["dryrun_cache_bytes"],
+                  f"(f)+ {layout} rank {r}: {read['cache_bytes']} cache "
+                  f"bytes, the dry-run {y['dryrun_cache_bytes']}")
+            check(max(read["max_softmax_diff"]) < QUANT_SOFTMAX_TOL,
+                  f"(f)+ {layout} rank {r}: the int8 softmax differs from "
+                  f"decode_step's by {read['max_softmax_diff']}")
+            e, s = [], []
+            for j, (g, w, p) in enumerate(zip(part["quant"][layout],
+                                              y["want"], y["plain"])):
+                check(bool(torch.isfinite(g).all())
+                      and g.shape == (1, cfg.vocab),
+                      f"(f)+ {layout} rank {r} step {j}: logits not finite")
+                bound = tol * max(1.0, float(w.abs().max()))
+                e.append(max_abs_diff(g, w))
+                check(e[-1] <= bound, f"(f)+ {layout} rank {r} step {j}: "
+                      f"logits off the ranks' order by {e[-1]} (bound "
+                      f"{bound})")
+                top2 = w.topk(2, dim=-1).values
+                clear = (top2[:, 0] - top2[:, 1]) > 2 * bound
+                check(bool((g.argmax(-1)[clear] == w.argmax(-1)[clear])
+                           .all()), f"(f)+ {layout} rank {r} step {j}: a "
+                      f"token differs past the margin")
+                held += int(clear.sum())
+                s.append(max_abs_diff(g, p) / max(1.0, float(p.abs().max())))
+            errs.append(e)
+            shares.append(s)
+        line[layout] = {
+            "shape": TP_QUANT_LAYOUTS[layout], "batch": 1,
+            "history": VARIANT_HISTORY, "max_len": VARIANT_MAX_LEN,
+            "steps": VARIANT_STEPS, "cache_shapes": ranks[0]["quant"][
+                layout]["shapes"],
+            "cache_bytes": [r["quant"][layout]["cache_bytes"]
+                            for r in ranks],
+            "dryrun_cache_bytes": y["dryrun_cache_bytes"],
+            "cache_bit_for_bit_rank_order": True,
+            "logits_max_abs_err_rank_order_by_step": errs,
+            "plain_one_process_err_share_by_step": shares,
+            "tokens_held": held,
+            "max_softmax_diff_vs_decode_step": [
+                r["quant"][layout]["max_softmax_diff"] for r in ranks],
+            "steps_wall_s": [r["quant"][layout]["wall_s"] for r in ranks],
+            "decode_step_wall_s": [r["quant"][layout]["exact_wall_s"]
+                                   for r in ranks],
+            "staged_bytes": [r["quant"][layout]["staged_bytes"]
+                             for r in ranks]}
+    return line
+
+
 def phase_tensor_parallel(torch, seed):
     """(f) and (g): tensor parallelism in worlds of 2 ranks on the one
     card, each rank holding the blocks of the weights that
@@ -4547,12 +4874,16 @@ def phase_tensor_parallel(torch, seed):
     feed = torch.cat(feed[:TP_DECODE_STEPS], dim=1).cpu()
     torch.save({"feed": feed}, os.path.join(out, "tp_one_process.pt"))
     del cache, logits
+    # (f), then (g), in one world; (f)'s yardsticks beside it
+    world = run_ranks_async("tp_prefill+tp_train", 2, out, seed)
     with torch.no_grad():
         in_order = prefill_in_rank_order(torch, cfg, params, tokens)
+        quant_want = quant_yardstick(torch, cfg, params, seed)
     in_order = in_order.float().cpu()
     del params
     free_device_memory(torch)
-    ranks, wall = run_ranks("tp_prefill", 2, out, seed)
+    worlds, wall = world.result()
+    ranks = worlds["tp_prefill"]
     parts = [torch.load(os.path.join(out, f"tp_prefill_{r}.pt"))
              for r in range(2)]
     errs, held_tokens, order_errs = [], 0, []
@@ -4614,6 +4945,8 @@ def phase_tensor_parallel(torch, seed):
         "plain_one_process_err_share_by_step": errs,
         "tokens_held": held_tokens,
         "one_process_prefill_wall_s": one_wall, "world_wall_s": wall,
+        "world": "(f), then (g), in one world",
+        "entry_wall_s": [r["entry_wall_s"] for r in ranks],
         "prefill_wall_s": [r["prefill_wall_s"] for r in ranks],
         "decode_wall_s": [r["decode_wall_s"] for r in ranks],
         "b4_launches": [r["flash_attention"] for r in ranks],
@@ -4623,6 +4956,7 @@ def phase_tensor_parallel(torch, seed):
                                      for r in ranks],
         "peak_memory_bytes": [r["peak_memory_bytes"] for r in ranks]}
     b4_shape = ranks[0]["b4_shape"]
+    f_line["int8"] = quant_held(torch, cfg, ranks, parts, quant_want)
     say("tensor_parallel_prefill", backend="gloo",
         device="cuda:0 in every rank", tolerance="bf16 2e-2 of max(1, "
         "|ref|)", specs_s=specs_s, **f_line,
@@ -4631,8 +4965,8 @@ def phase_tensor_parallel(torch, seed):
     free_device_memory(torch)
     t_train = time.perf_counter()
 
-    # (g) two train steps of olmoe at depth 2, against one process
-    ranks, wall = run_ranks("tp_train", 2, out, seed)
+    # (g) two train steps of olmoe at depth 2, against one process's
+    ranks = worlds["tp_train"]
     cfg2 = configs["olmoe"]
     model2 = get_model(cfg2)
     params = _moe_params(torch, model2, seed)
@@ -4680,7 +5014,8 @@ def phase_tensor_parallel(torch, seed):
         "losses": [r["losses"] for r in ranks], "one_process_losses": want,
         "readings": [r["readings"] for r in ranks],
         "worst_leaf": {r: [n, v] for r, (n, v) in worst.items()},
-        "whole_leaves_equal": True, "world_wall_s": wall,
+        "whole_leaves_equal": True,
+        "entry_wall_s": [r["entry_wall_s"] for r in ranks],
         "step_walls_s": [r["step_walls_s"] for r in ranks],
         "b5_launches": [r["moe_dispatch"] for r in ranks],
         "b4_launches": [r["flash_attention"] for r in ranks],
@@ -4712,6 +5047,7 @@ def phase_tensor_parallel(torch, seed):
 TP_SSM_PREFILL = (1, 2048)       # (h): zamba2-2.7b's prompt, batch x tokens
 TP_SSM_TRAIN_BATCH = (2, 2048)   # (i): mamba2-370m's batch
 TP_SSM_TRAIN_STEPS = 2
+TP_SSM_TRAIN_LAYERS = 24         # (i): its two steps, of 48 layers
 TP_SSM_GRAD_LAYERS = 4           # (i): the depth at which (b)'s rule holds
 TP_ENCDEC_FRAMES = 1500          # (j): whisper-base's frames ...
 TP_ENCDEC_PROMPT = (1, 64)       # ... and its prompt, batch x tokens
@@ -4719,11 +5055,14 @@ TP_ENCDEC_PROMPT = (1, 64)       # ... and its prompt, batch x tokens
 
 def _tp_ssm_configs():
     """(h)'s, (i)'s and (j)'s configs, by the names of their spec files:
-    each at full width and depth, and (i)'s at ``TP_SSM_GRAD_LAYERS``."""
+    each at full width and depth but (i)'s, at ``TP_SSM_TRAIN_LAYERS``
+    and ``TP_SSM_GRAD_LAYERS``."""
     from repro_torch.configs import get_arch
 
     mamba2 = get_arch("mamba2_370m")
-    return {"zamba2": get_arch("zamba2_2_7b"), "mamba2": mamba2,
+    return {"zamba2": get_arch("zamba2_2_7b"),
+            "mamba2": dataclasses.replace(mamba2,
+                                          n_layers=TP_SSM_TRAIN_LAYERS),
             "mamba2_grad": dataclasses.replace(
                 mamba2, n_layers=TP_SSM_GRAD_LAYERS),
             "whisper": get_arch("whisper_base")}
@@ -4761,8 +5100,7 @@ def _rank_blocks(torch, model, cfg, specs, mesh, seed):
     base = torch.cuda.memory_allocated()
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = model.init(gen, device="cuda", keep=block_init(
-        specs, mesh, mesh_coords(mesh), head_dim=head_widths(cfg),
-        family=cfg.family))
+        specs, mesh, mesh_coords(mesh), head_dim=head_widths(cfg)))
     free_device_memory(torch)
     leaves = tree_leaves(params)
     return params, {
@@ -4779,15 +5117,16 @@ def _cache_bytes(cache):
                    if torch_mod.is_tensor(t))
 
 
-def rank_tp_hybrid(torch, rank, world, out, seed):
-    """(h) One rank of zamba2-2.7b at full width and depth, its weights
-    cut by ``param_specs`` on a (1, 2) mesh: the prefill of
-    ``TP_SSM_PREFILL`` under the dry-run's prefill policy plus the mesh
-    (the residual cut on its channels; counted and timed), then
+def rank_tp_hybrid(torch, rank, out, seed, mesh):
+    """(h) One rank of zamba2-2.7b at full width and depth on ``mesh``, a
+    (1, 2) mesh of ranks 0 and 1, its weights cut by ``param_specs``: the
+    prefill of ``TP_SSM_PREFILL`` under the dry-run's prefill policy plus
+    the mesh (the residual cut on its channels; counted and timed), then
     ``TP_DECODE_STEPS`` serve steps on this rank's share of the cache
     under the decode policy, fed the tokens the one-process run chose.
     B6 and B4 are held to their plain versions on the prefill's first
-    calls, outside the counted run."""
+    calls, outside the counted run.  Writes its logits; returns its
+    readings."""
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import get_model
@@ -4796,9 +5135,8 @@ def rank_tp_hybrid(torch, rank, world, out, seed):
     cfg = _tp_ssm_configs()["zamba2"]
     model = get_model(cfg)
     specs = _tp_specs(out, "zamba2")
-    policy = _mesh_policy(cfg, "prefill_32k", specs)
-    params, held = _rank_blocks(torch, model, cfg, specs,
-                                policy["__mesh__"], seed)
+    policy = _mesh_policy(cfg, "prefill_32k", specs, mesh)
+    params, held = _rank_blocks(torch, model, cfg, specs, mesh, seed)
     tokens = _tp_ssm_inputs(torch, cfg, seed)["tokens"]
     feed = torch.load(os.path.join(out, "tp_hybrid_one.pt"))["feed"].cuda()
     prefill = make_prefill_step(model, tokens.shape[1] + TP_DECODE_STEPS)
@@ -4819,7 +5157,7 @@ def rank_tp_hybrid(torch, rank, world, out, seed):
     serve = make_serve_step(model)
     steps = []
     t0 = time.perf_counter()
-    with sharding_policy(_mesh_policy(cfg, "decode_32k", specs)):
+    with sharding_policy(_mesh_policy(cfg, "decode_32k", specs, mesh)):
         for i in range(TP_DECODE_STEPS):
             tok, lg, cache = serve(params, cache, feed[:, i:i + 1])
             steps.append((tok.cpu(), lg.float().cpu()))
@@ -5283,159 +5621,77 @@ def _held_steps(torch, label, want, part, vocab, rows, tol, plain=None):
     return errs, shares, held
 
 
-def phase_tensor_parallel_ssm(torch, seed, ssd_args, ssd_held_by):
-    """(h), (i) and (j): tensor parallelism of the SSM, hybrid and
-    encoder-decoder families in worlds of 2 ranks on the one card, each
-    rank holding the blocks that ``param_specs`` gives it on a (1, 2)
-    mesh, held to one process of the whole weights.  (h) zamba2-2.7b at
-    full width and depth: each rank's parameter and cache bytes equal to
-    the dry-run's to the byte; the prefill's last-position logits within
-    bf16 2e-2 of max(1, |ref|) of the one-process prefill summed in the
-    ranks' order (``hybrid_in_rank_order``), and so are
-    ``TP_DECODE_STEPS`` serve steps fed the plain one process's greedy
-    tokens, their tokens equal past the margin; the plain one process's
-    distance read beside them (a 54-layer random hybrid spreads several
-    per cent under another reduction order, ROADMAP F23); B6 on 40 heads
-    and B4 on 16 a rank.  (i) mamba2-370m at full width: step 1's
-    gradient, every cut leaf gathered, held leaf by leaf by (b)'s rule
-    against one process at ``TP_SSM_GRAD_LAYERS`` layers, the depth at
-    which (b) holds its own; at full depth read against one process in
-    its own order and in the ranks' (``ssm_grads_in_rank_order``), and
-    those two against each other, not held; then at full depth two train
-    steps' losses within the bound of one process's, the whole leaves
-    equal in both ranks, B6 and its backward on 16 heads a rank.  (j) whisper-base at full width and
+def ssm_dryrun_specs(out, configs, names, data=1):
+    """The spec trees of ``names`` of ``configs`` on a (``data``, 2) mesh
+    under the dry-run's FSDP rule, written to ``out`` for the ranks;
+    returns their bytes a device."""
+    from repro_torch.launch.dryrun import default_fsdp, param_bytes_per_device
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models import get_model, param_shapes
+    from repro_torch.parallel.sharding import param_specs
+
+    mesh = MeshShape(("data", "model"), (data, 2))
+    out_bytes = {}
+    for name in names:
+        cfg = configs[name]
+        fsdp = default_fsdp(cfg, mesh)
+        specs = param_specs(param_shapes(get_model(cfg)), mesh, fsdp=fsdp)
+        with open(os.path.join(out, f"tp_specs_{name}.json"), "w") as f:
+            json.dump(specs, f)
+        out_bytes[name] = param_bytes_per_device(cfg, mesh, fsdp=fsdp)
+    return out_bytes
+
+
+def phase_tensor_parallel_ssm(torch, seed):
+    """(i) and (j): tensor parallelism of the SSM and encoder-decoder
+    families in worlds of 2 ranks on the one card, each rank holding the
+    blocks that ``param_specs`` gives it on a (1, 2) mesh, held to one
+    process of the whole weights ((h), the hybrid's, runs in (o)'s world:
+    :func:`phase_tensor_parallel_hybrid_zero`).  (i) mamba2-370m at full
+    width: step 1's gradient, every cut leaf gathered, held leaf by leaf
+    by (b)'s rule against one process at ``TP_SSM_GRAD_LAYERS`` layers,
+    the depth at which (b) holds its own; at ``TP_SSM_TRAIN_LAYERS`` read
+    against one process in its own order and in the ranks'
+    (``ssm_grads_in_rank_order``), and those two against each other, not
+    held; then at that depth two train steps' losses within the bound of
+    one process's, the whole leaves equal in both ranks, B6 and its
+    backward on 16 heads a rank.  (j) whisper-base at full width and
     depth: 1500 frames and a 64-token prompt, the prefill and the serve
     steps against one process, one train step's loss, ``embed`` whole in
-    both ranks, B4 on 4 heads a rank.  Adds B6's rank-shape chunk of (h)
-    to ``ssd_args`` / ``ssd_held_by``; returns the ranks' launches and
-    B4's rows at (h)'s and (j)'s rank shapes."""
+    both ranks, B4 on 4 heads a rank.  Returns the ranks' launches and
+    B4's row at (j)'s rank shape."""
     from repro_torch.data.pipeline import DataConfig, get_batch
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.launch.dryrun import (cache_structs, default_fsdp,
-                                           param_bytes_per_device,
-                                           tree_bytes)
-    from repro_torch.launch.mesh import MeshShape
     from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import get_model, param_shapes
+    from repro_torch.models import get_model
     from repro_torch.optim import adamw
-    from repro_torch.parallel.sharding import mesh_axes, param_specs
     from torch_parity import BF16_TOL as tol
 
     free_device_memory(torch)
     out = tempfile.mkdtemp(prefix="chip_smoke_tp_ssm_")
     atexit.register(shutil.rmtree, out, ignore_errors=True)
     launches = {"ssd_chunk": 0, "flash_attention": 0}
-    t_phase = time.perf_counter()
-    mesh = MeshShape(("data", "model"), (1, 2))
     configs = _tp_ssm_configs()
-    dryrun_bytes, t0 = {}, time.perf_counter()
-    for name, cfg in configs.items():
-        fsdp = default_fsdp(cfg, mesh)
-        specs = param_specs(param_shapes(get_model(cfg)), mesh, fsdp=fsdp)
-        with open(os.path.join(out, f"tp_specs_{name}.json"), "w") as f:
-            json.dump(specs, f)
-        dryrun_bytes[name] = param_bytes_per_device(cfg, mesh, fsdp=fsdp)
-    specs_s = time.perf_counter() - t0
+    dryrun_bytes = ssm_dryrun_specs(out, configs, ("mamba2", "mamba2_grad",
+                                                   "whisper"))
 
-    # (h) one process first, whole weights: its prefill and greedy decode,
-    # and the prefill summed in the ranks' order
-    cfg = configs["zamba2"]
-    model = get_model(cfg)
+    # (j)'s one process first (its ranks are fed its greedy tokens), then
+    # (i) and (j) in one world
+    cfg_j = configs["whisper"]
+    model = get_model(cfg_j)
     params = _moe_params(torch, model, seed)
-    batch = _tp_ssm_inputs(torch, cfg, seed)
-    t0 = time.perf_counter()
-    want, feed = _greedy_one_process(torch, model, params, batch)
-    one_wall = time.perf_counter() - t0
-    torch.save({"feed": feed}, os.path.join(out, "tp_hybrid_one.pt"))
-    with torch.no_grad():
-        in_order = hybrid_in_rank_order(torch, cfg, params, batch["tokens"],
-                                        feed.cuda())
+    batch = _tp_ssm_inputs(torch, cfg_j, seed)
+    want_j, feed = _greedy_one_process(torch, model, params, batch)
+    torch.save({"feed": feed}, os.path.join(out, "tp_encdec_one.pt"))
+    step = make_train_step(model, adamw.AdamWConfig(
+        lr_peak=TRAIN_LR, total_steps=1, warmup_steps=1))
+    want_loss = float(step(params, adamw.init(params), batch)[0])
     del params
     free_device_memory(torch)
-    ranks, wall = run_ranks("tp_hybrid", 2, out, seed)
-    parts = [torch.load(os.path.join(out, f"tp_hybrid_{r}.pt"))
-             for r in range(2)]
-    S = TP_SSM_PREFILL[1]
-    structs = cache_structs(cfg, ShapeConfig(
-        "tp_hybrid", S + TP_DECODE_STEPS, TP_SSM_PREFILL[0], "decode"), mesh)
-    want_cache = tree_bytes(structs, mesh_axes(mesh))
-    order_errs, shares, held_tokens = [], [], 0
-    for r, (rk, part) in enumerate(zip(ranks, parts)):
-        check(rk["param_bytes"] == dryrun_bytes["zamba2"]
-              and rk["storage_bytes"] == rk["param_bytes"],
-              f"(h) rank {r}: {rk['param_bytes']} parameter bytes "
-              f"({rk['storage_bytes']} stored), the dry-run "
-              f"{dryrun_bytes['zamba2']}")
-        check(rk["cache_bytes"] == want_cache, f"(h) rank {r} holds "
-              f"{rk['cache_bytes']} cache bytes, the dry-run {want_cache}")
-        check((rk["ssm_heads"], rk["heads"]) == (
-            cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim // 2,
-            cfg.n_heads // 2), f"(h) rank {r}: heads {rk['ssm_heads']} / "
-              f"{rk['heads']}")
-        e, sh, h = _held_steps(torch, f"(h) rank {r} against one process "
-                               f"in the ranks' order", in_order, part,
-                               cfg.vocab, TP_SSM_PREFILL[0], tol, want)
-        order_errs.append(e)
-        shares.append(sh)
-        held_tokens += h
-    check(torch.equal(parts[0]["logits"], parts[1]["logits"]),
-          "(h) the ranks' prefill logits differ")
-    n_b6 = ssm_layers(cfg) * math.ceil(S / min(cfg.ssm_chunk, S))
-    check(all(r["ssd_chunk"] == n_b6
-              and r["flash_attention"] == attention_calls(cfg)
-              for r in ranks), f"(h) B6/B4 launches by rank: "
-          f"{[(r['ssd_chunk'], r['flash_attention']) for r in ranks]}")
-    for k in launches:
-        launches[k] += sum(r[k] for r in ranks)
-    label_h = "zamba2-2.7b tensor-parallel rank (h)"
-    ssd_args[label_h] = [t.cuda() for t in parts[0]["chunk"]]
-    ssd_held_by[label_h] = {S: max(r["b6_held"]["share_of_max"]
-                                   for r in ranks)}
-    say("tensor_parallel_ssm", case="(h)", arch=cfg.name,
-        layers=cfg.n_layers, tokens=list(TP_SSM_PREFILL),
-        decode_steps=TP_DECODE_STEPS, backend="gloo",
-        device="cuda:0 in every rank",
-        policy="make_policy prefill / decode + __mesh__ (1, 2): the "
-               "residual cut on its channels",
-        tolerance="bf16 2e-2 of max(1, |ref|)", specs_s=specs_s,
-        ssm_heads_per_rank=[r["ssm_heads"] for r in ranks],
-        heads_per_rank=[r["heads"] for r in ranks],
-        param_bytes=[r["param_bytes"] for r in ranks],
-        dryrun_bytes_per_device_params=dryrun_bytes["zamba2"],
-        storage_bytes=[r["storage_bytes"] for r in ranks],
-        allocated_bytes=[r["allocated_bytes"] for r in ranks],
-        cache_bytes=[r["cache_bytes"] for r in ranks],
-        dryrun_cache_bytes_per_device=want_cache,
-        cache_shapes=ranks[0]["cache_shapes"],
-        held="the prefill's and every step's logits and tokens against one "
-             "process in the ranks' order (bf16 bound, tokens past twice "
-             "it); the plain one process's distance read",
-        logits_max_abs_err_rank_order_by_step=order_errs,
-        logits_bit_for_bit_rank_order=[all(e == 0.0 for e in errs)
-                                       for errs in order_errs],
-        plain_one_process_err_share_by_step=shares,
-        tokens_held=held_tokens, one_process_wall_s=one_wall,
-        world_wall_s=wall,
-        prefill_wall_s=[r["prefill_wall_s"] for r in ranks],
-        decode_wall_s=[r["decode_wall_s"] for r in ranks],
-        b6_launches=[r["ssd_chunk"] for r in ranks],
-        b4_launches=[r["flash_attention"] for r in ranks],
-        b6_shape=ranks[0]["b6_shape"],
-        b6_held=[r["b6_held"] for r in ranks],
-        b4_shape=ranks[0]["b4_shape"],
-        b4_held=[r["b4_held"] for r in ranks],
-        staged_bytes_prefill=[r["staged_bytes"] for r in ranks],
-        staged_bytes_with_decode=[r["staged_bytes_with_decode"]
-                                  for r in ranks],
-        peak_memory_bytes=[r["peak_memory_bytes"] for r in ranks],
-        seconds=time.perf_counter() - t_phase)
-    b4_h = ranks[0]["b4_shape"]
-    del parts, want
-    free_device_memory(torch)
-
-    # (i) two train steps of mamba2-370m, against one process
     t_case = time.perf_counter()
-    ranks, wall = run_ranks("tp_ssm_train", 2, out, seed)
+    worlds, wall = run_ranks("tp_ssm_train+tp_encdec", 2, out, seed)
+
+    # (i) two train steps of mamba2-370m, against one process's
+    ranks = worlds["tp_ssm_train"]
     cfg = configs["mamba2"]
     model = get_model(cfg)
     params = _moe_params(torch, model, seed)
@@ -5504,6 +5760,8 @@ def phase_tensor_parallel_ssm(torch, seed, ssd_args, ssd_held_by):
         dryrun_bytes_per_device_params=dryrun_bytes["mamba2"],
         losses=[r["losses"] for r in ranks], one_process_losses=want,
         whole_leaves_equal=True, world_wall_s=wall,
+        world="(i), then (j), in one world",
+        entry_wall_s=[r["entry_wall_s"] for r in ranks],
         step_walls_s=[r["step_walls_s"] for r in ranks],
         b6_launches=[r["ssd_chunk"] for r in ranks],
         b6_shape=ranks[0]["b6_shape"],
@@ -5513,20 +5771,9 @@ def phase_tensor_parallel_ssm(torch, seed, ssd_args, ssd_held_by):
         seconds=time.perf_counter() - t_case)
     free_device_memory(torch)
 
-    # (j) whisper-base: one process first, then the world
+    # (j) whisper-base, against its one process
     t_case = time.perf_counter()
-    cfg = configs["whisper"]
-    model = get_model(cfg)
-    params = _moe_params(torch, model, seed)
-    batch = _tp_ssm_inputs(torch, cfg, seed)
-    want, feed = _greedy_one_process(torch, model, params, batch)
-    torch.save({"feed": feed}, os.path.join(out, "tp_encdec_one.pt"))
-    step = make_train_step(model, adamw.AdamWConfig(
-        lr_peak=TRAIN_LR, total_steps=1, warmup_steps=1))
-    want_loss = float(step(params, adamw.init(params), batch)[0])
-    del params
-    free_device_memory(torch)
-    ranks, wall = run_ranks("tp_encdec", 2, out, seed)
+    cfg, want, ranks = cfg_j, want_j, worlds["tp_encdec"]
     parts = [torch.load(os.path.join(out, f"tp_encdec_{r}.pt"))
              for r in range(2)]
     shares, held_tokens = [], 0
@@ -5576,7 +5823,8 @@ def phase_tensor_parallel_ssm(torch, seed, ssd_args, ssd_held_by):
         plain_one_process_err_share_by_step=shares,
         tokens_held=held_tokens,
         step_loss=[r["step_loss"] for r in ranks],
-        one_process_step_loss=want_loss, world_wall_s=wall,
+        one_process_step_loss=want_loss,
+        entry_wall_s=[r["entry_wall_s"] for r in ranks],
         prefill_wall_s=[r["prefill_wall_s"] for r in ranks],
         decode_wall_s=[r["decode_wall_s"] for r in ranks],
         step_wall_s=[r["step_wall_s"] for r in ranks],
@@ -5592,14 +5840,12 @@ def phase_tensor_parallel_ssm(torch, seed, ssd_args, ssd_held_by):
     free_device_memory(torch)
     shutil.rmtree(out, ignore_errors=True)
 
-    # B4 at (h)'s and (j)'s rank shapes: H/2 query and Hkv/2 kv heads
+    # B4 at (j)'s rank shape: H/2 query and Hkv/2 kv heads
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(seed)
     for label, ((B, Sq, H, D), (_, Sk, Hkv, _)), causal, calls in (
-            ("zamba2-2.7b tensor-parallel rank (h)", b4_h, True,
-             2 * attention_calls(configs["zamba2"])),
             ("whisper-base encoder tensor-parallel rank (j)", b4_j, False,
-             2 * 3 * configs["whisper"].n_encoder_layers)):
+             2 * 3 * configs["whisper"].n_encoder_layers),):
         q, k, v = attention_inputs(torch, gen, torch.bfloat16, D, B, Hkv,
                                    H // Hkv, Sq, Sk)
         held = attention_held(torch, q, k, v, label, causal=causal)
@@ -6037,6 +6283,544 @@ def phase_tensor_parallel_misaligned(torch, seed):
 
 
 # ---------------------------------------------------------------------------
+# The decode variants over cut weights: (f)+ qwen2-7b's int8 cache and (n)
+# gemma3-12b's rings, each under the dry-run's decode and long layouts
+# ---------------------------------------------------------------------------
+
+VARIANT_HISTORY = 1020      # (f)+, (n): random history positions 0-1019
+VARIANT_MAX_LEN = 2048      # their caches' positions
+VARIANT_STEPS = 8           # steps at 1020-1027: across 1024
+# (n): each layout's batch and (ring, global) bytes a rank, the dry-run's
+# ring_cache_specs on (1, 2)
+TP_RING_LAYOUTS = {"decode": ("decode_32k", 2, 629_145_600, 125_829_120),
+                   "long": ("long_500k", 1, 157_286_400, 62_914_560)}
+# (f)+: each layout's shape at a batch of one row
+TP_QUANT_LAYOUTS = {"decode": "decode_32k", "long": "long_500k"}
+
+
+def variant_shape(shape_name, batch):
+    from repro_torch.configs.base import SHAPES
+
+    return dataclasses.replace(SHAPES[shape_name], global_batch=batch)
+
+
+def variant_history(torch, cfg, seed, batch, quant):
+    """A whole cache on the card at ``VARIANT_HISTORY``, ``VARIANT_MAX_LEN``
+    long, from random bf16 K/V rows drawn layer by layer from ``seed``:
+    the int8 cache (``_quant_rows`` of the rows) where ``quant``, else the
+    grouped cache (each ring's slots ``pos mod W`` of the positions it
+    keeps, each global buffer every position).  The same in every
+    process; built outside any policy (a whole cache)."""
+    from repro_torch.models import transformer as tfm
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    H = VARIANT_HISTORY
+    shape = (batch, H, cfg.n_kv_heads, cfg.hd)
+
+    def rows():
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    if quant:
+        cache = tfm.init_quant_cache(cfg, batch, VARIANT_MAX_LEN,
+                                     device="cuda")
+        for i in range(cfg.n_layers):
+            for q, s in ((cache.k_q, cache.k_s), (cache.v_q, cache.v_s)):
+                q[i, :, :H], s[i, :, :H] = tfm._quant_rows(rows())
+        return cache._replace(pos=H)
+    G, R = tfm.grouped_layout(cfg)
+    W = cfg.sliding_window
+    cache = tfm.init_grouped_cache(cfg, batch, VARIANT_MAX_LEN,
+                                   device="cuda")
+    keep = torch.arange(max(0, H - W), H, device="cuda")
+    for i in range(cfg.n_layers):
+        g, r = divmod(i, R + 1)
+        for local, glob in ((cache.k_local, cache.k_global),
+                            (cache.v_local, cache.v_global)):
+            kv = rows()
+            if r < R:
+                local[g, r][:, torch.remainder(keep, W)] = kv[:, keep]
+            else:
+                glob[g][:, :H] = kv
+    return cache._replace(pos=H)
+
+
+def variant_feed(torch, cfg, seed, batch):
+    """The tokens fed to every step, in the ranks and the yardstick."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    return torch.randint(2, cfg.vocab - 1, (batch, VARIANT_STEPS),
+                         generator=gen, device="cuda",
+                         dtype=torch.int64).to(torch.int32)
+
+
+def cache_digests(torch, cache):
+    return {f: _digest(torch, [t]) for f, t in cache._asdict().items()
+            if torch.is_tensor(t)}
+
+
+class VariantsInRankOrder(RankOrder):
+    """One process computing a decode variant's steps as the ``n`` ranks
+    of (f)+ and (n) compute them on a (1, n) mesh, each holding its
+    blocks of the weights (``param_specs``: query and kv heads, columns
+    of F, rows of the vocabulary; each block a contiguous copy) and of the
+    cache (the variant's specs: a ring whole in every rank or cut on its
+    slots, a buffer cut on its positions or on its kv heads): every
+    product in a rank's shape, q, k and v gathered on their columns in
+    rank order, each rank's partial softmax merged as the cut's max and
+    sum merge them, every row-parallel end summed over the ranks in
+    float32 in rank order.  The same functions as
+    ``transformer.decode_step_quant`` and ``grouped_decode_step``,
+    rounded as the ranks round them."""
+
+    def __init__(self, torch, cfg, params, n=2):
+        super().__init__(torch, cfg, n)
+        from repro_torch.models import transformer as tfm
+
+        self.tfm, self.params = tfm, params
+        self.windows = tfm.layer_windows(cfg)
+
+    def rank_lp(self, lp, r):
+        out = dict(lp)
+        for k, kind in (("wq", "q"), ("bq", "q"), ("wk", "kv"),
+                        ("bk", "kv"), ("wv", "kv"), ("bv", "kv"),
+                        ("w_gate", "ff"), ("w_up", "ff")):
+            if k in lp:
+                out[k] = self.cols(lp[k], r, kind)
+        out["wo"] = self.rows(lp["wo"], r, "q")
+        out["w_down"] = self.rows(lp["w_down"], r, "ff")
+        return out
+
+    def whole(self, lrs, h, name, pos):
+        """``whole_heads``: each rank's columns (plus its bias), joined,
+        RoPE at ``pos`` where ``pos`` is given."""
+        torch, cfg, tfm = self.torch, self.cfg, self.tfm
+        parts = []
+        for lr in lrs:
+            t = torch.matmul(h, lr[name])
+            if "b" + name[1:] in lr:
+                t = t + lr["b" + name[1:]]
+            parts.append(t)
+        B, S = h.shape[:2]
+        heads = cfg.n_heads if name == "wq" else cfg.n_kv_heads
+        t = torch.cat(parts, dim=-1).reshape(B, S, heads, cfg.hd)
+        if pos is None:
+            return t
+        return tfm.apply_rope(t, tfm._positions(S, pos, h.device),
+                              cfg.rope_theta)
+
+    def merged(self, parts):
+        """The ranks' partials merged as ``layers.merge_partials`` merges
+        them under a cut: the elementwise max, the sums in rank order."""
+        torch = self.torch
+        M = parts[0][0]
+        for p in parts[1:]:
+            M = torch.maximum(M, p[0])
+        total = None
+        for m, l, o in parts:
+            c = torch.exp(m - M)
+            lo = torch.cat([(l * c)[..., None], o * c[..., None]], dim=-1)
+            total = lo if total is None else total + lo
+        return total[..., 1:] / torch.clamp(total[..., :1], min=1e-30)
+
+    def out_summed(self, o, lrs, x):
+        """Each rank's channels of ``o`` (float32, every head) to bf16,
+        times its ``wo`` rows in float32, summed in rank order."""
+        torch, cfg = self.torch, self.cfg
+        B, S = o.shape[:2]
+        o = o.to(torch.bfloat16).reshape(B, S, -1)
+        b = cfg.n_heads * cfg.hd // self.n
+        return self.summed([torch.matmul(o[..., r * b:(r + 1) * b].float(),
+                                         lr["wo"].float())
+                            for r, lr in enumerate(lrs)]).to(x.dtype)
+
+    def ffn(self, lp, lrs, x):
+        from repro_torch.models.layers import rms_norm, swiglu
+
+        h = rms_norm(x, lp["ln2"], self.cfg.norm_eps)
+        return x + self.summed([swiglu(h, lr["w_gate"], lr["w_up"],
+                                       lr["w_down"]) for lr in lrs])
+
+    def logits(self, x):
+        from repro_torch.models.layers import rms_norm
+
+        torch, cfg, n = self.torch, self.cfg, self.n
+        h = rms_norm(x, self.params["ln_f"], cfg.norm_eps)
+        w = self.params.get("lm_head", self.params["embed"])
+        b = cfg.vocab // n
+        return torch.cat([torch.matmul(h, w[r * b:(r + 1) * b].contiguous()
+                                       .to(h.dtype).T)
+                          for r in range(n)], dim=-1)[:, 0].float().cpu()
+
+    def quant_layer(self, i, x, caches, pos, long):
+        """Layer ``i`` of ``decode_step_quant`` against each rank's block
+        of the int8 cache (``caches``: by rank), cut on its positions
+        (``long``) or on its kv heads."""
+        from repro_torch.models.layers import attention_partials, rms_norm
+
+        torch, cfg, tfm = self.torch, self.cfg, self.tfm
+        lp = tfm._layer_params(self.params, i)
+        lrs = [self.rank_lp(lp, r) for r in range(self.n)]
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        window = int(self.windows[i])
+        if long:
+            k = self.whole(lrs, h, "wk", pos)
+            v = self.whole(lrs, h, "wv", None)
+            rows = caches[0].k_q.shape[2]
+            r = pos // rows
+            c = caches[r]
+            for (q, s), t in (((c.k_q, c.k_s), k), ((c.v_q, c.v_s), v)):
+                q[i][:, pos - r * rows], s[i][:, pos - r * rows] = [
+                    a[:, 0] for a in tfm._quant_rows(t)]
+            q = self.whole(lrs, h, "wq", pos)
+            parts = [attention_partials(
+                q, tfm._dequant(c.k_q[i], c.k_s[i]),
+                tfm._dequant(c.v_q[i], c.v_s[i]), window=window,
+                q_offset=pos, k_offset=r * rows, kv_len=pos + 1)
+                for r, c in enumerate(caches)]
+            x = x + self.out_summed(self.merged(parts), lrs, x)
+        else:
+            outs = []
+            for lr, c in zip(lrs, caches):
+                k, v = tfm._project_kv(cfg, lr, h, pos)
+                for (q, s), t in (((c.k_q, c.k_s), k), ((c.v_q, c.v_s), v)):
+                    q[i][:, pos], s[i][:, pos] = [
+                        a[:, 0] for a in tfm._quant_rows(t)]
+                outs.append(tfm._attn(
+                    cfg, lr, h, k_full=tfm._dequant(c.k_q[i], c.k_s[i]),
+                    v_full=tfm._dequant(c.v_q[i], c.v_s[i]), window=window,
+                    q_offset=pos, kv_len=pos + 1))
+            x = x + self.summed(outs)
+        return self.ffn(lp, lrs, x)
+
+    def ring_layer(self, i, x, rings, pos, long):
+        """Local layer ``i`` against each rank's ring (by rank): whole in
+        every rank, attended on the heads its ``wo`` rows touch, or cut
+        on its slots (``long``), every head, the partials merged."""
+        from repro_torch.models.layers import (attention_partials,
+                                               merge_partials, rms_norm)
+
+        torch, cfg, tfm = self.torch, self.cfg, self.tfm
+        W, H, Dh = cfg.sliding_window, cfg.n_heads, cfg.hd
+        lp = tfm._layer_params(self.params, i)
+        lrs = [self.rank_lp(lp, r) for r in range(self.n)]
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        q = self.whole(lrs, h, "wq", pos)
+        k = self.whole(lrs, h, "wk", pos)
+        v = self.whole(lrs, h, "wv", None)
+        slot = tfm.ring_slot(pos, W)
+        rows = rings[0][0].shape[1]
+        for r, (kc, vc) in enumerate(rings):
+            if not long or r == slot // rows:
+                at = slot - (r * rows if long else 0)
+                kc[:, at], vc[:, at] = k[:, 0], v[:, 0]
+        if long:
+            parts = [attention_partials(
+                q, kc, vc, window=W, q_offset=pos,
+                k_pos=tfm.ring_positions(pos, slot, W, rows, r * rows,
+                                         x.device))
+                for r, (kc, vc) in enumerate(rings)]
+            o = self.merged(parts)
+        else:
+            kc, vc = rings[0]
+            k_pos = tfm.ring_positions(pos, slot, W, W, 0, x.device)
+            per = H // self.n
+            outs = []
+            for r in range(self.n):
+                kv_of = torch.arange(r * per, (r + 1) * per,
+                                     device=x.device) // (H // cfg.n_kv_heads)
+                outs.append(merge_partials(*attention_partials(
+                    q[:, :, r * per:(r + 1) * per], kc[:, :, kv_of],
+                    vc[:, :, kv_of], window=W, q_offset=pos, k_pos=k_pos),
+                    lambda t: t, lambda t: t))
+            o = torch.cat(outs, dim=2)
+        x = x + self.out_summed(o, lrs, x)
+        return self.ffn(lp, lrs, x)
+
+    def global_layer(self, i, x, bufs, pos):
+        """Global layer ``i`` against each rank's block of positions of
+        its buffers (by rank): the new row written by the rank that holds
+        it, the partials merged."""
+        from repro_torch.models.layers import attention_partials, rms_norm
+
+        cfg, tfm = self.cfg, self.tfm
+        lp = tfm._layer_params(self.params, i)
+        lrs = [self.rank_lp(lp, r) for r in range(self.n)]
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        q = self.whole(lrs, h, "wq", pos)
+        k = self.whole(lrs, h, "wk", pos)
+        v = self.whole(lrs, h, "wv", None)
+        rows = bufs[0][0].shape[1]
+        kb, vb = bufs[pos // rows]
+        kb[:, pos % rows], vb[:, pos % rows] = k[:, 0], v[:, 0]
+        parts = [attention_partials(q, kb, vb, q_offset=pos,
+                                    k_offset=r * rows, kv_len=pos + 1)
+                 for r, (kb, vb) in enumerate(bufs)]
+        x = x + self.out_summed(self.merged(parts), lrs, x)
+        return self.ffn(lp, lrs, x)
+
+    def steps(self, caches, feed, quant, long):
+        """``feed``'s steps from ``caches`` (by rank, updated in place):
+        each step's logits on the host."""
+        tfm = self.tfm
+        pos0, out = caches[0].pos, []
+        G, R = ((0, 0) if quant else tfm.grouped_layout(self.cfg))
+        for j in range(feed.shape[1]):
+            pos = pos0 + j
+            x = tfm.embed_tokens(self.params, feed[:, j:j + 1])
+            for i in range(self.cfg.n_layers):
+                if quant:
+                    x = self.quant_layer(i, x, caches, pos, long)
+                    continue
+                g, r = divmod(i, R + 1)
+                if r < R:
+                    x = self.ring_layer(i, x, [(c.k_local[g, r],
+                                                c.v_local[g, r])
+                                               for c in caches], pos, long)
+                else:
+                    x = self.global_layer(i, x, [(c.k_global[g],
+                                                  c.v_global[g])
+                                                 for c in caches], pos)
+            out.append(self.logits(x))
+        return out
+
+
+def variant_blocks(torch, whole, specs, n=2):
+    """Each rank's block of a whole cache on a (1, n) mesh under the
+    variant's ``specs``, contiguous copies, as the ranks hold them."""
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.parallel.sharding import cache_blocks
+
+    mesh = MeshShape(("data", "model"), (1, n))
+    return [type(whole)(*(t.clone() if torch.is_tensor(t) else t
+                          for t in cache_blocks(whole, specs, mesh,
+                                                {"data": 0, "model": r})))
+            for r in range(n)]
+
+
+def variant_steps(torch, step, cfg, params, cache, feed, policy):
+    """``feed``'s steps of ``step`` under ``policy`` from ``cache``:
+    each step's logits on the host, the cache after them, the wall."""
+    from repro_torch.parallel.hints import sharding_policy
+
+    out = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with sharding_policy(policy):
+        for j in range(feed.shape[1]):
+            lg, cache = step(cfg, params, cache, feed[:, j:j + 1])
+            out.append(lg.float().cpu())
+    torch.cuda.synchronize()
+    return out, cache, time.perf_counter() - t0
+
+
+def rank_tp_ring(torch, rank, world, out, seed):
+    """(n) One rank of gemma3-12b at full width and depth, its weights
+    cut by ``param_specs`` on a (1, 2) mesh (11.6 GB a rank), under each
+    layout of ``TP_RING_LAYOUTS``: the whole random history
+    (:func:`variant_history`) cut into this rank's blocks by
+    ``ring_cache_specs``, then ``VARIANT_STEPS`` steps of
+    ``grouped_decode_step`` under the dry-run's policy of the layout plus
+    the mesh, ``"__params__"`` and ``"__cache__"``, fed
+    :func:`variant_feed`; counted and timed.  Writes each step's logits
+    and returns its blocks' digests and bytes."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.dryrun import make_policy
+    from repro_torch.models import get_model
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel.sharding import (cache_blocks, mesh_coords,
+                                               ring_cache_specs)
+
+    cfg = get_arch("gemma3_12b")
+    model = get_model(cfg)
+    specs = _tp_specs(out, "gemma3")
+    mesh = _mesh_policy(cfg, "decode_32k", specs)["__mesh__"]
+    params, held = _rank_blocks(torch, model, cfg, specs, mesh, seed)
+    res, logits = {**held}, {}
+    for layout, (shape_name, B, _, _) in TP_RING_LAYOUTS.items():
+        shape = variant_shape(shape_name, B)
+        cspecs = ring_cache_specs(cfg, shape, mesh)
+        whole = variant_history(torch, cfg, seed, B, quant=False)
+        cache = tfm.GroupedKVCache(*(
+            t.clone() if torch.is_tensor(t) else t
+            for t in cache_blocks(whole, cspecs, mesh, mesh_coords(mesh))))
+        del whole
+        free_device_memory(torch)
+        policy = {**make_policy(cfg, shape, mesh), "__mesh__": mesh,
+                  "__params__": specs, "__cache__": cspecs}
+        torch.cuda.reset_peak_memory_stats()
+        _dist_reset()
+        logits[layout], cache, wall = variant_steps(
+            torch, tfm.grouped_decode_step, cfg, params, cache,
+            variant_feed(torch, cfg, seed, B), policy)
+        res[layout] = {
+            "wall_s": wall, **_dist_counts(),
+            "digests": cache_digests(torch, cache),
+            "shapes": {f: list(t.shape) for f, t in cache._asdict().items()
+                       if torch.is_tensor(t)},
+            "ring_bytes": sum(t.numel() * t.element_size()
+                              for t in (cache.k_local, cache.v_local)),
+            "global_bytes": sum(t.numel() * t.element_size()
+                                for t in (cache.k_global, cache.v_global)),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        del cache
+        free_device_memory(torch)
+    torch.save(logits, os.path.join(out, f"tp_ring_{rank}.pt"))
+    return res
+
+
+def phase_tensor_parallel_ring(torch, seed):
+    """(n): ``grouped_decode_step`` over cut weights, gemma3-12b at full
+    width and depth (48 layers, 8 groups of 5 ring layers and a global
+    one), 2 ranks on the one card on a (1, 2) mesh, 11.6 GB a rank,
+    under the dry-run's two layouts (``ring_cache_specs``): a batch of 2
+    rows, each ring whole over ``model`` and the global buffers cut on
+    their positions; one row, the rings' 1024 slots cut over ``model``
+    (512 a rank) and the global buffers on their positions.  Each starts
+    from one random bf16 history of positions 0-1019 in a cache 2048
+    long and takes 8 steps at 1020-1027, fed the same tokens: the rings
+    wrap at 1024 and overwrite slot 0, in the long layout from rank 1's
+    slots into rank 0's.  Held: every rank's blocks of the rings and of
+    the global buffers, by digest, bit for bit those of one process
+    computing the steps in the ranks' order
+    (:class:`VariantsInRankOrder`), the logits within bf16 2e-2 of max(1,
+    |ref|) of its, the tokens equal past twice that; the bytes a rank
+    those of ``ring_cache_specs`` to the byte.  The plain one process's
+    distance is read beside it."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.dryrun import _tree_structs, tree_bytes
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models import get_model
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel.sharding import mesh_axes, ring_cache_specs
+    from torch_parity import BF16_TOL as tol
+
+    free_device_memory(torch)
+    out = tempfile.mkdtemp(prefix="chip_smoke_tp_ring_")
+    atexit.register(shutil.rmtree, out, ignore_errors=True)
+    t_phase = time.perf_counter()
+    cfg = get_arch("gemma3_12b")
+    mesh = MeshShape(("data", "model"), (1, 2))
+    specs, param_bytes = SPECS_SOLVED["gemma3"].result()["gemma3"]
+    with open(os.path.join(out, "tp_specs_gemma3.json"), "w") as f:
+        json.dump(specs, f)
+    world = run_ranks_async("tp_ring", 2, out, seed)
+
+    # the yardstick, beside the world: one process, the whole weights, in
+    # the ranks' order
+    model = get_model(cfg)
+    params = _moe_params(torch, model, seed)
+    t0 = time.perf_counter()
+    ro = VariantsInRankOrder(torch, cfg, params)
+    want, plain, digests, dry = {}, {}, {}, {}
+    with torch.no_grad():
+        for layout, (shape_name, B, ring_b, glob_b) in \
+                TP_RING_LAYOUTS.items():
+            shape = variant_shape(shape_name, B)
+            cspecs = ring_cache_specs(cfg, shape, mesh)
+            structs = _tree_structs(tfm.init_grouped_cache(
+                cfg, B, VARIANT_MAX_LEN, device="meta"), cspecs)
+            dry[layout] = tree_bytes(structs, mesh_axes(mesh)) - 4
+            check(dry[layout] == ring_b + glob_b, f"(n) {layout}: the "
+                  f"dry-run's cache bytes a device {dry[layout]}, "
+                  f"{ring_b} + {glob_b} expected")
+            whole = variant_history(torch, cfg, seed, B, quant=False)
+            feed = variant_feed(torch, cfg, seed, B)
+            blocks = variant_blocks(torch, whole, cspecs)
+            want[layout] = ro.steps(blocks, feed, False, layout == "long")
+            digests[layout] = [cache_digests(torch, c) for c in blocks]
+            del blocks
+            plain[layout] = []
+            for j in range(VARIANT_STEPS):
+                lg, whole = tfm.grouped_decode_step(cfg, params, whole,
+                                                    feed[:, j:j + 1])
+                plain[layout].append(lg.float().cpu())
+            del whole
+            free_device_memory(torch)
+    yard_wall = time.perf_counter() - t0
+    del params, ro
+    free_device_memory(torch)
+    ranks, wall = world.result()
+    parts = [torch.load(os.path.join(out, f"tp_ring_{r}.pt"))
+             for r in range(2)]
+    errs, shares, held = {}, {}, 0
+    for layout, (shape_name, B, ring_b, glob_b) in TP_RING_LAYOUTS.items():
+        errs[layout], shares[layout] = [], []
+        for r, (rk, part) in enumerate(zip(ranks, parts)):
+            read = rk[layout]
+            check(read["digests"] == digests[layout][r],
+                  f"(n) {layout} rank {r}: its cache blocks differ from "
+                  f"one process's in the ranks' order: "
+                  f"{[f for f in read['digests'] if read['digests'][f] != digests[layout][r][f]]}")
+            check((read["ring_bytes"], read["global_bytes"])
+                  == (ring_b, glob_b), f"(n) {layout} rank {r}: ring "
+                  f"{read['ring_bytes']}, global {read['global_bytes']} "
+                  f"bytes, the dry-run {ring_b}, {glob_b}")
+            e, s = [], []
+            for j, (g, w, p) in enumerate(zip(part[layout], want[layout],
+                                              plain[layout])):
+                check(bool(torch.isfinite(g).all())
+                      and g.shape == (B, cfg.vocab),
+                      f"(n) {layout} rank {r} step {j}: logits not finite "
+                      f"(batch, vocab)")
+                bound = tol * max(1.0, float(w.abs().max()))
+                e.append(max_abs_diff(g, w))
+                check(e[-1] <= bound, f"(n) {layout} rank {r} step {j}: "
+                      f"logits off the ranks' order by {e[-1]} (bound "
+                      f"{bound})")
+                top2 = w.topk(2, dim=-1).values
+                clear = (top2[:, 0] - top2[:, 1]) > 2 * bound
+                check(bool((g.argmax(-1)[clear] == w.argmax(-1)[clear])
+                           .all()), f"(n) {layout} rank {r} step {j}: a "
+                      f"token differs past the margin")
+                held += int(clear.sum())
+                s.append(max_abs_diff(g, p) / max(1.0, float(p.abs().max())))
+            errs[layout].append(e)
+            shares[layout].append(s)
+        check(torch.equal(torch.stack(parts[0][layout]),
+                          torch.stack(parts[1][layout])),
+              f"(n) {layout}: the ranks' logits differ")
+    G, R = tfm.grouped_layout(cfg)
+    say("tensor_parallel_ring", arch=cfg.name, layers=cfg.n_layers,
+        groups=G, locals_per_group=R, window=cfg.sliding_window,
+        mesh=[1, 2], backend="gloo", device="cuda:0 in every rank",
+        history=VARIANT_HISTORY, max_len=VARIANT_MAX_LEN,
+        steps=VARIANT_STEPS, positions=[VARIANT_HISTORY,
+                                        VARIANT_HISTORY + VARIANT_STEPS - 1],
+        layouts={k: {"shape": v[0], "batch": v[1]}
+                 for k, v in TP_RING_LAYOUTS.items()},
+        policy="make_policy of the layout + __mesh__ (1, 2) + __params__ "
+               "(param_specs) + __cache__ (ring_cache_specs)",
+        tolerance="the cache bit for bit, the logits bf16 2e-2 of max(1, "
+                  "|ref|), against one process in the ranks' order",
+        param_bytes=[r["param_bytes"] for r in ranks],
+        dryrun_bytes_per_device_params=param_bytes,
+        storage_bytes=[r["storage_bytes"] for r in ranks],
+        ring_bytes={k: [r[k]["ring_bytes"] for r in ranks]
+                    for k in TP_RING_LAYOUTS},
+        global_bytes={k: [r[k]["global_bytes"] for r in ranks]
+                      for k in TP_RING_LAYOUTS},
+        dryrun_cache_bytes=dry,
+        cache_shapes={k: ranks[0][k]["shapes"] for k in TP_RING_LAYOUTS},
+        cache_bit_for_bit=True,
+        logits_max_abs_err_rank_order_by_step=errs,
+        plain_one_process_err_share_by_step=shares, tokens_held=held,
+        steps_wall_s={k: [r[k]["wall_s"] for r in ranks]
+                      for k in TP_RING_LAYOUTS},
+        staged_bytes={k: [r[k]["staged_bytes"] for r in ranks]
+                      for k in TP_RING_LAYOUTS},
+        peak_memory_bytes={k: [r[k]["peak_memory_bytes"] for r in ranks]
+                           for k in TP_RING_LAYOUTS},
+        world_wall_s=wall, yardstick_wall_s=yard_wall,
+        seconds=time.perf_counter() - t_phase)
+    check(all(r["param_bytes"] == param_bytes
+              and r["storage_bytes"] == param_bytes for r in ranks),
+          f"(n) parameter bytes a rank {[r['param_bytes'] for r in ranks]}, "
+          f"the dry-run {param_bytes}")
+    shutil.rmtree(out, ignore_errors=True)
+    return {}, []
+
+
+# ---------------------------------------------------------------------------
 # Worlds (l) and (m): the weights cut over ``data`` (ZeRO-3) and the AdamW
 # state over cut leaves (ZeRO-1), internlm2-20b on a (2, 2) mesh
 # ---------------------------------------------------------------------------
@@ -6044,9 +6828,10 @@ def phase_tensor_parallel_misaligned(torch, seed):
 TP_ZERO_PROMPT = (2, 2048)            # (l): batch x tokens, a row a data rank
 TP_ZERO_STEPS = 1                     # (l): serve steps after the prefill
 TP_ZERO_MAX_LEN = 2056                # (l): the cache's positions
-TP_ZERO_PARAM_BYTES = 9_930_872_832   # (l): the dry-run's bytes on (2, 2)
-TP_ZERO_YARD_BYTES = 19_861_745_664   # its yardstick's on (1, 2)
-TP_ZERO_CACHE_BYTES = 202_113_024     # k and v: 48 x 1 x 2056 x 4 x 128 bf16
+TP_ZERO_LAYERS = 24                   # (l): internlm2-20b at 24 of 48 layers
+TP_ZERO_PARAM_BYTES = 5_249_734_656   # (l): the dry-run's bytes on (2, 2)
+TP_ZERO_YARD_BYTES = 10_499_469_312   # its yardstick's on (1, 2)
+TP_ZERO_CACHE_BYTES = 101_056_512     # k and v: 24 x 1 x 2056 x 4 x 128 bf16
 TP_ZERO_TRAIN_LAYERS = 4              # (m): internlm2-20b at depth 4 of 48
 TP_ZERO_TRAIN_STEPS = 2
 TP_ZERO_TRAIN_BATCH = (2, 2048)       # (m): batch x tokens, a row a data rank
@@ -6113,15 +6898,17 @@ def _blocks_in_turns(torch, model, cfg, specs, mesh, seed, rank, turns,
     return params, held
 
 
-def _zero_serve(torch, model, params, tokens, feed, policies):
-    """A prefill of ``tokens`` then ``len(feed[0])`` serve steps fed
-    ``feed`` (None: each step's own greedy token), counted and timed:
-    ``(logits by step, tokens by step, readings)``."""
+def _zero_serve(torch, model, params, tokens, feed, policies,
+                max_len=TP_ZERO_MAX_LEN, steps=TP_ZERO_STEPS):
+    """A prefill of ``tokens`` into a cache ``max_len`` long, then
+    ``steps`` serve steps fed ``feed`` (None: each step's own greedy
+    token), counted and timed: ``(logits by step, tokens by step,
+    readings)``."""
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.parallel.collectives import host_buffer_bytes
     from repro_torch.parallel.hints import sharding_policy
 
-    prefill = make_prefill_step(model, TP_ZERO_MAX_LEN)
+    prefill = make_prefill_step(model, max_len)
     serve = make_serve_step(model)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -6137,7 +6924,7 @@ def _zero_serve(torch, model, params, tokens, feed, policies):
     toks = [torch.argmax(logits, -1).to(torch.int32)[:, None]]
     t0 = time.perf_counter()
     with sharding_policy(policies[1]):
-        for i in range(TP_ZERO_STEPS):
+        for i in range(steps):
             fed = toks[-1] if feed is None else feed[:, i:i + 1]
             tok, lg, cache = serve(params, cache, fed)
             got.append(lg.float().cpu())
@@ -6206,7 +6993,7 @@ def rank_tp_zero_serve(torch, rank, world, out, seed):
     from repro_torch.kernels import ops
     from repro_torch.models import get_model
 
-    cfg = _zero_config()
+    cfg = _zero_config(TP_ZERO_LAYERS)
     model = get_model(cfg)
     yard = _zero_yardstick(torch, model, cfg, rank, out, seed)
     mesh = _zero_mesh(torch, 2)
@@ -6249,13 +7036,23 @@ def _data_block(torch, path, t, spec, mesh):
 
 def rank_tp_zero_train(torch, rank, world, out, seed):
     """(m) One rank of internlm2-20b at depth 4, full width, on a (2, 2)
-    mesh, trained by ``make_train_step`` for ``TP_ZERO_TRAIN_STEPS``
-    steps on its data row of batches of the data pipeline, AdamW at
-    ``TRAIN_LR`` with the state cut by the dry-run's opt specs
-    (``"__opt__"``): first the yardstick, the weights whole over ``data``
-    (ZeRO-1 alone: each rank updates its block of the state and gathers
-    the new weight), then the weights cut over ``data`` too (ZeRO-3, the
-    dry-run's rule at this depth), in the same processes.  Step 1's
+    mesh: :func:`zero_train_runs` of ``TP_ZERO_TRAIN_STEPS`` steps on
+    ``TP_ZERO_TRAIN_BATCH``, the weights cut by the dry-run's rule at
+    this depth."""
+    return zero_train_runs(torch, rank, out, seed,
+                           _zero_config(TP_ZERO_TRAIN_LAYERS), "zero_train",
+                           TP_ZERO_TRAIN_BATCH, TP_ZERO_TRAIN_STEPS)
+
+
+def zero_train_runs(torch, rank, out, seed, cfg, name, batch_shape, steps):
+    """One rank of ``cfg`` on a (2, 2) mesh, trained by
+    ``make_train_step`` for ``steps`` steps on its data row of
+    ``batch_shape`` batches of the data pipeline, AdamW at ``TRAIN_LR``
+    with the state cut by the dry-run's opt specs (``"__opt__"``, the spec
+    file ``<name>_opt``): first the yardstick, the weights whole over
+    ``data`` (``<name>_zero1``; ZeRO-1 alone: each rank updates its block
+    of the state and gathers the new weight), then the weights cut over
+    ``data`` too (``<name>``, ZeRO-3), in the same processes.  Step 1's
     gradient, as the update takes it (copied to the host after the
     step); ZeRO-3's held leaf by leaf to the yardstick's block of it.
     Digests of the leaves two ranks hold alike after each step."""
@@ -6266,14 +7063,13 @@ def rank_tp_zero_train(torch, rank, world, out, seed):
     from repro_torch.parallel.collectives import host_buffer_bytes
     from repro_torch.parallel.hints import sharding_policy, state_layout
 
-    cfg = _zero_config(TP_ZERO_TRAIN_LAYERS)
     model = get_model(cfg)
     mesh = _zero_mesh(torch, 2)
-    opt = _tp_specs(out, "zero_train_opt")
-    zero3 = _tp_specs(out, "zero_train")
+    opt = _tp_specs(out, name + "_opt")
+    zero3 = _tp_specs(out, name)
     d = rank // 2
-    data = DataConfig(vocab=cfg.vocab, seq_len=TP_ZERO_TRAIN_BATCH[1],
-                      global_batch=TP_ZERO_TRAIN_BATCH[0], seed=seed)
+    data = DataConfig(vocab=cfg.vocab, seq_len=batch_shape[1],
+                      global_batch=batch_shape[0], seed=seed)
 
     def batch(i):
         return {k: v[d:d + 1] for k, v in get_batch(data, i).items()}
@@ -6298,8 +7094,7 @@ def rank_tp_zero_train(torch, rank, world, out, seed):
         state_bytes = sum(t.numel() * t.element_size()
                           for part in state for t in adamw.tree_leaves(part))
         step = make_train_step(model, adamw.AdamWConfig(
-            lr_peak=TRAIN_LR, total_steps=TP_ZERO_TRAIN_STEPS,
-            warmup_steps=1))
+            lr_peak=TRAIN_LR, total_steps=steps, warmup_steps=1))
         free_device_memory(torch)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -6307,7 +7102,7 @@ def rank_tp_zero_train(torch, rank, world, out, seed):
         losses, walls, digests, update = [], [], [], []
         with sharding_policy(policy), capturing_first(adamw, "update",
                                                       update):
-            for i in range(TP_ZERO_TRAIN_STEPS):
+            for i in range(steps):
                 t0 = time.perf_counter()
                 loss, params, state = step(params, state, batch(i))
                 losses.append(float(loss))
@@ -6330,7 +7125,7 @@ def rank_tp_zero_train(torch, rank, world, out, seed):
 
     # ZeRO-1 alone: every leaf whole over data, alike in both data rows;
     # ZeRO-3: a leaf whole over model alike in both ranks of a data row
-    want, want_after, yard = run(_tp_specs(out, "zero_train_zero1"),
+    want, want_after, yard = run(_tp_specs(out, name + "_zero1"),
                                  lambda s: True)
     got, got_after, path = run(zero3, lambda s: "model" not in str(s))
     readings = {n: grad_readings(want[n].cuda().float(),
@@ -6348,15 +7143,16 @@ def phase_tensor_parallel_zero(torch, seed):
     (ZeRO-3) and the AdamW state over cut leaves (ZeRO-1), internlm2-20b
     at full width on the dry-run's own (2, 2) FSDP layout, four ranks on
     the one card over gloo, every weight gathered over ``data`` layer by
-    layer where it is used.  (l), all 48 layers: each rank's parameter
-    bytes the dry-run's 9,930,872,832 to the byte and its storage no
-    more, its cache bytes the dry-run's; its data row's prefill (1 x
+    layer where it is used.  (l), 24 of its 48 layers, cut as the rule
+    cuts the whole config: each rank's parameter bytes the dry-run's
+    5,249,734,656 to the byte and its storage no more, its cache bytes
+    the dry-run's; its data row's prefill (1 x
     2048) and ``TP_ZERO_STEPS`` serve steps fed the yardstick's greedy
     tokens, their logits and tokens bit for bit those of a (1, 2) world
     of the same weights (no data cut) prefilling and stepping each row
     alone -- the gather adds no arithmetic, and a float32 sum of two terms
     does not depend on its order -- read against (f)'s rule beside it; B4
-    48 times a rank.  (m), 4 of 48 layers: two ``make_train_step`` steps
+    24 times a rank.  (m), 4 of 48 layers: two ``make_train_step`` steps
     with the state cut by the dry-run's opt specs, against the same steps
     with the weights whole over ``data``: step 1's loss bit for bit, step
     1's gradient by (b)'s rule leaf by leaf (its leaves bit for bit
@@ -6381,9 +7177,12 @@ def phase_tensor_parallel_zero(torch, seed):
     t_phase = time.perf_counter()
     mesh, yard_mesh = (MeshShape(("data", "model"), (2, 2)),
                        MeshShape(("data", "model"), (1, 2)))
-    cfg, cfg4 = _zero_config(), _zero_config(TP_ZERO_TRAIN_LAYERS)
+    cfg, cfg4 = (_zero_config(TP_ZERO_LAYERS),
+                 _zero_config(TP_ZERO_TRAIN_LAYERS))
     t0 = time.perf_counter()
-    check(default_fsdp(cfg, mesh) and default_fsdp(cfg4, mesh),
+    # the cut the rule gives the whole config, at every depth cut
+    check(default_fsdp(_zero_config(), mesh)
+          and default_fsdp(_zero_config(), yard_mesh),
           "(l), (m): the dry-run's rule leaves internlm2-20b whole over "
           "data on (2, 2)")
     shapes, shapes4 = (param_shapes(get_model(cfg)),
@@ -6391,15 +7190,15 @@ def phase_tensor_parallel_zero(torch, seed):
     opt = param_specs(shapes4, mesh, fsdp=True, fsdp_axes=("data", "pod"))
     for name, specs in (
             ("zero", param_specs(shapes, mesh, fsdp=True)),
-            ("zero_yard", param_specs(shapes, yard_mesh,
-                                      fsdp=default_fsdp(cfg, yard_mesh))),
+            ("zero_yard", param_specs(shapes, yard_mesh, fsdp=True)),
             ("zero_train", param_specs(shapes4, mesh, fsdp=True)),
             ("zero_train_zero1", param_specs(shapes4, mesh)),
             ("zero_train_opt", opt)):
         with open(os.path.join(out, f"tp_specs_{name}.json"), "w") as f:
             json.dump(specs, f)
-    dry = {"params": param_bytes_per_device(cfg, mesh),
-           "yardstick_params": param_bytes_per_device(cfg, yard_mesh),
+    dry = {"params": param_bytes_per_device(cfg, mesh, fsdp=True),
+           "yardstick_params": param_bytes_per_device(cfg, yard_mesh,
+                                                      fsdp=True),
            "cache": tree_bytes(cache_structs(cfg, ShapeConfig(
                "tp_zero", TP_ZERO_MAX_LEN, TP_ZERO_PROMPT[0], "decode"),
                mesh), mesh_axes(mesh)) - 4,          # pos: a 0-d int32
@@ -6412,8 +7211,14 @@ def phase_tensor_parallel_zero(torch, seed):
         TP_ZERO_PARAM_BYTES, TP_ZERO_YARD_BYTES, TP_ZERO_CACHE_BYTES),
         f"(l) the dry-run gives {dry}")
 
-    # (l)'s yardstick, then (l) fed its greedy tokens, in one world
-    ranks, wall = run_ranks("tp_zero_serve", 4, out, seed)
+    # (l)'s yardstick, then (l) fed its greedy tokens, then (m), in one
+    # world.  Four ranks of (m) at 15-19 GB each beside this process fill
+    # the card: no rank keeps cached blocks it cannot reuse
+    main_reserved = torch.cuda.memory_reserved()
+    worlds, wall = run_ranks(
+        "tp_zero_serve+tp_zero_train", 4, out, seed, env=dict(
+            os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"))
+    ranks = worlds["tp_zero_serve"]
     yard = [rk["yardstick"] for rk in ranks[:2]]
     rows = [torch.load(os.path.join(out, f"tp_zero_yard_{r}.pt"))
             for r in range(2)]
@@ -6478,7 +7283,9 @@ def phase_tensor_parallel_zero(torch, seed):
         "yardstick_param_bytes": [r["param_bytes"] for r in yard],
         "bit_for_bit": bit, "logits_max_abs_err_by_step": errs,
         "tokens_held": held_tokens,
-        "world_wall_s": wall, "yardstick_wall_s": yard[0]["wall_s"],
+        "world_wall_s": wall, "world": "(l), then (m), in one world",
+        "entry_wall_s": [r["entry_wall_s"] for r in ranks],
+        "yardstick_wall_s": yard[0]["wall_s"],
         "init_in_turns_wall_s": ranks[0]["init_wall_s"],
         "yardstick_init_wall_s": yard[0]["init_wall_s"],
         "prefill_wall_s": [r["prefill_wall_s"] for r in ranks],
@@ -6514,12 +7321,8 @@ def phase_tensor_parallel_zero(torch, seed):
     del rows
     free_device_memory(torch)
 
-    # (m): ZeRO-1 alone, then ZeRO-3 with it, in one world.  Four ranks
-    # at 15-19 GB each beside this process fill the card: no rank keeps
-    # cached blocks it cannot reuse
-    main_reserved = torch.cuda.memory_reserved()
-    ranks, wall = run_ranks("tp_zero_train", 4, out, seed, env=dict(
-        os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"))
+    # (m): ZeRO-1 alone, then ZeRO-3 with it
+    ranks = worlds["tp_zero_train"]
     per_rank = 2 * TP_ZERO_TRAIN_LAYERS * TP_ZERO_TRAIN_STEPS
     for r, rk in enumerate(ranks):
         yd = rk["yardstick"]
@@ -6594,7 +7397,8 @@ def phase_tensor_parallel_zero(torch, seed):
         "b4_launches": [r["flash_attention"] for r in ranks],
         "host_buffer_bytes": [r["host_buffer_bytes"] for r in ranks],
         "main_process_reserved_bytes": main_reserved,
-        "world_wall_s": wall, "specs_s": specs_s}
+        "entry_wall_s": [r["entry_wall_s"] for r in ranks],
+        "specs_s": specs_s}
     shutil.rmtree(out, ignore_errors=True)
     say("tensor_parallel_zero_train", backend="gloo",
         device="cuda:0 in every rank", tolerance="step 1's loss bit for "
@@ -6606,6 +7410,370 @@ def phase_tensor_parallel_zero(torch, seed):
     q, k, v = attention_inputs(torch, gen, torch.bfloat16, D, B, Hkv,
                                H // Hkv, Sq, Sk)
     label = "internlm2-20b ZeRO-3 rank (l), 24 heads"
+    held = attention_held(torch, q, k, v, label, causal=True)
+    return launches, [(label, (q, k, v), {"causal": True},
+                       launches["flash_attention"], held)]
+
+
+# ---------------------------------------------------------------------------
+# World (o): zamba2-2.7b's weights cut over ``data`` (ZeRO-3), after (h),
+# its yardstick, in the same processes
+# ---------------------------------------------------------------------------
+
+TP_HYBRID_ZERO_STEPS = 1            # (o): serve steps after the prefill
+TP_HYBRID_TRAIN_LAYERS = 12         # (o): zamba2 at depth 12, 2 sites
+TP_HYBRID_TRAIN_STEPS = 2
+TP_HYBRID_TRAIN_BATCH = (2, 2048)   # (o): batch x tokens, a row a data rank
+
+
+def rank_tp_hybrid_zero(torch, rank, world, out, seed):
+    """(h), then (o), in one world of 4 ranks.  (h) in ranks 0 and 1 on a
+    (1, 2) mesh of their own (:func:`rank_tp_hybrid`; ranks 2 and 3 join
+    the mesh's groups and hold nothing).  (o): zamba2-2.7b at full width
+    and depth on a (2, 2) mesh, its weights cut by ``param_specs`` under
+    the dry-run's FSDP rule (over ``data`` and ``model``), its data row's
+    prefill of (h)'s prompt under the prefill policy declaring the
+    weights' cut and the cache's (every block's leaves gathered over
+    ``data`` inside its body, the shared block's once a pass), then
+    ``TP_HYBRID_ZERO_STEPS`` serve steps fed (h)'s tokens, counted and
+    timed; B6 and B4 held to their plain versions on the prefill's first
+    calls.  Then :func:`zero_train_runs` of zamba2 at depth
+    ``TP_HYBRID_TRAIN_LAYERS``."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import get_model
+
+    t0 = time.perf_counter()
+    yard_mesh = _zero_mesh(torch, 1)
+    yard = rank_tp_hybrid(torch, rank, out, seed, yard_mesh) \
+        if rank < 2 else None
+    free_device_memory(torch)
+    dist.barrier()
+    if yard is not None:
+        yard["wall_s"] = time.perf_counter() - t0
+    cfg = _tp_ssm_configs()["zamba2"]
+    model = get_model(cfg)
+    mesh = _zero_mesh(torch, 2)
+    specs = _tp_specs(out, "zamba2_zero")
+    params, held = _blocks_in_turns(torch, model, cfg, specs, mesh, seed,
+                                    rank, 1)
+    tokens = _tp_ssm_inputs(torch, cfg, seed)["tokens"]
+    feed = torch.load(os.path.join(out, "tp_hybrid_one.pt"))["feed"].cuda()
+    policies = [_zero_policy(cfg, s, mesh, specs)
+                for s in ("prefill_32k", "decode_32k")]
+    chunks, attn = [], []
+    with capturing_chunks(chunks, 1), capturing_first(ops, "mha", attn):
+        got, toks, read = _zero_serve(
+            torch, model, params, tokens, feed, policies,
+            TP_SSM_PREFILL[1] + TP_DECODE_STEPS, TP_HYBRID_ZERO_STEPS)
+    b6_share = chunks_held(torch, chunks, f"(o) rank {rank}")
+    q, k, v, kw = attn
+    err, share = attention_held(torch, q, k, v, f"(o) rank {rank}", **kw)
+    torch.save({"logits": got, "tokens": toks},
+               os.path.join(out, f"tp_hybrid_zero_{rank}.pt"))
+    serve = {**held, **read, "b4_shape": [list(q.shape), list(k.shape)],
+             "b4_held": {"max_abs_err": err, "share": share},
+             "b6_shape": list(chunks[0][0].shape),
+             "b6_held": {"share_of_max": b6_share},
+             "in_proj_shape": list(params["ssm"]["in_proj"].shape)}
+    del params
+    free_device_memory(torch)
+    train = zero_train_runs(
+        torch, rank, out, seed,
+        dataclasses.replace(cfg, n_layers=TP_HYBRID_TRAIN_LAYERS),
+        "hybrid_train", TP_HYBRID_TRAIN_BATCH, TP_HYBRID_TRAIN_STEPS)
+    return {"yardstick": yard, "serve": serve, "train": train}
+
+
+def phase_tensor_parallel_hybrid_zero(torch, seed, ssd_args, ssd_held_by):
+    """(h) and (o): zamba2-2.7b's tensor parallelism and its weights cut
+    over ``data`` too (ZeRO-3), in one world of 4 ranks on the one card.
+    (h), first, ranks 0 and 1 on a (1, 2) mesh, all 54 layers at full
+    width: each rank's parameter and cache bytes the dry-run's to the
+    byte; the prefill's last-position logits within bf16 2e-2 of max(1,
+    |ref|) of the one-process prefill summed in the ranks' order
+    (``hybrid_in_rank_order``), and so are ``TP_DECODE_STEPS`` serve steps
+    fed the plain one process's greedy tokens, their tokens equal past
+    the margin; the plain one process's distance read beside them (ROADMAP
+    F23); B6 on 40 heads and B4 on 16 a rank.  (o), all 54 layers on
+    (2, 2) under the dry-run's FSDP rule: each rank's bytes
+    ``param_bytes_per_device(zamba2, (2, 2))`` to the byte; its data
+    row's prefill of (h)'s prompt and ``TP_HYBRID_ZERO_STEPS`` step fed
+    (h)'s tokens, their logits and tokens bit for bit (h)'s in every rank
+    and step -- the gathers add no arithmetic; B6 and B4 at (h)'s rank
+    shapes.  (o)'s training, zamba2 at depth 12 (2 shared-block sites) on
+    (2, 2) with the declared FSDP cut: two ``make_train_step`` steps on 2
+    x 2048, against the same world with the weights whole over ``data``:
+    the losses, step 1's gradient and the weights after the steps bit for
+    bit, the state's bytes the dry-run's opt specs'.  Adds B6's
+    rank-shape chunk of (h) to ``ssd_args`` / ``ssd_held_by``; returns the
+    ranks' launches and B4's row at (h)'s and (o)'s rank shape."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import (_tree_structs, cache_structs,
+                                           default_fsdp,
+                                           param_bytes_per_device,
+                                           tree_bytes)
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models import get_model, param_shapes
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.sharding import P, mesh_axes, param_specs
+    from torch_parity import BF16_TOL as tol
+
+    free_device_memory(torch)
+    out = tempfile.mkdtemp(prefix="chip_smoke_tp_hybrid_zero_")
+    atexit.register(shutil.rmtree, out, ignore_errors=True)
+    launches = {"ssd_chunk": 0, "flash_attention": 0}
+    t_phase = time.perf_counter()
+    configs = _tp_ssm_configs()
+    cfg = configs["zamba2"]
+    cfg12 = dataclasses.replace(cfg, n_layers=TP_HYBRID_TRAIN_LAYERS)
+    mesh, mesh22 = (MeshShape(("data", "model"), (1, 2)),
+                    MeshShape(("data", "model"), (2, 2)))
+    t0 = time.perf_counter()
+    dryrun_bytes = ssm_dryrun_specs(out, configs, ("zamba2",))
+    check(default_fsdp(cfg, mesh22), "(o): the dry-run's rule leaves "
+          "zamba2-2.7b whole over data on (2, 2)")
+    shapes12 = param_shapes(get_model(cfg12))
+    opt = param_specs(shapes12, mesh22, fsdp=True, fsdp_axes=("data", "pod"))
+    for name, specs in (
+            ("zamba2_zero", param_specs(param_shapes(get_model(cfg)), mesh22,
+                                        fsdp=True)),
+            ("hybrid_train", param_specs(shapes12, mesh22, fsdp=True)),
+            ("hybrid_train_zero1", param_specs(shapes12, mesh22)),
+            ("hybrid_train_opt", opt)):
+        with open(os.path.join(out, f"tp_specs_{name}.json"), "w") as f:
+            json.dump(specs, f)
+    zero_bytes = param_bytes_per_device(cfg, mesh22)
+    train_bytes = param_bytes_per_device(cfg12, mesh22, fsdp=True)
+    train_state = tree_bytes(_tree_structs(
+        adamw.init(shapes12), adamw.AdamWState(P(), opt, opt, opt)),
+        mesh_axes(mesh22))
+    specs_s = time.perf_counter() - t0
+
+    # (h)'s one process first, whole weights: its prefill and greedy
+    # decode, and the prefill summed in the ranks' order
+    model = get_model(cfg)
+    params = _moe_params(torch, model, seed)
+    batch = _tp_ssm_inputs(torch, cfg, seed)
+    t0 = time.perf_counter()
+    want, feed = _greedy_one_process(torch, model, params, batch)
+    one_wall = time.perf_counter() - t0
+    torch.save({"feed": feed}, os.path.join(out, "tp_hybrid_one.pt"))
+    with torch.no_grad():
+        in_order = hybrid_in_rank_order(torch, cfg, params, batch["tokens"],
+                                        feed.cuda())
+    del params
+    free_device_memory(torch)
+    world, wall = run_ranks("tp_hybrid_zero", 4, out, seed)
+    ranks = [w["yardstick"] for w in world[:2]]
+    parts = [torch.load(os.path.join(out, f"tp_hybrid_{r}.pt"))
+             for r in range(2)]
+    S = TP_SSM_PREFILL[1]
+    structs = cache_structs(cfg, ShapeConfig(
+        "tp_hybrid", S + TP_DECODE_STEPS, TP_SSM_PREFILL[0], "decode"), mesh)
+    want_cache = tree_bytes(structs, mesh_axes(mesh))
+    order_errs, shares, held_tokens = [], [], 0
+    for r, (rk, part) in enumerate(zip(ranks, parts)):
+        check(rk["param_bytes"] == dryrun_bytes["zamba2"]
+              and rk["storage_bytes"] == rk["param_bytes"],
+              f"(h) rank {r}: {rk['param_bytes']} parameter bytes "
+              f"({rk['storage_bytes']} stored), the dry-run "
+              f"{dryrun_bytes['zamba2']}")
+        check(rk["cache_bytes"] == want_cache, f"(h) rank {r} holds "
+              f"{rk['cache_bytes']} cache bytes, the dry-run {want_cache}")
+        check((rk["ssm_heads"], rk["heads"]) == (
+            cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim // 2,
+            cfg.n_heads // 2), f"(h) rank {r}: heads {rk['ssm_heads']} / "
+              f"{rk['heads']}")
+        e, sh, h = _held_steps(torch, f"(h) rank {r} against one process "
+                               f"in the ranks' order", in_order, part,
+                               cfg.vocab, TP_SSM_PREFILL[0], tol, want)
+        order_errs.append(e)
+        shares.append(sh)
+        held_tokens += h
+    check(torch.equal(parts[0]["logits"], parts[1]["logits"]),
+          "(h) the ranks' prefill logits differ")
+    n_b6 = ssm_layers(cfg) * math.ceil(S / min(cfg.ssm_chunk, S))
+    check(all(r["ssd_chunk"] == n_b6
+              and r["flash_attention"] == attention_calls(cfg)
+              for r in ranks), f"(h) B6/B4 launches by rank: "
+          f"{[(r['ssd_chunk'], r['flash_attention']) for r in ranks]}")
+    for k in launches:
+        launches[k] += sum(r[k] for r in ranks)
+    label_h = "zamba2-2.7b tensor-parallel rank (h), (o)"
+    ssd_args[label_h] = [t.cuda() for t in parts[0]["chunk"]]
+    ssd_held_by[label_h] = {S: max(r["b6_held"]["share_of_max"]
+                                   for r in ranks)}
+    say("tensor_parallel_ssm", case="(h)", arch=cfg.name,
+        layers=cfg.n_layers, tokens=list(TP_SSM_PREFILL),
+        decode_steps=TP_DECODE_STEPS, backend="gloo",
+        device="cuda:0 in every rank",
+        policy="make_policy prefill / decode + __mesh__ (1, 2): the "
+               "residual cut on its channels",
+        tolerance="bf16 2e-2 of max(1, |ref|)", specs_s=specs_s,
+        world="ranks 0 and 1 of (o)'s world of 4, first",
+        ssm_heads_per_rank=[r["ssm_heads"] for r in ranks],
+        heads_per_rank=[r["heads"] for r in ranks],
+        param_bytes=[r["param_bytes"] for r in ranks],
+        dryrun_bytes_per_device_params=dryrun_bytes["zamba2"],
+        storage_bytes=[r["storage_bytes"] for r in ranks],
+        allocated_bytes=[r["allocated_bytes"] for r in ranks],
+        cache_bytes=[r["cache_bytes"] for r in ranks],
+        dryrun_cache_bytes_per_device=want_cache,
+        cache_shapes=ranks[0]["cache_shapes"],
+        held="the prefill's and every step's logits and tokens against one "
+             "process in the ranks' order (bf16 bound, tokens past twice "
+             "it); the plain one process's distance read",
+        logits_max_abs_err_rank_order_by_step=order_errs,
+        logits_bit_for_bit_rank_order=[all(e == 0.0 for e in errs)
+                                       for errs in order_errs],
+        plain_one_process_err_share_by_step=shares,
+        tokens_held=held_tokens, one_process_wall_s=one_wall,
+        yardstick_wall_s=ranks[0]["wall_s"],
+        prefill_wall_s=[r["prefill_wall_s"] for r in ranks],
+        decode_wall_s=[r["decode_wall_s"] for r in ranks],
+        b6_launches=[r["ssd_chunk"] for r in ranks],
+        b4_launches=[r["flash_attention"] for r in ranks],
+        b6_shape=ranks[0]["b6_shape"],
+        b6_held=[r["b6_held"] for r in ranks],
+        b4_shape=ranks[0]["b4_shape"],
+        b4_held=[r["b4_held"] for r in ranks],
+        staged_bytes_prefill=[r["staged_bytes"] for r in ranks],
+        staged_bytes_with_decode=[r["staged_bytes_with_decode"]
+                                  for r in ranks],
+        peak_memory_bytes=[r["peak_memory_bytes"] for r in ranks])
+
+    # (o) serve: bit for bit (h)'s in every rank and step
+    bit = []
+    for r, w in enumerate(world):
+        rk = w["serve"]
+        part = torch.load(os.path.join(out, f"tp_hybrid_zero_{r}.pt"))
+        mine = parts[r % 2]
+        yard_logits = [mine["logits"]] + [
+            lg for _, lg in mine["steps"][:TP_HYBRID_ZERO_STEPS]]
+        yard_tokens = torch.cat(
+            [torch.argmax(mine["logits"], -1)[:, None]]
+            + [t for t, _ in mine["steps"][:TP_HYBRID_ZERO_STEPS]], 1)
+        same = (all(torch.equal(g, y) for g, y in zip(part["logits"],
+                                                      yard_logits))
+                and torch.equal(part["tokens"].to(yard_tokens.dtype),
+                                yard_tokens))
+        bit.append(same)
+        errs = [max_abs_diff(g, y) for g, y in zip(part["logits"],
+                                                   yard_logits)]
+        check(same, f"(o) rank {r}: logits or tokens differ from (h)'s by "
+              f"{errs}")
+        check(rk["param_bytes"] == zero_bytes
+              and rk["storage_bytes"] == rk["param_bytes"],
+              f"(o) rank {r} holds {rk['param_bytes']} parameter bytes "
+              f"({rk['storage_bytes']} stored), the dry-run {zero_bytes}")
+        check(rk["ssd_chunk"] == n_b6
+              and rk["flash_attention"] == attention_calls(cfg),
+              f"(o) rank {r}: B6 {rk['ssd_chunk']}, B4 "
+              f"{rk['flash_attention']} times")
+        for k in launches:
+            launches[k] += rk[k]
+    serves = [w["serve"] for w in world]
+    say("tensor_parallel_hybrid_zero_serve", arch=cfg.name,
+        layers=cfg.n_layers, mesh=[2, 2], ranks=4,
+        tokens=list(TP_SSM_PREFILL), decode_steps=TP_HYBRID_ZERO_STEPS,
+        backend="gloo", device="cuda:0 in every rank",
+        policy="make_policy prefill / decode + __mesh__ (2, 2) + "
+               "__params__ (param_specs fsdp=True) + __cache__",
+        yardstick="(h), ranks 0 and 1 of the world on a (1, 2) mesh, the "
+                  "same prompt and fed tokens",
+        tolerance="bit for bit", bit_for_bit=bit,
+        in_proj_block=serves[0]["in_proj_shape"],
+        param_bytes=[r["param_bytes"] for r in serves],
+        dryrun_bytes_per_device_params=zero_bytes,
+        storage_bytes=[r["storage_bytes"] for r in serves],
+        cache_bytes=[r["cache_bytes"] for r in serves],
+        init_in_turns_wall_s=serves[0]["init_wall_s"],
+        prefill_wall_s=[r["prefill_wall_s"] for r in serves],
+        decode_wall_s=[r["decode_wall_s"] for r in serves],
+        b6_launches=[r["ssd_chunk"] for r in serves],
+        b4_launches=[r["flash_attention"] for r in serves],
+        b6_shape=serves[0]["b6_shape"],
+        b6_held=[r["b6_held"] for r in serves],
+        b4_shape=serves[0]["b4_shape"],
+        b4_held=[r["b4_held"] for r in serves],
+        staged_bytes_prefill=[r["staged_bytes"] for r in serves],
+        staged_bytes_with_decode=[r["staged_bytes_with_decode"]
+                                  for r in serves],
+        host_buffer_bytes=[r["host_buffer_bytes"] for r in serves],
+        peak_memory_bytes=[r["peak_memory_bytes"] for r in serves])
+
+    # (o) train: the weights cut over data against them whole over it
+    trains = [w["train"] for w in world]
+    n_leaves = len(trains[0]["leaves"])
+    per_rank = train_step_launches(cfg12, TP_HYBRID_TRAIN_BATCH[1])
+    for r, rk in enumerate(trains):
+        yd = rk["yardstick"]
+        check(rk["losses"] == yd["losses"], f"(o) rank {r}: losses "
+              f"{rk['losses']} vs {yd['losses']} with the weights whole "
+              f"over data")
+        check(len(rk["grads_bit_for_bit"]) == n_leaves
+              and len(rk["params_bit_for_bit"]) == n_leaves,
+              f"(o) rank {r}: step 1's gradient bit for bit in "
+              f"{len(rk['grads_bit_for_bit'])}, the weights after the steps "
+              f"in {len(rk['params_bit_for_bit'])} of {n_leaves} leaves")
+        for run_ in (yd, rk):
+            check(run_["state_bytes"] == train_state,
+                  f"(o) rank {r}: a state of {run_['state_bytes']} bytes, "
+                  f"the dry-run's opt specs {train_state}")
+            for k in launches:
+                check(run_[k] == per_rank[k] * TP_HYBRID_TRAIN_STEPS,
+                      f"(o) rank {r}: {k} {run_[k]} times in the steps")
+                launches[k] += run_[k]
+        check(rk["param_bytes"] == train_bytes,
+              f"(o) rank {r} holds {rk['param_bytes']} parameter bytes, the "
+              f"dry-run {train_bytes}")
+    for i in range(TP_HYBRID_TRAIN_STEPS):
+        check(trains[0]["digests"][i] == trains[1]["digests"][i]
+              and trains[2]["digests"][i] == trains[3]["digests"][i],
+              f"(o) step {i + 1}: the leaves whole over model differ "
+              f"between a data row's ranks")
+    say("tensor_parallel_hybrid_zero_train", arch=cfg.name,
+        layers=TP_HYBRID_TRAIN_LAYERS, sites=TP_HYBRID_TRAIN_LAYERS
+        // cfg.hybrid_period, mesh=[2, 2], ranks=4,
+        batch=list(TP_HYBRID_TRAIN_BATCH), steps=TP_HYBRID_TRAIN_STEPS,
+        lr=TRAIN_LR, backend="gloo", device="cuda:0 in every rank",
+        policy="make_policy train_4k + __mesh__ (2, 2) + __params__ "
+               "(param_specs fsdp=True) + __opt__ (fsdp_axes data, pod)",
+        yardstick="the same world, the weights whole over data, the state "
+                  "cut (ZeRO-1 alone)",
+        tolerance="bit for bit: losses, step 1's gradient, the weights",
+        losses=[r["losses"] for r in trains],
+        yardstick_losses=[r["yardstick"]["losses"] for r in trains],
+        grad_leaves=n_leaves,
+        grad_leaves_bit_for_bit=[len(r["grads_bit_for_bit"])
+                                 for r in trains],
+        params_after_bit_for_bit=[len(r["params_bit_for_bit"])
+                                  for r in trains],
+        param_bytes=[r["param_bytes"] for r in trains],
+        yardstick_param_bytes=[r["yardstick"]["param_bytes"]
+                               for r in trains],
+        dryrun_bytes_per_device_params=train_bytes,
+        state_bytes=[r["state_bytes"] for r in trains],
+        dryrun_state_bytes=train_state,
+        step_walls_s=[r["step_walls_s"] for r in trains],
+        yardstick_step_walls_s=[r["yardstick"]["step_walls_s"]
+                                for r in trains],
+        staged_bytes=[r["staged_bytes"] for r in trains],
+        yardstick_staged_bytes=[r["yardstick"]["staged_bytes"]
+                                for r in trains],
+        peak_memory_bytes=[r["peak_memory_bytes"] for r in trains],
+        yardstick_peak_memory_bytes=[r["yardstick"]["peak_memory_bytes"]
+                                     for r in trains],
+        world_wall_s=wall, seconds=time.perf_counter() - t_phase)
+    shutil.rmtree(out, ignore_errors=True)
+    # B4 at (h)'s and (o)'s rank shape: 16 query and 16 kv heads of 80
+    (B, Sq, H, D), (_, Sk, Hkv, _) = ranks[0]["b4_shape"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = attention_inputs(torch, gen, torch.bfloat16, D, B, Hkv,
+                               H // Hkv, Sq, Sk)
+    label = "zamba2-2.7b tensor-parallel rank (h), (o)"
     held = attention_held(torch, q, k, v, label, causal=True)
     return launches, [(label, (q, k, v), {"causal": True},
                        launches["flash_attention"], held)]
@@ -6797,7 +7965,8 @@ def phase_examples(torch, seed):
 RANK_ENTRIES = {"moe": rank_moe, "dp": rank_dp, "pipeline": rank_pipeline,
                 "moe_model": rank_moe_model, "moe_train": rank_moe_train,
                 "tp_prefill": rank_tp_prefill, "tp_train": rank_tp_train,
-                "tp_hybrid": rank_tp_hybrid,
+                "tp_ring": rank_tp_ring,
+                "tp_hybrid_zero": rank_tp_hybrid_zero,
                 "tp_ssm_train": rank_tp_ssm_train,
                 "tp_encdec": rank_tp_encdec, "tp_split": rank_tp_split,
                 "tp_zero_serve": rank_tp_zero_serve,
@@ -6806,7 +7975,9 @@ RANK_ENTRIES = {"moe": rank_moe, "dp": rank_dp, "pipeline": rank_pipeline,
 
 def rank_main(entry, rank, world, init_file, out, seed):
     """One rank of a world of the ``distributed`` phase, on ``cuda:0``:
-    joins the gloo group, runs ``RANK_ENTRIES[entry]``, writes its JSON.
+    joins the gloo group, runs ``RANK_ENTRIES[e]`` for each ``e`` of
+    ``entry`` (names joined by ``+``: one after the other in the same
+    processes, a world's start paid once), writes each one's JSON.
     ``run_world`` puts ``src`` and ``tests`` on its ``PYTHONPATH``."""
     import torch
     import torch.distributed as dist
@@ -6818,40 +7989,60 @@ def rank_main(entry, rank, world, init_file, out, seed):
     torch.cuda.set_device(0)
     init_rank(rank, world, init_file)
     try:
-        res = RANK_ENTRIES[entry](torch, rank, world, out, seed)
-        dist.barrier()
+        for name in entry.split("+"):
+            t0 = time.perf_counter()
+            res = RANK_ENTRIES[name](torch, rank, world, out, seed)
+            free_device_memory(torch)
+            dist.barrier()
+            res["device"] = str(torch.device("cuda",
+                                             torch.cuda.current_device()))
+            res["entry_wall_s"] = time.perf_counter() - t0
+            with open(os.path.join(out, f"{name}_{rank}.json"), "w") as f:
+                json.dump(res, f)
     finally:
         dist.destroy_process_group()
         release_host_buffers()
-    res["device"] = str(torch.device("cuda", torch.cuda.current_device()))
-    with open(os.path.join(out, f"{entry}_{rank}.json"), "w") as f:
-        json.dump(res, f)
     return 0
 
 
 def run_ranks(entry, world, out, seed, env=None):
     """A world of ``world`` processes of ``rank_main`` on the one card
     (``env``: their environment, this process's by default); returns the
-    ranks' JSON and the world's wall."""
+    ranks' JSON and the world's wall -- for entries joined by ``+``, the
+    ranks' JSON by entry."""
     from torch_worlds import run_world
 
-    init = os.path.join(out, f"pg_{entry}")
+    names = entry.split("+")
+    init = os.path.join(out, f"pg_{names[0]}")
     argv = lambda r: [sys.executable, os.path.join(HERE, "chip_smoke.py"),
                       "--seed", str(seed), "--rank", entry, str(r),
                       str(world), init, out]
     t0 = time.perf_counter()
     try:
-        run_world(argv, world, timeout=DIST_TIMEOUT_S, env=env)
+        run_world(argv, world, timeout=DIST_TIMEOUT_S * len(names), env=env)
     except RuntimeError as e:
         fail(f"distributed {entry}: {e}")
     wall = time.perf_counter() - t0
-    ranks = []
-    for r in range(world):
-        with open(os.path.join(out, f"{entry}_{r}.json")) as f:
-            ranks.append(json.load(f))
-    check(all(r["device"] == "cuda:0" for r in ranks),
-          f"distributed {entry}: a rank ran off the card: {ranks}")
-    return ranks, wall
+    by_entry = {}
+    for name in names:
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(out, f"{name}_{r}.json")) as f:
+                ranks.append(json.load(f))
+        check(all(r["device"] == "cuda:0" for r in ranks),
+              f"distributed {name}: a rank ran off the card: {ranks}")
+        by_entry[name] = ranks
+    return (by_entry if len(names) > 1 else by_entry[entry]), wall
+
+
+def run_ranks_async(entry, world, out, seed, env=None):
+    """:func:`run_ranks` on a thread: the future of ``(ranks, wall)``,
+    so that this process works on the card beside the world (whose ranks
+    wait mostly on gloo's host staging) and takes its result after."""
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    future = pool.submit(run_ranks, entry, world, out, seed, env)
+    pool.shutdown(wait=False)
+    return future
 
 
 def phase_distributed(torch, seed):
@@ -6877,8 +8068,9 @@ def phase_distributed(torch, seed):
     launches = {"moe_dispatch": 0, "ssd_chunk": 0}
     lines = {}
 
-    # (a) the expert-parallel MoE layer
-    ranks, wall = run_ranks("moe", 2, out, seed)
+    # (a) the expert-parallel MoE layer, then (b), in one world
+    worlds, wall = run_ranks("moe+dp", 2, out, seed)
+    ranks = worlds["moe"]
     cfg, lp, h = _moe_layer(torch, seed)
     xt = h.reshape(-1, cfg.d_model)
     probs = torch.softmax(xt.float() @ lp["router"].float(), dim=-1)
@@ -6905,7 +8097,9 @@ def phase_distributed(torch, seed):
         "arch": "olmoe-1b-7b", "tokens": list(DIST_MOE_TOKENS),
         "experts_per_rank": [r["experts"] for r in ranks],
         "b5_held": [r["b5_held"] for r in ranks],
-        "world_wall_s": wall, "layer_wall_s": [r["wall_s"] for r in ranks],
+        "world_wall_s": wall, "world": "(a), then (b), in one world",
+        "entry_wall_s": [r["entry_wall_s"] for r in ranks],
+        "layer_wall_s": [r["wall_s"] for r in ranks],
         "b5_launches": [r["moe_dispatch"] for r in ranks],
         "staged_bytes": [r["staged_bytes"] for r in ranks],
         "peak_memory_bytes": [r["peak_memory_bytes"] for r in ranks],
@@ -6917,7 +8111,7 @@ def phase_distributed(torch, seed):
     free_device_memory(torch)
 
     # (b) data-parallel training with the int8 error-feedback mean
-    ranks, wall = run_ranks("dp", 2, out, seed)
+    ranks = worlds["dp"]
     steps = [r["steps"] for r in ranks]
     for i, rec in enumerate(steps[0]):
         check(rec["params_sha256"] == steps[1][i]["params_sha256"],
@@ -6961,7 +8155,8 @@ def phase_distributed(torch, seed):
                      f"rank 0's half-batch gradient must break it at every "
                      f"leaf",
         "b6_held": [r["b6_held"] for r in ranks],
-        "params_equal_every_step": True, "world_wall_s": wall,
+        "params_equal_every_step": True,
+        "entry_wall_s": [r["entry_wall_s"] for r in ranks],
         "step_walls_s": [r["step_walls_s"] for r in ranks],
         "b6_launches": [r["ssd_chunk"] for r in ranks],
         "staged_bytes": [r["staged_bytes"] for r in ranks],
@@ -7086,7 +8281,9 @@ def main():
     from repro_torch.configs import get_arch
 
     # the tensor-parallel phases' lane plans, solved on the host while the
-    # kernels build (joined before the card runs anything else)
+    # kernels build (joined before the card runs anything else); then
+    # gemma3's vocabulary over 2 lanes (~2 min on the host) in a process of
+    # its own while the card works, joined by (n)
     warm = concurrent.futures.ThreadPoolExecutor(1)
     specs_solved = warm.submit(tp_dryrun_specs, _tp_configs())
     card, banked = phase_toolchain(torch)
@@ -7106,6 +8303,11 @@ def main():
     if args.skip_serve:
         print(card, flush=True)
         return 0
+    solver = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    atexit.register(solver.shutdown, cancel_futures=True)
+    SPECS_SOLVED["gemma3"] = solver.submit(
+        tp_dryrun_specs, {"gemma3": get_arch("gemma3_12b")})
     archs = [get_arch(a) for a in ("qwen2_7b", "olmoe_1b_7b", "mamba2_370m",
                                    "zamba2_2_7b", "gemma3_12b",
                                    "whisper_base")]
@@ -7158,14 +8360,19 @@ def main():
         attn_rows += rows
     add(phase_distributed(torch, args.seed))
     for phase in (phase_moe_worlds, phase_tensor_parallel,
-                  functools.partial(phase_tensor_parallel_ssm,
+                  phase_tensor_parallel_ring, phase_tensor_parallel_ssm,
+                  functools.partial(phase_tensor_parallel_hybrid_zero,
                                     ssd_args=ssd_args,
                                     ssd_held_by=ssd_held_by),
                   phase_tensor_parallel_misaligned,
                   phase_tensor_parallel_zero, phase_examples):
+        t_phase = time.perf_counter()
         n, rows = phase(torch, args.seed)
+        say("phase_seconds", name=getattr(phase, "func", phase).__name__,
+            seconds=time.perf_counter() - t_phase)
         add(n)
         attn_rows += rows
+    solver.shutdown()
     kernels = phase_kernel_times(torch, args.seed, launches, served_flush,
                                  ssd_args, ssd_held_by, attn_rows, banked)
     del ssd_args, attn_rows

@@ -53,7 +53,7 @@ def for_ranks(tree: Dict[str, Any], *, stages: Optional[int] = None,
               experts: Optional[Tuple[int, int]] = None,
               specs: Optional[Dict[str, Any]] = None, mesh=None,
               coords: Optional[Dict[str, int]] = None,
-              head_dim=None, family: Optional[str] = None) -> Dict[str, Any]:
+              head_dim=None) -> Dict[str, Any]:
     """A parameter tree cut for a world of processes; numpy arrays or
     tensors, cut leaf by leaf as views where the leaves allow (hand the
     reference's numpy tree in, then :func:`params_from_numpy`, and a rank
@@ -67,9 +67,7 @@ def for_ranks(tree: Dict[str, Any], *, stages: Optional[int] = None,
     model holds, cut over ``model`` and, under ZeRO-3, over the data axes
     (``parallel.sharding.rank_blocks``: an attention leaf's block may
     split a head; ``head_dim``, ``parallel.sharding.head_widths(cfg)``,
-    turns on the check that a Mamba2 head is not; ``family``, the
-    config's, the refusal of a data cut where the family's passes do not
-    gather one).
+    turns on the check that a Mamba2 head is not).
     ``experts=(rank, n)``: the expert stacks' specs
     (``parallel.sharding.expert_specs``): every ``we_*`` leaf keeps the
     ``rank``-th of ``n`` equal blocks of experts (dim -3), the rest
@@ -94,8 +92,7 @@ def for_ranks(tree: Dict[str, Any], *, stages: Optional[int] = None,
             leaf = leaf_block(path, leaf, expert_specs({name: leaf})[name],
                               {"model": n}, {"model": rank})
         if spec is not None:
-            leaf = leaf_block(path, leaf, spec, axes, coords, head_dim,
-                              family)
+            leaf = leaf_block(path, leaf, spec, axes, coords, head_dim)
         return leaf
 
     def walk(t, s, prefix):
@@ -110,10 +107,10 @@ def for_ranks(tree: Dict[str, Any], *, stages: Optional[int] = None,
 
 
 def block_init(specs: Dict[str, Any], mesh, coords: Dict[str, int],
-               head_dim=None, family: Optional[str] = None):
+               head_dim=None):
     """The ``keep`` of a model's ``init``: each leaf, as soon as it is
     drawn, replaced by a copy of this rank's block (over ``model`` and the
-    data axes alike; ``head_dim`` and ``family`` as in
+    data axes alike; ``head_dim`` as in
     :func:`for_ranks`), so that a rank that draws a whole model from a
     seed holds no more than its blocks and one whole leaf.  A whole leaf
     of a full-width model is large (internlm2-20b's ``w_gate`` stack 9.7
@@ -128,7 +125,7 @@ def block_init(specs: Dict[str, Any], mesh, coords: Dict[str, int],
             if k not in spec:         # drawn, then dropped by the init
                 return leaf
             spec = spec[k]
-        block = leaf_block(path, leaf, spec, axes, coords, head_dim, family)
+        block = leaf_block(path, leaf, spec, axes, coords, head_dim)
         return block if block is leaf else block.clone()
 
     return keep

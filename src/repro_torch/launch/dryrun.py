@@ -219,25 +219,17 @@ def lower_cell(arch: str, shape_name: str, mesh, *,
     if variant == "ring_cache":
         if shape.kind not in ("decode", "long_decode"):
             raise ValueError("ring_cache is a decode variant")
-        B = shape.global_batch
-        dp = shd.dp_axes(mesh)
-        nb = None if B == 1 else dp
-        seq_all = tuple(a for a in (*dp, "model")) if B == 1 else "model"
-        kv_loc = P(None, None, nb, "model" if B == 1 else None, None, None)
-        kv_glob = P(None, nb, seq_all, None, None)
         cache = _tree_structs(
-            tfm.init_grouped_cache(cfg, B, shape.seq_len, device="meta"),
-            tfm.GroupedKVCache(k_local=kv_loc, v_local=kv_loc,
-                               k_global=kv_glob, v_global=kv_glob, pos=P()))
+            tfm.init_grouped_cache(cfg, shape.global_batch, shape.seq_len,
+                                   device="meta"),
+            shd.ring_cache_specs(cfg, shape, mesh))
     elif variant == "int8_kv":
         if shape.kind not in ("decode", "long_decode"):
             raise ValueError("int8_kv is a decode variant")
-        base = shd.cache_specs(cfg, shape, mesh)
-        kv, scale = base.k, P(*base.k[:-1])
         cache = _tree_structs(
             tfm.init_quant_cache(cfg, shape.global_batch, shape.seq_len,
                                  device="meta"),
-            tfm.QuantKVCache(k_q=kv, v_q=kv, k_s=scale, v_s=scale, pos=P()))
+            shd.quant_cache_specs(cfg, shape, mesh))
     elif shape.kind == "train":
         moment_dt = torch.bfloat16 if bf16_opt else torch.float32
         opt_shapes = adamw.init(param_shapes(get_model(cfg)), moment_dt)

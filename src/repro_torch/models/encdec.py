@@ -36,6 +36,12 @@ the policy's ``"__cache__"`` cuts the caches on their positions, the
 self cache holds the rank's block of ``max_len / n`` positions and the
 cross cache its block of the frames, every kv head, and each decode
 step's attention is a partial softmax merged over the cut's ranks.
+Where the policy's ``"__params__"`` declares the weights cut over the
+data axes too (ZeRO-3), every pass gathers each encoder and decoder
+layer's leaves, the cross attention's included, into their ``model``
+blocks inside the layer's recomputed body, and ``embed``, ``ln_enc`` and
+``ln_f`` where they are used (``parallel.hints.layer_blocks``,
+``whole_layers``, ``model_block``), as ``models/transformer.py`` does.
 """
 
 from __future__ import annotations
@@ -46,8 +52,9 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..kernels import ops
-from ..parallel.hints import (column_in, current_split, hint, residual_block,
-                              row_parallel_end, split_sequence)
+from ..parallel.hints import (column_in, current_split, hint, layer_blocks,
+                              model_block, model_shape, residual_block,
+                              row_parallel_end, split_sequence, whole_layers)
 from . import transformer as tfm
 from .layers import (apply_rope, chunked_attention, dense_init,
                      parallel_gelu_mlp, param_device, remat, rms_norm,
@@ -220,14 +227,17 @@ def _encode(cfg: ArchConfig, params: Params, frames: Tensor,
     decoder layer's cross K/V."""
     with split_sequence(frames.shape[1], cut):
         def block(lp, x):
-            return _enc_layer(cfg, lp, x)
+            return _enc_layer(cfg, layer_blocks(lp, "enc"), x)
 
         x = residual_block(frames)
-        for lp in unstack(params["enc"],
+        for lp in unstack(whole_layers(params["enc"], "enc"),
                           cfg.n_encoder_layers or cfg.n_layers):
             x = hint(remat(block, lp, x), "residual")
-        return _whole_sequence(rms_norm(x, params["ln_enc"], cfg.norm_eps),
-                               heads_cut(cfg, params["dec"]["cross"]))
+        cross = model_shape(params["dec"]["cross"]["wq"], "dec/cross/wq")
+        return _whole_sequence(
+            rms_norm(x, model_block(params["ln_enc"], "ln_enc"),
+                     cfg.norm_eps),
+            cross[-1] < cfg.n_heads * cfg.hd)
 
 
 @torch.no_grad()
@@ -248,12 +258,12 @@ def decode_train(cfg: ArchConfig, params: Params, enc_out: Tensor,
     states (B, S, D): this rank's block of the sequence under a cut."""
     with split_sequence(tokens.shape[1], cut):
         def block(lp, x):
-            return _dec_layer(cfg, lp, x, enc_out)[0]
+            return _dec_layer(cfg, layer_blocks(lp, "dec"), x, enc_out)[0]
 
         x = residual_block(tfm.embed_tokens(params, tokens, cfg.vocab))
-        for lp in unstack(params["dec"], cfg.n_layers):
+        for lp in unstack(whole_layers(params["dec"], "dec"), cfg.n_layers):
             x = hint(remat(block, lp, x), "residual")
-        return rms_norm(x, params["ln_f"], cfg.norm_eps)
+        return rms_norm(x, model_block(params["ln_f"], "ln_f"), cfg.norm_eps)
 
 
 def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, Tensor]
@@ -266,10 +276,10 @@ def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, Tensor]
     frames, tokens = batch["frames"], batch["tokens"]
     cut = both_cut(frames.shape[1], tokens.shape[1])
     with split_sequence(tokens.shape[1], cut) as split:
-        params = tfm.spread_grads(params, split)
-        enc_out = _encode(cfg, params, frames.to(torch.bfloat16), cut)
-        h = decode_train(cfg, params, enc_out, tokens, cut)
-        return tfm.chunked_xent(cfg, params, h, batch["labels"])
+        with tfm.loss_params(params, split) as params:
+            enc_out = _encode(cfg, params, frames.to(torch.bfloat16), cut)
+            h = decode_train(cfg, params, enc_out, tokens, cut)
+            return tfm.chunked_xent(cfg, params, h, batch["labels"])
 
 
 class EncDecCache(NamedTuple):
@@ -303,7 +313,7 @@ def prefill(cfg: ArchConfig, params: Params, frames: Tensor, tokens: Tensor,
     with split_sequence(S, cut) as split:
         x = residual_block(tfm.embed_tokens(params, tokens, cfg.vocab))
         L, S_enc = cfg.n_layers, enc_out.shape[1]
-        dec = params["dec"]
+        dec = whole_layers(params["dec"], "dec")
         Hkv, seq = tfm.kv_layout(cfg, dec["self"]["wk"], "k_self",
                                  "dec/self/wk")
         Hkv_x, seq_x = tfm.kv_layout(cfg, dec["cross"]["wk"], "k_cross",
@@ -317,13 +327,14 @@ def prefill(cfg: ArchConfig, params: Params, frames: Tensor, tokens: Tensor,
         k_cross = torch.empty(cross, dtype=x.dtype, device=x.device)
         v_cross = torch.empty(cross, dtype=x.dtype, device=x.device)
         for i in range(L):
-            x, (k, v), (kc, vc) = _dec_layer(cfg, _layer(dec, i), x,
-                                             enc_out, seq, seq_x)
+            x, (k, v), (kc, vc) = _dec_layer(
+                cfg, layer_blocks(_layer(dec, i), "dec"), x, enc_out, seq,
+                seq_x)
             for buf, t, cut in ((k_self[i], k, seq), (v_self[i], v, seq),
                                 (k_cross[i], kc, seq_x),
                                 (v_cross[i], vc, seq_x)):
                 tfm.store_prompt(buf, t, cut)
-        h = rms_norm(x, params["ln_f"], cfg.norm_eps)
+        h = rms_norm(x, model_block(params["ln_f"], "ln_f"), cfg.norm_eps)
         logits = tfm.last_logits(cfg, params, h, split)
     return logits, EncDecCache(k_self, v_self, k_cross, v_cross, S)
 
@@ -350,8 +361,9 @@ def decode_step(cfg: ArchConfig, params: Params, cache: EncDecCache,
                             "dec/self/wk")[1]
         seq_x = tfm.kv_layout(cfg, params["dec"]["cross"]["wk"],
                               "k_cross", "dec/cross/wk")[1]
+        dec = whole_layers(params["dec"], "dec")
         for i in range(cfg.n_layers):
-            lp = _layer(params["dec"], i)
+            lp = layer_blocks(_layer(dec, i), "dec")
             tp = heads_cut(cfg, lp["self"])
             k_s, v_s = cache.k_self[i], cache.v_self[i]
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
@@ -400,7 +412,7 @@ def decode_step(cfg: ArchConfig, params: Params, cache: EncDecCache,
                 o = torch.matmul(a.reshape(B, S, -1), lp["cross"]["wo"])
             x = x + (row_parallel_end(o) if tp else o).to(x.dtype)
             x = x + _mlp(cfg, lp, rms_norm(x, lp["ln3"], cfg.norm_eps))
-        h = rms_norm(x, params["ln_f"], cfg.norm_eps)
+        h = rms_norm(x, model_block(params["ln_f"], "ln_f"), cfg.norm_eps)
         logits = tfm.logits_fn(cfg, params, h)[:, 0]
     return logits, EncDecCache(cache.k_self, cache.v_self, cache.k_cross,
                                cache.v_cross, pos + 1)

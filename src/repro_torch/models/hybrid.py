@@ -22,7 +22,13 @@ cache holds the rank's conv channels, SSM heads and kv heads
 (``cache_specs``) -- or, where the policy's ``"__cache__"`` cuts the
 shared block's KV on its positions, every kv head of the rank's block of
 positions, attended as ``transformer.dense_layer`` attends a cache cut
-so.
+so.  Where the policy's ``"__params__"`` declares the weights cut over
+the data axes too (ZeRO-3), each SSM block's leaves are gathered inside
+its group's recomputed body, as ``models/ssm.py`` gathers them; the
+shared block's are gathered once a pass, before its first site, so that
+in the backward the sites' gradients are summed before the gather's
+reduce-scatter, as they are summed before the data sum where the weights
+are whole over ``data`` (the two layouts give the same bits).
 """
 
 from __future__ import annotations
@@ -33,8 +39,9 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
-from ..parallel.hints import (hint, residual_block, split_sequence,
-                              whole_channels)
+from ..parallel.hints import (hint, layer_blocks, model_block,
+                              residual_block, split_sequence, whole_channels,
+                              whole_layers)
 from . import ssm as ssm_mod
 from . import transformer as tfm
 from .layers import dense_init, remat, rms_norm, unstack
@@ -133,16 +140,18 @@ def forward(cfg: ArchConfig, params: Params, tokens: Tensor) -> Tensor:
     with split_sequence(tokens.shape[1], channels=cfg.d_model):
         x = residual_block(tfm.embed_tokens(params, tokens, cfg.vocab))
         G, per = _groups(cfg)
-        shared = params["shared_attn"]
+        shared = layer_blocks(params["shared_attn"], "shared_attn", lead=0)
 
-        def group(lps, x):
+        def group(lps, x, shared):
             for lp in lps:
-                x, _ = ssm_mod.ssm_block(cfg, lp, x)
+                x, _ = ssm_mod.ssm_block(cfg, layer_blocks(lp, "ssm", 2), x)
             return tfm.dense_layer(cfg, shared, x, 0)[0]
 
-        for stacked in unstack(params["ssm"], G):
-            x = hint(remat(group, unstack(stacked, per), x), "residual")
-        return rms_norm(whole_channels(x), params["ln_f"], cfg.norm_eps)
+        for stacked in unstack(whole_layers(params["ssm"], "ssm", 2), G):
+            x = hint(remat(group, unstack(stacked, per), x, shared),
+                     "residual")
+        return rms_norm(whole_channels(x), model_block(params["ln_f"], "ln_f"),
+                        cfg.norm_eps)
 
 
 def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, Tensor]
@@ -152,9 +161,9 @@ def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, Tensor]
     leaf (``transformer.spread_grads``)."""
     with split_sequence(batch["tokens"].shape[1],
                         channels=cfg.d_model) as split:
-        params = tfm.spread_grads(params, split)
-        h = forward(cfg, params, batch["tokens"])
-        return tfm.chunked_xent(cfg, params, h, batch["labels"])
+        with tfm.loss_params(params, split) as params:
+            h = forward(cfg, params, batch["tokens"])
+            return tfm.chunked_xent(cfg, params, h, batch["labels"])
 
 
 @torch.no_grad()
@@ -170,18 +179,21 @@ def decode_step(cfg: ArchConfig, params: Params, cache: HybridCache,
         x = tfm.embed_tokens(params, tokens, cfg.vocab)
         seq = tfm.kv_layout(cfg, params["shared_attn"]["wk"],
                             path="shared_attn/wk")[1]
+        layers = whole_layers(params["ssm"], "ssm", 2)
+        shared = layer_blocks(params["shared_attn"], "shared_attn", lead=0)
         for g in range(G):
             for i in range(per):
                 x, (conv, state) = ssm_mod.ssm_block(
-                    cfg, ssm_mod.layer(params["ssm"], (g, i)), x,
+                    cfg, layer_blocks(ssm_mod.layer(layers, (g, i)), "ssm",
+                                      2), x,
                     conv_state=cache.conv[g, i],
                     ssm_state=cache.state[g, i], streaming=True)
                 cache.conv[g, i] = conv
                 cache.state[g, i] = state
-            x, _ = tfm.dense_layer(cfg, params["shared_attn"], x, 0,
+            x, _ = tfm.dense_layer(cfg, shared, x, 0,
                                    cache_kv=(cache.k[g], cache.v[g]),
                                    pos=pos, seq=seq)
-        h = rms_norm(x, params["ln_f"], cfg.norm_eps)
+        h = rms_norm(x, model_block(params["ln_f"], "ln_f"), cfg.norm_eps)
         logits = tfm.logits_fn(cfg, params, h)[:, 0]
     return logits, HybridCache(cache.conv, cache.state, cache.k, cache.v,
                                pos + 1)
@@ -209,17 +221,20 @@ def prefill(cfg: ArchConfig, params: Params, tokens: Tensor, max_len: int
                                       path="shared_attn/wk")
         cache = init_cache(cfg, B, max_len, device=x.device,
                            kv_heads=kv_heads,
-                           **ssm_mod.rank_cache_dims(params["ssm"]))
+                           **ssm_mod.rank_cache_dims(params["ssm"], "ssm"))
+        layers = whole_layers(params["ssm"], "ssm", 2)
+        shared = layer_blocks(params["shared_attn"], "shared_attn", lead=0)
         for g in range(G):
             for i in range(per):
                 x, (conv, state) = ssm_mod.ssm_block(
-                    cfg, ssm_mod.layer(params["ssm"], (g, i)), x)
+                    cfg, layer_blocks(ssm_mod.layer(layers, (g, i)), "ssm",
+                                      2), x)
                 cache.conv[g, i] = conv
                 cache.state[g, i] = state
-            x, (k, v) = tfm.dense_layer(cfg, params["shared_attn"], x, 0,
-                                        seq=seq)
+            x, (k, v) = tfm.dense_layer(cfg, shared, x, 0, seq=seq)
             tfm.store_prompt(cache.k[g], k, seq)
             tfm.store_prompt(cache.v[g], v, seq)
-        h = rms_norm(whole_channels(x), params["ln_f"], cfg.norm_eps)
+        h = rms_norm(whole_channels(x), model_block(params["ln_f"], "ln_f"),
+                     cfg.norm_eps)
         logits = tfm.logits_fn(cfg, params, h[:, -1:])[:, 0]
     return logits, HybridCache(cache.conv, cache.state, cache.k, cache.v, S)

@@ -244,11 +244,14 @@ def chunked_attention(
 
 
 def attention_partials(q, k, v, *, causal=True, window=0, q_offset=0,
-                       k_offset=0, kv_len=None, scale=None):
+                       k_offset=0, kv_len=None, scale=None, k_pos=None):
     """The unnormalised attention of ``q (B, Sq, H, Dh)`` over a block of
     keys ``k``, ``v (B, Sk, Hkv, Dh)`` at absolute positions ``k_offset +
-    [0, Sk)`` (a rank's block of a cache cut on its positions), masked by
-    absolute positions as :func:`chunked_attention` masks them: float32
+    [0, Sk)`` (a rank's block of a cache cut on its positions), or at
+    ``k_pos (Sk,)`` where given (a block of a ring, whose rows hold the
+    positions the bank equation gives back; a negative one was never
+    written), masked by absolute positions as :func:`chunked_attention`
+    masks them: float32
     ``(m, l, o)``, each row and head's max score over the block's valid
     keys (``NEG_INF`` where none is valid), its sum of ``exp(s - m)`` and
     the sum of ``exp(s - m) v`` -- zeros where no key is valid, so such
@@ -260,8 +263,9 @@ def attention_partials(q, k, v, *, causal=True, window=0, q_offset=0,
     q5 = (q.float() * scale).reshape(B, Sq, Hkv, rep, Dh)
     s = torch.einsum("bqhrd,bkhd->bqhrk", q5, k.float())
     q_pos = torch.arange(Sq, device=q.device) + q_offset
-    k_pos = torch.arange(Sk, device=q.device) + k_offset
-    mask = _block_mask(q_pos, k_pos, causal, window)
+    if k_pos is None:
+        k_pos = torch.arange(Sk, device=q.device) + k_offset
+    mask = _block_mask(q_pos, k_pos, causal, window) & (k_pos >= 0)[None, :]
     if kv_len is not None:
         mask &= (k_pos < kv_len)[None, :]
     mask = mask[None, :, None, None, :]

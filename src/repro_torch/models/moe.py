@@ -263,7 +263,9 @@ def moe_ffn_a2a(cfg: ArchConfig, lp, h: Tensor) -> Tuple[Tensor, Tensor]:
     ``h``'s tokens, the same in every rank of the ``model`` group
     (``lm_loss`` takes its mean over the ranks).  Without a mesh in the
     policy, or where E or S does not divide by the ``model`` size, it is
-    ``moe_ffn_sorted``, as in the JAX package.
+    ``moe_ffn_sorted``, as in the JAX package: every decode step's one
+    token.  Each call adds one to its branch's count in
+    :data:`A2A_BRANCHES`.
     """
     import torch.distributed as dist
 
@@ -271,13 +273,14 @@ def moe_ffn_a2a(cfg: ArchConfig, lp, h: Tensor) -> Tuple[Tensor, Tensor]:
     from ..parallel.sharding import mesh_axes
 
     mesh = policy_value("__mesh__")
-    if mesh is None or "model" not in (getattr(mesh, "mesh_dim_names", None)
-                                       or ()):
-        return moe_ffn_sorted(cfg, lp, h)
-    n_model = mesh_axes(mesh)["model"]
+    n_model = (mesh_axes(mesh)["model"] if mesh is not None
+               and "model" in (getattr(mesh, "mesh_dim_names", None) or ())
+               else None)
     E = cfg.n_experts
-    if E % n_model or h.shape[1] % n_model:
+    if n_model is None or E % n_model or h.shape[1] % n_model:
+        A2A_BRANCHES["sorted"] += 1
         return moe_ffn_sorted(cfg, lp, h)
+    A2A_BRANCHES["a2a"] += 1
     E_loc = E // n_model
     we_gate, we_up, we_down = lp["we_gate"], lp["we_up"], lp["we_down"]
     if we_gate.shape[0] != E_loc:
@@ -316,6 +319,9 @@ def moe_ffn_a2a(cfg: ArchConfig, lp, h: Tensor) -> Tuple[Tensor, Tensor]:
 
 MOE_IMPLS = {"dense": moe_ffn_dense, "sorted": moe_ffn_sorted,
              "a2a": moe_ffn_a2a}
+# the calls of ``moe_ffn_a2a`` by the branch they took: the expert-parallel
+# layer, or its fallback to ``moe_ffn_sorted``
+A2A_BRANCHES = {"a2a": 0, "sorted": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -404,15 +410,15 @@ def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, Tensor],
     its share of it (summed over the ranks by ``spread_grads`` and the
     router's gather)."""
     with _layout(impl), split_sequence(batch["tokens"].shape[1]) as split:
-        params = tfm.spread_grads(params, split)
-        h, aux = forward(cfg, params, batch["tokens"], impl=impl)
-        if split is not None:
-            router = model_shape(params["layers"]["router"],
-                                 "layers/router")
-            aux = (split.mean_with_model(aux) if router[-1] < cfg.n_experts
-                   else split.mean(aux))
-        return (tfm.chunked_xent(cfg, params, h, batch["labels"])
-                + aux_weight * aux)
+        with tfm.loss_params(params, split) as params:
+            h, aux = forward(cfg, params, batch["tokens"], impl=impl)
+            if split is not None:
+                router = model_shape(params["layers"]["router"],
+                                     "layers/router")
+                aux = (split.mean_with_model(aux)
+                       if router[-1] < cfg.n_experts else split.mean(aux))
+            return (tfm.chunked_xent(cfg, params, h, batch["labels"])
+                    + aux_weight * aux)
 
 
 @torch.no_grad()

@@ -26,9 +26,14 @@ the conv channels, with its own conv tail (``cache_specs``' ``conv``
 block), and its output is gathered and sliced the same way.  The SSD scan
 (B6) runs on the rank's ``H/n`` heads, the gated norm's mean of squares
 is summed over ``model`` in float32, and ``out_proj`` ends with the
-row-parallel sum of its float32 partial sums, rounded once.  Under the train and prefill policies the residual is
-cut on its channels (``parallel/hints.py``): each block gathers its
-input's channels before its norm.
+row-parallel sum of its float32 partial sums, rounded once.  Under the
+train and prefill policies the residual is cut on its channels
+(``parallel/hints.py``): each block gathers its input's channels before
+its norm.  Where the policy's ``"__params__"`` declares the weights cut
+over the data axes too (ZeRO-3), every pass gathers each block's leaves
+into their ``model`` blocks inside the block's recomputed body, and the
+whole-model leaves where they are used (``parallel.hints.layer_blocks``,
+``whole_layers``, ``model_block``), as ``models/transformer.py`` does.
 """
 
 from __future__ import annotations
@@ -43,9 +48,10 @@ from ..device import resolve_device
 from ..kernels.ssd_chunk import SsdChunkFn, ssd_chunk
 from ..parallel.collectives import (all_gather_dim, all_reduce_sum,
                                     summed_grads)
-from ..parallel.hints import (column_in, hint, model_axis, residual_block,
+from ..parallel.hints import (column_in, hint, layer_blocks, model_axis,
+                              model_block, model_shape, residual_block,
                               row_parallel_end, split_sequence,
-                              whole_channels)
+                              whole_channels, whole_layers)
 from . import transformer as tfm
 from .layers import dense_init, param_device, remat, rms_norm, unstack
 
@@ -373,11 +379,15 @@ def init_cache(cfg: ArchConfig, batch: int, dtype=torch.bfloat16,
         0)
 
 
-def rank_cache_dims(layers: Params) -> Dict[str, int]:
+def rank_cache_dims(layers: Params, prefix: str = "layers"
+                    ) -> Dict[str, int]:
     """The heads and conv channels of the states of the blocks whose
-    stacked leaves are ``layers``: this rank's where they are cut."""
-    return {"heads": layers["A_log"].shape[-1],
-            "conv_channels": layers["conv_w"].shape[-1]}
+    stacked leaves are ``layers`` (the leaves ``prefix/...``): this rank's
+    where they are cut over ``model`` (``hints.model_shape``: a cut over
+    the data axes is gathered before a block runs)."""
+    return {"heads": model_shape(layers["A_log"], prefix + "/A_log")[-1],
+            "conv_channels": model_shape(layers["conv_w"],
+                                         prefix + "/conv_w")[-1]}
 
 
 def layer(stacked: Params, i) -> Params:
@@ -399,11 +409,13 @@ def forward(cfg: ArchConfig, params: Params, tokens: Tensor) -> Tensor:
         x = residual_block(tfm.embed_tokens(params, tokens, cfg.vocab))
 
         def block(lp, x):
-            return ssm_block(cfg, lp, x)[0]
+            return ssm_block(cfg, layer_blocks(lp), x)[0]
 
-        for lp in unstack(params["layers"], cfg.n_layers):
+        layers = whole_layers(params["layers"])
+        for lp in unstack(layers, cfg.n_layers):
             x = hint(remat(block, lp, x), "residual")
-        return rms_norm(whole_channels(x), params["ln_f"], cfg.norm_eps)
+        return rms_norm(whole_channels(x), model_block(params["ln_f"], "ln_f"),
+                        cfg.norm_eps)
 
 
 def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, Tensor]
@@ -413,9 +425,9 @@ def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, Tensor]
     leaf (``transformer.spread_grads``)."""
     with split_sequence(batch["tokens"].shape[1],
                         channels=cfg.d_model) as split:
-        params = tfm.spread_grads(params, split)
-        h = forward(cfg, params, batch["tokens"])
-        return tfm.chunked_xent(cfg, params, h, batch["labels"])
+        with tfm.loss_params(params, split) as params:
+            h = forward(cfg, params, batch["tokens"])
+            return tfm.chunked_xent(cfg, params, h, batch["labels"])
 
 
 @torch.no_grad()
@@ -427,17 +439,19 @@ def decode_step(cfg: ArchConfig, params: Params, cache: SSMCache,
     returned cache shares them and carries ``pos + 1``), as the dense
     family's KV cache is.  With leaves cut over ``model`` the cache holds
     this rank's conv channels and heads, and the logits are the whole
-    vocabulary's."""
+    vocabulary's; with leaves cut over the data axes too each block's are
+    gathered before it runs."""
     with split_sequence(tokens.shape[1], cut=False):
         x = tfm.embed_tokens(params, tokens, cfg.vocab)
+        layers = whole_layers(params["layers"])
         for i in range(cfg.n_layers):
             x, (conv, state) = ssm_block(
-                cfg, layer(params["layers"], i), x,
+                cfg, layer_blocks(layer(layers, i)), x,
                 conv_state=cache.conv[i], ssm_state=cache.state[i],
                 streaming=True)
             cache.conv[i] = conv
             cache.state[i] = state
-        h = rms_norm(x, params["ln_f"], cfg.norm_eps)
+        h = rms_norm(x, model_block(params["ln_f"], "ln_f"), cfg.norm_eps)
         logits = tfm.logits_fn(cfg, params, h)[:, 0]
     return logits, SSMCache(cache.conv, cache.state, int(cache.pos) + 1)
 
@@ -456,10 +470,13 @@ def prefill(cfg: ArchConfig, params: Params, tokens: Tensor
         x = residual_block(tfm.embed_tokens(params, tokens, cfg.vocab))
         cache = init_cache(cfg, B, device=x.device,
                            **rank_cache_dims(params["layers"]))
+        layers = whole_layers(params["layers"])
         for i in range(cfg.n_layers):
-            x, (conv, state) = ssm_block(cfg, layer(params["layers"], i), x)
+            x, (conv, state) = ssm_block(cfg, layer_blocks(layer(layers, i)),
+                                         x)
             cache.conv[i] = conv
             cache.state[i] = state
-        h = rms_norm(whole_channels(x), params["ln_f"], cfg.norm_eps)
+        h = rms_norm(whole_channels(x), model_block(params["ln_f"], "ln_f"),
+                     cfg.norm_eps)
         logits = tfm.logits_fn(cfg, params, h[:, -1:])[:, 0]
     return logits, SSMCache(cache.conv, cache.state, S)

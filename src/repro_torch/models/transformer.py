@@ -39,6 +39,7 @@ layer_blocks``, ``model_block``).
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Any, Dict, NamedTuple, Tuple
 
 import numpy as np
@@ -48,7 +49,8 @@ from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..kernels import ops
 from ..parallel.hints import (cache_cut, column_in, current_split,
-                              cut_axes, hint, layer_blocks, model_axis,
+                              cut_axes, gathered_once, hint, layer_blocks,
+                              model_axis,
                               model_block, model_shape, policy_value,
                               residual_block, row_parallel_end,
                               split_sequence, whole_channels, whole_layers)
@@ -277,19 +279,21 @@ def out_proj(lp, o, width: int):
     return torch.matmul(o.float(), lp["wo"].float())
 
 
-def write_rows(k_buf, v_buf, k, v, pos, seq=None):
-    """The new rows ``k``, ``v (B, S, Hkv, hd)`` at position ``pos`` of
-    the whole cache, **in place**: a write past the whole buffer's end
-    (this block's rows times ``seq.n``) is clamped to fit, as the JAX
-    package's ``dynamic_update_slice`` clamps it; a rank holding a block
-    of positions (``seq``) writes only the rows its block holds."""
-    S, rows = k.shape[1], k_buf.shape[1]
+def put_rows(pairs, pos, seq=None):
+    """Each ``(buf (B, rows, ...), t (B, S, ...))`` of ``pairs``: the new
+    rows ``t`` at row ``pos`` of the whole buffer, **in place**: a write
+    past the whole buffer's end (this block's rows times ``seq.n``) is
+    clamped to fit, as the JAX package's ``dynamic_update_slice`` clamps
+    it; a rank holding a block of the rows (``seq``) writes only the rows
+    its block holds."""
+    S, rows = pairs[0][1].shape[1], pairs[0][0].shape[1]
     at = min(max(int(pos), 0), rows * (seq.n if seq else 1) - S)
     base = seq.index * rows if seq else 0
     a, b = max(at, base), min(at + S, base + rows)
     if a < b:
-        k_buf[:, a - base:b - base] = k[:, a - at:b - at].to(k_buf.dtype)
-        v_buf[:, a - base:b - base] = v[:, a - at:b - at].to(v_buf.dtype)
+        for buf, t in pairs:
+            buf[:, a - base:b - base] = t[:, a - at:b - at].to(buf.dtype)
+
 
 
 def store_prompt(buf, t, seq=None):
@@ -330,7 +334,7 @@ def whole_heads_attention(cfg: ArchConfig, lp, h, kv_in, *, causal=True,
                 f"a layer on whole heads: it holds every kv head "
                 f"({cfg.n_kv_heads}) of a block of positions")
         if k is not None:
-            write_rows(k_buf, v_buf, k, v, pos, seq)
+            put_rows(((k_buf, k), (v_buf, v)), pos, seq)
         o = attend_cache(cfg, lp, q, k_buf, v_buf, seq, causal=causal,
                          window=window, q_offset=pos,
                          kv_len=None if k is None else pos + h.shape[1])
@@ -651,25 +655,48 @@ def spread_grads(params: Params, split) -> Params:
     return wrap(params, "")
 
 
+@contextmanager
+def loss_params(params: Params, split):
+    """The parameters a loss pass reads: :func:`spread_grads`, and a tied
+    embedding (no ``lm_head``: the embedding and the head) that the
+    declared ``"__params__"`` cuts over the data axes gathered once for
+    the pass (``hints.gathered_once``)."""
+    params = spread_grads(params, split)
+    with gathered_once(params, () if "lm_head" in params else ("embed",)
+                       ) as params:
+        yield params
+
+
 def grad_norm(grads: Params) -> Tensor:
     """The global norm of the gradients over every rank: the squares of
     each leaf's block summed over every axis that cuts it
     (``hints.cut_axes``: the policy's declared ``"__params__"``), every
-    whole leaf counted once.  Without a mesh, or with every leaf whole:
+    whole leaf counted once.  Where the policy declares the optimizer
+    state's cut (``"__opt__"``) the blocks are the state's
+    (``hints.state_layout``), whatever the weights' cut: the same sums in
+    the same groups whether the weights are cut over the data axes
+    (ZeRO-3) or whole there (ZeRO-1), so the two give the same bits.
+    Without a mesh, or with every leaf whole:
     ``optim.adamw.global_norm``."""
     import torch.distributed as dist
 
     from ..optim.adamw import global_norm
+    from ..parallel.hints import state_layout
 
-    def pairs(tree, prefix):
+    entry = "__params__" if policy_value("__opt__") is None else "__opt__"
+    state = state_layout(grads)
+
+    def pairs(tree, cuts, prefix):
         for k, v in tree.items():
             path = f"{prefix}/{k}" if prefix else k
+            cut = None if cuts is None else cuts[k]
             if isinstance(v, dict):
-                yield from pairs(v, path)
+                yield from pairs(v, cut, path)
             else:
-                yield v, cut_axes(path)
+                yield (v if cut is None else cut.take(v)), cut_axes(path,
+                                                                   entry)
 
-    leaves, cuts = zip(*pairs(grads, ""))
+    leaves, cuts = zip(*pairs(grads, state, ""))
     mesh = policy_value("__mesh__")
     if mesh is None or not any(cuts):
         return global_norm(grads)
@@ -694,9 +721,9 @@ def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, Tensor]
     a leaf (:func:`spread_grads`): what ``jax.grad`` gives under the JAX
     package's mesh."""
     with split_sequence(batch["tokens"].shape[1]) as split:
-        params = spread_grads(params, split)
-        h = forward(cfg, params, batch["tokens"])
-        return chunked_xent(cfg, params, h, batch["labels"])
+        with loss_params(params, split) as params:
+            h = forward(cfg, params, batch["tokens"])
+            return chunked_xent(cfg, params, h, batch["labels"])
 
 
 # ---------------------------------------------------------------------------
@@ -733,12 +760,13 @@ def kv_layout(cfg: ArchConfig, wk, field: str = "k", path: str = "layers/wk"):
 
 
 def cache_block(cfg: ArchConfig, max_len: int, kv_heads=None,
-                field: str = "k"):
+                field: str = "k", rows: int = 2):
     """``(positions, kv heads)`` of a rank's block of a KV cache
-    ``max_len`` long: what the policy's ``"__cache__"`` declares (its
-    block of positions, or its kv heads), ``kv_heads`` where given, and
-    otherwise the whole cache."""
-    declared = cache_cut(field)
+    ``max_len`` long (or of a ring of ``max_len`` slots, whose field's
+    slots are dim ``rows``): what the policy's ``"__cache__"`` declares
+    (its block of positions, or its kv heads), ``kv_heads`` where given,
+    and otherwise the whole cache."""
+    declared = cache_cut(field, rows)
     if declared is None:
         return max_len, kv_heads or cfg.n_kv_heads
     seq, head_blocks = declared
@@ -893,18 +921,24 @@ def grouped_layout(cfg: ArchConfig) -> Tuple[int, int]:
 
 def init_grouped_cache(cfg: ArchConfig, batch: int, max_len: int,
                        dtype=torch.bfloat16, device="cuda") -> GroupedKVCache:
+    """Zeros: this rank's block of the rings and of the global layers'
+    buffers where the policy's ``"__cache__"`` declares their cut
+    (``parallel.sharding.ring_cache_specs``: a ring's slots, a buffer's
+    positions), otherwise the whole cache."""
     device = resolve_device(device)
     G, R = grouped_layout(cfg)
-    W = cfg.sliding_window
-    Hkv, Dh = cfg.n_kv_heads, cfg.hd
+    Dh = cfg.hd
+    slots, ring_heads = cache_block(cfg, cfg.sliding_window,
+                                    field="k_local", rows=3)
+    rows, heads = cache_block(cfg, max_len, field="k_global")
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    return GroupedKVCache(zeros(G, R, batch, W, Hkv, Dh),
-                          zeros(G, R, batch, W, Hkv, Dh),
-                          zeros(G, batch, max_len, Hkv, Dh),
-                          zeros(G, batch, max_len, Hkv, Dh), 0)
+    return GroupedKVCache(zeros(G, R, batch, slots, ring_heads, Dh),
+                          zeros(G, R, batch, slots, ring_heads, Dh),
+                          zeros(G, batch, rows, heads, Dh),
+                          zeros(G, batch, rows, heads, Dh), 0)
 
 
 def _grouped_params(cfg: ArchConfig, params: Params):
@@ -927,34 +961,85 @@ def ring_slot(pos: int, window: int) -> int:
     return pos % window
 
 
-def _ring_layer(cfg: ArchConfig, lp, x, kc, vc, pos: int, slot: int):
+def ring_positions(pos: int, slot: int, window: int, rows: int, base: int,
+                   device) -> Tensor:
+    """The absolute positions that ring rows ``base + [0, rows)`` hold
+    once position ``pos`` is written at ``slot``: rows (slot-W, slot]
+    hold positions (pos-W, pos] (the bank equation read backwards; a
+    negative position was never written)."""
+    row = torch.arange(rows, device=device) + base
+    return pos - torch.remainder(slot - row + window, window)
+
+
+def _ring_layer(cfg: ArchConfig, lp, x, kc, vc, pos: int, slot: int,
+                ring=None):
     """One local layer against its ring (``kc``/``vc`` (B, W, Hkv, Dh),
     written in place at ``slot``): attention over the W rows, each masked
-    by the position the bank equation gives it back."""
+    by the position the bank equation gives it back.
+
+    With weights cut over ``model``, or a ring cut on its slots (``ring``,
+    a ``hints.SequenceCut``: the long layout), the layer runs on whole
+    heads (the section above :func:`whole_heads`): q, k and v gathered
+    over ``model``, the new row written by the rank whose block of slots
+    holds ``slot``.  A whole ring (the decode layout) holds every kv
+    head in every rank and is attended on the heads this rank's ``wo``
+    rows touch; a cut one on every head, each rank's partial softmax over
+    its slots merged over the cut's ranks.  ``wo`` and the FFN end with
+    the row-parallel sum, as in :func:`dense_layer`."""
     B, S, _ = x.shape
     W = cfg.sliding_window
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    tp = heads_cut(cfg, lp)
+    if not tp and ring is None:
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        k_new, v_new = _project_kv(cfg, lp, h, pos)
+        at = min(slot, W - S)          # a write past the ring's end is clamped
+        kc[:, at:at + S] = k_new.to(kc.dtype)
+        vc[:, at:at + S] = v_new.to(vc.dtype)
+        q = _project_q(cfg, lp, h, pos)
+        k_pos = ring_positions(pos, slot, W, W, 0, x.device)
+        valid = (k_pos >= 0) & (k_pos > pos - W)
+        q5 = (q.float() / (Dh ** 0.5)).reshape(B, S, Hkv, H // Hkv, Dh)
+        s = torch.einsum("bqhrd,bkhd->bqhrk", q5, kc.float())
+        s = torch.where(valid[None, None, None, None, :], s, NEG_INF)
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        o = torch.einsum("bqhrk,bkhd->bqhrd", p, vc.float())
+        o = (o / torch.clamp(p.sum(-1)[..., None], min=1e-30)).reshape(
+            B, S, H * Dh)
+        x = x + torch.matmul(o.to(x.dtype), lp["wo"])
+        h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        return x + swiglu(h2, lp["w_gate"], lp["w_up"], lp["w_down"])
+    if kc.shape[2] != Hkv:
+        raise ValueError(f"a ring of {kc.shape[2]} kv heads for a layer on "
+                         f"whole heads: it holds every kv head ({Hkv}), as "
+                         f"ring_cache_specs lays it")
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    k_new, v_new = _project_kv(cfg, lp, h, pos)
-    at = min(slot, W - S)          # a write past the ring's end is clamped
-    kc[:, at:at + S] = k_new.to(kc.dtype)
-    vc[:, at:at + S] = v_new.to(vc.dtype)
-    q = _project_q(cfg, lp, h, pos)
-    # rows (slot-W, slot] hold positions (pos-W, pos]: 0 = newest
-    row = torch.arange(W, device=x.device)
-    age = torch.remainder(slot - row + W, W)
-    k_pos = pos - age
-    valid = (k_pos >= 0) & (k_pos > pos - W)
-    q5 = (q.float() / (Dh ** 0.5)).reshape(B, S, Hkv, H // Hkv, Dh)
-    s = torch.einsum("bqhrd,bkhd->bqhrk", q5, kc.float())
-    s = torch.where(valid[None, None, None, None, :], s, NEG_INF)
-    p = torch.exp(s - s.amax(-1, keepdim=True))
-    o = torch.einsum("bqhrk,bkhd->bqhrd", p, vc.float())
-    o = (o / torch.clamp(p.sum(-1)[..., None], min=1e-30)).reshape(
-        B, S, H * Dh)
-    x = x + torch.matmul(o.to(x.dtype), lp["wo"])
+    ha = column_in(h) if tp else h
+    q = whole_heads(cfg, lp, ha, "wq", pos)
+    put_rows(((kc, whole_heads(cfg, lp, ha, "wk", pos)),
+              (vc, whole_heads(cfg, lp, ha, "wv"))), slot, ring)
+    rows = kc.shape[1]
+    k_pos = ring_positions(pos, slot, W, rows,
+                           ring.index * rows if ring else 0, x.device)
+    (lo, hi), (h0, h1) = out_span(cfg, lp)
+    if ring is None:
+        # every kv head in this rank: the query heads its channels touch
+        kv_of = torch.arange(h0, h1, device=x.device) // (H // Hkv)
+        parts = attention_partials(q[:, :, h0:h1], kc[:, :, kv_of],
+                                   vc[:, :, kv_of], window=W, q_offset=pos,
+                                   k_pos=k_pos)
+        o = merge_partials(*parts, lambda t: t, lambda t: t)
+        o = o.to(q.dtype).reshape(B, S, -1)[..., lo - h0 * Dh:hi - h0 * Dh]
+    else:
+        o = merge_partials(*attention_partials(
+            q, kc, vc, window=W, q_offset=pos, k_pos=k_pos), ring.amax,
+            ring.total)
+        o = o.to(q.dtype).reshape(B, S, -1)[..., lo:hi]
+    attn = out_proj(lp, o, H * Dh)
+    x = x + (row_parallel_end(attn) if tp else attn).to(x.dtype)
     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + swiglu(h2, lp["w_gate"], lp["w_up"], lp["w_down"])
+    return x + parallel_swiglu(h2, lp["w_gate"], lp["w_up"], lp["w_down"],
+                               cfg.d_ff)
 
 
 @torch.no_grad()
@@ -964,22 +1049,39 @@ def grouped_decode_step(cfg: ArchConfig, params: Params,
     """One decode step with ring-buffered local layers: tokens (B, 1) ->
     logits (B, V), the cache's buffers **updated in place** (the returned
     cache shares them and carries ``pos + 1``).  The global layer of each
-    group is ``dense_layer`` against its full-length buffers."""
+    group is ``dense_layer`` against its full-length buffers.
+
+    It runs as :func:`decode_step` runs: one uncut token, each layer's
+    leaves gathered over the data axes where ``"__params__"`` declares
+    them cut (ZeRO-3), the whole vocabulary's logits.  With weights cut
+    over ``model`` the policy's ``"__cache__"`` declares the cache's
+    layout (``parallel.sharding.ring_cache_specs``): each global layer
+    attends its buffers cut on their positions (a partial softmax merged
+    over the cut's ranks), each local layer its ring, whole in every rank
+    (a batch of several rows) or cut on its slots over ``model`` (one row;
+    :func:`_ring_layer`)."""
     G, R = grouped_layout(cfg)
-    x = embed_tokens(params, tokens)
-    pos = int(cache.pos)
-    slot = ring_slot(pos, cfg.sliding_window)
-    local_p, global_p = _grouped_params(cfg, params)
-    for g in range(G):
-        for r in range(R):
-            x = _ring_layer(cfg, {k: v[g, r] for k, v in local_p.items()}, x,
-                            cache.k_local[g, r], cache.v_local[g, r], pos,
-                            slot)
-        x, _ = dense_layer(cfg, {k: v[g] for k, v in global_p.items()}, x, 0,
-                           cache_kv=(cache.k_global[g], cache.v_global[g]),
-                           pos=pos, block_k=block_k)
-    h = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    logits = logits_fn(cfg, params, h)[:, 0]
+    with split_sequence(tokens.shape[1], cut=False):
+        x = embed_tokens(params, tokens, cfg.vocab)
+        pos = int(cache.pos)
+        slot = ring_slot(pos, cfg.sliding_window)
+        ring = cache_cut("k_local", 3)
+        ring = None if ring is None else ring[0]
+        seq = kv_layout(cfg, params["layers"]["wk"], "k_global")[1]
+        local_p, global_p = _grouped_params(
+            cfg, {"layers": whole_layers(params["layers"])})
+        for g in range(G):
+            for r in range(R):
+                x = _ring_layer(
+                    cfg, layer_blocks({k: v[g, r] for k, v in local_p.items()}),
+                    x, cache.k_local[g, r], cache.v_local[g, r], pos, slot,
+                    ring)
+            x, _ = dense_layer(
+                cfg, layer_blocks({k: v[g] for k, v in global_p.items()}), x,
+                0, cache_kv=(cache.k_global[g], cache.v_global[g]), pos=pos,
+                block_k=block_k, seq=seq)
+        h = rms_norm(x, model_block(params["ln_f"], "ln_f"), cfg.norm_eps)
+        logits = logits_fn(cfg, params, h)[:, 0]
     return logits, cache._replace(pos=pos + 1)
 
 
@@ -1002,8 +1104,12 @@ class QuantKVCache(NamedTuple):
 
 def init_quant_cache(cfg: ArchConfig, batch: int, max_len: int,
                      device="cuda") -> QuantKVCache:
+    """Zeros: this rank's block where the policy's ``"__cache__"``
+    declares the cut (``parallel.sharding.quant_cache_specs``: the
+    positions, or the kv heads), otherwise the whole cache."""
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    rows, heads = cache_block(cfg, max_len, field="k_q")
+    shape = (cfg.n_layers, batch, rows, heads, cfg.hd)
     return QuantKVCache(
         torch.zeros(shape, dtype=torch.int8, device=device),
         torch.zeros(shape, dtype=torch.int8, device=device),
@@ -1019,36 +1125,73 @@ def _quant_rows(x: Tensor):
     return q.to(torch.int8), s
 
 
+def _dequant(q: Tensor, s: Tensor) -> Tensor:
+    """bfloat16 rows of int8 ``q`` times their scales ``s``."""
+    return q.to(torch.bfloat16) * s[..., None].to(torch.bfloat16)
+
+
 @torch.no_grad()
 def decode_step_quant(cfg: ArchConfig, params: Params, cache: QuantKVCache,
                       tokens: Tensor, block_k: int = 1024
                       ) -> Tuple[Tensor, QuantKVCache]:
     """``decode_step`` against an int8 cache: new rows quantized on write
     (in place, at ``pos``, clamped as ``dense_layer`` clamps), the layer's
-    whole buffer dequantized to bfloat16 on read."""
-    x = embed_tokens(params, tokens)
-    windows = layer_windows(cfg)
-    pos = int(cache.pos)
-    S = x.shape[1]
-    at = min(max(pos, 0), cache.k_q.shape[2] - S)
-    for i in range(cfg.n_layers):
-        lp = _layer_params(params, i)
-        h = hint(rms_norm(x, lp["ln1"], cfg.norm_eps), "block_in")
-        k_new, v_new = _project_kv(cfg, lp, h, pos)
-        for buf, scale, new in ((cache.k_q[i], cache.k_s[i], k_new),
-                                (cache.v_q[i], cache.v_s[i], v_new)):
-            q, s = _quant_rows(new)
-            buf[:, at:at + S] = q
-            scale[:, at:at + S] = s
-        k_deq = cache.k_q[i].to(torch.bfloat16) \
-            * cache.k_s[i][..., None].to(torch.bfloat16)
-        v_deq = cache.v_q[i].to(torch.bfloat16) \
-            * cache.v_s[i][..., None].to(torch.bfloat16)
-        x = x + _attn(cfg, lp, h, k_full=k_deq, v_full=v_deq,
-                      window=int(windows[i]), q_offset=pos, kv_len=pos + S,
-                      block_k=block_k)
-        h = hint(rms_norm(x, lp["ln2"], cfg.norm_eps), "block_in")
-        x = x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
-    h = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    logits = logits_fn(cfg, params, h)[:, 0]
+    buffer dequantized to bfloat16 on read.
+
+    It runs as :func:`decode_step` runs: one uncut token, each layer's
+    leaves gathered over the data axes where ``"__params__"`` declares
+    them cut, the whole vocabulary's logits.  With weights cut over
+    ``model`` the policy's ``"__cache__"`` declares the cache's layout
+    (``parallel.sharding.quant_cache_specs``): this rank's kv heads, each
+    rank quantizing its own (a scale is per token and head), or every kv
+    head of a block of positions -- the new row quantized and written by
+    the rank that holds it, the attention a partial softmax merged over
+    the cut's ranks.  A rank dequantizes its block alone."""
+    with split_sequence(tokens.shape[1], cut=False):
+        x = embed_tokens(params, tokens, cfg.vocab)
+        windows = layer_windows(cfg)
+        pos = int(cache.pos)
+        S = x.shape[1]
+        seq = kv_layout(cfg, params["layers"]["wk"], "k_q")[1]
+        params = {**params, "layers": whole_layers(params["layers"])}
+        for i in range(cfg.n_layers):
+            lp = _layer_params(params, i)
+            bufs = (cache.k_q[i], cache.k_s[i], cache.v_q[i], cache.v_s[i])
+            h = hint(rms_norm(x, lp["ln1"], cfg.norm_eps), "block_in")
+            tp = heads_cut(cfg, lp)
+            ha = column_in(h) if tp else h
+            if on_whole_heads(cfg, lp, seq):
+                if seq is None:
+                    raise ValueError(
+                        "a layer cut off head boundaries attends an int8 "
+                        "cache cut on its positions, which the policy's "
+                        "'__cache__' declares (quant_cache_specs)")
+                k_new = whole_heads(cfg, lp, ha, "wk", pos)
+                v_new = whole_heads(cfg, lp, ha, "wv")
+            else:
+                k_new, v_new = _project_kv(cfg, lp, ha, pos)
+                if bufs[0].shape[2] != k_new.shape[2]:
+                    raise ValueError(
+                        f"an int8 cache of {bufs[0].shape[2]} kv heads for a "
+                        f"layer of {k_new.shape[2]}: the policy's '__cache__' "
+                        f"declares a cut cache (quant_cache_specs)")
+            put_rows(tuple(zip(bufs, _quant_rows(k_new) + _quant_rows(v_new))),
+                     pos, seq)
+            k_deq, v_deq = _dequant(*bufs[:2]), _dequant(*bufs[2:])
+            window = int(windows[i])
+            if seq is not None:
+                attn = out_proj(lp, attend_cache(
+                    cfg, lp, whole_heads(cfg, lp, ha, "wq", pos), k_deq,
+                    v_deq, seq, window=window, q_offset=pos, kv_len=pos + S),
+                    cfg.n_heads * cfg.hd)
+            else:
+                attn = _attn(cfg, lp, ha, k_full=k_deq, v_full=v_deq,
+                             window=window, q_offset=pos, kv_len=pos + S,
+                             block_k=block_k)
+            x = x + (row_parallel_end(attn) if tp else attn).to(x.dtype)
+            h = hint(rms_norm(x, lp["ln2"], cfg.norm_eps), "block_in")
+            x = x + parallel_swiglu(h, lp["w_gate"], lp["w_up"],
+                                    lp["w_down"], cfg.d_ff)
+        h = rms_norm(x, model_block(params["ln_f"], "ln_f"), cfg.norm_eps)
+        logits = logits_fn(cfg, params, h)[:, 0]
     return logits, cache._replace(pos=pos + 1)

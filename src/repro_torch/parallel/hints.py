@@ -374,10 +374,13 @@ class SequenceCut:
         return t
 
 
-def cache_cut(field: str = "k"):
+def cache_cut(field: str = "k", rows: int = 2):
     """The layout the policy's ``"__cache__"`` declares for the KV field
-    ``field`` of the family's cache on its live ``"__mesh__"``:
-    ``(SequenceCut or None, head blocks)``, the kv heads cut into ``head
+    ``field`` of the cache type it holds (the family's, or a decode
+    variant's: ``GroupedKVCache``, ``QuantKVCache``) on its live
+    ``"__mesh__"``: ``(SequenceCut or None, head blocks)``, the rows
+    (dim ``rows``: a buffer's positions, a ring's slots at 3) cut into a
+    ``SequenceCut``, the kv heads (the dim after them) into ``head
     blocks`` over ``model`` (1: every kv head); ``None`` where the policy
     declares nothing."""
     specs, mesh = policy_value("__cache__"), policy_value("__mesh__")
@@ -391,7 +394,7 @@ def cache_cut(field: str = "k"):
                 if mesh.size(names.index(a)) > 1]
 
     seq = None
-    axes = live(2)
+    axes = live(rows)
     if axes:
         n, index = 1, 0
         for a in axes:
@@ -399,7 +402,7 @@ def cache_cut(field: str = "k"):
             n, index = n * k, index * k + mesh.get_local_rank(a)
         seq = SequenceCut(n, index, tuple(mesh.get_group(a) for a in axes))
     heads = 1
-    for a in live(3):
+    for a in live(rows + 1):
         heads *= mesh.size(names.index(a))
     return seq, heads
 
@@ -509,11 +512,11 @@ def _mesh_sizes(mesh) -> Dict[str, int]:
     return {a: mesh.size(i) for i, a in enumerate(mesh.mesh_dim_names)}
 
 
-def declared_spec(path: str):
-    """The spec the policy's ``"__params__"`` declares for the leaf
-    ``path`` (``"layers/wq"``), or ``None`` where the policy declares
-    none."""
-    specs = policy_value("__params__")
+def declared_spec(path: str, entry: str = "__params__"):
+    """The spec the policy's ``"__params__"`` (or ``entry``: the
+    optimizer state's ``"__opt__"``) declares for the leaf ``path``
+    (``"layers/wq"``), or ``None`` where the policy declares none."""
+    specs = policy_value(entry)
     if specs is None:
         return None
     for k in path.split("/"):
@@ -521,11 +524,11 @@ def declared_spec(path: str):
     return specs
 
 
-def cut_axes(path: str) -> frozenset:
+def cut_axes(path: str, entry: str = "__params__") -> frozenset:
     """The live mesh axes that cut the leaf ``path``: those of the spec
-    the policy's ``"__params__"`` declares for it, none where nothing is
-    declared."""
-    spec = declared_spec(path)
+    the policy's ``"__params__"`` (or ``entry``) declares for it, none
+    where nothing is declared."""
+    spec = declared_spec(path, entry)
     if spec is None:
         return frozenset()
     from .sharding import weight_cuts
@@ -538,11 +541,11 @@ def _gathered(t, path: str, spec, dims):
     """``t`` with each of ``dims`` (``{dim of t: dim of spec}``) that
     ``spec`` cuts over the data axes all-gathered over them, minor axis
     first, in rank order; the gradient reduce-scattered, summed in
-    float32.  A leaf whole over ``model`` in a pass whose tokens are cut
-    over ``model`` takes its gradient's sum over ``model`` here, before
-    the data sum: the order of the same leaf held whole over the data
-    axes (``models.transformer.spread_grads``), so that both give the
-    same bits."""
+    float32.  A leaf whole over ``model`` in a pass whose tokens (or
+    residual channels) are cut over ``model`` takes its gradient's sum
+    over ``model`` here, before the data sum: the order of the same leaf
+    held whole over the data axes (``models.transformer.spread_grads``),
+    so that both give the same bits."""
     import torch
 
     from .collectives import all_gather_dim, summed_grads
@@ -557,10 +560,36 @@ def _gathered(t, path: str, spec, dims):
             t = all_gather_dim(t, at, mesh.get_group(a), torch.float32)
             done = True
     split = current_split()
-    if (done and len(data) == len(cuts) and split is not None
-            and split.cut and split.dim == 1):
+    if done and len(data) == len(cuts) and split is not None and split.cut:
         t = summed_grads(t, (split.model,))
     return t
+
+
+@contextmanager
+def gathered_once(params: Dict[str, Any], names):
+    """``params`` with each whole-model leaf of ``names`` gathered into its
+    ``model`` block once (:func:`model_block`), under a policy whose
+    ``"__params__"`` declares them so (their data axes dropped), for a
+    pass that uses a leaf more than once -- a tied embedding, the
+    embedding and the head: in the backward the uses' gradients are summed
+    before the one reduce-scatter, in the order of the same leaf whole
+    over the data axes (their sum before the data sum), so that the two
+    layouts give the same bits.  ``params`` itself where nothing is
+    declared."""
+    specs = policy_value("__params__")
+    names = [n for n in names if n in params]
+    if specs is None or not names:
+        yield params
+        return
+    from .sharding import PartitionSpec
+
+    out, declared = dict(params), dict(specs)
+    for n in names:
+        out[n] = model_block(params[n], n)
+        declared[n] = PartitionSpec(*("model" if "model" in _names(e)
+                                      else None for e in specs[n]))
+    with sharding_policy({**_policy(), "__params__": declared}):
+        yield out
 
 
 def model_block(t, path: str):
@@ -575,32 +604,43 @@ def model_block(t, path: str):
     return _gathered(t, path, spec, {d: d for d in range(len(spec))})
 
 
-def whole_layers(layers: Dict[str, Any], prefix: str = "layers"):
-    """The stacked layer leaves with each stack whose layer dim (0) the
-    declared spec cuts over the data axes gathered whole on it (biases
-    and gains: a rank of qwen2-7b holds 14 of 28 layers' ``bq`` at
-    (2, 2)), so that the stack unbinds into every layer; the others as
-    they are."""
+def _tree(tree: Dict[str, Any], prefix: str, fn):
+    """``fn(leaf, path)`` over a nested dict of leaves under ``prefix``."""
+    return {k: _tree(v, f"{prefix}/{k}", fn) if isinstance(v, dict)
+            else fn(v, f"{prefix}/{k}") for k, v in tree.items()}
+
+
+def whole_layers(layers: Dict[str, Any], prefix: str = "layers",
+                 lead: int = 1):
+    """The stacked layer leaves (a nested dict under ``prefix``, each
+    stacked on ``lead`` layer dims: 1, or the hybrid's ``(G, per)``) with
+    each layer dim the declared spec cuts over the data axes gathered
+    whole (biases and gains: a rank of qwen2-7b holds 14 of 28 layers'
+    ``bq`` at (2, 2)), so that the stack unbinds into every layer; the
+    others as they are."""
     if policy_value("__params__") is None:
         return layers
-    return {k: _gathered(w, f"{prefix}/{k}", declared_spec(f"{prefix}/{k}"),
-                         {0: 0}) for k, w in layers.items()}
+    return _tree(layers, prefix, lambda w, path: _gathered(
+        w, path, declared_spec(path), {d: d for d in range(lead)}))
 
 
-def layer_blocks(lp: Dict[str, Any], prefix: str = "layers"):
-    """One layer's leaves (slices of :func:`whole_layers`' stacks), each
-    as its ``model`` block: every dim past the layer dim that the
-    declared spec cuts over the data axes all-gathered.  Called inside the
-    layer's recomputed body (``layers.remat``), so that the gathered
-    copies are not kept for the backward."""
+def layer_blocks(lp: Dict[str, Any], prefix: str = "layers", lead: int = 1):
+    """One layer's leaves (slices of :func:`whole_layers`' stacks past
+    their ``lead`` layer dims; ``lead`` 0 for a block that is not stacked,
+    the hybrid's shared one), each as its ``model`` block: every dim past
+    the layer dims that the declared spec cuts over the data axes
+    all-gathered.  Called inside the layer's recomputed body
+    (``layers.remat``), so that the gathered copies are not kept for the
+    backward."""
     if policy_value("__params__") is None:
         return lp
-    out = {}
-    for k, w in lp.items():
-        spec = declared_spec(f"{prefix}/{k}")
-        out[k] = _gathered(w, f"{prefix}/{k}", spec,
-                           {d - 1: d for d in range(1, len(spec))})
-    return out
+
+    def gather(w, path):
+        spec = declared_spec(path)
+        return _gathered(w, path, spec,
+                         {d - lead: d for d in range(lead, len(spec))})
+
+    return _tree(lp, prefix, gather)
 
 
 def model_shape(t, path: str) -> tuple:

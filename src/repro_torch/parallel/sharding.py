@@ -54,6 +54,10 @@ class PartitionSpec(tuple):
 
         return super().__new__(cls, tuple(entry(e) for e in entries))
 
+    def __getnewargs__(self):
+        # unpickled as ``PartitionSpec(*entries)``: a spec crosses processes
+        return tuple(self)
+
     def __repr__(self):
         return f"PartitionSpec{tuple.__repr__(self)}"
 
@@ -288,11 +292,6 @@ def head_span(width: int, n: int, m: int, head: int
     return (lo, hi), (lo // head, -(-hi // head))
 
 
-# the families whose weights a running model may hold cut over the data
-# axes (ZeRO-3); the others are refused there (ROADMAP A11c-2b)
-ZERO3_FAMILIES = ("dense", "vlm", "moe")
-
-
 def _live_cuts(spec: PartitionSpec, axes: Dict[str, int]):
     """``(dim, axes major to minor)`` of every dim that ``spec`` cuts over
     axes of more than one rank: a tuple entry in the tuple's order, which
@@ -325,11 +324,9 @@ def _cut(t, d: int, n: int, i: int, what: str):
     return t[(slice(None),) * d + (slice(i * b, (i + 1) * b),)]
 
 
-def weight_cuts(path: str, spec: PartitionSpec, axes: Dict[str, int],
-                family: Optional[str] = None):
+def weight_cuts(path: str, spec: PartitionSpec, axes: Dict[str, int]):
     """:func:`_live_cuts` of a weight's spec, checked: ``model`` cuts one
-    dim at most, and alone; the data axes (ZeRO-3) cut a leaf of the
-    families of ``ZERO3_FAMILIES`` only, where ``family`` is given."""
+    dim at most, and alone (the data axes, ZeRO-3, may cut any other)."""
     cuts = list(_live_cuts(spec, axes))
     model = [d for d, live in cuts if "model" in live]
     if len(model) > 1:
@@ -338,17 +335,11 @@ def weight_cuts(path: str, spec: PartitionSpec, axes: Dict[str, int],
         if "model" in live and live != ["model"]:
             raise ValueError(f"{path}: {spec!r} cuts dim {d} over {live}: "
                              f"'model' and another axis on one dim")
-        if (live != ["model"] and family is not None
-                and family not in ZERO3_FAMILIES):
-            raise ValueError(
-                f"{path}: {spec!r} cuts dim {d} over {live}: a ZeRO-3 cut "
-                f"of the {family} family's weights over the data axes is "
-                f"not supported (ROADMAP A11c-2b)")
     return cuts
 
 
 def leaf_block(path: str, leaf, spec: PartitionSpec, axes: Dict[str, int],
-               coords: Dict[str, int], head_dim=None, family=None):
+               coords: Dict[str, int], head_dim=None):
     """This rank's block of one leaf (tensor or numpy array) under
     ``spec``: a view, the contiguous range at this rank's coordinates of
     every dim that ``spec`` cuts -- over ``model`` (tensor parallelism)
@@ -358,14 +349,12 @@ def leaf_block(path: str, leaf, spec: PartitionSpec, axes: Dict[str, int],
     ``model`` (``HEAD_DIMS``, ``WHOLE_HEAD_KINDS``) would not fall on a
     boundary of a head it raises, naming the leaf and the spec.
     ``head_dim``: the widths of every kind of head (:func:`head_widths`);
-    a number is the attention heads' width, which no cut must respect.
-    ``family``: the config's, whose weights a data axis may cut or not
-    (``ZERO3_FAMILIES``)."""
+    a number is the attention heads' width, which no cut must respect."""
     name = path.rsplit("/", 1)[-1]
     widths = head_dim if isinstance(head_dim, dict) else {}
     at_dim, kind = HEAD_DIMS.get(name, (None, None))
     width = widths.get(kind) if kind in WHOLE_HEAD_KINDS else None
-    for d, live in weight_cuts(path, spec, axes, family):
+    for d, live in weight_cuts(path, spec, axes):
         n, i = block_index(live, axes, coords)
         if leaf.shape[d] % n:
             raise ValueError(f"{path}: dim {d} of {tuple(leaf.shape)} does "
@@ -383,20 +372,20 @@ def leaf_block(path: str, leaf, spec: PartitionSpec, axes: Dict[str, int],
 
 
 def rank_blocks(tree: Any, specs: Any, mesh, coords: Dict[str, int],
-                head_dim=None, family=None) -> Any:
+                head_dim=None) -> Any:
     """This rank's block of every leaf of a parameter tree (nested dicts
     of tensors or numpy arrays, views where the layout allows) under its
     spec tree (:func:`param_specs`) on ``mesh``, at ``coords`` (axis name
     -> index, :func:`mesh_coords`).  A leaf that its spec leaves whole,
-    or cuts over axes of size 1 only, stays whole.  ``head_dim`` and
-    ``family`` as in :func:`leaf_block`."""
+    or cuts over axes of size 1 only, stays whole.  ``head_dim`` as in
+    :func:`leaf_block`."""
     axes = mesh_axes(mesh)
 
     def walk(t, s, prefix):
         if isinstance(t, dict):
             return {k: walk(v, s[k], f"{prefix}/{k}" if prefix else k)
                     for k, v in t.items()}
-        return leaf_block(prefix, t, s, axes, coords, head_dim, family)
+        return leaf_block(prefix, t, s, axes, coords, head_dim)
 
     return walk(tree, specs, "")
 
@@ -598,6 +587,37 @@ def cache_specs(cfg: ArchConfig, shape: ShapeConfig, mesh) -> Any:
     raise ValueError(fam)
 
 
+def ring_cache_specs(cfg: ArchConfig, shape: ShapeConfig, mesh) -> Any:
+    """The ``GroupedKVCache`` of specs of ``grouped_decode_step``'s cache
+    (the dry-run's ``ring_cache`` cell): the local layers' rings
+    ``(G, R, B, W, Hkv, Dh)`` cut on the batch over the data axes and
+    whole over ``model`` at a batch of more than one row, their ``W``
+    rows cut over ``model`` at one; the global layers' buffers ``(G, B,
+    Smax, Hkv, Dh)`` cut on their positions over ``model``, or over the
+    data axes then ``model`` at one row."""
+    from ..models.transformer import GroupedKVCache
+
+    dp = dp_axes(mesh)
+    one = shape.global_batch == 1
+    nb = None if one else dp
+    seq_all = (*dp, "model") if one else "model"
+    kv_loc = P(None, None, nb, "model" if one else None, None, None)
+    kv_glob = P(None, nb, seq_all, None, None)
+    return GroupedKVCache(k_local=kv_loc, v_local=kv_loc, k_global=kv_glob,
+                          v_global=kv_glob, pos=P())
+
+
+def quant_cache_specs(cfg: ArchConfig, shape: ShapeConfig, mesh) -> Any:
+    """The ``QuantKVCache`` of specs of ``decode_step_quant``'s cache (the
+    dry-run's ``int8_kv`` cell): the int8 rows cut as :func:`cache_specs`
+    cuts ``k``, the scales as ``k`` less its last dim."""
+    from ..models.transformer import QuantKVCache
+
+    kv = cache_specs(cfg, shape, mesh).k
+    scale = P(*kv[:-1])
+    return QuantKVCache(k_q=kv, v_q=kv, k_s=scale, v_s=scale, pos=P())
+
+
 def logits_spec(mesh, batch_sharded: bool = True) -> PartitionSpec:
     dp = dp_axes(mesh)
     return P(dp if batch_sharded else None, "model")
@@ -637,9 +657,10 @@ def placements(spec: PartitionSpec, mesh) -> tuple:
 
 __all__ = [
     "P", "PartitionSpec", "ROLE_TP_DIMS", "bankable", "batch_specs",
-    "ZERO3_FAMILIES", "block_index", "cache_blocks", "cache_specs",
+    "block_index", "cache_blocks", "cache_specs",
     "dp_axes", "first_bankable",
     "head_span", "head_widths", "join_blocks", "join_caches", "lane_artifact",
     "leaf_block", "logits_spec", "mesh_axes", "mesh_coords", "param_specs",
-    "placements", "rank_blocks", "state_cuts", "tp_axis", "weight_cuts",
+    "placements", "quant_cache_specs", "rank_blocks", "ring_cache_specs",
+    "state_cuts", "tp_axis", "weight_cuts",
 ]

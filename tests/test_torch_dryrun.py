@@ -208,6 +208,87 @@ def test_variants_lower(variant, arch, shape):
             base["memory"]["bytes_per_device_cache"]
 
 
+# the variant cells' cache bytes a device, as the dry-run counted them when
+# it laid the caches out inline: ring_cache_specs and quant_cache_specs
+# give the same layouts
+VARIANT_CACHE_BYTES = {
+    (False, "ring_cache", "gemma3_12b", "decode_32k"): 3_523_215_364,
+    (False, "ring_cache", "gemma3_12b", "long_500k"): 145_489_924,
+    (False, "int8_kv", "qwen2_7b", "decode_32k"): 484_442_116,
+    (False, "int8_kv", "qwen2_7b", "long_500k"): 60_555_268,
+    (True, "ring_cache", "gemma3_12b", "decode_32k"): 1_761_607_684,
+    (True, "ring_cache", "gemma3_12b", "long_500k"): 82_575_364,
+    (True, "int8_kv", "qwen2_7b", "decode_32k"): 242_221_060,
+    (True, "int8_kv", "qwen2_7b", "long_500k"): 30_277_636,
+}
+
+
+@pytest.mark.parametrize("cell", list(VARIANT_CACHE_BYTES), ids=str)
+def test_variant_cells_keep_their_cache_bytes(cell):
+    """The ``ring_cache`` and ``int8_kv`` cells on both production meshes
+    take their layouts from ``sharding.ring_cache_specs`` and
+    ``quant_cache_specs``, with the bytes a device of the layouts they
+    were written inline with."""
+    multi_pod, variant, arch, shape = cell
+    r = dryrun.lower_cell(arch, shape,
+                          make_production_mesh(multi_pod=multi_pod),
+                          variant=variant)
+    assert r["memory"]["bytes_per_device_cache"] == VARIANT_CACHE_BYTES[cell]
+
+
+@pytest.mark.parametrize("variant", ["ring", "int8"])
+def test_variant_hint_calls_by_name_equal_the_reference(variant,
+                                                        monkeypatch):
+    """The hint calls by name of one step of ``grouped_decode_step``
+    (gemma3 at one group of 6 layers) and ``decode_step_quant`` (qwen2 at
+    one layer), without a policy, equal the reference's (its scans trace
+    each body once, where the port loops)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from repro.models import get_model as ref_get_model
+    from repro.models import transformer as ref_tfm
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.models import transformer as tfm
+    from test_torch_mesh_model import (PORT_HINT_MODULES, REF_HINT_MODULES,
+                                       _counting)
+
+    arch, layers = (("gemma3_12b", 6) if variant == "ring"
+                    else ("qwen2_7b", 1))
+    ref_cfg = dataclasses.replace(ref_get_arch(arch).reduced(),
+                                  n_layers=layers)
+    cfg = dataclasses.replace(get_arch(arch).reduced(), n_layers=layers)
+    ref_params = ref_get_model(ref_cfg).init(jax.random.PRNGKey(0))
+    params = params_from_numpy(jax.tree_util.tree_map(
+        lambda a: np.asarray(a, np.float32), ref_params), device="cpu")
+    params = jax.tree_util.tree_map(lambda t: t.to(torch.bfloat16), params)
+    tokens = np.array([[3], [5]], np.int32)
+    counts, same = {}, []
+    _counting(monkeypatch, REF_HINT_MODULES, counts, same)
+    if variant == "ring":
+        ref_tfm.grouped_decode_step(
+            ref_cfg, ref_params, ref_tfm.init_grouped_cache(ref_cfg, 2, 32),
+            jnp.asarray(tokens))
+    else:
+        ref_tfm.decode_step_quant(
+            ref_cfg, ref_params, ref_tfm.init_quant_cache(ref_cfg, 2, 32),
+            jnp.asarray(tokens))
+    want = dict(counts)
+    counts.clear()
+    _counting(monkeypatch, PORT_HINT_MODULES, counts, same)
+    if variant == "ring":
+        tfm.grouped_decode_step(
+            cfg, params, tfm.init_grouped_cache(cfg, 2, 32, device="cpu"),
+            torch.as_tensor(tokens))
+    else:
+        tfm.decode_step_quant(
+            cfg, params, tfm.init_quant_cache(cfg, 2, 32, device="cpu"),
+            torch.as_tensor(tokens))
+    assert counts == want and want
+    assert all(same)
+
+
 def test_cli_writes_both_meshes_and_the_roofline_reads_them(tmp_path,
                                                              capsys):
     assert dryrun.main(["--arch", "qwen2-7b", "--shape", "train_4k",

@@ -84,6 +84,20 @@ def test_bankable_bridge():
     assert shd.bankable(240, 16)
 
 
+@pytest.mark.parametrize("entries", [(), (None, "model"),
+                                     (("data", "pod"), None, "model")],
+                         ids=str)
+def test_a_spec_survives_pickling(entries):
+    """A spec crosses processes (the spec trees solved in a process of
+    their own): unpickled, it is the spec it was, entry for entry."""
+    import pickle
+
+    spec = shd.P(*entries)
+    back = pickle.loads(pickle.dumps(spec))
+    assert type(back) is shd.PartitionSpec and back == spec
+    assert tuple(back) == tuple(spec)
+
+
 def test_param_specs_roles():
     cfg = dataclasses.replace(get_arch("deepseek_67b"), n_layers=2)
     specs = shd.param_specs(param_shapes(get_model(cfg)), FakeMesh(),

@@ -26,12 +26,12 @@ shared with the SSM, hybrid and encoder-decoder files.
 Without worlds: the blocks of every leaf of qwen2-7b, gemma3-12b and
 olmoe-1b-7b at full width (shapes on ``meta``) on ``model`` 2 and 4, of
 all ten configs on the production meshes (1, 8), (1, 16) and (16, 16),
-every rank's, and of the four configs the dry-run cuts over ``data`` too
-(ZeRO-3) on (2, 2), against what ``param_specs`` implies and the
-dry-run's bytes, joined back whole; a data-cut tree's blocks joined back
+every rank's, and of the eight configs the dry-run cuts over ``data``
+too (ZeRO-3) on (2, 2), zamba2-2.7b among them, against what
+``param_specs`` implies and the dry-run's bytes, joined back whole; a data-cut tree's blocks joined back
 whole; the AdamW state of all ten configs on the multi-pod mesh (2, 16,
 16), cut over ``('data', 'pod')``, data-major; the SSM, hybrid and
-encoder-decoder families refused under a ``data`` cut (ROADMAP A11c-2b);
+encoder-decoder families' blocks under a ``data`` cut joined back whole;
 a head-misaligned cut's blocks, contiguous ranges of columns joined back
 whole; the ``experts=`` cut as the expert specs' case;
 and, with whole weights and no mesh, every output of the changed layers
@@ -57,6 +57,14 @@ CASES = {
     "olmoe_a2a": dict(arch="olmoe_1b_7b", impl="a2a",
                       replace=dict(MOE, capacity_factor=8.0)),
 }
+# the expert-parallel blocks (``expert_specs``) in the world of 2: the a2a
+# prefill, then serve steps whose one token takes the layer's fallback to
+# ``moe_ffn_sorted``
+EXPERT_CASES = {
+    "olmoe_a2a_experts": dict(arch="olmoe_1b_7b", impl="a2a",
+                              replace=dict(MOE, capacity_factor=8.0),
+                              experts=True, worlds=[2]),
+}
 WORLDS = torch_tp.WORLDS
 CUT = ["layers/wq", "layers/wk", "layers/wo", "embed", "lm_head"]
 
@@ -65,8 +73,9 @@ CUT = ["layers/wq", "layers/wk", "layers/wo", "embed", "lm_head"]
 def runs(tmp_path_factory):
     """The reference's run and the port's worlds of 2 and 4 ranks; the
     ``a2a`` world of 2 is held to the reference's 1x2 mesh."""
-    return torch_tp.run(tmp_path_factory.mktemp("tensor_parallel"), CASES,
-                        ref_mesh={(2, n): "1x2" for n, c in CASES.items()
+    cases = {**CASES, **EXPERT_CASES}
+    return torch_tp.run(tmp_path_factory.mktemp("tensor_parallel"), cases,
+                        ref_mesh={(2, n): "1x2" for n, c in cases.items()
                                   if c["impl"] == "a2a"})
 
 
@@ -129,6 +138,24 @@ def test_one_train_step_matches_the_reference(runs, name, world):
     joined from the ranks' blocks (AdamW on the blocks, clipped by the
     whole model's norm)."""
     torch_tp.check_train_step(runs, name, CASES[name], world)
+
+
+@pytest.mark.parametrize("name", list(EXPERT_CASES))
+def test_the_a2a_decode_fallback_over_expert_blocks_matches(runs, name):
+    """The expert-parallel blocks in the world of 2, held to the
+    reference's 1x2 mesh: the a2a prefill's logits, then three serve
+    steps, each layer's one token taking ``moe_ffn_a2a``'s fallback to
+    ``moe_ffn_sorted`` over the rank's 2 of 4 experts, the combine summed
+    over ``model``: the logits within the bf16 bound, the tokens held
+    where the reference's top-2 gap clears twice it."""
+    ranks = runs["worlds"][2]
+    ref = torch_tp.ref_of(runs, name, 2)
+    for r, got in enumerate(ranks):
+        assert tuple(got[f"{name}/shape/layers/we_gate"])[1] == 2
+        torch_tp.assert_same(ref[f"{name}/logits"], got[f"{name}/logits"],
+                             tol=torch_tp.BF16_TOL, what=f"{name} rank {r}")
+    assert torch_tp.check_decode(runs, name, 2), \
+        "no token clear of the bound to hold"
 
 
 # ---------------------------------------------------------------------------
@@ -196,20 +223,31 @@ def test_production_meshes_give_every_rank_its_blocks(arch, mesh):
         assert "layers/ln1" in cut and "ln_f" in cut
 
 
-@pytest.mark.parametrize("arch", FSDP_ARCHS)
+# the configs whose bf16 parameters pass 2 GiB a device after a cut over
+# 2: the dry-run cuts them over 'data' too at (2, 2)
+FSDP_2X2_ARCHS = FSDP_ARCHS + ("qwen2_7b", "gemma3_12b", "olmoe_1b_7b",
+                               "zamba2_2_7b")
+
+
+@pytest.mark.parametrize("arch", FSDP_2X2_ARCHS)
 def test_zero3_on_a_2x2_mesh_gives_every_rank_its_blocks(arch):
-    """The four FSDP configs on the dry-run's (2, 2) layout at full
-    width: every one of the four ranks' blocks as ``param_specs(...,
-    fsdp=True)`` implies, the dry-run's bytes a device (internlm2-20b's
-    9,930,872,832), joined back whole."""
+    """Every config the dry-run's rule makes FSDP on the (2, 2) layout at
+    full width, zamba2-2.7b's hybrid included: every one of the four
+    ranks' blocks as ``param_specs(..., fsdp=True)`` implies, the
+    dry-run's bytes a device (internlm2-20b's 9,930,872,832), joined back
+    whole.  The rule makes no other config FSDP there."""
     from repro_torch.configs import get_arch
-    from repro_torch.launch.dryrun import param_bytes_per_device
+    from repro_torch.launch.dryrun import (default_fsdp,
+                                           param_bytes_per_device)
     from repro_torch.launch.mesh import MeshShape
 
+    mesh = MeshShape(("data", "model"), (2, 2))
+    assert {a for a in ARCH_IDS
+            if default_fsdp(get_arch(a), mesh)} == set(FSDP_2X2_ARCHS)
     cut = torch_tp.check_full_width_blocks(arch, 2, 2)
-    assert {"layers/ln1", "ln_f", "embed"} <= cut
+    assert {"ln_f", "embed"} <= cut
+    assert "layers/ln1" in cut or "ssm/ln" in cut
     if arch == "internlm2_20b":
-        mesh = MeshShape(("data", "model"), (2, 2))
         assert param_bytes_per_device(get_arch(arch), mesh) == 9_930_872_832
 
 
@@ -277,8 +315,8 @@ def test_a_zero3_cut_over_data_raises():
     assert specs["layers"]["bq"] == ("data", "model")
     assert specs["layers"]["wq"] == (None, "data", "model")
     blocks = [for_ranks(params, specs=specs, mesh=mesh,
-                        coords={"data": r // 2, "model": r % 2},
-                        family=cfg.family) for r in range(4)]
+                        coords={"data": r // 2, "model": r % 2})
+              for r in range(4)]
     whole = params["layers"]["bq"]
     for r, tree in enumerate(blocks):
         d, m = divmod(r, 2)
@@ -344,27 +382,38 @@ def test_adamw_state_on_the_multipod_mesh_is_cut_over_data_and_pod(arch):
 
 @pytest.mark.parametrize("arch", ["mamba2_370m", "zamba2_2_7b",
                                   "whisper_base"])
-def test_the_ssm_hybrid_and_encdec_families_refuse_a_data_cut(arch):
-    """The families whose passes gather no weight over ``data`` yet
-    refuse a ZeRO-3 cut when a rank takes its blocks, naming the queue's
-    item (ROADMAP A11c-2b): their reduced configs on (2, 2) under
-    ``param_specs(..., fsdp=True)``; the same weights cut over ``model``
-    alone are taken."""
+def test_the_ssm_hybrid_and_encdec_families_take_a_data_cut(arch):
+    """The families whose passes gather their weights over ``data`` since
+    ZeRO-3 reached them: every rank's blocks of their reduced configs on
+    (2, 2) under ``param_specs(..., fsdp=True)`` are views of the ranges
+    the specs imply, some leaves cut over ``data``, and ``join_blocks``
+    gives every leaf back whole."""
     from repro_torch.configs import get_arch
     from repro_torch.convert import for_ranks
     from repro_torch.launch.mesh import MeshShape
-    from repro_torch.models import get_model, param_shapes
-    from repro_torch.parallel.sharding import param_specs
+    from repro_torch.models import get_model
+    from repro_torch.parallel.sharding import (head_widths, join_blocks,
+                                               param_specs)
 
     cfg = get_arch(arch).reduced()
     mesh = MeshShape(("data", "model"), (2, 2))
-    shapes = param_shapes(get_model(cfg))
-    coords = {"data": 1, "model": 0}
-    with pytest.raises(ValueError, match="ZeRO-3.*A11c-2b"):
-        for_ranks(shapes, specs=param_specs(shapes, mesh, fsdp=True),
-                  mesh=mesh, coords=coords, family=cfg.family)
-    assert for_ranks(shapes, specs=param_specs(shapes, mesh), mesh=mesh,
-                     coords=coords, family=cfg.family)
+    params = get_model(cfg).init(torch.Generator().manual_seed(0),
+                                 device="cpu")
+    specs = param_specs(params, mesh, fsdp=True)
+    assert sum("data" in str(s) for s in flatten(specs).values()) >= 4
+    blocks = [for_ranks(params, specs=specs, mesh=mesh,
+                        coords={"data": r // 2, "model": r % 2},
+                        head_dim=head_widths(cfg)) for r in range(4)]
+    whole = flatten(params)
+    for tree in blocks:
+        for k, v in flatten(tree).items():
+            assert v.untyped_storage().data_ptr() == \
+                whole[k].untyped_storage().data_ptr(), k
+    assert not torch.equal(flatten(blocks[0])["embed"],
+                           flatten(blocks[2])["embed"])
+    joined = flatten(join_blocks(blocks, specs, mesh))
+    for k, v in whole.items():
+        assert torch.equal(joined[k], v), k
 
 
 @pytest.mark.parametrize("rank", [0, 1])

@@ -9,7 +9,9 @@ Two cases: the reduced qwen2-7b at 4 layers, so that its biases ``bq``,
 ``bk`` and ``bv`` are cut on the layer dim over ``data`` (a rank holds 2
 of the 4 layers' columns of its heads), and the reduced llama4-maverick
 through ``sorted`` (4 experts, top-1, a shared expert; its expert stacks
-cut on D over ``data``), its inputs clear of routing near-ties (ROADMAP
+cut on D over ``data``), and again through ``a2a``, whose serve steps'
+one token takes the layer's fallback to ``moe_ffn_sorted`` over the
+gathered expert blocks, the inputs clear of routing near-ties (ROADMAP
 F9).  The policies declare the weights' cut (``"__params__"``) and, to
 the train step, the state's (``"__opt__"``): each pass gathers a layer's
 leaves inside its recomputed body, and each rank updates its own block of
@@ -32,6 +34,8 @@ CASES = {
                        replace=dict(n_layers=4), fsdp=True),
     "llama4_zero": dict(arch="llama4_maverick", impl="sorted", replace={},
                         fsdp=True),
+    "llama4_zero_a2a": dict(arch="llama4_maverick", impl="a2a", replace={},
+                            fsdp=True),
 }
 WORLD = 4
 CUT = ["layers/wq", "layers/wk", "layers/wo", "embed", "lm_head"]
@@ -39,7 +43,9 @@ CUT = ["layers/wq", "layers/wk", "layers/wo", "embed", "lm_head"]
 DATA_CUT = {"qwen2_zero": ["layers/bq", "layers/bk", "layers/bv",
                            "layers/wq", "layers/ln1", "ln_f", "embed"],
             "llama4_zero": ["layers/we_gate", "layers/we_down",
-                            "layers/router", "layers/w_gate", "ln_f"]}
+                            "layers/router", "layers/w_gate", "ln_f"],
+            "llama4_zero_a2a": ["layers/we_gate", "layers/we_down",
+                                "layers/router", "layers/w_gate", "ln_f"]}
 
 
 @pytest.fixture(scope="module")

@@ -229,7 +229,7 @@ def _case_inputs(name, case):
                         fsdp=case.get("fsdp", False),
                         self_spread=cfg.family in SELF_SPREAD,
                         serve=list(serve_shapes(case)),
-                        train=trains(case))
+                        train=trains(case) and not case.get("experts"))
 
 
 def run(tmp, cases, ref_mesh=None, worlds=WORLDS):
@@ -237,9 +237,14 @@ def run(tmp, cases, ref_mesh=None, worlds=WORLDS):
     ``worlds``) on the cases, in ``tmp``: ``{"ref": {...}, "ref_mesh":
     {(world, name): mesh}, "worlds": {world: [by rank]}}``.  ``ref_mesh``
     names the reference's mesh ("2x2", the default, or "1x2") a (world,
-    case) is held to."""
+    case) is held to.  A case that names its ``"worlds"`` runs in those
+    alone; one that names ``"experts"`` holds the expert-parallel cut
+    (``sharding.expert_specs``: the expert stacks cut on their experts
+    over ``model``, every other leaf whole) and runs its prefill and serve
+    steps alone."""
     ref_mesh = {(w, n): (ref_mesh or {}).get((w, n), "2x2")
-                for w in worlds for n in cases}
+                for w in worlds for n, c in cases.items()
+                if w in c.get("worlds", worlds)}
     arrays, spec = {}, {}
     for name, case in cases.items():
         a, spec[name] = _case_inputs(name, case)
@@ -544,8 +549,7 @@ def check_full_width_blocks(arch, n, data=1):
     for r in range(data * n):
         blocks = flatten(rank_blocks(shapes, specs, mesh,
                                      {"data": r // n, "model": r % n},
-                                     head_dim=head_widths(cfg),
-                                     family=cfg.family))
+                                     head_dim=head_widths(cfg)))
         assert [tuple(b.shape) for b in blocks.values()] == want
         assert all(b.device.type == "meta" for b in blocks.values())
         assert sum(b.numel() * b.element_size()

@@ -358,7 +358,10 @@ def rank_tensor_parallel(rank, world, out):
     (``"__cache__"``: ``cache_specs`` of their shapes, the case's
     ``"serve"``); a case that does not ``"train"`` (a batch of one row,
     held whole by every data row) runs the prefill and serve steps
-    alone.  A case with ``"fsdp"`` cuts the weights over ``data`` too
+    alone; so does a case with ``"experts"``, whose weights are the
+    expert-parallel cut (``expert_specs``), and a case that names its
+    ``"worlds"`` runs in those alone.  A case with ``"fsdp"`` cuts the
+    weights over ``data`` too
     (``param_specs(..., fsdp=True)``, ZeRO-3) and its optimizer state by
     the dry-run's opt specs (``"__opt__"``, ZeRO-1, with the state's
     bytes and the dry-run's beside them); it then runs again in the same
@@ -391,6 +394,8 @@ def rank_tensor_parallel(rank, world, out):
                       mesh_dim_names=("data", "model"))
     res = {}
     for name, case in cases.items():
+        if world not in case.get("worlds", (world,)):
+            continue
         cfg = dataclasses.replace(get_arch(case["arch"]).reduced(),
                                   **case["replace"])
         model = get_model(cfg, moe_impl=case["impl"])
@@ -402,7 +407,7 @@ def rank_tensor_parallel(rank, world, out):
         def policy(shape, weights, cache=False):
             pol = {**make_policy(cfg, SHAPES[shape], mesh), "__mesh__": mesh,
                    "__params__": weights}
-            if cache:
+            if cache and not case.get("experts"):   # attention whole
                 pol["__cache__"] = shd.cache_specs(cfg, SHAPES[shape], mesh)
             if opt is not None and SHAPES[shape].kind == "train":
                 pol["__opt__"] = opt
@@ -413,8 +418,7 @@ def rank_tensor_parallel(rank, world, out):
                     if k.startswith(name + "/p/")}
             blocks = for_ranks(unflatten(flat), specs=weights, mesh=mesh,
                                coords=shd.mesh_coords(mesh),
-                               head_dim=shd.head_widths(cfg),
-                               family=cfg.family)
+                               head_dim=shd.head_widths(cfg))
             p = params_from_numpy(blocks, device="cpu")
             return adamw.tree_map(lambda t, dt: t.to(getattr(torch, dt)), p,
                                   unflatten(case["dtypes"]))
@@ -434,7 +438,8 @@ def rank_tensor_parallel(rank, world, out):
                   if k != "labels"}
 
         def run(key, data_cut):
-            weights = shd.param_specs(shapes, mesh, fsdp=data_cut)
+            weights = (shd.expert_specs(shapes) if case.get("experts") else
+                       shd.param_specs(shapes, mesh, fsdp=data_cut))
             params = fresh(weights)
             leaves = adamw.tree_leaves(params)
             res[f"{key}/param_bytes"] = torch.tensor(
@@ -491,9 +496,101 @@ def rank_tensor_parallel(rank, world, out):
                 else v.numpy() for k, v in res.items()})
 
 
+def rank_decode_variants(rank, world, out):
+    """One rank of the decode variants' worlds: for each case of
+    OUT_DIR/variant_cases.json whose mesh (``"1x2"``, ``"2x2"``, ``"1x4"``,
+    data x model) has ``world`` ranks, the reference's weights cut into
+    this rank's blocks by ``param_specs`` (over ``data`` too where the
+    case says ``"fsdp"``), the case's whole history cache
+    (``<case>/cache/<field>``) cut into this rank's block by the variant's
+    specs (``ring_cache_specs`` or ``quant_cache_specs`` of the case's
+    shape), and ``TP_DECODE_STEPS`` steps of ``grouped_decode_step`` or
+    ``decode_step_quant`` fed ``<case>/decode_tokens`` (this rank's data
+    row's rows), under the dry-run's decode policy plus the mesh and the
+    declared ``"__params__"`` and ``"__cache__"``.  Saves each step's
+    logits and tokens and the cache's blocks after the last one."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import SHAPES, ShapeConfig
+    from repro_torch.convert import for_ranks, params_from_numpy
+    from repro_torch.launch.dryrun import make_policy
+    from repro_torch.models import get_model, param_shapes
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.hints import sharding_policy
+
+    with open(os.path.join(out, "variant_cases.json")) as f:
+        cases = json.load(f)
+    inp = _inputs(out)
+    meshes = {}
+    for mesh_id in ("1x2", "2x2", "1x4"):
+        dims = tuple(int(n) for n in mesh_id.split("x"))
+        if dims[0] * dims[1] == world:
+            meshes[mesh_id] = DeviceMesh(
+                "cpu", torch.arange(world).reshape(dims),
+                mesh_dim_names=("data", "model"))
+    res = {}
+    for name, case in cases.items():
+        mesh = meshes.get(case["mesh"])
+        if mesh is None:
+            continue
+        cfg = dataclasses.replace(get_arch(case["arch"]).reduced(),
+                                  **case["replace"])
+        shape = dataclasses.replace(SHAPES[case["shape"]],
+                                    global_batch=case["batch"])
+        weights = shd.param_specs(param_shapes(get_model(cfg)), mesh,
+                                  fsdp=case["fsdp"])
+        coords = shd.mesh_coords(mesh)
+        flat = {k[len(name) + 3:]: v for k, v in inp.items()
+                if k.startswith(name + "/p/")}
+        params = params_from_numpy(
+            for_ranks(unflatten(flat), specs=weights, mesh=mesh,
+                      coords=coords, head_dim=shd.head_widths(cfg)),
+            device="cpu")
+        params = adamw.tree_map(lambda t, dt: t.to(getattr(torch, dt)),
+                                params, unflatten(case["dtypes"]))
+        ring = case["variant"] == "ring"
+        kind, specs_of, step = (
+            (tfm.GroupedKVCache, shd.ring_cache_specs,
+             tfm.grouped_decode_step) if ring else
+            (tfm.QuantKVCache, shd.quant_cache_specs, tfm.decode_step_quant))
+        specs = specs_of(cfg, shape, mesh)
+        whole = kind(*(torch.as_tensor(inp[f"{name}/cache/{f}"]).to(
+            getattr(torch, case["cache_dtypes"][f])) if f != "pos"
+            else case["pos"] for f in kind._fields))
+        cache = shd.cache_blocks(whole, specs, mesh, coords)
+        cache = kind(*(t.clone() if torch.is_tensor(t) else t
+                       for t in cache))
+        feed = torch.as_tensor(inp[f"{name}/decode_tokens"])
+        n_data = mesh.size(0)
+        if case["batch"] >= n_data:
+            rows = case["batch"] // n_data
+            feed = feed[coords["data"] * rows:(coords["data"] + 1) * rows]
+        policy = {**make_policy(cfg, SHAPES[case["shape"]], mesh),
+                  "__mesh__": mesh, "__params__": weights,
+                  "__cache__": specs}
+        with sharding_policy(policy):
+            for i in range(TP_DECODE_STEPS):
+                logits, cache = step(cfg, params, cache, feed[:, i:i + 1])
+                res[f"{name}/decode{i}/logits"] = logits
+                res[f"{name}/decode{i}/tokens"] = torch.argmax(logits, -1)
+        for f, t in cache._asdict().items():
+            if torch.is_tensor(t):
+                res[f"{name}/cache/{f}"] = t
+    np.savez(os.path.join(out, f"decode_variants_{world}_{rank}.npz"),
+             **{k: v.detach().float().numpy() if v.is_floating_point()
+                else v.numpy() for k, v in res.items()})
+
+
 ENTRIES = {"pipeline": rank_pipeline, "pair": rank_pair,
            "mesh_model": rank_mesh_model,
-           "tensor_parallel": rank_tensor_parallel}
+           "tensor_parallel": rank_tensor_parallel,
+           "decode_variants": rank_decode_variants}
 
 
 def main(argv):
