@@ -1,0 +1,7 @@
+"""Per cent of the bfloat16 peak: the decode steps' model FLOPs over the window."""
+
+from ..readers import mfu
+
+
+def read(ctx):
+    return mfu(ctx, "generate")

@@ -1,0 +1,7 @@
+"""B6's share of its roofline over the traced prefills."""
+
+from ..readers import roofline_share
+
+
+def read(ctx):
+    return roofline_share(ctx, "ssd_chunk", "prefill")
