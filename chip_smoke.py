@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (written for an H100).
 
-    python3 chip_smoke.py [--seed 0] [--layers N] [--skip-serve] [--profile]
-                          [--train-only]
+    python3 chip_smoke.py [--seed 0] [--layers N] [--skip-serve] [--train-only]
 
 Run from the root of a checkout, with no arguments, it
 
@@ -251,9 +250,6 @@ builds its servers from the catalog, nor the training runs') and
 ``--skip-serve`` leaves phases 3-7 out, ``--train-only`` phases 2-5 and
 7 (the probe runs under both); they are for iterating and change what
 the last line may claim: with either there is no ``ok`` line.
-``--profile`` adds a ``torch.profiler`` window over a few steady decode
-ticks of each served model, over one prefill of mamba2-370m, zamba2-2.7b,
-qwen2-7b and gemma3-12b, and over one step of each training run.
 """
 
 from __future__ import annotations
@@ -2048,52 +2044,6 @@ def phase_decode_variants(torch, gemma3, qwen2, seed, history=1100,
              "the eager chunked attention, no kernel of this repo")
 
 
-def phase_profile(torch, cfg, seed, ticks=8):
-    """Optional (``--profile``): where a steady decode tick's time goes,
-    with all 8 slots active.  Wall time per tick from ``ticks`` ticks with
-    the profiler off; then ``torch.profiler`` over as many ticks for the
-    card's busy time (hence its idle share), the kernels that take most of
-    it, and the port's own kernels' share of it."""
-    import numpy as np
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.models import get_model
-    from repro_torch.runtime.server import Request, Server, page_solution
-
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(seed)
-    server = Server(get_model(cfg), max_batch=8, max_len=1024,
-                    kv_plan=page_solution(cfg, 1024, page=16, readers=8),
-                    device="cuda", generator=gen)
-    rng = np.random.default_rng(seed)
-    for uid in range(8):
-        server.submit(Request(uid=uid, max_new=2 * ticks + 8,
-                              prompt=rng.integers(
-                                  2, cfg.vocab - 1, size=4).astype(np.int32)))
-    for _ in range(4):                       # admission and warm-up
-        server.tick()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()                 # wall time: profiler off
-    for _ in range(ticks):
-        server.tick()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(ticks):
-            server.tick()
-        torch.cuda.synchronize()
-    busy_ms, launches, top, own = device_kernels(prof)
-    say("profile", arch=cfg.name, layers=cfg.n_layers, ticks=ticks, slots=8,
-        wall_ms_per_tick=wall_ms / ticks, device_busy_ms_per_tick=busy_ms / ticks,
-        device_idle_share=max(0.0, 1 - busy_ms / wall_ms),
-        device_launches_per_tick=launches / ticks,
-        top_kernels=top, own_kernels=own,
-        note="wall time from the same number of ticks with the profiler off")
-    del server
-    free_device_memory(torch)
-
-
 DECODE_AFTER_PREFILL = 4
 
 
@@ -2249,36 +2199,7 @@ def attention_rows(cfg, capture):
     return rows
 
 
-def profile_prefill(torch, model, params, batch, max_len, label):
-    """One prefill alone under ``torch.profiler`` after a warm-up: the
-    card's busy time, its idle share, the kernels that take most of it and
-    the port's own kernels' share."""
-    from torch.profiler import ProfilerActivity, profile as profiler
-
-    from repro_torch.launch.steps import make_prefill_step
-
-    prefill = make_prefill_step(model, max_len)
-    prefill(params, batch)                                 # warm
-    torch.cuda.synchronize()
-    with profiler(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        prefill(params, batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms, n, top, own = device_kernels(prof)
-    B, S = batch["tokens"].shape
-    say("prefill_profile", arch=model.cfg.name, batch=B, seq=S,
-        prompt=label, device_busy_ms=busy_ms, device_launches=n,
-        wall_ms_profiled=wall_ms,
-        device_idle_share=max(0.0, 1 - busy_ms / wall_ms),
-        top_kernels=top, own_kernels=own,
-        note="one prefill alone; its wall time taken under the "
-             "profiler, which slows the host")
-
-
-def phase_prefill(torch, cfg, batch, seqs, seed, frames=0, max_len=None,
-                  profile=False):
+def phase_prefill(torch, cfg, batch, seqs, seed, frames=0, max_len=None):
     """A model's prefill at full width: ``batch`` prompts of each length in
     ``seqs`` (whisper: over ``frames`` random frame embeddings), each run
     twice and decoding ``DECODE_AFTER_PREFILL`` steps on from a cache
@@ -2356,102 +2277,9 @@ def phase_prefill(torch, cfg, batch, seqs, seed, frames=0, max_len=None,
             captured_chunks_share_of_max=held,
             note="event_ms: CUDA events around the prefill on its stream")
         del capture
-    if profile:
-        profile_prefill(torch, model, params, *first_data,
-                        f"{seqs[0]} tokens a row")
     del params, model, first_data
     free_device_memory(torch)
     return launches, captured, rows, held_by_len
-
-
-def phase_silu_cost(torch, cfg, batch):
-    """Optional (``--profile``): what the Mamba2 block's ``_silu`` (silu
-    written out op by op, each rounded in bfloat16, as XLA rounds it on the
-    CPU) costs beside ``F.silu`` on the card.  Each block calls it twice:
-    on the conv output (``conv_dim`` wide) and on the gate (``d_inner``).
-    Launches from the profiler; ms on the card from CUDA events behind a
-    stall, and host-inclusive ms per call at decode (8 slots); the prefill
-    at ``batch`` x 2048 tokens, as ``phase_prefill`` runs it."""
-    import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.models import ssm as ssm_mod
-
-    d_inner, _, _, N = ssm_mod.dims(cfg)
-    widths = (d_inner + 2 * N, d_inner)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-
-    def inputs(b, rows):
-        return [torch.randn((b, rows, w), generator=gen, device="cuda",
-                            dtype=torch.bfloat16) * 4 for w in widths]
-
-    def launches(fn, xs, reps=50):
-        # fifty calls a window: windows of a dozen, and once of ten,
-        # decode-sized launches came back from the profiler without their
-        # device events
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                for x in xs:
-                    fn(x)
-            torch.cuda.synchronize()
-        return device_kernels(prof)[1] / reps
-
-    out = {}
-    for where, b, rows in (("decode", 8, 1), ("prefill", batch, 2048)):
-        xs = inputs(b, rows)
-        row = {"launches": {}, "card_ms": {}, "call_ms": {}}
-        for name, fn in (("_silu", ssm_mod._silu), ("F.silu", F.silu)):
-            row["launches"][name] = launches(fn, xs)
-            row["card_ms"][name] = sum(time_ms(torch, lambda: fn(x), iters=50,
-                                               warmup=5, stall_ms=60.0)
-                                       for x in xs)
-            if rows == 1:
-                row["call_ms"][name] = sum(time_ms(torch, lambda: fn(x))
-                                           for x in xs)
-        row["max_abs_diff"] = max(max_abs_diff(ssm_mod._silu(x), F.silu(x))
-                                  for x in xs)
-        blocks = ssm_layers(cfg)
-        row["extra_launches"] = blocks * (row["launches"]["_silu"]
-                                          - row["launches"]["F.silu"])
-        row["extra_card_ms"] = blocks * (row["card_ms"]["_silu"]
-                                         - row["card_ms"]["F.silu"])
-        if rows == 1:
-            row["extra_call_ms"] = blocks * (row["call_ms"]["_silu"]
-                                             - row["call_ms"]["F.silu"])
-        out[where] = {"batch": b, "rows": rows, **row}
-        del xs
-    say("silu_cost", arch=cfg.name, widths=list(widths),
-        blocks=ssm_layers(cfg), **out,
-        note="launches, card_ms and call_ms are for the block's two silu "
-             "calls; extra_* are over all blocks of one decode tick of 8 "
-             "slots or one prefill of 2048 tokens a row")
-    free_device_memory(torch)
-
-
-def device_kernels(prof):
-    """(busy ms, launches, the 8 kernels that took most time, the port's
-    own kernels with their share of busy) from a profiler's device
-    events."""
-    from torch.autograd import DeviceType
-
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            n, us = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    check(by_name, "the profiler recorded no device activity")
-    busy_ms = sum(us for _, us in by_name.values()) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    own = {k: {"launches": n, "ms": us / 1e3,
-               "share_of_busy": us / 1e3 / busy_ms}
-           for k, (n, us) in by_name.items()
-           if "bk_" in k or "md_dispatch" in k or "sc_ssd" in k
-           or "fa_kernel" in k or "fa_hopper" in k}
-    return (busy_ms, sum(n for n, _ in by_name.values()),
-            [{"name": k[:80], "launches": n, "ms": us / 1e3}
-             for k, (n, us) in top], own)
 
 
 # ---------------------------------------------------------------------------
@@ -3006,60 +2834,12 @@ def train_run(torch, cfg, seed, batch, seq, steps, ckpt_dir, *,
     return out
 
 
-BACKWARDS = ("AttentionFnBackward", "SsdChunkFnBackward",
-             "DispatchFnBackward")
-
-
-def profile_train_step(torch, cfg, params, opt, seed, batch, seq, label):
-    """Optional (``--profile``): one more training step of the trained
-    model under ``torch.profiler`` after a warm one: the card's busy time,
-    its idle share, the kernels that take most of it, the port's own
-    kernels, and the device time spent under each kernel's autograd
-    backward (torch ops, no kernel of this repo)."""
-    from torch.profiler import ProfilerActivity, profile as profiler
-
-    from repro_torch.data.pipeline import DataConfig, get_batch
-    from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import get_model
-    from repro_torch.optim import adamw
-
-    data = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
-                      seed=seed + 1, frames_dim=cfg.d_model
-                      if cfg.family in ("encdec", "audio") else 0)
-    step = make_train_step(get_model(cfg), adamw.AdamWConfig(
-        lr_peak=TRAIN_LR, warmup_steps=1))
-    step(params, opt, get_batch(data, 0))                  # warm
-    torch.cuda.synchronize()
-    with profiler(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(params, opt, get_batch(data, 1))
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms, n, top, own = device_kernels(prof)
-    under = {}
-    for e in prof.key_averages():
-        for name in BACKWARDS:
-            if e.key.endswith(name):
-                ms = getattr(e, "device_time_total",
-                             getattr(e, "cuda_time_total", 0.0)) / 1e3
-                under[name] = {"calls": e.count, "device_ms": ms,
-                               "share_of_busy": ms / busy_ms}
-    say("train_profile", run=label, arch=cfg.name, batch=batch, seq=seq,
-        device_busy_ms=busy_ms, device_launches=n, wall_ms_profiled=wall_ms,
-        device_idle_share=max(0.0, 1 - busy_ms / wall_ms), top_kernels=top,
-        own_kernels=own, backwards=under,
-        note="one step alone, its wall taken under the profiler, which "
-             "slows the host; a backward's device time is that of the "
-             "kernels launched under its autograd node")
-
-
 def phase_train(torch, cfg, seed, batch, seq, steps, ckpt_root, label,
-                reduced=None, profile=False):
+                reduced=None):
     """The trainer at the config's width: every loss finite and the last
     below the first, each kernel launched as the layers imply, and the
     median step, tokens/s, peak memory and the final sync checkpoint's
-    seconds printed (with ``profile``, one more step under the profiler).
+    seconds printed.
     Returns the launches and the trainer's result."""
     import numpy as np
 
@@ -3094,9 +2874,6 @@ def phase_train(torch, cfg, seed, batch, seq, steps, ckpt_root, label,
              f"includes the loss read back; AdamW lr_peak {TRAIN_LR}, "
              f"warm-up {max(steps // 10, 1)} (the launcher's)")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    if profile:
-        profile_train_step(torch, cfg, out["params"], out["opt"], seed,
-                           batch, seq, label)
     return out.pop("launches"), out
 
 
@@ -3152,7 +2929,7 @@ def phase_train_restart(torch, cfg, seed, ckpt_root, batch=4, seq=2048,
     return ref["launches"]
 
 
-def phase_train_moe(torch, cfg, seed, ckpt_root, profile=False):
+def phase_train_moe(torch, cfg, seed, ckpt_root):
     """olmoe-1b-7b at full width, depth 2, batch 2 x 2048, 3 steps: B4 and
     B5 forward and B5's backward; the loss holds the load-balancing term
     (checked on the trained weights: loss = cross-entropy + 0.01 aux, aux
@@ -3163,7 +2940,7 @@ def phase_train_moe(torch, cfg, seed, ckpt_root, profile=False):
 
     launches, out = phase_train(
         torch, cfg, seed, 2, 2048, 3, ckpt_root, "train_moe",
-        reduced=f"depth {cfg.n_layers} of 16", profile=profile)
+        reduced=f"depth {cfg.n_layers} of 16")
     params = out["params"]
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     toks = torch.randint(2, cfg.vocab - 1, (1, 512), generator=gen,
@@ -3438,8 +3215,7 @@ def phase_small_train_reference(torch, cfg, seed):
         tolerance="2e-2 of max(1, max |leaf|), bf16")
 
 
-def run_training_phases(torch, seed, get_arch, small_archs=(),
-                        profile=False):
+def run_training_phases(torch, seed, get_arch, small_archs=()):
     """Phase 6, in order: ``train`` (mamba2-370m at full width and depth),
     ``train_restart``, ``train_attention`` (whisper-base), ``train_moe``
     (olmoe-1b-7b, depth 2), ``grad_kernels``, then
@@ -3449,15 +3225,13 @@ def run_training_phases(torch, seed, get_arch, small_archs=(),
     ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     atexit.register(shutil.rmtree, ckpt_root, ignore_errors=True)
     mamba2 = get_arch("mamba2_370m")
-    phase_train(torch, mamba2, seed, 4, 2048, 6, ckpt_root, "train",
-                profile=profile)
+    phase_train(torch, mamba2, seed, 4, 2048, 6, ckpt_root, "train")
     phase_train_restart(torch, dataclasses.replace(mamba2, n_layers=4), seed,
                         ckpt_root)
     phase_train(torch, get_arch("whisper_base"), seed, 8, 448, 4, ckpt_root,
-                "train_attention", profile=profile)
+                "train_attention")
     phase_train_moe(torch, dataclasses.replace(get_arch("olmoe_1b_7b"),
-                                               n_layers=2), seed, ckpt_root,
-                    profile=profile)
+                                               n_layers=2), seed, ckpt_root)
     free_device_memory(torch)
     phase_grad_kernels(torch, seed)
     for cfg in small_archs:
@@ -8252,11 +8026,6 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the models' depth (default: full)")
-    ap.add_argument("--profile", action="store_true",
-                    help="also profile a few steady decode ticks of each "
-                         "served model, one prefill of each SSM model, "
-                         "of qwen2-7b and of gemma3-12b, and one step of "
-                         "each training run")
     ap.add_argument("--skip-serve", action="store_true",
                     help="toolchain and kernel phases only; no ok line")
     ap.add_argument("--train-only", action="store_true",
@@ -8293,7 +8062,7 @@ def main():
     if args.train_only:
         run_training_phases(torch, args.seed, get_arch, [get_arch(a) for a in (
             "qwen2_7b", "olmoe_1b_7b", "mamba2_370m", "zamba2_2_7b",
-            "gemma3_12b", "whisper_base")], profile=args.profile)
+            "gemma3_12b", "whisper_base")])
         print(card, flush=True)
         return 0
     phase_kernels(torch, args.seed)
@@ -8344,15 +8113,15 @@ def main():
     # the prefills: batch x tokens (whisper: over 1500 frames, a cache of
     # 448, its decoder's context); the SSM families also at 1000 tokens,
     # not a multiple of their 256-row chunk
-    for cfg, batch, seqs, kw in (
-            (mamba2, 8, (2048, 1000), {"profile": args.profile}),
-            (zamba2, 4, (2048, 1000), {"profile": args.profile}),
-            (qwen2, 4, (2048,), {"profile": args.profile}),
-            (gemma3, 2, (4096,), {"profile": args.profile}),
-            (olmoe, 4, (2048,), {}),
-            (whisper, 8, (64,), {"frames": 1500, "max_len": 448})):
+    for cfg, batch, seqs, *frames_len in (
+            (mamba2, 8, (2048, 1000)),
+            (zamba2, 4, (2048, 1000)),
+            (qwen2, 4, (2048,)),
+            (gemma3, 2, (4096,)),
+            (olmoe, 4, (2048,)),
+            (whisper, 8, (64,), 1500, 448)):
         n, chunk_args, rows, held = phase_prefill(torch, cfg, batch, seqs,
-                                                  args.seed, **kw)
+                                                  args.seed, *frames_len)
         add(n)
         if chunk_args:
             ssd_args[cfg.name] = chunk_args
@@ -8379,14 +8148,8 @@ def main():
     free_device_memory(torch)
     for cfg in archs:
         phase_small_reference(torch, cfg, args.seed)
-    run_training_phases(torch, args.seed, get_arch, archs,
-                        profile=args.profile)
+    run_training_phases(torch, args.seed, get_arch, archs)
     phase_dryrun(probe)
-    if args.profile:
-        for cfg in archs[:4]:
-            phase_profile(torch, cfg, args.seed)
-        for cfg, batch in ((mamba2, 8), (zamba2, 4)):
-            phase_silu_cost(torch, cfg, batch)
     for banned in ("jax", "repro"):
         check(banned not in sys.modules, f"{banned} was imported")
     say("done", seconds=time.perf_counter() - STARTED)

@@ -1,4 +1,5 @@
-"""Plan-plane tracing: spans, a metrics registry, and a flight recorder.
+"""Tracing: plan-plane spans, a metrics registry, a flight recorder, and
+the model steps' layer spans.
 
 A cold solve crosses seven subsystems -- lint gate, admission control,
 fair-share queue, shard/fabric lease, reducer, certifier, joint
@@ -28,6 +29,12 @@ through:
   serving ``/metrics`` (Prometheus text), ``/traces`` (Chrome trace
   JSON), and ``/stats`` (registry snapshot) for ``launch/serve.py
   --metrics-port``.
+* :class:`ModelSpans` (:data:`MODEL_SPANS`) -- spans and counters at the
+  layer boundaries of the model's prefill and decode steps, each a
+  ``torch.profiler`` range and, on a card, a pair of CUDA events: every
+  layer's device time a step, and the MoE layer's kept pairs.  Off unless
+  switched on (every span) or under a profile (the spans the benchmark's
+  metrics read); off, a span is one load.
 
 Clock discipline: spans carry ``time.perf_counter()`` timestamps local
 to the recording process.  Worker-side spans travel as *relative*
@@ -453,6 +460,295 @@ class Tracer:
 
 
 # ---------------------------------------------------------------------------
+# Model-step spans: the layers of a prefill or decode step, timed on the card
+# ---------------------------------------------------------------------------
+
+
+class _Open(threading.local):
+    """The thread's step call in progress, or ``None``: one load decides
+    whether a span records."""
+
+    step = None
+
+
+class _StepCall:
+    __slots__ = ("name", "stream", "every", "stack")
+
+    def __init__(self, name: str, stream, every: bool):
+        self.name = name
+        self.stream = stream              # the CUDA stream timed, or None
+        self.every = every                # every span, or those read only
+        self.stack: List[str] = []        # keys of the open spans
+
+
+class _StepSpan:
+    """One span of a step call: a ``record_function`` range named by its
+    key, a pair of CUDA events on the step's stream (none on the CPU),
+    and the host's clock."""
+
+    __slots__ = ("rec", "call", "name", "key", "parent", "rf", "ev", "t0")
+
+    def __init__(self, rec: "ModelSpans", call: _StepCall, name: str):
+        self.rec, self.call, self.name = rec, call, name
+
+    def __enter__(self):
+        import torch
+
+        call = self.call
+        self.key = f"{call.name}/{self.name}"
+        self.parent = call.stack[-1] if call.stack else None
+        call.stack.append(self.key)
+        self.rf = torch.profiler.record_function(self.key)
+        self.rf.__enter__()
+        self.ev = None
+        if call.stream is not None:
+            self.ev = self.rec._event()
+            self.ev.record(call.stream)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        host_ms = (time.perf_counter() - self.t0) * 1e3
+        end = None
+        if self.ev is not None:
+            end = self.rec._event()
+            end.record(self.call.stream)
+        self.rf.__exit__(*exc)
+        self.call.stack.pop()
+        self.rec._closed(self.call.name, self.name, self.key, self.parent,
+                         host_ms, self.ev, end)
+        return False
+
+
+class _StepScope:
+    """``ModelSpans.step``'s context: the thread's step call, timed as its
+    span ``"step"``."""
+
+    __slots__ = ("rec", "call", "span", "prev")
+
+    def __init__(self, rec: "ModelSpans", name: str, stream, every: bool):
+        self.rec = rec
+        self.call = _StepCall(name, stream, every)
+
+    def __enter__(self):
+        self.prev = self.rec._open.step
+        self.rec._open.step = self.call
+        self.span = _StepSpan(self.rec, self.call, "step")
+        self.span.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        try:
+            self.span.__exit__(*exc)
+        finally:
+            self.rec._open.step = self.prev
+        # while the card runs this step: the earlier steps' pairs
+        self.rec._fold(wait=False)
+        return False
+
+
+class ModelSpans:
+    """Spans and counters inside the model's steps, one recorder a
+    process (:data:`MODEL_SPANS`).
+
+    ``step(name, device)`` opens a step call (``launch/steps.py``:
+    ``"prefill"``, ``"decode"``) and times it as the span
+    ``"<step>/step"``; inside it ``span(name)`` times a layer
+    (``"<step>/<name>"``, nested in the innermost span open) and
+    ``count(name, value)`` adds to the counter ``"<step>/<name>"``.
+    Whether a step call records is decided once, when it opens: every
+    span while :func:`enable_model_spans` holds; while a
+    ``torch.profiler`` profile records, only the spans in :attr:`READ`
+    (those a per-layer metric of the benchmark reads) and the counters,
+    so that the traced run carries as few ranges and events as its
+    metrics need.  Otherwise ``span`` is :data:`NULL_SPAN` after one load
+    of the thread's step call, and ``count`` returns at once.
+
+    A recording span opens a ``torch.profiler.record_function`` range
+    named by its key (the device trace's clock, beside the kernels it
+    launched), records a pair of timing ``torch.cuda.Event`` on the
+    step's stream on a card, and reads the host's clock.  Nothing waits
+    for the events: the pairs finished when a step has been launched are
+    folded into running sums and their events reused.  A span's device
+    time is the stream's time between its events, waits for the host
+    included.  A tensor counted adds its sum, one reduction on its
+    device, kept there until :meth:`summary`.  With a
+    :class:`MetricsRegistry` attached (:func:`enable_model_spans`) each
+    span's device time is observed there once folded, as
+    ``model_span_device_ms`` (labels ``step`` and ``span``).  On the CPU
+    there is no device time: ``device_ms`` is ``None``, never the
+    host's."""
+
+    # counted tensors kept a counter before they are summed into one
+    KEEP = 4096
+    # the spans a profile alone records, besides ``step``
+    READ = frozenset({"attention", "ffn"})
+
+    def __init__(self):
+        self._open = _Open()
+        self._lock = threading.Lock()
+        self._enabled = False
+        self.metrics: Optional[MetricsRegistry] = None
+        # key -> [calls, host ms, device ms, children's device ms, timed]
+        self._spans: Dict[str, list] = {}
+        self._pending: deque = deque()     # (key, parent, labels, ev0, ev1)
+        self._pool: List = []
+        self._counts: Dict[str, int] = {}
+        self._tensors: Dict[tuple, list] = {}   # (key, device) -> sums
+
+    @property
+    def enabled(self) -> bool:
+        """Whether :func:`enable_model_spans` holds."""
+        return self._enabled
+
+    # -- recording ------------------------------------------------------------
+    def step(self, name: str, device=None):
+        """The context of one step call; on a ``device`` (of the step's
+        tensors) that is a card, its spans time that device's current
+        stream."""
+        import torch
+
+        every = self._enabled
+        if not (every or torch.autograd._profiler_enabled()):
+            return NULL_SPAN
+        stream = None
+        if device is not None and torch.device(device).type == "cuda":
+            stream = torch.cuda.current_stream(device)
+        return _StepScope(self, name, stream, every)
+
+    def span(self, name: str):
+        call = self._open.step
+        if call is None or not (call.every or name in self.READ):
+            return NULL_SPAN
+        return _StepSpan(self, call, name)
+
+    def count(self, name: str, value) -> None:
+        """Adds ``value`` (an int, or a tensor's sum, taken on its device)
+        to the counter ``"<step>/<name>"``."""
+        call = self._open.step
+        if call is None:
+            return
+        import torch
+
+        key = f"{call.name}/{name}"
+        if not torch.is_tensor(value):
+            with self._lock:
+                self._counts[key] = self._counts.get(key, 0) + int(value)
+            return
+        total = value.sum()
+        with self._lock:
+            kept = self._tensors.setdefault((key, total.device), [])
+            kept.append(total)
+            if len(kept) >= self.KEEP:
+                self._tensors[key, total.device] = _summed(kept)
+
+    def _event(self):
+        import torch
+
+        with self._lock:
+            if self._pool:
+                return self._pool.pop()
+        return torch.cuda.Event(enable_timing=True)
+
+    def _closed(self, step, name, key, parent, host_ms, ev0, ev1) -> None:
+        with self._lock:
+            s = self._spans.get(key)
+            if s is None:
+                s = self._spans[key] = [0, 0.0, 0.0, 0.0, 0]
+            s[0] += 1
+            s[1] += host_ms
+            if ev0 is not None:
+                self._pending.append((key, parent,
+                                      {"step": step, "span": name},
+                                      ev0, ev1))
+
+    def _fold(self, wait: bool) -> None:
+        """Adds the device time of the pending event pairs that have
+        finished to their spans, stopping at the first unfinished one;
+        with ``wait``, of every pending pair, each waited for."""
+        if not self._pending:
+            return
+        done = []
+        with self._lock:
+            while self._pending:
+                key, parent, labels, ev0, ev1 = self._pending[0]
+                if wait:
+                    ev1.synchronize()
+                elif not ev1.query():
+                    break
+                self._pending.popleft()
+                ms = ev0.elapsed_time(ev1)
+                s = self._spans[key]
+                s[2] += ms
+                s[4] += 1
+                if parent is not None:
+                    self._spans[parent][3] += ms
+                self._pool += (ev0, ev1)
+                done.append((labels, ms))
+        if self.metrics is not None:
+            for labels, ms in done:
+                self.metrics.observe("model_span_device_ms", ms, **labels)
+
+    # -- readout --------------------------------------------------------------
+    def summary(self) -> dict:
+        """``{"spans": {key: {calls, host_ms, device_ms, self_device_ms}},
+        "counters": {key: int}}`` of everything recorded since the last
+        :meth:`reset`, after one synchronisation where a card was timed.
+        ``device_ms`` is ``None`` unless every call of the span was timed
+        on a card; ``self_device_ms`` is its device time less that of
+        the spans directly inside it."""
+        self._fold(wait=True)
+        with self._lock:
+            counts = dict(self._counts)
+            for (key, device), kept in self._tensors.items():
+                if len(kept) > 1:
+                    self._tensors[key, device] = kept = _summed(kept)
+                counts[key] = counts.get(key, 0) + int(kept[0])
+            spans = {}
+            for key, (calls, host, dev, child, timed) in \
+                    sorted(self._spans.items()):
+                on_card = timed == calls
+                spans[key] = {"calls": calls, "host_ms": host,
+                              "device_ms": dev if on_card else None,
+                              "self_device_ms": dev - child if on_card
+                              else None}
+        return {"spans": spans, "counters": dict(sorted(counts.items()))}
+
+    def reset(self) -> None:
+        """Forgets every span and counter (pending event pairs too)."""
+        with self._lock:
+            self._spans.clear()
+            self._pending.clear()
+            self._counts.clear()
+            self._tensors.clear()
+
+
+def _summed(tensors: list) -> list:
+    """One tensor: the sum of ``tensors``, on their device."""
+    import torch
+
+    return [torch.stack(tensors).sum()]
+
+
+MODEL_SPANS = ModelSpans()
+
+
+def enable_model_spans(metrics: Optional[MetricsRegistry] = None) -> None:
+    """Records every span and counter of every step call from now on,
+    each span's device time also observed in ``metrics`` where given."""
+    MODEL_SPANS._enabled = True
+    if metrics is not None:
+        MODEL_SPANS.metrics = metrics
+
+
+def disable_model_spans() -> None:
+    """Leaves the recording to a running ``torch.profiler`` profile, and
+    detaches the registry."""
+    MODEL_SPANS._enabled = False
+    MODEL_SPANS.metrics = None
+
+
+# ---------------------------------------------------------------------------
 # Metrics registry
 # ---------------------------------------------------------------------------
 
@@ -664,12 +960,16 @@ def start_observability_server(metrics: MetricsRegistry,
 
 __all__ = [
     "FlightRecorder",
+    "MODEL_SPANS",
     "MetricsRegistry",
+    "ModelSpans",
     "NULL_SPAN",
     "Span",
     "TicketTrace",
     "Tracer",
     "chrome_trace_events",
+    "disable_model_spans",
+    "enable_model_spans",
     "new_trace_id",
     "spans_to_wire",
     "start_observability_server",

@@ -32,6 +32,12 @@ block).  The server prefills a request through the decode step, one token
 at a time, so the SSM families run their O(1) recurrence here and not the
 chunked scan of their ``prefill``.  Cold solves run on the service's
 in-process worker pool, or on the fabric's workers with ``--fabric``.
+
+With tracing on (``--trace-dir``, ``--metrics-port`` or ``--trace-slo-ms``)
+the served model's layer spans are recorded too
+(``core.tracing.enable_model_spans``): on a card each decode step's
+layers land in the service's registry as
+``model_span_device_ms{step,span}``, beside ``serve_tick_ms``.
 """
 
 from __future__ import annotations
@@ -117,11 +123,11 @@ def main(argv=None):
                          "nested under \"tenants\") every N seconds "
                          "while serving (0 = off)")
     ap.add_argument("--trace-dir", default=None,
-                    help="enable plan-plane tracing and write Chrome "
-                         "trace_event JSON here: the completed-ticket "
-                         "flight recorder dumps on exit, anomalies "
-                         "(latency SLO, cert rejection, demotion) dump "
-                         "as they happen -- load the files in "
+                    help="enable plan-plane and model-step tracing and "
+                         "write Chrome trace_event JSON here: the "
+                         "completed-ticket flight recorder dumps on exit, "
+                         "anomalies (latency SLO, cert rejection, "
+                         "demotion) dump as they happen -- load the files in "
                          "chrome://tracing or Perfetto")
     ap.add_argument("--trace-slo-ms", type=float, default=None,
                     help="flight-recorder latency SLO: a ticket slower "
@@ -290,8 +296,15 @@ def main(argv=None):
         prompt = rng.integers(2, cfg.vocab - 1,
                               size=int(rng.integers(3, 8))).astype(np.int32)
         server.submit(Request(uid=uid, prompt=prompt, max_new=args.max_new))
+    if observe:
+        from ..core.tracing import disable_model_spans, enable_model_spans
+        enable_model_spans(service.metrics)
     t0 = time.perf_counter()
-    server.run(max_ticks=5000)
+    try:
+        server.run(max_ticks=5000)
+    finally:
+        if observe:
+            disable_model_spans()
     if server.device.type == "cuda":
         torch.cuda.synchronize(server.device)
     dt = time.perf_counter() - t0

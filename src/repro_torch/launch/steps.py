@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.tracing import MODEL_SPANS
 from ..models import Model
 from ..optim import adamw
 from ..parallel.hints import state_layout
@@ -55,7 +56,8 @@ def make_prefill_step(model: Model, max_len: int):
     ``batch["tokens"]`` (B, S) in one pass, with a cache ``max_len`` long
     to decode on from; the encoder-decoder family also takes
     ``batch["frames"]`` (B, S_enc, D).  Tokens and frames given as numpy or
-    on another device go to the device of the parameters."""
+    on another device go to the device of the parameters.  Each call is
+    the step ``"prefill"`` of ``core.tracing.MODEL_SPANS``."""
     if model.prefill is None:
         raise NotImplementedError(
             f"{model.cfg.name} ({model.cfg.family}) has no prefill in "
@@ -63,17 +65,22 @@ def make_prefill_step(model: Model, max_len: int):
 
     def prefill_step(params, batch):
         device = params["embed"].device
-        moved = {k: torch.as_tensor(batch[k], device=device)
-                 for k in ("tokens", "frames") if k in batch}
-        return model.prefill(params, {**batch, **moved}, max_len)
+        with MODEL_SPANS.step("prefill", device):
+            moved = {k: torch.as_tensor(batch[k], device=device)
+                     for k in ("tokens", "frames") if k in batch}
+            return model.prefill(params, {**batch, **moved}, max_len)
 
     return prefill_step
 
 
 def make_serve_step(model: Model):
+    """``serve_step(params, cache, tokens) -> (next tokens (B, 1) int32,
+    logits, cache)``: one decode step and its greedy tokens; each call is
+    the step ``"decode"`` of ``core.tracing.MODEL_SPANS``."""
     def serve_step(params, cache, tokens):
-        logits, new_cache = model.decode(params, cache, tokens)
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        with MODEL_SPANS.step("decode", params["embed"].device):
+            logits, new_cache = model.decode(params, cache, tokens)
+            next_tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
         return next_tok, logits, new_cache
 
     return serve_step

@@ -39,6 +39,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from ..configs.base import ArchConfig
+from ..core.tracing import MODEL_SPANS
 from ..device import resolve_device
 from ..kernels import ops
 from ..parallel.hints import (column_in, current_split, hint, layer_blocks,
@@ -187,32 +188,41 @@ def moe_ffn_sorted(cfg: ArchConfig, lp, h: Tensor) -> Tuple[Tensor, Tensor]:
     K, E = cfg.top_k, cfg.n_experts
     E_loc = lp["we_gate"].shape[-3]
     cut = E_loc < E
-    if cut or lp["router"].shape[-1] < E:
-        h = column_in(h)
-    xt = h.reshape(T, D)
-    top_p, top_i, aux = _route(cfg, lp["router"], xt, batch_fe=True)
+    with MODEL_SPANS.span("moe.route"):
+        if cut or lp["router"].shape[-1] < E:
+            h = column_in(h)
+        xt = h.reshape(T, D)
+        top_p, top_i, aux = _route(cfg, lp["router"], xt, batch_fe=True)
     split = current_split()
     n_data = 1 if split is None else split.n_data
     C = capacity(cfg, T * n_data)
-    if n_data == 1:
-        slot_token, order, sorted_e, rank, keep = dispatch_slots(top_i, C, E)
-    else:
-        import torch.distributed as dist
+    with MODEL_SPANS.span("moe.dispatch"):
+        if n_data == 1:
+            slot_token, order, sorted_e, rank, keep = dispatch_slots(
+                top_i, C, E)
+        else:
+            import torch.distributed as dist
 
-        from ..parallel.collectives import all_gather_dim
-        slot_token, order, sorted_e, rank, keep = dispatch_slots(
-            all_gather_dim(top_i, 0, split.data), C, E)
-        # the whole batch's slots, of which this rank fills its tokens'
-        lo = dist.get_rank(split.data) * T
-        mine = (slot_token >= lo) & (slot_token < lo + T)
-        slot_token = torch.where(mine, slot_token - lo, T).to(torch.int32)
-    if cut:              # this rank's experts' slots
-        m = model_axis()[2]
-        slot_token = slot_token[m * E_loc * C:(m + 1) * E_loc * C]
-    buf = hint(ops.dispatch(xt, slot_token).view(E_loc, C, D),  # the B5 kernel
-               "expert_buffer")
+            from ..parallel.collectives import all_gather_dim
+            slot_token, order, sorted_e, rank, keep = dispatch_slots(
+                all_gather_dim(top_i, 0, split.data), C, E)
+            # the whole batch's slots, of which this rank fills its tokens'
+            lo = dist.get_rank(split.data) * T
+            mine = (slot_token >= lo) & (slot_token < lo + T)
+            slot_token = torch.where(mine, slot_token - lo,
+                                     T).to(torch.int32)
+        # the pairs kept under capacity, of those routed (the whole
+        # batch's where its rows are cut over data)
+        MODEL_SPANS.count("moe.pairs_kept", keep)
+        MODEL_SPANS.count("moe.pairs_routed", keep.numel())
+        if cut:              # this rank's experts' slots
+            m = model_axis()[2]
+            slot_token = slot_token[m * E_loc * C:(m + 1) * E_loc * C]
+        buf = hint(ops.dispatch(xt, slot_token).view(E_loc, C, D),  # B5
+                   "expert_buffer")
 
-    y = swiglu(buf, lp["we_gate"], lp["we_up"], lp["we_down"])
+    with MODEL_SPANS.span("moe.experts"):
+        y = swiglu(buf, lp["we_gate"], lp["we_up"], lp["we_down"])
 
     # Combine.  The JAX package adds every pair into its token with a
     # scatter-add; on the card that is atomics in no fixed order, and a
@@ -220,22 +230,24 @@ def moe_ffn_sorted(cfg: ArchConfig, lp, h: Tensor) -> Tuple[Tensor, Tensor]:
     # they are gathered back into (T, K) order through the inverse of the
     # sort and summed in float32 in that order: the same sum, in another
     # order than the JAX package's, within float32 rounding of it.
-    inv = torch.empty_like(order).scatter_(
-        0, order, torch.arange(order.shape[0], device=h.device))
-    row = (sorted_e * C + torch.clamp(rank, max=C - 1))[inv]
-    keep = keep[inv]
-    if n_data > 1:       # this rank's tokens' pairs
-        pairs = slice(lo * K, (lo + T) * K)
-        row, keep = row[pairs], keep[pairs]
-    if cut:              # the pairs of this rank's experts
-        keep = keep & (top_i.reshape(-1) // E_loc == m)
-        row = torch.where(keep, row - m * E_loc * C, 0)
-    y_tok = y.reshape(E_loc * C, D)[row].masked_fill(~keep[:, None], 0)
-    out = (y_tok.float() * top_p.reshape(-1, 1)).view(T, K, D).sum(1)
-    out = out.reshape(B, S, D)
-    if cut:
-        out = row_parallel_end(out)
-    return out.to(h.dtype), aux
+    with MODEL_SPANS.span("moe.combine"):
+        inv = torch.empty_like(order).scatter_(
+            0, order, torch.arange(order.shape[0], device=h.device))
+        row = (sorted_e * C + torch.clamp(rank, max=C - 1))[inv]
+        keep = keep[inv]
+        if n_data > 1:       # this rank's tokens' pairs
+            pairs = slice(lo * K, (lo + T) * K)
+            row, keep = row[pairs], keep[pairs]
+        if cut:              # the pairs of this rank's experts
+            keep = keep & (top_i.reshape(-1) // E_loc == m)
+            row = torch.where(keep, row - m * E_loc * C, 0)
+        y_tok = y.reshape(E_loc * C, D)[row].masked_fill(~keep[:, None], 0)
+        out = (y_tok.float() * top_p.reshape(-1, 1)).view(T, K, D).sum(1)
+        out = out.reshape(B, S, D)
+        if cut:
+            out = row_parallel_end(out)
+        out = out.to(h.dtype)
+    return out, aux
 
 
 def moe_ffn_a2a(cfg: ArchConfig, lp, h: Tensor) -> Tuple[Tensor, Tensor]:

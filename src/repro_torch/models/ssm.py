@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..core.tracing import MODEL_SPANS
 from ..device import resolve_device
 from ..kernels.ssd_chunk import SsdChunkFn, ssd_chunk
 from ..parallel.collectives import (all_gather_dim, all_reduce_sum,
@@ -328,27 +329,36 @@ def ssm_block(cfg: ArchConfig, lp, x: Tensor, *, conv_state=None,
     channels and heads."""
     Bsz, S, _ = x.shape
     d_inner, H, P, N = dims(cfg)
-    h = rms_norm(whole_channels(x), lp["ln"], cfg.norm_eps)
     if heads_cut(cfg, lp):
+        h = rms_norm(whole_channels(x), lp["ln"], cfg.norm_eps)
         out, states = _rank_mixer(cfg, lp, column_in(h), conv_state,
                                   ssm_state, streaming)
         return x + row_parallel_end(out).to(x.dtype), states
-    proj = torch.matmul(h, lp["in_proj"])   # (B, S, 2*d_inner + 2N + H)
-    z, xin, bc, dt_raw = torch.split(proj, [d_inner, d_inner, 2 * N, H],
-                                     dim=-1)
-    conv_in = torch.cat([xin, bc], dim=-1)
-    conv_out, new_conv = _causal_conv(conv_in, lp["conv_w"], lp["conv_b"],
-                                      conv_state)
-    xin, Bm, Cm = torch.split(conv_out, [d_inner, N, N], dim=-1)
-    xh = xin.reshape(Bsz, S, H, P)
-    y, new_state = _scan(cfg, lp, xh, dt_raw, Bm, Cm, ssm_state, streaming)
-    y = y.reshape(Bsz, S, d_inner).to(x.dtype)
-    # the gated product goes into the norm unrounded, as XLA fuses it in the
-    # JAX package; the norm's output is rounded to the working dtype once
-    y = rms_norm(y.float() * _silu(z).float(), lp["gate_ln"],
-                 cfg.norm_eps).to(x.dtype)
-    out = torch.matmul(y, lp["out_proj"])
-    return x + residual_block(out), (new_conv, new_state)
+    with MODEL_SPANS.span("ssm.in_proj"):
+        h = rms_norm(whole_channels(x), lp["ln"], cfg.norm_eps)
+        proj = torch.matmul(h, lp["in_proj"])  # (B, S, 2*d_inner + 2N + H)
+        z, xin, bc, dt_raw = torch.split(proj, [d_inner, d_inner, 2 * N, H],
+                                         dim=-1)
+    with MODEL_SPANS.span("ssm.conv"):
+        conv_in = torch.cat([xin, bc], dim=-1)
+        conv_out, new_conv = _causal_conv(conv_in, lp["conv_w"],
+                                          lp["conv_b"], conv_state)
+        xin, Bm, Cm = torch.split(conv_out, [d_inner, N, N], dim=-1)
+    with MODEL_SPANS.span("ssm.scan"):
+        xh = xin.reshape(Bsz, S, H, P)
+        y, new_state = _scan(cfg, lp, xh, dt_raw, Bm, Cm, ssm_state,
+                             streaming)
+        y = y.reshape(Bsz, S, d_inner).to(x.dtype)
+    with MODEL_SPANS.span("ssm.gate_norm"):
+        # the gated product goes into the norm unrounded, as XLA fuses it
+        # in the JAX package; the norm's output is rounded to the working
+        # dtype once
+        y = rms_norm(y.float() * _silu(z).float(), lp["gate_ln"],
+                     cfg.norm_eps).to(x.dtype)
+    with MODEL_SPANS.span("ssm.out_proj"):
+        out = torch.matmul(y, lp["out_proj"])
+        x = x + residual_block(out)
+    return x, (new_conv, new_state)
 
 
 # ---------------------------------------------------------------------------
@@ -442,17 +452,21 @@ def decode_step(cfg: ArchConfig, params: Params, cache: SSMCache,
     vocabulary's; with leaves cut over the data axes too each block's are
     gathered before it runs."""
     with split_sequence(tokens.shape[1], cut=False):
-        x = tfm.embed_tokens(params, tokens, cfg.vocab)
+        with MODEL_SPANS.span("embed"):
+            x = tfm.embed_tokens(params, tokens, cfg.vocab)
         layers = whole_layers(params["layers"])
         for i in range(cfg.n_layers):
             x, (conv, state) = ssm_block(
                 cfg, layer_blocks(layer(layers, i)), x,
                 conv_state=cache.conv[i], ssm_state=cache.state[i],
                 streaming=True)
-            cache.conv[i] = conv
-            cache.state[i] = state
-        h = rms_norm(x, model_block(params["ln_f"], "ln_f"), cfg.norm_eps)
-        logits = tfm.logits_fn(cfg, params, h)[:, 0]
+            with MODEL_SPANS.span("cache.store"):
+                cache.conv[i] = conv
+                cache.state[i] = state
+        with MODEL_SPANS.span("head"):
+            h = rms_norm(x, model_block(params["ln_f"], "ln_f"),
+                         cfg.norm_eps)
+            logits = tfm.logits_fn(cfg, params, h)[:, 0]
     return logits, SSMCache(cache.conv, cache.state, int(cache.pos) + 1)
 
 
@@ -467,16 +481,19 @@ def prefill(cfg: ArchConfig, params: Params, tokens: Tensor
     rank's conv channels and heads."""
     B, S = tokens.shape
     with split_sequence(S, channels=cfg.d_model):
-        x = residual_block(tfm.embed_tokens(params, tokens, cfg.vocab))
+        with MODEL_SPANS.span("embed"):
+            x = residual_block(tfm.embed_tokens(params, tokens, cfg.vocab))
         cache = init_cache(cfg, B, device=x.device,
                            **rank_cache_dims(params["layers"]))
         layers = whole_layers(params["layers"])
         for i in range(cfg.n_layers):
             x, (conv, state) = ssm_block(cfg, layer_blocks(layer(layers, i)),
                                          x)
-            cache.conv[i] = conv
-            cache.state[i] = state
-        h = rms_norm(whole_channels(x), model_block(params["ln_f"], "ln_f"),
-                     cfg.norm_eps)
-        logits = tfm.logits_fn(cfg, params, h[:, -1:])[:, 0]
+            with MODEL_SPANS.span("cache.store"):
+                cache.conv[i] = conv
+                cache.state[i] = state
+        with MODEL_SPANS.span("head"):
+            h = rms_norm(whole_channels(x),
+                         model_block(params["ln_f"], "ln_f"), cfg.norm_eps)
+            logits = tfm.logits_fn(cfg, params, h[:, -1:])[:, 0]
     return logits, SSMCache(cache.conv, cache.state, S)

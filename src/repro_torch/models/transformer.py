@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
+from ..core.tracing import MODEL_SPANS
 from ..device import resolve_device
 from ..kernels import ops
 from ..parallel.hints import (cache_cut, column_in, current_split,
@@ -400,20 +401,40 @@ def dense_layer(cfg: ArchConfig, lp, x, window, *, cache_kv=None, pos=0,
     fits (for one token: the last row is overwritten) while RoPE and the
     masks go on with the unclamped ``pos`` -- what the JAX package's
     ``dynamic_update_slice`` does."""
+    if cache_kv is None and int(pos) != 0:
+        raise ValueError(f"a layer without a cache attends over the "
+                         f"sequence from position 0, got pos={pos}")
+    with MODEL_SPANS.span("attention"):
+        x, new_kv = _attention(cfg, lp, x, window, cache_kv, pos, block_k,
+                               seq)
+    with MODEL_SPANS.span("ffn"):
+        h = hint(rms_norm(whole_channels(x), lp["ln2"], cfg.norm_eps),
+                 "block_in")
+        if ffn is None:
+            delta = parallel_swiglu(h, lp["w_gate"], lp["w_up"],
+                                    lp["w_down"], cfg.d_ff)
+        else:
+            delta = residual_block(ffn(lp, h))
+        x = x + delta
+    return x, new_kv
+
+
+def _attention(cfg: ArchConfig, lp, x, window, cache_kv, pos, block_k, seq):
+    """:func:`dense_layer`'s attention, from its norm through the residual
+    add: ``(x, the layer's K/V)``."""
     h = hint(rms_norm(whole_channels(x), lp["ln1"], cfg.norm_eps),
              "block_in")
     tp = heads_cut(cfg, lp)
     ha = column_in(h) if tp else h
-    if cache_kv is None and int(pos) != 0:
-        raise ValueError(f"a layer without a cache attends over the "
-                         f"sequence from position 0, got pos={pos}")
     if on_whole_heads(cfg, lp, seq):
-        attn, new_kv = whole_heads_attention(
-            cfg, lp, ha, ha, window=window, cache_kv=cache_kv, pos=pos,
-            seq=seq)
+        with MODEL_SPANS.span("attention.core"):
+            attn, new_kv = whole_heads_attention(
+                cfg, lp, ha, ha, window=window, cache_kv=cache_kv, pos=pos,
+                seq=seq)
     elif cache_kv is None:
         k, v = _project_kv(cfg, lp, ha, 0)
-        attn = _attn_prompt(cfg, lp, ha, k, v, window)
+        with MODEL_SPANS.span("attention.core"):
+            attn = _attn_prompt(cfg, lp, ha, k, v, window)
         new_kv = (k, v)
     else:
         k_new, v_new = _project_kv(cfg, lp, ha, pos)
@@ -428,21 +449,14 @@ def dense_layer(cfg: ArchConfig, lp, x, window, *, cache_kv=None, pos=0,
         at = min(max(int(pos), 0), k_buf.shape[1] - S)
         k_buf[:, at:at + S] = k_new.to(k_buf.dtype)
         v_buf[:, at:at + S] = v_new.to(v_buf.dtype)
-        attn = _attn(cfg, lp, ha, k_full=k_buf, v_full=v_buf,
-                     window=window, q_offset=pos, kv_len=pos + S,
-                     block_k=block_k)
+        with MODEL_SPANS.span("attention.core"):
+            attn = _attn(cfg, lp, ha, k_full=k_buf, v_full=v_buf,
+                         window=window, q_offset=pos, kv_len=pos + S,
+                         block_k=block_k)
         new_kv = (k_buf, v_buf)
     # a float32 sum of the whole-heads path's partials is rounded once
     x = x + (row_parallel_end(attn) if tp else residual_block(attn)).to(
         x.dtype)
-    h = hint(rms_norm(whole_channels(x), lp["ln2"], cfg.norm_eps),
-             "block_in")
-    if ffn is None:
-        delta = parallel_swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"],
-                                cfg.d_ff)
-    else:
-        delta = residual_block(ffn(lp, h))
-    x = x + delta
     return x, new_kv
 
 
@@ -816,7 +830,8 @@ def prefill(cfg: ArchConfig, params: Params, tokens: Tensor, max_len: int,
         raise ValueError(f"a prompt of {S} tokens does not fit a cache of "
                          f"max_len {max_len}")
     with split_sequence(S) as split:
-        x = residual_block(embed_tokens(params, tokens, cfg.vocab))
+        with MODEL_SPANS.span("embed"):
+            x = residual_block(embed_tokens(params, tokens, cfg.vocab))
         windows = layer_windows(cfg)
         kv_heads, seq = kv_layout(cfg, params["layers"]["wk"])
         params = {**params, "layers": whole_layers(params["layers"])}
@@ -827,10 +842,13 @@ def prefill(cfg: ArchConfig, params: Params, tokens: Tensor, max_len: int,
                                     int(windows[i]), ffn=ffn, seq=seq)
             if residual_hint:
                 x = hint(x, "residual")
-            store_prompt(cache.k[i], k, seq)
-            store_prompt(cache.v[i], v, seq)
-        h = rms_norm(x, model_block(params["ln_f"], "ln_f"), cfg.norm_eps)
-        logits = last_logits(cfg, params, h, split)
+            with MODEL_SPANS.span("cache.store"):
+                store_prompt(cache.k[i], k, seq)
+                store_prompt(cache.v[i], v, seq)
+        with MODEL_SPANS.span("head"):
+            h = rms_norm(x, model_block(params["ln_f"], "ln_f"),
+                         cfg.norm_eps)
+            logits = last_logits(cfg, params, h, split)
     return logits, KVCache(cache.k, cache.v, S)
 
 
@@ -874,7 +892,8 @@ def decode_step(cfg: ArchConfig, params: Params, cache: KVCache,
     K/V are written by the rank whose block holds ``pos``.
     """
     with split_sequence(tokens.shape[1], cut=False):
-        x = embed_tokens(params, tokens, cfg.vocab)
+        with MODEL_SPANS.span("embed"):
+            x = embed_tokens(params, tokens, cfg.vocab)
         windows = layer_windows(cfg)
         pos = int(cache.pos)
         seq = kv_layout(cfg, params["layers"]["wk"])[1]
@@ -884,8 +903,10 @@ def decode_step(cfg: ArchConfig, params: Params, cache: KVCache,
                                int(windows[i]),
                                cache_kv=(cache.k[i], cache.v[i]), pos=pos,
                                block_k=block_k, ffn=ffn, seq=seq)
-        h = rms_norm(x, model_block(params["ln_f"], "ln_f"), cfg.norm_eps)
-        logits = logits_fn(cfg, params, h)[:, 0]
+        with MODEL_SPANS.span("head"):
+            h = rms_norm(x, model_block(params["ln_f"], "ln_f"),
+                         cfg.norm_eps)
+            logits = logits_fn(cfg, params, h)[:, 0]
     return logits, KVCache(cache.k, cache.v, pos + 1)
 
 
