@@ -1096,6 +1096,173 @@ def phase_blind_rows(torch, gen):
             "blind_launches": cases, "attention_launches": want_launches}
 
 
+# (label, B, Smax, H, Hkv, D, Sq, q_offset, kv_len, causal, window): the
+# decode paths' shapes on the card
+DECODE_ATTN_CASES = (
+    ("olmoe kv_len 2049", 64, 4096, 16, 16, 128, 1, 2048, 2049, True, 0),
+    ("olmoe kv_len 3000", 64, 4096, 16, 16, 128, 1, 2999, 3000, True, 0),
+    ("olmoe kv_len 4096", 64, 4096, 16, 16, 128, 1, 4095, 4096, True, 0),
+    ("qwen2-7b batch 8", 8, 4096, 28, 4, 128, 1, 2999, 3000, True, 0),
+    ("gemma3-12b local", 2, 4096, 16, 8, 240, 1, 2999, 3000, True, 1024),
+    ("gemma3-12b global", 2, 4096, 16, 8, 240, 1, 2999, 3000, True, 0),
+    ("zamba2-2.7b", 4, 2048, 32, 32, 80, 1, 1499, 1500, True, 0),
+    ("whisper-base cross", 8, 1500, 8, 8, 64, 1, 10, None, False, 0),
+    ("olmoe Sq 2", 4, 2048, 16, 16, 128, 2, 1300, 1302, True, 0),
+    ("qwen2-7b Sq 4", 2, 2048, 28, 4, 128, 4, 1300, 1304, True, 0),
+    ("deepseek-67b Sq 4 (32 rows)", 1, 2048, 64, 8, 128, 4, 1700, 1704, True,
+     0),
+    ("rows that keep no key", 2, 2048, 16, 8, 80, 2, 1500, 1000, True, 16),
+    ("reduced configurations (head size 32)", 2, 1100, 4, 2, 32, 1, 1090,
+     1091, True, 0),
+)
+# the kernel and the plain version both round one float32 result to
+# bfloat16: one bf16 ulp of the plain value (2^-7 of it at worst), and the
+# float32 sums' order against 1e-3 of the output's largest magnitude
+DECODE_ATTN_ULP = 2.0 ** -7
+DECODE_ATTN_ATOL = 1e-3
+# its decode step (the launches a step): olmoe-1b-7b at full width and
+# depth, 2 rows at position 1500 of a 2048-row cache
+DECODE_STEP_ROWS, DECODE_STEP_LEN, DECODE_STEP_POS = 2, 2048, 1500
+
+
+def decode_attention_held(got, want):
+    """The kernel's output against the plain version's: the largest
+    absolute difference over its bound (``DECODE_ATTN_ULP`` of each plain
+    value plus ``DECODE_ATTN_ATOL`` of the largest one)."""
+    g, w = got.double(), want.double()
+    bound = DECODE_ATTN_ULP * w.abs() + DECODE_ATTN_ATOL * float(
+        w.abs().max())
+    return float(((g - w).abs() / bound).max())
+
+
+def decode_attention_work(B, L, H, Hkv, D, Sq):
+    """Bytes a call moves once: q read and o written, K and V over the ``L``
+    keys its rows keep (bf16)."""
+    return 2 * (2 * B * Sq * H * D + 2 * B * L * Hkv * D)
+
+
+def phase_decode_attention_kernel(torch, seed):
+    """The decode-attention kernel (``kernels/decode_attention.py``) on the
+    card: against the plain ``layers.decode_attention`` in bf16 at the
+    decode paths' shapes (``DECODE_ATTN_CASES``), a float32 buffer refused,
+    16 launches in an olmoe-1b-7b decode step through ``chunked_attention``
+    and no plain call on a CUDA tensor, and its time at the decode cell's
+    shape beside its byte bound, the plain version and SDPA (a library
+    yardstick only)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import get_model
+    from repro_torch.models import layers
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    da.reset_launch_counts()
+    held, timed = {}, {}
+    for (label, B, Smax, H, Hkv, D, Sq, q_offset, kv_len, causal,
+         window) in DECODE_ATTN_CASES:
+        q, k, v = draw(B, Sq, H, D), draw(B, Smax, Hkv, D), draw(B, Smax,
+                                                                 Hkv, D)
+        kw = dict(causal=causal, window=window, q_offset=q_offset,
+                  kv_len=kv_len)
+        launches = da.LAUNCHES["decode_attention"]
+        got = da.decode_attention(q, k, v, **kw)
+        check(da.LAUNCHES["decode_attention"] == launches + 1,
+              f"decode_attention {label}: not one launch")
+        want = layers.decode_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got.float()).all()),
+              f"decode_attention {label}: output is not finite")
+        share = decode_attention_held(got, want)
+        check(share <= 1.0, f"decode_attention differs from the plain "
+              f"version on {label}: {share} of its bound")
+        jlo, jhi = da.key_span(Sq, Smax, q_offset, kv_len, causal, window)
+        per, n = da.splits(B * Hkv, jhi - jlo, da._sms(q.device))
+        held[label] = {"share_of_bound": share, "keys": [jlo, jhi],
+                       "splits": n, "tiles_per_split": per}
+        if label in ("olmoe kv_len 2049", "olmoe kv_len 3000",
+                     "qwen2-7b batch 8", "gemma3-12b local"):
+            L = jhi - jlo
+            nbytes = decode_attention_work(B, L, H, Hkv, D, Sq)
+            ms = time_ms(torch, lambda: da.decode_attention(q, k, v, **kw),
+                         iters=50, warmup=5, stall_ms=30)
+            plain_ms = time_ms(torch, lambda: layers.decode_attention(
+                q, k, v, **kw), iters=5, warmup=2)
+            qt = q.transpose(1, 2)
+            kt, vt = (t[:, jlo:jhi].transpose(1, 2) for t in (k, v))
+            sdpa_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, enable_gqa=H != Hkv), iters=50, warmup=5,
+                stall_ms=30)
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            timed[label] = {"ms": ms, "bound_ms": bound_ms,
+                            "roofline_share": bound_ms / ms,
+                            "plain_ms": plain_ms, "sdpa_ms": sdpa_ms,
+                            "bytes": nbytes, "keys": L}
+        del q, k, v, got, want
+    refused = False
+    try:
+        kv = torch.zeros((1, 2048, 16, 128), device="cuda")
+        da.decode_attention(torch.zeros((1, 1, 16, 128), device="cuda"), kv,
+                            kv)
+    except TypeError:
+        refused = True
+    check(refused, "decode_attention took a float32 buffer")
+
+    # 16 launches in an olmoe decode step, and no plain call on the card
+    cfg = get_arch("olmoe_1b_7b")
+    model = get_model(cfg)
+    params = model.init(gen, device="cuda")
+    cache = model.init_cache(DECODE_STEP_ROWS, DECODE_STEP_LEN, device="cuda")
+    cache.k.normal_(generator=gen)
+    cache.v.normal_(generator=gen)
+    cache = cache._replace(pos=DECODE_STEP_POS)
+    tok = torch.randint(2, cfg.vocab - 1, (DECODE_STEP_ROWS, 1),
+                        generator=gen, device="cuda", dtype=torch.int32)
+    plain_on_card = []
+    plain = layers.decode_attention
+
+    def counted(q, *a, **kw):
+        plain_on_card.append(q.is_cuda)
+        return plain(q, *a, **kw)
+
+    serve = make_serve_step(model)
+    cases_launches = da.LAUNCHES["decode_attention"]
+    layers.decode_attention = counted
+    da.reset_launch_counts()
+    try:
+        _, logits, _ = serve(params, cache, tok)
+    finally:
+        layers.decode_attention = plain
+    step_launches = da.LAUNCHES["decode_attention"]
+    check(step_launches == cfg.n_layers and not any(plain_on_card),
+          f"an olmoe decode step launched the kernel {step_launches} times "
+          f"(want {cfg.n_layers}) and the plain version on the card "
+          f"{sum(plain_on_card)} times")
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(logits.float()).all()),
+          "the olmoe decode step's logits are not finite")
+    del params, cache, model, logits
+    free_device_memory(torch)
+    say("decode_attention_kernel", cases=len(DECODE_ATTN_CASES), held=held,
+        tolerance=f"{DECODE_ATTN_ULP} of each plain value + "
+                  f"{DECODE_ATTN_ATOL} of max |plain|, bf16 out",
+        float32_refused=refused, olmoe_step_launches=step_launches,
+        olmoe_step_plain_on_card=sum(plain_on_card), times=timed,
+        launches={"decode_attention": cases_launches + step_launches},
+        seconds=time.perf_counter() - t0,
+        note="ms: CUDA events behind a 30 ms stall; bound: bytes over "
+             "3.35 TB/s; plain ms host-inclusive; SDPA over the kept keys "
+             "as a yardstick only")
+
+
 def attention_work(B, Sq, Sk, H, Hkv, D, causal, window, itemsize):
     """(bytes moved once, useful operations, unmasked pairs) of one
     attention call over (B, S, H, D) tensors: q, k, v read once and o
@@ -1218,6 +1385,7 @@ def serve_once(torch, cfg, seed, store_dir, *, hold=True, joint=False,
 
     from repro_torch.core import DirectoryStore, PlanService
     from repro_torch.kernels import banked_gather as bg
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_dispatch as md
     from repro_torch.kernels import ssd_chunk as sc
@@ -1299,6 +1467,7 @@ def serve_once(torch, cfg, seed, store_dir, *, hold=True, joint=False,
         md.reset_launch_counts()
         sc.reset_launch_counts()
         fa.reset_launch_counts()
+        da.reset_launch_counts()
         admit_ticks, on_fallback, incoherent = 0, 0, 0
         tick_ms = {"fallback": [], "solving": [], "solved": []}
         t_release = None
@@ -1322,7 +1491,7 @@ def serve_once(torch, cfg, seed, store_dir, *, hold=True, joint=False,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {**bg.LAUNCHES, **md.LAUNCHES, **sc.LAUNCHES,  # ends here
-                    **fa.LAUNCHES,
+                    **fa.LAUNCHES, **da.LAUNCHES,
                     **{f"banked_scatter_elems_{k}": n
                        for k, n in bg.SCATTER_ELEMS_PATHS.items()}}
     waiter.join(timeout=300)
@@ -1405,6 +1574,9 @@ def check_serve_launches(cfg, run):
     check(lau["flash_attention"] == 0, f"the decode path launched the flash "
           f"attention kernel {lau['flash_attention']} times: the server "
           f"prefills through decode, which attends against its cache")
+    check(lau["decode_attention"] == 0, f"the decode path launched the "
+          f"decode-attention kernel {lau['decode_attention']} times: a cache "
+          f"of 1024 rows stays on the blocked loop")
     check(run["decode_calls"] < 1024, "cache.pos reached max_len")
 
 
@@ -1708,6 +1880,7 @@ def phase_fleet(torch, seed):
     from repro_torch.configs import get_arch
     from repro_torch.core import PlanService, SolveFabric, spawn_local_workers
     from repro_torch.kernels import banked_gather as bg
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_dispatch as md
     from repro_torch.kernels import ssd_chunk as sc
@@ -1738,6 +1911,7 @@ def phase_fleet(torch, seed):
             md.reset_launch_counts()
             sc.reset_launch_counts()
             fa.reset_launch_counts()
+            da.reset_launch_counts()
             t0 = time.perf_counter()
             try:
                 out = serve_fleet.main(argv, fabric=fabric)
@@ -1746,7 +1920,7 @@ def phase_fleet(torch, seed):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = {**bg.LAUNCHES, **md.LAUNCHES, **sc.LAUNCHES,
-                        **fa.LAUNCHES,                   # and ends here
+                        **fa.LAUNCHES, **da.LAUNCHES,    # and ends here
                         **{f"banked_scatter_elems_{k}": n
                            for k, n in bg.SCATTER_ELEMS_PATHS.items()}}
         check(fabric.workers_alive == FLEET_WORKERS,
@@ -1815,9 +1989,11 @@ def phase_fleet(torch, seed):
         check(launches[name] == want, f"fleet {name} launches "
               f"{launches[name]} != {want} from the servers' ticks, admits, "
               f"repacks and decode calls")
-    check(launches["ssd_chunk"] == 0 and launches["flash_attention"] == 0,
+    check(launches["ssd_chunk"] == 0 and launches["flash_attention"] == 0
+          and launches["decode_attention"] == 0,
           f"the fleet's decode path launched {launches['ssd_chunk']} SSD "
-          f"chunks and {launches['flash_attention']} flash attentions")
+          f"chunks, {launches['flash_attention']} flash attentions and "
+          f"{launches['decode_attention']} decode attentions")
     check(expect["banked_scatter"] >= 1, "no server of the fleet swapped")
     service = out["service"]
     del out, watch, srv, reqs, st
@@ -2073,18 +2249,40 @@ def attention_calls(cfg):
     return cfg.n_layers
 
 
+def decode_attention_calls(cfg, max_len, frames=0, block_k=1024):
+    """Decode-attention kernel launches of one decode step: one for each
+    attention call over a buffer past ``block_k`` rows (``max_len`` for a
+    self-attention cache, whisper's ``frames`` for its cross attention);
+    a smaller buffer stays on ``chunked_attention``'s blocked loop."""
+    from repro_torch.models import hybrid
+
+    over = max_len > block_k
+    if cfg.family in ("encdec", "audio"):
+        return cfg.n_layers * (over + (frames > block_k))
+    if cfg.family == "hybrid":
+        return hybrid.n_sites(cfg) * over
+    if cfg.family == "ssm":
+        return 0
+    return cfg.n_layers * over
+
+
 def prefill_once(torch, model, params, batch, max_len, capture=None):
     """One prefill of ``batch`` (tokens, and frames for whisper) through
     ``launch.steps.make_prefill_step`` and ``DECODE_AFTER_PREFILL`` decode
     steps on from its cache through ``make_serve_step``.  ``capture`` (a
     dict) receives clones of kernel inputs: under ``"ssd_chunk"`` those of
     the first two SSD chunk calls, under ``"attention"`` those of the first
-    attention call of each shape and mask, with the count of its calls."""
+    attention call of each shape and mask, with the count of its calls.
+    The decode steps launch the decode-attention kernel as
+    ``decode_attention_calls`` says, and never the plain version on the
+    card."""
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_dispatch as md
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_chunk as sc
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import layers
     from repro_torch.models import ssm as ssm_mod
 
     cfg = model.cfg
@@ -2115,7 +2313,7 @@ def prefill_once(torch, model, params, batch, max_len, capture=None):
         ssm_mod.ssd_chunk, ops.mha = capturing_chunk, capturing_mha
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for mod in (sc, fa, md):              # the main path starts here
+    for mod in (sc, fa, md, da):          # the main path starts here
         mod.reset_launch_counts()
     try:
         t0 = time.perf_counter()
@@ -2126,7 +2324,7 @@ def prefill_once(torch, model, params, batch, max_len, capture=None):
         wall = time.perf_counter() - t0
     finally:
         ssm_mod.ssd_chunk, ops.mha = chunk, mha
-    launches = {**sc.LAUNCHES, **fa.LAUNCHES, **md.LAUNCHES}
+    launches = {**sc.LAUNCHES, **fa.LAUNCHES, **md.LAUNCHES, **da.LAUNCHES}
     check(fa.COPIES["flash_attention"] == 0, f"{cfg.name} prefill: "
           f"{fa.COPIES['flash_attention']} aligned copies before B4")
     check(fa.BLIND_LAUNCHES["flash_attention"] == 0, f"{cfg.name} prefill "
@@ -2138,19 +2336,38 @@ def prefill_once(torch, model, params, batch, max_len, capture=None):
           f"{cfg.name} prefill: logits are not finite (B, vocab)")
     nxt = logits.float().argmax(-1).to(torch.int32)[:, None]
     out = [nxt[:, 0]]
-    for _ in range(DECODE_AFTER_PREFILL):
-        nxt, logits, cache = serve(params, cache, nxt)
-        check(bool(torch.isfinite(logits.float()).all()),
-              f"{cfg.name}: decode after prefill gave non-finite logits")
-        out.append(nxt[:, 0])
+    plain, plain_on_card = layers.decode_attention, []
+
+    def counted(q, *args, **kw):
+        plain_on_card.append(q.is_cuda)
+        return plain(q, *args, **kw)
+
+    layers.decode_attention = counted
+    try:
+        for _ in range(DECODE_AFTER_PREFILL):
+            nxt, logits, cache = serve(params, cache, nxt)
+            check(bool(torch.isfinite(logits.float()).all()),
+                  f"{cfg.name}: decode after prefill gave non-finite logits")
+            out.append(nxt[:, 0])
+    finally:
+        layers.decode_attention = plain
     torch.cuda.synchronize()
     moe_layers = cfg.n_layers if cfg.family == "moe" else 0
+    frames = batch["frames"].shape[1] if "frames" in batch else 0
+    decode_attention = launches["decode_attention"] + DECODE_AFTER_PREFILL \
+        * decode_attention_calls(cfg, max_len, frames)
     check(sc.LAUNCHES["ssd_chunk"] == launches["ssd_chunk"]   # ... and ends
           and fa.LAUNCHES["flash_attention"] == launches["flash_attention"]
           and md.LAUNCHES["moe_dispatch"] == launches["moe_dispatch"]
           + moe_layers * DECODE_AFTER_PREFILL,
           f"{cfg.name}: decode after prefill launched the SSD chunk or the "
           f"flash attention kernel, or not one MoE dispatch a layer a step")
+    check(da.LAUNCHES["decode_attention"] == decode_attention
+          and not any(plain_on_card),
+          f"{cfg.name}: decode after prefill launched the decode-attention "
+          f"kernel {da.LAUNCHES['decode_attention']} times (want "
+          f"{decode_attention}) and the plain version on the card "
+          f"{sum(plain_on_card)} times")
     check(int(cache.pos) == S + DECODE_AFTER_PREFILL, "cache.pos is off")
     return {"tokens": torch.stack(out, 1).cpu().tolist(),
             "launches": launches, "wall": wall,
@@ -2161,12 +2378,12 @@ def prefill_once(torch, model, params, batch, max_len, capture=None):
 def check_prefill_launches(cfg, S, launches, capture=None):
     """A prefill's launches against what its layers imply: B4 once per
     attention call, B6 once per SSM layer and chunk, B5 once per MoE
-    layer."""
+    layer, the decode-attention kernel never."""
     import math
 
     want = {"flash_attention": attention_calls(cfg),
             "moe_dispatch": cfg.n_layers if cfg.family == "moe" else 0,
-            "ssd_chunk": 0}
+            "ssd_chunk": 0, "decode_attention": 0}
     if cfg.family in ("ssm", "hybrid"):
         want["ssd_chunk"] = ssm_layers(cfg) * math.ceil(
             S / min(cfg.ssm_chunk, S))
@@ -8069,6 +8286,7 @@ def main():
     phase_moe_kernel(torch, args.seed)
     phase_ssd_kernel(torch, args.seed)
     phase_attention_kernel(torch, args.seed)
+    phase_decode_attention_kernel(torch, args.seed)
     if args.skip_serve:
         print(card, flush=True)
         return 0

@@ -34,7 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 SOURCES = {"banked": "banked.cu", "moe_dispatch": "moe_dispatch.cu",
            "ssd_chunk": "ssd_chunk.cu",
-           "flash_attention": "flash_attention.cu"}
+           "flash_attention": "flash_attention.cu",
+           "decode_attention": "decode_attention.cu"}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.RLock()               # build and load, one thread at a time

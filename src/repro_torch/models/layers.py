@@ -8,7 +8,9 @@ a cache (a query offset and a valid-prefix ``kv_len``): ``chunked_attention``
 is a Python loop over KV blocks with online softmax that never materializes
 the (S, S) score matrix, with causal + sliding-window masks computed from
 positions per block, and ``decode_attention`` one grouped einsum for a few
-query rows.  Every function keeps the JAX package's dtypes op by op --
+query rows over the whole buffer -- on the CPU; a CUDA tensor takes
+``kernels/decode_attention.py`` there instead, which reads only the keys
+the rows keep.  Every function keeps the JAX package's dtypes op by op --
 norms, RoPE, attention scores, softmax and ``p @ v`` compute in float32 and
 cast back; the projections are products in the parameters' dtype; the gelu
 is written out op by op in the working dtype, as XLA computes it on the
@@ -25,6 +27,7 @@ import torch
 import torch.utils.checkpoint
 
 from ..device import resolve_device
+from ..kernels import decode_attention as _da
 
 Tensor = torch.Tensor
 
@@ -157,7 +160,9 @@ def _block_mask(q_pos: Tensor, k_pos: Tensor, causal: bool, window: int
 def decode_attention(q, k, v, *, causal=True, window=0, q_offset=0,
                      kv_len=None, scale=None) -> Tensor:
     """Sq<=4 fast path: one grouped einsum over the WHOLE KV buffer; the
-    score tensor is only (B, Sq, H, Sk) for a handful of q rows."""
+    score tensor is only (B, Sq, H, Sk) for a handful of q rows.  The plain
+    version of ``kernels/decode_attention.py``: what the CPU runs, and the
+    oracle of the kernel that a CUDA tensor takes instead."""
     B, Sq, H, Dh = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     rep = H // Hkv
@@ -195,8 +200,9 @@ def chunked_attention(
     rep = H // Hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
     if Sq <= 4 and Sk > block_k:
-        return decode_attention(q, k, v, causal=causal, window=window,
-                                q_offset=q_offset, kv_len=kv_len, scale=scale)
+        attend = _da.decode_attention if q.is_cuda else decode_attention
+        return attend(q, k, v, causal=causal, window=window,
+                      q_offset=q_offset, kv_len=kv_len, scale=scale)
     if Sq > block_q and Sq % block_q == 0:
         # outer q-blocking bounds the score working set to
         # (B, block_q, H, block_k) per step regardless of sequence length

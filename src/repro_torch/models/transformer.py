@@ -13,7 +13,8 @@ and ``decode_step`` -- what the server runs (it prefills through ``decode``);
 feed-forward.  The route of attention is fixed by the call: a layer without
 a cache (forward, prefill, the hybrid's shared block) attends over the
 prompt through the flash attention kernel (``kernels.ops.mha``), a layer
-with one (decode) through the eager ``chunked_attention``.  Beside
+with one (decode) through ``chunked_attention``, whose decode branch is the
+decode-attention kernel on the card (``kernels/decode_attention.py``).  Beside
 ``decode_step`` stand its two variants: ``grouped_decode_step``, whose
 local-attention layers keep a ring of ``window`` rows (the slot ``pos mod
 W`` is a bank address of the paper's Eq. 1 with N = W, B = 1), and
@@ -156,7 +157,9 @@ def _project_q(cfg, lp, x, q_offset):
 def _attn(cfg: ArchConfig, lp, x, *, k_full, v_full, window, q_offset,
           kv_len, block_k=1024):
     """Attention of one layer's queries at ``q_offset`` against a cache
-    whose first ``kv_len`` rows are valid: the eager ``chunked_attention``."""
+    whose first ``kv_len`` rows are valid: ``chunked_attention`` (a few
+    rows over a buffer past ``block_k``: the decode-attention kernel on the
+    card)."""
     B, S, _ = x.shape
     out = chunked_attention(
         _project_q(cfg, lp, x, q_offset), k_full, v_full, causal=True,

@@ -27,11 +27,13 @@ from repro.models import moe as RM
 from repro.models import transformer as RT
 from repro_torch.configs import get_arch
 from repro_torch.convert import params_from_numpy
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops as PO
 from repro_torch.kernels import ref as PR
 from repro_torch.launch.steps import make_prefill_step
 from repro_torch.models import get_model
+from repro_torch.models import layers as PL
 from repro_torch.models import moe as PM
 from repro_torch.models import transformer as PT
 
@@ -292,6 +294,131 @@ def test_a_layer_without_a_cache_goes_through_ops_mha(monkeypatch):
     calls.clear()
     model.decode(params, cache, toks[:, :1])     # a layer with a cache
     assert calls == []
+
+
+# ---------------------------------------------------------------------------
+# the decode-attention kernel's wrapper (kernels/decode_attention.py) on the
+# CPU: its plain version, its checks, and the host arithmetic of its keys
+# ---------------------------------------------------------------------------
+
+
+def _decode_qkv(seed, B, Sq, Sk, H, Hkv, D):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.randn(shape, generator=g).bfloat16()
+            for shape in ((B, Sq, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D))]
+
+
+@pytest.mark.parametrize("Sq,H,Hkv,D,kw", [
+    (1, 16, 16, 128, dict(q_offset=1500, kv_len=1501)),
+    (1, 28, 4, 128, dict(q_offset=1200, kv_len=1201)),
+    (1, 16, 8, 240, dict(q_offset=1900, kv_len=1901, window=1024)),
+    (1, 8, 8, 64, dict(causal=False)),
+    (4, 8, 2, 80, dict(q_offset=1020, kv_len=1024)),
+])
+def test_decode_attention_wrapper_takes_a_cpu_tensor_to_the_plain_version(
+        Sq, H, Hkv, D, kw):
+    """A CPU tensor at the decode paths' shapes goes to the plain version
+    through ``chunked_attention``'s branch, which alone picks by device;
+    the kernel's wrapper, handed it directly, refuses it after its checks
+    and launches nothing."""
+    q, k, v = _decode_qkv(1, 2, Sq, 2048, H, Hkv, D)
+    before = da.LAUNCHES["decode_attention"]
+    got = PL.chunked_attention(q, k, v, **kw)
+    assert torch.equal(got, PL.decode_attention(q, k, v, **kw))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        da.decode_attention(q, k, v, **kw)
+    assert da.LAUNCHES["decode_attention"] == before
+
+
+def test_decode_attention_arguments_are_checked():
+    q, k, v = _decode_qkv(2, 2, 1, 1100, 4, 2, 64)
+    with pytest.raises(TypeError, match="bfloat16"):
+        da.decode_attention(q.float(), k.float(), v.float())
+    with pytest.raises(TypeError, match="bfloat16"):
+        da.decode_attention(q, k, v.half())
+    with pytest.raises(TypeError, match="torch.Tensor"):
+        da.decode_attention(q, k.float().numpy(), v)
+    with pytest.raises(ValueError, match="head sizes"):
+        da.decode_attention(*_decode_qkv(2, 1, 1, 1100, 4, 2, 72))
+    with pytest.raises(ValueError, match="contiguous"):
+        da.decode_attention(q, k.transpose(1, 2).contiguous().transpose(
+            1, 2), v)
+    flat = torch.zeros(q.numel() + 1, dtype=q.dtype)
+    flat[1:] = q.reshape(-1)
+    with pytest.raises(ValueError, match="aligned"):
+        da.decode_attention(flat[1:].view(q.shape), k, v)
+    with pytest.raises(ValueError, match="k and v"):
+        da.decode_attention(q, k, v[:, :-1].contiguous())
+    with pytest.raises(ValueError, match="group"):
+        da.decode_attention(q[:, :, :3].contiguous(), k, v)
+    with pytest.raises(ValueError, match="query rows"):
+        da.decode_attention(*_decode_qkv(2, 1, 5, 1100, 4, 2, 64))
+    with pytest.raises(ValueError, match="query rows"):
+        da.decode_attention(*_decode_qkv(2, 1, 1, 1100, 66, 2, 64))
+    with pytest.raises(ValueError, match="window"):
+        da.decode_attention(q, k, v, window=-1)
+    with pytest.raises(TypeError, match="causal"):
+        da.decode_attention(q, k, v, causal=1)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(q_offset=40, kv_len=41), dict(q_offset=40, kv_len=41, window=8),
+    dict(causal=False), dict(q_offset=30, kv_len=34, window=3)])
+def test_chunked_attention_keeps_its_cpu_branch(monkeypatch, kw):
+    """On the CPU ``chunked_attention``'s decode branch (``Sq <= 4``, a
+    buffer over ``block_k``) is the plain version, float32 included; the
+    kernel's wrapper is never called there."""
+    calls, plain = [], PL.decode_attention
+
+    def spy(*a, **k):
+        calls.append(1)
+        return plain(*a, **k)
+
+    monkeypatch.setattr(PL, "decode_attention", spy)
+    monkeypatch.setattr(da, "decode_attention", None)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (t.to(dtype) for t in _decode_qkv(3, 2, 2, 48, 4, 2, 16))
+        got = PL.chunked_attention(q, k, v, block_k=16, **kw)
+        assert torch.equal(got, plain(q, k, v, **kw))
+    assert len(calls) == 2
+
+
+@pytest.mark.parametrize("Sq,Sk,q_offset,kv_len,causal,window", [
+    (1, 64, 40, 41, True, 0), (3, 64, 40, 43, True, 0),
+    (4, 64, 40, 44, True, 8), (2, 64, 60, 30, True, 4),
+    (1, 64, 5, None, False, 0), (2, 64, 10, 50, False, 6),
+    (1, 64, 70, None, True, 0), (2, 64, 3, -1, True, 0)])
+def test_decode_attention_key_ranges_match_the_plain_mask(
+        Sq, Sk, q_offset, kv_len, causal, window):
+    """Each row's ``[lo, hi)`` is exactly the keys the plain version's mask
+    keeps (all ``Sk`` where it keeps none), and the span their union."""
+    q_pos = torch.arange(Sq) + q_offset
+    k_pos = torch.arange(Sk)
+    keep = PL._block_mask(q_pos, k_pos, causal, window)
+    if kv_len is not None:
+        keep &= (k_pos < kv_len)[None, :]
+    kv_end = Sk if kv_len is None else min(kv_len, Sk)
+    rows = [keep[i] if keep[i].any() else torch.ones(Sk, dtype=torch.bool)
+            for i in range(Sq)]
+    for i, row in enumerate(rows):
+        lo, hi = da.key_range(q_offset + i, Sk, kv_end, causal, window)
+        assert torch.equal(row, (k_pos >= lo) & (k_pos < hi))
+    lo, hi = da.key_span(Sq, Sk, q_offset, kv_len, causal, window)
+    assert torch.equal(torch.stack(rows).any(0), (k_pos >= lo) & (k_pos < hi))
+
+
+@pytest.mark.parametrize("pairs,span,sms,want", [
+    (1024, 3000, 132, (47, 1)),      # olmoe's decode: one block a pair
+    (32, 2049, 132, (4, 9)),         # qwen2-7b at batch 8
+    (2, 1500, 132, (2, 12)),         # at least two tiles a split
+    (1, 4096, 132, (2, 32)),         # at most MAX_SPLITS
+    (4, 10, 132, (2, 1)),            # one tile
+])
+def test_decode_attention_splits_cover_the_span(pairs, span, sms, want):
+    per, n = da.splits(pairs, span, sms)
+    assert (per, n) == want
+    tiles = -(-span // da.TILE)
+    assert 1 <= n <= da.MAX_SPLITS and (n - 1) * per < tiles <= n * per
 
 
 # ---------------------------------------------------------------------------

@@ -119,3 +119,13 @@ def test_temporary_name_holds_the_process_and_the_thread(fake_toolchain,
     _build.build(["ssd_chunk"])
     assert len(seen) == 1
     assert f".tmp{os.getpid()}-{threading.get_ident()}." in seen[0]
+
+
+def test_every_source_lies_in_csrc():
+    """Each registered kernel source is in the package, and each library
+    is named by a hash of its own source."""
+    assert "decode_attention" in _build.SOURCES
+    for file in _build.SOURCES.values():
+        assert (_build.CSRC / file).is_file(), file
+    names = {_build._lib_path(n).name for n in _build.SOURCES}
+    assert len(names) == len(_build.SOURCES)

@@ -15,11 +15,12 @@ import torch
 import repro_torch.core as port_core
 from repro_torch.configs import get_arch
 from repro_torch.kernels import banked_gather as bg
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import moe_dispatch as md
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_chunk as sc
-from repro_torch.models import moe
+from repro_torch.models import layers, moe
 from repro_torch.runtime.server import page_solution
 
 from torch_parity import (CHUNK_LAYOUTS, LAYOUT_CASES, build_artifact,
@@ -423,6 +424,90 @@ def test_flash_attention_equals_its_plain_version_on_the_card(
         1.0, float(want.float().abs().max()))
     assert float((got.float() - want.float()).abs().max()) <= tol
     assert torch.equal(ops.mha(q, k, v, causal=causal, window=window), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sk,H,Hkv,D,Sq,kw", [
+    (8, 2048, 16, 16, 128, 1, dict(q_offset=1500, kv_len=1501)),
+    (2, 2048, 28, 4, 128, 1, dict(q_offset=1700, kv_len=1701)),
+    (2, 4096, 16, 8, 240, 1, dict(q_offset=3000, kv_len=3001, window=1024)),
+    (2, 2048, 32, 32, 80, 2, dict(q_offset=1100, kv_len=1102)),
+    (2, 1500, 8, 8, 64, 1, dict(causal=False)),
+    (1, 2048, 64, 8, 128, 4, dict(q_offset=1300, kv_len=1304)),
+    (2, 2048, 16, 8, 80, 2, dict(q_offset=1500, kv_len=1000, window=16)),
+    (2, 1100, 4, 2, 32, 1, dict(q_offset=1090, kv_len=1091)),
+    (1, 2048, 32, 4, 32, 4, dict(q_offset=1300, kv_len=1304)),
+], ids=["olmoe", "qwen2-splits", "gemma3-window", "zamba2-Sq2",
+        "whisper-cross", "32-rows", "no-key", "reduced", "reduced-32-rows"])
+def test_decode_attention_equals_its_plain_version_on_the_card(
+        cuda, B, Sk, H, Hkv, D, Sq, kw):
+    """One launch, within one bf16 ulp of each plain value (2^-7 of it)
+    plus 1e-3 of the plain output's largest magnitude: both round one
+    float32 result; ``chunked_attention`` on the card takes the kernel."""
+    rng = np.random.default_rng(D + H + Sq)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                ).to(device=cuda, dtype=torch.bfloat16)
+               for shape in ((B, Sq, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)))
+    before = da.LAUNCHES["decode_attention"]
+    got = da.decode_attention(q, k, v, **kw)
+    want = layers.decode_attention(q, k, v, **kw)
+    routed = layers.chunked_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert da.LAUNCHES["decode_attention"] == before + 2
+    assert torch.equal(routed, got)
+    err = (got.double() - want.double()).abs()
+    bound = 2.0 ** -7 * want.double().abs() + 1e-3 * float(
+        want.double().abs().max())
+    assert bool((err <= bound).all()), float((err / bound).max())
+    with pytest.raises(TypeError, match="bfloat16"):
+        da.decode_attention(q.float(), k.float(), v.float(), **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "gemma3_12b", "qwen2_7b"])
+def test_a_reduced_model_decodes_past_block_k_on_the_card(
+        cuda, monkeypatch, arch):
+    """A reduced configuration (head size 32, as ``launch/serve.py
+    --smoke`` serves it on the card) decoding over a 1100-row cache: one
+    kernel launch a layer, the plain version never on the card, and each
+    launch within the plain version's bound on its own inputs."""
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import get_model
+
+    cfg = get_arch(arch).reduced()
+    model = get_model(cfg)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(7)
+    params = model.init(gen, device=cuda)
+    cache = model.init_cache(2, 1100, device=cuda)
+    cache.k.normal_(generator=gen)
+    cache.v.normal_(generator=gen)
+    cache = cache._replace(pos=1090)
+    tok = torch.randint(2, cfg.vocab - 1, (2, 1), generator=gen,
+                        device=cuda, dtype=torch.int32)
+    calls, kernel, plain = [], da.decode_attention, layers.decode_attention
+
+    def held(q, k, v, **kw):
+        out = kernel(q, k, v, **kw)
+        calls.append((out, plain(q, k, v, **kw)))
+        return out
+
+    def refused(q, *a, **kw):
+        raise AssertionError("the plain decode attention ran on the card")
+
+    monkeypatch.setattr(da, "decode_attention", held)
+    monkeypatch.setattr(layers, "decode_attention", refused)
+    before = da.LAUNCHES["decode_attention"]
+    _, logits, _ = make_serve_step(model)(params, cache, tok)
+    torch.cuda.synchronize()
+    assert da.LAUNCHES["decode_attention"] - before == cfg.n_layers
+    assert len(calls) == cfg.n_layers
+    assert bool(torch.isfinite(logits.float()).all())
+    for got, want in calls:
+        err = (got.double() - want.double()).abs()
+        bound = 2.0 ** -7 * want.double().abs() + 1e-3 * float(
+            want.double().abs().max())
+        assert bool((err <= bound).all()), float((err / bound).max())
 
 
 @pytest.mark.gpu
